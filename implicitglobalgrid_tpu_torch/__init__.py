@@ -1,0 +1,60 @@
+"""implicitglobalgrid_tpu_torch — the PyTorch/CUDA port of implicitglobalgrid_tpu.
+
+Stencil computations on an implicit global grid by Cartesian domain
+decomposition, on PyTorch with hand-written CUDA kernels for Hopper
+(`csrc/`). The JAX package `implicitglobalgrid_tpu` is the reference this
+package is tested against; this package imports neither `jax` nor it.
+
+Ranks are virtual: every rank's block lives in this one process, as a view
+of one stacked tensor (shape ``dims * local_shape``) on the grid's device,
+and a halo exchange is a copy between block views. Entry points run on the
+current CUDA device unless the caller passes ``device_type="cpu"``.
+
+Public API — the reference's 13 exported symbols::
+
+    init_global_grid, finalize_global_grid, update_halo, gather,
+    select_device, nx_g, ny_g, nz_g, x_g, y_g, z_g, tic, toc
+
+plus `local_update_halo`, `zeros_g`/`ones_g`/`full_g`/`device_put_g`,
+`coords_g`/`x_g_vec`, `gather_interior`, `barrier`/`sync`, the stencil
+helpers (`d_xa` … `inn`) and the `Field` wrapper. Usage::
+
+    import implicitglobalgrid_tpu_torch as igg
+    me, dims, nprocs, coords, mesh = igg.init_global_grid(nx, ny, nz)
+    T = igg.zeros_g()
+    T = igg.update_halo(T)
+    igg.finalize_global_grid()
+"""
+
+from .parallel.grid import init_global_grid, finalize_global_grid, select_device
+from .parallel.topology import (
+    AXIS_NAMES, NDIMS, PROC_NULL, GlobalGrid,
+    global_grid, get_global_grid, grid_is_initialized, check_initialized,
+    neighbors_table, ol, dims_create,
+)
+from .ops.halo import update_halo, local_update_halo, DEFAULT_DIMS_ORDER
+from .ops.gather import gather, gather_interior
+from .ops.alloc import zeros_g, ones_g, full_g, device_put_g
+from .ops.fields import Field, wrap_field, extract, local_shape_of, stacked_shape
+from .ops.stencil import d_xa, d_ya, d_za, d_xi, d_yi, d_zi, inn
+from .tools import (
+    nx_g, ny_g, nz_g, x_g, y_g, z_g, x_g_vec, y_g_vec, z_g_vec, coords_g,
+)
+from .utils.timing import tic, toc, barrier, sync
+from .utils import exceptions
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "init_global_grid", "finalize_global_grid", "update_halo", "gather",
+    "select_device", "nx_g", "ny_g", "nz_g", "x_g", "y_g", "z_g", "tic", "toc",
+    "local_update_halo", "gather_interior", "barrier", "sync",
+    "zeros_g", "ones_g", "full_g", "device_put_g",
+    "Field", "wrap_field", "extract", "local_shape_of", "stacked_shape",
+    "x_g_vec", "y_g_vec", "z_g_vec", "coords_g",
+    "d_xa", "d_ya", "d_za", "d_xi", "d_yi", "d_zi", "inn",
+    "AXIS_NAMES", "NDIMS", "PROC_NULL", "GlobalGrid", "global_grid",
+    "get_global_grid", "grid_is_initialized", "check_initialized",
+    "neighbors_table", "ol", "dims_create", "DEFAULT_DIMS_ORDER",
+    "exceptions",
+]

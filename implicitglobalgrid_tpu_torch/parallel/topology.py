@@ -1,0 +1,236 @@
+"""Cartesian topology and the GlobalGrid singleton.
+
+Counterpart of `implicitglobalgrid_tpu/parallel/topology.py`. The global grid
+is never allocated; it exists only through the implicit-global-grid formula
+
+    nxyz_g = dims * (nxyz - overlaps) + overlaps * (periods == 0)
+
+Ranks are VIRTUAL: every rank's block lives in this one process, in one
+stacked tensor of shape ``dims * local_shape`` on the grid's ``torch.device``
+(`parallel.mesh`). A halo "send/recv" between ranks is a tensor copy between
+block views (`ops.halo`).
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+
+from ..utils.exceptions import (
+    IncoherentArgumentError,
+    InvalidArgumentError,
+    ModuleInternalError,
+    NotInitializedError,
+)
+
+__all__ = [
+    "NDIMS", "NNEIGHBORS_PER_DIM", "PROC_NULL", "AXIS_NAMES",
+    "GlobalGrid", "global_grid", "set_global_grid", "grid_is_initialized",
+    "check_initialized", "get_global_grid", "grid_epoch",
+    "dims_create", "cart_rank", "cart_coords", "cart_shift", "neighbors_table",
+    "ol", "axis_perm_pairs",
+]
+
+NDIMS = 3
+NNEIGHBORS_PER_DIM = 2
+PROC_NULL = -1
+AXIS_NAMES = ("gx", "gy", "gz")
+
+
+@dataclass
+class GlobalGrid:
+    """Singleton grid state. Vectors are numpy arrays and the dataclass is
+    mutable on purpose (tests simulate topologies by editing it)."""
+    nxyz_g: np.ndarray          # implicit global grid size (3,)
+    nxyz: np.ndarray            # local block size (3,)
+    dims: np.ndarray            # virtual ranks per dimension (3,)
+    overlaps: np.ndarray        # (3,)
+    halowidths: np.ndarray      # (3,)
+    nprocs: int                 # number of virtual ranks = prod(dims)
+    me: int                     # this process's rank (always 0: one process)
+    coords: np.ndarray          # this process's coords (zeros)
+    periods: np.ndarray         # (3,) of 0/1
+    disp: int
+    reorder: int
+    mesh: Any                   # int ndarray of ranks, shape dims (parallel.mesh)
+    device_type: str            # "gpu" | "cpu"
+    device: Any                 # torch.device every field of the grid lives on
+    use_pallas: np.ndarray      # (3,) bool — CUDA kernel tier per dim
+    quiet: bool
+    epoch: int = 0              # bumped at every init
+
+    def __iter__(self):  # me, dims, nprocs, coords, mesh unpacking
+        return iter((self.me, self.dims, self.nprocs, self.coords, self.mesh))
+
+
+_global_grid: GlobalGrid | None = None
+_epoch_counter: int = 0
+
+
+def global_grid() -> GlobalGrid:
+    check_initialized()
+    return _global_grid
+
+
+def set_global_grid(gg: GlobalGrid | None) -> None:
+    global _global_grid, _epoch_counter
+    if gg is not None:
+        _epoch_counter += 1
+        gg.epoch = _epoch_counter
+    _global_grid = gg
+
+
+def grid_is_initialized() -> bool:
+    return _global_grid is not None and _global_grid.nprocs > 0
+
+
+def check_initialized() -> None:
+    if not grid_is_initialized():
+        raise NotInitializedError(
+            "No function of the module can be called before init_global_grid() "
+            "or after finalize_global_grid()."
+        )
+
+
+def get_global_grid() -> GlobalGrid:
+    """Return a deep copy of the global grid."""
+    check_initialized()
+    return copy.deepcopy(_global_grid)
+
+
+def grid_epoch() -> int:
+    check_initialized()
+    return _global_grid.epoch
+
+
+# ---------------------------------------------------------------------------
+# Topology math (analog of MPI_Dims_create / Cart_create / Cart_shift)
+# ---------------------------------------------------------------------------
+
+def dims_create(nprocs: int, dims) -> np.ndarray:
+    """Fill the zero entries of ``dims`` with a balanced factorization of
+    ``nprocs`` (the `MPI_Dims_create` analog): fixed entries are kept, the
+    remaining factor is split as evenly as possible, larger factors first."""
+    dims = np.asarray(dims, dtype=np.int64).copy()
+    if dims.shape != (NDIMS,):
+        raise InvalidArgumentError(f"dims must have {NDIMS} entries, got {dims.shape}.")
+    if np.any(dims < 0):
+        raise InvalidArgumentError("Invalid arguments: dimx, dimy, and dimz cannot be negative.")
+    fixed = int(np.prod(dims[dims > 0])) if np.any(dims > 0) else 1
+    if nprocs % fixed != 0:
+        raise IncoherentArgumentError(
+            f"nprocs ({nprocs}) is not divisible by the product of the fixed dims ({fixed})."
+        )
+    rem = nprocs // fixed
+    free = [i for i in range(NDIMS) if dims[i] == 0]
+    if not free:
+        if rem != 1:
+            raise IncoherentArgumentError(
+                f"prod(dims) ({fixed}) does not equal nprocs ({nprocs})."
+            )
+        return dims
+    best = None
+    k = len(free)
+    divs = []
+    f = 1
+    while f * f <= rem:
+        if rem % f == 0:
+            divs.append(f)
+            if f != rem // f:
+                divs.append(rem // f)
+        f += 1
+    divs.sort(reverse=True)
+
+    def search(remaining, max_factor, acc):
+        nonlocal best
+        if len(acc) == k - 1:
+            if remaining <= max_factor:
+                cand = tuple(acc + [remaining])
+                score = (max(cand) - min(cand), max(cand))
+                if best is None or score < best[0]:
+                    best = (score, cand)
+            return
+        for f in divs:
+            if f <= max_factor and remaining % f == 0:
+                search(remaining // f, f, acc + [f])
+
+    search(rem, rem, [])
+    if best is None:  # pragma: no cover - rem>=1 always factorizable
+        raise ModuleInternalError("dims_create failed to factorize.")
+    for i, f in zip(free, best[1]):
+        dims[i] = f
+    return dims
+
+
+def cart_rank(coords, dims) -> int:
+    """Row-major Cartesian rank (MPI cart order)."""
+    c, d = np.asarray(coords), np.asarray(dims)
+    return int((c[0] * d[1] + c[1]) * d[2] + c[2])
+
+
+def cart_coords(rank: int, dims) -> np.ndarray:
+    d = np.asarray(dims)
+    cz = rank % d[2]
+    cy = (rank // d[2]) % d[1]
+    cx = rank // (d[1] * d[2])
+    return np.array([cx, cy, cz], dtype=np.int64)
+
+
+def cart_shift(coords, dim: int, disp: int, dims, periods):
+    """Left/right neighbor ranks of ``coords`` along ``dim`` (the
+    `MPI.Cart_shift` analog), PROC_NULL where no neighbor exists."""
+    coords = np.asarray(coords)
+    dims = np.asarray(dims)
+    out = []
+    for sgn in (-1, +1):
+        c = coords.copy()
+        t = c[dim] + sgn * disp
+        if periods[dim]:
+            c[dim] = t % dims[dim]
+            out.append(cart_rank(c, dims))
+        elif 0 <= t < dims[dim]:
+            c[dim] = t
+            out.append(cart_rank(c, dims))
+        else:
+            out.append(PROC_NULL)
+    return tuple(out)
+
+
+def neighbors_table(coords, dims=None, periods=None, disp=None) -> np.ndarray:
+    """2x3 neighbor table of the rank at ``coords``: row 0 = left
+    neighbors, row 1 = right."""
+    if dims is None:
+        gg = global_grid()
+        dims, periods, disp = gg.dims, gg.periods, gg.disp
+    tbl = np.full((NNEIGHBORS_PER_DIM, NDIMS), PROC_NULL, dtype=np.int64)
+    for d in range(NDIMS):
+        tbl[0, d], tbl[1, d] = cart_shift(coords, d, disp, dims, periods)
+    return tbl
+
+
+def axis_perm_pairs(D: int, periodic, disp: int):
+    """The (forward, backward) (source, target) block pairs of an
+    exchanging axis: wrap-around when periodic, truncated chains (PROC_NULL
+    edges) when not."""
+    D, disp = int(D), int(disp)
+    if periodic:
+        return ([(i, (i + disp) % D) for i in range(D)],
+                [(i, (i - disp) % D) for i in range(D)])
+    if disp >= D:
+        return [], []
+    return ([(i, i + disp) for i in range(D - disp)],
+            [(i, i - disp) for i in range(disp, D)])
+
+
+def ol(dim: int, local_shape=None) -> int:
+    """Overlap of a field along ``dim`` (0-based); a staggered field's
+    overlap grows by its size difference (``overlaps[dim] + (size(A, dim) -
+    nxyz[dim])``)."""
+    gg = global_grid()
+    if local_shape is None:
+        return int(gg.overlaps[dim])
+    size_d = local_shape[dim] if dim < len(local_shape) else 1
+    return int(gg.overlaps[dim] + (size_d - gg.nxyz[dim]))

@@ -1,0 +1,69 @@
+"""Synchronized timing: `tic`/`toc`/`barrier`/`sync`.
+
+Counterpart of `implicitglobalgrid_tpu/utils/timing.py`. PyTorch enqueues
+CUDA work and returns, so every barrier here synchronizes the grid's CUDA
+device before the host clock is read. All virtual ranks live in this process,
+so there is no cross-process part.
+"""
+
+from __future__ import annotations
+
+import time
+
+from ..parallel.topology import check_initialized, global_grid, grid_is_initialized
+
+__all__ = ["tic", "toc", "barrier", "sync", "init_timing_functions"]
+
+_t0 = None
+
+
+def _device_barrier() -> None:
+    import torch
+
+    if grid_is_initialized():
+        dev = global_grid().device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    elif torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def sync(tree):
+    """Wait until every computation queued on the grid's device has
+    finished, and return ``tree`` (any tensors or containers of them)."""
+    _device_barrier()
+    return tree
+
+
+def barrier(sync_on=None) -> None:
+    """Block until the grid's device has drained its queue. ``sync_on`` is
+    accepted for API parity: the whole device is synchronized."""
+    check_initialized()
+    _device_barrier()
+
+
+def tic(sync_on=None) -> None:
+    """Start the chronometer once the device has drained."""
+    global _t0
+    check_initialized()
+    _device_barrier()
+    _t0 = time.perf_counter()
+
+
+def toc(sync_on=None) -> float:
+    """Seconds since `tic`, read after the CUDA stream has drained."""
+    check_initialized()
+    if _t0 is None:
+        from .exceptions import InvalidArgumentError
+
+        raise InvalidArgumentError(
+            "toc() called with no running chronometer: call tic() first "
+            "(finalize_global_grid resets it).")
+    _device_barrier()
+    return time.perf_counter() - _t0
+
+
+def init_timing_functions() -> None:
+    """Run the pair once at init, like the JAX package pre-compiles it."""
+    tic()
+    toc()

@@ -1,0 +1,38 @@
+"""The port imports neither JAX nor the JAX package (checked in a fresh
+interpreter, since this test process imports both), and its sources name
+neither."""
+
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys\n"
+        "import implicitglobalgrid_tpu_torch as tg\n"
+        "import implicitglobalgrid_tpu_torch.models, implicitglobalgrid_tpu_torch.ops.cuda_halo\n"
+        "import implicitglobalgrid_tpu_torch.ops.cuda_stencil, implicitglobalgrid_tpu_torch.ops.cuda_build\n"
+        "tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=2, device_type='cpu', quiet=True)\n"
+        "T, Cp, p = implicitglobalgrid_tpu_torch.models.init_diffusion3d()\n"
+        "T = implicitglobalgrid_tpu_torch.models.run_diffusion(T, Cp, p, 2)\n"
+        "tg.gather_interior(tg.update_halo(T))\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'implicitglobalgrid_tpu' or m.startswith('implicitglobalgrid_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_sources_name_no_jax():
+    for f in (ROOT / "implicitglobalgrid_tpu_torch").rglob("*.py"):
+        for line in f.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                assert "jax" not in s and "implicitglobalgrid_tpu " not in s + " " \
+                    and "implicitglobalgrid_tpu." not in s, f"{f}: {s}"

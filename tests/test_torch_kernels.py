@@ -1,0 +1,181 @@
+"""Port parity: each CUDA kernel's plain version (what its wrapper runs on a
+CPU tensor) against the JAX Pallas entry point it replaces, in interpret
+mode. The halo kernels are pure copies and must match BITWISE; the step
+matches to the JAX suite's ulp bounds between its Pallas and XLA tiers
+(f32 rtol 2e-6 / atol 2e-5, f64 rtol 1e-13 / atol 1e-12,
+`tests/test_pallas_stencil.py:21,50`)."""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from implicitglobalgrid_tpu.ops import pallas_halo as ph
+from implicitglobalgrid_tpu.ops import pallas_stencil as ps
+from implicitglobalgrid_tpu_torch.ops import cuda_halo as ch
+from implicitglobalgrid_tpu_torch.ops import cuda_stencil as cs
+from implicitglobalgrid_tpu_torch.utils.exceptions import InvalidArgumentError
+from torch_port_util import clean_torch_grid, to_np  # noqa: F401
+
+CONSTS = dict(lam=1.0, dt=0.0123, dx=0.37, dy=0.41, dz=0.29)
+TOL = {np.float32: dict(rtol=2e-6, atol=2e-5),
+       np.float64: dict(rtol=1e-13, atol=1e-12)}
+FUSES = list(itertools.product((False, True), repeat=3))
+
+
+def _state(shape, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    T = (100 * rng.random(shape)).astype(dtype)
+    Cp = (1 + 5 * rng.random(shape)).astype(dtype)
+    return T, Cp
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("fuse", FUSES, ids=lambda f: "".join("TF"[not x] for x in f))
+def test_step_halo_matches_pallas(fuse, dtype):
+    T, Cp = _state((7, 9, 10), dtype)
+    ref = np.asarray(ps.diffusion3d_step_halo_pallas(
+        T, Cp, fuse=fuse, interpret=True, **CONSTS))
+    got = to_np(cs.diffusion3d_step_halo(torch.from_numpy(T), torch.from_numpy(Cp),
+                                         fuse=fuse, **CONSTS))
+    assert np.allclose(got, ref, **TOL[dtype])
+    assert got.dtype == ref.dtype
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_step_matches_pallas(dtype):
+    T, Cp = _state((8, 6, 9), dtype, 1)
+    ref = np.asarray(ps.diffusion3d_step_pallas(T, Cp, interpret=True, **CONSTS))
+    out = torch.empty(T.shape, dtype=torch.from_numpy(T).dtype)
+    got = cs.diffusion3d_step(torch.from_numpy(T), torch.from_numpy(Cp), out=out,
+                              **CONSTS)
+    assert got is out
+    assert np.allclose(to_np(got), ref, **TOL[dtype])
+
+
+@pytest.mark.parametrize("fuse", [(True, True, True), (False, False, False),
+                                  (True, False, True)])
+def test_step_matches_pallas_multiplane(fuse):
+    """The multi-plane TPU entry point computes the same function."""
+    import jax
+
+    T, Cp = _state((16, 16, 16), np.float32, 2)
+    assert ps.mp_planes(jax.ShapeDtypeStruct(T.shape, T.dtype), interpret=True)
+    ref = np.asarray(ps.diffusion3d_step_halo_pallas_mp(
+        T, Cp, fuse=fuse, interpret=True, **CONSTS))
+    got = to_np(cs.diffusion3d_step_halo(torch.from_numpy(T), torch.from_numpy(Cp),
+                                         fuse=fuse, **CONSTS))
+    assert np.allclose(got, ref, **TOL[np.float32])
+
+
+def test_step_bf16_matches_pallas():
+    """bf16 storage, f32 compute and f32 constants; one rounding of the
+    result to bf16 on each side, so one bf16 ulp apart at most."""
+    import jax.numpy as jnp
+
+    T, Cp = _state((6, 8, 8), np.float32, 3)
+    Tb, Cb = jnp.asarray(T, jnp.bfloat16), jnp.asarray(Cp, jnp.bfloat16)
+    ref = np.asarray(ps.diffusion3d_step_halo_pallas(
+        Tb, Cb, fuse=(True, True, True), interpret=True, **CONSTS)).astype(np.float32)
+    tb = torch.from_numpy(np.asarray(Tb).astype(np.float32)).bfloat16()
+    cb = torch.from_numpy(np.asarray(Cb).astype(np.float32)).bfloat16()
+    got = to_np(cs.diffusion3d_step_halo(tb, cb, fuse=(True, True, True), **CONSTS))
+    assert np.allclose(got, ref, rtol=2 ** -7, atol=0)
+
+
+def test_step_blocks_match_per_block_pallas():
+    """The stacked form steps every block independently."""
+    T, Cp = _state((12, 8, 10), np.float64, 4)
+    block = (6, 4, 5)
+    got = to_np(cs.diffusion3d_step_halo(torch.from_numpy(T), torch.from_numpy(Cp),
+                                         fuse=(False, False, True), block=block,
+                                         **CONSTS))
+    for c in itertools.product(range(2), repeat=3):
+        sl = tuple(slice(ci * b, (ci + 1) * b) for ci, b in zip(c, block))
+        ref = np.asarray(ps.diffusion3d_step_halo_pallas(
+            T[sl], Cp[sl], fuse=(False, False, True), interpret=True, **CONSTS))
+        assert np.allclose(got[sl], ref, **TOL[np.float64])
+
+
+@pytest.mark.parametrize("dim,hw,shape", [
+    (0, 1, (6, 8, 16)), (0, 2, (6, 8, 16)), (1, 1, (4, 16, 16)), (1, 2, (4, 16, 16)),
+])
+def test_halo_write_matches_pallas_bitwise(dim, hw, shape):
+    rng = np.random.default_rng(dim * 10 + hw)
+    a = rng.standard_normal(shape)
+    ss = list(shape)
+    ss[dim] = hw
+    sl, sr = rng.standard_normal(ss), rng.standard_normal(ss)
+    ref = np.asarray(ph.halo_write_inplace(a, sl, sr, dim=dim, hw=hw, interpret=True))
+    ta = torch.from_numpy(a.copy())
+    got = ch.halo_write(ta, torch.from_numpy(sl), torch.from_numpy(sr), dim=dim, hw=hw)
+    assert got is ta and np.array_equal(to_np(got), ref)
+
+
+def test_halo_write_blocks_and_dim2():
+    """Stacked form (every block's halos, slab c to block c) and dim 2,
+    against a numpy oracle; slabs aliasing the field are refused."""
+    rng = np.random.default_rng(7)
+    a = rng.standard_normal((4, 6, 12)).astype(np.float32)
+    sl = rng.standard_normal((4, 6, 4)).astype(np.float32)   # 2 blocks x hw 2
+    sr = rng.standard_normal((4, 6, 4)).astype(np.float32)
+    ref = a.copy()
+    for c in range(2):
+        ref[:, :, c * 6: c * 6 + 2] = sl[:, :, c * 2: c * 2 + 2]
+        ref[:, :, c * 6 + 4: c * 6 + 6] = sr[:, :, c * 2: c * 2 + 2]
+    ta = torch.from_numpy(a.copy())
+    ch.halo_write(ta, torch.from_numpy(sl), torch.from_numpy(sr), dim=2, hw=2, block=6)
+    assert np.array_equal(ta.numpy(), ref)
+    with pytest.raises(InvalidArgumentError):
+        ch.halo_write(ta, ta[:, :, :4], torch.from_numpy(sr), dim=2, hw=2, block=6)
+    with pytest.raises(InvalidArgumentError):
+        ch.halo_write(ta, torch.from_numpy(sl), torch.from_numpy(sr), dim=2, hw=4, block=6)
+
+
+MODES = [m for m in itertools.product((False, True), repeat=3) if any(m)]
+
+
+@pytest.mark.parametrize("modes", MODES, ids=lambda m: "".join("TF"[not x] for x in m))
+def test_self_exchange_matches_pallas_bitwise(modes):
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal((7, 8, 9))
+    ols = (3, 2, 4)
+    ref = np.asarray(ph.halo_self_exchange_pallas(a, modes=modes, ols=ols,
+                                                  interpret=True))
+    got = to_np(ch.halo_self_exchange(torch.from_numpy(a), modes=modes, ols=ols))
+    assert np.array_equal(got, ref)
+
+
+def test_self_exchange_blocks_and_checks():
+    rng = np.random.default_rng(12)
+    a = rng.standard_normal((8, 6, 10)).astype(np.float32)
+    got = to_np(ch.halo_self_exchange(torch.from_numpy(a), modes=(True, False, True),
+                                      ols=(2, 2, 2), block=(4, 6, 5)))
+    for c0, c2 in itertools.product(range(2), repeat=2):
+        sl = (slice(4 * c0, 4 * c0 + 4), slice(None), slice(5 * c2, 5 * c2 + 5))
+        ref = np.asarray(ph.halo_self_exchange_pallas(
+            a[sl], modes=(True, False, True), ols=(2, 2, 2), interpret=True))
+        assert np.array_equal(got[sl], ref)
+    with pytest.raises(InvalidArgumentError):
+        ch.halo_self_exchange(torch.from_numpy(a), modes=(False, False, False),
+                              ols=(2, 2, 2))
+    with pytest.raises(InvalidArgumentError):
+        cs.diffusion3d_step(torch.from_numpy(a), torch.from_numpy(a[:4]), **CONSTS)
+
+
+def test_fusable_halo_dims_matches_jax():
+    import implicitglobalgrid_tpu as igg
+    import implicitglobalgrid_tpu_torch as tg
+
+    for dims, periods in [((1, 1, 1), (1, 1, 1)), ((2, 1, 1), (1, 1, 1)),
+                          ((1, 1, 2), (1, 1, 1)), ((1, 1, 1), (0, 0, 0)),
+                          ((1, 2, 1), (1, 0, 1)), ((1, 1, 1), (1, 1, 0))]:
+        kw = dict(dimx=dims[0], dimy=dims[1], dimz=dims[2], periodx=periods[0],
+                  periody=periods[1], periodz=periods[2], quiet=True)
+        igg.init_global_grid(8, 8, 8, **kw)
+        tg.init_global_grid(8, 8, 8, device_type="cpu", **kw)
+        assert cs.fusable_halo_dims(tg.global_grid()) == \
+            ps.fusable_halo_dims(igg.global_grid())
+        igg.finalize_global_grid()
+        tg.finalize_global_grid()
