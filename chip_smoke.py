@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero without the final line:
 1. build the CUDA kernels from `implicitglobalgrid_tpu_torch/csrc/`;
 2. hold every kernel against its plain PyTorch version on the card, at the
    main path's shapes (step K1 bitwise-close, halo copies K2/K3 bitwise),
-   and time kernel, plain version and PyTorch slice copies (CUDA events);
+   and time kernel, plain version and PyTorch slice copies (CUDA events),
+   and each kernel's device time alone (torch.profiler);
 3. main path, periodic: `init_global_grid(256, 256, 256, periodic)` ->
    `init_diffusion3d` -> warm chunk -> tic -> `run_diffusion(nt=100)` -> toc
    -> `update_halo` -> `gather_interior`, against the same run with
@@ -74,6 +75,27 @@ def median_ms(fn, batches=7, per_batch=10, warm=3):
     return statistics.median(ts)
 
 
+def device_ms(fn, kernel, reps=20):
+    """Device time (ms) per call of ``fn`` spent in the kernels whose name
+    holds ``kernel``, from torch.profiler (CUPTI) over ``reps`` calls; None
+    where the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    tot = sum(ev.device_time_total for ev in prof.key_averages() if kernel in ev.key)
+    return tot / reps / 1e3 if tot > 0 else None
+
+
+def max_err(got, ref):
+    return float((got.double() - ref.double()).abs().max())
+
+
 def close(a, b, rtol, atol):
     import torch
 
@@ -113,7 +135,7 @@ def phase_kernels(igg_ops, counts_before):
         ref = cs.diffusion3d_step_halo_plain(T, Cp, fuse=fuse, **CONSTS)
         torch.cuda.synchronize()
         name = str(dt).replace("torch.", "")
-        err = float((got.double() - ref.double()).abs().max())
+        err = max_err(got, ref)
         check(close(got, ref, **TOL[name]),
               f"K1 {shape} {name} fuse={fuse} matches plain (max abs err {err:.3e})")
         if k == 0:
@@ -127,6 +149,8 @@ def phase_kernels(igg_ops, counts_before):
             bound_o = cells * STEP_FLOPS_PER_CELL / F32_FLOPS_PER_S * 1e3
             rows["diffusion3d_step_halo"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain,
+                device_ms=device_ms(lambda: cs.diffusion3d_step_halo(
+                    T, Cp, fuse=fuse, out=out, **CONSTS), "diffusion3d_step_halo_kernel"),
                 bound_ms=max(bound_b, bound_o),
                 bound_by="bytes" if bound_b >= bound_o else "operations",
                 library_ms=None, shape="256^3 float32 fuse (T,T,T)")
@@ -135,6 +159,7 @@ def phase_kernels(igg_ops, counts_before):
     # K2: halo writes of the 2x2x2 grid of 128^3 blocks (stacked 256^3)
     g = torch.Generator(device="cuda").manual_seed(7)
     A = torch.randn((256, 256, 256), generator=g, device="cuda")
+    k2_err = 0.0
     for dim in range(3):
         for hw in (1, 2):
             ss = list(A.shape)
@@ -145,6 +170,7 @@ def phase_kernels(igg_ops, counts_before):
             ch.halo_write(a1, sl, sr, dim=dim, hw=hw, block=128)
             ch.halo_write_plain(a2, sl, sr, dim=dim, hw=hw, block=128)
             torch.cuda.synchronize()
+            k2_err = max(k2_err, max_err(a1, a2))
             check(torch.equal(a1, a2), f"K2 dim {dim} hw {hw} bitwise equal to plain")
     slabs = []
     for dim in range(3):
@@ -169,7 +195,8 @@ def phase_kernels(igg_ops, counts_before):
 
     slab_bytes = sum(sl.numel() + sr.numel() for sl, sr in slabs) * 4
     rows["halo_write"] = dict(
-        max_abs_err=0.0, ms=median_ms(k2_all), plain_ms=median_ms(k2_plain),
+        max_abs_err=k2_err, ms=median_ms(k2_all), plain_ms=median_ms(k2_plain),
+        device_ms=device_ms(k2_all, "halo_write_kernel"),
         bound_ms=2 * slab_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=median_ms(k2_library),
         shape="dims 0,1,2 (3 launches) of one update_halo, 2x2x2 x 128^3 float32, hw 1")
@@ -177,12 +204,14 @@ def phase_kernels(igg_ops, counts_before):
     # K3: every non-empty mode combination on a 256^3 block
     import itertools
 
+    k3_err = 0.0
     for modes in itertools.product((False, True), repeat=3):
         if not any(modes):
             continue
         got = ch.halo_self_exchange(A, modes=modes, ols=(2, 2, 2))
         ref = ch.halo_self_exchange_plain(A, modes=modes, ols=(2, 2, 2))
         torch.cuda.synchronize()
+        k3_err = max(k3_err, max_err(got, ref))
         check(torch.equal(got, ref), f"K3 modes {modes} bitwise equal to plain")
 
     def k3_library():  # the sequential z, x, y slab copies on a clone
@@ -198,11 +227,13 @@ def phase_kernels(igg_ops, counts_before):
     check(torch.equal(k3_library(), ch.halo_self_exchange(
         A, modes=(True, True, True), ols=(2, 2, 2))), "K3 equals the slice-copy form")
     rows["halo_self_exchange"] = dict(
-        max_abs_err=0.0,
+        max_abs_err=k3_err,
         ms=median_ms(lambda: ch.halo_self_exchange(A, modes=(True, True, True),
                                                    ols=(2, 2, 2))),
         plain_ms=median_ms(lambda: ch.halo_self_exchange_plain(
             A, modes=(True, True, True), ols=(2, 2, 2)), batches=3, per_batch=3, warm=1),
+        device_ms=device_ms(lambda: ch.halo_self_exchange(
+            A, modes=(True, True, True), ols=(2, 2, 2)), "self_exchange_kernel"),
         bound_ms=2 * A.numel() * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=median_ms(k3_library),
         shape="256^3 float32, modes (T,T,T)")
@@ -372,7 +403,10 @@ def main() -> int:
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"],
-                            shape=r["shape"]))
+                            device_ms=r["device_ms"], shape=r["shape"]))
+    k1_dev = rows["diffusion3d_step_halo"]["device_ms"]
+    if k1_dev is not None:  # the periodic step is one K1 (T,T,T) launch
+        periodic["k1_device_share"] = 100 * k1_dev / (periodic["seconds"] * 1e3 / 100)
     print(json.dumps({"main_path": {"periodic_256": periodic, "nonperiodic_256": novis},
                       "seconds_total": time.perf_counter() - t_start}))
     print(card)

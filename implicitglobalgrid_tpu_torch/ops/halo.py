@@ -23,8 +23,9 @@ Differences from the JAX package: the exchange is per field (coalescing
 several fields into one message is pure layout and bit-identical there, so
 it only changes the message count, which a later slice brings with the
 `torch.distributed` transport); wire dtypes and staging raise
-`NotSupportedError`. The halo writes are IN PLACE on the given tensor, while
-the self-exchange pass returns a new one: always use the returned tensors,
+`NotSupportedError`. The halo writes are IN PLACE on the given tensor (on a
+contiguous copy of a field that is not contiguous), while the self-exchange
+pass returns a new one: always use the returned tensors,
 as with the JAX package (``T = update_halo(T)``).
 """
 
@@ -179,10 +180,12 @@ def _exchange_dim(gg, A, dim, hw, ol_d, use_kernel):
 
 def _exchange_arrays(gg, arrays, hws, dims_order):
     """Exchange every field's halos (stacked tensors). Returns the list of
-    updated tensors: the K3 path out of place, the per-dim path in place."""
+    updated tensors: the K3 path out of place, the per-dim path in place
+    (on a dense copy where a field is not contiguous, as the kernels take
+    only dense blocks)."""
     from .cuda_halo import halo_self_exchange, halo_write_supported
 
-    arrays = list(arrays)
+    arrays = [A.contiguous() for A in arrays]
     handled = [False] * len(arrays)
     for i, A in enumerate(arrays):
         loc = tuple(int(s) // int(gg.dims[d]) for d, s in enumerate(A.shape))
@@ -202,8 +205,7 @@ def _exchange_arrays(gg, arrays, hws, dims_order):
             ol_d = _ol(gg, loc, dim)
             if ol_d < 2 * hw:
                 continue
-            use_kernel = bool(gg.use_pallas[dim]) and A.is_contiguous() \
-                and halo_write_supported(loc, dim, hw)
+            use_kernel = bool(gg.use_pallas[dim]) and halo_write_supported(loc, dim, hw)
             arrays[i] = _exchange_dim(gg, A, dim, hw, ol_d, use_kernel)
     return arrays
 

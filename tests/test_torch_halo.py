@@ -50,6 +50,22 @@ def test_update_halo_bitwise(label, n, kw, tier):
 
 
 @pytest.mark.parametrize("label,n,kw", CASES[:3], ids=[c[0] for c in CASES[:3]])
+def test_update_halo_non_contiguous_field(label, n, kw, tier):
+    """A transposed view goes through the same exchange as a dense field:
+    `update_halo` returns an exchanged dense copy and leaves the view alone."""
+    import torch
+
+    init_both(*n, **kw)
+    A = _rand(tuple(np.asarray(tg.global_grid().dims) * np.asarray(n)), seed=6)
+    V = torch.from_numpy(np.ascontiguousarray(A.transpose(2, 1, 0))).permute(2, 1, 0)
+    assert not V.is_contiguous() and np.array_equal(to_np(V), A)
+    got = tg.update_halo(V)
+    assert got.is_contiguous()
+    assert np.array_equal(to_np(got), np.asarray(igg.update_halo(igg.device_put_g(A))))
+    assert np.array_equal(to_np(V), A)
+
+
+@pytest.mark.parametrize("label,n,kw", CASES[:3], ids=[c[0] for c in CASES[:3]])
 def test_update_halo_two_fields_and_dtypes(label, n, kw, tier):
     init_both(*n, **kw)
     dims = np.asarray(tg.global_grid().dims)
