@@ -7,19 +7,27 @@ Phases, in order; any failure exits non-zero without the final line:
 
 1. build the CUDA kernels from `implicitglobalgrid_tpu_torch/csrc/`;
 2. hold every kernel against its plain PyTorch version on the card, at the
-   main path's shapes (step K1 bitwise-close, halo copies K2/K3 bitwise),
-   and time kernel, plain version and PyTorch slice copies (CUDA events),
-   and each kernel's device time alone (torch.profiler);
+   main paths' shapes (steps K1/K4/K5 and the slab kernel K4s to TOL, halo
+   copies K2/K3/K6 bitwise), and time kernel, plain version and PyTorch
+   library call (CUDA events), and each kernel's device time alone
+   (torch.profiler);
 3. main path, periodic: `init_global_grid(256, 256, 256, periodic)` ->
    `init_diffusion3d` -> warm chunk -> tic -> `run_diffusion(nt=100)` -> toc
    -> `update_halo` -> `gather_interior`, against the same run with
    ``IGG_USE_PALLAS=0`` (the plain path on the card);
 4. the same, non-periodic (the reference example's novis configuration);
-5. the virtual mesh: a 2x2x2 grid of 128^3 blocks, `update_halo` and
-   `gather` bitwise against the plain path, a diffusion run against the
-   plain path, and a small run against the CPU;
-6. numbers: the card's name and power limit, each kernel's time, bound,
-   plain and library times (one JSON line), cell-updates/s.
+5. the virtual mesh: a 2x2x2 grid of 128^3 blocks (the fused step +
+   exchange K4s/K4, the combined `update_halo` K4s/K6), bitwise and
+   run-tolerance checks against the plain path, a 2x2x1 `update_halo` with
+   z not exchanging and a 2-D `update_halo` with halowidth 2 (the per-dim
+   tier, K4s/K2), and a small run against the CPU;
+6. BASELINE config 3: 2x2x2 blocks of 256^3, periodic, float64, 20 steps,
+   against the plain path and against K1 + `update_halo` for one step;
+7. BASELINE config 2: a 2x2 mesh of 4096^2 blocks, periodic, float32, 100
+   steps of the 2-D fused step (K4s/K5), against the plain path;
+8. numbers: the card's name and power limit, each kernel's time, bound,
+   plain and library times (one JSON line), cell-updates/s, and host
+   against device time per step of the fused routes.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 nothing of JAX. It needs one card and exits non-zero without CUDA or
@@ -36,11 +44,25 @@ import time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, float32 outside the tensor cores
 STEP_FLOPS_PER_CELL = 29    # divisions, products and sums of one K1 cell update
+STEP2D_FLOPS_PER_CELL = 20  # the same for the 2-D cell update (no y term)
 TOL = {"float32": dict(rtol=2e-6, atol=2e-5), "float64": dict(rtol=1e-13, atol=1e-12),
        "bfloat16": dict(rtol=2 ** -7, atol=0.0)}
+F64_RUN_TOL = dict(rtol=1e-12, atol=1e-12)
 RUN_TOL = dict(rtol=1e-5, atol=1e-4)  # the JAX suite's multi-step bound
 N_MAIN = 256  # local block of the main path (the reference's per-GPU block)
 N_MESH = 128  # local block of the 2x2x2 virtual mesh
+N_CFG3 = 256  # BASELINE config 3: 256^3 per block on a 2x2x2 mesh, float64
+N_CFG2 = 4096  # BASELINE config 2: 4096^2 per block on a 2x2 mesh, float32
+N_CHECK = 64  # block of the kernel-vs-plain checks on 2x2x2 grids (2-D: N_CHECK2D)
+N_CHECK2D = 256
+# every kernel of the port, by its launch counter, with the name torch.profiler shows
+KERNEL_NAMES = {"diffusion3d_step_halo": "diffusion3d_step_halo_kernel",
+                "halo_write": "halo_write_kernel",
+                "halo_self_exchange": "self_exchange_kernel",
+                "diffusion3d_step_exchange": "diffusion3d_step_exchange_kernel",
+                "diffusion2d_step_exchange": "diffusion2d_step_exchange_kernel",
+                "halo_write_combined": "halo_write_combined_kernel",
+                "exchange_slabs": "exchange_slabs_kernel"}
 
 
 class SmokeFailure(Exception):
@@ -75,10 +97,7 @@ def median_ms(fn, batches=7, per_batch=10, warm=3):
     return statistics.median(ts)
 
 
-def device_ms(fn, kernel, reps=20):
-    """Device time (ms) per call of ``fn`` spent in the kernels whose name
-    holds ``kernel``, from torch.profiler (CUPTI) over ``reps`` calls; None
-    where the profiler records no device time."""
+def _profile(fn, reps):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -88,8 +107,46 @@ def device_ms(fn, kernel, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    tot = sum(ev.device_time_total for ev in prof.key_averages() if kernel in ev.key)
+    return prof.key_averages()
+
+
+def device_ms(fn, kernel, reps=20):
+    """Device time (ms) per call of ``fn`` spent in the kernels whose name
+    holds ``kernel``, from torch.profiler (CUPTI) over ``reps`` calls; None
+    where the profiler records no device time."""
+    tot = sum(ev.device_time_total for ev in _profile(fn, reps) if kernel in ev.key)
     return tot / reps / 1e3 if tot > 0 else None
+
+
+def route_times(fn, reps=10, batches=5):
+    """Host and device time per call of ``fn`` (one step of a route): the
+    host's enqueue time (the calls alone) and the wall time (the calls and
+    a synchronize), medians over ``batches`` of ``reps`` calls, and the
+    device time of the port's kernels in them (torch.profiler), by kernel.
+    Where wall time exceeds device time, the host holds the card back."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    host, wall = [], []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host.append((t1 - t0) / reps * 1e3)
+        wall.append((t2 - t0) / reps * 1e3)
+    evs = _profile(fn, reps)
+    by = {}
+    for name, kname in KERNEL_NAMES.items():
+        t = sum(ev.device_time_total for ev in evs if kname in ev.key) / reps / 1e3
+        if t > 0:
+            by[name] = t
+    return dict(wall_ms_per_step=statistics.median(wall),
+                host_ms_per_step=statistics.median(host),
+                device_ms_per_step=sum(by.values()) or None, device_ms_by_kernel=by)
 
 
 def max_err(got, ref):
@@ -237,10 +294,269 @@ def phase_kernels(igg_ops, counts_before):
         bound_ms=2 * A.numel() * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=median_ms(k3_library),
         shape="256^3 float32, modes (T,T,T)")
+    rows["diffusion3d_step_exchange"] = check_k4(cs)
+    rows["diffusion2d_step_exchange"] = check_k5(cs)
+    rows["halo_write_combined"] = check_k6(ch)
+    rows["exchange_slabs"] = check_k4s(cs)
     counts = cb.launch_counts()
     for name in rows:
         check(counts[name] > counts_before[name], f"{name} launch counter moved")
     return rows
+
+
+def rand_slabs(shape, block, dims, dtype, g, hws=(1, 1, 1)):
+    """Random received slabs (K2's layout) for each dim in ``dims``."""
+    import torch
+
+    out = {}
+    for d in dims:
+        ss = list(shape)
+        ss[d] = shape[d] // block[d] * hws[d]
+        out[d] = tuple((100 * torch.rand(ss, generator=g, device="cuda")).to(dtype)
+                       for _ in range(2))
+    return out
+
+
+def name_of(dt):
+    return str(dt).replace("torch.", "")
+
+
+def check_k4(cs):
+    """K4 on every non-empty mode combination, f32/f64/bf16, 2x2x2 x 64^3;
+    then its timing row at 2x2x2 x 256^3 float32, modes (T,T,T)."""
+    import itertools
+
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    err = 0.0
+    block = (N_CHECK,) * 3
+    for dt in (torch.float32, torch.float64, torch.bfloat16):
+        T, Cp = rand_state((2 * N_CHECK,) * 3, dt, 3)
+        for modes in itertools.product((False, True), repeat=3):
+            if not any(modes):
+                continue
+            recvs = rand_slabs(T.shape, block, [d for d in range(3) if modes[d]], dt, g)
+            got = cs.diffusion3d_step_recv(T, Cp, recvs, block=block, **CONSTS)
+            ref = cs.diffusion3d_step_recv_plain(T, Cp, recvs, block=block, **CONSTS)
+            torch.cuda.synchronize()
+            e = max_err(got, ref)
+            err = max(err, e) if dt != torch.bfloat16 else err
+            check(close(got, ref, **TOL[name_of(dt)]),
+                  f"K4 2x2x2x{N_CHECK}^3 {name_of(dt)} modes={modes} matches plain "
+                  f"(max abs err {e:.3e})")
+    n = N_CFG3
+    block = (n, n, n)
+    T, Cp = rand_state((2 * n,) * 3, torch.float32, 4)
+    recvs = rand_slabs(T.shape, block, (0, 1, 2), torch.float32, g)
+    out = torch.empty_like(T)
+
+    def k4():
+        return cs.diffusion3d_step_recv(T, Cp, recvs, block=block, out=out, **CONSTS)
+
+    ref = cs.diffusion3d_step_recv_plain(T, Cp, recvs, block=block, **CONSTS)
+    e = max_err(k4(), ref)
+    check(close(out, ref, **TOL["float32"]), f"K4 2x2x2x{n}^3 float32 matches plain ({e:.3e})")
+    del ref
+    slab_b = sum(s.numel() for p in recvs.values() for s in p) * 4
+    bound_b = (cs.step_bytes(T) + slab_b) / HBM_BYTES_PER_S * 1e3
+    bound_o = T.numel() * STEP_FLOPS_PER_CELL / F32_FLOPS_PER_S * 1e3
+    # K1 on the same stack without halos: what the delivery of received
+    # slabs adds to the sweep
+    k1_ms = median_ms(lambda: cs.diffusion3d_step(T, Cp, block=block, out=out, **CONSTS))
+    return dict(
+        max_abs_err=max(err, e), ms=median_ms(k4), k1_same_shape_ms=k1_ms,
+        plain_ms=median_ms(lambda: cs.diffusion3d_step_recv_plain(
+            T, Cp, recvs, block=block, **CONSTS), batches=3, per_batch=2, warm=1),
+        device_ms=device_ms(k4, KERNEL_NAMES["diffusion3d_step_exchange"]),
+        bound_ms=max(bound_b, bound_o), bound_by="bytes" if bound_b >= bound_o else "operations",
+        library_ms=None, shape=f"2x2x2 x {n}^3 float32, modes (T,T,T)")
+
+
+def check_k5(cs):
+    """K5 on all four mode combinations at 2x2 x 256^2 (f32/f64/bf16); its
+    timing row at 2x2 x 4096^2 float32, modes (T,T)."""
+    import itertools
+
+    import torch
+
+    c2 = {k: v for k, v in CONSTS.items() if k != "dz"}
+    g = torch.Generator(device="cuda").manual_seed(22)
+    err = 0.0
+    block = (N_CHECK2D, N_CHECK2D)
+    for dt in (torch.float32, torch.float64, torch.bfloat16):
+        T, Cp = rand_state((2 * N_CHECK2D, 2 * N_CHECK2D), dt, 5)
+        for modes in itertools.product((False, True), repeat=2):
+            recvs = rand_slabs(T.shape, block, [d for d in range(2) if modes[d]], dt, g)
+            got = cs.diffusion2d_step_recv(T, Cp, recvs, block=block, **c2)
+            ref = cs.diffusion2d_step_recv_plain(T, Cp, recvs, block=block, **c2)
+            torch.cuda.synchronize()
+            e = max_err(got, ref)
+            err = max(err, e) if dt != torch.bfloat16 else err
+            check(close(got, ref, **TOL[name_of(dt)]),
+                  f"K5 2x2x{N_CHECK2D}^2 {name_of(dt)} modes={modes} matches plain "
+                  f"(max abs err {e:.3e})")
+    n = N_CFG2
+    block = (n, n)
+    T, Cp = rand_state((2 * n, 2 * n), torch.float32, 6)
+    recvs = rand_slabs(T.shape, block, (0, 1), torch.float32, g)
+    out = torch.empty_like(T)
+
+    def k5():
+        return cs.diffusion2d_step_recv(T, Cp, recvs, block=block, out=out, **c2)
+
+    ref = cs.diffusion2d_step_recv_plain(T, Cp, recvs, block=block, **c2)
+    e = max_err(k5(), ref)
+    check(close(out, ref, **TOL["float32"]), f"K5 2x2x{n}^2 float32 matches plain ({e:.3e})")
+    del ref
+    slab_b = sum(s.numel() for p in recvs.values() for s in p) * 4
+    bound_b = (cs.step_bytes(T) + slab_b) / HBM_BYTES_PER_S * 1e3
+    bound_o = T.numel() * STEP2D_FLOPS_PER_CELL / F32_FLOPS_PER_S * 1e3
+    return dict(
+        max_abs_err=max(err, e), ms=median_ms(k5),
+        plain_ms=median_ms(lambda: cs.diffusion2d_step_recv_plain(
+            T, Cp, recvs, block=block, **c2), batches=3, per_batch=2, warm=1),
+        device_ms=device_ms(k5, KERNEL_NAMES["diffusion2d_step_exchange"]),
+        bound_ms=max(bound_b, bound_o), bound_by="bytes" if bound_b >= bound_o else "operations",
+        library_ms=None, shape=f"2x2 x {n}^2 float32, modes (T,T)")
+
+
+def halo_cells(block, nblocks, modes, hws):
+    """Distinct halo cells of ``nblocks`` blocks: every cell in a flagged
+    dim's halo, counted once."""
+    import numpy as np
+
+    inner = 1
+    for n, m, h in zip(block, modes, hws):
+        inner *= n - 2 * h if m else n
+    return nblocks * (int(np.prod(block)) - inner)
+
+
+def check_k6(ch):
+    """K6 on every combination its gate admits (z exchanging; hw 1 or 2 on
+    x), float32, float64 and int32 (the 4- and 8-byte paths), bitwise; its
+    timing row on one `update_halo` of 2x2x2 x 256^3 float32, that call
+    also held bitwise against the plain version."""
+    import itertools
+
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    block = (N_CHECK,) * 3
+    err = 0.0
+    for dt, modes, hwx in itertools.product(
+            (torch.float32, torch.float64, torch.int32),
+            itertools.product((False, True), repeat=2), (1, 2)):
+        modes = modes + (True,)
+        if hwx == 2 and not modes[0]:
+            continue
+        hws = (hwx, 1, 1)
+        A = (1000 * torch.rand((2 * N_CHECK,) * 3, generator=g, device="cuda")).to(dt)
+        recvs = rand_slabs(A.shape, block, [d for d in range(3) if modes[d]], dt, g, hws)
+        got = ch.halo_write_combined(A.clone(), recvs, modes=modes, hws=hws, block=block)
+        ref = ch.halo_write_combined_plain(A.clone(), recvs, modes=modes, hws=hws, block=block)
+        torch.cuda.synchronize()
+        err = max(err, max_err(got, ref))
+        check(torch.equal(got, ref),
+              f"K6 {name_of(dt)} modes={modes} hw_x={hwx} bitwise equal to plain")
+    n = N_CFG3
+    block = (n, n, n)
+    A = torch.randn((2 * n,) * 3, generator=g, device="cuda")
+    recvs = rand_slabs(A.shape, block, (0, 1, 2), torch.float32, g)
+    modes, hws = (True, True, True), (1, 1, 1)
+    got = ch.halo_write_combined(A.clone(), recvs, modes=modes, hws=hws, block=block)
+    ref = ch.halo_write_combined_plain(A.clone(), recvs, modes=modes, hws=hws, block=block)
+    torch.cuda.synchronize()
+    e = max_err(got, ref)
+    check(torch.equal(got, ref), f"K6 2x2x2x{n}^3 float32 bitwise equal to plain ({e:.3e})")
+    del got, ref
+
+    def k6():
+        return ch.halo_write_combined(A, recvs, modes=modes, hws=hws, block=block)
+
+    def k6_library():  # one slice copy_ per dim, block and side, in z, x, y order
+        for d in (2, 0, 1):
+            sl, sr = recvs[d]
+            for c in range(2):
+                A.narrow(d, c * n, 1).copy_(sl.narrow(d, c, 1))
+                A.narrow(d, c * n + n - 1, 1).copy_(sr.narrow(d, c, 1))
+
+    cells = halo_cells(block, 8, modes, hws)
+    return dict(
+        max_abs_err=max(err, e), ms=median_ms(k6),
+        plain_ms=median_ms(lambda: ch.halo_write_combined_plain(
+            A, recvs, modes=modes, hws=hws, block=block)),
+        device_ms=device_ms(k6, KERNEL_NAMES["halo_write_combined"]),
+        bound_ms=2 * cells * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=median_ms(k6_library),
+        shape=f"one update_halo of 2x2x2 x {n}^3 float32, hw 1 (all halo cells)")
+
+
+def check_k4s(cs):
+    """K4s: `update_slab` on each dim and range (send and current halo)
+    against its plain version (f32/f64/bf16, 2x2x2 x 64^3); the exchange
+    form (moves, PROC_NULL edges, two earlier dims' corners; copy and step
+    modes) against `exchange_slabs_plain`; its timing row on the y dim of
+    the 2x2x2 x 256^3 float32 step (two earlier dims, periodic)."""
+    import torch
+
+    err = 0.0
+    block = (N_CHECK,) * 3
+    for dt in (torch.float32, torch.float64, torch.bfloat16):
+        T, Cp = rand_state((2 * N_CHECK,) * 3, dt, 7)
+        for dim in range(3):
+            starts = [block[dim] - 2, 1, 0, block[dim] - 1]
+            got = cs.update_slab(T, Cp, dim, starts, 1, block=block, **CONSTS)
+            for st, gs in zip(starts, got):
+                ref = cs.update_slab_plain(T, Cp, dim, st, 1, block=block, **CONSTS)
+                torch.cuda.synchronize()
+                e = max_err(gs, ref)
+                err = max(err, e) if dt != torch.bfloat16 else err
+                check(close(gs, ref, **TOL[name_of(dt)]),
+                      f"K4s update_slab {name_of(dt)} dim {dim} start {st} matches plain ({e:.3e})")
+    g = torch.Generator(device="cuda").manual_seed(24)
+    T, Cp = rand_state((2 * N_CHECK,) * 3, torch.float64, 8)
+    earlier = []
+    for dim in (2, 0, 1):
+        moves = (cs.Move(N_CHECK - 2, 0, -1), cs.Move(1, N_CHECK - 1, 1))
+        for periodic in (True, False):
+            for step in (False, True):
+                kw = dict(block=block, periodic=periodic, earlier=tuple(earlier),
+                          Cp=Cp if step else None, consts=CONSTS if step else None)
+                got = cs.exchange_slabs(T, dim, 1, moves, **kw)
+                ref = cs.exchange_slabs_plain(T, dim, 1, moves, **kw)
+                torch.cuda.synchronize()
+                for a, b in zip(got, ref):
+                    e = max_err(a, b)
+                    err = max(err, e)
+                    ok = close(a, b, **TOL["float64"]) if step else torch.equal(a, b)
+                    check(ok, f"K4s exchange dim {dim} periodic={periodic} step={step} "
+                              f"matches plain ({e:.3e})")
+        earlier.append((dim, 1, rand_slabs(T.shape, block, (dim,), T.dtype, g)[dim]))
+    n = N_CFG3
+    block = (n, n, n)
+    T, Cp = rand_state((2 * n,) * 3, torch.float32, 9)
+    earlier = tuple((d, 1, rand_slabs(T.shape, block, (d,), T.dtype, g)[d]) for d in (2, 0))
+    moves = (cs.Move(n - 2, 0, -1), cs.Move(1, n - 1, 1))
+    kw = dict(block=block, periodic=True, earlier=earlier, Cp=Cp, consts=CONSTS)
+
+    def k4s():
+        return cs.exchange_slabs(T, 1, 1, moves, **kw)
+
+    out_cells = 2 * T.shape[0] * 2 * T.shape[2]
+    # each output cell written once; its T band (the cell and its two
+    # neighbours along y) and its Cp read once
+    bound_b = out_cells * (1 + 3 + 1) * 4 / HBM_BYTES_PER_S * 1e3
+    bound_o = out_cells * STEP_FLOPS_PER_CELL / F32_FLOPS_PER_S * 1e3
+    e = max(max_err(a, b) for a, b in zip(k4s(), cs.exchange_slabs_plain(T, 1, 1, moves, **kw)))
+    return dict(
+        max_abs_err=max(err, e), ms=median_ms(k4s),
+        plain_ms=median_ms(lambda: cs.exchange_slabs_plain(T, 1, 1, moves, **kw),
+                           batches=3, per_batch=3, warm=1),
+        device_ms=device_ms(k4s, KERNEL_NAMES["exchange_slabs"]),
+        bound_ms=max(bound_b, bound_o), bound_by="bytes" if bound_b >= bound_o else "operations",
+        library_ms=None,
+        shape=f"y dim of the 2x2x2 x {n}^3 float32 step: 2 slabs, 2 earlier dims")
 
 
 def grid(tg, *args, plain=False, **kw):
@@ -297,7 +613,14 @@ def phase_main(tg, models, cb, label, nt, **kw):
                 launches=counts, max_abs_err_vs_plain=err)
 
 
-def phase_mesh(tg, models, cb):
+def k1_route(tg, cs, p, loc):
+    """One step by K1 (no halos) then a standalone `update_halo`: the route
+    the port took on multi-block grids before the fused step + exchange."""
+    c = dict(lam=p.lam, dt=p.dt, dx=p.dx, dy=p.dy, dz=p.dz)
+    return lambda T, Cp: tg.update_halo(cs.diffusion3d_step(T, Cp, block=loc, **c))
+
+
+def phase_mesh(tg, models, cb, cs):
     """Phase 5: the 2x2x2 virtual mesh of 128^3 blocks."""
     import numpy as np
     import torch
@@ -308,22 +631,53 @@ def phase_mesh(tg, models, cb):
     g = torch.Generator(device="cuda").manual_seed(11)
     A = torch.randn((2 * N_MESH,) * 3, generator=g, device="cuda")
     T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    models.run_diffusion(T0, Cp, p, 2, nt_chunk=2)  # warm
     cb.reset_launch_counts()
     U = tg.update_halo(A.clone())
     T = models.run_diffusion(T0, Cp, p, 20, nt_chunk=20)
     gU, giU, gT = tg.gather(U), tg.gather_interior(U), tg.gather_interior(T)
     counts = cb.launch_counts()
     print(f"  launches {counts}", flush=True)
-    check(counts["halo_write"] > 0, "2x2x2: update_halo went through K2")
-    check(counts["diffusion3d_step_halo"] == 20, "2x2x2: K1 launched once per step")
+    check(counts["diffusion3d_step_exchange"] == 20, "2x2x2: K4 launched once per step")
+    check(counts["halo_write_combined"] == 1, "2x2x2: update_halo went through K6")
+    check(counts["exchange_slabs"] == 3 * 20 + 3, "2x2x2: K4s launched once per dim")
+    check(counts["diffusion3d_step_halo"] == 0 and counts["halo_write"] == 0,
+          "2x2x2: neither K1 nor K2 on the fused route")
+    step, k1 = models.make_step(p), k1_route(tg, cs, p, (N_MESH,) * 3)
+    times = route_times(lambda: step(T0, Cp))
+    times_k1 = route_times(lambda: k1(T0, Cp))
+    print(f"  K4 route per step: {times}", flush=True)
+    print(f"  K1 + update_halo per step: {times_k1}", flush=True)
+    # z not exchanging (dims 2x2x1, z non-periodic): the per-dim tier, K2
+    grid(tg, N_MESH, N_MESH, N_MESH, dimx=2, dimy=2, dimz=1, periodx=1)
+    A2 = torch.randn((2 * N_MESH, 2 * N_MESH, N_MESH), generator=g, device="cuda")
+    cb.reset_launch_counts()
+    U2 = tg.update_halo(A2.clone())
+    torch.cuda.synchronize()
+    c2 = cb.launch_counts()
+    check(c2["halo_write"] == 2 and c2["halo_write_combined"] == 0,
+          "2x2x1: update_halo went through K2 (x and y)")
+    counts = {k: counts[k] + c2[k] for k in counts}
+    grid(tg, N_MESH, N_MESH, N_MESH, dimx=2, dimy=2, dimz=1, periodx=1, plain=True)
+    check(torch.equal(U2, tg.update_halo(A2.clone())),
+          "2x2x1: update_halo bitwise equal to the plain path")
+    # a 2-D field, halowidth 2 on x: the per-dim tier (K4s + K2) in 2-D
+    kw2 = dict(dimx=4, dimy=2, dimz=1, periodx=1, overlaps=(4, 2, 2), halowidths=(2, 1, 1))
+    grid(tg, N_MESH, N_MESH, 1, **kw2)
+    A3 = torch.randn((4 * N_MESH, 2 * N_MESH), generator=g, device="cuda")
+    U3 = tg.update_halo(A3.clone())
+    grid(tg, N_MESH, N_MESH, 1, plain=True, **kw2)
+    check(torch.equal(U3, tg.update_halo(A3.clone())),
+          "4x2 2-D, hw 2: update_halo bitwise equal to the plain path")
     grid(tg, N_MESH, N_MESH, N_MESH, plain=True, **kw)
     Up = tg.update_halo(A.clone())
     check(torch.equal(U, Up), "2x2x2: update_halo bitwise equal to the plain path")
     check(np.array_equal(gU, tg.gather(Up)) and np.array_equal(giU, tg.gather_interior(Up)),
           "2x2x2: gather and gather_interior bitwise equal")
     Gp = tg.gather_interior(models.run_diffusion(T0, Cp, p, 20, nt_chunk=20))
+    err = float(np.abs(gT.astype(np.float64) - Gp).max())
     check(np.isfinite(gT).all() and np.allclose(gT, Gp, **RUN_TOL),
-          "2x2x2: 20-step run matches the plain path")
+          f"2x2x2: 20-step run matches the plain path (max abs err {err:.3e})")
 
     # a small reference: the card's kernel path against the CPU in float64
     grid(tg, 16, 16, 16, periodx=1, periody=1, periodz=1)
@@ -334,7 +688,107 @@ def phase_mesh(tg, models, cb):
     check(np.allclose(Tg, Tc, rtol=1e-12, atol=1e-12),
           "16^3 float64: card kernel path matches the CPU plain path")
     tg.finalize_global_grid()
-    return counts
+    return counts, dict(k4_route=times, k1_update_halo_route=times_k1,
+                        max_abs_err_vs_plain=err)
+
+
+def phase_config3(tg, models, cb, cs):
+    """Phase 6: BASELINE config 3, 2x2x2 blocks of 256^3, periodic, float64."""
+    import numpy as np
+    import torch
+
+    n, nt = N_CFG3, 20
+    print(f"phase: BASELINE config 3, 2x2x2 x {n}^3 float64, nt={nt}", flush=True)
+    kw = dict(dimx=2, dimy=2, dimz=2, periodx=1, periody=1, periodz=1)
+    grid(tg, n, n, n, **kw)
+    T0, Cp, p = models.init_diffusion3d(dtype=torch.float64)
+    models.run_diffusion(T0, Cp, p, 2, nt_chunk=2)  # warm chunk
+    cb.reset_launch_counts()
+    tg.tic()
+    T = models.run_diffusion(T0, Cp, p, nt, nt_chunk=nt)
+    t = tg.toc()
+    T_run = T.clone()  # the same input for the plain path's update_halo
+    T = tg.update_halo(T)
+    G = tg.gather_interior(T)
+    torch.cuda.synchronize()
+    counts = cb.launch_counts()
+    cells = tg.nx_g() * tg.ny_g() * tg.nz_g()
+    rate = cells * nt / t
+    print(f"  config 3: nt={nt} in {t:.6f} s = {rate:.6e} cell-updates/s "
+          f"(global {tg.nx_g()}x{tg.ny_g()}x{tg.nz_g()}); launches {counts}", flush=True)
+    check(counts["diffusion3d_step_exchange"] == nt, "config 3: K4 launched once per step")
+    check(counts["halo_write_combined"] == 1, "config 3: update_halo went through K6")
+    check(counts["exchange_slabs"] == 3 * nt + 3, "config 3: K4s launched once per dim")
+    check(G.shape == (tg.nx_g(), tg.ny_g(), tg.nz_g()) and bool(np.isfinite(G).all()),
+          f"config 3: gathered interior finite, shape {G.shape}")
+    step, k1 = models.make_step(p), k1_route(tg, cs, p, (n, n, n))
+    times = route_times(lambda: step(T0, Cp), reps=5)
+    times_k1 = route_times(lambda: k1(T0, Cp), reps=5)
+    print(f"  K4 route per step: {times}", flush=True)
+    print(f"  K1 + update_halo per step: {times_k1}", flush=True)
+    # one step by the fused route against K1, then update_halo
+    fused, K1 = step(T0, Cp), k1(T0, Cp)
+    err_k1 = max_err(fused, K1)
+    print(f"  fused step vs K1 + update_halo: max abs err {err_k1!r}", flush=True)
+    check(close(fused, K1, **F64_RUN_TOL), "config 3: fused step matches K1 + update_halo")
+    del fused, K1
+    grid(tg, n, n, n, plain=True, **kw)
+    # K6's 8-byte path wrote T's halos: hold the whole tensor, halos included
+    Up = tg.update_halo(T_run)
+    err_uh = max_err(T, Up)
+    check(torch.equal(T, Up), "config 3: update_halo (K4s + K6) bitwise equal to the plain "
+                              f"path's, halos included (max abs err {err_uh:.3e})")
+    del T, T_run, Up
+    Gp = tg.gather_interior(tg.update_halo(models.run_diffusion(T0, Cp, p, nt, nt_chunk=nt)))
+    err = float(np.abs(G - Gp).max())
+    check(np.allclose(G, Gp, **F64_RUN_TOL),
+          f"config 3: matches the plain path on the card (max abs err {err:.3e})")
+    check(not np.allclose(G, tg.gather_interior(T0)), "config 3: the state evolved")
+    tg.finalize_global_grid()
+    os.environ.pop("IGG_USE_PALLAS", None)
+    return counts, dict(seconds=t, cell_updates_per_s=rate, global_cells=cells,
+                        max_abs_err_vs_plain=err, max_abs_err_vs_k1_route=err_k1,
+                        k4_route=times, k1_update_halo_route=times_k1)
+
+
+def phase_config2(tg, models, cb):
+    """Phase 7: BASELINE config 2, a 2x2 mesh of 4096^2 blocks, periodic, float32."""
+    import numpy as np
+    import torch
+
+    n, nt = N_CFG2, 100
+    print(f"phase: BASELINE config 2, 2x2 x {n}^2 float32, nt={nt}", flush=True)
+    kw = dict(dimx=2, dimy=2, dimz=1, periodx=1, periody=1)
+    grid(tg, n, n, 1, **kw)
+    T0, Cp, p = models.init_diffusion2d(dtype=torch.float32)
+    models.run_diffusion(T0, Cp, p, 2, nt_chunk=2)  # warm chunk
+    cb.reset_launch_counts()
+    tg.tic()
+    T = models.run_diffusion(T0, Cp, p, nt, nt_chunk=nt)
+    t = tg.toc()
+    G = tg.gather_interior(T)
+    counts = cb.launch_counts()
+    cells = tg.nx_g() * tg.ny_g()
+    rate = cells * nt / t
+    print(f"  config 2: nt={nt} in {t:.6f} s = {rate:.6e} cell-updates/s "
+          f"(global {tg.nx_g()}x{tg.ny_g()}); launches {counts}", flush=True)
+    check(counts["diffusion2d_step_exchange"] == nt, "config 2: K5 launched once per step")
+    check(counts["exchange_slabs"] == 2 * nt, "config 2: K4s launched once per dim")
+    check(G.shape == (tg.nx_g(), tg.ny_g()) and bool(np.isfinite(G).all()),
+          f"config 2: gathered interior finite, shape {G.shape}")
+    step = models.make_step(p, ndim=2)
+    times = route_times(lambda: step(T0, Cp))
+    print(f"  K5 route per step: {times}", flush=True)
+    grid(tg, n, n, 1, plain=True, **kw)
+    Gp = tg.gather_interior(models.run_diffusion(T0, Cp, p, nt, nt_chunk=nt))
+    err = float(np.abs(G.astype(np.float64) - Gp).max())
+    check(np.allclose(G, Gp, **RUN_TOL),
+          f"config 2: matches the plain path on the card (max abs err {err:.3e})")
+    check(not np.allclose(G, tg.gather_interior(T0)), "config 2: the state evolved")
+    tg.finalize_global_grid()
+    os.environ.pop("IGG_USE_PALLAS", None)
+    return counts, dict(seconds=t, cell_updates_per_s=rate, global_cells=cells,
+                        max_abs_err_vs_plain=err, k5_route=times)
 
 
 def main() -> int:
@@ -367,20 +821,23 @@ def main() -> int:
         cb.library()
         print(f"  build {info['seconds']:.2f} s (built={info['built']}) -> {info['path']}")
         for line in info.get("ptxas", "").splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
+            if any(w in line for w in ("entry function", "registers", "spill")) \
+                    or line.startswith("=="):
                 print("  " + line.strip())
         print("phase: kernels vs plain", flush=True)
         rows = phase_kernels((cs, ch, cb), cb.launch_counts())
         periodic = phase_main(tg, models, cb, "periodic", 100,
                               periodx=1, periody=1, periodz=1)
         novis = phase_main(tg, models, cb, "non-periodic", 100)
-        mesh = phase_mesh(tg, models, cb)
+        mesh_counts, mesh = phase_mesh(tg, models, cb, cs)
+        cfg3_counts, cfg3 = phase_config3(tg, models, cb, cs)
+        cfg2_counts, cfg2 = phase_config2(tg, models, cb)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    launches = {k: periodic["launches"][k] + novis["launches"][k] + mesh[k]
-                for k in mesh}
+    paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts]
+    launches = {k: sum(c[k] for c in paths) for k in KERNEL_NAMES}
     for name, n in launches.items():
         if n == 0:
             print(f"chip_smoke: FAILED: {name} never launched on the main path",
@@ -390,12 +847,18 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
-    src = {"diffusion3d_step_halo": ("implicitglobalgrid_tpu_torch/csrc/stencil.cu",
-                                     "implicitglobalgrid_tpu/ops/pallas_stencil.py:72,839"),
-           "halo_write": ("implicitglobalgrid_tpu_torch/csrc/halo.cu",
-                          "implicitglobalgrid_tpu/ops/pallas_halo.py:142"),
-           "halo_self_exchange": ("implicitglobalgrid_tpu_torch/csrc/halo.cu",
-                                  "implicitglobalgrid_tpu/ops/pallas_halo.py:558")}
+    stencil, halo = ("implicitglobalgrid_tpu_torch/csrc/stencil.cu",
+                     "implicitglobalgrid_tpu_torch/csrc/halo.cu")
+    src = {"diffusion3d_step_halo": (stencil, "implicitglobalgrid_tpu/ops/pallas_stencil.py:72,839"),
+           "halo_write": (halo, "implicitglobalgrid_tpu/ops/pallas_halo.py:142"),
+           "halo_self_exchange": (halo, "implicitglobalgrid_tpu/ops/pallas_halo.py:558"),
+           "diffusion3d_step_exchange": (stencil,
+                                         "implicitglobalgrid_tpu/ops/pallas_stencil.py:278,314"),
+           "diffusion2d_step_exchange": (stencil,
+                                         "implicitglobalgrid_tpu/ops/pallas_stencil.py:999"),
+           "halo_write_combined": (halo, "implicitglobalgrid_tpu/ops/pallas_halo.py:523"),
+           "exchange_slabs": (stencil, "implicitglobalgrid_tpu/ops/pallas_stencil.py:239 "
+                                       "(XLA helper) + ops/halo.py:299")}
     kernels = []
     for name, r in rows.items():
         kernels.append(dict(name=name, route="cuda", source=src[name][0],
@@ -403,11 +866,14 @@ def main() -> int:
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"],
-                            device_ms=r["device_ms"], shape=r["shape"]))
+                            device_ms=r["device_ms"], shape=r["shape"],
+                            **{k: v for k, v in r.items() if k == "k1_same_shape_ms"}))
     k1_dev = rows["diffusion3d_step_halo"]["device_ms"]
     if k1_dev is not None:  # the periodic step is one K1 (T,T,T) launch
         periodic["k1_device_share"] = 100 * k1_dev / (periodic["seconds"] * 1e3 / 100)
-    print(json.dumps({"main_path": {"periodic_256": periodic, "nonperiodic_256": novis},
+    print(json.dumps({"main_path": {"periodic_256": periodic, "nonperiodic_256": novis,
+                                    "mesh_2x2x2_128": mesh, "config3_2x2x2_256_f64": cfg3,
+                                    "config2_2x2_4096_f32": cfg2},
                       "seconds_total": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps({"kernels": kernels}))

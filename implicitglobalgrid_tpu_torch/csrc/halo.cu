@@ -1,6 +1,6 @@
-// K2 and K3: the halo copy kernels of update_halo on the virtual mesh.
+// K2, K3 and K6: the halo copy kernels of update_halo on the virtual mesh.
 //
-// Both are pure copies of elements of any dtype (moved as 1, 2, 4 or 8-byte
+// All three are pure copies of elements of any dtype (moved as 1, 2, 4 or 8-byte
 // words) and match their plain versions bitwise. Fields are stacked: one
 // contiguous tensor of shape (S0, S1, S2) holds every virtual rank's block of
 // shape (n0, n1, n2), so one launch serves every block.
@@ -33,8 +33,21 @@
 // and writes except the remapped halo lanes), each thread block on a few
 // consecutive rows of one plane, with 32-bit index arithmetic (a first
 // version that divided 64-bit indices per element took 230 us at 256^3).
+//
+// K6 `igg_halo_write_combined` replaces `halo_write_combined_pallas`
+// (pallas_halo.py:446, kernel `_combined_write_kernel` :523): it delivers the
+// received slabs of every exchanging dim in one launch, in place, in the
+// reference's z, x, y write order (a y-halo row takes ry, else an x-halo
+// plane takes rx, else a z-halo lane takes rz). The TPU kernel rewrites the
+// whole array because its z-edge lanes force array-level traffic there; here
+// a lane is a strided access, so K6 touches only halo cells, each once.
+// Bound: read the slabs and write the halo cells once, 2 x halo cells x
+// itemsize: ~25 MB and ~7.5 us for a 2x2x2 stack of 256^3 float32 blocks,
+// against ~320 us for a full pass.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -126,6 +139,91 @@ void self_exchange(const void* a, void* out, long long S0, long long S1, long lo
       (unsigned)ol0, (unsigned)ol1, (unsigned)ol2);
 }
 
+// K6: every halo cell of every block written once, in three parts (grid.y):
+// 0 the x-halo planes (a y-halo row in them takes ry, else rx), 1 the y-halo
+// rows outside the x halos, 2 the z-halo lanes outside both. That is the
+// reference's z, x, y write order read as a per-cell rule. Parts 0 and 1 run
+// threads along z (coalesced); part 2 writes one lane cell per thread. Index
+// arithmetic is 32-bit (the entry point checks the extents): a first version
+// that decomposed 64-bit indices took 100 us at 2x2x2 x 256^3 float32.
+template <typename E>
+__global__ void __launch_bounds__(THREADS)
+halo_write_combined_kernel(E* __restrict__ a, const E* __restrict__ xl,
+                           const E* __restrict__ xr, const E* __restrict__ yl,
+                           const E* __restrict__ yr, const E* __restrict__ zl,
+                           const E* __restrict__ zr, unsigned S0, unsigned S1, unsigned S2,
+                           unsigned n0, unsigned n1, unsigned n2, unsigned hwx) {
+  const int part = blockIdx.y;
+  const unsigned D0 = S0 / n0, D1 = S1 / n1, D2 = S2 / n2;
+  unsigned total;
+  if (part == 0) {
+    if (xl == nullptr) return;
+    total = D0 * 2 * hwx * S1 * S2;
+  } else if (part == 1) {
+    if (yl == nullptr) return;
+    total = S0 * 2 * D1 * S2;
+  } else {
+    if (zl == nullptr) return;
+    total = S0 * S1 * 2 * D2;
+  }
+  for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < total;
+       q += gridDim.x * blockDim.x) {
+    unsigned I, J, K;
+    if (part == 2) {
+      const unsigned zc = q % (2 * D2), rest = q / (2 * D2);
+      J = rest % S1;
+      I = rest / S1;
+      const unsigned i = I % n0, j = J % n1;
+      if (xl != nullptr && (i < hwx || i >= n0 - hwx)) continue;
+      if (yl != nullptr && (j == 0 || j == n1 - 1)) continue;
+      const unsigned ck = zc >> 1;
+      K = ck * n2 + ((zc & 1) ? n2 - 1 : 0);
+      const long long row = (long long)I * S1 + J;
+      a[row * S2 + K] = ((zc & 1) ? zr : zl)[row * D2 + ck];
+      continue;
+    }
+    K = q % S2;
+    const unsigned rest = q / S2;
+    if (part == 1) {
+      const unsigned yc = rest % (2 * D1);
+      I = rest / (2 * D1);
+      const unsigned i = I % n0;
+      if (xl != nullptr && (i < hwx || i >= n0 - hwx)) continue;
+      const unsigned cj = yc >> 1;
+      J = cj * n1 + ((yc & 1) ? n1 - 1 : 0);
+      a[((long long)I * S1 + J) * S2 + K] =
+          ((yc & 1) ? yr : yl)[((long long)I * D1 + cj) * S2 + K];
+      continue;
+    }
+    J = rest % S1;
+    const unsigned pl = rest / S1, c0 = pl / (2 * hwx), h = pl - c0 * 2 * hwx;
+    const bool right = h >= hwx;
+    const unsigned r = right ? h - hwx : h;
+    I = c0 * n0 + (right ? n0 - hwx + r : r);
+    const unsigned cj = J / n1, j = J - cj * n1;
+    E v;
+    if (yl != nullptr && (j == 0 || j == n1 - 1))
+      v = (j == 0 ? yl : yr)[((long long)I * D1 + cj) * S2 + K];
+    else
+      v = (right ? xr : xl)[((long long)(c0 * hwx + r) * S1 + J) * S2 + K];
+    a[((long long)I * S1 + J) * S2 + K] = v;
+  }
+}
+
+template <typename E>
+void halo_write_combined(void* a, const void* xl, const void* xr, const void* yl,
+                         const void* yr, const void* zl, const void* zr, long long S0,
+                         long long S1, long long S2, long long n0, long long n1,
+                         long long n2, long long hwx, long long most, cudaStream_t st) {
+  long long blocks = (most + THREADS - 1) / THREADS;
+  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
+  halo_write_combined_kernel<E><<<dim3((unsigned)blocks, 3u), THREADS, 0, st>>>(
+      static_cast<E*>(a), static_cast<const E*>(xl), static_cast<const E*>(xr),
+      static_cast<const E*>(yl), static_cast<const E*>(yr), static_cast<const E*>(zl),
+      static_cast<const E*>(zr), (unsigned)S0, (unsigned)S1, (unsigned)S2, (unsigned)n0,
+      (unsigned)n1, (unsigned)n2, (unsigned)hwx);
+}
+
 }  // namespace
 
 // a: stacked (S0, S1, S2), contiguous, block length n along dim; sl/sr:
@@ -163,6 +261,30 @@ extern "C" int igg_halo_self_exchange(int itemsize, const void* a, void* out,
     case 2: self_exchange<uint16_t>(a, out, S0, S1, S2, n0, n1, n2, m0, m1, m2, ol0, ol1, ol2, st); break;
     case 4: self_exchange<uint32_t>(a, out, S0, S1, S2, n0, n1, n2, m0, m1, m2, ol0, ol1, ol2, st); break;
     case 8: self_exchange<unsigned long long>(a, out, S0, S1, S2, n0, n1, n2, m0, m1, m2, ol0, ol1, ol2, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K6. a: stacked (S0, S1, S2), contiguous, blocks (n0, n1, n2), in place.
+// xl/xr: received x planes (width hwx), yl/yr: y rows, zl/zr: z lanes (width
+// 1), each in K2's slab layout; null for a dim that takes none.
+extern "C" int igg_halo_write_combined(int itemsize, void* a, const void* xl, const void* xr,
+                                       const void* yl, const void* yr, const void* zl,
+                                       const void* zr, long long S0, long long S1,
+                                       long long S2, long long n0, long long n1,
+                                       long long n2, long long hwx, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n0 < 1 || n1 < 1 || n2 < 1 || hwx < 1) return (int)cudaErrorInvalidValue;
+  // 32-bit indices: each part's cell count below 2^31
+  const long long most = std::max(std::max((S0 / n0) * 2 * hwx * S1 * S2, S0 * 2 * (S1 / n1) * S2),
+                                  S0 * S1 * 2 * (S2 / n2));
+  if (most >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  switch (itemsize) {
+    case 1: halo_write_combined<uint8_t>(a, xl, xr, yl, yr, zl, zr, S0, S1, S2, n0, n1, n2, hwx, most, st); break;
+    case 2: halo_write_combined<uint16_t>(a, xl, xr, yl, yr, zl, zr, S0, S1, S2, n0, n1, n2, hwx, most, st); break;
+    case 4: halo_write_combined<uint32_t>(a, xl, xr, yl, yr, zl, zr, S0, S1, S2, n0, n1, n2, hwx, most, st); break;
+    case 8: halo_write_combined<unsigned long long>(a, xl, xr, yl, yr, zl, zr, S0, S1, S2, n0, n1, n2, hwx, most, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

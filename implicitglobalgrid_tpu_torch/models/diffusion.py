@@ -7,12 +7,18 @@ example's hot loop
 
 on stacked tensors over the virtual mesh. Two routes (``impl``):
 
-- ``"cuda"`` (the default while ``IGG_USE_PALLAS`` is on): the step kernel
-  K1 with the self-neighbour halo updates folded in where they can be
-  (`ops.cuda_stencil.fusable_halo_dims`), then `local_update_halo` for the
-  remaining dims. On CPU tensors the kernels' plain versions run.
+- ``"cuda"`` (the default while ``IGG_USE_PALLAS`` is on), the JAX
+  package's Pallas route order. 3-D: every exchanging dim self-neighbour ->
+  K1 with the halo updates folded in; else `step_exchange_modes` -> the
+  fused step + exchange (K4s send slabs, then K4); else a self-neighbour
+  prefix -> K1 then `local_update_halo` over the remaining dims; else K1
+  then `local_update_halo`. 2-D: the fused step + exchange (K4s, then K5);
+  where `step_exchange_modes` refuses the grid, K5 with no received slabs
+  (the step alone) then `local_update_halo` (the JAX package runs XLA
+  there). On CPU tensors the kernels' plain versions run; on a CUDA tensor
+  every step is a kernel.
 - ``"plain"``: the broadcast flux form (`_upd3`/`_upd2`) then
-  `local_update_halo`, in plain PyTorch. 2-D always runs it.
+  `local_update_halo`, in plain PyTorch (the JAX package's ``"xla"``).
 
 Not ported yet (each raises `NotSupportedError`): ``overlap``, ``sr``,
 ``comm_every != 1`` and ``ensemble``.
@@ -24,7 +30,8 @@ from dataclasses import dataclass
 
 from ..ops.alloc import zeros_g
 from ..ops.cuda_stencil import (
-    diffusion3d_step, diffusion3d_step_halo, fusable_halo_dims, pallas_supported,
+    diffusion2d_step_exchange, diffusion3d_step, diffusion3d_step_exchange,
+    diffusion3d_step_halo, fusable_halo_dims, pallas_supported, step_exchange_modes,
 )
 from ..ops.fields import block_slices
 from ..ops.halo import DEFAULT_DIMS_ORDER, _dim_exchanges, local_update_halo
@@ -162,6 +169,41 @@ def _local_shape(gg, T):
     return tuple(int(s) // int(gg.dims[d]) for d, s in enumerate(T.shape))
 
 
+def _cuda_step3(T, Cp, p, gg, loc, out):
+    """The 3-D kernel route, in the JAX package's order."""
+    kw = dict(lam=p.lam, dt=p.dt, dx=p.dx, dy=p.dy, dz=p.dz, block=loc, out=out)
+    hws = tuple(int(h) for h in gg.halowidths)
+    fuse = fusable_halo_dims(gg)
+    covers_all = fuse is not None and not any(
+        _dim_exchanges(gg, loc, hws, d) for d in range(3) if not fuse[d])
+    if covers_all:
+        # every exchanging dim is self-neighbour: the halo updates fold into
+        # the step's output pass
+        return diffusion3d_step_halo(T, Cp, fuse=fuse, **kw)
+    modes = step_exchange_modes(gg, loc)
+    if modes is not None:
+        # multi-rank (or mixed) exchange fused with the step: send slabs
+        # computed from the current state, delivered in the step's pass
+        return diffusion3d_step_exchange(T, Cp, gg, modes, **kw)
+    if fuse is not None:
+        # a self-neighbour prefix of the z, x, y order folds in; the
+        # remaining dims (the suffix) are exchanged afterwards
+        T = diffusion3d_step_halo(T, Cp, fuse=fuse, **kw)
+        rem = tuple(d for d in DEFAULT_DIMS_ORDER if not fuse[d])
+        return local_update_halo(T, dims=rem)
+    return local_update_halo(diffusion3d_step(T, Cp, **kw))
+
+
+def _cuda_step2(T, Cp, p, gg, loc, out):
+    """The 2-D kernel route: K5 with the exchange fused where
+    `step_exchange_modes` admits the grid, else K5 alone then the
+    exchange."""
+    modes = step_exchange_modes(gg, loc)
+    T = diffusion2d_step_exchange(T, Cp, gg, modes or (False, False), lam=p.lam,
+                                  dt=p.dt, dx=p.dx, dy=p.dy, block=loc, out=out)
+    return T if modes is not None else local_update_halo(T)
+
+
 def diffusion_step_local(T, Cp, p: DiffusionParams, impl: str = "plain",
                          out=None):
     """One time step of stacked ``T`` (every rank's block) followed by the
@@ -169,42 +211,34 @@ def diffusion_step_local(T, Cp, p: DiffusionParams, impl: str = "plain",
     ``out`` is a spare buffer the kernel route may write the new state into
     (it must not alias ``T``); the result is returned either way."""
     check_supported(p)
-    gg = global_grid()
-    loc = _local_shape(gg, T)
-    if T.dim() not in (2, 3):
-        raise InvalidArgumentError(f"diffusion runs on 2-D and 3-D fields; got {T.dim()}-D.")
-    if impl == "cuda" and T.dim() == 3 and pallas_supported(loc):
-        kw = dict(lam=p.lam, dt=p.dt, dx=p.dx, dy=p.dy, dz=p.dz, block=loc, out=out)
-        hws = tuple(int(h) for h in gg.halowidths)
-        fuse = fusable_halo_dims(gg)
-        covers_all = fuse is not None and not any(
-            _dim_exchanges(gg, loc, hws, d) for d in range(3) if not fuse[d])
-        if covers_all:
-            # every exchanging dim is self-neighbour: the halo updates fold
-            # into the step's output pass
-            return diffusion3d_step_halo(T, Cp, fuse=fuse, **kw)
-        if fuse is not None:
-            # a self-neighbour prefix of the z, x, y order folds in; the
-            # remaining dims (the suffix) are exchanged afterwards
-            T = diffusion3d_step_halo(T, Cp, fuse=fuse, **kw)
-            rem = tuple(d for d in DEFAULT_DIMS_ORDER if not fuse[d])
-            return local_update_halo(T, dims=rem)
-        return local_update_halo(diffusion3d_step(T, Cp, **kw))
     if impl not in IMPLS:
         raise InvalidArgumentError(f"impl must be one of {IMPLS}; got {impl!r}.")
+    if T.dim() not in (2, 3):
+        raise InvalidArgumentError(f"diffusion runs on 2-D and 3-D fields; got {T.dim()}-D.")
+    gg = global_grid()
+    loc = _local_shape(gg, T)
+    if impl == "cuda":
+        if T.dim() == 2:
+            return _cuda_step2(T, Cp, p, gg, loc, out)
+        if pallas_supported(loc):
+            return _cuda_step3(T, Cp, p, gg, loc, out)
+        if T.device.type != "cpu":
+            raise NotSupportedError(
+                f"the step kernels need blocks of >= 3 planes; got {loc}.")
     return local_update_halo(_plain_step(T, Cp, p, loc))
 
 
-def _resolve_impl(impl, ndim=3):
+def _resolve_impl(impl):
     """An explicit ``impl`` wins; else the kernel route while every
     ``IGG_USE_PALLAS`` flag of the grid is on (the JAX package's rule, on
-    every device here: on the CPU the kernels' plain versions run)."""
+    every device here: on the CPU the kernels' plain versions run), in 3-D
+    and in 2-D."""
     if impl is not None:
         if impl not in IMPLS:
             raise InvalidArgumentError(f"impl must be one of {IMPLS}; got {impl!r}.")
         return impl
     gg = global_grid()
-    return "cuda" if ndim == 3 and bool(gg.use_pallas.all()) else "plain"
+    return "cuda" if bool(gg.use_pallas.all()) else "plain"
 
 
 def _reject_ensemble(ensemble):
@@ -216,7 +250,7 @@ def make_step(p: DiffusionParams, ndim: int = 3, impl: str | None = None):
     """A single step on stacked tensors: ``T = step(T, Cp)``."""
     check_initialized()
     check_supported(p)
-    impl = _resolve_impl(impl, ndim)
+    impl = _resolve_impl(impl)
 
     def step(T, Cp):
         return diffusion_step_local(T, Cp, p, impl)
@@ -232,7 +266,7 @@ def make_run(p: DiffusionParams, nt_chunk: int, ndim: int = 3,
 
     _reject_ensemble(ensemble)
     check_supported(p)
-    impl = _resolve_impl(impl, ndim)
+    impl = _resolve_impl(impl)
 
     def step(state, spare):
         T, Cp = state

@@ -48,12 +48,22 @@ _SIGNATURES = {
                        _C_INT, _C_LL, _C_LL, _C_VOID],
     "igg_halo_self_exchange": [_C_INT, _C_VOID, _C_VOID] + [_C_LL] * 6
     + [_C_INT] * 3 + [_C_LL] * 3 + [_C_VOID],
+    "igg_diffusion3d_step_exchange": [_C_INT, _C_VOID, _C_VOID, _C_VOID]
+    + [_C_LL] * 6 + [_C_DBL] * 5 + [_C_VOID] * 7,
+    "igg_diffusion2d_step_exchange": [_C_INT, _C_VOID, _C_VOID, _C_VOID]
+    + [_C_LL] * 4 + [_C_DBL] * 4 + [_C_VOID] * 5,
+    "igg_exchange_slabs": [_C_INT] * 3 + [_C_VOID] * 4 + [_C_LL] * 6
+    + [_C_INT, _C_LL, _C_INT] + [_C_LL] * 6
+    + [_C_INT, _C_LL, _C_VOID, _C_VOID] * 2 + [_C_DBL] * 5 + [_C_VOID],
+    "igg_halo_write_combined": [_C_INT] + [_C_VOID] * 7 + [_C_LL] * 7 + [_C_VOID],
 }
 
 _lib = None
 build_info: dict = {}
 _launches: dict = {"diffusion3d_step_halo": 0, "halo_write": 0,
-                   "halo_self_exchange": 0}
+                   "halo_self_exchange": 0, "diffusion3d_step_exchange": 0,
+                   "diffusion2d_step_exchange": 0, "halo_write_combined": 0,
+                   "exchange_slabs": 0}
 
 
 def count_launch(name: str) -> None:

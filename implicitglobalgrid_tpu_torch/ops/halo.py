@@ -13,11 +13,21 @@ semantics are the JAX package's, 0-based:
 - non-periodic boundary ranks keep their halo values (PROC_NULL neighbours);
 - a periodic axis with a single rank copies its own slabs (self-neighbour).
 
-Kernel tier (``IGG_USE_PALLAS``, on by default): when every exchanging dim
-of a field is self-neighbour, the whole exchange is one pass of K3
-(`cuda_halo.halo_self_exchange`); otherwise each dim's halos are written by
-K2 (`cuda_halo.halo_write`), one launch per (field, dim) for all ranks.
-With the tier off, the writes are slice `copy_`s.
+Kernel tier (``IGG_USE_PALLAS``, on by default), in the JAX package's
+order (`halo_route` names the tier a field takes):
+
+1. ``"self"``: every exchanging dim is self-neighbour; the whole exchange
+   is one pass of K3 (`cuda_halo.halo_self_exchange`).
+2. ``"combined"``: 3-D, z exchanging, halowidth 1 on y and z
+   (`cuda_halo.combined_write_supported`); the slab pipeline
+   (`exchange_recv_slabs`, one K4s launch per dim) then one K6 launch
+   (`cuda_halo.halo_write_combined`) that writes every dim's halos.
+3. ``"per_dim"``: each dim's halos written by K2 (`cuda_halo.halo_write`),
+   one launch per (field, dim) for all ranks.
+
+The received slabs of every tier but K3 come from K4s
+(`cuda_stencil.exchange_slabs`, one launch per dim). With the tier off,
+slabs and writes are plain PyTorch.
 
 Differences from the JAX package: the exchange is per field (coalescing
 several fields into one message is pure layout and bit-identical there, so
@@ -39,7 +49,8 @@ from ..utils.exceptions import (
 )
 from .fields import Field, check_fields, extract, wrap_field
 
-__all__ = ["update_halo", "local_update_halo", "DEFAULT_DIMS_ORDER"]
+__all__ = ["update_halo", "local_update_halo", "DEFAULT_DIMS_ORDER", "halo_route",
+           "exchange_recv_slabs_multi", "exchange_recv_slabs"]
 
 # Reference default `dims=(3,1,2)` (1-based: z, x, y).
 DEFAULT_DIMS_ORDER = (2, 0, 1)
@@ -129,70 +140,148 @@ def _check_slab_fit(s, dim, ol_d, hw):
         )
 
 
+def _moves(s, ol_d, hw, disp):
+    """Where a block's received slabs come from along a dim (local size
+    ``s``): recv_l of block t is send_r ``[s-ol, s-ol+hw)`` of block t-disp
+    (the forward pairs of `axis_perm_pairs`), else its own current ``[0,
+    hw)``; recv_r is send_l ``[ol-hw, ol)`` of block t+disp, else its own
+    ``[s-hw, s)``."""
+    from .cuda_stencil import Move
+
+    return (Move(s - ol_d, 0, -disp), Move(ol_d - hw, s - hw, disp))
+
+
 def _exchange_dim(gg, A, dim, hw, ol_d, use_kernel):
     """Exchange the halos of every block of stacked ``A`` along ``dim``, in
-    place. The block axis of the view ``A.unflatten(dim, (D, n))`` sits at
-    ``dim``, the local axis at ``dim + 1``."""
-    import torch
+    place: the received slabs (K4s), then K2 writes them (the plain
+    versions with ``use_kernel`` off)."""
+    from .cuda_halo import halo_write, halo_write_plain
+    from .cuda_stencil import exchange_slabs, exchange_slabs_plain
 
     D, periodic, disp = _dim_meta(gg, dim)
-    n = A.shape[dim] // D
+    if not periodic and disp >= D:
+        return A  # no neighbours along this dim: every halo is PROC_NULL
+    loc = tuple(int(s) // int(gg.dims[d]) for d, s in enumerate(A.shape))
+    n = loc[dim]
     _check_slab_fit(n, dim, ol_d, hw)
-    v = A.unflatten(dim, (D, n))
-    send_r = v.narrow(dim + 1, n - ol_d, hw)
-    send_l = v.narrow(dim + 1, ol_d - hw, hw)
-    if D == 1:
-        if not periodic:
-            return A
-        # self-neighbour: left halo <- own right slab, right <- own left
-        recv_l = send_r.clone(memory_format=torch.contiguous_format)
-        recv_r = send_l.clone(memory_format=torch.contiguous_format)
-    else:
-        perm_p, perm_m = axis_perm_pairs(D, periodic, disp)
-        if not perm_p and not perm_m:
-            return A
-        # recv_l of block t comes from block s of the forward pairs; blocks
-        # no pair reaches (PROC_NULL edges) keep their current halo
-        src_l, src_r = list(range(D)), list(range(D))
-        for s, t in perm_p:
-            src_l[t] = s
-        for s, t in perm_m:
-            src_r[t] = s
-        idx_l = torch.tensor(src_l, device=A.device)
-        idx_r = torch.tensor(src_r, device=A.device)
-        recv_l = send_r.index_select(dim, idx_l)
-        recv_r = send_l.index_select(dim, idx_r)
-        if not periodic:
-            c = torch.arange(D, device=A.device).view(
-                [-1 if d == dim else 1 for d in range(A.dim() + 1)])
-            recv_l = torch.where(c >= disp, recv_l, v.narrow(dim + 1, 0, hw))
-            recv_r = torch.where(c < D - disp, recv_r, v.narrow(dim + 1, n - hw, hw))
-    recv_l = recv_l.flatten(dim, dim + 1)
-    recv_r = recv_r.flatten(dim, dim + 1)
-    if use_kernel:
-        from .cuda_halo import halo_write
+    slabs, write = (exchange_slabs, halo_write) if use_kernel \
+        else (exchange_slabs_plain, halo_write_plain)
+    recv_l, recv_r = slabs(A, dim, hw, _moves(n, ol_d, hw, disp), block=loc,
+                           periodic=periodic)
+    return write(A, recv_l, recv_r, dim=dim, hw=hw, block=n)
 
-        return halo_write(A, recv_l, recv_r, dim=dim, hw=hw, block=n)
-    from .cuda_halo import halo_write_plain
 
-    return halo_write_plain(A, recv_l, recv_r, dim=dim, hw=hw, block=n)
+def exchange_recv_slabs_multi(gg, shapes, hws, modes, slab_fns):
+    """Corner-patched RECEIVED slabs for every (field, dim): the slab
+    pipeline of the fused kernel tiers (the JAX package's function of the
+    same name, on the virtual mesh).
+
+    Per dim, in the reference's write order (z, x, y): each field's
+    ``slab_fns[f](dim, hw, moves, periodic, earlier)`` returns its received
+    ``(recv_l, recv_r)`` for every block: the neighbour block's send slab
+    ``[s-ol, s-ol+hw)`` or ``[ol-hw, ol)`` (a plain slice for a standalone
+    exchange, a freshly computed slab when a model fuses its update with the
+    exchange), patched with the values that block received along the
+    ``earlier`` dims (the corners), moved as the two `Move`s say (a local
+    swap for a self-neighbour dim); on a PROC_NULL edge the block keeps its
+    own patched current halo. K4s (`cuda_stencil.exchange_slabs`) does all
+    of that in one launch.
+
+    ``shapes``/``modes``/``slab_fns`` are dicts keyed by field name; ``hws``
+    is the shared per-dim halowidth tuple. Returns ``{field: {dim: (recv_l,
+    recv_r)}}`` in K2's slab layout (the stacked shape with dim at D*hw)."""
+    names = list(slab_fns)
+    earlier = {f: [] for f in names}  # [(dim, hw, (recv_l, recv_r))]
+    recvs = {f: {} for f in names}
+    for dim in DEFAULT_DIMS_ORDER:
+        _, periodic, disp = _dim_meta(gg, dim)
+        for f in names:
+            if not modes[f][dim]:
+                continue
+            hw = int(hws[dim])
+            s = int(shapes[f][dim])
+            ol_d = _ol(gg, shapes[f], dim)
+            _check_slab_fit(s, dim, ol_d, hw)
+            recvs[f][dim] = tuple(slab_fns[f](dim, hw, _moves(s, ol_d, hw, disp),
+                                              periodic, tuple(earlier[f])))
+            earlier[f].append((dim, hw, recvs[f][dim]))
+    return recvs
+
+
+def exchange_recv_slabs(gg, shape, hws, modes, slab_fn):
+    """Single-field form of `exchange_recv_slabs_multi`: ``{dim: (recv_l,
+    recv_r)}``."""
+    return exchange_recv_slabs_multi(gg, {"A": shape}, hws, {"A": modes},
+                                     {"A": slab_fn})["A"]
+
+
+def _combined_plan(gg, shape, hws, dims_order):
+    """Participation modes of the combined one-pass exchange (K6) for a
+    field of LOCAL ``shape``, or None: the kernel tier is on and
+    `combined_write_supported` holds (the JAX gate)."""
+    from .cuda_halo import combined_write_supported
+
+    if not _kernel_tier_enabled(gg, shape, dims_order):
+        return None
+    modes = tuple(_dim_exchanges(gg, shape, hws, dim) for dim in range(3))
+    if not combined_write_supported(shape, modes, hws):
+        return None
+    return modes
+
+
+def _route_plan(gg, shape, hws, dims_order):
+    """The tier of `halo_route` with its plan: ("self", (modes, ols)),
+    ("combined", modes) or ("per_dim", None)."""
+    plan = _self_exchange_plan(gg, shape, hws, dims_order)
+    if plan is not None:
+        return "self", plan
+    modes = _combined_plan(gg, shape, hws, dims_order)
+    if modes is not None:
+        return "combined", modes
+    return "per_dim", None
+
+
+def halo_route(gg, shape, hws, dims_order=DEFAULT_DIMS_ORDER) -> str:
+    """The kernel tier `update_halo` takes for one field of LOCAL ``shape``:
+    ``"self"`` (K3), ``"combined"`` (K4s + K6) or ``"per_dim"`` (K4s + K2
+    for each dim, or their plain versions with the tier off), in the JAX
+    package's order."""
+    return _route_plan(gg, shape, hws, dims_order)[0]
+
+
+def _combined_exchange(gg, A, hws, modes, loc):
+    """All dims of stacked ``A`` in two steps: the slab pipeline on plain
+    slices (K4s, one launch per dim), then K6 writes every received slab
+    into the halos, in place."""
+    from .cuda_halo import halo_write_combined
+    from .cuda_stencil import exchange_slabs
+
+    def slab_fn(dim, hw, moves, periodic, earlier):
+        return exchange_slabs(A, dim, hw, moves, block=loc, periodic=periodic,
+                              earlier=earlier)
+
+    recvs = exchange_recv_slabs(gg, loc, hws, modes, slab_fn)
+    return halo_write_combined(A, recvs, modes=modes, hws=hws, block=loc)
 
 
 def _exchange_arrays(gg, arrays, hws, dims_order):
-    """Exchange every field's halos (stacked tensors). Returns the list of
-    updated tensors: the K3 path out of place, the per-dim path in place
-    (on a dense copy where a field is not contiguous, as the kernels take
-    only dense blocks)."""
-    from .cuda_halo import halo_self_exchange, halo_write_supported
+    """Exchange every field's halos (stacked tensors), each by the tier
+    `halo_route` names. Returns the list of updated tensors: K3 out of
+    place, the others in place (on a dense copy where a field is not
+    contiguous, as the kernels take only dense blocks)."""
+    from .cuda_halo import halo_self_exchange
 
     arrays = [A.contiguous() for A in arrays]
     handled = [False] * len(arrays)
     for i, A in enumerate(arrays):
         loc = tuple(int(s) // int(gg.dims[d]) for d, s in enumerate(A.shape))
-        plan = _self_exchange_plan(gg, loc, hws[i], dims_order)
-        if plan is not None:
+        hw = tuple(int(h) for h in hws[i])
+        route, plan = _route_plan(gg, loc, hw, dims_order)
+        if route == "self":
             arrays[i] = halo_self_exchange(A, modes=plan[0], ols=plan[1], block=loc)
-            handled[i] = True
+        elif route == "combined":
+            arrays[i] = _combined_exchange(gg, A, hw, plan, loc)
+        handled[i] = route != "per_dim"
     for dim in dims_order:
         D, periodic, _ = _dim_meta(gg, dim)
         if D == 1 and not periodic:
@@ -205,8 +294,7 @@ def _exchange_arrays(gg, arrays, hws, dims_order):
             ol_d = _ol(gg, loc, dim)
             if ol_d < 2 * hw:
                 continue
-            use_kernel = bool(gg.use_pallas[dim]) and halo_write_supported(loc, dim, hw)
-            arrays[i] = _exchange_dim(gg, A, dim, hw, ol_d, use_kernel)
+            arrays[i] = _exchange_dim(gg, A, dim, hw, ol_d, bool(gg.use_pallas[dim]))
     return arrays
 
 

@@ -179,3 +179,188 @@ def test_fusable_halo_dims_matches_jax():
             ps.fusable_halo_dims(igg.global_grid())
         igg.finalize_global_grid()
         tg.finalize_global_grid()
+
+
+# ---------------------------------------------------------------------------
+# K4, K5, K6 and K4s (the multi-block slice).
+# ---------------------------------------------------------------------------
+
+def _both_grids(n, **kw):
+    import implicitglobalgrid_tpu as igg
+    import implicitglobalgrid_tpu_torch as tg
+
+    kw = dict(kw, quiet=True)
+    igg.init_global_grid(*n, **kw)
+    tg.init_global_grid(*n, device_type="cpu", **kw)
+    return igg.global_grid(), tg.global_grid()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("modes", MODES, ids=lambda m: "".join("TF"[not x] for x in m))
+def test_step_exchange_matches_pallas(modes, dtype):
+    """One block of a periodic single-rank grid: the exchange pipeline is
+    local swaps there, so the JAX entry point runs outside `shard_map`."""
+    jg, pg = _both_grids((8, 6, 16), dimx=1, dimy=1, dimz=1, periodx=1, periody=1,
+                         periodz=1)
+    T, Cp = _state((8, 6, 16), dtype, 5)
+    ref = np.asarray(ps.diffusion3d_step_exchange_pallas(
+        T, Cp, jg, modes, interpret=True, **CONSTS))
+    got = cs.diffusion3d_step_exchange(torch.from_numpy(T), torch.from_numpy(Cp), pg,
+                                       modes, **CONSTS)
+    assert np.allclose(to_np(got), ref, **TOL[dtype])
+
+
+@pytest.mark.parametrize("modes", [(True, False, False), (False, True, False),
+                                   (True, True, False)], ids=["TF", "FT", "TT"])
+def test_step_exchange_2d_matches_pallas(modes):
+    import jax
+
+    jg, pg = _both_grids((16, 16, 1), dimx=1, dimy=1, dimz=1, periodx=1, periody=1)
+    T, Cp = _state((16, 16), np.float32, 6)
+    assert ps.strip_rows_2d(jax.ShapeDtypeStruct(T.shape, T.dtype), interpret=True)
+    c = {k: v for k, v in CONSTS.items() if k != "dz"}
+    ref = np.asarray(ps.diffusion2d_step_exchange_pallas(
+        T, Cp, jg, modes, interpret=True, **c))
+    got = cs.diffusion2d_step_exchange(torch.from_numpy(T), torch.from_numpy(Cp), pg,
+                                       modes, **c)
+    assert np.allclose(to_np(got), ref, **TOL[np.float32])
+
+
+def test_step_2d_alone_matches_plain_route():
+    """K5 with no received slabs is the 2-D step: every block's interior
+    updated, boundaries kept (the XLA route's function)."""
+    T, Cp = _state((12, 10), np.float64, 7)
+    c = {k: v for k, v in CONSTS.items() if k != "dz"}
+    got = to_np(cs.diffusion2d_step_recv(torch.from_numpy(T), torch.from_numpy(Cp), {},
+                                         block=(6, 5), **c))
+    for c0, c1 in itertools.product(range(2), repeat=2):
+        sl = (slice(6 * c0, 6 * c0 + 6), slice(5 * c1, 5 * c1 + 5))
+        ref = T[sl].copy()
+        t, cp = T[sl], Cp[sl]
+        qx = -c["lam"] * (t[1:] - t[:-1]) / c["dx"]
+        qy = -c["lam"] * (t[:, 1:] - t[:, :-1]) / c["dy"]
+        dT = (-(qx[1:, 1:-1] - qx[:-1, 1:-1]) / c["dx"]
+              - (qy[1:-1, 1:] - qy[1:-1, :-1]) / c["dy"]) / cp[1:-1, 1:-1]
+        ref[1:-1, 1:-1] += c["dt"] * dT
+        assert np.allclose(got[sl], ref, **TOL[np.float64])
+
+
+COMBINED = [m for m in MODES if m[2]]
+
+
+@pytest.mark.parametrize("modes", COMBINED, ids=lambda m: "".join("TF"[not x] for x in m))
+@pytest.mark.parametrize("hwx", [1, 2])
+def test_halo_write_combined_matches_pallas_bitwise(modes, hwx):
+    rng = np.random.default_rng(13)
+    a = rng.standard_normal((8, 6, 10))
+    hws = (hwx, 1, 1)
+    recvs = {}
+    for d in range(3):
+        if modes[d]:
+            ss = list(a.shape)
+            ss[d] = hws[d]
+            recvs[d] = (rng.standard_normal(ss), rng.standard_normal(ss))
+    ref = np.asarray(ph.halo_write_combined_pallas(a, recvs, modes=modes, hws=hws,
+                                                   interpret=True))
+    ta = torch.from_numpy(a.copy())
+    got = ch.halo_write_combined(
+        ta, {d: tuple(torch.from_numpy(s) for s in p) for d, p in recvs.items()},
+        modes=modes, hws=hws)
+    assert got is ta and np.array_equal(to_np(got), ref)
+
+
+def test_combined_write_supported_matches_jax():
+    for shape, modes, hws in [((8, 6, 10), (True, True, True), (1, 1, 1)),
+                              ((8, 6, 10), (True, True, False), (1, 1, 1)),
+                              ((8, 6, 10), (True, True, True), (2, 1, 1)),
+                              ((3, 6, 10), (True, False, True), (2, 1, 1)),
+                              ((8, 6, 10), (False, True, True), (1, 2, 1)),
+                              ((8, 6, 10), (False, False, True), (1, 1, 2)),
+                              ((8, 10), (True, True, False), (1, 1, 1))]:
+        assert ch.combined_write_supported(shape, modes, hws) == \
+            ph.combined_write_supported(shape, modes, hws)
+
+
+def test_exchange_slabs_copy_moves_and_patches():
+    """K4s in copy mode against a numpy oracle: a periodic shift, a
+    PROC_NULL edge keeping its own current halo, and a corner patched from
+    an earlier dim's received slabs."""
+    rng = np.random.default_rng(21)
+    A = rng.standard_normal((8, 6, 10))
+    block = (4, 3, 5)
+    zl, zr = rng.standard_normal((8, 6, 2)), rng.standard_normal((8, 6, 2))
+    earlier = ((2, 1, (torch.from_numpy(zl), torch.from_numpy(zr))),)
+    moves = (cs.Move(2, 0, -1), cs.Move(1, 3, 1))
+    for periodic in (True, False):
+        got = cs.exchange_slabs(torch.from_numpy(A), 0, 1, moves, block=block,
+                                periodic=periodic, earlier=earlier)
+        P = A.copy()  # the state after the z halos were written
+        for c in range(2):
+            P[:, :, 5 * c] = zl[:, :, c]
+            P[:, :, 5 * c + 4] = zr[:, :, c]
+        for k, (m, g) in enumerate(zip(moves, got)):
+            assert tuple(g.shape) == (2, 6, 10)
+            for t in range(2):
+                s = t + m.shift
+                if periodic or 0 <= s < 2:
+                    want = P[4 * (s % 2) + m.start]
+                else:
+                    want = P[4 * t + m.own]
+                assert np.array_equal(to_np(g)[t], want), (periodic, k, t)
+
+
+def test_new_wrappers_refuse_bad_arguments():
+    T, Cp = (torch.from_numpy(x) for x in _state((8, 6, 10), np.float32, 8))
+    slab = torch.zeros((8, 6, 2))
+    E = InvalidArgumentError
+    # K4: slab shape, dtype, aliasing; out aliasing T
+    with pytest.raises(E):
+        cs.diffusion3d_step_recv(T, Cp, {2: (torch.zeros((8, 6, 3)), slab)}, block=(8, 6, 5),
+                                 **CONSTS)
+    with pytest.raises(E):
+        cs.diffusion3d_step_recv(T, Cp, {2: (slab.double(), slab.double())}, block=(8, 6, 5),
+                                 **CONSTS)
+    with pytest.raises(E):
+        cs.diffusion3d_step_recv(T, Cp, {2: (T[:, :, :2].contiguous(), T[:, :, :2])},
+                                 block=(8, 6, 5), **CONSTS)
+    with pytest.raises(E):
+        cs.diffusion3d_step_recv(T, Cp, {2: (slab, slab)}, block=(8, 6, 5), out=T, **CONSTS)
+    # K5: 2-D only, slab shapes
+    c2 = {k: v for k, v in CONSTS.items() if k != "dz"}
+    with pytest.raises(E):
+        cs.diffusion2d_step_recv(T, Cp, {}, **c2)
+    T2, C2 = T[0].contiguous(), Cp[0].contiguous()
+    with pytest.raises(E):
+        cs.diffusion2d_step_recv(T2, C2, {1: (torch.zeros((6, 3)), torch.zeros((6, 3)))},
+                                 block=(6, 5), **c2)
+    with pytest.raises(E):
+        cs.diffusion2d_step_recv(T2, C2, {0: (T2[:1], T2[:1])}, **c2)
+    # K6: z must exchange, slab shapes, aliasing
+    with pytest.raises(E):
+        ch.halo_write_combined(T, {0: (slab, slab)}, modes=(True, False, False),
+                               hws=(1, 1, 1))
+    with pytest.raises(E):
+        ch.halo_write_combined(T, {2: (slab, slab)}, modes=(False, False, True),
+                               hws=(1, 1, 1))
+    with pytest.raises(E):
+        ch.halo_write_combined(T, {2: (T[:, :, :1], T[:, :, 1:2])},
+                               modes=(False, False, True), hws=(1, 1, 1))
+    with pytest.raises(E):
+        ch.halo_write_combined(T, {2: (slab.double(), slab.double())},
+                               modes=(False, False, True), hws=(1, 1, 1), block=(8, 6, 5))
+    # K4s: a move leaving the block, earlier slabs of the wrong shape, dim
+    # itself among the earlier dims, a step slab of a 1-D field, mixed dtypes
+    with pytest.raises(E):
+        cs.exchange_slabs(T, 0, 1, (cs.Move(8, 0, 1),), block=(8, 6, 10), periodic=True)
+    with pytest.raises(E):
+        cs.exchange_slabs(T, 0, 1, (cs.Move(6, 0, 1),), block=(8, 6, 10), periodic=True,
+                          earlier=((2, 1, (slab, slab)),))
+    with pytest.raises(E):
+        cs.exchange_slabs(T, 2, 1, (cs.Move(6, 0, 1),), block=(8, 6, 5), periodic=True,
+                          earlier=((2, 1, (slab, slab)),))
+    T1 = T2[0].contiguous()
+    with pytest.raises(E):
+        cs.exchange_slabs(T1, 0, 1, (cs.Move(2, 0, 1),), block=(10,), periodic=True,
+                          Cp=T1.clone(), consts=CONSTS)
+    with pytest.raises(E):
+        cs.update_slab(T, Cp.double(), 0, [1], 1, block=(8, 6, 10), **CONSTS)
