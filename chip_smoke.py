@@ -25,7 +25,16 @@ Phases, in order; any failure exits non-zero without the final line:
    against the plain path and against K1 + `update_halo` for one step;
 7. BASELINE config 2: a 2x2 mesh of 4096^2 blocks, periodic, float32, 100
    steps of the 2-D fused step (K4s/K5), against the plain path;
-8. numbers: the card's name and power limit, each kernel's time, bound,
+8. BASELINE config 4 (3-D acoustic wave) on one 192^3 block, float32, all
+   periodic: `init_acoustic3d` -> warm chunk -> tic -> `run_acoustic(nt=600,
+   nt_chunk=60)` -> toc -> `gather_interior`, the all-self route (K9 alone),
+   against the same run with ``IGG_USE_PALLAS=0`` (the plain route);
+9. config 4 on a 2x2x2 mesh of 192^3 blocks, 100 steps: the fused route
+   (K4s wave modes + K9) against the plain route; a coalesced
+   `update_halo(P, Vx, Vy, Vz)` (K8 + K7, one group a dim) bitwise against
+   the plain grid's; a few steps of ``impl="plain"`` (K8/K7 for the
+   velocities, K4s/K6 for P) against ``IGG_USE_PALLAS=0``;
+10. numbers: the card's name and power limit, each kernel's time, bound,
    plain and library times (one JSON line), cell-updates/s, and host
    against device time per step of the fused routes.
 
@@ -55,6 +64,8 @@ N_CFG3 = 256  # BASELINE config 3: 256^3 per block on a 2x2x2 mesh, float64
 N_CFG2 = 4096  # BASELINE config 2: 4096^2 per block on a 2x2 mesh, float32
 N_CHECK = 64  # block of the kernel-vs-plain checks on 2x2x2 grids (2-D: N_CHECK2D)
 N_CHECK2D = 256
+N_CFG4 = 192  # BASELINE config 4: 192^3 per block, float32 (one block; a 2x2x2 mesh)
+WAVE_FLOPS_PER_CELL = 19  # a pressure cell and its three faces: 10 + 3 x 3
 # every kernel of the port, by its launch counter, with the name torch.profiler shows
 KERNEL_NAMES = {"diffusion3d_step_halo": "diffusion3d_step_halo_kernel",
                 "halo_write": "halo_write_kernel",
@@ -62,7 +73,10 @@ KERNEL_NAMES = {"diffusion3d_step_halo": "diffusion3d_step_halo_kernel",
                 "diffusion3d_step_exchange": "diffusion3d_step_exchange_kernel",
                 "diffusion2d_step_exchange": "diffusion2d_step_exchange_kernel",
                 "halo_write_combined": "halo_write_combined_kernel",
-                "exchange_slabs": "exchange_slabs_kernel"}
+                "exchange_slabs": "exchange_slabs_kernel",
+                "wire_pack": "wire_pack_kernel",
+                "halo_write_multi": "halo_write_multi_kernel",
+                "acoustic_step_exchange": "acoustic_step_kernel"}
 
 
 class SmokeFailure(Exception):
@@ -177,7 +191,7 @@ def phase_kernels(igg_ops, counts_before):
     """Phase 2: every kernel against its plain version, and its timings."""
     import torch
 
-    cs, ch, cb = igg_ops
+    cs, ch, cb, cw, tg = igg_ops
     rows = {}
     # K1: the step at the main path's shapes and dtypes
     cases = [((256, 256, 256), torch.float32, (True, True, True)),
@@ -298,6 +312,11 @@ def phase_kernels(igg_ops, counts_before):
     rows["diffusion2d_step_exchange"] = check_k5(cs)
     rows["halo_write_combined"] = check_k6(ch)
     rows["exchange_slabs"] = check_k4s(cs)
+    k4s_wave_err, rows["exchange_slabs"]["wave_mode_ms"] = check_k4s_wave(cs, cw, tg)
+    rows["exchange_slabs"]["max_abs_err"] = max(rows["exchange_slabs"]["max_abs_err"],
+                                                k4s_wave_err)
+    rows["wire_pack"], rows["halo_write_multi"] = check_k7_k8(ch, tg)
+    rows["acoustic_step_exchange"] = check_k9(cw, tg)
     counts = cb.launch_counts()
     for name in rows:
         check(counts[name] > counts_before[name], f"{name} launch counter moved")
@@ -791,6 +810,446 @@ def phase_config2(tg, models, cb):
                         max_abs_err_vs_plain=err, k5_route=times)
 
 
+def _acoustic_grid(tg, n, dims, periods, plain=False):
+    kw = {f"dim{a}": d for a, d in zip("xyz", dims)}
+    kw.update({f"period{a}": q for a, q in zip("xyz", periods)})
+    grid(tg, n, n, n, plain=plain, nranks=dims[0] * dims[1] * dims[2], **kw)
+    return tg.global_grid()
+
+
+def _rand_wave_state(cw, block, counts, dtype, g):
+    import torch
+
+    return tuple((torch.rand(tuple(c * s for c, s in zip(counts, shp)), generator=g,
+                             device="cuda") - 0.5).to(dtype)
+                 for shp in cw.wave_shapes(block).values())
+
+
+WAVE = dict(rho=1.0, K=1.0, dt=0.05, dx=0.052, dy=0.052, dz=0.052)
+
+
+def _wave_recvs(cw, gg, state, block, consts):
+    """The received slabs of the fused step's pipeline (K4s wave modes)."""
+    from implicitglobalgrid_tpu_torch.ops.halo import exchange_recv_slabs_multi
+
+    modes = cw.wave_exchange_modes(gg, [tuple(s // int(d) for s, d in zip(a.shape, gg.dims))
+                                        for a in state])
+
+    def slab_fn(field):
+        def get(dim, hw, moves, periodic, earlier):
+            return cw.wave_slabs(state, field, dim, hw, moves, block=block, periodic=periodic,
+                                 earlier=earlier, consts=consts)
+        return get
+
+    return modes, exchange_recv_slabs_multi(gg, cw.wave_shapes(block), (1, 1, 1), modes,
+                                            {f: slab_fn(f) for f in cw.FIELDS})
+
+
+def check_k4s_wave(cs, cw, tg):
+    """The K4s wave modes against their plain version: every field, dim and
+    range (send and current) with the identity move, and the exchange form
+    (moves, PROC_NULL edges, an earlier dim's corners) of every field,
+    float32 and float64, on 2x2x2 x 64^3 blocks; the time of one wave-mode
+    launch (P, the y dim, two slabs, two earlier dims) at 2x2x2 x 192^3
+    float32. Returns (max abs err, ms)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    n = N_CHECK
+    block = (n, n, n)
+    k = cw.wave_consts(**WAVE)
+    err = 0.0
+    for dt in (torch.float32, torch.float64):
+        st = _rand_wave_state(cw, block, (2, 2, 2), dt, g)
+        for f, m in cw.wave_shapes(block).items():
+            for dim in range(3):
+                starts = [m[dim] - 2 - (m[dim] - n), 1 + (m[dim] - n), 0, m[dim] - 1]
+                got = cw.wave_update_slab(st, f, dim, starts, 1, block=block, consts=k)
+                for s0, gs in zip(starts, got):
+                    ref = cw.wave_slabs_plain(st, f, dim, 1, (cs.Move(s0, s0, 0),),
+                                              block=block, periodic=True, consts=k)[0]
+                    torch.cuda.synchronize()
+                    e = max_err(gs, ref)
+                    err = max(err, e)
+                    check(close(gs, ref, **TOL[name_of(dt)]),
+                          f"K4s wave {f} dim {dim} start {s0} {name_of(dt)} matches plain ({e:.3e})")
+            zs = rand_slabs(st[cw.FIELDS.index(f)].shape, m, (2,), dt, g)[2]
+            moves = (cs.Move(m[0] - 2, 0, -1), cs.Move(1, m[0] - 1, 1))
+            for periodic in (True, False):
+                kw = dict(block=block, periodic=periodic, earlier=((2, 1, zs),), consts=k)
+                got = cw.wave_slabs(st, f, 0, 1, moves, **kw)
+                ref = cw.wave_slabs_plain(st, f, 0, 1, moves, **kw)
+                torch.cuda.synchronize()
+                e = max(max_err(a, b) for a, b in zip(got, ref))
+                err = max(err, e)
+                check(all(close(a, b, **TOL[name_of(dt)]) for a, b in zip(got, ref)),
+                      f"K4s wave {f} exchange periodic={periodic} {name_of(dt)} matches plain "
+                      f"({e:.3e})")
+    n = N_CFG4
+    block = (n, n, n)
+    st = _rand_wave_state(cw, block, (2, 2, 2), torch.float32, g)
+    earlier = tuple((d, 1, rand_slabs(st[0].shape, block, (d,), torch.float32, g)[d])
+                    for d in (2, 0))
+    moves = (cs.Move(n - 2, 0, -1), cs.Move(1, n - 1, 1))
+    ms = median_ms(lambda: cw.wave_slabs(st, "P", 1, 1, moves, block=block, periodic=True,
+                                         earlier=earlier, consts=k))
+    return err, ms
+
+
+def check_k7_k8(ch, tg):
+    """K8 and K7 against their plain versions, bitwise: slab and flat
+    layouts, 2 to 4 fields, float32, float64 and int32, dims 0, 1 and 2,
+    halowidths 1 and 2 and per field, staggered fields, periodic and
+    PROC_NULL, on 2x2x2 x 64^3 blocks (and 2-D fields on 2x2 x 64^2); then
+    their timing rows on the three
+    dims of one coalesced `update_halo(P, Vx, Vy, Vz)` of 2x2x2 x 192^3
+    float32 (that call also held bitwise against the plain versions)."""
+    import itertools
+
+    import torch
+
+    from implicitglobalgrid_tpu_torch.ops.fields import block_slices
+    from implicitglobalgrid_tpu_torch.ops.wire import schema_for_fields
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    n = N_CHECK
+    counts = (2, 2, 2)
+    err8 = err7 = 0.0
+    groups = [([(n, n, n)] * 2, [1, 1]),
+              ([(n, n, n), (n + 1, n, n), (n, n + 1, n), (n, n, n + 1)], [1] * 4),
+              ([(n, n, n)] * 3, [2, 2, 2]),
+              ([(n, n, n), (n + 1, n, n), (n, n, n)], [1, 2, 1])]
+    layouts = set()
+    for (locs, hws), dim, dt in itertools.product(groups, range(3),
+                                                  (torch.float32, torch.float64, torch.int32)):
+        fs = [(1000 * torch.rand(tuple(c * m for c, m in zip(counts, loc)), generator=g,
+                                 device="cuda")).to(dt) for loc in locs]
+        sch = schema_for_fields(dim, locs, hws, dt)
+        layouts.add(sch.layout)
+        kw = dict(starts_r=[loc[dim] - 3 * h for loc, h in zip(locs, hws)], starts_l=hws,
+                  blocks=locs)
+        bufs = ch.wire_pack(fs, sch, **kw)
+        ref = ch.wire_pack_plain(fs, sch, **kw)
+        torch.cuda.synchronize()
+        err8 = max(err8, max(max_err(a, b) for a, b in zip(bufs, ref)))
+        check(all(torch.equal(a, b) for a, b in zip(bufs, ref)),
+              f"K8 {len(locs)} fields dim {dim} hw {hws} {name_of(dt)} {sch.layout} bitwise")
+        for periodic in (True, False):
+            f1, f2 = [f.clone() for f in fs], [f.clone() for f in fs]
+            ch.halo_write_multi(f1, *bufs, sch, blocks=locs, periodic=periodic, disp=1)
+            ch.halo_write_multi_plain(f2, *bufs, sch, blocks=locs, periodic=periodic, disp=1)
+            torch.cuda.synchronize()
+            err7 = max(err7, max(max_err(a, b) for a, b in zip(f1, f2)))
+            check(all(torch.equal(a, b) for a, b in zip(f1, f2)),
+                  f"K7 {len(locs)} fields dim {dim} hw {hws} {name_of(dt)} "
+                  f"periodic={periodic} bitwise")
+    for dim, (locs, hws) in itertools.product(range(2), [([(n, n), (n, n)], [1, 2]),
+                                                         ([(n, n), (n + 1, n), (n, n + 1)],
+                                                          [1, 1, 1])]):
+        fs = [torch.randn((2 * loc[0], 2 * loc[1]), generator=g, device="cuda").double()
+              for loc in locs]
+        sch = schema_for_fields(dim, locs, hws, torch.float64)
+        layouts.add(sch.layout)
+        kw = dict(starts_r=[loc[dim] - 3 * h for loc, h in zip(locs, hws)], starts_l=hws,
+                  blocks=locs)
+        bufs, ref = ch.wire_pack(fs, sch, **kw), ch.wire_pack_plain(fs, sch, **kw)
+        f1, f2 = [f.clone() for f in fs], [f.clone() for f in fs]
+        ch.halo_write_multi(f1, *bufs, sch, blocks=locs, periodic=False, disp=1)
+        ch.halo_write_multi_plain(f2, *bufs, sch, blocks=locs, periodic=False, disp=1)
+        torch.cuda.synchronize()
+        err8 = max(err8, max(max_err(a, b) for a, b in zip(bufs, ref)))
+        err7 = max(err7, max(max_err(a, b) for a, b in zip(f1, f2)))
+        check(all(torch.equal(a, b) for a, b in zip(bufs, ref))
+              and all(torch.equal(a, b) for a, b in zip(f1, f2)),
+              f"K8 and K7, 2-D fields {locs} dim {dim} {sch.layout}: bitwise")
+    check(layouts == {"slab", "flat"}, "K7/K8 checked in slab and flat layouts")
+    # timing: the coalesced update_halo of the acoustic state, 2x2x2 x 192^3
+    n = N_CFG4
+    locs = [(n, n, n), (n + 1, n, n), (n, n + 1, n), (n, n, n + 1)]
+    fs = [torch.randn(tuple(2 * m for m in loc), generator=g, device="cuda") for loc in locs]
+    schemas, starts = [], []
+    for d in range(3):
+        schemas.append(schema_for_fields(d, locs, [1] * 4, torch.float32))
+        ols = [2 + loc[d] - n for loc in locs]
+        starts.append(([loc[d] - ol for loc, ol in zip(locs, ols)], [ol - 1 for ol in ols]))
+
+    def k8():
+        return [ch.wire_pack(fs, schemas[d], starts_r=starts[d][0], starts_l=starts[d][1],
+                             blocks=locs) for d in range(3)]
+
+    def k8_plain():
+        return [ch.wire_pack_plain(fs, schemas[d], starts_r=starts[d][0],
+                                   starts_l=starts[d][1], blocks=locs) for d in range(3)]
+
+    bufs = k8()
+    ref = k8_plain()
+    e8 = max(max_err(a, b) for x, y in zip(bufs, ref) for a, b in zip(x, y))
+    check(e8 == 0.0 and all(torch.equal(a, b) for x, y in zip(bufs, ref) for a, b in zip(x, y)),
+          f"K8 2x2x2x{n}^3 P, Vx, Vy, Vz bitwise ({e8:.3e})")
+    views = [list(block_slices(f.shape, loc)) for f, loc in zip(fs, locs)]
+
+    def k8_library():  # one torch.cat a dim and direction of the flattened slab views
+        for d in range(3):
+            for st in starts[d]:
+                torch.cat([fs[k][views[k][b]].narrow(d, st[k], 1).reshape(-1)
+                           for b in range(8) for k in range(4)])
+
+    def k7():
+        for d in range(3):
+            ch.halo_write_multi(fs, *bufs[d], schemas[d], blocks=locs, periodic=True, disp=1)
+
+    def k7_plain():
+        for d in range(3):
+            ch.halo_write_multi_plain(fs, *bufs[d], schemas[d], blocks=locs, periodic=True,
+                                      disp=1)
+
+    f2 = [f.clone() for f in fs]
+    k7()
+    for d in range(3):
+        ch.halo_write_multi_plain(f2, *bufs[d], schemas[d], blocks=locs, periodic=True, disp=1)
+    torch.cuda.synchronize()
+    e7 = max(max_err(a, b) for a, b in zip(fs, f2))
+    check(all(torch.equal(a, b) for a, b in zip(fs, f2)),
+          f"K7 2x2x2x{n}^3 P, Vx, Vy, Vz bitwise ({e7:.3e})")
+    coords = list(itertools.product(range(2), repeat=3))
+    srcs = []  # (destination halo view, source slab view) for every copy
+    for d in range(3):
+        shape = schemas[d].buffer_shape
+        for b, c in enumerate(coords):
+            for side, buf, shift in ((0, bufs[d][0], -1), (1, bufs[d][1], 1)):
+                src = list(c)
+                src[d] = (c[d] + shift) % 2
+                slabs = schemas[d].unpack(buf[coords.index(tuple(src))].view(shape))
+                for k in range(4):
+                    m = locs[k][d]
+                    srcs.append((fs[k][views[k][b]].narrow(d, 0 if side == 0 else m - 1, 1),
+                                 slabs[k]))
+
+    def k7_library():  # one slice copy_ a field, block and side
+        for dst, src in srcs:
+            dst.copy_(src)
+
+    slab_b = sum(2 * sum(s.cells) * 8 * 4 for s in schemas)  # both directions, 8 blocks
+    shape = "the 3 dims of one coalesced update_halo(P, Vx, Vy, Vz), 2x2x2 x 192^3 float32"
+    k8_row = dict(max_abs_err=max(err8, e8), ms=median_ms(k8), plain_ms=median_ms(
+        k8_plain, batches=3, per_batch=2, warm=1),
+        device_ms=device_ms(k8, KERNEL_NAMES["wire_pack"]),
+        bound_ms=2 * slab_b / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=median_ms(k8_library, batches=3, per_batch=3, warm=1), shape=shape)
+    k7_row = dict(max_abs_err=max(err7, e7), ms=median_ms(k7), plain_ms=median_ms(
+        k7_plain, batches=3, per_batch=2, warm=1),
+        device_ms=device_ms(k7, KERNEL_NAMES["halo_write_multi"]),
+        bound_ms=2 * slab_b / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=median_ms(k7_library, batches=3, per_batch=3, warm=1), shape=shape)
+    return k8_row, k7_row
+
+
+WAVE_GRIDS = {"all self-neighbour": ((1, 1, 1), (1, 1, 1)),
+              "all multi-rank periodic": ((2, 2, 2), (1, 1, 1)),
+              "all multi-rank PROC_NULL edges": ((2, 2, 2), (0, 0, 0)),
+              "self x + PROC_NULL y + 4-rank z": ((1, 2, 4), (1, 0, 1)),
+              "no exchange at all": ((1, 1, 1), (0, 0, 0))}
+
+
+def check_k9(cw, tg):
+    """K9 against its plain version on the five grid kinds of the acoustic
+    parity tests at 64^3 blocks, float32 and float64 (the all-self route, or
+    the multi-rank route with the pipeline's received slabs); its timing row
+    at 2x2x2 x 192^3 float32, all periodic."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(51)
+    n = N_CHECK
+    block = (n, n, n)
+    k = cw.wave_consts(**WAVE)
+    err = 0.0
+    for label, (dims, periods) in WAVE_GRIDS.items():
+        gg = _acoustic_grid(tg, n, dims, periods)
+        for dt in (torch.float32, torch.float64):
+            st = _rand_wave_state(cw, block, dims, dt, g)
+            modes, recvs = _wave_recvs(cw, gg, st, block, k)
+            if cw.all_self_exchange(gg, modes):
+                ols = cw.self_ols(gg, block)
+                got = cw.acoustic_step_self(st, modes, ols, block=block, consts=k)
+                ref = cw.acoustic_step_self_plain(st, modes, ols, block=block, consts=k)
+                route = "all-self"
+            else:
+                got = cw.acoustic_step_recv(st, recvs, block=block, consts=k)
+                ref = cw.acoustic_step_recv_plain(st, recvs, block=block, consts=k)
+                route = "multi-rank"
+            torch.cuda.synchronize()
+            e = max(max_err(a, b) for a, b in zip(got, ref))
+            err = max(err, e)
+            check(all(close(a, b, **TOL[name_of(dt)]) for a, b in zip(got, ref)),
+                  f"K9 {label} ({route}) {name_of(dt)} matches plain (max abs err {e:.3e})")
+    n = N_CFG4
+    block = (n, n, n)
+    gg = _acoustic_grid(tg, n, (2, 2, 2), (1, 1, 1))
+    st = _rand_wave_state(cw, block, (2, 2, 2), torch.float32, g)
+    _, recvs = _wave_recvs(cw, gg, st, block, k)
+    out = tuple(torch.empty_like(a) for a in st)
+
+    def k9():
+        return cw.acoustic_step_recv(st, recvs, block=block, consts=k, out=out)
+
+    ref = cw.acoustic_step_recv_plain(st, recvs, block=block, consts=k)
+    e = max(max_err(a, b) for a, b in zip(k9(), ref))
+    check(all(close(a, b, **TOL["float32"]) for a, b in zip(out, ref)),
+          f"K9 2x2x2x{n}^3 float32 matches plain ({e:.3e})")
+    del ref
+    slab_b = sum(s.numel() * 4 for per in recvs.values() for p in per.values() for s in p)
+    bound_b = (cw.wave_bytes(st) + slab_b) / HBM_BYTES_PER_S * 1e3
+    bound_o = st[0].numel() * WAVE_FLOPS_PER_CELL / F32_FLOPS_PER_S * 1e3
+    return dict(
+        max_abs_err=max(err, e), ms=median_ms(k9),
+        plain_ms=median_ms(lambda: cw.acoustic_step_recv_plain(st, recvs, block=block,
+                                                               consts=k),
+                           batches=3, per_batch=2, warm=1),
+        device_ms=device_ms(k9, KERNEL_NAMES["acoustic_step_exchange"]),
+        bound_ms=max(bound_b, bound_o), bound_by="bytes" if bound_b >= bound_o else "operations",
+        library_ms=None,
+        shape=f"2x2x2 x {n}^3 float32, all periodic (every field, every dim received)")
+
+
+def _gather_all(tg, state):
+    return [tg.gather_interior(a) for a in state]
+
+
+def _run_matches(G, Gp, tol):
+    import numpy as np
+
+    err = max(float(np.abs(a.astype(np.float64) - b).max()) for a, b in zip(G, Gp))
+    return all(np.allclose(a, b, **tol) for a, b in zip(G, Gp)), err
+
+
+def phase_config4_single(tg, models, cb, cw):
+    """Phase 8: BASELINE config 4 on one 192^3 block, all periodic, float32,
+    the example's flow, against the plain route."""
+    import numpy as np
+    import torch
+
+    n, nt, chunk = N_CFG4, 600, 60
+    print(f"phase: BASELINE config 4, one {n}^3 block float32, nt={nt}", flush=True)
+    kw = dict(periodx=1, periody=1, periodz=1)
+    grid(tg, n, n, n, **kw)
+    s0, p = models.init_acoustic3d(dtype=torch.float32)
+    models.run_acoustic(s0, p, chunk, nt_chunk=chunk)   # warm chunk
+    cb.reset_launch_counts()
+    tg.tic()
+    s = models.run_acoustic(s0, p, nt, nt_chunk=chunk)
+    t = tg.toc()
+    G = _gather_all(tg, s)
+    torch.cuda.synchronize()
+    counts = cb.launch_counts()
+    cells = tg.nx_g() * tg.ny_g() * tg.nz_g()
+    rate = cells * nt / t
+    print(f"  config 4 single: nt={nt} in {t:.6f} s = {rate:.6e} cell-updates/s "
+          f"(global {tg.nx_g()}x{tg.ny_g()}x{tg.nz_g()}); launches {counts}", flush=True)
+    check(counts["acoustic_step_exchange"] == nt and counts["exchange_slabs"] == 0
+          and sum(counts.values()) == nt, "config 4 single: K9 once per step, all-self route")
+    check(G[0].shape == (tg.nx_g(), tg.ny_g(), tg.nz_g())
+          and all(bool(np.isfinite(g).all()) for g in G),
+          f"config 4 single: gathered fields finite, P {G[0].shape}")
+    gg = tg.global_grid()
+    block = (n, n, n)
+    modes = cw.wave_exchange_modes(gg, [tuple(a.shape) for a in s0])
+    ols = cw.self_ols(gg, block)
+    k = cw.wave_consts(rho=p.rho, K=p.K, dt=p.dt, dx=p.dx, dy=p.dy, dz=p.dz)
+    a = cw.acoustic_step_self(s0, modes, ols, block=block, consts=k)
+    b = cw.acoustic_step_self_plain(s0, modes, ols, block=block, consts=k)
+    err_k9 = max(max_err(x, y) for x, y in zip(a, b))
+    check(all(close(x, y, **TOL["float32"]) for x, y in zip(a, b)),
+          f"config 4 single: one step by K9 matches its plain version ({err_k9:.3e})")
+    del a, b
+    out = tuple(torch.empty_like(x) for x in s0)
+    times = route_times(lambda: models.acoustic_step_local(s0, p, "cuda", out=out))
+    print(f"  K9 route per step: {times}", flush=True)
+    grid(tg, n, n, n, plain=True, **kw)
+    t1 = time.perf_counter()
+    Gp = _gather_all(tg, models.run_acoustic(s0, p, nt, nt_chunk=chunk))
+    plain_s = time.perf_counter() - t1
+    ok, err = _run_matches(G, Gp, dict(rtol=1e-5, atol=1e-5))
+    check(ok, f"config 4 single: matches the plain route on the card (max abs err {err:.3e})")
+    check(not np.allclose(G[0], tg.gather_interior(s0[0])), "config 4 single: the state evolved")
+    tg.finalize_global_grid()
+    os.environ.pop("IGG_USE_PALLAS", None)
+    return counts, dict(seconds=t, cell_updates_per_s=rate, global_cells=cells,
+                        plain_seconds=plain_s, max_abs_err_vs_plain=err,
+                        k9_vs_plain_one_step=err_k9, k9_route=times)
+
+
+def phase_config4_mesh(tg, models, cb, cw):
+    """Phase 9: BASELINE config 4 on a 2x2x2 mesh of 192^3 blocks, all
+    periodic, float32: the fused route, a coalesced update_halo, the plain
+    route, against the plain grid."""
+    import numpy as np
+    import torch
+
+    n, nt = N_CFG4, 100
+    print(f"phase: BASELINE config 4, 2x2x2 x {n}^3 float32, nt={nt}", flush=True)
+    kw = dict(dimx=2, dimy=2, dimz=2, periodx=1, periody=1, periodz=1)
+    grid(tg, n, n, n, **kw)
+    s0, p = models.init_acoustic3d(dtype=torch.float32)
+    models.run_acoustic(s0, p, 2, nt_chunk=2)  # warm chunk
+    cb.reset_launch_counts()
+    tg.tic()
+    s = models.run_acoustic(s0, p, nt, nt_chunk=nt)
+    t = tg.toc()
+    counts = cb.launch_counts()
+    G = _gather_all(tg, s)
+    cells = tg.nx_g() * tg.ny_g() * tg.nz_g()
+    rate = cells * nt / t
+    print(f"  config 4 mesh: nt={nt} in {t:.6f} s = {rate:.6e} cell-updates/s "
+          f"(global {tg.nx_g()}x{tg.ny_g()}x{tg.nz_g()}); launches {counts}", flush=True)
+    check(counts["acoustic_step_exchange"] == nt, "config 4 mesh: K9 launched once per step")
+    check(counts["exchange_slabs"] == 12 * nt,
+          "config 4 mesh: K4s once per (field, dim) a step (4 fields x 3 dims)")
+    check(all(bool(np.isfinite(g).all()) for g in G), "config 4 mesh: gathered fields finite")
+    # a standalone coalesced update_halo: one group (P, Vx, Vy, Vz) a dim
+    c0 = cb.launch_counts()
+    U = tg.update_halo(*[a.clone() for a in s])
+    torch.cuda.synchronize()
+    c1 = cb.launch_counts()
+    du = {k: c1[k] - c0[k] for k in c1}
+    print(f"  update_halo(P, Vx, Vy, Vz) launches {du}", flush=True)
+    check(du["wire_pack"] == 3 and du["halo_write_multi"] == 3 and sum(du.values()) == 6,
+          "config 4 mesh: update_halo(P, Vx, Vy, Vz) went through K8 and K7, once per dim")
+    # a few steps of the plain route: K8/K7 for the velocities, K4s + K6 for P
+    sp = models.run_acoustic(s0, p, 3, nt_chunk=3, impl="plain")
+    torch.cuda.synchronize()
+    c2 = cb.launch_counts()
+    dp = {k: c2[k] - c1[k] for k in c2}
+    print(f"  3 plain-route steps launches {dp}", flush=True)
+    check(dp["wire_pack"] == 9 and dp["halo_write_multi"] == 9
+          and dp["halo_write_combined"] == 3 and dp["exchange_slabs"] == 9,
+          "config 4 mesh: the plain route's exchanges took K8/K7 (velocities), K4s/K6 (P)")
+    counts = c2
+    out = tuple(torch.empty_like(a) for a in s0)
+    times = route_times(lambda: models.acoustic_step_local(s0, p, "cuda", out=out), reps=5)
+    print(f"  K4s + K9 route per step: {times}", flush=True)
+    grid(tg, n, n, n, plain=True, **kw)
+    Up = tg.update_halo(*[a.clone() for a in s])
+    err_uh = max(max_err(a, b) for a, b in zip(U, Up))
+    check(all(torch.equal(a, b) for a, b in zip(U, Up)),
+          f"config 4 mesh: update_halo(P, Vx, Vy, Vz) bitwise equal to the plain grid's, "
+          f"halos included ({err_uh:.3e})")
+    del U, Up
+    spp = models.run_acoustic(s0, p, 3, nt_chunk=3)
+    ok, err_p = _run_matches(_gather_all(tg, sp), _gather_all(tg, spp),
+                             dict(rtol=1e-5, atol=1e-5))
+    check(ok, f"config 4 mesh: 3 plain-route steps match IGG_USE_PALLAS=0 ({err_p:.3e})")
+    del sp, spp
+    Gp = _gather_all(tg, models.run_acoustic(s0, p, nt, nt_chunk=nt))
+    ok, err = _run_matches(G, Gp, dict(rtol=1e-5, atol=1e-5))
+    check(ok, f"config 4 mesh: matches the plain route on the card (max abs err {err:.3e})")
+    check(not np.allclose(G[0], tg.gather_interior(s0[0])), "config 4 mesh: the state evolved")
+    tg.finalize_global_grid()
+    os.environ.pop("IGG_USE_PALLAS", None)
+    return counts, dict(seconds=t, cell_updates_per_s=rate, global_cells=cells,
+                        max_abs_err_vs_plain=err, max_abs_err_plain_route=err_p,
+                        k9_route=times)
+
+
 def main() -> int:
     try:
         import torch
@@ -808,6 +1267,7 @@ def main() -> int:
         from implicitglobalgrid_tpu_torch.ops import cuda_build as cb
         from implicitglobalgrid_tpu_torch.ops import cuda_halo as ch
         from implicitglobalgrid_tpu_torch.ops import cuda_stencil as cs
+        from implicitglobalgrid_tpu_torch.ops import cuda_wave as cw
     except ImportError as e:
         print(f"chip_smoke: the package is not beside this script: {e}",
               file=sys.stderr)
@@ -825,18 +1285,21 @@ def main() -> int:
                     or line.startswith("=="):
                 print("  " + line.strip())
         print("phase: kernels vs plain", flush=True)
-        rows = phase_kernels((cs, ch, cb), cb.launch_counts())
+        rows = phase_kernels((cs, ch, cb, cw, tg), cb.launch_counts())
         periodic = phase_main(tg, models, cb, "periodic", 100,
                               periodx=1, periody=1, periodz=1)
         novis = phase_main(tg, models, cb, "non-periodic", 100)
         mesh_counts, mesh = phase_mesh(tg, models, cb, cs)
         cfg3_counts, cfg3 = phase_config3(tg, models, cb, cs)
         cfg2_counts, cfg2 = phase_config2(tg, models, cb)
+        cfg4_counts, cfg4 = phase_config4_single(tg, models, cb, cw)
+        cfg4m_counts, cfg4m = phase_config4_mesh(tg, models, cb, cw)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts]
+    paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts,
+             cfg4_counts, cfg4m_counts]
     launches = {k: sum(c[k] for c in paths) for k in KERNEL_NAMES}
     for name, n in launches.items():
         if n == 0:
@@ -858,7 +1321,13 @@ def main() -> int:
                                          "implicitglobalgrid_tpu/ops/pallas_stencil.py:999"),
            "halo_write_combined": (halo, "implicitglobalgrid_tpu/ops/pallas_halo.py:523"),
            "exchange_slabs": (stencil, "implicitglobalgrid_tpu/ops/pallas_stencil.py:239 "
-                                       "(XLA helper) + ops/halo.py:299")}
+                                       "(XLA helper) + ops/halo.py:299 + "
+                                       "ops/pallas_wave.py:109,127 (wave getters)"),
+           "wire_pack": (halo, "implicitglobalgrid_tpu/ops/pallas_halo.py:72"),
+           "halo_write_multi": (halo, "implicitglobalgrid_tpu/ops/pallas_halo.py:269,347"),
+           "acoustic_step_exchange": ("implicitglobalgrid_tpu_torch/csrc/wave.cu",
+                                      "implicitglobalgrid_tpu/ops/pallas_wave.py:386 "
+                                      "(_wave_kernel :227, _wave_mp_kernel :305)")}
     kernels = []
     for name, r in rows.items():
         kernels.append(dict(name=name, route="cuda", source=src[name][0],
@@ -867,13 +1336,15 @@ def main() -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"],
                             device_ms=r["device_ms"], shape=r["shape"],
-                            **{k: v for k, v in r.items() if k == "k1_same_shape_ms"}))
+                            **{k: v for k, v in r.items()
+                               if k in ("k1_same_shape_ms", "wave_mode_ms")}))
     k1_dev = rows["diffusion3d_step_halo"]["device_ms"]
     if k1_dev is not None:  # the periodic step is one K1 (T,T,T) launch
         periodic["k1_device_share"] = 100 * k1_dev / (periodic["seconds"] * 1e3 / 100)
     print(json.dumps({"main_path": {"periodic_256": periodic, "nonperiodic_256": novis,
                                     "mesh_2x2x2_128": mesh, "config3_2x2x2_256_f64": cfg3,
-                                    "config2_2x2_4096_f32": cfg2},
+                                    "config2_2x2_4096_f32": cfg2,
+                                    "config4_192_f32": cfg4, "config4_2x2x2_192_f32": cfg4m},
                       "seconds_total": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps({"kernels": kernels}))

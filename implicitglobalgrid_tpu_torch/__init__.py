@@ -15,7 +15,7 @@ Public API — the reference's 13 exported symbols::
     init_global_grid, finalize_global_grid, update_halo, gather,
     select_device, nx_g, ny_g, nz_g, x_g, y_g, z_g, tic, toc
 
-plus `local_update_halo`, `zeros_g`/`ones_g`/`full_g`/`device_put_g`,
+plus `local_update_halo`, `halo_comm_plan`, `zeros_g`/`ones_g`/`full_g`/`device_put_g`,
 `coords_g`/`x_g_vec`, `gather_interior`, `barrier`/`sync`, the stencil
 helpers (`d_xa` … `inn`) and the `Field` wrapper. Usage::
 
@@ -32,7 +32,7 @@ from .parallel.topology import (
     global_grid, get_global_grid, grid_is_initialized, check_initialized,
     neighbors_table, ol, dims_create,
 )
-from .ops.halo import update_halo, local_update_halo, DEFAULT_DIMS_ORDER
+from .ops.halo import update_halo, local_update_halo, halo_comm_plan, DEFAULT_DIMS_ORDER
 from .ops.gather import gather, gather_interior
 from .ops.alloc import zeros_g, ones_g, full_g, device_put_g
 from .ops.fields import Field, wrap_field, extract, local_shape_of, stacked_shape
@@ -42,13 +42,17 @@ from .tools import (
 )
 from .utils.timing import tic, toc, barrier, sync
 from .utils import exceptions
+from .models import (
+    AcousticParams, acoustic_state_from_numpy, acoustic_step_local, init_acoustic3d,
+    make_acoustic_run, run_acoustic,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "init_global_grid", "finalize_global_grid", "update_halo", "gather",
     "select_device", "nx_g", "ny_g", "nz_g", "x_g", "y_g", "z_g", "tic", "toc",
-    "local_update_halo", "gather_interior", "barrier", "sync",
+    "local_update_halo", "halo_comm_plan", "gather_interior", "barrier", "sync",
     "zeros_g", "ones_g", "full_g", "device_put_g",
     "Field", "wrap_field", "extract", "local_shape_of", "stacked_shape",
     "x_g_vec", "y_g_vec", "z_g_vec", "coords_g",
@@ -56,5 +60,6 @@ __all__ = [
     "AXIS_NAMES", "NDIMS", "PROC_NULL", "GlobalGrid", "global_grid",
     "get_global_grid", "grid_is_initialized", "check_initialized",
     "neighbors_table", "ol", "dims_create", "DEFAULT_DIMS_ORDER",
-    "exceptions",
+    "exceptions", "AcousticParams", "init_acoustic3d", "acoustic_step_local",
+    "make_acoustic_run", "run_acoustic", "acoustic_state_from_numpy",
 ]

@@ -44,6 +44,26 @@
 // Bound: read the slabs and write the halo cells once, 2 x halo cells x
 // itemsize: ~25 MB and ~7.5 us for a 2x2x2 stack of 256^3 float32 blocks,
 // against ~320 us for a full pass.
+//
+// K8 `igg_wire_pack` and K7 `igg_halo_write_multi` are the two ends of the
+// coalesced multi-field exchange (implicitglobalgrid_tpu/ops/halo.py:555,
+// `_exchange_dim_coalesced`). K8 replaces `wire_pack_pallas`
+// (pallas_halo.py:72): for every block, it writes that block's send slabs of
+// every field of a group into the block's wire buffer, both directions in one
+// launch; the buffer is, bit for bit, `WireSchema.pack` of those slabs (slab
+// or flat layout: both are a gather by per-slab base offset and strides). K7
+// replaces `halo_write_multi_pallas` (pallas_halo.py:269, `_multi_rmw_kernel`
+// :347): for every block and every field, it writes the left halo from the
+// right-send buffer of block t - disp and the right halo from the left-send
+// buffer of block t + disp, unpacked by the same offsets; a PROC_NULL edge
+// keeps its halo. The TPU limits (dims 0 and 1, a shared halowidth, 8-row
+// strips, a VMEM budget) are tiling and have no counterpart: any dim, any
+// per-field halowidth. Bound: read and write every slab cell once, 2 x cells
+// x itemsize (~9 MB and ~3 us per dim for P, Vx, Vy, Vz on a 2x2x2 stack of
+// 192^3 float32 blocks), so a launch is dominated by its fixed cost. Design:
+// one thread per slab cell, threads along the slab's contiguous axis (the
+// field's z), grid.y = (slab, direction or side); 32-bit index arithmetic,
+// 64-bit offsets.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -224,6 +244,163 @@ void halo_write_combined(void* a, const void* xl, const void* xr, const void* yl
       (unsigned)n1, (unsigned)n2, (unsigned)hwx);
 }
 
+// K7 and K8: one slab of a coalesced group. The field is stacked, D0 x D1 x
+// D2 blocks of (n0, n1, n2); the slab is (w0, w1, w2) = the block with the
+// exchange dim cut to hw, at local start start[0] (K8: the right send slab;
+// K7: the left halo) or start[1] (K8: the left send slab; K7: the right
+// halo). Element a of the slab sits at base + a . st in its block's buffer.
+constexpr int MAX_SLABS = 16;
+constexpr int SLAB_DESC = 11;  // long longs a slab in the host descriptor
+
+struct Slab {
+  void* a;
+  unsigned n0, n1, n2, w0, w1, w2, cells;
+  unsigned start[2];
+  unsigned st0, st1, st2;
+  long long base;
+};
+
+struct Slabs {
+  Slab s[MAX_SLABS];
+};
+
+// One cell of a slab over all blocks: cell q (32-bit) -> block b, its
+// coordinates (c0, c1, c2) and the slab index (x0, x1, x2). Scalars, not
+// arrays indexed by dim: such arrays live in a stack frame.
+struct Cell {
+  unsigned b, c0, c1, c2, x0, x1, x2;
+};
+
+__device__ __forceinline__ Cell slab_cell(const Slab& s, unsigned q, unsigned D1,
+                                          unsigned D2) {
+  Cell e;
+  e.b = q / s.cells;
+  const unsigned r = q - e.b * s.cells;
+  e.x2 = r % s.w2;
+  const unsigned t = r / s.w2;
+  e.x1 = t % s.w1;
+  e.x0 = t / s.w1;
+  e.c2 = e.b % D2;
+  const unsigned t2 = e.b / D2;
+  e.c1 = t2 % D1;
+  e.c0 = t2 / D1;
+  return e;
+}
+
+// Offset of the cell in its block's buffer.
+__device__ __forceinline__ long long buffer_offset(const Slab& s, const Cell& e) {
+  return s.base + (long long)e.x0 * s.st0 + (long long)e.x1 * s.st1 +
+         (long long)e.x2 * s.st2;
+}
+
+// Offset in the stacked field of the cell of block (c0, c1, c2) at local
+// (i0, i1, i2).
+__device__ __forceinline__ long long field_offset(const Slab& s, unsigned c0, unsigned c1,
+                                                  unsigned c2, unsigned i0, unsigned i1,
+                                                  unsigned i2, unsigned D1, unsigned D2) {
+  const long long S1 = (long long)D1 * s.n1, S2 = (long long)D2 * s.n2;
+  return ((long long)c0 * s.n0 + i0) * S1 * S2 + ((long long)c1 * s.n1 + i1) * S2 +
+         (long long)c2 * s.n2 + i2;
+}
+
+// The slab index shifted by `start` along dim, as a field-local index.
+__device__ __forceinline__ long long shifted_offset(const Slab& s, const Cell& e, int dim,
+                                                    unsigned start, unsigned D1,
+                                                    unsigned D2) {
+  return field_offset(s, e.c0, e.c1, e.c2, e.x0 + (dim == 0 ? start : 0u),
+                      e.x1 + (dim == 1 ? start : 0u), e.x2 + (dim == 2 ? start : 0u), D1,
+                      D2);
+}
+
+// grid.y = 2 * slab + direction: 0 packs the right send slabs into buf_r, 1
+// the left send slabs into buf_l.
+template <typename E>
+__global__ void __launch_bounds__(THREADS)
+wire_pack_kernel(Slabs d, E* __restrict__ buf_r, E* __restrict__ buf_l, unsigned D0,
+                 unsigned D1, unsigned D2, long long payload, int dim) {
+  const Slab s = d.s[blockIdx.y >> 1];
+  const int dir = blockIdx.y & 1;
+  E* __restrict__ buf = dir ? buf_l : buf_r;
+  const E* __restrict__ a = static_cast<const E*>(s.a);
+  const unsigned start = dir ? s.start[1] : s.start[0];
+  const unsigned total = D0 * D1 * D2 * s.cells;
+  for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < total;
+       q += gridDim.x * blockDim.x) {
+    const Cell e = slab_cell(s, q, D1, D2);
+    buf[e.b * payload + buffer_offset(s, e)] = a[shifted_offset(s, e, dim, start, D1, D2)];
+  }
+}
+
+// grid.y = 2 * slab + side: 0 writes the left halo from buf_r of block
+// t - disp, 1 the right halo from buf_l of block t + disp (along dim).
+template <typename E>
+__global__ void __launch_bounds__(THREADS)
+halo_write_multi_kernel(Slabs d, const E* __restrict__ buf_r, const E* __restrict__ buf_l,
+                        unsigned D0, unsigned D1, unsigned D2, long long payload, int dim,
+                        int periodic, int disp) {
+  const Slab s = d.s[blockIdx.y >> 1];
+  const int side = blockIdx.y & 1;
+  const E* __restrict__ buf = side ? buf_l : buf_r;
+  E* a = static_cast<E*>(s.a);
+  const unsigned start = side ? s.start[1] : s.start[0];
+  const unsigned total = D0 * D1 * D2 * s.cells;
+  const int Dd = (int)(dim == 0 ? D0 : (dim == 1 ? D1 : D2));
+  for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < total;
+       q += gridDim.x * blockDim.x) {
+    const Cell e = slab_cell(s, q, D1, D2);
+    const unsigned cd = dim == 0 ? e.c0 : (dim == 1 ? e.c1 : e.c2);
+    int sc = (int)cd + (side ? disp : -disp);
+    if (periodic) {
+      sc %= Dd;
+      if (sc < 0) sc += Dd;
+    } else if (sc < 0 || sc >= Dd) {
+      continue;  // PROC_NULL: the block keeps its halo
+    }
+    const long long bs = ((long long)(dim == 0 ? (unsigned)sc : e.c0) * D1 +
+                          (dim == 1 ? (unsigned)sc : e.c1)) * D2 +
+                         (dim == 2 ? (unsigned)sc : e.c2);
+    a[shifted_offset(s, e, dim, start, D1, D2)] = buf[bs * payload + buffer_offset(s, e)];
+  }
+}
+
+// The host descriptor (SLAB_DESC long longs a slab: pointer, n0, n1, n2, hw,
+// start0, start1, base, st0, st1, st2) -> kernel slabs; the largest slab's
+// cell count over all blocks, or -1 where a count leaves 32 bits.
+long long read_slabs(const long long* desc, int nslabs, int dim, long long nblocks,
+                     Slabs& d) {
+  long long most = 0;
+  for (int k = 0; k < nslabs; ++k) {
+    const long long* p = desc + k * SLAB_DESC;
+    Slab& s = d.s[k];
+    s.a = reinterpret_cast<void*>(p[0]);
+    s.n0 = (unsigned)p[1];
+    s.n1 = (unsigned)p[2];
+    s.n2 = (unsigned)p[3];
+    long long w[3] = {p[1], p[2], p[3]};
+    w[dim] = p[4];
+    s.w0 = (unsigned)w[0];
+    s.w1 = (unsigned)w[1];
+    s.w2 = (unsigned)w[2];
+    const long long cells = w[0] * w[1] * w[2];
+    s.cells = (unsigned)cells;
+    s.start[0] = (unsigned)p[5];
+    s.start[1] = (unsigned)p[6];
+    s.base = p[7];
+    s.st0 = (unsigned)p[8];
+    s.st1 = (unsigned)p[9];
+    s.st2 = (unsigned)p[10];
+    if (cells < 1 || cells * nblocks >= (1LL << 31)) return -1;
+    most = std::max(most, cells * nblocks);
+  }
+  return most;
+}
+
+unsigned grid_x(long long most) {
+  long long blocks = (most + THREADS - 1) / THREADS;
+  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
+  return (unsigned)blocks;
+}
+
 }  // namespace
 
 // a: stacked (S0, S1, S2), contiguous, block length n along dim; sl/sr:
@@ -287,5 +464,63 @@ extern "C" int igg_halo_write_combined(int itemsize, void* a, const void* xl, co
     case 8: halo_write_combined<unsigned long long>(a, xl, xr, yl, yr, zl, zr, S0, S1, S2, n0, n1, n2, hwx, most, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// K8. desc: nslabs descriptors (see read_slabs); the fields are stacked, D0 x
+// D1 x D2 blocks each; buf_r/buf_l: (D0*D1*D2, payload) contiguous, the
+// buffers of the right and the left send slabs.
+extern "C" int igg_wire_pack(int itemsize, int nslabs, const long long* desc, void* buf_r,
+                             void* buf_l, long long D0, long long D1, long long D2,
+                             long long payload, int dim, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nslabs < 1 || nslabs > MAX_SLABS || dim < 0 || dim > 2 || D0 < 1 || D1 < 1 || D2 < 1)
+    return (int)cudaErrorInvalidValue;
+  Slabs d{};
+  const long long most = read_slabs(desc, nslabs, dim, D0 * D1 * D2, d);
+  if (most < 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_x(most), 2u * (unsigned)nslabs);
+#define IGG_PACK(E)                                                                     \
+  wire_pack_kernel<E><<<grid, THREADS, 0, st>>>(d, static_cast<E*>(buf_r),              \
+                                                static_cast<E*>(buf_l), (unsigned)D0,   \
+                                                (unsigned)D1, (unsigned)D2, payload, dim)
+  switch (itemsize) {
+    case 1: IGG_PACK(uint8_t); break;
+    case 2: IGG_PACK(uint16_t); break;
+    case 4: IGG_PACK(uint32_t); break;
+    case 8: IGG_PACK(unsigned long long); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef IGG_PACK
+  return (int)cudaGetLastError();
+}
+
+// K7. As K8, with the descriptors' starts the halos' ([0, hw) and [n-hw, n));
+// writes the fields' halos in place from the buffers of the neighbour blocks
+// along dim (disp apart; periodic wraps, else the edge keeps its halo).
+extern "C" int igg_halo_write_multi(int itemsize, int nslabs, const long long* desc,
+                                    const void* buf_r, const void* buf_l, long long D0,
+                                    long long D1, long long D2, long long payload, int dim,
+                                    int periodic, long long disp, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nslabs < 1 || nslabs > MAX_SLABS || dim < 0 || dim > 2 || D0 < 1 || D1 < 1 ||
+      D2 < 1 || disp < 0 || disp >= (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  Slabs d{};
+  const long long most = read_slabs(desc, nslabs, dim, D0 * D1 * D2, d);
+  if (most < 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_x(most), 2u * (unsigned)nslabs);
+#define IGG_UNPACK(E)                                                                    \
+  halo_write_multi_kernel<E><<<grid, THREADS, 0, st>>>(                                  \
+      d, static_cast<const E*>(buf_r), static_cast<const E*>(buf_l), (unsigned)D0,       \
+      (unsigned)D1, (unsigned)D2, payload, dim, periodic, (int)disp)
+  switch (itemsize) {
+    case 1: IGG_UNPACK(uint8_t); break;
+    case 2: IGG_UNPACK(uint16_t); break;
+    case 4: IGG_UNPACK(uint32_t); break;
+    case 8: IGG_UNPACK(unsigned long long); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef IGG_UNPACK
   return (int)cudaGetLastError();
 }

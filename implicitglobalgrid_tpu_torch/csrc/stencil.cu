@@ -39,6 +39,11 @@
 // and on PROC_NULL edges the block's own patched current halo. The JAX
 // package does this with XLA slices, ppermutes and selects; here it is one
 // launch per dim, because plain PyTorch would take dozens of launches a step.
+// Its wave modes (3 to 6: P, Vx, Vy, Vz) take the send slabs of the fused
+// acoustic step: the field updated by the leapfrog on the slab, JAX's getters
+// `_make_v_get_slab` / `_make_p_get_slab` (pallas_wave.py:109,127), through
+// the per-cell functions of wave.cuh that K9 uses, so a send slab is bit for
+// bit what K9 computes at that cell.
 //
 // Arithmetic: `_stencil_plane` / `_stencil_row` accumulation order with real
 // divisions; built with -fmad=false so that no multiply-add is contracted and
@@ -57,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "wave.cuh"
 
 namespace {
 
@@ -361,12 +368,13 @@ __device__ __forceinline__ bool from_earlier(const Earlier<S>& e, unsigned g0, u
 }
 
 // MODE 0: a plain copy (update_halo); 1: the 3-D step; 2: the 2-D step laid
-// out as (S0, 1, S1).
+// out as (S0, 1, S1); 3 to 6: the acoustic step's P, Vx, Vy, Vz (G is then
+// that field's geometry, and the state is in wv).
 template <typename S, typename C, int MODE>
 __global__ void __launch_bounds__(THREADS)
 exchange_slabs_kernel(const S* __restrict__ T, const S* __restrict__ Cp, S* out0, S* out1,
                       Geom G, int dim, unsigned hw, int periodic, Move m0, Move m1,
-                      Earlier<S> e0, Earlier<S> e1, Consts<C> kc) {
+                      Earlier<S> e0, Earlier<S> e1, Consts<C> kc, Wave<C> wv) {
   S* out = blockIdx.y ? out1 : out0;
   const Move m = blockIdx.y ? m1 : m0;
   if (out == nullptr) return;
@@ -402,8 +410,14 @@ exchange_slabs_kernel(const S* __restrict__ T, const S* __restrict__ Cp, S* out0
         !from_earlier(e0, g0, g1, g2, G, v)) {  // the later dim wins
       const long long S1 = G.S1, S2 = G.S2;
       const long long p = ((long long)g0 * S1 + g1) * S2 + g2;
-      v = T[p];
-      if constexpr (MODE != 0) {
+      if constexpr (MODE >= 3) {
+        const unsigned c0 = g0 / G.n0, c1 = g1 / G.n1, c2 = g2 / G.n2;
+        v = wave_update(wv, wave_block(wv, c0, c1, c2), MODE - 3, g0 - c0 * G.n0,
+                        g1 - c1 * G.n1, g2 - c2 * G.n2);
+      } else {
+        v = T[p];
+      }
+      if constexpr (MODE == 1 || MODE == 2) {
         const unsigned i = g0 % G.n0, j = g1 % G.n1, k = g2 % G.n2;
         const bool interior = i > 0 && i < G.n0 - 1 && k > 0 && k < G.n2 - 1 &&
                               (MODE == 2 || (j > 0 && j < G.n1 - 1));
@@ -426,13 +440,35 @@ exchange_slabs_kernel(const S* __restrict__ T, const S* __restrict__ Cp, S* out0
 template <typename S, typename C, int MODE>
 void exchange_slabs(const void* T, const void* Cp, void* o0, void* o1, const Geom& G, int dim,
                     unsigned hw, int periodic, Move m0, Move m1, Earlier<S> e0,
-                    Earlier<S> e1, Consts<C> kc, unsigned total, cudaStream_t st) {
+                    Earlier<S> e1, Consts<C> kc, Wave<C> wv, unsigned total,
+                    cudaStream_t st) {
   long long blocks = ((long long)total + THREADS - 1) / THREADS;
   if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
   if (blocks < 1) blocks = 1;
   exchange_slabs_kernel<S, C, MODE><<<dim3((unsigned)blocks, 2u), THREADS, 0, st>>>(
       static_cast<const S*>(T), static_cast<const S*>(Cp), static_cast<S*>(o0),
-      static_cast<S*>(o1), G, dim, hw, periodic, m0, m1, e0, e1, kc);
+      static_cast<S*>(o1), G, dim, hw, periodic, m0, m1, e0, e1, kc, wv);
+}
+
+// Checks of one K4s call (32-bit extents and slab cells, earlier dims) and
+// its geometry; returns the slab's cell count, or -1 for invalid arguments.
+long long slabs_geom(long long S0, long long S1, long long S2, long long n0, long long n1,
+                     long long n2, int dim, long long hw, int e0d, long long e0h,
+                     const void* e0l, int e1d, long long e1h, const void* e1l, Geom& G,
+                     unsigned& x0, unsigned& x1) {
+  const long long lim = 1LL << 31;
+  if (dim < 0 || dim > 2 || hw < 1 || n0 < 1 || n1 < 1 || n2 < 1 || S0 >= lim ||
+      S1 >= lim || S2 >= lim)
+    return -1;
+  if (e0d > 2 || e1d > 2 || (e0d < 0 && e0l) || (e1d < 0 && e1l)) return -1;
+  const long long Sv[3] = {S0, S1, S2}, nv[3] = {n0, n1, n2};
+  long long P[3] = {S0, S1, S2};
+  P[dim] = (Sv[dim] / nv[dim]) * hw;
+  if (P[0] * P[1] * P[2] >= lim) return -1;
+  G = Geom{(unsigned)S0, (unsigned)S1, (unsigned)S2, (unsigned)n0, (unsigned)n1, (unsigned)n2};
+  x0 = e0d >= 0 ? (unsigned)((Sv[e0d] / nv[e0d]) * e0h) : 0u;
+  x1 = e1d >= 0 ? (unsigned)((Sv[e1d] / nv[e1d]) * e1h) : 0u;
+  return P[0] * P[1] * P[2];
 }
 
 }  // namespace
@@ -562,22 +598,13 @@ extern "C" int igg_exchange_slabs(int mode, int dtype, int itemsize, const void*
                                   double lam, double dt, double dx, double dy, double dz,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long lim = 1LL << 31;
-  if (dim < 0 || dim > 2 || hw < 1 || n0 < 1 || n1 < 1 || n2 < 1 || S0 >= lim ||
-      S1 >= lim || S2 >= lim)
-    return (int)cudaErrorInvalidValue;
-  if (e0d > 2 || e1d > 2 || (e0d < 0 && e0l) || (e1d < 0 && e1l))
-    return (int)cudaErrorInvalidValue;
-  const long long Sv[3] = {S0, S1, S2}, nv[3] = {n0, n1, n2};
-  long long P[3] = {S0, S1, S2};
-  P[dim] = (Sv[dim] / nv[dim]) * hw;
-  if (P[0] * P[1] * P[2] >= lim) return (int)cudaErrorInvalidValue;
-  const unsigned total = (unsigned)(P[0] * P[1] * P[2]);
-  const Geom G{(unsigned)S0, (unsigned)S1, (unsigned)S2,
-               (unsigned)n0, (unsigned)n1, (unsigned)n2};
+  Geom G;
+  unsigned x0, x1;
+  const long long cells = slabs_geom(S0, S1, S2, n0, n1, n2, dim, hw, e0d, e0h, e0l, e1d,
+                                     e1h, e1l, G, x0, x1);
+  if (cells < 0) return (int)cudaErrorInvalidValue;
+  const unsigned total = (unsigned)cells;
   const Move m0{(int)start0, (int)own0, (int)shift0}, m1{(int)start1, (int)own1, (int)shift1};
-  const unsigned x0 = e0d >= 0 ? (unsigned)((Sv[e0d] / nv[e0d]) * e0h) : 0u;
-  const unsigned x1 = e1d >= 0 ? (unsigned)((Sv[e1d] / nv[e1d]) * e1h) : 0u;
 #define IGG_SLABS(S, C, MODE, K)                                                          \
   exchange_slabs<S, C, MODE>(                                                             \
       T, Cp, out0, out1, G, dim, (unsigned)hw, periodic, m0, m1,                          \
@@ -585,7 +612,7 @@ extern "C" int igg_exchange_slabs(int mode, int dtype, int itemsize, const void*
                  (unsigned)e0h, x0},                                                      \
       Earlier<S>{static_cast<const S*>(e1l), static_cast<const S*>(e1r), e1d,             \
                  (unsigned)e1h, x1},                                                      \
-      K, total, st)
+      K, Wave<C>{}, total, st)
   if (mode == 0) {
     const Consts<float> k0{};
     switch (itemsize) {
@@ -612,5 +639,52 @@ extern "C" int igg_exchange_slabs(int mode, int dtype, int itemsize, const void*
     default: return (int)cudaErrorInvalidValue;
   }
 #undef IGG_SLABS
+  return (int)cudaGetLastError();
+}
+
+// K4s wave modes. field: 0 P, 1 Vx, 2 Vy, 3 Vz, the field whose received
+// slabs are made (G is its geometry). dtype 0 float32, 1 float64. ptrs: P,
+// Vx, Vy, Vz, out0, out1, e0l, e0r, e1l, e1r. g: nx, ny, nz (P's block), D0,
+// D1, D2 (blocks), dim, hw, periodic, start0, own0, shift0, start1, own1,
+// shift1, e0d, e0h, e1d, e1h. c: cx, cy, cz, dtK, dx, dy, dz (wave.cuh).
+extern "C" int igg_exchange_slabs_wave(int dtype, int field, const void* const* ptrs,
+                                       const long long* g, const double* c, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (field < 0 || field > 3 || g[0] < 1 || g[1] < 1 || g[2] < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long n0 = g[0] + (field == 1), n1 = g[1] + (field == 2), n2 = g[2] + (field == 3);
+  const int dim = (int)g[6];
+  Geom G;
+  unsigned x0, x1;
+  const long long cells = slabs_geom(g[3] * n0, g[4] * n1, g[5] * n2, n0, n1, n2, dim, g[7],
+                                     (int)g[15], g[16], ptrs[6], (int)g[17], g[18], ptrs[8],
+                                     G, x0, x1);
+  const long long lim = 1LL << 31;  // every field's stacked extents fit 32 bits
+  if (cells < 0 || g[3] * (g[0] + 1) >= lim || g[4] * (g[1] + 1) >= lim ||
+      g[5] * (g[2] + 1) >= lim)
+    return (int)cudaErrorInvalidValue;
+  const Move m0{(int)g[9], (int)g[10], (int)g[11]}, m1{(int)g[12], (int)g[13], (int)g[14]};
+#define IGG_WAVE_SLABS(T, MODE)                                                          \
+  exchange_slabs<T, T, MODE>(                                                            \
+      ptrs[0], nullptr, const_cast<void*>(ptrs[4]), const_cast<void*>(ptrs[5]), G, dim,  \
+      (unsigned)g[7], (int)g[8], m0, m1,                                                 \
+      Earlier<T>{static_cast<const T*>(ptrs[6]), static_cast<const T*>(ptrs[7]),         \
+                 (int)g[15], (unsigned)g[16], x0},                                       \
+      Earlier<T>{static_cast<const T*>(ptrs[8]), static_cast<const T*>(ptrs[9]),         \
+                 (int)g[17], (unsigned)g[18], x1},                                       \
+      Consts<T>{}, make_wave<T>(ptrs[0], ptrs[1], ptrs[2], ptrs[3], g, c),               \
+      (unsigned)cells, st)
+  switch (dtype * 4 + field) {
+    case 0: IGG_WAVE_SLABS(float, 3); break;
+    case 1: IGG_WAVE_SLABS(float, 4); break;
+    case 2: IGG_WAVE_SLABS(float, 5); break;
+    case 3: IGG_WAVE_SLABS(float, 6); break;
+    case 4: IGG_WAVE_SLABS(double, 3); break;
+    case 5: IGG_WAVE_SLABS(double, 4); break;
+    case 6: IGG_WAVE_SLABS(double, 5); break;
+    case 7: IGG_WAVE_SLABS(double, 6); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef IGG_WAVE_SLABS
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,18 @@
-"""Models on the virtual mesh: 3-D/2-D heat diffusion."""
+"""Models on the virtual mesh: 3-D/2-D heat diffusion and the 3-D acoustic
+wave."""
 
 from .diffusion import (
     DiffusionParams, diffusion_step_local, init_diffusion2d, init_diffusion3d,
     make_run, make_step, run_diffusion,
 )
-from .convert import state_from_numpy
+from .acoustic import (
+    AcousticParams, acoustic_step_local, init_acoustic3d, make_acoustic_run,
+    make_acoustic_run_deep, run_acoustic,
+)
+from .convert import acoustic_state_from_numpy, state_from_numpy
 
 __all__ = ["DiffusionParams", "init_diffusion3d", "init_diffusion2d",
            "diffusion_step_local", "make_step", "make_run", "run_diffusion",
-           "state_from_numpy"]
+           "AcousticParams", "init_acoustic3d", "acoustic_step_local",
+           "make_acoustic_run", "make_acoustic_run_deep", "run_acoustic",
+           "state_from_numpy", "acoustic_state_from_numpy"]

@@ -1,10 +1,10 @@
-"""Carry a diffusion state from the JAX package into the port.
+"""Carry a model state from the JAX package into the port.
 
 The system has no weights; its "weights" are the state and the parameters.
-`state_from_numpy` takes the JAX package's stacked arrays as numpy
-(``np.asarray(T)``) and its parameters as a dict
-(``dataclasses.asdict(p)``) and returns the port's stacked tensors and
-`DiffusionParams`. It imports nothing of JAX.
+`state_from_numpy` (diffusion) and `acoustic_state_from_numpy` take the JAX
+package's stacked arrays as numpy (``np.asarray(T)``) and its parameters as
+a dict (``dataclasses.asdict(p)``) and return the port's stacked tensors and
+parameters. They import nothing of JAX.
 """
 
 from __future__ import annotations
@@ -13,9 +13,11 @@ import dataclasses
 
 import numpy as np
 
+from .acoustic import AcousticParams
+from .acoustic import check_supported as check_acoustic
 from .diffusion import DiffusionParams, check_supported
 
-__all__ = ["state_from_numpy"]
+__all__ = ["state_from_numpy", "acoustic_state_from_numpy"]
 
 
 def _tensor_from_numpy(a, device):
@@ -31,13 +33,27 @@ def _tensor_from_numpy(a, device):
     return t.to(device).contiguous()
 
 
+def _params(cls, params: dict):
+    """``cls`` from a parameter dict (unknown keys are ignored; the JAX
+    package stores ``comm_every`` as the string "1")."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    kw = {k: v for k, v in params.items() if k in names}
+    if str(kw.get("comm_every", 1)) == "1":
+        kw["comm_every"] = 1
+    return cls(**kw)
+
+
 def state_from_numpy(T, Cp, params: dict, device):
     """``(T, Cp, DiffusionParams)`` on ``device`` from numpy arrays and a
     parameter dict (unknown keys are ignored)."""
-    names = {f.name for f in dataclasses.fields(DiffusionParams)}
-    kw = {k: v for k, v in params.items() if k in names}
-    if str(kw.get("comm_every", 1)) == "1":  # the JAX package stores "1"
-        kw["comm_every"] = 1
-    p = DiffusionParams(**kw)
+    p = _params(DiffusionParams, params)
     check_supported(p)
     return _tensor_from_numpy(T, device), _tensor_from_numpy(Cp, device), p
+
+
+def acoustic_state_from_numpy(P, Vx, Vy, Vz, params: dict, device):
+    """``((P, Vx, Vy, Vz), AcousticParams)`` on ``device`` from the JAX
+    package's stacked numpy arrays and a parameter dict."""
+    p = _params(AcousticParams, params)
+    check_acoustic(p)
+    return tuple(_tensor_from_numpy(a, device) for a in (P, Vx, Vy, Vz)), p

@@ -30,7 +30,8 @@ __all__ = ["build_kernels", "library", "count_launch", "launch_counts",
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("stencil.cu", "halo.cu")
+SOURCES = ("stencil.cu", "halo.cu", "wave.cu")
+HEADERS = ("wave.cuh",)
 # -fmad=false: no multiply-add contraction, so the stencil stays at ulp
 # distance from its plain PyTorch version; -Xptxas -v reports registers,
 # shared memory and spills of every kernel (kept in `build_info`).
@@ -56,6 +57,11 @@ _SIGNATURES = {
     + [_C_INT, _C_LL, _C_INT] + [_C_LL] * 6
     + [_C_INT, _C_LL, _C_VOID, _C_VOID] * 2 + [_C_DBL] * 5 + [_C_VOID],
     "igg_halo_write_combined": [_C_INT] + [_C_VOID] * 7 + [_C_LL] * 7 + [_C_VOID],
+    "igg_wire_pack": [_C_INT, _C_INT] + [_C_VOID] * 3 + [_C_LL] * 4 + [_C_INT, _C_VOID],
+    "igg_halo_write_multi": [_C_INT, _C_INT] + [_C_VOID] * 3 + [_C_LL] * 4
+    + [_C_INT, _C_INT, _C_LL, _C_VOID],
+    "igg_exchange_slabs_wave": [_C_INT, _C_INT] + [_C_VOID] * 4,
+    "igg_acoustic_step_exchange": [_C_INT, _C_INT] + [_C_VOID] * 4,
 }
 
 _lib = None
@@ -63,7 +69,8 @@ build_info: dict = {}
 _launches: dict = {"diffusion3d_step_halo": 0, "halo_write": 0,
                    "halo_self_exchange": 0, "diffusion3d_step_exchange": 0,
                    "diffusion2d_step_exchange": 0, "halo_write_combined": 0,
-                   "exchange_slabs": 0}
+                   "exchange_slabs": 0, "wire_pack": 0, "halo_write_multi": 0,
+                   "acoustic_step_exchange": 0}
 
 
 def count_launch(name: str) -> None:
@@ -100,7 +107,7 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         h.update((CSRC / s).read_bytes())
     return BUILD_DIR / f"libigg_kernels_{h.hexdigest()[:16]}.so"
 

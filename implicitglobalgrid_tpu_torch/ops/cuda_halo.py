@@ -1,4 +1,5 @@
-"""The halo copy kernels K2, K3 and K6 (`csrc/halo.cu`) and their plain versions.
+"""The halo copy kernels K2, K3, K6, K7 and K8 (`csrc/halo.cu`) and their plain
+versions.
 
 Counterpart of `implicitglobalgrid_tpu/ops/pallas_halo.py` for the entry
 points on this slice's path:
@@ -13,22 +14,39 @@ points on this slice's path:
 - `halo_write_combined` (K6) for `halo_write_combined_pallas`: every
   exchanging dim's received slabs into every block's halos in one launch,
   in place, touching only halo cells.
+- `wire_pack` (K8) for `wire_pack_pallas`: every block's send slabs of a
+  group of fields into the block's wire buffer (`ops.wire.WireSchema`,
+  slab or flat layout), both directions in one launch.
+- `halo_write_multi` (K7) for `halo_write_multi_pallas`: every field's
+  halos along one dim, on every block, from the neighbour blocks' wire
+  buffers, in one launch, in place.
 
-Both are pure copies and match their plain versions bitwise. On a CUDA
+All are pure copies and match their plain versions bitwise. On a CUDA
 tensor the wrapper launches the kernel (or raises); on a CPU tensor it runs
 the plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
+import itertools
+
+import numpy as np
+
 from ..utils.exceptions import InvalidArgumentError, NotSupportedError
 from .cuda_build import check_rc, count_launch, library
 from .fields import block_slices
+from .wire import dtype_name
 
 __all__ = ["halo_write_supported", "halo_write", "halo_write_plain",
            "self_exchange_supported", "halo_self_exchange",
            "halo_self_exchange_plain", "combined_write_supported",
-           "halo_write_combined", "halo_write_combined_plain"]
+           "halo_write_combined", "halo_write_combined_plain", "MAX_SLABS",
+           "wire_pack", "wire_pack_plain", "halo_write_multi",
+           "halo_write_multi_plain"]
+
+# fields a K7/K8 launch takes (`MAX_SLABS` in csrc/halo.cu)
+MAX_SLABS = 16
 
 
 def halo_write_supported(shape, dim: int, hw: int) -> bool:
@@ -263,3 +281,213 @@ def halo_write_combined(a, recvs, *, modes, hws, block=None):
     check_rc(rc, "halo_write_combined")
     count_launch("halo_write_combined")
     return a
+
+
+# ---------------------------------------------------------------------------
+# K8 and K7: the pack and the multi-field unpack of the coalesced exchange.
+# ---------------------------------------------------------------------------
+
+def _block_counts(f, blk):
+    """Blocks of stacked ``f`` along each of three dims (1 past its ndim)."""
+    return tuple(int(s) // int(n) for s, n in zip(f.shape, blk)) + (1,) * (3 - f.dim())
+
+
+def _check_group(fields, schema, blocks, name):
+    """Validate a group of stacked fields against ``schema``; returns
+    (dim, block counts, blocks, halowidths)."""
+    import torch
+
+    dim = int(schema.dim)
+    if not fields or len(fields) > MAX_SLABS or len(fields) != schema.n_slabs \
+            or len(blocks) != len(fields):
+        raise InvalidArgumentError(
+            f"{name} takes 1 to {MAX_SLABS} fields, one slab of the schema and one block "
+            f"shape each; got {len(fields)} fields for a {schema.n_slabs}-slab schema.")
+    f0 = fields[0]
+    counts = None
+    blks, hws = [], []
+    for f, blk, shp in zip(fields, blocks, schema.shapes):
+        if not isinstance(f, torch.Tensor) or not 1 <= f.dim() <= 3 or not f.is_contiguous():
+            raise InvalidArgumentError(f"{name} needs contiguous 1-D to 3-D tensors.")
+        if f.dtype != f0.dtype or f.device != f0.device \
+                or dtype_name(f.dtype) != schema.state_dtype:
+            raise InvalidArgumentError(
+                f"{name}: every field must be {schema.state_dtype} on {f0.device}; got "
+                f"{f.dtype} on {f.device}.")
+        blk = tuple(int(b) for b in blk)
+        if len(blk) != f.dim() or any(b < 1 or s % b for s, b in zip(f.shape, blk)) \
+                or not dim < f.dim():
+            raise InvalidArgumentError(
+                f"{name}: block {blk} does not tile {tuple(f.shape)} along dim {dim}.")
+        c = _block_counts(f, blk)
+        if counts is not None and c != counts:
+            raise InvalidArgumentError(f"{name}: the fields have different block counts.")
+        counts = c
+        want = list(blk)
+        want[dim] = int(shp[dim]) if len(shp) == len(blk) else -1
+        if tuple(want) != tuple(shp) or want[dim] < 1:
+            raise InvalidArgumentError(
+                f"{name}: slab {tuple(shp)} of the schema does not fit block {blk}.")
+        blks.append(blk)
+        hws.append(want[dim])
+    return dim, counts, blks, hws
+
+
+def _check_pack(fields, schema, blocks, starts_r, starts_l):
+    dim, counts, blks, hws = _check_group(fields, schema, blocks, "wire_pack")
+    if len(starts_r) != len(fields) or len(starts_l) != len(fields):
+        raise InvalidArgumentError("wire_pack: one right and one left start a field.")
+    for a, b, blk, hw in zip(starts_r, starts_l, blks, hws):
+        if not (0 <= int(a) <= blk[dim] - hw and 0 <= int(b) <= blk[dim] - hw):
+            raise InvalidArgumentError(
+                f"wire_pack: slabs at {a} and {b} of width {hw} leave a block of {blk[dim]}.")
+    return dim, counts, blks, hws
+
+
+def _buffer_shape(schema, counts):
+    return (int(np.prod(counts)), sum(schema.cells))
+
+
+def _check_buffers(fields, bufs, schema, counts, name):
+    import torch
+
+    want = _buffer_shape(schema, counts)
+    stores = {f.untyped_storage().data_ptr() for f in fields}
+    for b in bufs:
+        if not isinstance(b, torch.Tensor) or tuple(b.shape) != want \
+                or b.dtype != fields[0].dtype or b.device != fields[0].device \
+                or not b.is_contiguous():
+            raise InvalidArgumentError(
+                f"{name}: wire buffers must be contiguous {want} {fields[0].dtype} on "
+                f"{fields[0].device}.")
+        if b.untyped_storage().data_ptr() in stores:
+            raise InvalidArgumentError(f"{name}: a wire buffer must not alias a field.")
+
+
+def _descriptors(fields, schema, blocks, starts):
+    """The host descriptor of `igg_wire_pack` / `igg_halo_write_multi`: per
+    slab its field pointer, block shape (padded to 3-D), halowidth, the two
+    starts, and its base and strides in the buffer."""
+    dim = schema.dim
+    vals = []
+    for f, blk, (a, b), (base, st), shp in zip(fields, blocks, starts,
+                                                schema.slab_offsets(), schema.shapes):
+        blk3 = tuple(blk) + (1,) * (3 - len(blk))
+        vals += [f.data_ptr(), *blk3, int(shp[dim]), int(a), int(b), int(base), *st]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def wire_pack_plain(fields, schema, *, starts_r, starts_l, blocks):
+    """Plain PyTorch version of K8: each block's slabs through
+    `WireSchema.pack`, raveled into that block's row."""
+    import torch
+
+    dim, counts, blks, hws = _check_pack(fields, schema, blocks, starts_r, starts_l)
+    shape = _buffer_shape(schema, counts)
+    out = []
+    for starts in (starts_r, starts_l):
+        buf = torch.empty(shape, dtype=fields[0].dtype, device=fields[0].device)
+        per_field = [block_slices(f.shape, blk) for f, blk in zip(fields, blks)]
+        for b, sls in enumerate(zip(*per_field)):
+            slabs = [f[sl].narrow(dim, int(st), hw)
+                     for f, sl, st, hw in zip(fields, sls, starts, hws)]
+            buf[b] = schema.pack(slabs).reshape(-1)
+        out.append(buf)
+    return tuple(out)
+
+
+def wire_pack(fields, schema, *, starts_r, starts_l, blocks):
+    """K8: the wire buffers of a group of stacked ``fields`` along
+    ``schema.dim``: row ``b`` of ``buf_r`` is `WireSchema.pack` of block
+    ``b``'s right send slabs (local ``[starts_r[k], starts_r[k]+hw_k)`` of
+    field k), raveled; ``buf_l`` the same of the left send slabs. Blocks in
+    row-major order of their coordinates. Returns ``(buf_r, buf_l)``, each
+    ``(blocks, payload cells)``, in one launch."""
+    dim, counts, blks, hws = _check_pack(fields, schema, blocks, starts_r, starts_l)
+    f0 = fields[0]
+    if f0.device.type == "cpu":
+        return wire_pack_plain(fields, schema, starts_r=starts_r, starts_l=starts_l,
+                               blocks=blks)
+    if f0.device.type != "cuda":
+        raise NotSupportedError(f"no kernel for device {f0.device}.")
+    import torch
+
+    shape = _buffer_shape(schema, counts)
+    buf_r = torch.empty(shape, dtype=f0.dtype, device=f0.device)
+    buf_l = torch.empty(shape, dtype=f0.dtype, device=f0.device)
+    desc = _descriptors(fields, schema, blks, list(zip(starts_r, starts_l)))
+    lib = library()
+    with torch.cuda.device(f0.device):
+        rc = lib.igg_wire_pack(
+            f0.element_size(), len(fields), ctypes.addressof(desc), buf_r.data_ptr(),
+            buf_l.data_ptr(), *counts, shape[1], dim,
+            torch.cuda.current_stream(f0.device).cuda_stream)
+    check_rc(rc, "wire_pack")
+    count_launch("wire_pack")
+    return buf_r, buf_l
+
+
+def _halo_starts(blks, hws, dim):
+    return [(0, blk[dim] - hw) for blk, hw in zip(blks, hws)]
+
+
+def _check_multi(fields, bufs, schema, blocks, disp):
+    dim, counts, blks, hws = _check_group(fields, schema, blocks, "halo_write_multi")
+    if any(blk[dim] < 2 * hw for blk, hw in zip(blks, hws)):
+        raise InvalidArgumentError("halo_write_multi: left and right halos overlap.")
+    if int(disp) < 0:
+        raise InvalidArgumentError(f"halo_write_multi: disp {disp} < 0.")
+    _check_buffers(fields, bufs, schema, counts, "halo_write_multi")
+    return dim, counts, blks, hws
+
+
+def halo_write_multi_plain(fields, buf_r, buf_l, schema, *, blocks, periodic, disp):
+    """Plain PyTorch version of K7: for every block, `WireSchema.unpack` of
+    the neighbour blocks' buffers, slice `copy_` into the halos."""
+    dim, counts, blks, hws = _check_multi(fields, (buf_r, buf_l), schema, blocks, disp)
+    D = counts[dim]
+    coords = list(itertools.product(*(range(c) for c in counts)))
+    index = {c: b for b, c in enumerate(coords)}
+    shape = schema.buffer_shape
+    for c, sls in zip(coords, zip(*[block_slices(f.shape, blk)
+                                    for f, blk in zip(fields, blks)])):
+        for side, buf, shift in ((0, buf_r, -int(disp)), (1, buf_l, int(disp))):
+            s = c[dim] + shift
+            if periodic:
+                s %= D
+            elif not 0 <= s < D:
+                continue  # PROC_NULL: the block keeps its halo
+            src = list(c)
+            src[dim] = s
+            slabs = schema.unpack(buf[index[tuple(src)]].view(shape))
+            for f, sl, blk, hw, slab in zip(fields, sls, blks, hws, slabs):
+                f[sl].narrow(dim, 0 if side == 0 else blk[dim] - hw, hw).copy_(slab)
+    return list(fields)
+
+
+def halo_write_multi(fields, buf_r, buf_l, schema, *, blocks, periodic, disp):
+    """K7: write every field's halos along ``schema.dim`` on every block of
+    the stacked ``fields``, in place, in one launch: the left halo ``[0,
+    hw)`` of block ``t`` from row ``t - disp`` of ``buf_r`` (the right send
+    slabs), the right halo ``[n-hw, n)`` from row ``t + disp`` of ``buf_l``,
+    unpacked by the schema (wrapping when ``periodic``; else an edge block
+    keeps its halo). Returns the list of fields."""
+    dim, counts, blks, hws = _check_multi(fields, (buf_r, buf_l), schema, blocks, disp)
+    f0 = fields[0]
+    if f0.device.type == "cpu":
+        return halo_write_multi_plain(fields, buf_r, buf_l, schema, blocks=blks,
+                                      periodic=periodic, disp=disp)
+    if f0.device.type != "cuda":
+        raise NotSupportedError(f"no kernel for device {f0.device}.")
+    import torch
+
+    desc = _descriptors(fields, schema, blks, _halo_starts(blks, hws, dim))
+    lib = library()
+    with torch.cuda.device(f0.device):
+        rc = lib.igg_halo_write_multi(
+            f0.element_size(), len(fields), ctypes.addressof(desc), buf_r.data_ptr(),
+            buf_l.data_ptr(), *counts, buf_r.shape[1], dim, int(bool(periodic)), int(disp),
+            torch.cuda.current_stream(f0.device).cuda_stream)
+    check_rc(rc, "halo_write_multi")
+    count_launch("halo_write_multi")
+    return list(fields)

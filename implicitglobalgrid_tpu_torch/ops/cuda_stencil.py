@@ -34,6 +34,7 @@ __all__ = ["diffusion3d_step_halo", "diffusion3d_step",
            "diffusion3d_step_halo_plain", "pallas_supported",
            "fusable_halo_dims", "step_exchange_modes", "Move", "update_slab",
            "update_slab_plain", "exchange_slabs", "exchange_slabs_plain",
+           "move_slabs_plain",
            "diffusion3d_step_recv", "diffusion3d_step_recv_plain",
            "diffusion2d_step_recv", "diffusion2d_step_recv_plain",
            "diffusion3d_step_exchange", "diffusion2d_step_exchange"]
@@ -347,25 +348,22 @@ def _slab_view(A, dim, n, start, size):
     return A.unflatten(dim, (A.shape[dim] // n, n)).narrow(dim + 1, start, size)
 
 
-def exchange_slabs_plain(A, dim, hw, moves, *, block, periodic, earlier=(),
-                         Cp=None, consts=None):
-    """Plain PyTorch version of K4s (same arguments as `exchange_slabs`),
-    the JAX package's slab pipeline for one dim: get the slab (a slice, or
-    `update_slab_plain` with ``Cp``), patch it with the earlier dims'
-    received values, then move it between blocks."""
+def move_slabs_plain(get_slab, shape, device, dim, hw, moves, *, block, periodic,
+                     earlier=()):
+    """The slab pipeline of one dim in plain PyTorch: ``get_slab(start)``
+    returns the send slab of every block at local ``start`` (K2's layout of
+    a field of stacked ``shape``); patch it with the earlier dims' received
+    values, then move it between blocks (`Move`; on a PROC_NULL edge the
+    block's own slab at ``own``)."""
     from .cuda_halo import halo_write_plain
 
     torch = _torch()
     block = tuple(int(b) for b in block)
     n = block[dim]
-    D = A.shape[dim] // n
+    D = shape[dim] // n
 
     def slab(start):
-        if Cp is None:
-            s = _slab_view(A, dim, n, start, hw).flatten(dim, dim + 1).clone(
-                memory_format=torch.contiguous_format)
-        else:
-            s = update_slab_plain(A, Cp, dim, start, hw, block=block, **consts)
+        s = get_slab(start)
         for e, hw_e, (rl, rr) in earlier:
             rl_s = _slab_view(rl, dim, n, start, hw).flatten(dim, dim + 1)
             rr_s = _slab_view(rr, dim, n, start, hw).flatten(dim, dim + 1)
@@ -375,16 +373,36 @@ def exchange_slabs_plain(A, dim, hw, moves, *, block, periodic, earlier=(),
 
     out = []
     for m in moves:
-        src = torch.arange(D, device=A.device) + int(m.shift)
+        src = torch.arange(D, device=device) + int(m.shift)
         if periodic:
             recv = slab(m.start).index_select(dim, src % D)
         else:
             reached = (src >= 0) & (src < D)
             recv = slab(m.start).index_select(dim, src.clamp(0, D - 1))
-            mask = reached.view([-1 if d == dim else 1 for d in range(A.dim() + 1)])
+            mask = reached.view([-1 if d == dim else 1 for d in range(len(shape) + 1)])
             recv = torch.where(mask, recv, slab(m.own))
         out.append(recv.flatten(dim, dim + 1).contiguous())
     return tuple(out)
+
+
+def exchange_slabs_plain(A, dim, hw, moves, *, block, periodic, earlier=(),
+                         Cp=None, consts=None):
+    """Plain PyTorch version of K4s (same arguments as `exchange_slabs`),
+    the JAX package's slab pipeline for one dim: get the slab (a slice, or
+    `update_slab_plain` with ``Cp``), patch it with the earlier dims'
+    received values, then move it between blocks."""
+    torch = _torch()
+    block = tuple(int(b) for b in block)
+    n = block[dim]
+
+    def get_slab(start):
+        if Cp is None:
+            return _slab_view(A, dim, n, start, hw).flatten(dim, dim + 1).clone(
+                memory_format=torch.contiguous_format)
+        return update_slab_plain(A, Cp, dim, start, hw, block=block, **consts)
+
+    return move_slabs_plain(get_slab, tuple(A.shape), A.device, dim, hw, moves,
+                            block=block, periodic=periodic, earlier=earlier)
 
 
 def _shape3(shape):

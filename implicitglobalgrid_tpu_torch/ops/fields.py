@@ -18,7 +18,7 @@ from ..utils.exceptions import IncoherentArgumentError, InvalidArgumentError
 
 __all__ = [
     "Field", "wrap_field", "extract", "check_fields",
-    "local_shape_of", "stacked_shape", "has_halo", "block_slices",
+    "local_shape_of", "stacked_shape", "has_halo", "block_slices", "block_view",
 ]
 
 
@@ -120,6 +120,14 @@ def block_slices(stacked, local):
     for c in itertools.product(*(range(k) for k in counts)):
         yield tuple(slice(ci * int(n), (ci + 1) * int(n))
                     for ci, n in zip(c, local))
+
+
+def block_view(A, local):
+    """Stacked 3-D ``A`` of blocks ``local`` as a (D0, n0, D1, n1, D2, n2)
+    view: local axis d is axis 2d+1, so one operation serves every block."""
+    D = [int(s) // int(n) for s, n in zip(A.shape, local)]
+    n = [int(v) for v in local]
+    return A.view(D[0], n[0], D[1], n[1], D[2], n[2])
 
 
 def has_halo(local_shape, halowidths, dim: int) -> bool:

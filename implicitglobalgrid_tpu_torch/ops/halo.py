@@ -13,26 +13,32 @@ semantics are the JAX package's, 0-based:
 - non-periodic boundary ranks keep their halo values (PROC_NULL neighbours);
 - a periodic axis with a single rank copies its own slabs (self-neighbour).
 
-Kernel tier (``IGG_USE_PALLAS``, on by default), in the JAX package's
-order (`halo_route` names the tier a field takes):
+Tiers, in the JAX package's order (`halo_routes` names the tier each field
+takes, and the groups of the coalesced tier by dim):
 
 1. ``"self"``: every exchanging dim is self-neighbour; the whole exchange
    is one pass of K3 (`cuda_halo.halo_self_exchange`).
-2. ``"combined"``: 3-D, z exchanging, halowidth 1 on y and z
+2. ``"coalesced"``: same-dtype fields, two or more, that exchange along a
+   dim with more than one rank form one group on that dim
+   (`_coalesce_groups`, ``coalesce``/``IGG_HALO_COALESCE``, on by default);
+   per dim and group, K8 (`cuda_halo.wire_pack`) packs every block's send
+   slabs of every field into the block's wire buffer on the canonical
+   schema (`ops.wire`), and K7 (`cuda_halo.halo_write_multi`) writes every
+   field's halos from the neighbour blocks' buffers: two launches a dim,
+   whatever the field count. A grouped field skips the combined tier.
+3. ``"combined"``: 3-D, z exchanging, halowidth 1 on y and z
    (`cuda_halo.combined_write_supported`); the slab pipeline
    (`exchange_recv_slabs`, one K4s launch per dim) then one K6 launch
    (`cuda_halo.halo_write_combined`) that writes every dim's halos.
-3. ``"per_dim"``: each dim's halos written by K2 (`cuda_halo.halo_write`),
-   one launch per (field, dim) for all ranks.
+4. ``"per_dim"``: each dim's halos written by K2 (`cuda_halo.halo_write`),
+   one launch per (field, dim) for all ranks, from K4s's received slabs.
 
-The received slabs of every tier but K3 come from K4s
-(`cuda_stencil.exchange_slabs`, one launch per dim). With the tier off,
-slabs and writes are plain PyTorch.
+The whole-exchange kernels (K3, K6) need every ``IGG_USE_PALLAS`` flag on;
+with a dim's flag off, that dim's packs, slabs and writes are plain PyTorch.
 
-Differences from the JAX package: the exchange is per field (coalescing
-several fields into one message is pure layout and bit-identical there, so
-it only changes the message count, which a later slice brings with the
-`torch.distributed` transport); wire dtypes and staging raise
+Differences from the JAX package: the wire buffers of a group are copied
+between blocks of one tensor (the `torch.distributed` transport that would
+send them comes in a later slice); wire dtypes and staging raise
 `NotSupportedError`. The halo writes are IN PLACE on the given tensor (on a
 contiguous copy of a field that is not contiguous), while the self-exchange
 pass returns a new one: always use the returned tensors,
@@ -48,8 +54,10 @@ from ..utils.exceptions import (
     IncoherentArgumentError, InvalidArgumentError, NotSupportedError,
 )
 from .fields import Field, check_fields, extract, wrap_field
+from .wire import dtype_name, schema_for_fields
 
 __all__ = ["update_halo", "local_update_halo", "DEFAULT_DIMS_ORDER", "halo_route",
+           "halo_routes", "halo_comm_plan", "resolve_halo_coalesce",
            "exchange_recv_slabs_multi", "exchange_recv_slabs"]
 
 # Reference default `dims=(3,1,2)` (1-based: z, x, y).
@@ -77,6 +85,25 @@ def _reject_wire(wire_dtype, wire_stage):
         raise NotSupportedError(f"wire dtypes are not ported yet ({_LATER}).")
     if wire_stage not in (None, "none", "off") or os.environ.get("IGG_HALO_WIRE_STAGE"):
         raise NotSupportedError(f"the staged wire is not ported yet ({_LATER}).")
+
+
+def resolve_halo_coalesce(coalesce=None) -> bool:
+    """Whether multi-field exchanges pack one buffer per (axis, dtype
+    group). An explicit argument wins; else ``IGG_HALO_COALESCE`` (default
+    ON)."""
+    if coalesce is not None:
+        return bool(coalesce)
+    import os
+
+    v = os.environ.get("IGG_HALO_COALESCE")
+    if v is None:
+        return True
+    try:
+        return int(v) > 0
+    except ValueError as e:
+        raise InvalidArgumentError(
+            f"Environment variable IGG_HALO_COALESCE: expected an integer, "
+            f"got {v!r}.") from e
 
 
 def _dim_meta(gg, dim: int):
@@ -229,24 +256,70 @@ def _combined_plan(gg, shape, hws, dims_order):
     return modes
 
 
-def _route_plan(gg, shape, hws, dims_order):
-    """The tier of `halo_route` with its plan: ("self", (modes, ols)),
-    ("combined", modes) or ("per_dim", None)."""
-    plan = _self_exchange_plan(gg, shape, hws, dims_order)
-    if plan is not None:
-        return "self", plan
-    modes = _combined_plan(gg, shape, hws, dims_order)
-    if modes is not None:
-        return "combined", modes
-    return "per_dim", None
-
-
 def halo_route(gg, shape, hws, dims_order=DEFAULT_DIMS_ORDER) -> str:
-    """The kernel tier `update_halo` takes for one field of LOCAL ``shape``:
-    ``"self"`` (K3), ``"combined"`` (K4s + K6) or ``"per_dim"`` (K4s + K2
-    for each dim, or their plain versions with the tier off), in the JAX
-    package's order."""
-    return _route_plan(gg, shape, hws, dims_order)[0]
+    """The kernel tier `update_halo` takes for one field alone, of LOCAL
+    ``shape``: ``"self"`` (K3), ``"combined"`` (K4s + K6) or ``"per_dim"``
+    (K4s + K2 for each dim, or their plain versions with the tier off), in
+    the JAX package's order. A lone field never coalesces; see
+    `halo_routes` for several."""
+    return halo_routes(gg, [shape], [None], [hws], dims_order)[0][0]
+
+
+class _Sig:
+    """Shape (LOCAL) and dtype of a field, so that the routing helpers serve
+    the static plan without tensors."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape, dtype):
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = dtype_name(dtype)
+
+
+def _coalesce_groups(gg, fields, hws, handled, dims_order, coalesce=True):
+    """Packing plan of the coalesced exchange: ``{dim: [group, ...]}``, each
+    group a tuple of the indices of two or more fields of ONE dtype that all
+    exchange along the multi-rank axis ``dim`` (``fields`` carry LOCAL
+    shapes). A lone field of a dtype keeps its per-field route."""
+    out = {}
+    for dim in dims_order:
+        D, _, _ = _dim_meta(gg, dim)
+        if D == 1:
+            continue  # self-neighbour / no-neighbour axes: nothing to pack
+        by_dt = {}
+        for i, f in enumerate(fields):
+            if handled[i]:
+                continue
+            if _dim_exchanges(gg, f.shape, hws[i], dim):
+                by_dt.setdefault(dtype_name(f.dtype), []).append(i)
+        groups = [tuple(idxs) for idxs in by_dt.values() if coalesce and len(idxs) >= 2]
+        if groups:
+            out[dim] = groups
+    return out
+
+
+def halo_routes(gg, shapes, dtypes, hws, dims_order=DEFAULT_DIMS_ORDER, coalesce=None):
+    """The tiers `update_halo` takes for several fields at once (LOCAL
+    ``shapes``, their ``dtypes`` and halowidths): ``(tiers, groups)``, one of
+    ``"self"``, ``"coalesced"``, ``"combined"`` or ``"per_dim"`` per field,
+    and the coalesced groups by dim (`_coalesce_groups`). A grouped field
+    takes the per-dim route on the dims where it has no group."""
+    coalesce = resolve_halo_coalesce(coalesce)
+    fields = [_Sig(s, d) for s, d in zip(shapes, dtypes)]
+    hws = [tuple(int(h) for h in hw) for hw in hws]
+    tiers = [None] * len(fields)
+    for i, f in enumerate(fields):
+        if _self_exchange_plan(gg, f.shape, hws[i], dims_order) is not None:
+            tiers[i] = "self"
+    groups = _coalesce_groups(gg, fields, hws, [t is not None for t in tiers],
+                              dims_order, coalesce)
+    grouped = {i for gs in groups.values() for g in gs for i in g}
+    for i, f in enumerate(fields):
+        if tiers[i] is None:
+            tiers[i] = ("coalesced" if i in grouped else
+                        "combined" if _combined_plan(gg, f.shape, hws[i], dims_order)
+                        is not None else "per_dim")
+    return tiers, groups
 
 
 def _combined_exchange(gg, A, hws, modes, loc):
@@ -264,37 +337,82 @@ def _combined_exchange(gg, A, hws, modes, loc):
     return halo_write_combined(A, recvs, modes=modes, hws=hws, block=loc)
 
 
-def _exchange_arrays(gg, arrays, hws, dims_order):
-    """Exchange every field's halos (stacked tensors), each by the tier
-    `halo_route` names. Returns the list of updated tensors: K3 out of
-    place, the others in place (on a dense copy where a field is not
-    contiguous, as the kernels take only dense blocks)."""
+def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel):
+    """Exchange the halos of the fields ``idxs`` (one dtype) along ``dim``
+    on every block: K8 packs both directions' send slabs of every field into
+    the blocks' wire buffers (`WireSchema` of the group), K7 writes every
+    field's halos from the neighbour blocks' buffers, in place (the plain
+    versions with ``use_kernel`` off). A group of more than `MAX_SLABS`
+    fields goes in several launches of the same schema rule; the values are
+    the same."""
+    from .cuda_halo import (
+        MAX_SLABS, halo_write_multi, halo_write_multi_plain, wire_pack, wire_pack_plain,
+    )
+
+    _, periodic, disp = _dim_meta(gg, dim)
+    pack, write = (wire_pack, halo_write_multi) if use_kernel \
+        else (wire_pack_plain, halo_write_multi_plain)
+    for k0 in range(0, len(idxs), MAX_SLABS):
+        sub = idxs[k0:k0 + MAX_SLABS]
+        fs = [arrays[i] for i in sub]
+        blks = [locs[i] for i in sub]
+        hw = [int(hws[i][dim]) for i in sub]
+        starts_r, starts_l = [], []
+        for blk, h in zip(blks, hw):
+            s, ol_d = blk[dim], _ol(gg, blk, dim)
+            _check_slab_fit(s, dim, ol_d, h)
+            starts_r.append(s - ol_d)
+            starts_l.append(ol_d - h)
+        schema = schema_for_fields(dim, blks, hw, fs[0].dtype)
+        buf_r, buf_l = pack(fs, schema, starts_r=starts_r, starts_l=starts_l, blocks=blks)
+        write(fs, buf_r, buf_l, schema, blocks=blks, periodic=periodic, disp=disp)
+
+
+def _exchange_arrays(gg, arrays, hws, dims_order, coalesce=None):
+    """Exchange every field's halos (stacked tensors), each by its tier of
+    `halo_routes`: self (K3) > coalesced groups (K8 + K7 per dim) >
+    combined (K4s + K6) > per dim (K4s + K2). Returns the list of updated
+    tensors: K3 out of place, the others in place (on a dense copy where a
+    field is not contiguous, as the kernels take only dense blocks)."""
     from .cuda_halo import halo_self_exchange
 
+    coalesce = resolve_halo_coalesce(coalesce)
     arrays = [A.contiguous() for A in arrays]
+    locs = [tuple(int(s) // int(gg.dims[d]) for d, s in enumerate(A.shape)) for A in arrays]
+    hws = [tuple(int(h) for h in hw) for hw in hws]
     handled = [False] * len(arrays)
     for i, A in enumerate(arrays):
-        loc = tuple(int(s) // int(gg.dims[d]) for d, s in enumerate(A.shape))
-        hw = tuple(int(h) for h in hws[i])
-        route, plan = _route_plan(gg, loc, hw, dims_order)
-        if route == "self":
-            arrays[i] = halo_self_exchange(A, modes=plan[0], ols=plan[1], block=loc)
-        elif route == "combined":
-            arrays[i] = _combined_exchange(gg, A, hw, plan, loc)
-        handled[i] = route != "per_dim"
+        plan = _self_exchange_plan(gg, locs[i], hws[i], dims_order)
+        if plan is not None:
+            arrays[i] = halo_self_exchange(A, modes=plan[0], ols=plan[1], block=locs[i])
+            handled[i] = True
+    groups_by_dim = _coalesce_groups(gg, [_Sig(l, A.dtype) for l, A in zip(locs, arrays)],
+                                     hws, handled, dims_order, coalesce)
+    grouped = {i for gs in groups_by_dim.values() for g in gs for i in g}
+    for i, A in enumerate(arrays):
+        if handled[i] or i in grouped:
+            continue
+        modes = _combined_plan(gg, locs[i], hws[i], dims_order)
+        if modes is not None:
+            arrays[i] = _combined_exchange(gg, A, hws[i], modes, locs[i])
+            handled[i] = True
     for dim in dims_order:
         D, periodic, _ = _dim_meta(gg, dim)
         if D == 1 and not periodic:
             continue
+        use_kernel = bool(gg.use_pallas[dim])
+        in_group = set()
+        for g in groups_by_dim.get(dim, ()):
+            in_group.update(g)
+            _exchange_dim_coalesced(gg, arrays, list(g), locs, hws, dim, use_kernel)
         for i, A in enumerate(arrays):
-            if handled[i] or dim >= A.dim():
+            if handled[i] or i in in_group or dim >= A.dim():
                 continue
-            loc = tuple(int(s) // int(gg.dims[d]) for d, s in enumerate(A.shape))
-            hw = int(hws[i][dim])
-            ol_d = _ol(gg, loc, dim)
+            hw = hws[i][dim]
+            ol_d = _ol(gg, locs[i], dim)
             if ol_d < 2 * hw:
                 continue
-            arrays[i] = _exchange_dim(gg, A, dim, hw, ol_d, bool(gg.use_pallas[dim]))
+            arrays[i] = _exchange_dim(gg, A, dim, hw, ol_d, use_kernel)
     return arrays
 
 
@@ -339,16 +457,17 @@ def update_halo(*fields, dims=None, coalesce=None, wire_dtype=None,
 
     Fields may be tensors, ``Field(A, halowidths)``, ``(A, halowidths)``
     tuples or containers of tensors. ``dims`` is the 0-based dim order
-    (default z, x, y). ``coalesce`` is accepted for API parity (the virtual
-    mesh exchanges per field; results are identical). Use the returned
-    tensors: see the module docstring."""
+    (default z, x, y). ``coalesce`` packs same-dtype fields into one wire
+    buffer per (axis, group) (default from ``IGG_HALO_COALESCE``: on); the
+    values are the same either way. Use the returned tensors: see the
+    module docstring."""
     check_initialized()
     _reject_wire(wire_dtype, wire_stage)
     gg = global_grid()
     dims_order = _normalize_dims_order(dims)
     fs = _normalized_fields(fields)
     out = _exchange_arrays(gg, [f.A for f in fs], [f.halowidths for f in fs],
-                           dims_order)
+                           dims_order, coalesce)
     return out[0] if len(out) == 1 else tuple(out)
 
 
@@ -364,5 +483,103 @@ def local_update_halo(*fields, dims=None, coalesce=None, wire_dtype=None,
     dims_order = _normalize_dims_order(dims)
     fs = [wrap_field(f) for f in fields]
     out = _exchange_arrays(gg, [f.A for f in fs], [f.halowidths for f in fs],
-                           dims_order)
+                           dims_order, coalesce)
     return out[0] if len(out) == 1 else tuple(out)
+
+
+def halo_comm_plan(*fields, dims=None, coalesce=None, wire_dtype=None,
+                   ensemble=None, wire_stage=None) -> dict:
+    """Static message-count and byte plan of an `update_halo` call with these
+    stacked fields (the JAX package's `halo_comm_plan` for the exact,
+    unstaged wire), from shapes, overlaps and dtypes alone: per mesh axis the
+    permute count (two a packed group or a lone field), the bytes on the
+    wire over every link of both directions (`WireSchema.payload_bytes` for a
+    group), and the self-neighbour copies that never leave a device. Fields
+    take the forms of `update_halo`, or anything with ``shape`` and
+    ``dtype``. The ensemble axis, wire dtypes and the staged wire raise
+    `NotSupportedError`.
+
+    Returns ``{fields, coalesce, wire_dtype, wire_stage, staged_axes,
+    ensemble, axes: {axis: {ppermutes, wire_bytes, by_dtype}}, ppermutes,
+    wire_bytes, local_copy_bytes, local_copy_by_axis}``."""
+    from ..parallel.topology import AXIS_NAMES
+    from .wire import _itemsize
+
+    check_initialized()
+    _reject_wire(wire_dtype, wire_stage)
+    if ensemble is not None:
+        raise NotSupportedError(f"ensemble batching is not ported yet ({_LATER}).")
+    gg = global_grid()
+    dims_order = _normalize_dims_order(dims)
+    coalesce = resolve_halo_coalesce(coalesce)
+    fs = []
+    for f in fields:
+        if isinstance(f, tuple) and not isinstance(f, Field) and len(f) == 2 \
+                and hasattr(f[0], "shape") and not hasattr(f[1], "shape"):
+            fs.append(wrap_field(f[0], f[1]))
+        else:
+            fs.extend(wrap_field(x) for x in extract(f))
+    if not fs:
+        raise InvalidArgumentError("halo_comm_plan requires at least one field.")
+    sigs = []
+    for f in fs:
+        shape = tuple(int(s) for s in f.A.shape)
+        if any(s % int(gg.dims[d]) for d, s in enumerate(shape)):
+            raise IncoherentArgumentError(
+                f"Global (stacked) array size {shape} is not divisible by dims "
+                f"{tuple(int(d) for d in gg.dims)}.")
+        sigs.append(_Sig([s // int(gg.dims[d]) for d, s in enumerate(shape)], f.A.dtype))
+    hws = [tuple(int(h) for h in f.halowidths) for f in fs]
+
+    def slab_cells(i, dim):
+        shp = sigs[i].shape
+        return int(np.prod(shp)) // shp[dim] * hws[i][dim]
+
+    axes: dict = {}
+
+    def add_wire(dim, payload_bytes, key, npairs):
+        rec = axes.setdefault(AXIS_NAMES[dim], {"ppermutes": 0, "wire_bytes": 0,
+                                                "by_dtype": {}})
+        rec["ppermutes"] += 2
+        b = payload_bytes * npairs
+        rec["wire_bytes"] += b
+        rec["by_dtype"][key] = rec["by_dtype"].get(key, 0) + b
+
+    local_bytes = 0
+    local_by_axis: dict = {}
+    groups_by_dim = _coalesce_groups(gg, sigs, hws, [False] * len(sigs), dims_order,
+                                     coalesce)
+    for dim in dims_order:
+        D, periodic, disp = _dim_meta(gg, dim)
+        if D == 1 and not periodic:
+            continue
+        perm_p, perm_m = axis_perm_pairs(D, periodic, disp)
+        npairs = len(perm_p) + len(perm_m)
+        in_group = set()
+        for g in groups_by_dim.get(dim, ()):
+            in_group.update(g)
+            schema = schema_for_fields(dim, [sigs[i].shape for i in g],
+                                       [hws[i][dim] for i in g], sigs[g[0]].dtype)
+            add_wire(dim, schema.payload_bytes, schema.wire_key, npairs)
+        for i, f in enumerate(sigs):
+            if i in in_group or not _dim_exchanges(gg, f.shape, hws[i], dim):
+                continue
+            if D == 1:  # periodic self-neighbour: local slab swap, no wire
+                b = 2 * slab_cells(i, dim) * _itemsize(f.dtype)
+                local_bytes += b
+                local_by_axis[AXIS_NAMES[dim]] = local_by_axis.get(AXIS_NAMES[dim], 0) + b
+                continue
+            add_wire(dim, slab_cells(i, dim) * _itemsize(f.dtype), f.dtype, npairs)
+    return {
+        "fields": len(sigs),
+        "coalesce": bool(coalesce),
+        "wire_dtype": None,
+        "wire_stage": None,
+        "staged_axes": (),
+        "ensemble": 1,
+        "axes": axes,
+        "ppermutes": sum(r["ppermutes"] for r in axes.values()),
+        "wire_bytes": sum(r["wire_bytes"] for r in axes.values()),
+        "local_copy_bytes": local_bytes,
+        "local_copy_by_axis": local_by_axis,
+    }

@@ -364,3 +364,87 @@ def test_new_wrappers_refuse_bad_arguments():
                           Cp=T1.clone(), consts=CONSTS)
     with pytest.raises(E):
         cs.update_slab(T, Cp.double(), 0, [1], 1, block=(8, 6, 10), **CONSTS)
+
+
+# ---------------------------------------------------------------------------
+# K7, K8, K9 and the K4s wave modes (the acoustic slice).
+# ---------------------------------------------------------------------------
+
+def test_acoustic_slice_wrappers_refuse_bad_arguments():
+    from implicitglobalgrid_tpu_torch.ops import cuda_wave as cw
+    from implicitglobalgrid_tpu_torch.ops.wire import schema_for_fields
+
+    E = InvalidArgumentError
+    # K8 / K7: two fields of blocks (4, 3, 5), 2 x 1 x 2 blocks
+    locs = [(4, 3, 5), (5, 3, 5)]
+    fs = [torch.zeros((8, 3, 10), dtype=torch.float64),
+          torch.zeros((10, 3, 10), dtype=torch.float64)]
+    sch = schema_for_fields(0, locs, [1, 1], torch.float64)
+    kw = dict(starts_r=[2, 3], starts_l=[1, 1], blocks=locs)
+    buf_r, buf_l = ch.wire_pack(fs, sch, **kw)
+    assert tuple(buf_r.shape) == (4, 30)
+    with pytest.raises(E):   # a start leaving the block
+        ch.wire_pack(fs, sch, starts_r=[4, 3], starts_l=[1, 1], blocks=locs)
+    with pytest.raises(E):   # mixed dtypes
+        ch.wire_pack([fs[0], fs[1].float()], sch, **kw)
+    with pytest.raises(E):   # a schema whose slabs do not fit the blocks
+        ch.wire_pack(fs, schema_for_fields(0, [(4, 3, 5), (5, 3, 6)], [1, 1],
+                                           torch.float64), **kw)
+    with pytest.raises(E):   # different block counts
+        ch.wire_pack([fs[0], torch.zeros((5, 3, 10), dtype=torch.float64)], sch, **kw)
+    with pytest.raises(E):   # not contiguous
+        ch.wire_pack([fs[0].transpose(1, 2), fs[1]], sch, **kw)
+    with pytest.raises(E):   # too many fields for one launch
+        ch.wire_pack([fs[0]] * (ch.MAX_SLABS + 1), sch, **kw)
+    wkw = dict(blocks=locs, periodic=True, disp=1)
+    ch.halo_write_multi(fs, buf_r, buf_l, sch, **wkw)
+    with pytest.raises(E):   # buffer shape
+        ch.halo_write_multi(fs, buf_r[:2], buf_l, sch, **wkw)
+    with pytest.raises(E):   # buffer dtype
+        ch.halo_write_multi(fs, buf_r.float(), buf_l, sch, **wkw)
+    with pytest.raises(E):   # a buffer aliasing a field
+        ch.halo_write_multi(fs, fs[0].view(4, -1)[:, :30], buf_l, sch, **wkw)
+    with pytest.raises(E):   # halos overlapping in a block of 1 along dim
+        ch.halo_write_multi([torch.zeros((2, 3, 10), dtype=torch.float64)] * 2,
+                            buf_r, buf_l, schema_for_fields(0, [(1, 3, 5)] * 2, [1, 1],
+                                                            torch.float64),
+                            blocks=[(1, 3, 5)] * 2, periodic=True, disp=1)
+    # K9 and the K4s wave modes: state (P, Vx, Vy, Vz) of blocks (4, 3, 5)
+    block = (4, 3, 5)
+    st = tuple(torch.zeros(tuple(2 * s for s in shp), dtype=torch.float32)
+               for shp in cw.wave_shapes(block).values())
+    k = cw.wave_consts(rho=1.0, K=1.0, dt=0.1, dx=1.0, dy=1.0, dz=1.0)
+    cw.acoustic_step_recv(st, {}, block=block, consts=k)
+    with pytest.raises(E):   # a staggered field of the wrong shape
+        cw.acoustic_step_recv((st[0], st[0], st[2], st[3]), {}, block=block, consts=k)
+    with pytest.raises(E):   # bfloat16
+        cw.acoustic_step_recv(tuple(a.bfloat16() for a in st), {}, block=block, consts=k)
+    with pytest.raises(E):   # fewer than 3 planes
+        cw.acoustic_step_recv(st, {}, block=(2, 3, 5), consts=k)
+    with pytest.raises(E):   # out aliasing the state
+        cw.acoustic_step_recv(st, {}, block=block, consts=k, out=st)
+    slab = torch.zeros((8, 6, 2))
+    with pytest.raises(E):   # a received slab of the wrong shape (P is 8 x 6 x 10)
+        cw.acoustic_step_recv(st, {"P": {2: (slab, torch.zeros((8, 6, 3)))}}, block=block,
+                              consts=k)
+    with pytest.raises(E):   # a received slab aliasing the state
+        cw.acoustic_step_recv(st, {"P": {2: (st[0][:, :, :2], slab)}}, block=block, consts=k)
+    with pytest.raises(E):   # unknown field
+        cw.acoustic_step_recv(st, {"T": {2: (slab, slab)}}, block=block, consts=k)
+    modes = {f: (False, False, True) for f in cw.FIELDS}
+    ols = {f: (2, 2, 2) for f in cw.FIELDS}
+    cw.acoustic_step_self(st, modes, ols, block=block, consts=k)
+    with pytest.raises(E):   # an overlap outside [2, n-1]
+        cw.acoustic_step_self(st, modes, dict(ols, P=(2, 2, 5)), block=block, consts=k)
+    mv = (cs.Move(2, 0, -1), cs.Move(1, 3, 1))
+    cw.wave_slabs(st, "Vx", 0, 1, (cs.Move(3, 0, -1), cs.Move(1, 4, 1)), block=block,
+                  periodic=True, consts=k)
+    with pytest.raises(E):   # unknown field
+        cw.wave_slabs(st, "T", 0, 1, mv, block=block, periodic=True, consts=k)
+    with pytest.raises(E):   # a move leaving Vx's block of 5 planes
+        cw.wave_slabs(st, "Vx", 0, 1, (cs.Move(5, 0, 1),), block=block, periodic=True,
+                      consts=k)
+    px = torch.zeros((2, 6, 10))
+    with pytest.raises(E):   # earlier x slabs of P's shape for Vz (6 x 12 across)
+        cw.wave_slabs(st, "Vz", 1, 1, (cs.Move(1, 0, -1), cs.Move(1, 2, 1)), block=block,
+                      periodic=True, consts=k, earlier=((0, 1, (px, px)),))
