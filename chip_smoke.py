@@ -34,7 +34,16 @@ Phases, in order; any failure exits non-zero without the final line:
    `update_halo(P, Vx, Vy, Vz)` (K8 + K7, one group a dim) bitwise against
    the plain grid's; a few steps of ``impl="plain"`` (K8/K7 for the
    velocities, K4s/K6 for P) against ``IGG_USE_PALLAS=0``;
-10. numbers: the card's name and power limit, each kernel's time, bound,
+10. BASELINE config 5 (3-D pseudo-transient Stokes) on one 128^3 block,
+   float32, non-periodic, the example's solver loop
+   (`examples/stokes3D_multixpu.py`): `init_stokes3d` -> warm chunk -> tic
+   -> `run_stokes` in chunks of 500 with `stokes_residuals` after each until
+   max(residuals) < 5e-4 or 6000 iterations -> toc -> `gather_interior(P)`,
+   K10 alone; its first 100 iterations against ``IGG_USE_PALLAS=0``;
+11. config 5 on a 2x2x2 mesh of 128^3 blocks, 300 iterations of the fused
+   route (12 K4s Stokes-mode launches + 1 K10 an iteration); its first 20
+   against the plain route (K8 + K7 for the (Vx, Vy, Vz, P) group);
+12. numbers: the card's name and power limit, each kernel's time, bound,
    plain and library times (one JSON line), cell-updates/s, and host
    against device time per step of the fused routes.
 
@@ -66,6 +75,10 @@ N_CHECK = 64  # block of the kernel-vs-plain checks on 2x2x2 grids (2-D: N_CHECK
 N_CHECK2D = 256
 N_CFG4 = 192  # BASELINE config 4: 192^3 per block, float32 (one block; a 2x2x2 mesh)
 WAVE_FLOPS_PER_CELL = 19  # a pressure cell and its three faces: 10 + 3 x 3
+N_CFG5 = 128  # BASELINE config 5: 128^3 per block, float32 (one block; a 2x2x2 mesh)
+# a PT iteration a cell: its cell terms 21, three edge stresses 18, three
+# residuals with their damped-momentum and velocity updates 39
+STOKES_FLOPS_PER_CELL = 78
 # every kernel of the port, by its launch counter, with the name torch.profiler shows
 KERNEL_NAMES = {"diffusion3d_step_halo": "diffusion3d_step_halo_kernel",
                 "halo_write": "halo_write_kernel",
@@ -76,7 +89,8 @@ KERNEL_NAMES = {"diffusion3d_step_halo": "diffusion3d_step_halo_kernel",
                 "exchange_slabs": "exchange_slabs_kernel",
                 "wire_pack": "wire_pack_kernel",
                 "halo_write_multi": "halo_write_multi_kernel",
-                "acoustic_step_exchange": "acoustic_step_kernel"}
+                "acoustic_step_exchange": "acoustic_step_kernel",
+                "stokes_step_exchange": "stokes_step_kernel"}
 
 
 class SmokeFailure(Exception):
@@ -191,7 +205,7 @@ def phase_kernels(igg_ops, counts_before):
     """Phase 2: every kernel against its plain version, and its timings."""
     import torch
 
-    cs, ch, cb, cw, tg = igg_ops
+    cs, ch, cb, cw, cst, tg = igg_ops
     rows = {}
     # K1: the step at the main path's shapes and dtypes
     cases = [((256, 256, 256), torch.float32, (True, True, True)),
@@ -317,6 +331,11 @@ def phase_kernels(igg_ops, counts_before):
                                                 k4s_wave_err)
     rows["wire_pack"], rows["halo_write_multi"] = check_k7_k8(ch, tg)
     rows["acoustic_step_exchange"] = check_k9(cw, tg)
+    k4s_stokes_err, stokes_times = check_k4s_stokes(cs, cst, tg)
+    rows["exchange_slabs"].update(stokes_times)
+    rows["exchange_slabs"]["max_abs_err"] = max(rows["exchange_slabs"]["max_abs_err"],
+                                                k4s_stokes_err)
+    rows["stokes_step_exchange"] = check_k10(cst, tg)
     counts = cb.launch_counts()
     for name in rows:
         check(counts[name] > counts_before[name], f"{name} launch counter moved")
@@ -1250,6 +1269,321 @@ def phase_config4_mesh(tg, models, cb, cw):
                         k9_route=times)
 
 
+def _rand_stokes_state(cst, block, counts, dtype, g):
+    import torch
+
+    return tuple((torch.rand(tuple(c * s for c, s in zip(counts, shp)), generator=g,
+                             device="cuda") - 0.5).to(dtype)
+                 for shp in cst.stokes_shapes(block).values())
+
+
+# PT constants near `init_stokes3d`'s scalings for a 128^3 grid
+STOKES = dict(mu=1.0, dt_v=0.0004, dt_p=0.047, damp=0.953, dx=0.079, dy=0.079, dz=0.079)
+
+
+def _stokes_recvs(cst, gg, state, block, consts, check=None):
+    """The received slabs of the fused iteration's pipeline (K4s Stokes
+    modes); ``check(got, field, dim, moves, periodic, earlier)`` sees each
+    launch's slabs."""
+    from implicitglobalgrid_tpu_torch.ops.halo import exchange_recv_slabs_multi
+
+    modes = cst.stokes_exchange_modes(gg, [tuple(s // int(d) for s, d in zip(a.shape, gg.dims))
+                                           for a in state])
+
+    def slab_fn(field):
+        def get(dim, hw, moves, periodic, earlier):
+            got = cst.stokes_slabs(state, field, dim, hw, moves, block=block, periodic=periodic,
+                                   earlier=earlier, consts=consts)
+            if check is not None:
+                check(got, field, dim, moves, periodic, earlier)
+            return got
+        return get
+
+    return modes, exchange_recv_slabs_multi(gg, cst.wave_shapes(block), (1, 1, 1), modes,
+                                            {f: slab_fn(f) for f in cst.FIELDS})
+
+
+def check_k4s_stokes(cs, cst, tg):
+    """The K4s Stokes modes against their plain version: every field, dim
+    and range (send and current) with the identity move on 2x2x2 x 64^3
+    blocks, and every launch of the fused iteration's pipeline (moves,
+    PROC_NULL edges, earlier dims' corners) on 2x2x2 x 128^3, float32 and
+    float64; the time of one Stokes-mode launch (P, the y dim, two slabs, two
+    earlier dims) at 2x2x2 x 128^3 float32 (events and device). Returns (max
+    abs err, times)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(61)
+    err = 0.0
+    for dt in (torch.float32, torch.float64):
+        n = N_CHECK
+        block = (n, n, n)
+        st = _rand_stokes_state(cst, block, (2, 2, 2), dt, g)
+        for f, m in cst.wave_shapes(block).items():
+            for dim in range(3):
+                starts = [m[dim] - 2 - (m[dim] - n), 1 + (m[dim] - n), 0, m[dim] - 1]
+                got = cst.stokes_update_slab(st, f, dim, starts, 1, block=block, consts=STOKES)
+                for s0, gs in zip(starts, got):
+                    ref = cst.stokes_slabs_plain(st, f, dim, 1, (cs.Move(s0, s0, 0),),
+                                                 block=block, periodic=True, consts=STOKES)[0]
+                    torch.cuda.synchronize()
+                    e = max_err(gs, ref)
+                    err = max(err, e)
+                    check(close(gs, ref, **TOL[name_of(dt)]),
+                          f"K4s Stokes {f} dim {dim} start {s0} {name_of(dt)} matches plain "
+                          f"({e:.3e})")
+        del st
+        n = N_CFG5
+        block = (n, n, n)
+        for periods in ((1, 1, 1), (0, 0, 0)):
+            gg = _acoustic_grid(tg, n, (2, 2, 2), periods)
+            st = _rand_stokes_state(cst, block, (2, 2, 2), dt, g)
+            errs = []
+
+            def hold(got, field, dim, moves, periodic, earlier):
+                ref = cst.stokes_slabs_plain(st, field, dim, 1, moves, block=block,
+                                             periodic=periodic, earlier=earlier, consts=STOKES)
+                torch.cuda.synchronize()
+                errs.append(max(max_err(a, b) for a, b in zip(got, ref)))
+                check(all(close(a, b, **TOL[name_of(dt)]) for a, b in zip(got, ref)),
+                      f"K4s Stokes {field} dim {dim} periodic={periodic} 2x2x2x{n}^3 "
+                      f"{name_of(dt)} matches plain ({errs[-1]:.3e})")
+
+            _stokes_recvs(cst, gg, st, block, STOKES, hold)
+            check(len(errs) == 12, "K4s Stokes: 12 launches (4 fields x 3 dims) held")
+            err = max(err, *errs)
+            del st
+    n = N_CFG5
+    block = (n, n, n)
+    st = _rand_stokes_state(cst, block, (2, 2, 2), torch.float32, g)
+    earlier = tuple((d, 1, rand_slabs(st[0].shape, block, (d,), torch.float32, g)[d])
+                    for d in (2, 0))
+    moves = (cs.Move(n - 2, 0, -1), cs.Move(1, n - 1, 1))
+    def launch():
+        return cst.stokes_slabs(st, "P", 1, 1, moves, block=block, periodic=True,
+                                earlier=earlier, consts=STOKES)
+
+    times = dict(stokes_mode_ms=median_ms(launch),
+                 stokes_mode_device_ms=device_ms(launch, KERNEL_NAMES["exchange_slabs"]))
+    tg.finalize_global_grid()
+    return err, times
+
+
+def check_k10(cst, tg):
+    """K10 against its plain version on the five grid kinds of the parity
+    tests at 64^3 blocks, on 2x2x2 x 128^3 and on one 128^3 block, each
+    periodic (multi-rank and all-self routes) and non-periodic (config 5's
+    two grids), float32 and float64; its timing
+    row at 2x2x2 x 128^3 float32, all periodic (every field received on
+    every dim), with the all-self route and one non-periodic block (config
+    5's single-block iteration, no exchange) timed beside it."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(71)
+    err = 0.0
+    cases = [(N_CHECK, dims, periods) for dims, periods in WAVE_GRIDS.values()]
+    cases += [(N_CFG5, dims, periods) for dims in ((2, 2, 2), (1, 1, 1))
+              for periods in ((1, 1, 1), (0, 0, 0))]
+    for n, dims, periods in cases:
+        gg = _acoustic_grid(tg, n, dims, periods)
+        block = (n, n, n)
+        for dt in (torch.float32, torch.float64):
+            st = _rand_stokes_state(cst, block, dims, dt, g)
+            modes, recvs = _stokes_recvs(cst, gg, st, block, STOKES)
+            if cst.all_self_exchange(gg, modes):
+                ols = cst.self_ols(gg, block)
+                got = cst.stokes_step_self(st, modes, ols, block=block, consts=STOKES)
+                ref = cst.stokes_step_self_plain(st, modes, ols, block=block, consts=STOKES)
+                route = "all-self"
+            else:
+                got = cst.stokes_step_recv(st, recvs, block=block, consts=STOKES)
+                ref = cst.stokes_step_recv_plain(st, recvs, block=block, consts=STOKES)
+                route = "multi-rank"
+            torch.cuda.synchronize()
+            e = max(max_err(a, b) for a, b in zip(got, ref))
+            err = max(err, e)
+            check(all(close(a, b, **TOL[name_of(dt)]) for a, b in zip(got, ref)),
+                  f"K10 {dims} x {n}^3 periods {periods} ({route}) {name_of(dt)} matches plain "
+                  f"(max abs err {e:.3e})")
+            del st, got, ref, recvs
+
+    def row(dims, periods):
+        n = N_CFG5
+        block = (n, n, n)
+        gg = _acoustic_grid(tg, n, dims, periods)
+        st = _rand_stokes_state(cst, block, dims, torch.float32, g)
+        modes, recvs = _stokes_recvs(cst, gg, st, block, STOKES)
+        out = tuple(torch.empty_like(a) for a in st[:7])
+        if cst.all_self_exchange(gg, modes):
+            ols = cst.self_ols(gg, block)
+
+            def k10():
+                return cst.stokes_step_self(st, modes, ols, block=block, consts=STOKES, out=out)
+        else:
+            def k10():
+                return cst.stokes_step_recv(st, recvs, block=block, consts=STOKES, out=out)
+        slab_b = sum(s.numel() * 4 for per in recvs.values() for p in per.values() for s in p)
+        bound_b = (cst.stokes_bytes(st) + slab_b) / HBM_BYTES_PER_S * 1e3
+        bound_o = st[0].numel() * STOKES_FLOPS_PER_CELL / F32_FLOPS_PER_S * 1e3
+        return st, recvs, k10, bound_b, bound_o
+
+    st, recvs, k10, bound_b, bound_o = row((2, 2, 2), (1, 1, 1))
+    r = dict(max_abs_err=err, ms=median_ms(k10),
+             plain_ms=median_ms(lambda: cst.stokes_step_recv_plain(
+                 st, recvs, block=(N_CFG5,) * 3, consts=STOKES), batches=3, per_batch=2, warm=1),
+             device_ms=device_ms(k10, KERNEL_NAMES["stokes_step_exchange"]),
+             bound_ms=max(bound_b, bound_o),
+             bound_by="bytes" if bound_b >= bound_o else "operations", library_ms=None,
+             shape=f"2x2x2 x {N_CFG5}^3 float32, all periodic (every field, every dim "
+                   "received)")
+    # the same launch on the data a solver starts from (zeros) and on float32
+    # subnormals: the IEEE division's slow path
+    gg = tg.global_grid()
+    for key, scale in (("zeros_device_ms", 0.0), ("subnormal_device_ms", 1e-39)):
+        sd = tuple(a * scale for a in st)
+        _, rd = _stokes_recvs(cst, gg, sd, (N_CFG5,) * 3, STOKES)
+        out = tuple(torch.empty_like(a) for a in sd[:7])
+        r[key] = device_ms(lambda: cst.stokes_step_recv(sd, rd, block=(N_CFG5,) * 3,
+                                                        consts=STOKES, out=out),
+                           KERNEL_NAMES["stokes_step_exchange"])
+        del sd, rd, out
+    del st, recvs
+    for key, periods in (("self_route", (1, 1, 1)), ("single_block", (0, 0, 0))):
+        st, _, k10, bound_b, bound_o = row((1, 1, 1), periods)
+        r[key] = dict(ms=median_ms(k10),
+                      device_ms=device_ms(k10, KERNEL_NAMES["stokes_step_exchange"]),
+                      bound_ms=max(bound_b, bound_o), periods=periods)
+        del st
+    tg.finalize_global_grid()
+    return r
+
+
+def _stokes_iteration(tg, cst, s0, p):
+    """One fused iteration from ``s0`` as `run_stokes` takes it: the route
+    resolved once (a `StokesStep`), a spare state to write."""
+    import torch
+
+    gg = tg.global_grid()
+    locs = [tuple(s // int(d) for s, d in zip(a.shape, gg.dims)) for a in s0]
+    step = cst.StokesStep(gg, cst.stokes_exchange_modes(gg, locs), p, block=locs[0])
+    out = tuple(torch.empty_like(a) for a in s0)
+    return lambda: step(s0, out)
+
+
+def phase_config5_single(tg, models, cb, cst):
+    """Phase 10: BASELINE config 5 on one 128^3 block, float32, non-periodic,
+    the example's solver loop, against the plain route."""
+    import numpy as np
+    import torch
+
+    n, chunk, max_iters, tol = N_CFG5, 500, 6000, 5e-4
+    print(f"phase: BASELINE config 5, one {n}^3 block float32, <= {max_iters} PT iterations",
+          flush=True)
+    grid(tg, n, n, n)
+    s0, p = models.init_stokes3d(dtype=torch.float32)
+    models.stokes_residuals(models.run_stokes(s0, p, chunk, nt_chunk=chunk), p)  # warm
+    cb.reset_launch_counts()
+    tg.tic()
+    it, state, res = 0, s0, (float("inf"), float("inf"))
+    history = []
+    while it < max_iters:
+        state = models.run_stokes(state, p, chunk, nt_chunk=chunk)
+        it += chunk
+        res = models.stokes_residuals(state, p)
+        history.append((it, *res))
+        print(f"  iters={it:6d}  max|divV|={res[0]:.3e}  max|R|={res[1]:.3e}", flush=True)
+        if max(res) < tol:
+            break
+    t = tg.toc()
+    P = tg.gather_interior(state[0])
+    torch.cuda.synchronize()
+    counts = cb.launch_counts()
+    cells = tg.nx_g() * tg.ny_g() * tg.nz_g()
+    rate = cells * it / t
+    status = "converged" if max(res) < tol else "max-iters"
+    print(f"  config 5 single: {status} after {it} PT iterations in {t:.6f} s = {rate:.6e} "
+          f"cell-updates/s (global {tg.nx_g()}x{tg.ny_g()}x{tg.nz_g()}); P range "
+          f"[{float(P.min()):+.3e}, {float(P.max()):+.3e}]; launches {counts}", flush=True)
+    check(counts["stokes_step_exchange"] == it and sum(counts.values()) == it,
+          "config 5 single: K10 once per iteration, nothing else")
+    check(P.shape == (tg.nx_g(), tg.ny_g(), tg.nz_g()) and bool(np.isfinite(P).all())
+          and all(np.isfinite(h[1:]).all() for h in history),
+          f"config 5 single: P finite, shape {P.shape}; residuals finite")
+    check(history[-1][2] < history[0][2] or max(res) < tol,
+          f"config 5 single: max|R| fell {history[0][2]:.3e} -> {history[-1][2]:.3e}")
+    Vz = tg.gather_interior(state[3])
+    c = Vz.shape[0] // 2
+    check(Vz[c, c, c] > 0, "config 5 single: the buoyant sphere drives upward flow")
+    times = route_times(_stokes_iteration(tg, cst, s0, p))
+    print(f"  K10 route per iteration: {times}", flush=True)
+    G = [tg.gather_interior(a) for a in models.run_stokes(s0, p, 100, nt_chunk=100)[:4]]
+    grid(tg, n, n, n, plain=True)
+    t1 = time.perf_counter()
+    Gp = [tg.gather_interior(a) for a in models.run_stokes(s0, p, 100, nt_chunk=100)[:4]]
+    plain_s = time.perf_counter() - t1
+    err = max(float(np.abs(a.astype(np.float64) - b).max()) for a, b in zip(G, Gp))
+    ok = all(np.allclose(a, b, rtol=1e-4, atol=1e-5 * max(1e-30, float(np.abs(b).max())))
+             for a, b in zip(G, Gp))
+    check(ok, f"config 5 single: 100 iterations match the plain route ({err:.3e})")
+    tg.finalize_global_grid()
+    os.environ.pop("IGG_USE_PALLAS", None)
+    return counts, dict(status=status, iterations=it, residuals=list(res), seconds=t,
+                        cell_updates_per_s=rate, global_cells=cells, history=history,
+                        plain_100_seconds=plain_s, max_abs_err_vs_plain_100=err, k10_route=times)
+
+
+def phase_config5_mesh(tg, models, cb, cst):
+    """Phase 11: BASELINE config 5 on a 2x2x2 mesh of 128^3 blocks, float32,
+    non-periodic: the fused route, against the plain route (K8 + K7)."""
+    import numpy as np
+    import torch
+
+    n, nt = N_CFG5, 300
+    print(f"phase: BASELINE config 5, 2x2x2 x {n}^3 float32, nt={nt}", flush=True)
+    kw = dict(dimx=2, dimy=2, dimz=2)
+    grid(tg, n, n, n, **kw)
+    s0, p = models.init_stokes3d(dtype=torch.float32)
+    models.run_stokes(s0, p, 2, nt_chunk=2)  # warm chunk
+    cb.reset_launch_counts()
+    tg.tic()
+    s = models.run_stokes(s0, p, nt, nt_chunk=nt)
+    t = tg.toc()
+    counts = cb.launch_counts()
+    res = models.stokes_residuals(s, p)
+    G = [tg.gather_interior(a) for a in s[:4]]
+    cells = tg.nx_g() * tg.ny_g() * tg.nz_g()
+    rate = cells * nt / t
+    print(f"  config 5 mesh: nt={nt} in {t:.6f} s = {rate:.6e} cell-updates/s (global "
+          f"{tg.nx_g()}x{tg.ny_g()}x{tg.nz_g()}); residuals {res}; launches {counts}",
+          flush=True)
+    check(counts["stokes_step_exchange"] == nt, "config 5 mesh: K10 launched once per iteration")
+    check(counts["exchange_slabs"] == 12 * nt and sum(counts.values()) == 13 * nt,
+          "config 5 mesh: K4s once per (field, dim) an iteration (4 fields x 3 dims)")
+    check(all(bool(np.isfinite(g).all()) for g in G) and np.isfinite(res).all(),
+          "config 5 mesh: gathered fields and residuals finite")
+    times = route_times(_stokes_iteration(tg, cst, s0, p), reps=5)
+    print(f"  K4s + K10 route per iteration: {times}", flush=True)
+    f20 = [tg.gather_interior(a) for a in models.run_stokes(s0, p, 20, nt_chunk=20)[:4]]
+    c0 = cb.launch_counts()
+    p20 = [tg.gather_interior(a) for a in models.run_stokes(s0, p, 20, nt_chunk=20,
+                                                            impl="plain")[:4]]
+    torch.cuda.synchronize()
+    c1 = cb.launch_counts()
+    dp = {k: c1[k] - c0[k] for k in c1}
+    print(f"  20 plain-route iterations launches {dp}", flush=True)
+    check(dp["wire_pack"] == 60 and dp["halo_write_multi"] == 60 and sum(dp.values()) == 120,
+          "config 5 mesh: the plain route exchanged (Vx, Vy, Vz, P) as one group a dim (K8/K7)")
+    counts = {k: counts[k] + dp[k] for k in counts}  # the timed run and the plain route's
+    err = max(float(np.abs(a.astype(np.float64) - b).max()) for a, b in zip(f20, p20))
+    ok = all(np.allclose(a, b, rtol=1e-4, atol=1e-5 * max(1e-30, float(np.abs(b).max())))
+             for a, b in zip(f20, p20))
+    check(ok, f"config 5 mesh: 20 fused iterations match the plain route ({err:.3e})")
+    check(not np.allclose(G[3], tg.gather_interior(s0[3])), "config 5 mesh: the flow evolved")
+    tg.finalize_global_grid()
+    return counts, dict(seconds=t, cell_updates_per_s=rate, global_cells=cells,
+                        residuals=list(res), max_abs_err_vs_plain_20=err, k10_route=times)
+
+
 def main() -> int:
     try:
         import torch
@@ -1267,6 +1601,7 @@ def main() -> int:
         from implicitglobalgrid_tpu_torch.ops import cuda_build as cb
         from implicitglobalgrid_tpu_torch.ops import cuda_halo as ch
         from implicitglobalgrid_tpu_torch.ops import cuda_stencil as cs
+        from implicitglobalgrid_tpu_torch.ops import cuda_stokes as cst
         from implicitglobalgrid_tpu_torch.ops import cuda_wave as cw
     except ImportError as e:
         print(f"chip_smoke: the package is not beside this script: {e}",
@@ -1285,7 +1620,7 @@ def main() -> int:
                     or line.startswith("=="):
                 print("  " + line.strip())
         print("phase: kernels vs plain", flush=True)
-        rows = phase_kernels((cs, ch, cb, cw, tg), cb.launch_counts())
+        rows = phase_kernels((cs, ch, cb, cw, cst, tg), cb.launch_counts())
         periodic = phase_main(tg, models, cb, "periodic", 100,
                               periodx=1, periody=1, periodz=1)
         novis = phase_main(tg, models, cb, "non-periodic", 100)
@@ -1294,12 +1629,14 @@ def main() -> int:
         cfg2_counts, cfg2 = phase_config2(tg, models, cb)
         cfg4_counts, cfg4 = phase_config4_single(tg, models, cb, cw)
         cfg4m_counts, cfg4m = phase_config4_mesh(tg, models, cb, cw)
+        cfg5_counts, cfg5 = phase_config5_single(tg, models, cb, cst)
+        cfg5m_counts, cfg5m = phase_config5_mesh(tg, models, cb, cst)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts,
-             cfg4_counts, cfg4m_counts]
+             cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts]
     launches = {k: sum(c[k] for c in paths) for k in KERNEL_NAMES}
     for name, n in launches.items():
         if n == 0:
@@ -1322,12 +1659,15 @@ def main() -> int:
            "halo_write_combined": (halo, "implicitglobalgrid_tpu/ops/pallas_halo.py:523"),
            "exchange_slabs": (stencil, "implicitglobalgrid_tpu/ops/pallas_stencil.py:239 "
                                        "(XLA helper) + ops/halo.py:299 + "
-                                       "ops/pallas_wave.py:109,127 (wave getters)"),
+                                       "ops/pallas_wave.py:109,127 (wave getters) + "
+                                       "ops/pallas_stokes.py:87,102 (Stokes getters)"),
            "wire_pack": (halo, "implicitglobalgrid_tpu/ops/pallas_halo.py:72"),
            "halo_write_multi": (halo, "implicitglobalgrid_tpu/ops/pallas_halo.py:269,347"),
            "acoustic_step_exchange": ("implicitglobalgrid_tpu_torch/csrc/wave.cu",
                                       "implicitglobalgrid_tpu/ops/pallas_wave.py:386 "
-                                      "(_wave_kernel :227, _wave_mp_kernel :305)")}
+                                      "(_wave_kernel :227, _wave_mp_kernel :305)"),
+           "stokes_step_exchange": ("implicitglobalgrid_tpu_torch/csrc/stokes.cu",
+                                    "implicitglobalgrid_tpu/ops/pallas_stokes.py:132,286")}
     kernels = []
     for name, r in rows.items():
         kernels.append(dict(name=name, route="cuda", source=src[name][0],
@@ -1337,14 +1677,18 @@ def main() -> int:
                             bound_by=r["bound_by"], library_ms=r["library_ms"],
                             device_ms=r["device_ms"], shape=r["shape"],
                             **{k: v for k, v in r.items()
-                               if k in ("k1_same_shape_ms", "wave_mode_ms")}))
+                               if k in ("k1_same_shape_ms", "wave_mode_ms", "stokes_mode_ms",
+                                        "stokes_mode_device_ms",
+                                        "self_route", "single_block", "zeros_device_ms",
+                                        "subnormal_device_ms")}))
     k1_dev = rows["diffusion3d_step_halo"]["device_ms"]
     if k1_dev is not None:  # the periodic step is one K1 (T,T,T) launch
         periodic["k1_device_share"] = 100 * k1_dev / (periodic["seconds"] * 1e3 / 100)
     print(json.dumps({"main_path": {"periodic_256": periodic, "nonperiodic_256": novis,
                                     "mesh_2x2x2_128": mesh, "config3_2x2x2_256_f64": cfg3,
                                     "config2_2x2_4096_f32": cfg2,
-                                    "config4_192_f32": cfg4, "config4_2x2x2_192_f32": cfg4m},
+                                    "config4_192_f32": cfg4, "config4_2x2x2_192_f32": cfg4m,
+                                    "config5_128_f32": cfg5, "config5_2x2x2_128_f32": cfg5m},
                       "seconds_total": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -44,7 +44,8 @@ from .utils.timing import tic, toc, barrier, sync
 from .utils import exceptions
 from .models import (
     AcousticParams, acoustic_state_from_numpy, acoustic_step_local, init_acoustic3d,
-    make_acoustic_run, run_acoustic,
+    make_acoustic_run, run_acoustic, StokesParams, init_stokes3d, run_stokes,
+    stokes_residuals, stokes_state_from_numpy, stokes_step_local, make_stokes_run,
 )
 
 __version__ = "0.1.0"
@@ -62,4 +63,6 @@ __all__ = [
     "neighbors_table", "ol", "dims_create", "DEFAULT_DIMS_ORDER",
     "exceptions", "AcousticParams", "init_acoustic3d", "acoustic_step_local",
     "make_acoustic_run", "run_acoustic", "acoustic_state_from_numpy",
+    "StokesParams", "init_stokes3d", "stokes_step_local", "make_stokes_run", "run_stokes",
+    "stokes_residuals", "stokes_state_from_numpy",
 ]

@@ -43,7 +43,10 @@
 // acoustic step: the field updated by the leapfrog on the slab, JAX's getters
 // `_make_v_get_slab` / `_make_p_get_slab` (pallas_wave.py:109,127), through
 // the per-cell functions of wave.cuh that K9 uses, so a send slab is bit for
-// bit what K9 computes at that cell.
+// bit what K9 computes at that cell. Its Stokes modes (7 to 10) take the send
+// slabs of the fused PT iteration: the field after the iteration, JAX's
+// getters `_pn_get_slab` / `_v_get_slab` (pallas_stokes.py:87,102), through
+// the per-cell functions of stokes.cuh in their getter form.
 //
 // Arithmetic: `_stencil_plane` / `_stencil_row` accumulation order with real
 // divisions; built with -fmad=false so that no multiply-add is contracted and
@@ -63,6 +66,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "stokes.cuh"
 #include "wave.cuh"
 
 namespace {
@@ -368,13 +372,14 @@ __device__ __forceinline__ bool from_earlier(const Earlier<S>& e, unsigned g0, u
 }
 
 // MODE 0: a plain copy (update_halo); 1: the 3-D step; 2: the 2-D step laid
-// out as (S0, 1, S1); 3 to 6: the acoustic step's P, Vx, Vy, Vz (G is then
-// that field's geometry, and the state is in wv).
-template <typename S, typename C, int MODE>
+// out as (S0, 1, S1); 3 to 6: the acoustic step's P, Vx, Vy, Vz; 7 to 10: the
+// PT Stokes iteration's P, Vx, Vy, Vz in the getter form (G is then that
+// field's geometry, and the state is in wv: a Wave or a Stokes).
+template <typename S, typename C, int MODE, typename W>
 __global__ void __launch_bounds__(THREADS)
 exchange_slabs_kernel(const S* __restrict__ T, const S* __restrict__ Cp, S* out0, S* out1,
                       Geom G, int dim, unsigned hw, int periodic, Move m0, Move m1,
-                      Earlier<S> e0, Earlier<S> e1, Consts<C> kc, Wave<C> wv) {
+                      Earlier<S> e0, Earlier<S> e1, Consts<C> kc, W wv) {
   S* out = blockIdx.y ? out1 : out0;
   const Move m = blockIdx.y ? m1 : m0;
   if (out == nullptr) return;
@@ -410,7 +415,11 @@ exchange_slabs_kernel(const S* __restrict__ T, const S* __restrict__ Cp, S* out0
         !from_earlier(e0, g0, g1, g2, G, v)) {  // the later dim wins
       const long long S1 = G.S1, S2 = G.S2;
       const long long p = ((long long)g0 * S1 + g1) * S2 + g2;
-      if constexpr (MODE >= 3) {
+      if constexpr (MODE >= 7) {
+        const unsigned c0 = g0 / G.n0, c1 = g1 / G.n1, c2 = g2 / G.n2;
+        v = stokes_update<C, FORM_GETTER>(wv, stokes_block(wv, c0, c1, c2), MODE - 7,
+                                          g0 - c0 * G.n0, g1 - c1 * G.n1, g2 - c2 * G.n2);
+      } else if constexpr (MODE >= 3) {
         const unsigned c0 = g0 / G.n0, c1 = g1 / G.n1, c2 = g2 / G.n2;
         v = wave_update(wv, wave_block(wv, c0, c1, c2), MODE - 3, g0 - c0 * G.n0,
                         g1 - c1 * G.n1, g2 - c2 * G.n2);
@@ -437,15 +446,14 @@ exchange_slabs_kernel(const S* __restrict__ T, const S* __restrict__ Cp, S* out0
   }
 }
 
-template <typename S, typename C, int MODE>
+template <typename S, typename C, int MODE, typename W>
 void exchange_slabs(const void* T, const void* Cp, void* o0, void* o1, const Geom& G, int dim,
                     unsigned hw, int periodic, Move m0, Move m1, Earlier<S> e0,
-                    Earlier<S> e1, Consts<C> kc, Wave<C> wv, unsigned total,
-                    cudaStream_t st) {
+                    Earlier<S> e1, Consts<C> kc, W wv, unsigned total, cudaStream_t st) {
   long long blocks = ((long long)total + THREADS - 1) / THREADS;
   if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
   if (blocks < 1) blocks = 1;
-  exchange_slabs_kernel<S, C, MODE><<<dim3((unsigned)blocks, 2u), THREADS, 0, st>>>(
+  exchange_slabs_kernel<S, C, MODE, W><<<dim3((unsigned)blocks, 2u), THREADS, 0, st>>>(
       static_cast<const S*>(T), static_cast<const S*>(Cp), static_cast<S*>(o0),
       static_cast<S*>(o1), G, dim, hw, periodic, m0, m1, e0, e1, kc, wv);
 }
@@ -686,5 +694,50 @@ extern "C" int igg_exchange_slabs_wave(int dtype, int field, const void* const* 
     default: return (int)cudaErrorInvalidValue;
   }
 #undef IGG_WAVE_SLABS
+  return (int)cudaGetLastError();
+}
+
+// K4s Stokes modes. field: 0 P, 1 Vx, 2 Vy, 3 Vz, the field whose received
+// slabs are made (G is its geometry). dtype 0 float32, 1 float64. ptrs: P,
+// Vx, Vy, Vz, dVx, dVy, dVz, rhog, out0, out1, e0l, e0r, e1l, e1r. g as the
+// wave modes'. c: mu, dt_v, dt_p, damp, dx, dy, dz (stokes.cuh).
+extern "C" int igg_exchange_slabs_stokes(int dtype, int field, const void* const* ptrs,
+                                         const long long* g, const double* c, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (field < 0 || field > 3 || g[0] < 1 || g[1] < 1 || g[2] < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long n0 = g[0] + (field == 1), n1 = g[1] + (field == 2), n2 = g[2] + (field == 3);
+  const int dim = (int)g[6];
+  Geom G;
+  unsigned x0, x1;
+  const long long cells = slabs_geom(g[3] * n0, g[4] * n1, g[5] * n2, n0, n1, n2, dim, g[7],
+                                     (int)g[15], g[16], ptrs[10], (int)g[17], g[18], ptrs[12],
+                                     G, x0, x1);
+  const long long lim = 1LL << 31;  // every field's stacked extents fit 32 bits
+  if (cells < 0 || g[3] * (g[0] + 1) >= lim || g[4] * (g[1] + 1) >= lim ||
+      g[5] * (g[2] + 1) >= lim)
+    return (int)cudaErrorInvalidValue;
+  const Move m0{(int)g[9], (int)g[10], (int)g[11]}, m1{(int)g[12], (int)g[13], (int)g[14]};
+#define IGG_STOKES_SLABS(T, MODE)                                                        \
+  exchange_slabs<T, T, MODE>(                                                            \
+      ptrs[0], nullptr, const_cast<void*>(ptrs[8]), const_cast<void*>(ptrs[9]), G, dim,  \
+      (unsigned)g[7], (int)g[8], m0, m1,                                                 \
+      Earlier<T>{static_cast<const T*>(ptrs[10]), static_cast<const T*>(ptrs[11]),       \
+                 (int)g[15], (unsigned)g[16], x0},                                       \
+      Earlier<T>{static_cast<const T*>(ptrs[12]), static_cast<const T*>(ptrs[13]),       \
+                 (int)g[17], (unsigned)g[18], x1},                                       \
+      Consts<T>{}, make_stokes<T>(ptrs, g, c), (unsigned)cells, st)
+  switch (dtype * 4 + field) {
+    case 0: IGG_STOKES_SLABS(float, 7); break;
+    case 1: IGG_STOKES_SLABS(float, 8); break;
+    case 2: IGG_STOKES_SLABS(float, 9); break;
+    case 3: IGG_STOKES_SLABS(float, 10); break;
+    case 4: IGG_STOKES_SLABS(double, 7); break;
+    case 5: IGG_STOKES_SLABS(double, 8); break;
+    case 6: IGG_STOKES_SLABS(double, 9); break;
+    case 7: IGG_STOKES_SLABS(double, 10); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef IGG_STOKES_SLABS
   return (int)cudaGetLastError();
 }

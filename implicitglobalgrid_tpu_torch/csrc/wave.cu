@@ -48,24 +48,6 @@ struct Outs {
   T *P, *Vx, *Vy, *Vz;
 };
 
-// Received slabs (halowidth 1, K2's layout: the field's stacked shape with
-// the dim at its block count), [field][dim][side], null where none.
-template <typename T>
-struct Recvs {
-  const T* r[4][3][2];
-};
-
-// The self-exchange of each field: mode and overlap per dim.
-struct SelfMap {
-  int mode[4][3];
-  unsigned ol[4][3];
-};
-
-__device__ __forceinline__ unsigned self_src(unsigned i, unsigned n, int mode, unsigned ol) {
-  if (!mode) return i;
-  return i == 0 ? n - ol : (i == n - 1 ? ol - 1 : i);
-}
-
 // Block extents (m0, m1, m2) of field f.
 struct Ext {
   unsigned m0, m1, m2;
@@ -93,16 +75,7 @@ __device__ __forceinline__ T out_value(const Wave<T>& w, const WaveBlock& b, int
     if (si == i && sj == j && sk == k) return computed;
     return wave_update(w, b, f, si, sj, sk);
   }
-  const long long S1 = (long long)w.D1 * e.m1, S2 = (long long)w.D2 * e.m2;
-  const long long I = (long long)c0 * e.m0 + i, J = (long long)c1 * e.m1 + j,
-                  K = (long long)c2 * e.m2 + k;
-  if (r.r[f][1][0] != nullptr && (j == 0 || j == e.m1 - 1))
-    return (j == 0 ? r.r[f][1][0] : r.r[f][1][1])[(I * w.D1 + c1) * S2 + K];
-  if (r.r[f][0][0] != nullptr && (i == 0 || i == e.m0 - 1))
-    return (i == 0 ? r.r[f][0][0] : r.r[f][0][1])[((long long)c0 * S1 + J) * S2 + K];
-  if (r.r[f][2][0] != nullptr && (k == 0 || k == e.m2 - 1))
-    return (k == 0 ? r.r[f][2][0] : r.r[f][2][1])[(I * S1 + J) * w.D2 + c2];
-  return computed;
+  return received_or(r, f, e.m0, e.m1, e.m2, w.D1, w.D2, c0, c1, c2, i, j, k, computed);
 }
 
 // Thread blocks an SM must hold at once, which bounds registers (64 for

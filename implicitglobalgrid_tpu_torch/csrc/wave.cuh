@@ -10,6 +10,10 @@
 // P - dtK*(((vx[i+1]-vx[i])/dx + (vy[j+1]-vy[j])/dy) + (vz[k+1]-vz[k])/dz)
 // from the updated faces. Built with -fmad=false, so each operation rounds
 // as the plain PyTorch version's does.
+//
+// It also holds what the fused staggered steps K9 and K10 (stokes.cu) share:
+// the offsets of a block's staggered fields (`staggered_block`) and the halo
+// delivery (`Recvs`, `SelfMap`, `self_src`, `received_or`).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,9 +45,12 @@ struct WaveBlock {
   Strides sp, sy, sz;  // P and Vx share sp
 };
 
-template <typename T>
-__device__ __forceinline__ WaveBlock wave_block(const Wave<T>& w, unsigned c0, unsigned c1,
-                                                unsigned c2) {
+// Offsets of block (c0, c1, c2) in stacked P (nx, ny, nz) blocks and the
+// staggered Vx, Vy, Vz blocks, D1 x D2 blocks across y and z, of a state `w`
+// with those extents (a Wave or a Stokes).
+template <typename W>
+__device__ __forceinline__ WaveBlock staggered_block(const W& w, unsigned c0, unsigned c1,
+                                                     unsigned c2) {
   WaveBlock b;
   b.sp = wave_strides(w.ny, w.nz, w.D1, w.D2);
   b.sy = wave_strides(w.ny + 1, w.nz, w.D1, w.D2);
@@ -54,6 +61,12 @@ __device__ __forceinline__ WaveBlock wave_block(const Wave<T>& w, unsigned c0, u
   b.vy = (long long)c0 * w.nx * b.sy.plane + (long long)c1 * (w.ny + 1) * b.sy.row + k0;
   b.vz = (long long)c0 * w.nx * b.sz.plane + j0 * b.sz.row + (long long)c2 * (w.nz + 1);
   return b;
+}
+
+template <typename T>
+__device__ __forceinline__ WaveBlock wave_block(const Wave<T>& w, unsigned c0, unsigned c1,
+                                                unsigned c2) {
+  return staggered_block(w, c0, c1, c2);
 }
 
 template <typename T>
@@ -119,6 +132,47 @@ __device__ __forceinline__ T wave_update(const Wave<T>& w, const WaveBlock& b, i
     case 2: return wave_vy(w, b, i, j, k);
     default: return wave_vz(w, b, i, j, k);
   }
+}
+
+// Received slabs of the fused staggered steps (K9, K10; halowidth 1, K2's
+// layout: the field's stacked shape with the dim at its block count),
+// [field P, Vx, Vy, Vz][dim][side], null where none.
+template <typename T>
+struct Recvs {
+  const T* r[4][3][2];
+};
+
+// The self-exchange of each field: mode and overlap per dim.
+struct SelfMap {
+  int mode[4][3];
+  unsigned ol[4][3];
+};
+
+__device__ __forceinline__ unsigned self_src(unsigned i, unsigned n, int mode, unsigned ol) {
+  if (!mode) return i;
+  return i == 0 ? n - ol : (i == n - 1 ? ol - 1 : i);
+}
+
+// Output cell (i, j, k) of field f (blocks m0 x m1 x m2, D1 x D2 of them
+// across y and z) in block (c0, c1, c2): its received value where it lies in
+// an exchanging dim's halo, in the z, x, y write order read as a per-cell
+// rule (a y-halo row over an x-halo plane over a z-halo lane), else
+// `computed`.
+template <typename T>
+__device__ __forceinline__ T received_or(const Recvs<T>& r, int f, unsigned m0, unsigned m1,
+                                         unsigned m2, unsigned D1, unsigned D2, unsigned c0,
+                                         unsigned c1, unsigned c2, unsigned i, unsigned j,
+                                         unsigned k, T computed) {
+  const long long S1 = (long long)D1 * m1, S2 = (long long)D2 * m2;
+  const long long I = (long long)c0 * m0 + i, J = (long long)c1 * m1 + j,
+                  K = (long long)c2 * m2 + k;
+  if (r.r[f][1][0] != nullptr && (j == 0 || j == m1 - 1))
+    return (j == 0 ? r.r[f][1][0] : r.r[f][1][1])[(I * D1 + c1) * S2 + K];
+  if (r.r[f][0][0] != nullptr && (i == 0 || i == m0 - 1))
+    return (i == 0 ? r.r[f][0][0] : r.r[f][0][1])[((long long)c0 * S1 + J) * S2 + K];
+  if (r.r[f][2][0] != nullptr && (k == 0 || k == m2 - 1))
+    return (k == 0 ? r.r[f][2][0] : r.r[f][2][1])[(I * S1 + J) * D2 + c2];
+  return computed;
 }
 
 // The host-side constants (double) rounded once to the state dtype.

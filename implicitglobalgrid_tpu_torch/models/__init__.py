@@ -1,5 +1,5 @@
-"""Models on the virtual mesh: 3-D/2-D heat diffusion and the 3-D acoustic
-wave."""
+"""Models on the virtual mesh: 3-D/2-D heat diffusion, the 3-D acoustic
+wave and the 3-D pseudo-transient Stokes solver."""
 
 from .diffusion import (
     DiffusionParams, diffusion_step_local, init_diffusion2d, init_diffusion3d,
@@ -9,10 +9,16 @@ from .acoustic import (
     AcousticParams, acoustic_step_local, init_acoustic3d, make_acoustic_run,
     make_acoustic_run_deep, run_acoustic,
 )
-from .convert import acoustic_state_from_numpy, state_from_numpy
+from .stokes import (
+    StokesParams, init_stokes3d, make_stokes_run, make_stokes_run_deep, run_stokes,
+    stokes_residuals, stokes_step_local,
+)
+from .convert import acoustic_state_from_numpy, state_from_numpy, stokes_state_from_numpy
 
 __all__ = ["DiffusionParams", "init_diffusion3d", "init_diffusion2d",
            "diffusion_step_local", "make_step", "make_run", "run_diffusion",
            "AcousticParams", "init_acoustic3d", "acoustic_step_local",
            "make_acoustic_run", "make_acoustic_run_deep", "run_acoustic",
-           "state_from_numpy", "acoustic_state_from_numpy"]
+           "StokesParams", "init_stokes3d", "stokes_step_local", "make_stokes_run",
+           "make_stokes_run_deep", "run_stokes", "stokes_residuals",
+           "state_from_numpy", "acoustic_state_from_numpy", "stokes_state_from_numpy"]

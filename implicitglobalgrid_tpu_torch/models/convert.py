@@ -1,8 +1,8 @@
 """Carry a model state from the JAX package into the port.
 
 The system has no weights; its "weights" are the state and the parameters.
-`state_from_numpy` (diffusion) and `acoustic_state_from_numpy` take the JAX
-package's stacked arrays as numpy (``np.asarray(T)``) and its parameters as
+`state_from_numpy` (diffusion), `acoustic_state_from_numpy` and
+`stokes_state_from_numpy` take the JAX package's stacked arrays as numpy (``np.asarray(T)``) and its parameters as
 a dict (``dataclasses.asdict(p)``) and return the port's stacked tensors and
 parameters. They import nothing of JAX.
 """
@@ -16,8 +16,10 @@ import numpy as np
 from .acoustic import AcousticParams
 from .acoustic import check_supported as check_acoustic
 from .diffusion import DiffusionParams, check_supported
+from .stokes import StokesParams
+from .stokes import check_supported as check_stokes
 
-__all__ = ["state_from_numpy", "acoustic_state_from_numpy"]
+__all__ = ["state_from_numpy", "acoustic_state_from_numpy", "stokes_state_from_numpy"]
 
 
 def _tensor_from_numpy(a, device):
@@ -57,3 +59,12 @@ def acoustic_state_from_numpy(P, Vx, Vy, Vz, params: dict, device):
     p = _params(AcousticParams, params)
     check_acoustic(p)
     return tuple(_tensor_from_numpy(a, device) for a in (P, Vx, Vy, Vz)), p
+
+
+def stokes_state_from_numpy(P, Vx, Vy, Vz, dVx, dVy, dVz, rhog, params: dict, device):
+    """``((P, Vx, Vy, Vz, dVx, dVy, dVz, rhog), StokesParams)`` on ``device``
+    from the JAX package's stacked numpy arrays and a parameter dict."""
+    p = _params(StokesParams, params)
+    check_stokes(p)
+    return tuple(_tensor_from_numpy(a, device)
+                 for a in (P, Vx, Vy, Vz, dVx, dVy, dVz, rhog)), p

@@ -30,8 +30,8 @@ __all__ = ["build_kernels", "library", "count_launch", "launch_counts",
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("stencil.cu", "halo.cu", "wave.cu")
-HEADERS = ("wave.cuh",)
+SOURCES = ("stencil.cu", "halo.cu", "wave.cu", "stokes.cu")
+HEADERS = ("wave.cuh", "stokes.cuh")
 # -fmad=false: no multiply-add contraction, so the stencil stays at ulp
 # distance from its plain PyTorch version; -Xptxas -v reports registers,
 # shared memory and spills of every kernel (kept in `build_info`).
@@ -62,6 +62,8 @@ _SIGNATURES = {
     + [_C_INT, _C_INT, _C_LL, _C_VOID],
     "igg_exchange_slabs_wave": [_C_INT, _C_INT] + [_C_VOID] * 4,
     "igg_acoustic_step_exchange": [_C_INT, _C_INT] + [_C_VOID] * 4,
+    "igg_exchange_slabs_stokes": [_C_INT, _C_INT] + [_C_VOID] * 4,
+    "igg_stokes_step_exchange": [_C_INT, _C_INT] + [_C_VOID] * 4,
 }
 
 _lib = None
@@ -70,7 +72,7 @@ _launches: dict = {"diffusion3d_step_halo": 0, "halo_write": 0,
                    "halo_self_exchange": 0, "diffusion3d_step_exchange": 0,
                    "diffusion2d_step_exchange": 0, "halo_write_combined": 0,
                    "exchange_slabs": 0, "wire_pack": 0, "halo_write_multi": 0,
-                   "acoustic_step_exchange": 0}
+                   "acoustic_step_exchange": 0, "stokes_step_exchange": 0}
 
 
 def count_launch(name: str) -> None:

@@ -1,8 +1,8 @@
 """The fused acoustic step K9 (`csrc/wave.cu`), the K4s wave modes, and their
 plain versions.
 
-Counterpart of `implicitglobalgrid_tpu/ops/pallas_wave.py` (and of what its
-plain form needs from `ops/pallas_common.py`):
+Counterpart of `implicitglobalgrid_tpu/ops/pallas_wave.py` (what its plain
+form needs from `ops/pallas_common.py` is in `staggered.py`):
 
 - `wave_exchange_modes`: the gate of the fused pass (the JAX function).
 - `wave_update_plain`: the leapfrog update of every block of the state
@@ -37,14 +37,16 @@ from .cuda_stencil import (
     Move, _check_slabs, _on_card, _slab_view, _stream, move_slabs_plain,
 )
 from .fields import block_view
+from .staggered import (
+    FIELDS, all_self_exchange, check_out, check_recvs, check_self, check_state,
+    const_tensors, into, self_index, self_ols, wave_shapes,
+)
 
 __all__ = ["FIELDS", "wave_exchange_modes", "all_self_exchange", "self_ols",
            "wave_consts", "wave_shapes", "wave_update_plain", "wave_slabs",
            "wave_slabs_plain", "wave_update_slab", "acoustic_step_recv",
            "acoustic_step_recv_plain", "acoustic_step_self",
            "acoustic_step_self_plain", "acoustic_step_exchange", "wave_bytes"]
-
-FIELDS = ("P", "Vx", "Vy", "Vz")
 
 
 def wave_exchange_modes(gg, shapes):
@@ -70,27 +72,6 @@ def wave_exchange_modes(gg, shapes):
             for name, s in zip(FIELDS, (sp, sx, sy, sz))}
 
 
-def all_self_exchange(gg, modes) -> bool:
-    """Whether every exchanging dim of the fields is self-neighbour (one
-    rank, periodic): the gate of K9's all-self route."""
-    exch = [d for d in range(3) if any(m[d] for m in modes.values())]
-    return bool(exch) and all(int(gg.dims[d]) == 1 and bool(gg.periods[d]) for d in exch)
-
-
-def wave_shapes(block):
-    """LOCAL (P, Vx, Vy, Vz) shapes for P's block (nx, ny, nz)."""
-    nx, ny, nz = (int(b) for b in block)
-    return {"P": (nx, ny, nz), "Vx": (nx + 1, ny, nz), "Vy": (nx, ny + 1, nz),
-            "Vz": (nx, ny, nz + 1)}
-
-
-def self_ols(gg, block):
-    """Each field's overlap per dim (`ol`, grown by its staggering): the
-    self-exchange of dim d maps index 0 to n-ol and n-1 to ol-1."""
-    return {f: tuple(int(gg.overlaps[d]) + s[d] - int(gg.nxyz[d]) for d in range(3))
-            for f, s in wave_shapes(block).items()}
-
-
 def wave_consts(*, rho, K, dt, dx, dy, dz):
     """The fused pass's constants (Python floats, rounded to the state dtype
     where they are used): cx, cy, cz = -dt/rho/d, dtK = dt*K, dx, dy, dz."""
@@ -101,66 +82,15 @@ def wave_consts(*, rho, K, dt, dx, dy, dz):
 _CONST_ORDER = ("cx", "cy", "cz", "dtK", "dx", "dy", "dz")
 
 
-def _check_state(state, block, name):
-    """Validate a stacked acoustic state; returns (P block, block counts)."""
-    import torch
-
-    if len(state) != 4 or not all(isinstance(a, torch.Tensor) for a in state):
-        raise InvalidArgumentError(f"{name} takes the four tensors (P, Vx, Vy, Vz).")
-    P = state[0]
-    if P.dtype not in (torch.float32, torch.float64):
-        raise InvalidArgumentError(f"{name} takes float32 or float64 states; got {P.dtype}.")
-    block = tuple(int(b) for b in block)
-    if len(block) != 3 or block[0] < 3 or min(block) < 1 or P.dim() != 3 \
-            or any(s % b for s, b in zip(P.shape, block)):
-        raise InvalidArgumentError(
-            f"{name}: P block {block} (>= 3 planes) does not tile {tuple(P.shape)}.")
-    counts = tuple(int(s) // b for s, b in zip(P.shape, block))
-    for a, shp in zip(state, wave_shapes(block).values()):
-        want = tuple(c * s for c, s in zip(counts, shp))
-        if tuple(a.shape) != want or a.dtype != P.dtype or a.device != P.device \
-                or not a.is_contiguous():
-            raise InvalidArgumentError(
-                f"{name}: the fields must be contiguous stacked blocks "
-                f"{tuple(wave_shapes(block).values())} ({counts} of them) of one dtype and "
-                f"device; got {tuple(a.shape)}.")
-    return block, counts
-
-
-def _check_out(state, out, name):
-    if out is None:
-        return
-    if len(out) != 4:
-        raise InvalidArgumentError(f"{name}: out must be four tensors.")
-    if len({o.untyped_storage().data_ptr() for o in out}) != 4:
-        raise InvalidArgumentError(f"{name}: the four outputs must not share storage.")
-    stores = {a.untyped_storage().data_ptr() for a in state}
-    for a, o in zip(state, out):
-        if (tuple(o.shape) != tuple(a.shape) or o.dtype != a.dtype or o.device != a.device
-                or not o.is_contiguous()):
-            raise InvalidArgumentError(f"{name}: out must be four contiguous tensors like "
-                                       "the state.")
-        if o.untyped_storage().data_ptr() in stores:
-            raise InvalidArgumentError(f"{name}: out must not alias the state: the step "
-                                       "reads it at its neighbours.")
-
-
-def _ctensors(consts, like):
-    import torch
-
-    return {k: torch.tensor(float(consts[k]), dtype=like.dtype, device=like.device)
-            for k in _CONST_ORDER}
-
-
 def wave_update_plain(state, *, block, consts):
     """The leapfrog update of every block of stacked ``state`` (P, Vx, Vy,
     Vz), no exchange: new stacked tensors in the fused pass's arithmetic.
     Constants are 0-d tensors of the state dtype, so every division is a
     true division."""
-    block, _ = _check_state(state, block, "wave_update")
+    block, _ = check_state(state, block, wave_shapes, "wave_update")
     P, Vx, Vy, Vz = state
     shp = wave_shapes(block)
-    c = _ctensors(consts, P)
+    c = const_tensors({k: consts[k] for k in _CONST_ORDER}, P)
     Pb = block_view(P, shp["P"])
     outs = []
     for ax, (V, name, k) in enumerate(((Vx, "Vx", "cx"), (Vy, "Vy", "cy"), (Vz, "Vz", "cz"))):
@@ -214,7 +144,7 @@ def wave_slabs(state, field, dim, hw, moves, *, block, periodic, earlier=(), con
     tuple of new contiguous slabs in K2's layout."""
     if field not in FIELDS:
         raise InvalidArgumentError(f"wave_slabs: field must be one of {FIELDS}; got {field!r}.")
-    block, counts = _check_state(state, block, "wave_slabs")
+    block, counts = check_state(state, block, wave_shapes, "wave_slabs")
     f = FIELDS.index(field)
     m = wave_shapes(block)[field]
     dim, hw, _ = _check_slabs(state[f], dim, hw, moves, m, earlier, None, None)
@@ -269,36 +199,6 @@ def wave_update_slab(state, field, dim, starts, size, *, block, consts):
 # K9: the step of all four fields with the halo delivery.
 # ---------------------------------------------------------------------------
 
-def _check_recvs(state, recvs, counts, out):
-    stores = {a.untyped_storage().data_ptr() for a in tuple(state) + tuple(out or ())}
-    for f, per_dim in recvs.items():
-        if f not in FIELDS:
-            raise InvalidArgumentError(f"acoustic_step: unknown field {f!r} in recvs.")
-        a = state[FIELDS.index(f)]
-        for d, pair in per_dim.items():
-            if not 0 <= int(d) < 3 or len(pair) != 2:
-                raise InvalidArgumentError(f"acoustic_step: no dim {d}.")
-            want = list(a.shape)
-            want[d] = counts[d]
-            for s in pair:
-                if (list(s.shape) != want or s.dtype != a.dtype or s.device != a.device
-                        or not s.is_contiguous()):
-                    raise InvalidArgumentError(
-                        f"acoustic_step: the slabs of {f} along dim {d} must be contiguous "
-                        f"{tuple(want)} {a.dtype}; got {tuple(s.shape)} {s.dtype}.")
-                if s.untyped_storage().data_ptr() in stores:
-                    raise InvalidArgumentError(
-                        "acoustic_step: a slab must not alias the state or the output.")
-
-
-def _into(out, new):
-    if out is None:
-        return tuple(new)
-    for o, n in zip(out, new):
-        o.copy_(n)
-    return tuple(out)
-
-
 def acoustic_step_recv_plain(state, recvs, *, block, consts, out=None):
     """Plain PyTorch version of K9's multi-rank route: `wave_update_plain`,
     then each field's received slabs written in the z, x, y order (the
@@ -312,16 +212,7 @@ def acoustic_step_recv_plain(state, recvs, *, block, consts, out=None):
         for d in (2, 0, 1):
             if d in recvs.get(f, {}):
                 halo_write_plain(U, *recvs[f][d], dim=d, hw=1, block=shp[f][d])
-    return _into(out, new)
-
-
-def _self_index(n_stack, n, ol, device):
-    import torch
-
-    i = torch.arange(n_stack, device=device)
-    loc = i % n
-    src = torch.where(loc == 0, n - ol, torch.where(loc == n - 1, ol - 1, loc))
-    return i - loc + src
+    return into(out, new)
 
 
 def acoustic_step_self_plain(state, modes, ols, *, block, consts, out=None):
@@ -334,20 +225,9 @@ def acoustic_step_self_plain(state, modes, ols, *, block, consts, out=None):
         for d in range(3):
             if modes[f][d]:
                 U = new[k]
-                new[k] = U.index_select(d, _self_index(U.shape[d], shp[f][d], ols[f][d],
+                new[k] = U.index_select(d, self_index(U.shape[d], shp[f][d], ols[f][d],
                                                        U.device))
-    return _into(out, new)
-
-
-def _check_self(modes, ols, block):
-    shp = wave_shapes(block)
-    for f in FIELDS:
-        for d in range(3):
-            n = shp[f][d]
-            if modes[f][d] and not 2 <= int(ols[f][d]) <= n - 1:
-                raise InvalidArgumentError(
-                    f"acoustic_step: overlap {ols[f][d]} of {f} along dim {d} must lie in "
-                    f"[2, {n - 1}].")
+    return into(out, new)
 
 
 def _launch_k9(state, out, block, counts, consts, self_mode, slab_ptrs, modes, ols):
@@ -382,9 +262,9 @@ def acoustic_step_recv(state, recvs, *, block, consts, out=None):
     alone) delivered in the same pass, a y-halo row over an x-halo plane over
     a z-halo lane. Out of place: writes ``out`` (four tensors, allocated when
     None) and returns it."""
-    block, counts = _check_state(state, block, "acoustic_step")
-    _check_out(state, out, "acoustic_step")
-    _check_recvs(state, recvs, counts, out)
+    block, counts = check_state(state, block, wave_shapes, "acoustic_step")
+    out = check_out(state, out, 4, "acoustic_step")
+    check_recvs(state, recvs, counts, out, "acoustic_step")
     if not _on_card(state[0]):
         return acoustic_step_recv_plain(state, recvs, block=block, consts=consts, out=out)
     ptrs = []
@@ -401,9 +281,9 @@ def acoustic_step_self(state, modes, ols, *, block, consts, out=None):
     each field's self-exchanging dims (``modes[field][d]``, overlaps
     ``ols[field][d]``) folded in as an index map onto the updated cells, in
     one launch and with no slabs. Out of place, as `acoustic_step_recv`."""
-    block, counts = _check_state(state, block, "acoustic_step")
-    _check_out(state, out, "acoustic_step")
-    _check_self(modes, ols, block)
+    block, counts = check_state(state, block, wave_shapes, "acoustic_step")
+    out = check_out(state, out, 4, "acoustic_step")
+    check_self(modes, ols, block, "acoustic_step")
     if not _on_card(state[0]):
         return acoustic_step_self_plain(state, modes, ols, block=block, consts=consts,
                                         out=out)

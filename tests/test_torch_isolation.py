@@ -16,6 +16,7 @@ def test_import_leaves_jax_out():
         "import implicitglobalgrid_tpu_torch.models, implicitglobalgrid_tpu_torch.ops.cuda_halo\n"
         "import implicitglobalgrid_tpu_torch.ops.cuda_stencil, implicitglobalgrid_tpu_torch.ops.cuda_build\n"
         "import implicitglobalgrid_tpu_torch.models.acoustic, implicitglobalgrid_tpu_torch.ops.cuda_wave\n"
+        "import implicitglobalgrid_tpu_torch.models.stokes, implicitglobalgrid_tpu_torch.ops.cuda_stokes\n"
         "tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=2, device_type='cpu', quiet=True)\n"
         "T, Cp, p = implicitglobalgrid_tpu_torch.models.init_diffusion3d()\n"
         "T = implicitglobalgrid_tpu_torch.models.run_diffusion(T, Cp, p, 2)\n"
@@ -23,6 +24,10 @@ def test_import_leaves_jax_out():
         "state, q = implicitglobalgrid_tpu_torch.models.init_acoustic3d()\n"
         "state = implicitglobalgrid_tpu_torch.models.run_acoustic(state, q, 2)\n"
         "tg.gather_interior(tg.update_halo(*state)[1])\n"
+        "state, q = implicitglobalgrid_tpu_torch.models.init_stokes3d()\n"
+        "state = implicitglobalgrid_tpu_torch.models.run_stokes(state, q, 2)\n"
+        "implicitglobalgrid_tpu_torch.models.stokes_residuals(state, q)\n"
+        "tg.gather_interior(state[3])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'implicitglobalgrid_tpu' or m.startswith('implicitglobalgrid_tpu.'))\n"
         "print(bad)\n"
