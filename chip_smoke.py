@@ -5,12 +5,16 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero without the final line:
 
-1. build the CUDA kernels from `implicitglobalgrid_tpu_torch/csrc/`;
+1. build the CUDA kernels from `implicitglobalgrid_tpu_torch/csrc/`; print
+   each kernel's ptxas report, K10's registers, stack and spills, and check
+   K10's SASS for the IEEE division; sweep the division helper of
+   `cdiv.cuh` over every float32 numerator (and a float64 sample) against
+   IEEE division for config 5's divisors and random ones;
 2. hold every kernel against its plain PyTorch version on the card, at the
-   main paths' shapes (steps K1/K4/K5 and the slab kernel K4s to TOL, halo
-   copies K2/K3/K6 bitwise), and time kernel, plain version and PyTorch
-   library call (CUDA events), and each kernel's device time alone
-   (torch.profiler);
+   main paths' shapes (steps K1/K4/K5 and the slab kernel K4s to TOL; halo
+   copies K2/K3/K6, K10 and the K4s Stokes modes bitwise), and time
+   kernel, plain version and PyTorch library call (CUDA events), and each
+   kernel's device time alone (torch.profiler);
 3. main path, periodic: `init_global_grid(256, 256, 256, periodic)` ->
    `init_diffusion3d` -> warm chunk -> tic -> `run_diffusion(nt=100)` -> toc
    -> `update_halo` -> `gather_interior`, against the same run with
@@ -138,11 +142,17 @@ def _profile(fn, reps):
     return prof.key_averages()
 
 
-def device_ms(fn, kernel, reps=20):
+def device_ms(fn, kernel, reps=20, tries=3):
     """Device time (ms) per call of ``fn`` spent in the kernels whose name
     holds ``kernel``, from torch.profiler (CUPTI) over ``reps`` calls; None
-    where the profiler records no device time."""
-    tot = sum(ev.device_time_total for ev in _profile(fn, reps) if kernel in ev.key)
+    where the profiler records no device time. A profile whose count of
+    such kernels is not a multiple of ``reps`` lost records: it is taken
+    again, up to ``tries`` times."""
+    for _ in range(tries):
+        evs = [ev for ev in _profile(fn, reps) if kernel in ev.key]
+        if sum(ev.count for ev in evs) % reps == 0:
+            break
+    tot = sum(ev.device_time_total for ev in evs)
     return tot / reps / 1e3 if tot > 0 else None
 
 
@@ -1303,12 +1313,35 @@ def _stokes_recvs(cst, gg, state, block, consts, check=None):
                                             {f: slab_fn(f) for f in cst.FIELDS})
 
 
+def k10_kernels_ms(cst, state, recvs, block, consts):
+    """Device ms of K10's two multi-rank kernels on one state: the tiles (a
+    launch that delivers ``recvs``, or slabs of zeros where the grid
+    receives none) and the per-column kernel (a launch that delivers
+    nothing: the iteration alone). K10 picks the per-column kernel where it
+    receives no slab (csrc/stokes.cu)."""
+    import torch
+
+    if not recvs:
+        counts = tuple(a // b for a, b in zip(state[0].shape, block))
+        recvs = {f: {d: tuple(torch.zeros([c if e == d else c * n for e, (c, n) in
+                                           enumerate(zip(counts, shp))], dtype=state[0].dtype,
+                                          device=state[0].device) for _ in range(2))
+                     for d in range(3)} for f, shp in cst.wave_shapes(block).items()}
+    out = tuple(torch.empty_like(a) for a in state[:7])
+    name = KERNEL_NAMES["stokes_step_exchange"]
+    return dict(
+        tiles=device_ms(lambda: cst.stokes_step_recv(state, recvs, block=block, consts=consts,
+                                                     out=out), name),
+        column=device_ms(lambda: cst.stokes_step_recv(state, {}, block=block, consts=consts,
+                                                      out=out), name))
+
+
 def check_k4s_stokes(cs, cst, tg):
-    """The K4s Stokes modes against their plain version: every field, dim
-    and range (send and current) with the identity move on 2x2x2 x 64^3
-    blocks, and every launch of the fused iteration's pipeline (moves,
-    PROC_NULL edges, earlier dims' corners) on 2x2x2 x 128^3, float32 and
-    float64; the time of one Stokes-mode launch (P, the y dim, two slabs, two
+    """The K4s Stokes modes bitwise against their plain version: every
+    field, dim and range (send and current) with the identity move on 2x2x2
+    x 64^3 blocks, and every launch of the fused iteration's pipeline
+    (moves, PROC_NULL edges, earlier dims' corners) on 2x2x2 x 128^3,
+    float32 and float64; the time of one Stokes-mode launch (P, the y dim, two slabs, two
     earlier dims) at 2x2x2 x 128^3 float32 (events and device). Returns (max
     abs err, times)."""
     import torch
@@ -1329,9 +1362,9 @@ def check_k4s_stokes(cs, cst, tg):
                     torch.cuda.synchronize()
                     e = max_err(gs, ref)
                     err = max(err, e)
-                    check(close(gs, ref, **TOL[name_of(dt)]),
-                          f"K4s Stokes {f} dim {dim} start {s0} {name_of(dt)} matches plain "
-                          f"({e:.3e})")
+                    check(torch.equal(gs, ref),
+                          f"K4s Stokes {f} dim {dim} start {s0} {name_of(dt)} bitwise equal to "
+                          f"plain ({e:.3e})")
         del st
         n = N_CFG5
         block = (n, n, n)
@@ -1345,9 +1378,9 @@ def check_k4s_stokes(cs, cst, tg):
                                              periodic=periodic, earlier=earlier, consts=STOKES)
                 torch.cuda.synchronize()
                 errs.append(max(max_err(a, b) for a, b in zip(got, ref)))
-                check(all(close(a, b, **TOL[name_of(dt)]) for a, b in zip(got, ref)),
+                check(all(torch.equal(a, b) for a, b in zip(got, ref)),
                       f"K4s Stokes {field} dim {dim} periodic={periodic} 2x2x2x{n}^3 "
-                      f"{name_of(dt)} matches plain ({errs[-1]:.3e})")
+                      f"{name_of(dt)} bitwise equal to plain ({errs[-1]:.3e})")
 
             _stokes_recvs(cst, gg, st, block, STOKES, hold)
             check(len(errs) == 12, "K4s Stokes: 12 launches (4 fields x 3 dims) held")
@@ -1370,13 +1403,15 @@ def check_k4s_stokes(cs, cst, tg):
 
 
 def check_k10(cst, tg):
-    """K10 against its plain version on the five grid kinds of the parity
-    tests at 64^3 blocks, on 2x2x2 x 128^3 and on one 128^3 block, each
-    periodic (multi-rank and all-self routes) and non-periodic (config 5's
-    two grids), float32 and float64; its timing
-    row at 2x2x2 x 128^3 float32, all periodic (every field received on
-    every dim), with the all-self route and one non-periodic block (config
-    5's single-block iteration, no exchange) timed beside it."""
+    """K10 bitwise against its plain version on the five grid kinds of the
+    parity tests at 64^3 blocks, on 2x2x2 x 128^3 and on one 128^3 block,
+    each periodic (multi-rank and all-self routes) and non-periodic (config
+    5's two grids), float32 and float64; its timing row at 2x2x2 x 128^3
+    float32, all periodic (every field received on every dim), with the
+    all-self route and one non-periodic block (config 5's single-block
+    iteration, no exchange) timed beside it; the mesh launch and the
+    single block also on zeros (a solver's start) and on float32
+    subnormals (the division's IEEE fallback)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(71)
@@ -1402,9 +1437,9 @@ def check_k10(cst, tg):
             torch.cuda.synchronize()
             e = max(max_err(a, b) for a, b in zip(got, ref))
             err = max(err, e)
-            check(all(close(a, b, **TOL[name_of(dt)]) for a, b in zip(got, ref)),
-                  f"K10 {dims} x {n}^3 periods {periods} ({route}) {name_of(dt)} matches plain "
-                  f"(max abs err {e:.3e})")
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                  f"K10 {dims} x {n}^3 periods {periods} ({route}) {name_of(dt)} bitwise equal "
+                  f"to plain (max abs err {e:.3e})")
             del st, got, ref, recvs
 
     def row(dims, periods):
@@ -1429,6 +1464,7 @@ def check_k10(cst, tg):
 
     st, recvs, k10, bound_b, bound_o = row((2, 2, 2), (1, 1, 1))
     r = dict(max_abs_err=err, ms=median_ms(k10),
+             kernels_device_ms=k10_kernels_ms(cst, st, recvs, (N_CFG5,) * 3, STOKES),
              plain_ms=median_ms(lambda: cst.stokes_step_recv_plain(
                  st, recvs, block=(N_CFG5,) * 3, consts=STOKES), batches=3, per_batch=2, warm=1),
              device_ms=device_ms(k10, KERNEL_NAMES["stokes_step_exchange"]),
@@ -1436,26 +1472,49 @@ def check_k10(cst, tg):
              bound_by="bytes" if bound_b >= bound_o else "operations", library_ms=None,
              shape=f"2x2x2 x {N_CFG5}^3 float32, all periodic (every field, every dim "
                    "received)")
-    # the same launch on the data a solver starts from (zeros) and on float32
-    # subnormals: the IEEE division's slow path
-    gg = tg.global_grid()
-    for key, scale in (("zeros_device_ms", 0.0), ("subnormal_device_ms", 1e-39)):
-        sd = tuple(a * scale for a in st)
-        _, rd = _stokes_recvs(cst, gg, sd, (N_CFG5,) * 3, STOKES)
-        out = tuple(torch.empty_like(a) for a in sd[:7])
-        r[key] = device_ms(lambda: cst.stokes_step_recv(sd, rd, block=(N_CFG5,) * 3,
-                                                        consts=STOKES, out=out),
-                           KERNEL_NAMES["stokes_step_exchange"])
-        del sd, rd, out
+
+    def data_times(st, into):
+        """K10 on zeros (where a solver starts) and on float32 subnormals (the
+        division's IEEE fallback), same grid and route as ``st``."""
+        gg = tg.global_grid()
+        for key, scale in (("zeros_device_ms", 0.0), ("subnormal_device_ms", 1e-39)):
+            sd = tuple(a * scale for a in st)
+            _, rd = _stokes_recvs(cst, gg, sd, (N_CFG5,) * 3, STOKES)
+            out = tuple(torch.empty_like(a) for a in sd[:7])
+            into[key] = device_ms(lambda: cst.stokes_step_recv(sd, rd, block=(N_CFG5,) * 3,
+                                                               consts=STOKES, out=out),
+                                  KERNEL_NAMES["stokes_step_exchange"])
+            del sd, rd, out
+
+    data_times(st, r)
     del st, recvs
     for key, periods in (("self_route", (1, 1, 1)), ("single_block", (0, 0, 0))):
         st, _, k10, bound_b, bound_o = row((1, 1, 1), periods)
         r[key] = dict(ms=median_ms(k10),
                       device_ms=device_ms(k10, KERNEL_NAMES["stokes_step_exchange"]),
                       bound_ms=max(bound_b, bound_o), periods=periods)
+        if key == "single_block":
+            r[key]["kernels_device_ms"] = k10_kernels_ms(cst, st, {}, (N_CFG5,) * 3, STOKES)
+            data_times(st, r[key])
         del st
     tg.finalize_global_grid()
     return r
+
+
+def state_magnitudes(state):
+    """Shares of a float32 state's values that are zero, subnormal, normal
+    below 2^-102 (under the window of cdiv.cuh's corrected product for
+    config 5's divisors) and normal above it."""
+    import torch
+
+    a = torch.cat([x.reshape(-1).abs() for x in state])
+    n = a.numel()
+    tiny = torch.finfo(torch.float32).tiny
+    zero = int((a == 0).sum())
+    sub = int(((a > 0) & (a < tiny)).sum())
+    low = int(((a >= tiny) & (a < 2.0 ** -102)).sum())
+    return dict(zero=zero / n, subnormal=sub / n, below_2_102=low / n,
+                normal=(n - zero - sub - low) / n)
 
 
 def _stokes_iteration(tg, cst, s0, p):
@@ -1516,6 +1575,11 @@ def phase_config5_single(tg, models, cb, cst):
     check(Vz[c, c, c] > 0, "config 5 single: the buoyant sphere drives upward flow")
     times = route_times(_stokes_iteration(tg, cst, s0, p))
     print(f"  K10 route per iteration: {times}", flush=True)
+    solver_ms = device_ms(_stokes_iteration(tg, cst, state, p),
+                          KERNEL_NAMES["stokes_step_exchange"])
+    both = k10_kernels_ms(cst, state, {}, (n, n, n), cst.stokes_consts(p))
+    print(f"  K10 on the converged state: {solver_ms} ms (device); its kernels: {both}",
+          flush=True)
     G = [tg.gather_interior(a) for a in models.run_stokes(s0, p, 100, nt_chunk=100)[:4]]
     grid(tg, n, n, n, plain=True)
     t1 = time.perf_counter()
@@ -1529,7 +1593,8 @@ def phase_config5_single(tg, models, cb, cst):
     os.environ.pop("IGG_USE_PALLAS", None)
     return counts, dict(status=status, iterations=it, residuals=list(res), seconds=t,
                         cell_updates_per_s=rate, global_cells=cells, history=history,
-                        plain_100_seconds=plain_s, max_abs_err_vs_plain_100=err, k10_route=times)
+                        plain_100_seconds=plain_s, max_abs_err_vs_plain_100=err, k10_route=times,
+                        k10_solver_device_ms=solver_ms, k10_solver_kernels_device_ms=both)
 
 
 def phase_config5_mesh(tg, models, cb, cst):
@@ -1563,6 +1628,14 @@ def phase_config5_mesh(tg, models, cb, cst):
           "config 5 mesh: gathered fields and residuals finite")
     times = route_times(_stokes_iteration(tg, cst, s0, p), reps=5)
     print(f"  K4s + K10 route per iteration: {times}", flush=True)
+    solver_ms = device_ms(_stokes_iteration(tg, cst, s, p), KERNEL_NAMES["stokes_step_exchange"])
+    consts = cst.stokes_consts(p)
+    _, recvs = _stokes_recvs(cst, tg.global_grid(), s, (n, n, n), consts)
+    both = k10_kernels_ms(cst, s, recvs, (n, n, n), consts)
+    del recvs
+    mags = state_magnitudes(s[:7])
+    print(f"  K10 on the state after {nt} iterations: {solver_ms} ms (device); its kernels: "
+          f"{both}; its values: {mags}", flush=True)
     f20 = [tg.gather_interior(a) for a in models.run_stokes(s0, p, 20, nt_chunk=20)[:4]]
     c0 = cb.launch_counts()
     p20 = [tg.gather_interior(a) for a in models.run_stokes(s0, p, 20, nt_chunk=20,
@@ -1581,7 +1654,151 @@ def phase_config5_mesh(tg, models, cb, cst):
     check(not np.allclose(G[3], tg.gather_interior(s0[3])), "config 5 mesh: the flow evolved")
     tg.finalize_global_grid()
     return counts, dict(seconds=t, cell_updates_per_s=rate, global_cells=cells,
-                        residuals=list(res), max_abs_err_vs_plain_20=err, k10_route=times)
+                        residuals=list(res), max_abs_err_vs_plain_20=err, k10_route=times,
+                        k10_solver_device_ms=solver_ms, k10_solver_kernels_device_ms=both,
+                        state_magnitudes=mags)
+
+
+# config 5's dx on one 128^3 block and on the 2x2x2 mesh, the 3 of divV/3,
+# chip_smoke's spacing, and random divisors of either sign from a seed
+CDIV_DIVISORS = (10 / 127, 10 / 253, 3.0, 0.079)
+F64_SAMPLE = 1 << 26
+
+
+def k10_build_report(cb, info):
+    """Registers, stack frame and spills of every K10 template (ptxas), and
+    the IEEE division in its SASS (cuobjdump): the multi-rank kernels' own
+    code must hold no division sequence, only calls to cdiv.cuh's
+    out-of-line fallback. Returns {kernel: {...}}."""
+    import re
+
+    rep = k10_ptxas(info.get("ptxas", ""))
+    cuobjdump = os.path.join(os.path.dirname(cb._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", info["path"]], capture_output=True, text=True,
+                          timeout=300)
+    check(sass.returncode == 0, "cuobjdump -sass read the kernel library")
+    # a kernel's listing ends with the subroutines it calls (cdiv.cuh's
+    # out-of-line IEEE division and its slow path): the kernel's own code
+    # lies below the lowest call target. FCHK is the float32 division's range
+    # check, MUFU.RCP64H the float64 division's reciprocal (an integer
+    # division takes MUFU.RCP, not these).
+    listing, fn = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if m.group(1) in rep else None
+            if fn is not None:
+                listing[fn] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*)", line)
+        if fn is not None and m:
+            listing[fn].append((int(m[1], 16), m[2]))
+    for fn, code in listing.items():
+        targets = [int(t, 16) for _, ins in code
+                   for t in re.findall(r"CALL\.\S+\s+`?\(?(?:0x)?([0-9a-f]+)\)?", ins)]
+        end = min(targets, default=1 << 62)
+        own = [ins for a, ins in code if a < end]
+        rest = [ins for a, ins in code if a >= end]
+        rep[fn].update(
+            calls=sorted(hex(t) for t in set(targets)), kernel_instructions=len(own),
+            division_checks=sum("FCHK" in i or "MUFU.RCP64H" in i for i in own),
+            division_checks_in_subroutines=sum("FCHK" in i or "MUFU.RCP64H" in i for i in rest))
+    for name, r in rep.items():
+        print(f"  K10 {name}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
+              f"frame, {r.get('spill_stores')}/{r.get('spill_loads')} bytes spill "
+              f"stores/loads; SASS: {r.get('kernel_instructions')} instructions before the "
+              f"first subroutine, {r.get('division_checks')} IEEE division checks there, "
+              f"{r.get('division_checks_in_subroutines')} in the subroutines, calls "
+              f"{r.get('calls')}", flush=True)
+    # the multi-rank route's templates: the tiles and the per-column kernel
+    # with SELF false (mangled "Lb0E")
+    multi = {n: r for n, r in rep.items() if "column" not in n or "Lb0E" in n}
+    check(len(multi) == 4 and all(r.get("division_checks") == 0 for r in multi.values()),
+          "K10 multi-rank kernels (tiles and per-column, float32 and float64): no IEEE "
+          "division in the kernels' own SASS (only in cdiv.cuh's out-of-line fallback)")
+    return rep
+
+
+def phase_cdiv(cb):
+    """cdiv.cuh against IEEE division on the card: every float32 bit pattern
+    as a numerator for each divisor (against __fdiv_rn), and a random
+    float64 sample (bit patterns of every exponent) against __ddiv_rn."""
+    import numpy as np
+    import torch
+
+    print("phase: the division helper (cdiv.cuh) against IEEE division", flush=True)
+    lib = cb.library()
+    st = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(6)
+    divisors = list(CDIV_DIVISORS) + [float(v * 10 ** e) for v, e in zip(
+        rng.uniform(-2, 2, 4), rng.uniform(-4, 4, 4))]
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+    out = dict(divisors=divisors, f32_mismatches=[], f32_corrected=[], f32_seconds=[])
+    for b in divisors:
+        counts.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = lib.igg_cdiv_sweep(b, counts.data_ptr(), st)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        bad, fast = (int(v) for v in counts.tolist())
+        out["f32_mismatches"].append(bad)
+        out["f32_corrected"].append(fast)
+        out["f32_seconds"].append(dt)
+        check(rc == 0 and bad == 0,
+              f"cdiv float32 b={b!r}: {bad} mismatches over all 2^32 numerators "
+              f"({fast} on the corrected path), {dt:.4f} s")
+    g = torch.Generator(device="cuda").manual_seed(62)
+    a = torch.randint(-2 ** 31, 2 ** 31, (F64_SAMPLE, 2), generator=g, device="cuda",
+                      dtype=torch.int32).view(torch.float64).view(-1)
+    q, r = torch.empty_like(a), torch.empty_like(a)
+    out["f64_sample"], out["f64_mismatches"] = F64_SAMPLE, []
+    for b in divisors:
+        rc = lib.igg_cdiv(1, a.data_ptr(), r.data_ptr(), a.numel(), b, 1, st)
+        bad = 0
+        for mode in (0, 2):  # cdiv; the passes K10's tiles divide with
+            rc |= lib.igg_cdiv(1, a.data_ptr(), q.data_ptr(), a.numel(), b, mode, st)
+            same = (q.view(torch.int64) == r.view(torch.int64)) | (q.isnan() & r.isnan())
+            bad += int((~same).sum())
+        out["f64_mismatches"].append(bad)
+        check(rc == 0 and bad == 0,
+              f"cdiv float64 b={b!r}: {bad} mismatches over {F64_SAMPLE} random numerators "
+              "(cdiv, and the tiles' passes)")
+    del a, q, r
+    return out
+
+
+def k10_ptxas(log):
+    """{kernel: {registers, stack, spill_stores, spill_loads}} of the K10
+    templates in a ptxas log."""
+    import re
+
+    rep, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1) if "stokes_step_kernel" in m.group(1) else None
+            continue
+        if entry is None:
+            continue
+        # the entry's own properties come first, its callees' after "Used"
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and "stack" not in rep.setdefault(entry, {}):
+            rep[entry].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rep.setdefault(entry, {})["registers"] = int(m[1])
+            entry = None
+    return rep
+
+
+def card_name():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
 
 
 def main() -> int:
@@ -1619,6 +1836,8 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill")) \
                     or line.startswith("=="):
                 print("  " + line.strip())
+        k10_build = k10_build_report(cb, info)
+        cdiv = phase_cdiv(cb)
         print("phase: kernels vs plain", flush=True)
         rows = phase_kernels((cs, ch, cb, cw, cst, tg), cb.launch_counts())
         periodic = phase_main(tg, models, cb, "periodic", 100,
@@ -1643,10 +1862,7 @@ def main() -> int:
             print(f"chip_smoke: FAILED: {name} never launched on the main path",
                   file=sys.stderr)
             return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    card = card_name()
     stencil, halo = ("implicitglobalgrid_tpu_torch/csrc/stencil.cu",
                      "implicitglobalgrid_tpu_torch/csrc/halo.cu")
     src = {"diffusion3d_step_halo": (stencil, "implicitglobalgrid_tpu/ops/pallas_stencil.py:72,839"),
@@ -1668,6 +1884,11 @@ def main() -> int:
                                       "(_wave_kernel :227, _wave_mp_kernel :305)"),
            "stokes_step_exchange": ("implicitglobalgrid_tpu_torch/csrc/stokes.cu",
                                     "implicitglobalgrid_tpu/ops/pallas_stokes.py:132,286")}
+    rows["stokes_step_exchange"]["ptxas_sass"] = k10_build
+    rows["stokes_step_exchange"]["solver_device_ms"] = {
+        "single_block": cfg5["k10_solver_device_ms"], "mesh": cfg5m["k10_solver_device_ms"],
+        "single_block_kernels": cfg5["k10_solver_kernels_device_ms"],
+        "mesh_kernels": cfg5m["k10_solver_kernels_device_ms"]}
     kernels = []
     for name, r in rows.items():
         kernels.append(dict(name=name, route="cuda", source=src[name][0],
@@ -1680,7 +1901,9 @@ def main() -> int:
                                if k in ("k1_same_shape_ms", "wave_mode_ms", "stokes_mode_ms",
                                         "stokes_mode_device_ms",
                                         "self_route", "single_block", "zeros_device_ms",
-                                        "subnormal_device_ms")}))
+                                        "subnormal_device_ms", "solver_device_ms",
+                                        "kernels_device_ms",
+                                        "ptxas_sass")}))
     k1_dev = rows["diffusion3d_step_halo"]["device_ms"]
     if k1_dev is not None:  # the periodic step is one K1 (T,T,T) launch
         periodic["k1_device_share"] = 100 * k1_dev / (periodic["seconds"] * 1e3 / 100)
@@ -1689,6 +1912,7 @@ def main() -> int:
                                     "config2_2x2_4096_f32": cfg2,
                                     "config4_192_f32": cfg4, "config4_2x2x2_192_f32": cfg4m,
                                     "config5_128_f32": cfg5, "config5_2x2x2_128_f32": cfg5m},
+                      "cdiv": cdiv,
                       "seconds_total": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps({"kernels": kernels}))

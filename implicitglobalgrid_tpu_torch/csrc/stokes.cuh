@@ -18,11 +18,19 @@
 // the kernel's 0.5*(rhog[k] + rhog[k-1]), FORM_GETTER `_stokes_terms`'
 // 0.5*((rhog[k] - rhog[k-1]) + 2*rhog[k-1]), which JAX's send-slab getters
 // (`_v_get_slab`, pallas_stokes.py:102) use. Built with -fmad=false, so each
-// operation rounds as the plain PyTorch version's does.
+// operation rounds as the plain PyTorch version's does; every division is by
+// a constant of the run (dx, dy, dz, 3) and goes through cdiv.cuh, which
+// gives the IEEE quotient bit for bit.
+//
+// The terms are functions of the values they read (`stokes_cell_of`,
+// `stokes_edge`, `stokes_rg_of`), so a kernel that stages its inputs in
+// shared memory (K10's tiles) computes exactly what the readers from global
+// memory below compute.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "cdiv.cuh"
 #include "wave.cuh"
 
 constexpr int FORM_KERNEL = 0;
@@ -35,7 +43,8 @@ template <typename T>
 struct Stokes {
   const T *P, *Vx, *Vy, *Vz, *dVx, *dVy, *dVz, *rhog;
   unsigned nx, ny, nz, D0, D1, D2;
-  T mu, dt_v, dt_p, damp, dx, dy, dz;
+  T mu, dt_v, dt_p, damp;
+  CDiv<T> dx, dy, dz, three;
 };
 
 template <typename T>
@@ -68,46 +77,73 @@ struct StokesCell {
   T pn, a, ty, tz;
 };
 
-// Cell (i, j, k), i < nx, j < ny, k < nz.
-template <typename T>
-__device__ __forceinline__ StokesCell<T> stokes_cell(const Stokes<T>& s, const WaveBlock& b,
-                                                     unsigned i, unsigned j, unsigned k) {
-  const long long ox = at_x(b, i, j, k), oy = at_y(b, i, j, k), oz = at_z(b, i, j, k);
-  const T gx = (s.Vx[ox + b.sp.plane] - s.Vx[ox]) / s.dx;
-  const T gy = (s.Vy[oy + b.sy.row] - s.Vy[oy]) / s.dy;
-  const T gz = (s.Vz[oz + 1] - s.Vz[oz]) / s.dz;
+// The terms of a cell from its faces' velocities (x faces vx0, vx1, y faces
+// vy0, vy1, z faces vz0, vz1) and its pressure p. `dv` divides (cdiv.cuh's
+// policies; the value-level functions below take one too).
+template <typename T, typename Div = CDivExact>
+__device__ __forceinline__ StokesCell<T> stokes_cell_of(const Stokes<T>& s, T vx0, T vx1, T vy0,
+                                                        T vy1, T vz0, T vz1, T p,
+                                                        Div&& dv = Div()) {
+  const T gx = dv(vx1 - vx0, s.dx);
+  const T gy = dv(vy1 - vy0, s.dy);
+  const T gz = dv(vz1 - vz0, s.dz);
   const T div = (gx + gy) + gz;
-  const T pn = s.P[at_p(b, i, j, k)] - s.dt_p * div;
+  const T pn = p - s.dt_p * div;
   const T mu2 = T(2) * s.mu;
-  const T d3 = div / T(3);
+  const T d3 = dv(div, s.three);
   return StokesCell<T>{pn, mu2 * (gx - d3) - pn, mu2 * (gy - d3) - pn, mu2 * (gz - d3) - pn};
 }
 
+// An edge stress mu*((u1-u0)/du + (w1-w0)/dw): txy = mu*((Vx[j]-Vx[j-1])/dy
+// + (Vy[i]-Vy[i-1])/dx), txz and tyz alike.
+template <typename T, typename Div = CDivExact>
+__device__ __forceinline__ T stokes_edge(const Stokes<T>& s, T u1, T u0, const CDiv<T>& du, T w1,
+                                         T w0, const CDiv<T>& dw, Div&& dv = Div()) {
+  return s.mu * (dv(u1 - u0, du) + dv(w1 - w0, dw));
+}
+
+// The buoyancy at a z-face from rhog of the cells above (hi) and below (lo).
+template <typename T, int FORM>
+__device__ __forceinline__ T stokes_rg_of(T hi, T lo) {
+  if (FORM == FORM_GETTER) return T(0.5) * ((hi - lo) + T(2) * lo);
+  return T(0.5) * (hi + lo);
+}
+
+// Cell (i, j, k), i < nx, j < ny, k < nz.
+template <typename T, typename Div = CDivExact>
+__device__ __forceinline__ StokesCell<T> stokes_cell(const Stokes<T>& s, const WaveBlock& b,
+                                                     unsigned i, unsigned j, unsigned k,
+                                                     Div&& dv = Div()) {
+  const long long ox = at_x(b, i, j, k), oy = at_y(b, i, j, k), oz = at_z(b, i, j, k);
+  return stokes_cell_of(s, s.Vx[ox], s.Vx[ox + b.sp.plane], s.Vy[oy], s.Vy[oy + b.sy.row],
+                        s.Vz[oz], s.Vz[oz + 1], s.P[at_p(b, i, j, k)], dv);
+}
+
 // txy at x-face a in [1, nx-1], y-face e in [1, ny-1], lane k < nz.
-template <typename T>
+template <typename T, typename Div = CDivExact>
 __device__ __forceinline__ T stokes_txy(const Stokes<T>& s, const WaveBlock& b, unsigned a,
-                                        unsigned e, unsigned k) {
+                                        unsigned e, unsigned k, Div&& dv = Div()) {
   const long long ox = at_x(b, a, e, k), oy = at_y(b, a, e, k);
-  return s.mu * ((s.Vx[ox] - s.Vx[ox - b.sp.row]) / s.dy +
-                 (s.Vy[oy] - s.Vy[oy - b.sy.plane]) / s.dx);
+  return stokes_edge(s, s.Vx[ox], s.Vx[ox - b.sp.row], s.dy, s.Vy[oy], s.Vy[oy - b.sy.plane],
+                     s.dx, dv);
 }
 
 // txz at x-face a in [1, nx-1], row j < ny, z-face f in [1, nz-1].
-template <typename T>
+template <typename T, typename Div = CDivExact>
 __device__ __forceinline__ T stokes_txz(const Stokes<T>& s, const WaveBlock& b, unsigned a,
-                                        unsigned j, unsigned f) {
+                                        unsigned j, unsigned f, Div&& dv = Div()) {
   const long long ox = at_x(b, a, j, f), oz = at_z(b, a, j, f);
-  return s.mu * ((s.Vx[ox] - s.Vx[ox - 1]) / s.dz +
-                 (s.Vz[oz] - s.Vz[oz - b.sz.plane]) / s.dx);
+  return stokes_edge(s, s.Vx[ox], s.Vx[ox - 1], s.dz, s.Vz[oz], s.Vz[oz - b.sz.plane], s.dx,
+                     dv);
 }
 
 // tyz at cell i < nx, y-face e in [1, ny-1], z-face f in [1, nz-1].
-template <typename T>
+template <typename T, typename Div = CDivExact>
 __device__ __forceinline__ T stokes_tyz(const Stokes<T>& s, const WaveBlock& b, unsigned i,
-                                        unsigned e, unsigned f) {
+                                        unsigned e, unsigned f, Div&& dv = Div()) {
   const long long oy = at_y(b, i, e, f), oz = at_z(b, i, e, f);
-  return s.mu * ((s.Vy[oy] - s.Vy[oy - 1]) / s.dz +
-                 (s.Vz[oz] - s.Vz[oz - b.sz.row]) / s.dy);
+  return stokes_edge(s, s.Vy[oy], s.Vy[oy - 1], s.dz, s.Vz[oz], s.Vz[oz - b.sz.row], s.dy,
+                     dv);
 }
 
 // The buoyancy at z-face f in [1, nz-1] of column (i, j).
@@ -115,26 +151,24 @@ template <typename T, int FORM>
 __device__ __forceinline__ T stokes_rg(const Stokes<T>& s, const WaveBlock& b, unsigned i,
                                        unsigned j, unsigned f) {
   const long long o = at_p(b, i, j, f);
-  const T hi = s.rhog[o], lo = s.rhog[o - 1];
-  if (FORM == FORM_GETTER) return T(0.5) * ((hi - lo) + T(2) * lo);
-  return T(0.5) * (hi + lo);
+  return stokes_rg_of<T, FORM>(s.rhog[o], s.rhog[o - 1]);
 }
 
 // The residual sums, from their terms.
-template <typename T>
+template <typename T, typename Div = CDivExact>
 __device__ __forceinline__ T stokes_rx(const Stokes<T>& s, T a_c, T a_m, T txy_p, T txy_c,
-                                       T txz_p, T txz_c) {
-  return ((a_c - a_m) / s.dx + (txy_p - txy_c) / s.dy) + (txz_p - txz_c) / s.dz;
+                                       T txz_p, T txz_c, Div&& dv = Div()) {
+  return (dv(a_c - a_m, s.dx) + dv(txy_p - txy_c, s.dy)) + dv(txz_p - txz_c, s.dz);
 }
-template <typename T>
+template <typename T, typename Div = CDivExact>
 __device__ __forceinline__ T stokes_ry(const Stokes<T>& s, T ty_c, T ty_m, T txy_p, T txy_c,
-                                       T tyz_p, T tyz_c) {
-  return ((ty_c - ty_m) / s.dy + (txy_p - txy_c) / s.dx) + (tyz_p - tyz_c) / s.dz;
+                                       T tyz_p, T tyz_c, Div&& dv = Div()) {
+  return (dv(ty_c - ty_m, s.dy) + dv(txy_p - txy_c, s.dx)) + dv(tyz_p - tyz_c, s.dz);
 }
-template <typename T>
+template <typename T, typename Div = CDivExact>
 __device__ __forceinline__ T stokes_rz(const Stokes<T>& s, T tz_c, T tz_m, T txz_p, T txz_c,
-                                       T tyz_p, T tyz_c, T rg) {
-  return (((tz_c - tz_m) / s.dz + (txz_p - txz_c) / s.dx) + (tyz_p - tyz_c) / s.dy) + rg;
+                                       T tyz_p, T tyz_c, T rg, Div&& dv = Div()) {
+  return ((dv(tz_c - tz_m, s.dz) + dv(txz_p - txz_c, s.dx)) + dv(tyz_p - tyz_c, s.dy)) + rg;
 }
 
 // Interior masks of the face updates (`_stokes_kernel` :238-254).
@@ -153,30 +187,32 @@ __device__ __forceinline__ bool vz_interior(unsigned nx, unsigned ny, unsigned n
 
 // The residual at an interior face of Vx (f 1), Vy (2) or Vz (3), every term
 // read from the state.
-template <typename T, int FORM>
+template <typename T, int FORM, typename Div = CDivExact>
 __device__ __forceinline__ T stokes_residual(const Stokes<T>& s, const WaveBlock& b, int f,
-                                             unsigned i, unsigned j, unsigned k) {
+                                             unsigned i, unsigned j, unsigned k,
+                                             Div&& dv = Div()) {
   if (f == 1)
-    return stokes_rx(s, stokes_cell(s, b, i, j, k).a, stokes_cell(s, b, i - 1, j, k).a,
-                     stokes_txy(s, b, i, j + 1, k), stokes_txy(s, b, i, j, k),
-                     stokes_txz(s, b, i, j, k + 1), stokes_txz(s, b, i, j, k));
+    return stokes_rx(s, stokes_cell(s, b, i, j, k, dv).a, stokes_cell(s, b, i - 1, j, k, dv).a,
+                     stokes_txy(s, b, i, j + 1, k, dv), stokes_txy(s, b, i, j, k, dv),
+                     stokes_txz(s, b, i, j, k + 1, dv), stokes_txz(s, b, i, j, k, dv), dv);
   if (f == 2)
-    return stokes_ry(s, stokes_cell(s, b, i, j, k).ty, stokes_cell(s, b, i, j - 1, k).ty,
-                     stokes_txy(s, b, i + 1, j, k), stokes_txy(s, b, i, j, k),
-                     stokes_tyz(s, b, i, j, k + 1), stokes_tyz(s, b, i, j, k));
-  return stokes_rz(s, stokes_cell(s, b, i, j, k).tz, stokes_cell(s, b, i, j, k - 1).tz,
-                   stokes_txz(s, b, i + 1, j, k), stokes_txz(s, b, i, j, k),
-                   stokes_tyz(s, b, i, j + 1, k), stokes_tyz(s, b, i, j, k),
-                   stokes_rg<T, FORM>(s, b, i, j, k));
+    return stokes_ry(s, stokes_cell(s, b, i, j, k, dv).ty, stokes_cell(s, b, i, j - 1, k, dv).ty,
+                     stokes_txy(s, b, i + 1, j, k, dv), stokes_txy(s, b, i, j, k, dv),
+                     stokes_tyz(s, b, i, j, k + 1, dv), stokes_tyz(s, b, i, j, k, dv), dv);
+  return stokes_rz(s, stokes_cell(s, b, i, j, k, dv).tz, stokes_cell(s, b, i, j, k - 1, dv).tz,
+                   stokes_txz(s, b, i + 1, j, k, dv), stokes_txz(s, b, i, j, k, dv),
+                   stokes_tyz(s, b, i, j + 1, k, dv), stokes_tyz(s, b, i, j, k, dv),
+                   stokes_rg<T, FORM>(s, b, i, j, k), dv);
 }
 
 // Field f (0 P, 1 Vx, 2 Vy, 3 Vz) after the iteration at local (i, j, k) of
-// its block; dv (f >= 1) receives the damped momentum dV' there. A face off
-// the interior keeps its values.
-template <typename T, int FORM>
+// its block; dv_out (f >= 1) receives the damped momentum dV' there. A face
+// off the interior keeps its values.
+template <typename T, int FORM, typename Div = CDivExact>
 __device__ __forceinline__ T stokes_update(const Stokes<T>& s, const WaveBlock& b, int f,
-                                           unsigned i, unsigned j, unsigned k, T* dv = nullptr) {
-  if (f == 0) return stokes_cell(s, b, i, j, k).pn;
+                                           unsigned i, unsigned j, unsigned k,
+                                           T* dv_out = nullptr, Div&& dv = Div()) {
+  if (f == 0) return stokes_cell(s, b, i, j, k, dv).pn;
   const T* V = f == 1 ? s.Vx : (f == 2 ? s.Vy : s.Vz);
   const T* dV = f == 1 ? s.dVx : (f == 2 ? s.dVy : s.dVz);
   const long long o = f == 1 ? at_x(b, i, j, k) : (f == 2 ? at_y(b, i, j, k) : at_z(b, i, j, k));
@@ -184,17 +220,17 @@ __device__ __forceinline__ T stokes_update(const Stokes<T>& s, const WaveBlock& 
                          : (f == 2 ? vy_interior(s.nx, s.ny, s.nz, i, j, k)
                                    : vz_interior(s.nx, s.ny, s.nz, i, j, k));
   if (!in) {
-    if (dv != nullptr) *dv = dV[o];
+    if (dv_out != nullptr) *dv_out = dV[o];
     return V[o];
   }
-  const T dn = s.damp * dV[o] + stokes_residual<T, FORM>(s, b, f, i, j, k);
-  if (dv != nullptr) *dv = dn;
+  const T dn = s.damp * dV[o] + stokes_residual<T, FORM>(s, b, f, i, j, k, dv);
+  if (dv_out != nullptr) *dv_out = dn;
   return V[o] + s.dt_v * dn;
 }
 
-// The host-side constants (double) rounded once to the state dtype. ptrs:
-// the 8 state fields; g: nx, ny, nz, D0, D1, D2; c: mu, dt_v, dt_p, damp, dx,
-// dy, dz.
+// The host-side constants (double) rounded once to the state dtype, each
+// divisor with its reciprocal (cdiv.cuh). ptrs: the 8 state fields; g: nx,
+// ny, nz, D0, D1, D2; c: mu, dt_v, dt_p, damp, dx, dy, dz.
 template <typename T>
 Stokes<T> make_stokes(const void* const* ptrs, const long long* g, const double* c) {
   return Stokes<T>{static_cast<const T*>(ptrs[0]), static_cast<const T*>(ptrs[1]),
@@ -203,5 +239,6 @@ Stokes<T> make_stokes(const void* const* ptrs, const long long* g, const double*
                    static_cast<const T*>(ptrs[6]), static_cast<const T*>(ptrs[7]),
                    (unsigned)g[0], (unsigned)g[1], (unsigned)g[2], (unsigned)g[3],
                    (unsigned)g[4], (unsigned)g[5],
-                   (T)c[0], (T)c[1], (T)c[2], (T)c[3], (T)c[4], (T)c[5], (T)c[6]};
+                   (T)c[0], (T)c[1], (T)c[2], (T)c[3],
+                   make_cdiv((T)c[4]), make_cdiv((T)c[5]), make_cdiv((T)c[6]), make_cdiv(T(3))};
 }

@@ -31,7 +31,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("stencil.cu", "halo.cu", "wave.cu", "stokes.cu")
-HEADERS = ("wave.cuh", "stokes.cuh")
+HEADERS = ("cdiv.cuh", "wave.cuh", "stokes.cuh")
 # -fmad=false: no multiply-add contraction, so the stencil stays at ulp
 # distance from its plain PyTorch version; -Xptxas -v reports registers,
 # shared memory and spills of every kernel (kept in `build_info`).
@@ -64,6 +64,8 @@ _SIGNATURES = {
     "igg_acoustic_step_exchange": [_C_INT, _C_INT] + [_C_VOID] * 4,
     "igg_exchange_slabs_stokes": [_C_INT, _C_INT] + [_C_VOID] * 4,
     "igg_stokes_step_exchange": [_C_INT, _C_INT] + [_C_VOID] * 4,
+    "igg_cdiv": [_C_INT, _C_VOID, _C_VOID, _C_LL, _C_DBL, _C_INT, _C_VOID],
+    "igg_cdiv_sweep": [_C_DBL, _C_VOID, _C_VOID],
 }
 
 _lib = None
@@ -116,11 +118,14 @@ def _library_path() -> Path:
 
 def build_kernels() -> dict:
     """Compile the kernels unless the library for these sources exists.
-    Returns `build_info`: ``{"path", "seconds", "built", "ptxas"}``."""
+    Returns `build_info`: ``{"path", "seconds", "built", "ptxas"}`` (the
+    ptxas report is kept beside the library)."""
     so = _library_path()
+    log = so.with_suffix(".ptxas.txt")
     if so.exists():
         if build_info.get("path") != str(so):
-            build_info.update(path=str(so), seconds=0.0, built=False, ptxas="")
+            build_info.update(path=str(so), seconds=0.0, built=False,
+                              ptxas=log.read_text() if log.exists() else "")
         return dict(build_info)
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -147,6 +152,7 @@ def build_kernels() -> dict:
              *objs, "-o", str(tmp_so)], capture_output=True, text=True)
         if link.returncode != 0:
             raise KernelError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        log.write_text("\n".join(logs))
         os.replace(tmp_so, so)
     build_info.update(path=str(so), seconds=time.perf_counter() - t0,
                       built=True, ptxas="\n".join(logs))

@@ -1,16 +1,19 @@
 """The CUDA sources of the port run on the CPU: `csrc/*.cu` compiled with the
 host C++ compiler against the stand-in headers of `tests/data/cuda_host/`
-(each `kernel<<<grid, block, ...>>>` rewritten into a loop over every block
-and thread), loaded in place of the card's library, and driven through the
-port's own wrappers on CPU tensors. Each kernel's result is held bitwise
-against its plain version: K10 on both routes and the K4s Stokes modes,
-K9 and the K4s wave and step modes (whose sources share `exchange_slabs`
-and `wave.cuh` with the Stokes code), and whole `run_stokes` runs.
+(each `kernel<<<grid, block, ...>>>(args)` rewritten into a host launch
+that runs a block's threads concurrently, with barriers for
+`__syncthreads` and the warp shuffles), loaded in place of the card's
+library, and driven through the port's own wrappers on CPU tensors. Each
+kernel's result is held bitwise against its plain version: K10 on both
+routes and the K4s Stokes modes, K9 and the K4s wave and step modes (whose
+sources share `exchange_slabs` and `wave.cuh` with the Stokes code), and
+whole `run_stokes` runs; the division helper of `cdiv.cuh` bitwise against
+IEEE division.
 
 The card's compiler, its float units and its launch limits are not tested
 here (`chip_smoke.py` does that on a GPU); the kernels' index arithmetic,
-masks, carried registers, routes and delivery order are. Skips without a
-C++ compiler.
+masks, carried registers, shared-memory tiles, barriers, routes and
+delivery order are. Skips without a C++ compiler.
 """
 
 import contextlib
@@ -34,7 +37,22 @@ from implicitglobalgrid_tpu_torch.ops.halo import exchange_recv_slabs_multi
 from torch_port_util import clean_torch_grid  # noqa: F401
 
 SHIM = pathlib.Path(__file__).resolve().parent / "data" / "cuda_host"
-LAUNCH = re.compile(r"([A-Za-z_0-9]+(?:<[^;{}]*?>)?)<<<(.*?)>>>", re.S)
+LAUNCH = re.compile(r"([A-Za-z_0-9]+(?:<[^;{}]*?>)?)<<<(.*?)>>>\s*\(", re.S)
+
+
+def _host_source(text):
+    """Each ``kernel<<<cfg>>>(args)`` of a CUDA source as the stand-in's
+    ``igg_launch([&] { kernel(args); }, cfg)``."""
+    out, pos = [], 0
+    for m in LAUNCH.finditer(text):
+        depth, e = 1, m.end()
+        while depth:
+            depth += {"(": 1, ")": -1}.get(text[e], 0)
+            e += 1
+        out += [text[pos:m.start()],
+                f"igg_launch([&] {{ {m[1]}({text[m.end():e - 1]}); }}, {m[2]})"]
+        pos = e
+    return "".join(out) + text[pos:]
 
 
 @pytest.fixture(scope="module")
@@ -46,15 +64,20 @@ def host_lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("csrc_host")
     for h in cb.HEADERS:
         shutil.copy(cb.CSRC / h, d / h)
-    srcs = []
+    flags = ["-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-w", "-pthread", f"-I{SHIM}",
+             f"-I{d}"]
+    procs = []
     for s in cb.SOURCES:
-        text = LAUNCH.sub(r"IGG_LAUNCH(\2) \1", (cb.CSRC / s).read_text())
-        (d / (pathlib.Path(s).stem + ".cpp")).write_text(text)
-        srcs.append(str(d / (pathlib.Path(s).stem + ".cpp")))
+        src = d / (pathlib.Path(s).stem + ".cpp")
+        src.write_text(_host_source((cb.CSRC / s).read_text()))
+        procs.append(subprocess.Popen([cxx, *flags, "-c", str(src), "-o", str(src) + ".o"],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for p in procs:
+        _, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-4000:]
     so = d / "libigg_host.so"
-    r = subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-w",
-                        f"-I{SHIM}", f"-I{d}", *srcs, "-o", str(so)],
-                       capture_output=True, text=True, timeout=600)
+    r = subprocess.run([cxx, "-shared", "-pthread", *(str(p.args[-1]) for p in procs), "-o",
+                        str(so)], capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-4000:]
     lib = ctypes.CDLL(str(so))
     for name, argtypes in cb._SIGNATURES.items():
@@ -84,6 +107,19 @@ def _plain(monkeypatch):
 
 def _equal(got, ref):
     return all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def _same_bits(a, b):
+    """Bitwise equal, two NaNs agreeing whatever their payloads."""
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return bool(((a.view(ints) == b.view(ints)) | (a.isnan() & b.isnan())).all())
+
+
+def _scales(dtype):
+    """Per-plane scales of the mixed-magnitude states: zero, tiny, subnormal
+    and near overflow beside 1 (every path of the division)."""
+    return np.array([1, 0, 1e-30, 1e-41, 1e38] if dtype == np.float32
+                    else [1, 0, 1e-300, 1e-310, 1e307], dtype=dtype)
 
 
 K = dict(mu=1.3, dt_v=0.021, dt_p=0.7, damp=0.9, dx=0.31, dy=0.27, dz=0.35)
@@ -130,6 +166,53 @@ def test_k10_and_stokes_slabs_match_plain(on_host, dims, periods, n, dtype):
     assert cb.launch_counts()["stokes_step_exchange"] == 1
     for name, a, b in zip(cst.STATE, got, ref):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k10_tiles_and_chunks_match_plain(on_host, dtype):
+    """K10's multi-rank route on one block of several tiles along y and z
+    and two x chunks (tile and chunk edges, the halo warps' rows and lanes),
+    bitwise: with random received slabs of every field on every dim (the
+    tiled kernel) and with none (the per-column kernel), each on a random
+    state and on one whose x planes are scaled at random to zero, tiny,
+    subnormal or near-overflow values (the division's exact retry and IEEE
+    fallback)."""
+    block = (34, 10, 37)
+    rng = np.random.default_rng(9)
+    st = tuple(torch.from_numpy(rng.standard_normal(shp).astype(dtype))
+               for shp in cst.stokes_shapes(block).values())
+    recvs = {f: {d: tuple(torch.from_numpy(rng.standard_normal(
+        [1 if e == d else s for e, s in enumerate(shp)]).astype(dtype)) for _ in range(2))
+        for d in range(3)} for f, shp in cst.wave_shapes(block).items()}
+    scales = _scales(dtype)
+    mixed = tuple(a * torch.from_numpy(scales[rng.integers(0, 5, (a.shape[0], 1, 1))])
+                  for a in st)  # one scale an x plane
+    for state, r in ((st, {}), (st, recvs), (mixed, {}), (mixed, recvs)):
+        got = cst.stokes_step_recv(state, r, block=block, consts=K)
+        ref = cst.stokes_step_recv_plain(state, r, block=block, consts=K)
+        for name, a, b in zip(cst.STATE, got, ref):
+            assert _same_bits(a, b), name
+    assert cb.launch_counts()["stokes_step_exchange"] == 4
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k10_self_route_mixed_scales_match_plain(on_host, dtype):
+    """K10's all-self route (the per-column kernel) on a state whose x
+    planes are scaled at random to zero, tiny, subnormal or near-overflow
+    values: the division's fast pass and its exact retry, bitwise."""
+    n = (6, 5, 7)
+    gg = _grid(n, (1, 1, 1), (1, 1, 1))
+    rng = np.random.default_rng(10)
+    scales = _scales(dtype)
+    with np.errstate(over="ignore"):
+        st = tuple(torch.from_numpy((rng.standard_normal(shp) * scales[rng.integers(
+            0, 5, (shp[0], 1, 1))]).astype(dtype)) for shp in cst.stokes_shapes(n).values())
+    modes = cst.stokes_exchange_modes(gg, [a.shape for a in st])
+    ols = cst.self_ols(gg, n)
+    got = cst.stokes_step_self(st, modes, ols, block=n, consts=K)
+    ref = cst.stokes_step_self_plain(st, modes, ols, block=n, consts=K)
+    for name, a, b in zip(cst.STATE, got, ref):
+        assert _same_bits(a, b), name
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -199,3 +282,62 @@ def test_run_stokes_on_host_kernels_matches_plain(on_host, monkeypatch, dims, pe
     assert counts["exchange_slabs"] == (72 if dims == (2, 2, 2) else 0)
     for name, x, y in zip(cst.STATE, a, b):
         assert torch.equal(x, y), name
+
+
+# config 5's dx on one 128^3 block and on the 2x2x2 mesh, the 3 of divV/3 and
+# chip_smoke's spacing (the full sample each), and random divisors of either
+# sign (a tenth of it)
+DIVISORS = [10 / 127, 10 / 253, 3.0, 0.079]
+RANDOM_DIVISORS = [float(s * 10 ** e) for s, e in zip(
+    np.random.default_rng(6).uniform(-2, 2, 4), np.random.default_rng(7).uniform(-4, 4, 4))]
+
+
+def _numerators(dtype, n, seed):
+    """``n`` random bit patterns (every exponent alike: subnormals, infs and
+    NaNs included), then both signs of the least and greatest significand
+    of every exponent, so both edges of every guard window, and the
+    specials."""
+    f = np.dtype(dtype)
+    ui = np.uint32 if f.itemsize == 4 else np.uint64
+    bits = np.random.default_rng(seed).integers(0, 2 ** (8 * f.itemsize), n, dtype=np.uint64,
+                                                endpoint=False).astype(ui)
+    mant = 23 if f.itemsize == 4 else 52
+    e = np.arange(2 ** (8 * f.itemsize - 1 - mant), dtype=np.uint64) << np.uint64(mant)
+    top = (np.uint64(1) << np.uint64(mant)) - np.uint64(1)
+    edges = np.concatenate([e, e | top, e | np.uint64(1), e | (top - np.uint64(1))]).astype(ui)
+    sign = ui(1) << ui(8 * f.itemsize - 1)
+    a = np.concatenate([bits, edges, edges | sign]).view(f)
+    return np.concatenate([a, np.array([0.0, -0.0, np.inf, -np.inf, np.nan], dtype=f)])
+
+
+def _near_least_normal_quotient(dtype, b):
+    """Both signs of the 2^16 numerators on either side of b times the least
+    normal number and of b times twice it: quotients at the edge of the
+    scaled path."""
+    f = np.dtype(dtype)
+    ui = np.dtype(f"u{f.itemsize}")
+    tiny = np.finfo(f).tiny
+    centre = np.array([abs(dtype(b)) * tiny, abs(dtype(b)) * 2 * tiny], dtype=f).view(ui)
+    steps = np.arange(-2 ** 15, 2 ** 15).astype(ui)
+    a = (centre[:, None] + steps[None, :]).ravel().view(f)
+    return np.concatenate([a, -a])
+
+
+@pytest.mark.parametrize("dtype,n", [(np.float32, 10 ** 7), (np.float64, 2 * 10 ** 6)])
+def test_cdiv_equals_ieee_division(host_lib, dtype, n):
+    """cdiv.cuh's quotient by a constant, and the passes K10's tiles divide
+    with (fast, then exact), is the IEEE quotient bit for bit (two NaNs
+    agree), on the host build of `igg_cdiv`."""
+    full = _numerators(dtype, n, 8)
+    for b, a in [(b, full) for b in DIVISORS] + [(b, full[-n // 10:]) for b in RANDOM_DIVISORS]:
+        a = np.concatenate([a, _near_least_normal_quotient(dtype, b)])
+        with np.errstate(all="ignore"):
+            ref = a / dtype(b)
+        for mode in (0, 2):  # cdiv; the tiles' passes (fast, then exact)
+            q = np.empty_like(a)
+            rc = host_lib.igg_cdiv(0 if dtype == np.float32 else 1, a.ctypes.data,
+                                   q.ctypes.data, a.size, b, mode, None)
+            assert rc == 0
+            same = (q.view(f"u{a.itemsize}") == ref.view(f"u{a.itemsize}")) | (
+                np.isnan(q) & np.isnan(ref))
+            assert same.all(), (b, mode, a[~same][:5], q[~same][:5], ref[~same][:5])
