@@ -6,13 +6,15 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, in order; any failure exits non-zero without the final line:
 
 1. build the CUDA kernels from `implicitglobalgrid_tpu_torch/csrc/`; print
-   each kernel's ptxas report, K10's registers, stack and spills, and check
+   each kernel's ptxas report, K9's and K10's registers, stack and spills
+   for each template, and check
    K10's SASS for the IEEE division; sweep the division helper of
    `cdiv.cuh` over every float32 numerator (and a float64 sample) against
    IEEE division for config 5's divisors and random ones;
 2. hold every kernel against its plain PyTorch version on the card, at the
    main paths' shapes (steps K1/K4/K5 and the slab kernel K4s to TOL; halo
-   copies K2/K3/K6, K10 and the K4s Stokes modes bitwise), and time
+   copies K2/K3/K6, K9 in float32, float64 and bfloat16, K10 and the
+   batched K4s wave and Stokes modes bitwise), and time
    kernel, plain version and PyTorch library call (CUDA events), and each
    kernel's device time alone (torch.profiler);
 3. main path, periodic: `init_global_grid(256, 256, 256, periodic)` ->
@@ -32,12 +34,18 @@ Phases, in order; any failure exits non-zero without the final line:
 8. BASELINE config 4 (3-D acoustic wave) on one 192^3 block, float32, all
    periodic: `init_acoustic3d` -> warm chunk -> tic -> `run_acoustic(nt=600,
    nt_chunk=60)` -> toc -> `gather_interior`, the all-self route (K9 alone),
-   against the same run with ``IGG_USE_PALLAS=0`` (the plain route);
+   against the same run with ``IGG_USE_PALLAS=0`` (the plain route); K9
+   on the run's own states (`k9_kernels_ms`) and the route's host, wall and
+   device time a step;
 9. config 4 on a 2x2x2 mesh of 192^3 blocks, 100 steps: the fused route
-   (K4s wave modes + K9) against the plain route; a coalesced
-   `update_halo(P, Vx, Vy, Vz)` (K8 + K7, one group a dim) bitwise against
-   the plain grid's; a few steps of ``impl="plain"`` (K8/K7 for the
-   velocities, K4s/K6 for P) against ``IGG_USE_PALLAS=0``;
+   (3 K4s wave-mode launches, one a dim for the four fields, + K9) against
+   the plain route; a coalesced `update_halo(P, Vx, Vy, Vz)` (K8 + K7, one
+   group a dim) bitwise against the plain grid's; a few steps of
+   ``impl="plain"`` (K8/K7 for the velocities, K4s/K6 for P) against
+   ``IGG_USE_PALLAS=0``; K9 on the run's own states (`k9_kernels_ms`), the
+   route's host, wall and device time a step; a bfloat16 run, bitwise
+   against the kernels' plain versions on the card for a few steps and
+   held to float64 beside the plain route;
 10. BASELINE config 5 (3-D pseudo-transient Stokes) on one 128^3 block,
    float32, non-periodic, the example's solver loop
    (`examples/stokes3D_multixpu.py`): `init_stokes3d` -> warm chunk -> tic
@@ -45,8 +53,9 @@ Phases, in order; any failure exits non-zero without the final line:
    max(residuals) < 5e-4 or 6000 iterations -> toc -> `gather_interior(P)`,
    K10 alone; its first 100 iterations against ``IGG_USE_PALLAS=0``;
 11. config 5 on a 2x2x2 mesh of 128^3 blocks, 300 iterations of the fused
-   route (12 K4s Stokes-mode launches + 1 K10 an iteration); its first 20
-   against the plain route (K8 + K7 for the (Vx, Vy, Vz, P) group);
+   route (3 K4s Stokes-mode launches, one a dim for the four fields, + 1
+   K10 an iteration); its first 20 against the plain route (K8 + K7 for the
+   (Vx, Vy, Vz, P) group);
 12. numbers: the card's name and power limit, each kernel's time, bound,
    plain and library times (one JSON line), cell-updates/s, and host
    against device time per step of the fused routes.
@@ -90,11 +99,12 @@ KERNEL_NAMES = {"diffusion3d_step_halo": "diffusion3d_step_halo_kernel",
                 "diffusion3d_step_exchange": "diffusion3d_step_exchange_kernel",
                 "diffusion2d_step_exchange": "diffusion2d_step_exchange_kernel",
                 "halo_write_combined": "halo_write_combined_kernel",
-                "exchange_slabs": "exchange_slabs_kernel",
+                "exchange_slabs": "exchange_slabs",  # its copy, step and staggered kernels
                 "wire_pack": "wire_pack_kernel",
                 "halo_write_multi": "halo_write_multi_kernel",
                 "acoustic_step_exchange": "acoustic_step_kernel",
                 "stokes_step_exchange": "stokes_step_kernel"}
+K4S_STAGGERED = "exchange_slabs_staggered_kernel"  # the batched staggered modes of K4s
 
 
 class SmokeFailure(Exception):
@@ -336,7 +346,8 @@ def phase_kernels(igg_ops, counts_before):
     rows["diffusion2d_step_exchange"] = check_k5(cs)
     rows["halo_write_combined"] = check_k6(ch)
     rows["exchange_slabs"] = check_k4s(cs)
-    k4s_wave_err, rows["exchange_slabs"]["wave_mode_ms"] = check_k4s_wave(cs, cw, tg)
+    k4s_wave_err, wave_times = check_k4s_wave(cs, cw, tg)
+    rows["exchange_slabs"].update(wave_times)
     rows["exchange_slabs"]["max_abs_err"] = max(rows["exchange_slabs"]["max_abs_err"],
                                                 k4s_wave_err)
     rows["wire_pack"], rows["halo_write_multi"] = check_k7_k8(ch, tg)
@@ -601,7 +612,7 @@ def check_k4s(cs):
         max_abs_err=max(err, e), ms=median_ms(k4s),
         plain_ms=median_ms(lambda: cs.exchange_slabs_plain(T, 1, 1, moves, **kw),
                            batches=3, per_batch=3, warm=1),
-        device_ms=device_ms(k4s, KERNEL_NAMES["exchange_slabs"]),
+        device_ms=device_ms(k4s, "exchange_slabs_kernel"),
         bound_ms=max(bound_b, bound_o), bound_by="bytes" if bound_b >= bound_o else "operations",
         library_ms=None,
         shape=f"y dim of the 2x2x2 x {n}^3 float32 step: 2 slabs, 2 earlier dims")
@@ -857,38 +868,121 @@ def _rand_wave_state(cw, block, counts, dtype, g):
 WAVE = dict(rho=1.0, K=1.0, dt=0.05, dx=0.052, dy=0.052, dz=0.052)
 
 
-def _wave_recvs(cw, gg, state, block, consts):
-    """The received slabs of the fused step's pipeline (K4s wave modes)."""
+def _wave_recvs(cw, gg, state, block, consts, check=None):
+    """The received slabs of the fused step's pipeline (one batched K4s
+    wave-mode launch a dim); ``check(got, dim, periodic, per_field)`` sees
+    each launch's slabs."""
     from implicitglobalgrid_tpu_torch.ops.halo import exchange_recv_slabs_multi
 
     modes = cw.wave_exchange_modes(gg, [tuple(s // int(d) for s, d in zip(a.shape, gg.dims))
                                         for a in state])
 
-    def slab_fn(field):
-        def get(dim, hw, moves, periodic, earlier):
-            return cw.wave_slabs(state, field, dim, hw, moves, block=block, periodic=periodic,
-                                 earlier=earlier, consts=consts)
-        return get
+    def dim_fn(dim, hw, periodic, per_field):
+        got = cw.wave_slabs_multi(state, dim, hw, per_field, block=block, periodic=periodic,
+                                  consts=consts)
+        if check is not None:
+            check(got, dim, periodic, per_field)
+        return got
 
     return modes, exchange_recv_slabs_multi(gg, cw.wave_shapes(block), (1, 1, 1), modes,
-                                            {f: slab_fn(f) for f in cw.FIELDS})
+                                            dim_fn=dim_fn)
+
+
+def _y_batch(recv_fn, *args):
+    """The y dim's batched K4s arguments (every field, with its z and x
+    slabs as earlier dims) of a fused pipeline: ``recv_fn(*args, check)``."""
+    seen = {}
+
+    def grab(got, dim, periodic, per_field):
+        if dim == 1:
+            seen.update(periodic=periodic, per_field=per_field)
+
+    recv_fn(*args, grab)
+    return seen["periodic"], seen["per_field"]
+
+
+def _slab_reads(mode, f, dim):
+    """The planes a send-slab cell of field ``f`` at plane j along ``dim``
+    reads, as {input field: offsets from j}: the wave mode's face and
+    pressure updates (`wave.cuh`), or the Stokes mode's divergence, edge
+    stresses, residual and damped update (`stokes.cuh`)."""
+    V = ("Vx", "Vy", "Vz")
+    vd = V[dim]
+    if mode == "wave":
+        if f == "P":
+            return {"P": (-1, 0, 1), vd: (0, 1), **{v: (0,) for v in V if v != vd}}
+        return {f: (0,), "P": (-1, 0) if f == vd else (0,)}
+    if f == "P":
+        return {"P": (0,), vd: (0, 1), **{v: (0,) for v in V if v != vd}}
+    rd = {f: (-1, 0, 1), "d" + f: (0,)}
+    if f == vd:
+        rd.update({"P": (-1, 0), **{v: (-1, 0) for v in V if v != vd}})
+        if f == "Vz":
+            rd["rhog"] = (-1, 0)
+        return rd
+    rd.update({"P": (0,), vd: (0, 1), **{v: (0,) for v in V if v not in (vd, f)}})
+    if f == "Vz":
+        rd["rhog"] = (0,)
+    return rd
+
+
+def slab_batch_bound(mode, fields, dim, per_field):
+    """(bound ms, bound_by) of one batched K4s launch along ``dim`` on the
+    stacked state ``fields`` ({name: tensor}, every block's): each send slab
+    written once, and each plane of an input that some slab cell reads
+    (`_slab_reads`, at the slab's start in every block) read once; the
+    operations are the three of a face update an output cell, the least
+    any cell does. The corners the earlier dims patch in are not counted."""
+    local = {g: int(a.shape[dim]) // 2 for g, a in fields.items()}  # 2 blocks along dim
+    planes, out_cells = set(), 0
+    for f, (moves, _) in per_field.items():
+        for m in moves:
+            out_cells += fields[f].numel() // local[f]
+            for g, offs in _slab_reads(mode, f, dim).items():
+                planes.update((g, m.start + o) for o in offs if 0 <= m.start + o < local[g])
+    read = sum(fields[g].numel() // local[g] * fields[g].element_size() for g, _ in planes)
+    elem = fields["P"].element_size()
+    bound_b = (read + out_cells * elem) / HBM_BYTES_PER_S * 1e3
+    bound_o = out_cells * 3 / F32_FLOPS_PER_S * 1e3
+    return max(bound_b, bound_o), "bytes" if bound_b >= bound_o else "operations"
+
+
+def _hold_batches(label, plain, errs):
+    """A pipeline hook holding each batched K4s launch bitwise against
+    ``plain(dim, periodic, per_field)``, every field of it."""
+    import torch
+
+    def hold(got, dim, periodic, per_field):
+        ref = plain(dim, periodic, per_field)
+        torch.cuda.synchronize()
+        e = max(max_err(a, b) for f in per_field for a, b in zip(got[f], ref[f]))
+        errs.append(e)
+        check(sorted(got) == sorted(per_field)
+              and all(torch.equal(a, b) for f in per_field for a, b in zip(got[f], ref[f])),
+              f"{label} dim {dim} periodic={periodic}: one launch for {tuple(per_field)}, "
+              f"bitwise equal to plain ({e:.3e})")
+    return hold
 
 
 def check_k4s_wave(cs, cw, tg):
-    """The K4s wave modes against their plain version: every field, dim and
-    range (send and current) with the identity move, and the exchange form
-    (moves, PROC_NULL edges, an earlier dim's corners) of every field,
-    float32 and float64, on 2x2x2 x 64^3 blocks; the time of one wave-mode
-    launch (P, the y dim, two slabs, two earlier dims) at 2x2x2 x 192^3
-    float32. Returns (max abs err, ms)."""
+    """The K4s wave modes bitwise against their plain version: every field,
+    dim and range (send and current) with the identity move on 2x2x2 x 64^3
+    blocks, and every batched launch of the fused step's pipeline (one a
+    dim for the four fields: moves, PROC_NULL edges, earlier dims'
+    corners), float32, float64 and bfloat16; the time of the y dim's launch
+    (four fields, two slabs each, two earlier dims) at 2x2x2 x 192^3
+    float32, config 4's mesh (events and device). Returns (max abs err,
+    times)."""
     import torch
+
+    from implicitglobalgrid_tpu_torch.ops.staggered import SlabBatch
 
     g = torch.Generator(device="cuda").manual_seed(41)
     n = N_CHECK
     block = (n, n, n)
     k = cw.wave_consts(**WAVE)
     err = 0.0
-    for dt in (torch.float32, torch.float64):
+    for dt in (torch.float32, torch.float64, torch.bfloat16):
         st = _rand_wave_state(cw, block, (2, 2, 2), dt, g)
         for f, m in cw.wave_shapes(block).items():
             for dim in range(3):
@@ -900,29 +994,40 @@ def check_k4s_wave(cs, cw, tg):
                     torch.cuda.synchronize()
                     e = max_err(gs, ref)
                     err = max(err, e)
-                    check(close(gs, ref, **TOL[name_of(dt)]),
-                          f"K4s wave {f} dim {dim} start {s0} {name_of(dt)} matches plain ({e:.3e})")
-            zs = rand_slabs(st[cw.FIELDS.index(f)].shape, m, (2,), dt, g)[2]
-            moves = (cs.Move(m[0] - 2, 0, -1), cs.Move(1, m[0] - 1, 1))
-            for periodic in (True, False):
-                kw = dict(block=block, periodic=periodic, earlier=((2, 1, zs),), consts=k)
-                got = cw.wave_slabs(st, f, 0, 1, moves, **kw)
-                ref = cw.wave_slabs_plain(st, f, 0, 1, moves, **kw)
-                torch.cuda.synchronize()
-                e = max(max_err(a, b) for a, b in zip(got, ref))
-                err = max(err, e)
-                check(all(close(a, b, **TOL[name_of(dt)]) for a, b in zip(got, ref)),
-                      f"K4s wave {f} exchange periodic={periodic} {name_of(dt)} matches plain "
-                      f"({e:.3e})")
+                    check(torch.equal(gs, ref),
+                          f"K4s wave {f} dim {dim} start {s0} {name_of(dt)} bitwise equal to "
+                          f"plain ({e:.3e})")
+        for periods in ((1, 1, 1), (0, 0, 0)):
+            gg = _acoustic_grid(tg, n, (2, 2, 2), periods)
+            errs = []
+
+            def plain(dim, periodic, per_field):
+                return cw.wave_slabs_multi_plain(st, dim, 1, per_field, block=block,
+                                                 periodic=periodic, consts=k)
+
+            _wave_recvs(cw, gg, st, block, k,
+                        _hold_batches(f"K4s wave 2x2x2x{n}^3 {name_of(dt)}", plain, errs))
+            check(len(errs) == 3, "K4s wave: 3 batched launches (one a dim) held")
+            err = max(err, *errs)
+        del st
     n = N_CFG4
     block = (n, n, n)
+    gg = _acoustic_grid(tg, n, (2, 2, 2), (1, 1, 1))
     st = _rand_wave_state(cw, block, (2, 2, 2), torch.float32, g)
-    earlier = tuple((d, 1, rand_slabs(st[0].shape, block, (d,), torch.float32, g)[d])
-                    for d in (2, 0))
-    moves = (cs.Move(n - 2, 0, -1), cs.Move(1, n - 1, 1))
-    ms = median_ms(lambda: cw.wave_slabs(st, "P", 1, 1, moves, block=block, periodic=True,
-                                         earlier=earlier, consts=k))
-    return err, ms
+    periodic, per_field = _y_batch(_wave_recvs, cw, gg, st, block, k)
+    # the launcher `AcousticStep` keeps for a run: its arrays built once, no checks
+    launcher = SlabBatch("igg_exchange_slabs_wave", block=block, counts=(2, 2, 2), consts=k,
+                         const_order=cw._CONST_ORDER, keep=True)
+
+    def launch():
+        return launcher(st, 1, 1, periodic, per_field)
+
+    bound, by = slab_batch_bound("wave", dict(zip(cw.FIELDS, st)), 1, per_field)
+    times = dict(wave_mode_ms=median_ms(launch),
+                 wave_mode_device_ms=device_ms(launch, K4S_STAGGERED),
+                 wave_mode_bound_ms=bound, wave_mode_bound_by=by)
+    tg.finalize_global_grid()
+    return err, times
 
 
 def check_k7_k8(ch, tg):
@@ -1081,10 +1186,12 @@ WAVE_GRIDS = {"all self-neighbour": ((1, 1, 1), (1, 1, 1)),
 
 
 def check_k9(cw, tg):
-    """K9 against its plain version on the five grid kinds of the acoustic
-    parity tests at 64^3 blocks, float32 and float64 (the all-self route, or
-    the multi-rank route with the pipeline's received slabs); its timing row
-    at 2x2x2 x 192^3 float32, all periodic."""
+    """K9 bitwise against its plain version on the five grid kinds of the
+    acoustic parity tests at 64^3 blocks, float32, float64 and bfloat16 (the
+    all-self route, or the multi-rank route with the pipeline's received
+    slabs); its timing row at 2x2x2 x 192^3 float32, all periodic, and the
+    all-self route on one periodic 192^3 block (config 4's two cells) timed
+    beside it, on random data."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(51)
@@ -1094,7 +1201,7 @@ def check_k9(cw, tg):
     err = 0.0
     for label, (dims, periods) in WAVE_GRIDS.items():
         gg = _acoustic_grid(tg, n, dims, periods)
-        for dt in (torch.float32, torch.float64):
+        for dt in (torch.float32, torch.float64, torch.bfloat16):
             st = _rand_wave_state(cw, block, dims, dt, g)
             modes, recvs = _wave_recvs(cw, gg, st, block, k)
             if cw.all_self_exchange(gg, modes):
@@ -1109,10 +1216,28 @@ def check_k9(cw, tg):
             torch.cuda.synchronize()
             e = max(max_err(a, b) for a, b in zip(got, ref))
             err = max(err, e)
-            check(all(close(a, b, **TOL[name_of(dt)]) for a, b in zip(got, ref)),
-                  f"K9 {label} ({route}) {name_of(dt)} matches plain (max abs err {e:.3e})")
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                  f"K9 {label} ({route}) {name_of(dt)} bitwise equal to plain "
+                  f"(max abs err {e:.3e})")
     n = N_CFG4
     block = (n, n, n)
+    gg = _acoustic_grid(tg, n, (1, 1, 1), (1, 1, 1))
+    st1 = _rand_wave_state(cw, block, (1, 1, 1), torch.float32, g)
+    modes1 = cw.wave_exchange_modes(gg, [tuple(a.shape) for a in st1])
+    ols1 = cw.self_ols(gg, block)
+    out1 = tuple(torch.empty_like(a) for a in st1)
+
+    def k9_self():
+        return cw.acoustic_step_self(st1, modes1, ols1, block=block, consts=k, out=out1)
+
+    check(all(torch.equal(a, b) for a, b in zip(
+        k9_self(), cw.acoustic_step_self_plain(st1, modes1, ols1, block=block, consts=k))),
+        f"K9 one periodic {n}^3 block (all-self) float32 bitwise equal to plain")
+    single = dict(ms=median_ms(k9_self),
+                  device_ms=device_ms(k9_self, KERNEL_NAMES["acoustic_step_exchange"]),
+                  bound_ms=cw.wave_bytes(st1) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                  shape=f"one {n}^3 block float32, all periodic (all-self route)")
+    del st1, out1
     gg = _acoustic_grid(tg, n, (2, 2, 2), (1, 1, 1))
     st = _rand_wave_state(cw, block, (2, 2, 2), torch.float32, g)
     _, recvs = _wave_recvs(cw, gg, st, block, k)
@@ -1123,8 +1248,8 @@ def check_k9(cw, tg):
 
     ref = cw.acoustic_step_recv_plain(st, recvs, block=block, consts=k)
     e = max(max_err(a, b) for a, b in zip(k9(), ref))
-    check(all(close(a, b, **TOL["float32"]) for a, b in zip(out, ref)),
-          f"K9 2x2x2x{n}^3 float32 matches plain ({e:.3e})")
+    check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+          f"K9 2x2x2x{n}^3 float32 bitwise equal to plain ({e:.3e})")
     del ref
     slab_b = sum(s.numel() * 4 for per in recvs.values() for p in per.values() for s in p)
     bound_b = (cw.wave_bytes(st) + slab_b) / HBM_BYTES_PER_S * 1e3
@@ -1136,8 +1261,39 @@ def check_k9(cw, tg):
                            batches=3, per_batch=2, warm=1),
         device_ms=device_ms(k9, KERNEL_NAMES["acoustic_step_exchange"]),
         bound_ms=max(bound_b, bound_o), bound_by="bytes" if bound_b >= bound_o else "operations",
-        library_ms=None,
+        library_ms=None, single_block=single,
         shape=f"2x2x2 x {n}^3 float32, all periodic (every field, every dim received)")
+
+
+def k9_kernels_ms(cw, gg, state, block, consts):
+    """Device ms of K9 on one state of config 4: the route the grid takes
+    (all-self, or the multi-rank route delivering the pipeline's slabs)."""
+    import torch
+
+    modes, recvs = _wave_recvs(cw, gg, state, block, consts)
+    out = tuple(torch.empty_like(a) for a in state)
+    if cw.all_self_exchange(gg, modes):
+        ols = cw.self_ols(gg, block)
+
+        def k9():
+            return cw.acoustic_step_self(state, modes, ols, block=block, consts=consts, out=out)
+    else:
+        def k9():
+            return cw.acoustic_step_recv(state, recvs, block=block, consts=consts, out=out)
+    return device_ms(k9, KERNEL_NAMES["acoustic_step_exchange"])
+
+
+def _acoustic_step(tg, cw, s0, p):
+    """One fused step from ``s0`` as `run_acoustic` takes it: the route
+    resolved once (an `AcousticStep`), a spare state to write."""
+    import torch
+
+    gg = tg.global_grid()
+    locs = [tuple(s // int(d) for s, d in zip(a.shape, gg.dims)) for a in s0]
+    step = cw.AcousticStep(gg, cw.wave_exchange_modes(gg, locs), rho=p.rho, K=p.K, dt=p.dt,
+                           dx=p.dx, dy=p.dy, dz=p.dz, block=locs[0])
+    out = tuple(torch.empty_like(a) for a in s0)
+    return lambda: step(s0, out)
 
 
 def _gather_all(tg, state):
@@ -1184,14 +1340,17 @@ def phase_config4_single(tg, models, cb, cw):
     modes = cw.wave_exchange_modes(gg, [tuple(a.shape) for a in s0])
     ols = cw.self_ols(gg, block)
     k = cw.wave_consts(rho=p.rho, K=p.K, dt=p.dt, dx=p.dx, dy=p.dy, dz=p.dz)
-    a = cw.acoustic_step_self(s0, modes, ols, block=block, consts=k)
-    b = cw.acoustic_step_self_plain(s0, modes, ols, block=block, consts=k)
+    a = cw.acoustic_step_self(s, modes, ols, block=block, consts=k)
+    b = cw.acoustic_step_self_plain(s, modes, ols, block=block, consts=k)
     err_k9 = max(max_err(x, y) for x, y in zip(a, b))
-    check(all(close(x, y, **TOL["float32"]) for x, y in zip(a, b)),
-          f"config 4 single: one step by K9 matches its plain version ({err_k9:.3e})")
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          f"config 4 single: one step by K9 from the state after {nt} steps bitwise equal to "
+          f"its plain version ({err_k9:.3e})")
     del a, b
-    out = tuple(torch.empty_like(x) for x in s0)
-    times = route_times(lambda: models.acoustic_step_local(s0, p, "cuda", out=out))
+    k9_own = dict(initial=k9_kernels_ms(cw, gg, s0, block, k),
+                  after_steps=k9_kernels_ms(cw, gg, s, block, k), steps=nt)
+    print(f"  K9 on config 4's own states (device ms): {k9_own}", flush=True)
+    times = route_times(_acoustic_step(tg, cw, s0, p))
     print(f"  K9 route per step: {times}", flush=True)
     grid(tg, n, n, n, plain=True, **kw)
     t1 = time.perf_counter()
@@ -1204,7 +1363,7 @@ def phase_config4_single(tg, models, cb, cw):
     os.environ.pop("IGG_USE_PALLAS", None)
     return counts, dict(seconds=t, cell_updates_per_s=rate, global_cells=cells,
                         plain_seconds=plain_s, max_abs_err_vs_plain=err,
-                        k9_vs_plain_one_step=err_k9, k9_route=times)
+                        k9_vs_plain_one_step=err_k9, k9_route=times, k9_kernels_ms=k9_own)
 
 
 def phase_config4_mesh(tg, models, cb, cw):
@@ -1231,8 +1390,8 @@ def phase_config4_mesh(tg, models, cb, cw):
     print(f"  config 4 mesh: nt={nt} in {t:.6f} s = {rate:.6e} cell-updates/s "
           f"(global {tg.nx_g()}x{tg.ny_g()}x{tg.nz_g()}); launches {counts}", flush=True)
     check(counts["acoustic_step_exchange"] == nt, "config 4 mesh: K9 launched once per step")
-    check(counts["exchange_slabs"] == 12 * nt,
-          "config 4 mesh: K4s once per (field, dim) a step (4 fields x 3 dims)")
+    check(counts["exchange_slabs"] == 3 * nt and sum(counts.values()) == 4 * nt,
+          "config 4 mesh: K4s once a dim a step for the four fields")
     check(all(bool(np.isfinite(g).all()) for g in G), "config 4 mesh: gathered fields finite")
     # a standalone coalesced update_halo: one group (P, Vx, Vy, Vz) a dim
     c0 = cb.launch_counts()
@@ -1253,9 +1412,15 @@ def phase_config4_mesh(tg, models, cb, cw):
           and dp["halo_write_combined"] == 3 and dp["exchange_slabs"] == 9,
           "config 4 mesh: the plain route's exchanges took K8/K7 (velocities), K4s/K6 (P)")
     counts = c2
-    out = tuple(torch.empty_like(a) for a in s0)
-    times = route_times(lambda: models.acoustic_step_local(s0, p, "cuda", out=out), reps=5)
+    times = route_times(_acoustic_step(tg, cw, s0, p), reps=5)
     print(f"  K4s + K9 route per step: {times}", flush=True)
+    gg = tg.global_grid()
+    block = (n, n, n)
+    k = cw.wave_consts(rho=p.rho, K=p.K, dt=p.dt, dx=p.dx, dy=p.dy, dz=p.dz)
+    k9_own = dict(initial=k9_kernels_ms(cw, gg, s0, block, k),
+                  after_steps=k9_kernels_ms(cw, gg, s, block, k), steps=nt)
+    print(f"  K9 on config 4's own states (device ms): {k9_own}", flush=True)
+    bf16 = acoustic_bf16_mesh(tg, models, cw, p)
     grid(tg, n, n, n, plain=True, **kw)
     Up = tg.update_halo(*[a.clone() for a in s])
     err_uh = max(max_err(a, b) for a, b in zip(U, Up))
@@ -1276,7 +1441,53 @@ def phase_config4_mesh(tg, models, cb, cw):
     os.environ.pop("IGG_USE_PALLAS", None)
     return counts, dict(seconds=t, cell_updates_per_s=rate, global_cells=cells,
                         max_abs_err_vs_plain=err, max_abs_err_plain_route=err_p,
-                        k9_route=times)
+                        k9_route=times, k9_kernels_ms=k9_own, bf16=bf16)
+
+
+BF16_STEPS, BF16_HELD = 20, 5
+
+
+def acoustic_bf16_mesh(tg, models, cw, p):
+    """A bfloat16 acoustic run on the 2x2x2 mesh of config 4 (the grid that
+    is current): BF16_HELD steps of the fused route (K4s wave modes + K9 in
+    bfloat16) bitwise against the same steps by the kernels' plain versions
+    on the card; BF16_STEPS steps against the plain route, both held to a
+    float64 run: the fused route's bfloat16 drift from float64 at most twice
+    the plain route's (the two round at different points; CPU runs of the
+    port drift 0.8-1.3x the plain route's)."""
+    import numpy as np
+    import torch
+
+    s0, _ = models.init_acoustic3d(dtype=torch.bfloat16)
+    held = models.run_acoustic(s0, p, BF16_HELD, nt_chunk=BF16_HELD)
+    on_card = cw._on_card
+    cw._on_card = lambda t: False  # the fused route's plain versions, on the card
+    try:
+        ref = models.run_acoustic(s0, p, BF16_HELD, nt_chunk=BF16_HELD)
+    finally:
+        cw._on_card = on_card
+    check(all(torch.equal(a, b) for a, b in zip(held, ref)),
+          f"config 4 mesh bfloat16: {BF16_HELD} fused steps bitwise equal to the kernels' "
+          "plain versions on the card")
+    del held, ref
+    fused = _gather_all(tg, models.run_acoustic(s0, p, BF16_STEPS, nt_chunk=BF16_STEPS))
+    plain = _gather_all(tg, models.run_acoustic(s0, p, BF16_STEPS, nt_chunk=BF16_STEPS,
+                                                impl="plain"))
+    f64 = _gather_all(tg, models.run_acoustic(tuple(a.double() for a in s0), p, BF16_STEPS,
+                                              nt_chunk=BF16_STEPS))
+    out = {}
+    for name, a, b, c in zip(cw.FIELDS, fused, plain, f64):
+        scale = float(np.abs(c).max())
+        out[name] = dict(fused_vs_f64=float(np.abs(a - c).max()) / scale,
+                         plain_vs_f64=float(np.abs(b - c).max()) / scale,
+                         fused_vs_plain=float(np.abs(a - b).max()) / scale)
+    print(f"  bfloat16 mesh, {BF16_STEPS} steps (max errors over max|float64 field|): {out}",
+          flush=True)
+    check(all(np.isfinite(a).all() for a in fused)
+          and all(r["fused_vs_f64"] <= 2 * r["plain_vs_f64"] for r in out.values()),
+          "config 4 mesh bfloat16: the fused route's drift from float64 within twice the "
+          "plain route's")
+    return out
 
 
 def _rand_stokes_state(cst, block, counts, dtype, g):
@@ -1292,25 +1503,23 @@ STOKES = dict(mu=1.0, dt_v=0.0004, dt_p=0.047, damp=0.953, dx=0.079, dy=0.079, d
 
 
 def _stokes_recvs(cst, gg, state, block, consts, check=None):
-    """The received slabs of the fused iteration's pipeline (K4s Stokes
-    modes); ``check(got, field, dim, moves, periodic, earlier)`` sees each
-    launch's slabs."""
+    """The received slabs of the fused iteration's pipeline (one batched K4s
+    Stokes-mode launch a dim); ``check(got, dim, periodic, per_field)`` sees
+    each launch's slabs."""
     from implicitglobalgrid_tpu_torch.ops.halo import exchange_recv_slabs_multi
 
     modes = cst.stokes_exchange_modes(gg, [tuple(s // int(d) for s, d in zip(a.shape, gg.dims))
                                            for a in state])
 
-    def slab_fn(field):
-        def get(dim, hw, moves, periodic, earlier):
-            got = cst.stokes_slabs(state, field, dim, hw, moves, block=block, periodic=periodic,
-                                   earlier=earlier, consts=consts)
-            if check is not None:
-                check(got, field, dim, moves, periodic, earlier)
-            return got
-        return get
+    def dim_fn(dim, hw, periodic, per_field):
+        got = cst.stokes_slabs_multi(state, dim, hw, per_field, block=block, periodic=periodic,
+                                     consts=consts)
+        if check is not None:
+            check(got, dim, periodic, per_field)
+        return got
 
     return modes, exchange_recv_slabs_multi(gg, cst.wave_shapes(block), (1, 1, 1), modes,
-                                            {f: slab_fn(f) for f in cst.FIELDS})
+                                            dim_fn=dim_fn)
 
 
 def k10_kernels_ms(cst, state, recvs, block, consts):
@@ -1341,10 +1550,13 @@ def check_k4s_stokes(cs, cst, tg):
     field, dim and range (send and current) with the identity move on 2x2x2
     x 64^3 blocks, and every launch of the fused iteration's pipeline
     (moves, PROC_NULL edges, earlier dims' corners) on 2x2x2 x 128^3,
-    float32 and float64; the time of one Stokes-mode launch (P, the y dim, two slabs, two
-    earlier dims) at 2x2x2 x 128^3 float32 (events and device). Returns (max
-    abs err, times)."""
+    float32 and float64 (one batched launch a dim for the four fields); the
+    time of the y dim's launch (four fields, two slabs each, two earlier
+    dims) at 2x2x2 x 128^3 float32, config 5's mesh (events and device).
+    Returns (max abs err, times)."""
     import torch
+
+    from implicitglobalgrid_tpu_torch.ops.staggered import SlabBatch
 
     g = torch.Generator(device="cuda").manual_seed(61)
     err = 0.0
@@ -1373,31 +1585,31 @@ def check_k4s_stokes(cs, cst, tg):
             st = _rand_stokes_state(cst, block, (2, 2, 2), dt, g)
             errs = []
 
-            def hold(got, field, dim, moves, periodic, earlier):
-                ref = cst.stokes_slabs_plain(st, field, dim, 1, moves, block=block,
-                                             periodic=periodic, earlier=earlier, consts=STOKES)
-                torch.cuda.synchronize()
-                errs.append(max(max_err(a, b) for a, b in zip(got, ref)))
-                check(all(torch.equal(a, b) for a, b in zip(got, ref)),
-                      f"K4s Stokes {field} dim {dim} periodic={periodic} 2x2x2x{n}^3 "
-                      f"{name_of(dt)} bitwise equal to plain ({errs[-1]:.3e})")
+            def plain(dim, periodic, per_field):
+                return cst.stokes_slabs_multi_plain(st, dim, 1, per_field, block=block,
+                                                    periodic=periodic, consts=STOKES)
 
-            _stokes_recvs(cst, gg, st, block, STOKES, hold)
-            check(len(errs) == 12, "K4s Stokes: 12 launches (4 fields x 3 dims) held")
+            _stokes_recvs(cst, gg, st, block, STOKES,
+                          _hold_batches(f"K4s Stokes 2x2x2x{n}^3 {name_of(dt)}", plain, errs))
+            check(len(errs) == 3, "K4s Stokes: 3 batched launches (one a dim) held")
             err = max(err, *errs)
             del st
     n = N_CFG5
     block = (n, n, n)
+    gg = _acoustic_grid(tg, n, (2, 2, 2), (0, 0, 0))
     st = _rand_stokes_state(cst, block, (2, 2, 2), torch.float32, g)
-    earlier = tuple((d, 1, rand_slabs(st[0].shape, block, (d,), torch.float32, g)[d])
-                    for d in (2, 0))
-    moves = (cs.Move(n - 2, 0, -1), cs.Move(1, n - 1, 1))
-    def launch():
-        return cst.stokes_slabs(st, "P", 1, 1, moves, block=block, periodic=True,
-                                earlier=earlier, consts=STOKES)
+    periodic, per_field = _y_batch(_stokes_recvs, cst, gg, st, block, STOKES)
+    # the launcher `StokesStep` keeps for a run: its arrays built once, no checks
+    launcher = SlabBatch("igg_exchange_slabs_stokes", block=block, counts=(2, 2, 2),
+                         consts=STOKES, const_order=cst._CONST_ORDER, keep=True)
 
+    def launch():
+        return launcher(st, 1, 1, periodic, per_field)
+
+    bound, by = slab_batch_bound("stokes", dict(zip(cst.STATE, st)), 1, per_field)
     times = dict(stokes_mode_ms=median_ms(launch),
-                 stokes_mode_device_ms=device_ms(launch, KERNEL_NAMES["exchange_slabs"]))
+                 stokes_mode_device_ms=device_ms(launch, K4S_STAGGERED),
+                 stokes_mode_bound_ms=bound, stokes_mode_bound_by=by)
     tg.finalize_global_grid()
     return err, times
 
@@ -1622,8 +1834,8 @@ def phase_config5_mesh(tg, models, cb, cst):
           f"{tg.nx_g()}x{tg.ny_g()}x{tg.nz_g()}); residuals {res}; launches {counts}",
           flush=True)
     check(counts["stokes_step_exchange"] == nt, "config 5 mesh: K10 launched once per iteration")
-    check(counts["exchange_slabs"] == 12 * nt and sum(counts.values()) == 13 * nt,
-          "config 5 mesh: K4s once per (field, dim) an iteration (4 fields x 3 dims)")
+    check(counts["exchange_slabs"] == 3 * nt and sum(counts.values()) == 4 * nt,
+          "config 5 mesh: K4s once a dim an iteration for the four fields")
     check(all(bool(np.isfinite(g).all()) for g in G) and np.isfinite(res).all(),
           "config 5 mesh: gathered fields and residuals finite")
     times = route_times(_stokes_iteration(tg, cst, s0, p), reps=5)
@@ -1672,7 +1884,7 @@ def k10_build_report(cb, info):
     out-of-line fallback. Returns {kernel: {...}}."""
     import re
 
-    rep = k10_ptxas(info.get("ptxas", ""))
+    rep = ptxas_report(info.get("ptxas", ""), "stokes_step_kernel")
     cuobjdump = os.path.join(os.path.dirname(cb._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", info["path"]], capture_output=True, text=True,
                           timeout=300)
@@ -1768,16 +1980,16 @@ def phase_cdiv(cb):
     return out
 
 
-def k10_ptxas(log):
-    """{kernel: {registers, stack, spill_stores, spill_loads}} of the K10
-    templates in a ptxas log."""
+def ptxas_report(log, kernel):
+    """{entry: {registers, stack, spill_stores, spill_loads}} of the
+    templates of ``kernel`` in a ptxas log."""
     import re
 
     rep, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            entry = m.group(1) if "stokes_step_kernel" in m.group(1) else None
+            entry = m.group(1) if kernel in m.group(1) else None
             continue
         if entry is None:
             continue
@@ -1790,6 +2002,18 @@ def k10_ptxas(log):
         if m:
             rep.setdefault(entry, {})["registers"] = int(m[1])
             entry = None
+    return rep
+
+
+def k9_build_report(info):
+    """Registers, stack frame and spills of every K9 template (ptxas):
+    float32, float64 and bfloat16, each route."""
+    rep = ptxas_report(info.get("ptxas", ""), "acoustic_step_kernel")
+    for name, r in rep.items():
+        print(f"  K9 {name}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
+              f"frame, {r.get('spill_stores')}/{r.get('spill_loads')} bytes spill "
+              "stores/loads", flush=True)
+    check(len(rep) == 6, "K9: six templates (three dtypes, two routes) in the ptxas report")
     return rep
 
 
@@ -1837,6 +2061,7 @@ def main() -> int:
                     or line.startswith("=="):
                 print("  " + line.strip())
         k10_build = k10_build_report(cb, info)
+        k9_build = k9_build_report(info)
         cdiv = phase_cdiv(cb)
         print("phase: kernels vs plain", flush=True)
         rows = phase_kernels((cs, ch, cb, cw, cst, tg), cb.launch_counts())
@@ -1885,6 +2110,9 @@ def main() -> int:
            "stokes_step_exchange": ("implicitglobalgrid_tpu_torch/csrc/stokes.cu",
                                     "implicitglobalgrid_tpu/ops/pallas_stokes.py:132,286")}
     rows["stokes_step_exchange"]["ptxas_sass"] = k10_build
+    rows["acoustic_step_exchange"]["ptxas"] = k9_build
+    rows["acoustic_step_exchange"]["k9_kernels_ms"] = {
+        "single_block": cfg4["k9_kernels_ms"], "mesh": cfg4m["k9_kernels_ms"]}
     rows["stokes_step_exchange"]["solver_device_ms"] = {
         "single_block": cfg5["k10_solver_device_ms"], "mesh": cfg5m["k10_solver_device_ms"],
         "single_block_kernels": cfg5["k10_solver_kernels_device_ms"],
@@ -1899,7 +2127,10 @@ def main() -> int:
                             device_ms=r["device_ms"], shape=r["shape"],
                             **{k: v for k, v in r.items()
                                if k in ("k1_same_shape_ms", "wave_mode_ms", "stokes_mode_ms",
-                                        "stokes_mode_device_ms",
+                                        "wave_mode_device_ms", "stokes_mode_device_ms",
+                                        "wave_mode_bound_ms", "stokes_mode_bound_ms",
+                                        "wave_mode_bound_by", "stokes_mode_bound_by",
+                                        "k9_kernels_ms", "ptxas",
                                         "self_route", "single_block", "zeros_device_ms",
                                         "subnormal_device_ms", "solver_device_ms",
                                         "kernels_device_ms",

@@ -143,3 +143,12 @@ struct CDivFast {
     return zero ? q : cdiv_fma(cdiv_fma(-q, d.b, a), d.y, q);
   }
 };
+
+// A phase of divisions `phase(dv)`: branch-free with CDivFast, and again
+// with CDivExact where a numerator left its window.
+template <typename F>
+__device__ __forceinline__ void retry_passes(const F& phase) {
+  CDivFast fast;
+  phase(fast);
+  if (!fast.ok) phase(CDivExact());
+}

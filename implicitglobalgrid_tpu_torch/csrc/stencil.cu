@@ -76,17 +76,6 @@ constexpr int THREADS = 256;
 constexpr int BZ = 32;       // 3-D thread block: 32 along z, 8 along y
 constexpr int BY = 8;
 
-__device__ __forceinline__ float to_c(float v) { return v; }
-__device__ __forceinline__ double to_c(double v) { return v; }
-__device__ __forceinline__ float to_c(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename S, typename C> __device__ __forceinline__ S from_c(C v);
-template <> __device__ __forceinline__ float from_c<float, float>(float v) { return v; }
-template <> __device__ __forceinline__ double from_c<double, double>(double v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_c<__nv_bfloat16, float>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 template <typename C> struct Consts { C nlam, dt, dx, dy, dz; };
 
 template <typename C>
@@ -371,15 +360,44 @@ __device__ __forceinline__ bool from_earlier(const Earlier<S>& e, unsigned g0, u
   return true;
 }
 
+// The stacked source cell of element q of a received slab of dim `dim`
+// (width hw) under move m: (g0, g1, g2), in the layout of a field of
+// geometry G, blocks D along dim.
+__device__ __forceinline__ void slab_source(const Geom& G, unsigned q, int dim, unsigned hw,
+                                            int periodic, const Move& m, unsigned P1,
+                                            unsigned P2, unsigned nd, int D, unsigned& g0,
+                                            unsigned& g1, unsigned& g2) {
+  g2 = q % P2;
+  const unsigned rest = q / P2;
+  g1 = rest % P1;
+  g0 = rest / P1;
+  const unsigned gd = pick(g0, g1, g2, dim);
+  const unsigned t = gd / hw, qq = gd - t * hw;
+  int s = (int)t + m.shift;
+  bool reached = true;
+  if (periodic) {
+    s %= D;
+    if (s < 0) s += D;
+  } else {
+    reached = s >= 0 && s < D;
+  }
+  const unsigned src = reached ? (unsigned)s * nd + m.start + qq : t * nd + m.own + qq;
+  if (dim == 0) {
+    g0 = src;
+  } else if (dim == 1) {
+    g1 = src;
+  } else {
+    g2 = src;
+  }
+}
+
 // MODE 0: a plain copy (update_halo); 1: the 3-D step; 2: the 2-D step laid
-// out as (S0, 1, S1); 3 to 6: the acoustic step's P, Vx, Vy, Vz; 7 to 10: the
-// PT Stokes iteration's P, Vx, Vy, Vz in the getter form (G is then that
-// field's geometry, and the state is in wv: a Wave or a Stokes).
-template <typename S, typename C, int MODE, typename W>
+// out as (S0, 1, S1).
+template <typename S, typename C, int MODE>
 __global__ void __launch_bounds__(THREADS)
 exchange_slabs_kernel(const S* __restrict__ T, const S* __restrict__ Cp, S* out0, S* out1,
                       Geom G, int dim, unsigned hw, int periodic, Move m0, Move m1,
-                      Earlier<S> e0, Earlier<S> e1, Consts<C> kc, W wv) {
+                      Earlier<S> e0, Earlier<S> e1, Consts<C> kc) {
   S* out = blockIdx.y ? out1 : out0;
   const Move m = blockIdx.y ? m1 : m0;
   if (out == nullptr) return;
@@ -389,43 +407,14 @@ exchange_slabs_kernel(const S* __restrict__ T, const S* __restrict__ Cp, S* out0
   const unsigned total = (dim == 0 ? D * hw : G.S0) * P1 * P2;
   for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < total;
        q += gridDim.x * blockDim.x) {
-    unsigned g2 = q % P2;
-    const unsigned rest = q / P2;
-    unsigned g1 = rest % P1, g0 = rest / P1;
-    const unsigned gd = pick(g0, g1, g2, dim);
-    const unsigned t = gd / hw, qq = gd - t * hw;
-    int s = (int)t + m.shift;
-    bool reached = true;
-    if (periodic) {
-      s %= D;
-      if (s < 0) s += D;
-    } else {
-      reached = s >= 0 && s < D;
-    }
-    const unsigned src = reached ? (unsigned)s * nd + m.start + qq : t * nd + m.own + qq;
-    if (dim == 0) {
-      g0 = src;
-    } else if (dim == 1) {
-      g1 = src;
-    } else {
-      g2 = src;
-    }
+    unsigned g0, g1, g2;
+    slab_source(G, q, dim, hw, periodic, m, P1, P2, nd, D, g0, g1, g2);
     S v;
     if (!from_earlier(e1, g0, g1, g2, G, v) &&
         !from_earlier(e0, g0, g1, g2, G, v)) {  // the later dim wins
       const long long S1 = G.S1, S2 = G.S2;
       const long long p = ((long long)g0 * S1 + g1) * S2 + g2;
-      if constexpr (MODE >= 7) {
-        const unsigned c0 = g0 / G.n0, c1 = g1 / G.n1, c2 = g2 / G.n2;
-        v = stokes_update<C, FORM_GETTER>(wv, stokes_block(wv, c0, c1, c2), MODE - 7,
-                                          g0 - c0 * G.n0, g1 - c1 * G.n1, g2 - c2 * G.n2);
-      } else if constexpr (MODE >= 3) {
-        const unsigned c0 = g0 / G.n0, c1 = g1 / G.n1, c2 = g2 / G.n2;
-        v = wave_update(wv, wave_block(wv, c0, c1, c2), MODE - 3, g0 - c0 * G.n0,
-                        g1 - c1 * G.n1, g2 - c2 * G.n2);
-      } else {
-        v = T[p];
-      }
+      v = T[p];
       if constexpr (MODE == 1 || MODE == 2) {
         const unsigned i = g0 % G.n0, j = g1 % G.n1, k = g2 % G.n2;
         const bool interior = i > 0 && i < G.n0 - 1 && k > 0 && k < G.n2 - 1 &&
@@ -446,16 +435,79 @@ exchange_slabs_kernel(const S* __restrict__ T, const S* __restrict__ Cp, S* out0
   }
 }
 
-template <typename S, typename C, int MODE, typename W>
+template <typename S, typename C, int MODE>
 void exchange_slabs(const void* T, const void* Cp, void* o0, void* o1, const Geom& G, int dim,
                     unsigned hw, int periodic, Move m0, Move m1, Earlier<S> e0,
-                    Earlier<S> e1, Consts<C> kc, W wv, unsigned total, cudaStream_t st) {
+                    Earlier<S> e1, Consts<C> kc, unsigned total, cudaStream_t st) {
   long long blocks = ((long long)total + THREADS - 1) / THREADS;
   if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
   if (blocks < 1) blocks = 1;
-  exchange_slabs_kernel<S, C, MODE, W><<<dim3((unsigned)blocks, 2u), THREADS, 0, st>>>(
+  exchange_slabs_kernel<S, C, MODE><<<dim3((unsigned)blocks, 2u), THREADS, 0, st>>>(
       static_cast<const S*>(T), static_cast<const S*>(Cp), static_cast<S*>(o0),
-      static_cast<S*>(o1), G, dim, hw, periodic, m0, m1, e0, e1, kc, wv);
+      static_cast<S*>(o1), G, dim, hw, periodic, m0, m1, e0, e1, kc);
+}
+
+// The staggered modes of K4s: the received slabs of one dim for each field
+// of the fused acoustic step (wave.cuh) or PT iteration (stokes.cuh), one
+// launch for all four. A field's slabs (`FieldSlabs`: its geometry, moves,
+// earlier dims' slabs and outputs, null outputs where it does not exchange
+// along the dim) are read by the blocks of its grid rows.
+template <typename S>
+struct FieldSlabs {
+  Geom G;
+  Move m[2];
+  Earlier<S> e[2];
+  S* out[2];
+  unsigned total;
+};
+
+template <typename S>
+struct SlabBatch {
+  FieldSlabs<S> f[4];
+};
+
+// Field f of a staggered state updated at stacked cell (g0, g1, g2) of its
+// geometry G: the acoustic step's value (a Wave) or the PT iteration's in
+// the getter form (a Stokes).
+template <typename S>
+__device__ __forceinline__ S staggered_update(const Wave<S>& w, int f, const Geom& G,
+                                              unsigned g0, unsigned g1, unsigned g2) {
+  const unsigned c0 = g0 / G.n0, c1 = g1 / G.n1, c2 = g2 / G.n2;
+  return wave_update(w, wave_block(w, c0, c1, c2), f, g0 - c0 * G.n0, g1 - c1 * G.n1,
+                     g2 - c2 * G.n2);
+}
+template <typename S>
+__device__ __forceinline__ S staggered_update(const Stokes<S>& s, int f, const Geom& G,
+                                              unsigned g0, unsigned g1, unsigned g2) {
+  const unsigned c0 = g0 / G.n0, c1 = g1 / G.n1, c2 = g2 / G.n2;
+  return stokes_update<S, FORM_GETTER>(s, stokes_block(s, c0, c1, c2), f, g0 - c0 * G.n0,
+                                       g1 - c1 * G.n1, g2 - c2 * G.n2);
+}
+
+// Grid rows 2f + side: field f's received slab `side`.
+template <typename S, typename W>
+__global__ void __launch_bounds__(THREADS)
+exchange_slabs_staggered_kernel(const __grid_constant__ SlabBatch<S> batch, int dim, unsigned hw,
+                                int periodic, W wv) {
+  const int f = (int)(blockIdx.y >> 1), side = (int)(blockIdx.y & 1);
+  const FieldSlabs<S>& fs = batch.f[f];
+  S* out = fs.out[side];
+  if (out == nullptr) return;
+  const Geom G = fs.G;
+  const Move m = fs.m[side];
+  const unsigned nd = pick(G.n0, G.n1, G.n2, dim);
+  const int D = (int)(pick(G.S0, G.S1, G.S2, dim) / nd);
+  const unsigned P1 = dim == 1 ? D * hw : G.S1, P2 = dim == 2 ? D * hw : G.S2;
+  for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < fs.total;
+       q += gridDim.x * blockDim.x) {
+    unsigned g0, g1, g2;
+    slab_source(G, q, dim, hw, periodic, m, P1, P2, nd, D, g0, g1, g2);
+    S v;
+    if (!from_earlier(fs.e[1], g0, g1, g2, G, v) &&
+        !from_earlier(fs.e[0], g0, g1, g2, G, v))  // the later dim wins
+      v = staggered_update(wv, f, G, g0, g1, g2);
+    out[q] = v;
+  }
 }
 
 // Checks of one K4s call (32-bit extents and slab cells, earlier dims) and
@@ -620,7 +672,7 @@ extern "C" int igg_exchange_slabs(int mode, int dtype, int itemsize, const void*
                  (unsigned)e0h, x0},                                                      \
       Earlier<S>{static_cast<const S*>(e1l), static_cast<const S*>(e1r), e1d,             \
                  (unsigned)e1h, x1},                                                      \
-      K, Wave<C>{}, total, st)
+      K, total, st)
   if (mode == 0) {
     const Consts<float> k0{};
     switch (itemsize) {
@@ -650,94 +702,95 @@ extern "C" int igg_exchange_slabs(int mode, int dtype, int itemsize, const void*
   return (int)cudaGetLastError();
 }
 
-// K4s wave modes. field: 0 P, 1 Vx, 2 Vy, 3 Vz, the field whose received
-// slabs are made (G is its geometry). dtype 0 float32, 1 float64. ptrs: P,
-// Vx, Vy, Vz, out0, out1, e0l, e0r, e1l, e1r. g: nx, ny, nz (P's block), D0,
-// D1, D2 (blocks), dim, hw, periodic, start0, own0, shift0, start1, own1,
-// shift1, e0d, e0h, e1d, e1h. c: cx, cy, cz, dtK, dx, dy, dz (wave.cuh).
-extern "C" int igg_exchange_slabs_wave(int dtype, int field, const void* const* ptrs,
-                                       const long long* g, const double* c, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (field < 0 || field > 3 || g[0] < 1 || g[1] < 1 || g[2] < 1)
-    return (int)cudaErrorInvalidValue;
-  const long long n0 = g[0] + (field == 1), n1 = g[1] + (field == 2), n2 = g[2] + (field == 3);
-  const int dim = (int)g[6];
-  Geom G;
-  unsigned x0, x1;
-  const long long cells = slabs_geom(g[3] * n0, g[4] * n1, g[5] * n2, n0, n1, n2, dim, g[7],
-                                     (int)g[15], g[16], ptrs[6], (int)g[17], g[18], ptrs[8],
-                                     G, x0, x1);
+namespace {
+
+// The batch of a staggered K4s launch: ptrs (after the state's `nstate`
+// fields) hold per field P, Vx, Vy, Vz: out0, out1, e0l, e0r, e1l, e1r; g:
+// nx, ny, nz (P's block), D0, D1, D2 (blocks), dim, hw, periodic, then per
+// field: start0, own0, shift0, start1, own1, shift1, e0d, e0h, e1d, e1h. A
+// field whose outputs are both null takes no part. Returns the largest
+// slab's cell count, or -1 for invalid arguments.
+template <typename S>
+long long slab_batch(const void* const* ptrs, int nstate, const long long* g,
+                     SlabBatch<S>& bt) {
   const long long lim = 1LL << 31;  // every field's stacked extents fit 32 bits
-  if (cells < 0 || g[3] * (g[0] + 1) >= lim || g[4] * (g[1] + 1) >= lim ||
-      g[5] * (g[2] + 1) >= lim)
-    return (int)cudaErrorInvalidValue;
-  const Move m0{(int)g[9], (int)g[10], (int)g[11]}, m1{(int)g[12], (int)g[13], (int)g[14]};
-#define IGG_WAVE_SLABS(T, MODE)                                                          \
-  exchange_slabs<T, T, MODE>(                                                            \
-      ptrs[0], nullptr, const_cast<void*>(ptrs[4]), const_cast<void*>(ptrs[5]), G, dim,  \
-      (unsigned)g[7], (int)g[8], m0, m1,                                                 \
-      Earlier<T>{static_cast<const T*>(ptrs[6]), static_cast<const T*>(ptrs[7]),         \
-                 (int)g[15], (unsigned)g[16], x0},                                       \
-      Earlier<T>{static_cast<const T*>(ptrs[8]), static_cast<const T*>(ptrs[9]),         \
-                 (int)g[17], (unsigned)g[18], x1},                                       \
-      Consts<T>{}, make_wave<T>(ptrs[0], ptrs[1], ptrs[2], ptrs[3], g, c),               \
-      (unsigned)cells, st)
-  switch (dtype * 4 + field) {
-    case 0: IGG_WAVE_SLABS(float, 3); break;
-    case 1: IGG_WAVE_SLABS(float, 4); break;
-    case 2: IGG_WAVE_SLABS(float, 5); break;
-    case 3: IGG_WAVE_SLABS(float, 6); break;
-    case 4: IGG_WAVE_SLABS(double, 3); break;
-    case 5: IGG_WAVE_SLABS(double, 4); break;
-    case 6: IGG_WAVE_SLABS(double, 5); break;
-    case 7: IGG_WAVE_SLABS(double, 6); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (g[0] < 1 || g[1] < 1 || g[2] < 1 || g[3] < 1 || g[4] < 1 || g[5] < 1 ||
+      g[3] * (g[0] + 1) >= lim || g[4] * (g[1] + 1) >= lim || g[5] * (g[2] + 1) >= lim)
+    return -1;
+  const int dim = (int)g[6];
+  long long most = 0;
+  for (int f = 0; f < 4; ++f) {
+    const void* const* p = ptrs + nstate + 6 * f;
+    const long long* h = g + 9 + 10 * f;
+    FieldSlabs<S>& fs = bt.f[f];
+    fs = FieldSlabs<S>{};
+    fs.out[0] = static_cast<S*>(const_cast<void*>(p[0]));
+    fs.out[1] = static_cast<S*>(const_cast<void*>(p[1]));
+    if (fs.out[0] == nullptr && fs.out[1] == nullptr) continue;
+    const long long n0 = g[0] + (f == 1), n1 = g[1] + (f == 2), n2 = g[2] + (f == 3);
+    unsigned x0, x1;
+    const long long cells = slabs_geom(g[3] * n0, g[4] * n1, g[5] * n2, n0, n1, n2, dim, g[7],
+                                       (int)h[6], h[7], p[2], (int)h[8], h[9], p[4], fs.G,
+                                       x0, x1);
+    if (cells < 0) return -1;
+    fs.m[0] = Move{(int)h[0], (int)h[1], (int)h[2]};
+    fs.m[1] = Move{(int)h[3], (int)h[4], (int)h[5]};
+    fs.e[0] = Earlier<S>{static_cast<const S*>(p[2]), static_cast<const S*>(p[3]), (int)h[6],
+                         (unsigned)h[7], x0};
+    fs.e[1] = Earlier<S>{static_cast<const S*>(p[4]), static_cast<const S*>(p[5]), (int)h[8],
+                         (unsigned)h[9], x1};
+    fs.total = (unsigned)cells;
+    most = cells > most ? cells : most;
   }
-#undef IGG_WAVE_SLABS
+  return most;
+}
+
+template <typename S, typename W>
+int launch_staggered_slabs(const void* const* ptrs, int nstate, const long long* g, W wv,
+                           cudaStream_t st) {
+  SlabBatch<S> bt;
+  const long long most = slab_batch(ptrs, nstate, g, bt);
+  if (most < 0) return (int)cudaErrorInvalidValue;
+  long long blocks = (most + THREADS - 1) / THREADS;
+  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
+  if (blocks < 1) blocks = 1;
+  exchange_slabs_staggered_kernel<S, W><<<dim3((unsigned)blocks, 8u), THREADS, 0, st>>>(
+      bt, (int)g[6], (unsigned)g[7], (int)g[8], wv);
   return (int)cudaGetLastError();
 }
 
-// K4s Stokes modes. field: 0 P, 1 Vx, 2 Vy, 3 Vz, the field whose received
-// slabs are made (G is its geometry). dtype 0 float32, 1 float64. ptrs: P,
-// Vx, Vy, Vz, dVx, dVy, dVz, rhog, out0, out1, e0l, e0r, e1l, e1r. g as the
-// wave modes'. c: mu, dt_v, dt_p, damp, dx, dy, dz (stokes.cuh).
-extern "C" int igg_exchange_slabs_stokes(int dtype, int field, const void* const* ptrs,
-                                         const long long* g, const double* c, void* stream) {
+}  // namespace
+
+// K4s wave modes: the received slabs of one dim for every field of the
+// fused acoustic step that exchanges along it, in one launch. dtype 0
+// float32, 1 float64, 2 bfloat16. ptrs: P, Vx, Vy, Vz, then the batch
+// (`slab_batch`). c: cx, cy, cz, dtK, dx, dy, dz (wave.cuh).
+extern "C" int igg_exchange_slabs_wave(int dtype, const void* const* ptrs, const long long* g,
+                                       const double* c, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (field < 0 || field > 3 || g[0] < 1 || g[1] < 1 || g[2] < 1)
-    return (int)cudaErrorInvalidValue;
-  const long long n0 = g[0] + (field == 1), n1 = g[1] + (field == 2), n2 = g[2] + (field == 3);
-  const int dim = (int)g[6];
-  Geom G;
-  unsigned x0, x1;
-  const long long cells = slabs_geom(g[3] * n0, g[4] * n1, g[5] * n2, n0, n1, n2, dim, g[7],
-                                     (int)g[15], g[16], ptrs[10], (int)g[17], g[18], ptrs[12],
-                                     G, x0, x1);
-  const long long lim = 1LL << 31;  // every field's stacked extents fit 32 bits
-  if (cells < 0 || g[3] * (g[0] + 1) >= lim || g[4] * (g[1] + 1) >= lim ||
-      g[5] * (g[2] + 1) >= lim)
-    return (int)cudaErrorInvalidValue;
-  const Move m0{(int)g[9], (int)g[10], (int)g[11]}, m1{(int)g[12], (int)g[13], (int)g[14]};
-#define IGG_STOKES_SLABS(T, MODE)                                                        \
-  exchange_slabs<T, T, MODE>(                                                            \
-      ptrs[0], nullptr, const_cast<void*>(ptrs[8]), const_cast<void*>(ptrs[9]), G, dim,  \
-      (unsigned)g[7], (int)g[8], m0, m1,                                                 \
-      Earlier<T>{static_cast<const T*>(ptrs[10]), static_cast<const T*>(ptrs[11]),       \
-                 (int)g[15], (unsigned)g[16], x0},                                       \
-      Earlier<T>{static_cast<const T*>(ptrs[12]), static_cast<const T*>(ptrs[13]),       \
-                 (int)g[17], (unsigned)g[18], x1},                                       \
-      Consts<T>{}, make_stokes<T>(ptrs, g, c), (unsigned)cells, st)
-  switch (dtype * 4 + field) {
-    case 0: IGG_STOKES_SLABS(float, 7); break;
-    case 1: IGG_STOKES_SLABS(float, 8); break;
-    case 2: IGG_STOKES_SLABS(float, 9); break;
-    case 3: IGG_STOKES_SLABS(float, 10); break;
-    case 4: IGG_STOKES_SLABS(double, 7); break;
-    case 5: IGG_STOKES_SLABS(double, 8); break;
-    case 6: IGG_STOKES_SLABS(double, 9); break;
-    case 7: IGG_STOKES_SLABS(double, 10); break;
+#define IGG_WAVE_SLABS(S) \
+  launch_staggered_slabs<S>(ptrs, 4, g, make_wave<S>(ptrs[0], ptrs[1], ptrs[2], ptrs[3], g, c), st)
+  switch (dtype) {
+    case 0: return IGG_WAVE_SLABS(float);
+    case 1: return IGG_WAVE_SLABS(double);
+    case 2: return IGG_WAVE_SLABS(__nv_bfloat16);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef IGG_STOKES_SLABS
-  return (int)cudaGetLastError();
+#undef IGG_WAVE_SLABS
+}
+
+// K4s Stokes modes: the received slabs of one dim for every field of the
+// fused PT iteration that exchanges along it, in one launch, the send slabs
+// in the getter form. dtype 0 float32, 1 float64. ptrs: P, Vx, Vy, Vz, dVx,
+// dVy, dVz, rhog, then the batch (`slab_batch`). c: mu, dt_v, dt_p, damp,
+// dx, dy, dz (stokes.cuh).
+extern "C" int igg_exchange_slabs_stokes(int dtype, const void* const* ptrs,
+                                         const long long* g, const double* c, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_staggered_slabs<float>(ptrs, 8, g, make_stokes<float>(ptrs, g, c), st);
+    case 1:
+      return launch_staggered_slabs<double>(ptrs, 8, g, make_stokes<double>(ptrs, g, c), st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -357,15 +357,6 @@ __device__ __forceinline__ void stage_o(Tile<T, R>& t, const Stokes<T>& s, const
   }
 }
 
-// A phase of divisions `phase(dv)`: branch-free with CDivFast, and again
-// with CDivExact where a numerator left its window.
-template <typename F>
-__device__ __forceinline__ void retry_passes(const F& phase) {
-  CDivFast fast;
-  phase(fast);
-  if (!fast.ok) phase(CDivExact());
-}
-
 // What a thread computes each plane: a tile column's terms and update
 // (MAIN), or a term the tile's faces read from outside it.
 enum Role { MAIN, ROW_LO, ROW_HI, LANE_LO, LANE_HI, IDLE };

@@ -21,10 +21,11 @@ on stacked tensors over the virtual mesh. Two routes (``impl``):
   divV``).
 
 Both run the two-buffer runner of `models/common.py` over the four-tensor
-state. Not ported yet (each raises `NotSupportedError`): ``comm_every``
-other than 1 (`deep_step`, `make_acoustic_run_deep`), ``ensemble``,
-and ``overlap=True`` on the plain route. The fused route takes float32 and
-float64 states.
+state; a run resolves the fused route once (`ops.cuda_wave.AcousticStep`).
+Not ported yet (each raises `NotSupportedError`): a deep ``comm_every``
+cadence (`deep_step`, `make_acoustic_run_deep`; every spelling of cadence 1
+runs), ``ensemble``, and ``overlap=True`` on the plain route. Both routes
+take float32, float64 and bfloat16 states.
 """
 
 from __future__ import annotations
@@ -34,12 +35,14 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..ops.alloc import device_put_g, zeros_g
-from ..ops.cuda_wave import acoustic_step_exchange, wave_exchange_modes
+from ..ops.cuda_wave import AcousticStep, wave_exchange_modes
 from ..ops.fields import block_view
 from ..ops.halo import local_update_halo
+from ..ops.wire import resolve_comm_every
 from ..parallel.topology import check_initialized, global_grid
 from ..tools import coords_g, nx_g, ny_g, nz_g
 from ..utils.exceptions import InvalidArgumentError, NotSupportedError
+from .common import reject_deep
 from .diffusion import IMPLS, _local_shape, _reject_ensemble, _resolve_impl
 
 __all__ = ["AcousticParams", "init_acoustic3d", "acoustic_step_local",
@@ -50,8 +53,8 @@ _LATER = "a later slice of the PyTorch port"
 
 @dataclass(frozen=True)
 class AcousticParams:
-    """Physics/numerics constants (the JAX package's fields; ``comm_every``
-    other than 1 is not ported yet)."""
+    """Physics/numerics constants (the JAX package's fields; a deep
+    ``comm_every`` cadence is not ported yet)."""
     rho: float
     K: float
     dt: float
@@ -65,11 +68,7 @@ class AcousticParams:
 def check_supported(p: AcousticParams) -> None:
     """Raise `NotSupportedError` for the deep-halo cadence, which a later
     slice ports."""
-    import os
-
-    if str(p.comm_every) != "1" or os.environ.get("IGG_COMM_EVERY", "1") not in ("", "1"):
-        raise NotSupportedError(
-            f"comm_every={p.comm_every!r} (deep halos) is not ported yet ({_LATER}).")
+    reject_deep(p.comm_every, "AcousticParams")
 
 
 def init_acoustic3d(*, rho=1.0, K=1.0, lx=10.0, ly=10.0, lz=10.0, dtype=None,
@@ -87,7 +86,7 @@ def init_acoustic3d(*, rho=1.0, K=1.0, lx=10.0, ly=10.0, lz=10.0, dtype=None,
     c = float(np.sqrt(K / rho))
     dt = float(min(dx, dy, dz) / c / np.sqrt(3.1))
     p = AcousticParams(rho=rho, K=K, dt=dt, dx=dx, dy=dy, dz=dz, overlap=overlap,
-                       comm_every=1 if comm_every is None else comm_every)
+                       comm_every=str(resolve_comm_every(comm_every)))
     check_supported(p)
     Pz = zeros_g((nx, ny, nz), dtype=dtype)
     x, y, z = coords_g(dx, dy, dz, Pz)
@@ -138,6 +137,31 @@ def _plain_step(state, p: AcousticParams, loc):
     return (local_update_halo(P), Vx, Vy, Vz)
 
 
+def _check_state(state):
+    state = tuple(state)
+    if len(state) != 4 or any(a.dim() != 3 for a in state):
+        raise InvalidArgumentError("the acoustic state is four 3-D tensors (P, Vx, Vy, Vz).")
+    return state
+
+
+def _resolve(state, p: AcousticParams, impl: str):
+    """The step on the current grid for states shaped like ``state``, as
+    ``fn(state, out) -> state``: the fused route's `AcousticStep` where
+    ``impl`` is "cuda" and the gate admits the grid, else the plain route
+    (which ignores ``out``)."""
+    gg = global_grid()
+    locs = [_local_shape(gg, a) for a in _check_state(state)]
+    if impl == "cuda":
+        modes = wave_exchange_modes(gg, locs)
+        if modes is not None:
+            return AcousticStep(gg, modes, rho=p.rho, K=p.K, dt=p.dt, dx=p.dx, dy=p.dy,
+                                dz=p.dz, block=locs[0])
+    if p.overlap:
+        raise NotSupportedError(
+            f"AcousticParams(overlap=True) on the plain route is not ported yet ({_LATER}).")
+    return lambda st, out: _plain_step(st, p, locs[0])
+
+
 def acoustic_step_local(state, p: AcousticParams, impl: str = "plain", out=None):
     """One leapfrog step of the stacked state (every rank's block) with the
     halo exchanges. ``impl`` is "cuda" (the fused route where the grid
@@ -148,36 +172,22 @@ def acoustic_step_local(state, p: AcousticParams, impl: str = "plain", out=None)
     if impl not in IMPLS:
         raise InvalidArgumentError(f"impl must be one of {IMPLS}; got {impl!r}.")
     state = tuple(state)
-    if len(state) != 4 or any(a.dim() != 3 for a in state):
-        raise InvalidArgumentError("the acoustic state is four 3-D tensors (P, Vx, Vy, Vz).")
-    gg = global_grid()
-    locs = [_local_shape(gg, a) for a in state]
-    if impl == "cuda":
-        modes = wave_exchange_modes(gg, locs)
-        if modes is not None:
-            return acoustic_step_exchange(state, gg, modes, rho=p.rho, K=p.K, dt=p.dt,
-                                          dx=p.dx, dy=p.dy, dz=p.dz, block=locs[0],
-                                          out=out)
-    if p.overlap:
-        raise NotSupportedError(
-            f"AcousticParams(overlap=True) on the plain route is not ported yet ({_LATER}).")
-    return _plain_step(state, p, locs[0])
+    return _resolve(state, p, impl)(state, out)
 
 
 def make_acoustic_run(p: AcousticParams, nt_chunk: int, impl: str | None = None,
                       ensemble: int | None = None):
     """A runner advancing ``nt_chunk`` steps: ``state = run(P, Vx, Vy, Vz)``
-    (pass ``donate=True`` to let it overwrite the input state)."""
-    from .common import make_state_runner
+    (pass ``donate=True`` to let it overwrite the input state). The route,
+    the gate's modes and the constants are resolved once for the grid and
+    the state's shapes, not every step."""
+    from .common import make_state_runner, resolve_once
 
     _reject_ensemble(ensemble)
     check_supported(p)
     impl = _resolve_impl(impl)
-
-    def step(state, spare):
-        return acoustic_step_local(state, p, impl, out=spare), state
-
-    return make_state_runner(step, nt_chunk=nt_chunk)
+    return make_state_runner(resolve_once(lambda state: _resolve(state, p, impl)),
+                             nt_chunk=nt_chunk)
 
 
 def deep_step(p: AcousticParams):

@@ -10,9 +10,23 @@ writes the caller's input.
 
 from __future__ import annotations
 
+from ..ops.wire import resolve_comm_every
 from ..parallel.topology import check_initialized
+from ..utils.exceptions import NotSupportedError
 
-__all__ = ["make_state_runner", "run_chunked"]
+__all__ = ["make_state_runner", "resolve_once", "run_chunked", "reject_deep"]
+
+_LATER = "a later slice of the PyTorch port"
+
+
+def reject_deep(comm_every, params: str) -> None:
+    """Raise `NotSupportedError` where ``comm_every`` resolves to a deep-halo
+    cadence (`resolve_comm_every`: an explicit value wins over
+    ``IGG_COMM_EVERY``), which a later slice ports; every spelling of
+    cadence 1 passes."""
+    if resolve_comm_every(comm_every).deep:
+        raise NotSupportedError(
+            f"{params}(comm_every={comm_every!r}) (deep halos) is not ported yet ({_LATER}).")
 
 
 def make_state_runner(step_local, *, nt_chunk: int):
@@ -36,6 +50,24 @@ def make_state_runner(step_local, *, nt_chunk: int):
         return state
 
     return run
+
+
+def resolve_once(resolve):
+    """A ``step_local`` for `make_state_runner` whose route ``resolve(state)``
+    (a ``fn(state, out) -> state``) is resolved once for the current grid
+    and the state's shapes, dtypes and devices, not every step (a route
+    may keep buffers of the state's dtype on its device)."""
+    from ..parallel.topology import global_grid
+
+    resolved = [None, None, None]  # grid, state layout, route
+
+    def step(state, spare):
+        gg, layout = global_grid(), tuple((a.shape, a.dtype, a.device) for a in state)
+        if resolved[0] is not gg or resolved[1] != layout:
+            resolved[:] = gg, layout, resolve(state)
+        return resolved[2](state, spare), state
+
+    return step
 
 
 def run_chunked(runner_factory, state, nt: int, nt_chunk: int):

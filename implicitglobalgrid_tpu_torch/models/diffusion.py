@@ -21,7 +21,7 @@ on stacked tensors over the virtual mesh. Two routes (``impl``):
   `local_update_halo`, in plain PyTorch (the JAX package's ``"xla"``).
 
 Not ported yet (each raises `NotSupportedError`): ``overlap``, ``sr``,
-``comm_every != 1`` and ``ensemble``.
+a deep ``comm_every`` cadence and ``ensemble``.
 """
 
 from __future__ import annotations
@@ -36,9 +36,11 @@ from ..ops.cuda_stencil import (
 from ..ops.fields import block_slices
 from ..ops.halo import DEFAULT_DIMS_ORDER, _dim_exchanges, local_update_halo
 from ..ops.stencil import d_xa, d_xi, d_ya, d_yi, d_za, d_zi, inn
+from ..ops.wire import resolve_comm_every
 from ..parallel.topology import check_initialized, global_grid
 from ..tools import coords_g, nx_g, ny_g, nz_g
 from ..utils.exceptions import InvalidArgumentError, NotSupportedError
+from .common import reject_deep
 
 __all__ = ["DiffusionParams", "init_diffusion3d", "init_diffusion2d",
            "diffusion_step_local", "make_step", "make_run", "run_diffusion"]
@@ -50,7 +52,7 @@ IMPLS = ("cuda", "plain")
 @dataclass(frozen=True)
 class DiffusionParams:
     """Physics/numerics constants (the JAX package's fields; ``overlap``,
-    ``sr`` and ``comm_every`` other than 1 are not ported yet)."""
+    ``sr`` and a deep ``comm_every`` cadence are not ported yet)."""
     lam: float
     dt: float
     dx: float
@@ -64,15 +66,11 @@ class DiffusionParams:
 
 def check_supported(p: DiffusionParams) -> None:
     """Raise `NotSupportedError` for the options a later slice ports."""
-    import os
-
     if p.overlap:
         raise NotSupportedError(f"DiffusionParams(overlap=True) is not ported yet ({_LATER}).")
     if p.sr:
         raise NotSupportedError(f"DiffusionParams(sr=True) is not ported yet ({_LATER}).")
-    if str(p.comm_every) != "1" or os.environ.get("IGG_COMM_EVERY", "1") != "1":
-        raise NotSupportedError(
-            f"comm_every={p.comm_every!r} (deep halos) is not ported yet ({_LATER}).")
+    reject_deep(p.comm_every, "DiffusionParams")
 
 
 def init_diffusion3d(*, lam=1.0, cp_min=1.0, lx=10.0, ly=10.0, lz=10.0,
@@ -85,7 +83,7 @@ def init_diffusion3d(*, lam=1.0, cp_min=1.0, lx=10.0, ly=10.0, lz=10.0,
 
     check_initialized()
     p_opts = dict(overlap=overlap, sr=sr, sr_seed=sr_seed,
-                  comm_every=1 if comm_every is None else comm_every)
+                  comm_every=str(resolve_comm_every(comm_every)))
     dx = lx / (nx_g() - 1)
     dy = ly / (ny_g() - 1)
     dz = lz / (nz_g() - 1)

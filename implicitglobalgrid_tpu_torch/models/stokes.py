@@ -26,10 +26,11 @@ Two routes (``impl``):
 
 Both run the two-buffer runner of `models/common.py` over the eight-tensor
 state (rhog is never written). `stokes_residuals` is the convergence
-monitor: the global (max |divV|, max |R|). Not ported yet (each raises
-`NotSupportedError`): ``comm_every`` other than 1 (`deep_step`,
-`make_stokes_run_deep`), ``ensemble``, and ``overlap=True`` on the plain
-route.
+monitor: the global (max |divV|, max |R|). A bfloat16 state takes the
+plain route (the gate gives it no fused route: JAX's Pallas route refuses
+it). Not ported yet (each raises `NotSupportedError`): a deep
+``comm_every`` cadence (`deep_step`, `make_stokes_run_deep`; every spelling
+of cadence 1 runs), ``ensemble``, and ``overlap=True`` on the plain route.
 """
 
 from __future__ import annotations
@@ -43,9 +44,11 @@ from ..ops.cuda_stokes import (
     StokesStep, stokes_consts, stokes_exchange_modes, stokes_terms_plain, stokes_update_plain,
 )
 from ..ops.halo import local_update_halo
+from ..ops.wire import resolve_comm_every
 from ..parallel.topology import check_initialized, global_grid
 from ..tools import coords_g, nx_g, ny_g, nz_g
 from ..utils.exceptions import InvalidArgumentError, NotSupportedError
+from .common import reject_deep
 from .diffusion import IMPLS, _local_shape, _reject_ensemble, _resolve_impl
 
 __all__ = ["StokesParams", "init_stokes3d", "stokes_step_local", "make_stokes_run",
@@ -56,8 +59,8 @@ _LATER = "a later slice of the PyTorch port"
 
 @dataclass(frozen=True)
 class StokesParams:
-    """Physics/numerics constants (the JAX package's fields; ``comm_every``
-    other than 1 is not ported yet)."""
+    """Physics/numerics constants (the JAX package's fields; a deep
+    ``comm_every`` cadence is not ported yet)."""
     mu: float       # shear viscosity
     dt_v: float     # pseudo time step, momentum
     dt_p: float     # pseudo time step, pressure
@@ -72,11 +75,7 @@ class StokesParams:
 def check_supported(p: StokesParams) -> None:
     """Raise `NotSupportedError` for the deep-halo cadence, which a later
     slice ports."""
-    import os
-
-    if str(p.comm_every) != "1" or os.environ.get("IGG_COMM_EVERY", "1") not in ("", "1"):
-        raise NotSupportedError(
-            f"comm_every={p.comm_every!r} (deep halos) is not ported yet ({_LATER}).")
+    reject_deep(p.comm_every, "StokesParams")
 
 
 def init_stokes3d(*, mu=1.0, lx=10.0, ly=10.0, lz=10.0, rhog_mag=1.0, r_incl=1.0,
@@ -96,7 +95,7 @@ def init_stokes3d(*, mu=1.0, lx=10.0, ly=10.0, lz=10.0, rhog_mag=1.0, r_incl=1.0
     n_max = max(nx_g(), ny_g(), nz_g())
     p = StokesParams(mu=mu, dt_v=min_d ** 2 / mu / 6.1 / 2.0, dt_p=6.1 * mu / n_max,
                      damp=1.0 - 6.0 / n_max, dx=dx, dy=dy, dz=dz,
-                     comm_every=1 if comm_every is None else comm_every, overlap=overlap)
+                     comm_every=str(resolve_comm_every(comm_every)), overlap=overlap)
     check_supported(p)
     P = zeros_g((nx, ny, nz), dtype=dtype)
     x, y, z = coords_g(dx, dy, dz, P)
@@ -137,7 +136,7 @@ def _resolve(state, p: StokesParams, impl: str):
     gg = global_grid()
     block = _local_shape(gg, _check_state(state)[0])
     if impl == "cuda":
-        modes = stokes_exchange_modes(gg, [_local_shape(gg, a) for a in state])
+        modes = stokes_exchange_modes(gg, [_local_shape(gg, a) for a in state], state[0].dtype)
         if modes is not None:
             return StokesStep(gg, modes, p, block=block)
     if p.overlap:
@@ -166,20 +165,13 @@ def make_stokes_run(p: StokesParams, nt_chunk: int, impl: str | None = None,
     (pass ``donate=True`` to let it overwrite the input state). The route,
     the gate's modes and the constants are resolved once for the grid and
     the state's shapes, not every iteration."""
-    from .common import make_state_runner
+    from .common import make_state_runner, resolve_once
 
     _reject_ensemble(ensemble)
     check_supported(p)
     impl = _resolve_impl(impl)
-    resolved = [None, None, None]  # grid, state shapes, route
-
-    def step(state, spare):
-        gg, shapes = global_grid(), tuple(a.shape for a in state)
-        if resolved[0] is not gg or resolved[1] != shapes:
-            resolved[:] = gg, shapes, _resolve(state, p, impl)
-        return resolved[2](state, spare), state
-
-    return make_state_runner(step, nt_chunk=nt_chunk)
+    return make_state_runner(resolve_once(lambda state: _resolve(state, p, impl)),
+                             nt_chunk=nt_chunk)
 
 
 def deep_step(p: StokesParams):

@@ -60,9 +60,9 @@ _SIGNATURES = {
     "igg_wire_pack": [_C_INT, _C_INT] + [_C_VOID] * 3 + [_C_LL] * 4 + [_C_INT, _C_VOID],
     "igg_halo_write_multi": [_C_INT, _C_INT] + [_C_VOID] * 3 + [_C_LL] * 4
     + [_C_INT, _C_INT, _C_LL, _C_VOID],
-    "igg_exchange_slabs_wave": [_C_INT, _C_INT] + [_C_VOID] * 4,
+    "igg_exchange_slabs_wave": [_C_INT] + [_C_VOID] * 4,
     "igg_acoustic_step_exchange": [_C_INT, _C_INT] + [_C_VOID] * 4,
-    "igg_exchange_slabs_stokes": [_C_INT, _C_INT] + [_C_VOID] * 4,
+    "igg_exchange_slabs_stokes": [_C_INT] + [_C_VOID] * 4,
     "igg_stokes_step_exchange": [_C_INT, _C_INT] + [_C_VOID] * 4,
     "igg_cdiv": [_C_INT, _C_VOID, _C_VOID, _C_LL, _C_DBL, _C_INT, _C_VOID],
     "igg_cdiv_sweep": [_C_DBL, _C_VOID, _C_VOID],

@@ -15,24 +15,29 @@ Counterpart of `implicitglobalgrid_tpu/ops/pallas_stokes.py`:
   (Vx: faces 1..nx-1, rows 1..ny-2, lanes 1..nz-2; Vy: cells 1..nx-2,
   faces 1..ny-1, lanes 1..nz-2; Vz: cells 1..nx-2, rows 1..ny-2, faces
   1..nz-1), other faces keep their values.
-- `stokes_slabs` (K4s Stokes modes): the received slabs of one field along
-  one dim for every block, the send slabs being that field after the
-  iteration in the getter form (`_v_get_slab`, `_pn_get_slab`);
-  `stokes_update_slab` is the same with identity moves (the getters).
+- `stokes_slabs_multi` (K4s Stokes modes): the received slabs of one dim
+  for every field of a group and every block, in one launch, the send slabs
+  being each field after the iteration in the getter form (`_v_get_slab`,
+  `_pn_get_slab`); `stokes_slabs` is one field's, `stokes_update_slab` the
+  same with identity moves (the getters).
 - `stokes_step_recv` (K10, multi-rank route) and `stokes_step_self` (K10,
   all-self route): the iteration of all eight fields with the halos of
   (P, Vx, Vy, Vz) delivered, in one launch; dV is never exchanged.
   `StokesStep` is `stokes_step_exchange_pallas` on one grid, resolved once
   for a run: the all-self route, or the slab pipeline
-  (`ops.halo.exchange_recv_slabs_multi` with K4s Stokes modes) then K10;
-  `stokes_step_exchange` is the same for one call.
+  (`ops.halo.exchange_recv_slabs_multi`, one K4s Stokes-mode launch a dim)
+  then K10; `stokes_step_exchange` is the same for one call.
 
 On the all-self route an x-halo plane is the updated source plane that
 JAX's getter computes (`self_recvs_and_ols`), so it takes the getter form;
 every other cell the kernel form. The VMEM relay and Vx's extra planes
 (`vx_extra_plane_slabs`, `vx_extra_planes_self`) are TPU tiling: K10 writes
 every face itself. On a CUDA tensor a wrapper launches its kernel (or
-raises); on a CPU tensor it runs the plain version. Float32 and float64.
+raises); on a CPU tensor it runs the plain version. The kernels take
+float32 and float64 states; the plain versions bfloat16 too (each operation
+rounded to it, bfloat16 constants, as JAX's XLA route computes), and the
+gate gives a bfloat16 state no fused route: JAX's own Pallas route refuses
+it, so there is no result to hold a kernel against.
 """
 
 from __future__ import annotations
@@ -41,17 +46,17 @@ import ctypes
 
 from ..utils.exceptions import InvalidArgumentError
 from .cuda_build import check_rc, count_launch, library
-from .cuda_stencil import (
-    Move, _check_slabs, _on_card, _slab_view, _stream, move_slabs_plain,
-)
+from .cuda_stencil import Move, _on_card, _stream
 from .fields import block_view
 from .staggered import (
-    FIELDS, all_self_exchange, check_out, check_recvs, check_self, check_state,
-    const_tensors, into, self_index, self_ols, wave_shapes,
+    FIELDS, FLOATS, NO_MODES, NO_OLS, SlabBatch, all_self_exchange, check_out, check_recvs,
+    check_self, check_slab_batch, check_state, const_tensors, dtype_code, into, self_index,
+    self_ols, slab_batch_plain, slab_ptrs, step_args, wave_shapes,
 )
 
 __all__ = ["FIELDS", "STATE", "stokes_exchange_modes", "stokes_shapes", "stokes_consts",
-           "stokes_update_plain", "stokes_terms_plain", "stokes_slabs", "stokes_slabs_plain",
+           "stokes_update_plain", "stokes_terms_plain", "stokes_slabs_multi",
+           "stokes_slabs_multi_plain", "stokes_slabs", "stokes_slabs_plain",
            "stokes_update_slab", "stokes_step_recv", "stokes_step_recv_plain",
            "stokes_step_self", "stokes_step_self_plain", "StokesStep",
            "stokes_step_exchange", "stokes_bytes"]
@@ -61,16 +66,19 @@ FORMS = ("kernel", "getter")
 _CONST_ORDER = ("mu", "dt_v", "dt_p", "damp", "dx", "dy", "dz")
 
 
-def stokes_exchange_modes(gg, shapes):
+def stokes_exchange_modes(gg, shapes, dtype=None):
     """Per-field participation modes of the fused PT iteration, or None (the
     JAX gate of the same name). ``shapes`` are the 8 LOCAL state shapes;
     eligible when P has at least 3 planes and matches ``gg.nxyz``, the faces
     are staggered on the +1 axes, dV mirrors V, rhog is shaped like P and
-    every halowidth is 1. Returns ``{"P": modes, "Vx": ..., "Vy": ..., "Vz":
-    ...}``; all-False modes are the iteration alone (one block,
-    non-periodic)."""
+    every halowidth is 1, and the state's ``dtype`` (where given) is float32
+    or float64: a bfloat16 state takes the plain route. Returns ``{"P":
+    modes, "Vx": ..., "Vy": ..., "Vz": ...}``; all-False modes are the
+    iteration alone (one block, non-periodic)."""
     from .halo import _dim_exchanges
 
+    if dtype is not None and str(dtype).replace("torch.", "") not in FLOATS:
+        return None
     sp, sx, sy, sz, sdx, sdy, sdz, srh = (tuple(int(v) for v in s) for s in shapes)
     if len(sp) != 3 or sp[0] < 3:
         return None
@@ -106,9 +114,20 @@ def _ctensors(consts, like):
                          like)
 
 
+PLAIN_DTYPES = FLOATS + ("bfloat16",)  # the plain versions' state dtypes
+
+
 def _check_state(state, block, name):
     """Validate a stacked Stokes state; returns (P block, block counts)."""
-    return check_state(state, block, stokes_shapes, name)
+    return check_state(state, block, stokes_shapes, name, PLAIN_DTYPES)
+
+
+def _kernel_dtype(P, name):
+    """The kernels take float32 and float64 states only: the gate keeps
+    bfloat16 off the fused route."""
+    if str(P.dtype).replace("torch.", "") not in FLOATS:
+        raise InvalidArgumentError(f"{name}: the kernels take float32 or float64 states; got "
+                                   f"{P.dtype}.")
 
 
 def _d(A, ax):
@@ -194,78 +213,45 @@ def stokes_update_plain(state, *, block, consts, form="kernel"):
 # K4s Stokes modes: the send slabs of the fused iteration.
 # ---------------------------------------------------------------------------
 
-def stokes_slabs_plain(state, field, dim, hw, moves, *, block, periodic, earlier=(), consts):
+def stokes_slabs_multi_plain(state, dim, hw, per_field, *, block, periodic, consts):
     """Plain PyTorch version of the K4s Stokes modes (same arguments as
-    `stokes_slabs`): the slab of the getter-form iteration's field, patched
-    and moved as K4s's plain version does."""
-    import torch
+    `stokes_slabs_multi`): the slabs of the getter-form iteration's fields,
+    patched and moved as K4s's plain version does."""
+    new = stokes_update_plain(state, block=block, consts=consts, form="getter")
+    return slab_batch_plain(new, dim, hw, per_field, block=block, periodic=periodic)
 
-    f = FIELDS.index(field)
-    U = stokes_update_plain(state, block=block, consts=consts, form="getter")[f]
-    m = wave_shapes(block)[field]
-    n = m[dim]
 
-    def get_slab(start):
-        return _slab_view(U, dim, n, start, hw).flatten(dim, dim + 1).clone(
-            memory_format=torch.contiguous_format)
+def stokes_slabs_multi(state, dim, hw, per_field, *, block, periodic, consts):
+    """K4s Stokes modes: the received slabs of width ``hw`` along ``dim``
+    for every field of ``per_field`` (``{field: (moves, earlier)}``, fields
+    of P, Vx, Vy, Vz; `cuda_stencil.exchange_slabs`' moves and earlier dims)
+    and every block of the stacked Stokes ``state`` (P blocks ``block``), in
+    one launch. A field's send slab is the field after the PT iteration in
+    the getter form (the per-cell functions of `csrc/stokes.cuh` that K10
+    uses), patched with that field's ``earlier`` received slabs and moved
+    between blocks. Returns ``{field: (slab, ...)}``, new contiguous slabs
+    in K2's layout, one a move."""
+    block, counts = _check_state(state, block, "stokes_slabs")
+    dim, hw = check_slab_batch(state, dim, hw, per_field, block, "stokes_slabs")
+    if not _on_card(state[0]):
+        return stokes_slabs_multi_plain(state, dim, hw, per_field, block=block,
+                                        periodic=periodic, consts=consts)
+    _kernel_dtype(state[0], "stokes_slabs")
+    return SlabBatch("igg_exchange_slabs_stokes", block=block, counts=counts, consts=consts,
+                     const_order=_CONST_ORDER)(state, dim, hw, periodic, per_field)
 
-    return move_slabs_plain(get_slab, tuple(U.shape), U.device, dim, hw, moves, block=m,
-                            periodic=periodic, earlier=earlier)
+
+def stokes_slabs_plain(state, field, dim, hw, moves, *, block, periodic, earlier=(), consts):
+    """Plain PyTorch version of `stokes_slabs`."""
+    return stokes_slabs_multi_plain(state, dim, hw, {field: (moves, earlier)}, block=block,
+                                    periodic=periodic, consts=consts)[field]
 
 
 def stokes_slabs(state, field, dim, hw, moves, *, block, periodic, earlier=(), consts):
-    """K4s Stokes modes: the received slabs of width ``hw`` of ``field``
-    ("P", "Vx", "Vy" or "Vz") along ``dim`` for every block of the stacked
-    Stokes ``state`` (P blocks ``block``), one for each `Move`, in one
-    launch. The send slab is the field after the PT iteration in the getter
-    form (the per-cell functions of `csrc/stokes.cuh` that K10 uses),
-    patched with the ``earlier`` dims' received slabs of that field and
-    moved between blocks. Returns a tuple of new contiguous slabs in K2's
-    layout."""
-    if field not in FIELDS:
-        raise InvalidArgumentError(f"stokes_slabs: field must be one of {FIELDS}; "
-                                   f"got {field!r}.")
-    block, counts = _check_state(state, block, "stokes_slabs")
-    f = FIELDS.index(field)
-    m = wave_shapes(block)[field]
-    dim, hw, _ = _check_slabs(state[f], dim, hw, moves, m, earlier, None, None)
-    return _slabs(state, field, dim, hw, moves, block, counts, periodic, earlier, consts)
-
-
-def _slabs(state, field, dim, hw, moves, block, counts, periodic, earlier, consts):
-    """`stokes_slabs` on arguments already checked."""
-    if not _on_card(state[0]):
-        return stokes_slabs_plain(state, field, dim, hw, moves, block=block, periodic=periodic,
-                                  earlier=earlier, consts=consts)
-    import torch
-
-    f = FIELDS.index(field)
-    A = state[f]
-    shape = list(A.shape)
-    shape[dim] = counts[dim] * hw
-    outs = [torch.empty(shape, dtype=A.dtype, device=A.device) for _ in moves]
-    mv = [tuple(int(x) for x in mm) for mm in moves] + [(0, 0, 0)] * (2 - len(moves))
-    ear = []
-    eptr = []
-    for e, hw_e, (rl, rr) in earlier:
-        ear += [int(e), int(hw_e)]
-        eptr += [rl.data_ptr(), rr.data_ptr()]
-    ear += [-1, 0] * (2 - len(earlier))
-    eptr += [None, None] * (2 - len(earlier))
-    ptrs = (ctypes.c_void_p * 14)(*[a.data_ptr() for a in state],
-                                  *[o.data_ptr() for o in outs] + [None] * (2 - len(outs)),
-                                  *eptr)
-    g = (ctypes.c_longlong * 19)(*block, *counts, dim, hw, int(bool(periodic)),
-                                 *mv[0], *mv[1], *ear)
-    c = (ctypes.c_double * 7)(*(float(consts[k]) for k in _CONST_ORDER))
-    lib = library()
-    with torch.cuda.device(A.device):
-        rc = lib.igg_exchange_slabs_stokes(
-            0 if A.dtype == torch.float32 else 1, f, ctypes.addressof(ptrs),
-            ctypes.addressof(g), ctypes.addressof(c), _stream(A))
-    check_rc(rc, "exchange_slabs (stokes)")
-    count_launch("exchange_slabs")
-    return tuple(outs)
+    """`stokes_slabs_multi` for one field ("P", "Vx", "Vy" or "Vz"): a
+    tuple of its received slabs, one for each `Move`."""
+    return stokes_slabs_multi(state, dim, hw, {field: (moves, earlier)}, block=block,
+                              periodic=periodic, consts=consts)[field]
 
 
 def stokes_update_slab(state, field, dim, starts, size, *, block, consts):
@@ -331,49 +317,44 @@ def stokes_step_self_plain(state, modes, ols, *, block, consts, out=None):
     return _with_rhog(into(out, new), state)
 
 
-def _step_recv(state, recvs, block, counts, consts, out):
-    """K10's multi-rank route on arguments already checked."""
+
+
+def _step_recv(state, recvs, block, counts, consts, out, args=None):
+    """K10's multi-rank route on arguments already checked (``args``: K10's
+    arrays, built here when None)."""
     if not _on_card(state[0]):
         return stokes_step_recv_plain(state, recvs, block=block, consts=consts, out=out)
-    ptrs = []
-    for f in FIELDS:
-        for d in range(3):
-            pair = recvs.get(f, {}).get(d)
-            ptrs += [None, None] if pair is None else [p.data_ptr() for p in pair]
-    return _launch_k10(state, out, block, counts, consts, False, ptrs, _NO_MODES, _NO_OLS)
+    args = args or step_args(block, counts, consts, _CONST_ORDER)
+    return _launch_k10(state, out, args, False, slab_ptrs(recvs))
 
 
-def _step_self(state, modes, ols, block, counts, consts, out):
+def _step_self(state, modes, ols, block, counts, consts, out, args=None):
     """K10's all-self route on arguments already checked."""
     if not _on_card(state[0]):
         return stokes_step_self_plain(state, modes, ols, block=block, consts=consts, out=out)
-    return _launch_k10(state, out, block, counts, consts, True, [None] * 24, modes, ols)
+    args = args or step_args(block, counts, consts, _CONST_ORDER, modes, ols)
+    return _launch_k10(state, out, args, True, [None] * 24)
 
 
-def _launch_k10(state, out, block, counts, consts, self_mode, slab_ptrs, modes, ols):
+def _launch_k10(state, out, args, self_mode, slabs):
     import torch
 
     P = state[0]
+    _kernel_dtype(P, "stokes_step")
     if out is None:
         out = tuple(torch.empty_like(a) for a in state[:7])
     ptrs = (ctypes.c_void_p * 39)(*[a.data_ptr() for a in state],
-                                  *[o.data_ptr() for o in out], *slab_ptrs)
-    g = (ctypes.c_longlong * 30)(
-        *block, *counts, *(int(bool(modes[f][d])) for f in FIELDS for d in range(3)),
-        *(int(ols[f][d]) for f in FIELDS for d in range(3)))
-    c = (ctypes.c_double * 7)(*(float(consts[k]) for k in _CONST_ORDER))
-    lib = library()
+                                  *[o.data_ptr() for o in out], *slabs)
+    g, c = args
     with torch.cuda.device(P.device):
-        rc = lib.igg_stokes_step_exchange(
-            0 if P.dtype == torch.float32 else 1, int(self_mode), ctypes.addressof(ptrs),
-            ctypes.addressof(g), ctypes.addressof(c), _stream(P))
+        rc = library().igg_stokes_step_exchange(
+            dtype_code(P.dtype), int(self_mode), ctypes.addressof(ptrs), ctypes.addressof(g),
+            ctypes.addressof(c), _stream(P))
     check_rc(rc, "stokes_step_exchange")
     count_launch("stokes_step_exchange")
     return _with_rhog(out, state)
 
 
-_NO_MODES = {f: (False, False, False) for f in FIELDS}
-_NO_OLS = {f: (0, 0, 0) for f in FIELDS}
 
 
 def stokes_step_recv(state, recvs, *, block, consts, out=None):
@@ -404,11 +385,12 @@ def stokes_step_self(state, modes, ols, *, block, consts, out=None):
 class StokesStep:
     """The fused PT iteration on one grid (`stokes_step_exchange_pallas`),
     with what is fixed for a run resolved once: the route, the constants of
-    `StokesParams` ``p``, the overlaps. ``modes`` from
+    `StokesParams` ``p``, the overlaps, and on the card K10's and the K4s
+    launches' argument arrays and received slabs. ``modes`` from
     `stokes_exchange_modes`, ``block`` P's LOCAL shape. ``step(state,
     out=None)`` checks the state and ``out`` once, then runs K10 alone on
     all-self grids, else the slab pipeline (`exchange_recv_slabs_multi`, one
-    K4s Stokes-mode launch per exchanging (dim, field)) then K10."""
+    K4s Stokes-mode launch a dim) then K10."""
 
     def __init__(self, gg, modes, p, *, block):
         self.gg, self.modes = gg, modes
@@ -418,24 +400,41 @@ class StokesStep:
         self.ols = self_ols(gg, self.block) if all_self_exchange(gg, modes) else None
         if self.ols is not None:
             check_self(modes, self.ols, self.block, "stokes_step")
+        self._card = None  # (K10's arrays, the K4s launches), at the first launch
+
+    def _card_args(self, counts):
+        if self._card is None:
+            modes, ols = (self.modes, self.ols) if self.ols is not None \
+                else (NO_MODES, NO_OLS)
+            self._card = (step_args(self.block, counts, self.consts, _CONST_ORDER, modes, ols),
+                          SlabBatch("igg_exchange_slabs_stokes", block=self.block,
+                                    counts=counts, consts=self.consts,
+                                    const_order=_CONST_ORDER, keep=True))
+        return self._card
 
     def __call__(self, state, out=None):
         from .halo import exchange_recv_slabs_multi
 
         block, counts = _check_state(state, self.block, "stokes_step")
         out = check_out(state, out, 7, "stokes_step")
+        card = _on_card(state[0])
+        args, slabs = self._card_args(counts) if card else (None, None)
         if self.ols is not None:
-            return _step_self(state, self.modes, self.ols, block, counts, self.consts, out)
+            return _step_self(state, self.modes, self.ols, block, counts, self.consts, out,
+                              args)
+        if card:
+            _kernel_dtype(state[0], "stokes_slabs")
 
-        def slab_fn(field):
-            def get(dim, hw, moves, periodic, earlier):
-                return _slabs(state, field, dim, hw, moves, block, counts, periodic, earlier,
-                              self.consts)
-            return get
+            def dim_fn(dim, hw, periodic, per_field):
+                return slabs(state, dim, hw, periodic, per_field)
+        else:
+            def dim_fn(dim, hw, periodic, per_field):
+                return stokes_slabs_multi_plain(state, dim, hw, per_field, block=block,
+                                                periodic=periodic, consts=self.consts)
 
         recvs = exchange_recv_slabs_multi(self.gg, self.shapes, (1, 1, 1), self.modes,
-                                          {f: slab_fn(f) for f in FIELDS})
-        return _step_recv(state, recvs, block, counts, self.consts, out)
+                                          dim_fn=dim_fn)
+        return _step_recv(state, recvs, block, counts, self.consts, out, args)
 
 
 def stokes_step_exchange(state, gg, modes, p, *, block, out=None):

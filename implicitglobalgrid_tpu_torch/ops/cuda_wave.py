@@ -11,42 +11,48 @@ form needs from `ops/pallas_common.py` is in `staggered.py`):
   value), then ``P - dtK*(((dvx/dx + dvy/dy) + dvz/dz))`` from the updated
   faces, with ``cx = -dt/rho/dx`` and ``dtK = dt*K`` rounded once to the
   state dtype.
-- `wave_slabs` (K4s wave modes): the received slabs of one field along one
-  dim for every block, the send slabs being that field updated
-  (`_make_v_get_slab`, `_make_p_get_slab`); `wave_update_slab` is the same
-  with identity moves (the getters themselves).
+- `wave_slabs_multi` (K4s wave modes): the received slabs of one dim for
+  every field of a group and every block, in one launch, the send slabs
+  being each field updated (`_make_v_get_slab`, `_make_p_get_slab`);
+  `wave_slabs` is one field's, `wave_update_slab` the same with identity
+  moves (the getters themselves).
 - `acoustic_step_recv` (K9, multi-rank route) and `acoustic_step_self` (K9,
   all-self route): the step of all four fields with their halos delivered,
-  in one launch. `acoustic_step_exchange` is the entry point of
-  `acoustic_step_exchange_pallas`: the all-self route, or the slab pipeline
-  (`ops.halo.exchange_recv_slabs_multi` with K4s wave modes) then K9.
+  in one launch. `AcousticStep` is `acoustic_step_exchange_pallas` on one
+  grid, resolved once for a run: the all-self route, or the slab pipeline
+  (`ops.halo.exchange_recv_slabs_multi`, one K4s wave-mode launch a dim)
+  then K9; `acoustic_step_exchange` is the same for one call.
 
 The VMEM relay, the multi-plane windows and Vx's extra planes
 (`vx_extra_plane_slabs`) are TPU tiling: K9 writes every face itself. On a
 CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor it
-runs the plain version. Float32 and float64 states.
+runs the plain version. Float32, float64 and bfloat16 states; a bfloat16
+state computes each operation in float32 and rounds its result to
+bfloat16, with bfloat16 constants, as JAX's Pallas kernel and PyTorch's
+bfloat16 operations do.
 """
 
 from __future__ import annotations
 
 import ctypes
 
-from ..utils.exceptions import InvalidArgumentError
 from .cuda_build import check_rc, count_launch, library
-from .cuda_stencil import (
-    Move, _check_slabs, _on_card, _slab_view, _stream, move_slabs_plain,
-)
+from .cuda_stencil import Move, _on_card, _stream
 from .fields import block_view
 from .staggered import (
-    FIELDS, all_self_exchange, check_out, check_recvs, check_self, check_state,
-    const_tensors, into, self_index, self_ols, wave_shapes,
+    FIELDS, NO_MODES, NO_OLS, SlabBatch, all_self_exchange, check_out, check_recvs, check_self,
+    check_slab_batch, check_state, const_tensors, dtype_code, into, self_index, self_ols,
+    slab_batch_plain, slab_ptrs, step_args, wave_shapes,
 )
 
-__all__ = ["FIELDS", "wave_exchange_modes", "all_self_exchange", "self_ols",
-           "wave_consts", "wave_shapes", "wave_update_plain", "wave_slabs",
-           "wave_slabs_plain", "wave_update_slab", "acoustic_step_recv",
-           "acoustic_step_recv_plain", "acoustic_step_self",
-           "acoustic_step_self_plain", "acoustic_step_exchange", "wave_bytes"]
+__all__ = ["FIELDS", "DTYPES", "wave_exchange_modes", "all_self_exchange", "self_ols",
+           "wave_consts", "wave_shapes", "wave_update_plain", "wave_slabs_multi",
+           "wave_slabs_multi_plain", "wave_slabs", "wave_slabs_plain", "wave_update_slab",
+           "acoustic_step_recv", "acoustic_step_recv_plain", "acoustic_step_self",
+           "acoustic_step_self_plain", "AcousticStep", "acoustic_step_exchange",
+           "wave_bytes"]
+
+DTYPES = ("float32", "float64", "bfloat16")  # the acoustic kernels' state dtypes
 
 
 def wave_exchange_modes(gg, shapes):
@@ -87,7 +93,7 @@ def wave_update_plain(state, *, block, consts):
     Vz), no exchange: new stacked tensors in the fused pass's arithmetic.
     Constants are 0-d tensors of the state dtype, so every division is a
     true division."""
-    block, _ = check_state(state, block, wave_shapes, "wave_update")
+    block, _ = check_state(state, block, wave_shapes, "wave_update", DTYPES)
     P, Vx, Vy, Vz = state
     shp = wave_shapes(block)
     c = const_tensors({k: consts[k] for k in _CONST_ORDER}, P)
@@ -115,72 +121,44 @@ def wave_update_plain(state, *, block, consts):
 # K4s wave modes: the send slabs of the fused step.
 # ---------------------------------------------------------------------------
 
-def wave_slabs_plain(state, field, dim, hw, moves, *, block, periodic, earlier=(), consts):
+def wave_slabs_multi_plain(state, dim, hw, per_field, *, block, periodic, consts):
     """Plain PyTorch version of the K4s wave modes (same arguments as
-    `wave_slabs`): the slab of `wave_update_plain`'s field, patched and
-    moved as K4s's plain version does."""
-    import torch
+    `wave_slabs_multi`): the slabs of `wave_update_plain`'s fields, patched
+    and moved as K4s's plain version does."""
+    new = wave_update_plain(state, block=block, consts=consts)
+    return slab_batch_plain(new, dim, hw, per_field, block=block, periodic=periodic)
 
-    f = FIELDS.index(field)
-    U = wave_update_plain(state, block=block, consts=consts)[f]
-    m = wave_shapes(block)[field]
-    n = m[dim]
 
-    def get_slab(start):
-        return _slab_view(U, dim, n, start, hw).flatten(dim, dim + 1).clone(
-            memory_format=torch.contiguous_format)
+def wave_slabs_multi(state, dim, hw, per_field, *, block, periodic, consts):
+    """K4s wave modes: the received slabs of width ``hw`` along ``dim`` for
+    every field of ``per_field`` (``{field: (moves, earlier)}``, fields of
+    P, Vx, Vy, Vz; `cuda_stencil.exchange_slabs`' moves and earlier dims) and
+    every block of the stacked acoustic ``state`` (P blocks ``block``), in
+    one launch. A field's send slab is the field after the leapfrog update
+    (`wave_update_plain`'s function, the per-cell functions K9 uses),
+    patched with that field's ``earlier`` received slabs and moved between
+    blocks. Returns ``{field: (slab, ...)}``, new contiguous slabs in K2's
+    layout, one a move."""
+    block, counts = check_state(state, block, wave_shapes, "wave_slabs", DTYPES)
+    dim, hw = check_slab_batch(state, dim, hw, per_field, block, "wave_slabs")
+    if not _on_card(state[0]):
+        return wave_slabs_multi_plain(state, dim, hw, per_field, block=block,
+                                      periodic=periodic, consts=consts)
+    return SlabBatch("igg_exchange_slabs_wave", block=block, counts=counts, consts=consts,
+                     const_order=_CONST_ORDER)(state, dim, hw, periodic, per_field)
 
-    return move_slabs_plain(get_slab, tuple(U.shape), U.device, dim, hw, moves, block=m,
-                            periodic=periodic, earlier=earlier)
+
+def wave_slabs_plain(state, field, dim, hw, moves, *, block, periodic, earlier=(), consts):
+    """Plain PyTorch version of `wave_slabs`."""
+    return wave_slabs_multi_plain(state, dim, hw, {field: (moves, earlier)}, block=block,
+                                  periodic=periodic, consts=consts)[field]
 
 
 def wave_slabs(state, field, dim, hw, moves, *, block, periodic, earlier=(), consts):
-    """K4s wave modes: the received slabs of width ``hw`` of ``field`` ("P",
-    "Vx", "Vy" or "Vz") along ``dim`` for every block of the stacked acoustic
-    ``state`` (P blocks ``block``), one for each `Move`, in one launch. The
-    send slab is the field after the leapfrog update (`wave_update_plain`'s
-    function, the per-cell functions K9 uses), patched with the ``earlier``
-    dims' received slabs of that field and moved between blocks. Returns a
-    tuple of new contiguous slabs in K2's layout."""
-    if field not in FIELDS:
-        raise InvalidArgumentError(f"wave_slabs: field must be one of {FIELDS}; got {field!r}.")
-    block, counts = check_state(state, block, wave_shapes, "wave_slabs")
-    f = FIELDS.index(field)
-    m = wave_shapes(block)[field]
-    dim, hw, _ = _check_slabs(state[f], dim, hw, moves, m, earlier, None, None)
-    if len(state[f].shape) != 3:
-        raise InvalidArgumentError("wave_slabs: 3-D fields only.")
-    if not _on_card(state[0]):
-        return wave_slabs_plain(state, field, dim, hw, moves, block=block, periodic=periodic,
-                                earlier=earlier, consts=consts)
-    import torch
-
-    A = state[f]
-    shape = list(A.shape)
-    shape[dim] = counts[dim] * hw
-    outs = [torch.empty(shape, dtype=A.dtype, device=A.device) for _ in moves]
-    mv = [tuple(int(x) for x in mm) for mm in moves] + [(0, 0, 0)] * (2 - len(moves))
-    ear = []
-    eptr = []
-    for e, hw_e, (rl, rr) in earlier:
-        ear += [int(e), int(hw_e)]
-        eptr += [rl.data_ptr(), rr.data_ptr()]
-    ear += [-1, 0] * (2 - len(earlier))
-    eptr += [None, None] * (2 - len(earlier))
-    ptrs = (ctypes.c_void_p * 10)(*[a.data_ptr() for a in state],
-                                  *[o.data_ptr() for o in outs] + [None] * (2 - len(outs)),
-                                  *eptr)
-    g = (ctypes.c_longlong * 19)(*block, *counts, dim, hw, int(bool(periodic)),
-                                 *mv[0], *mv[1], *ear)
-    c = (ctypes.c_double * 7)(*(float(consts[k]) for k in _CONST_ORDER))
-    lib = library()
-    with torch.cuda.device(A.device):
-        rc = lib.igg_exchange_slabs_wave(
-            0 if A.dtype == torch.float32 else 1, f, ctypes.addressof(ptrs),
-            ctypes.addressof(g), ctypes.addressof(c), _stream(A))
-    check_rc(rc, "exchange_slabs (wave)")
-    count_launch("exchange_slabs")
-    return tuple(outs)
+    """`wave_slabs_multi` for one field ("P", "Vx", "Vy" or "Vz"): a tuple
+    of its received slabs, one for each `Move`."""
+    return wave_slabs_multi(state, dim, hw, {field: (moves, earlier)}, block=block,
+                            periodic=periodic, consts=consts)[field]
 
 
 def wave_update_slab(state, field, dim, starts, size, *, block, consts):
@@ -230,29 +208,26 @@ def acoustic_step_self_plain(state, modes, ols, *, block, consts, out=None):
     return into(out, new)
 
 
-def _launch_k9(state, out, block, counts, consts, self_mode, slab_ptrs, modes, ols):
+
+
+
+def _launch_k9(state, out, args, self_mode, slabs):
     import torch
 
     P = state[0]
     if out is None:
         out = tuple(torch.empty_like(a) for a in state)
     ptrs = (ctypes.c_void_p * 32)(*[a.data_ptr() for a in state],
-                                  *[o.data_ptr() for o in out], *slab_ptrs)
-    g = (ctypes.c_longlong * 30)(
-        *block, *counts, *(int(bool(modes[f][d])) for f in FIELDS for d in range(3)),
-        *(int(ols[f][d]) for f in FIELDS for d in range(3)))
-    c = (ctypes.c_double * 7)(*(float(consts[k]) for k in _CONST_ORDER))
-    lib = library()
+                                  *[o.data_ptr() for o in out], *slabs)
+    g, c = args
     with torch.cuda.device(P.device):
-        rc = lib.igg_acoustic_step_exchange(
-            0 if P.dtype == torch.float32 else 1, int(self_mode), ctypes.addressof(ptrs),
-            ctypes.addressof(g), ctypes.addressof(c), _stream(P))
+        rc = library().igg_acoustic_step_exchange(
+            dtype_code(P.dtype), int(self_mode), ctypes.addressof(ptrs), ctypes.addressof(g),
+            ctypes.addressof(c), _stream(P))
     check_rc(rc, "acoustic_step_exchange")
     count_launch("acoustic_step_exchange")
     return tuple(out)
 
-
-_NO_MODES = {f: (False, False, False) for f in FIELDS}
 
 
 def acoustic_step_recv(state, recvs, *, block, consts, out=None):
@@ -262,18 +237,13 @@ def acoustic_step_recv(state, recvs, *, block, consts, out=None):
     alone) delivered in the same pass, a y-halo row over an x-halo plane over
     a z-halo lane. Out of place: writes ``out`` (four tensors, allocated when
     None) and returns it."""
-    block, counts = check_state(state, block, wave_shapes, "acoustic_step")
+    block, counts = check_state(state, block, wave_shapes, "acoustic_step", DTYPES)
     out = check_out(state, out, 4, "acoustic_step")
     check_recvs(state, recvs, counts, out, "acoustic_step")
     if not _on_card(state[0]):
         return acoustic_step_recv_plain(state, recvs, block=block, consts=consts, out=out)
-    ptrs = []
-    for f in FIELDS:
-        for d in range(3):
-            pair = recvs.get(f, {}).get(d)
-            ptrs += [None, None] if pair is None else [p.data_ptr() for p in pair]
-    return _launch_k9(state, out, block, counts, consts, False, ptrs, _NO_MODES,
-                      {f: (0, 0, 0) for f in FIELDS})
+    return _launch_k9(state, out, step_args(block, counts, consts, _CONST_ORDER), False,
+                      slab_ptrs(recvs))
 
 
 def acoustic_step_self(state, modes, ols, *, block, consts, out=None):
@@ -281,38 +251,80 @@ def acoustic_step_self(state, modes, ols, *, block, consts, out=None):
     each field's self-exchanging dims (``modes[field][d]``, overlaps
     ``ols[field][d]``) folded in as an index map onto the updated cells, in
     one launch and with no slabs. Out of place, as `acoustic_step_recv`."""
-    block, counts = check_state(state, block, wave_shapes, "acoustic_step")
+    block, counts = check_state(state, block, wave_shapes, "acoustic_step", DTYPES)
     out = check_out(state, out, 4, "acoustic_step")
     check_self(modes, ols, block, "acoustic_step")
     if not _on_card(state[0]):
         return acoustic_step_self_plain(state, modes, ols, block=block, consts=consts,
                                         out=out)
-    return _launch_k9(state, out, block, counts, consts, True, [None] * 24, modes, ols)
+    return _launch_k9(state, out, step_args(block, counts, consts, _CONST_ORDER, modes, ols),
+                      True, [None] * 24)
+
+
+class AcousticStep:
+    """The fused acoustic step on one grid (`acoustic_step_exchange_pallas`),
+    with what is fixed for a run resolved once: the route, the constants,
+    the overlaps, and on the card K9's and the K4s launches' argument arrays
+    and received slabs. ``modes`` from `wave_exchange_modes`, ``block`` P's
+    LOCAL shape. ``step(state, out=None)`` checks the state and ``out``
+    once, then runs K9 alone on all-self grids, else the slab pipeline
+    (`exchange_recv_slabs_multi`, one K4s wave-mode launch a dim) then
+    K9."""
+
+    def __init__(self, gg, modes, *, rho, K, dt, dx, dy, dz, block):
+        self.gg, self.modes = gg, modes
+        self.block = tuple(int(b) for b in block)
+        self.consts = wave_consts(rho=rho, K=K, dt=dt, dx=dx, dy=dy, dz=dz)
+        self.shapes = wave_shapes(self.block)
+        self.ols = self_ols(gg, self.block) if all_self_exchange(gg, modes) else None
+        if self.ols is not None:
+            check_self(modes, self.ols, self.block, "acoustic_step")
+        self._card = None  # (K9's arrays, the K4s launches), at the first launch
+
+    def _card_args(self, counts):
+        if self._card is None:
+            modes, ols = (self.modes, self.ols) if self.ols is not None \
+                else (NO_MODES, NO_OLS)
+            self._card = (step_args(self.block, counts, self.consts, _CONST_ORDER, modes, ols),
+                          SlabBatch("igg_exchange_slabs_wave", block=self.block, counts=counts,
+                                    consts=self.consts, const_order=_CONST_ORDER, keep=True))
+        return self._card
+
+    def __call__(self, state, out=None):
+        from .halo import exchange_recv_slabs_multi
+
+        block, counts = check_state(state, self.block, wave_shapes, "acoustic_step", DTYPES)
+        out = check_out(state, out, 4, "acoustic_step")
+        card = _on_card(state[0])
+        if self.ols is not None:
+            if not card:
+                return acoustic_step_self_plain(state, self.modes, self.ols, block=block,
+                                                consts=self.consts, out=out)
+            return _launch_k9(state, out, self._card_args(counts)[0], True, [None] * 24)
+        if card:
+            args, slabs = self._card_args(counts)
+
+            def dim_fn(dim, hw, periodic, per_field):
+                return slabs(state, dim, hw, periodic, per_field)
+        else:
+            def dim_fn(dim, hw, periodic, per_field):
+                return wave_slabs_multi_plain(state, dim, hw, per_field, block=block,
+                                              periodic=periodic, consts=self.consts)
+
+        recvs = exchange_recv_slabs_multi(self.gg, self.shapes, (1, 1, 1), self.modes,
+                                          dim_fn=dim_fn)
+        if not card:
+            return acoustic_step_recv_plain(state, recvs, block=block, consts=self.consts,
+                                            out=out)
+        return _launch_k9(state, out, args, False, slab_ptrs(recvs))
 
 
 def acoustic_step_exchange(state, gg, modes, *, rho, K, dt, dx, dy, dz, block, out=None):
     """One fused acoustic step (updates and the full exchange of all four
-    fields) of every block of the stacked ``state``
-    (`acoustic_step_exchange_pallas`). ``modes`` from `wave_exchange_modes`,
-    ``block`` P's LOCAL shape. All-self grids: K9 alone. Otherwise the slab
-    pipeline (`exchange_recv_slabs_multi`, one K4s wave-mode launch per
-    exchanging (dim, field)) then K9."""
-    from .halo import exchange_recv_slabs_multi
-
-    consts = wave_consts(rho=rho, K=K, dt=dt, dx=dx, dy=dy, dz=dz)
-    if all_self_exchange(gg, modes):
-        return acoustic_step_self(state, modes, self_ols(gg, block), block=block,
-                                  consts=consts, out=out)
-
-    def slab_fn(field):
-        def get(dim, hw, moves, periodic, earlier):
-            return wave_slabs(state, field, dim, hw, moves, block=block, periodic=periodic,
-                              earlier=earlier, consts=consts)
-        return get
-
-    recvs = exchange_recv_slabs_multi(gg, wave_shapes(block), (1, 1, 1), modes,
-                                      {f: slab_fn(f) for f in FIELDS})
-    return acoustic_step_recv(state, recvs, block=block, consts=consts, out=out)
+    fields) of every block of the stacked ``state``: `AcousticStep` for one
+    call. A run resolves its `AcousticStep` once."""
+    return AcousticStep(gg, modes, rho=rho, K=K, dt=dt, dx=dx, dy=dy, dz=dz,
+                        block=block)(state, out)
 
 
 def wave_bytes(state) -> int:

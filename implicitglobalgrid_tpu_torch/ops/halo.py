@@ -198,48 +198,58 @@ def _exchange_dim(gg, A, dim, hw, ol_d, use_kernel):
     return write(A, recv_l, recv_r, dim=dim, hw=hw, block=n)
 
 
-def exchange_recv_slabs_multi(gg, shapes, hws, modes, slab_fns):
+def exchange_recv_slabs_multi(gg, shapes, hws, modes, dim_fn):
     """Corner-patched RECEIVED slabs for every (field, dim): the slab
     pipeline of the fused kernel tiers (the JAX package's function of the
     same name, on the virtual mesh).
 
-    Per dim, in the reference's write order (z, x, y): each field's
-    ``slab_fns[f](dim, hw, moves, periodic, earlier)`` returns its received
-    ``(recv_l, recv_r)`` for every block: the neighbour block's send slab
-    ``[s-ol, s-ol+hw)`` or ``[ol-hw, ol)`` (a plain slice for a standalone
-    exchange, a freshly computed slab when a model fuses its update with the
+    Per dim, in the reference's write order (z, x, y), one call
+    ``dim_fn(dim, hw, periodic, {f: (moves, earlier)})`` returns ``{f:
+    (recv_l, recv_r)}`` for every field exchanging along ``dim``: each
+    block's received slabs, the neighbour block's send slab ``[s-ol,
+    s-ol+hw)`` or ``[ol-hw, ol)`` (a plain slice for a standalone exchange,
+    a freshly computed slab when a model fuses its update with the
     exchange), patched with the values that block received along the
-    ``earlier`` dims (the corners), moved as the two `Move`s say (a local
-    swap for a self-neighbour dim); on a PROC_NULL edge the block keeps its
-    own patched current halo. K4s (`cuda_stencil.exchange_slabs`) does all
-    of that in one launch.
+    field's ``earlier`` dims (the corners), moved as the two `Move`s say (a
+    local swap for a self-neighbour dim); on a PROC_NULL edge the block
+    keeps its own patched current halo. K4s (`cuda_stencil.exchange_slabs`,
+    or its staggered modes for every field of a dim) does all of that in
+    one launch.
 
-    ``shapes``/``modes``/``slab_fns`` are dicts keyed by field name; ``hws``
-    is the shared per-dim halowidth tuple. Returns ``{field: {dim: (recv_l,
+    ``shapes``/``modes`` are dicts keyed by field name; ``hws`` is the
+    shared per-dim halowidth tuple. Returns ``{field: {dim: (recv_l,
     recv_r)}}`` in K2's slab layout (the stacked shape with dim at D*hw)."""
-    names = list(slab_fns)
-    earlier = {f: [] for f in names}  # [(dim, hw, (recv_l, recv_r))]
-    recvs = {f: {} for f in names}
+    earlier = {f: [] for f in shapes}  # [(dim, hw, (recv_l, recv_r))]
+    recvs = {f: {} for f in shapes}
     for dim in DEFAULT_DIMS_ORDER:
         _, periodic, disp = _dim_meta(gg, dim)
-        for f in names:
+        per_field = {}
+        for f in shapes:
             if not modes[f][dim]:
                 continue
             hw = int(hws[dim])
             s = int(shapes[f][dim])
             ol_d = _ol(gg, shapes[f], dim)
             _check_slab_fit(s, dim, ol_d, hw)
-            recvs[f][dim] = tuple(slab_fns[f](dim, hw, _moves(s, ol_d, hw, disp),
-                                              periodic, tuple(earlier[f])))
+            per_field[f] = (_moves(s, ol_d, hw, disp), tuple(earlier[f]))
+        if not per_field:
+            continue
+        got = dim_fn(dim, hw, periodic, per_field)
+        for f in per_field:
+            recvs[f][dim] = tuple(got[f])
             earlier[f].append((dim, hw, recvs[f][dim]))
     return recvs
 
 
 def exchange_recv_slabs(gg, shape, hws, modes, slab_fn):
-    """Single-field form of `exchange_recv_slabs_multi`: ``{dim: (recv_l,
-    recv_r)}``."""
-    return exchange_recv_slabs_multi(gg, {"A": shape}, hws, {"A": modes},
-                                     {"A": slab_fn})["A"]
+    """Single-field form of `exchange_recv_slabs_multi`: ``slab_fn(dim, hw,
+    moves, periodic, earlier)`` returns one dim's ``(recv_l, recv_r)``;
+    returns ``{dim: (recv_l, recv_r)}``."""
+    def dim_fn(dim, hw, periodic, per_field):
+        moves, ear = per_field["A"]
+        return {"A": slab_fn(dim, hw, moves, periodic, ear)}
+
+    return exchange_recv_slabs_multi(gg, {"A": shape}, hws, {"A": modes}, dim_fn)["A"]
 
 
 def _combined_plan(gg, shape, hws, dims_order):

@@ -2,7 +2,9 @@
 `cuda_wave.py`, and the Stokes K10, `cuda_stokes.py`): the four exchanged
 fields (P, Vx, Vy, Vz) and their shapes, the gate and the index map of the
 all-self route, the checks of a stacked state, its outputs and received
-slabs, and the constants as 0-d tensors.
+slabs, the constants as 0-d tensors, and the staggered modes of K4s (one
+launch a dim for every field of the group, `SlabBatch`, and its plain
+version `slab_batch_plain`).
 
 Counterpart of the parts of `implicitglobalgrid_tpu/ops/pallas_common.py`
 that the plain versions need (`all_self_exchange`, the overlaps of
@@ -11,12 +13,23 @@ that the plain versions need (`all_self_exchange`, the overlaps of
 
 from __future__ import annotations
 
+import ctypes
+
 from ..utils.exceptions import InvalidArgumentError
 
-__all__ = ["FIELDS", "wave_shapes", "self_ols", "all_self_exchange", "self_index",
-           "check_state", "check_out", "check_recvs", "check_self", "const_tensors", "into"]
+__all__ = ["FIELDS", "FLOATS", "wave_shapes", "self_ols", "all_self_exchange", "self_index",
+           "check_state", "check_out", "check_recvs", "check_self", "const_tensors", "into",
+           "check_slab_batch", "slab_batch_plain", "SlabBatch", "dtype_code", "step_args",
+           "slab_ptrs", "NO_MODES", "NO_OLS"]
 
 FIELDS = ("P", "Vx", "Vy", "Vz")
+# the state dtypes of the Stokes kernels; the acoustic ones add bfloat16
+FLOATS = ("float32", "float64")
+
+
+def dtype_code(dtype) -> int:
+    """The kernels' dtype argument: 0 float32, 1 float64, 2 bfloat16."""
+    return ("float32", "float64", "bfloat16").index(str(dtype).replace("torch.", ""))
 
 
 def wave_shapes(block):
@@ -51,19 +64,44 @@ def self_index(n_stack, n, ol, device):
     return i - loc + src
 
 
-def check_state(state, block, shapes_of, name):
+NO_MODES = {f: (False, False, False) for f in FIELDS}  # the multi-rank route's self map
+NO_OLS = {f: (0, 0, 0) for f in FIELDS}
+
+
+def step_args(block, counts, consts, const_order, modes=NO_MODES, ols=NO_OLS):
+    """The geometry and constant arrays of a fused staggered step (K9,
+    K10): P's block, the block counts, the self map's modes and overlaps
+    [field][dim], and the constants in ``const_order``."""
+    g = (ctypes.c_longlong * 30)(
+        *block, *counts, *(int(bool(modes[f][d])) for f in FIELDS for d in range(3)),
+        *(int(ols[f][d]) for f in FIELDS for d in range(3)))
+    return g, (ctypes.c_double * 7)(*(float(consts[k]) for k in const_order))
+
+
+def slab_ptrs(recvs):
+    """The 24 received-slab pointers of a fused staggered step, [field][dim]
+    [left, right], None where a field takes none along a dim."""
+    ptrs = []
+    for f in FIELDS:
+        for d in range(3):
+            pair = recvs.get(f, {}).get(d)
+            ptrs += [None, None] if pair is None else [p.data_ptr() for p in pair]
+    return ptrs
+
+
+def check_state(state, block, shapes_of, name, dtypes=FLOATS):
     """Validate a stacked state whose fields have the LOCAL shapes
     ``shapes_of(block)`` (``{field: shape}``, P first, for P's block
-    ``block``): contiguous stacked blocks of P's dtype (float32 or float64)
-    and device. Returns (P block, block counts)."""
+    ``block``): contiguous stacked blocks of P's dtype (one of ``dtypes``,
+    by name) and device. Returns (P block, block counts)."""
     import torch
 
     state = tuple(state)
     if not state or not all(isinstance(a, torch.Tensor) for a in state):
         raise InvalidArgumentError(f"{name} takes the state's tensors.")
     P = state[0]
-    if P.dtype not in (torch.float32, torch.float64):
-        raise InvalidArgumentError(f"{name} takes float32 or float64 states; got {P.dtype}.")
+    if str(P.dtype).replace("torch.", "") not in dtypes:
+        raise InvalidArgumentError(f"{name} takes {' or '.join(dtypes)} states; got {P.dtype}.")
     block = tuple(int(b) for b in block)
     if len(block) != 3 or block[0] < 3 or min(block) < 1 or P.dim() != 3 \
             or any(s % b for s, b in zip(P.shape, block)):
@@ -161,3 +199,128 @@ def into(out, new):
     for o, n in zip(out, new):
         o.copy_(n)
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# K4s staggered modes: the received slabs of one dim for every field.
+# ---------------------------------------------------------------------------
+
+def check_slab_batch(state, dim, hw, per_field, block, name):
+    """Validate one batched K4s call: ``per_field`` maps some of the fields
+    (P, Vx, Vy, Vz) to ``(moves, earlier)`` as `cuda_stencil.exchange_slabs`
+    takes them, for 3-D fields of the stacked ``state`` (P blocks
+    ``block``). Returns (dim, hw)."""
+    from .cuda_stencil import _check_slabs
+
+    if not per_field or any(f not in FIELDS for f in per_field):
+        raise InvalidArgumentError(f"{name}: the fields must be some of {FIELDS}; got "
+                                   f"{tuple(per_field)}.")
+    shp = wave_shapes(block)
+    for f, (moves, earlier) in per_field.items():
+        A = state[FIELDS.index(f)]
+        if A.dim() != 3:
+            raise InvalidArgumentError(f"{name}: 3-D fields only.")
+        d, h, _ = _check_slabs(A, dim, hw, moves, shp[f], earlier, None, None)
+    return d, h
+
+
+def slab_batch_plain(new, dim, hw, per_field, *, block, periodic):
+    """Plain PyTorch version of a batched K4s launch: the received slabs
+    ``{field: (recv_l, recv_r)}`` of each field of ``per_field`` (``(moves,
+    earlier)``), its send slabs cut from ``new`` (the updated fields, P, Vx,
+    Vy, Vz first), patched and moved as `cuda_stencil.move_slabs_plain`
+    does."""
+    import torch
+
+    from .cuda_stencil import _slab_view, move_slabs_plain
+
+    out = {}
+    for f, (moves, earlier) in per_field.items():
+        U = new[FIELDS.index(f)]
+        m = wave_shapes(block)[f]
+
+        def get_slab(start, U=U, n=m[dim]):
+            return _slab_view(U, dim, n, start, hw).flatten(dim, dim + 1).clone(
+                memory_format=torch.contiguous_format)
+
+        out[f] = move_slabs_plain(get_slab, tuple(U.shape), U.device, dim, hw, moves, block=m,
+                                  periodic=periodic, earlier=earlier)
+    return out
+
+
+class SlabBatch:
+    """The staggered modes of K4s for one state layout: one launch of the C
+    entry point ``entry`` (``igg_exchange_slabs_wave`` or
+    ``igg_exchange_slabs_stokes``) computes the received slabs of one dim
+    for every field of a group. The argument arrays of a dim are built at
+    its first launch and reused; with ``keep``, so are its output slabs (a
+    launch overwrites the slabs of the one before, which the step that read
+    them has consumed on the same stream). Arguments are checked by the
+    caller."""
+
+    def __init__(self, entry, *, block, counts, consts, const_order, keep=False):
+        self.entry, self.keep = entry, keep
+        self.block = tuple(int(b) for b in block)
+        self.counts = tuple(int(c) for c in counts)
+        self.consts = (ctypes.c_double * 7)(*(float(consts[k]) for k in const_order))
+        self._g, self._outs = {}, {}
+
+    def _args(self, dim, hw, periodic, per_field):
+        key = (dim, hw, bool(periodic), tuple(per_field))
+        g = self._g.get(key)
+        if g is None:
+            vals = [*self.block, *self.counts, dim, hw, int(bool(periodic))]
+            for f in FIELDS:
+                if f not in per_field:
+                    vals += [0] * 6 + [-1, 0, -1, 0]
+                    continue
+                moves, earlier = per_field[f]
+                mv = [tuple(int(x) for x in m) for m in moves] + [(0, 0, 0)] * (2 - len(moves))
+                ear = [int(x) for e, hw_e, _ in earlier for x in (e, hw_e)]
+                vals += [*mv[0], *mv[1], *ear, *[-1, 0] * (2 - len(earlier))]
+            g = self._g[key] = (ctypes.c_longlong * 49)(*vals)
+        return key, g
+
+    def _out_slabs(self, key, state, dim, hw, per_field):
+        import torch
+
+        key = (key, state[0].dtype, state[0].device)  # kept slabs match the state's
+        outs = self._outs.get(key) if self.keep else None
+        if outs is None:
+            outs = {}
+            for f, (moves, _) in per_field.items():
+                A = state[FIELDS.index(f)]
+                shape = list(A.shape)
+                shape[dim] = self.counts[dim] * hw
+                outs[f] = tuple(torch.empty(shape, dtype=A.dtype, device=A.device)
+                                for _ in moves)
+            if self.keep:
+                self._outs[key] = outs
+        return outs
+
+    def __call__(self, state, dim, hw, periodic, per_field):
+        import torch
+
+        from .cuda_build import check_rc, count_launch, library
+        from .cuda_stencil import _stream  # looked up at the call, as the other wrappers do
+
+        key, g = self._args(dim, hw, periodic, per_field)
+        outs = self._out_slabs(key, state, dim, hw, per_field)
+        ptrs = [a.data_ptr() for a in state]
+        for f in FIELDS:
+            if f not in per_field:
+                ptrs += [None] * 6
+                continue
+            o, earlier = outs[f], per_field[f][1]
+            ptrs += [t.data_ptr() for t in o] + [None] * (2 - len(o))
+            ptrs += [t.data_ptr() for _, _, pair in earlier for t in pair]
+            ptrs += [None, None] * (2 - len(earlier))
+        arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        P = state[0]
+        with torch.cuda.device(P.device):
+            rc = getattr(library(), self.entry)(dtype_code(P.dtype), ctypes.addressof(arr),
+                                                ctypes.addressof(g),
+                                                ctypes.addressof(self.consts), _stream(P))
+        check_rc(rc, self.entry)
+        count_launch("exchange_slabs")
+        return outs

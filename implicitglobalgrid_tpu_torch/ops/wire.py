@@ -19,6 +19,11 @@ signature alone (slab shapes, state dtype, exchange axis) and fixes:
 block's buffer is what `pack` returns for that block's slabs, raveled.
 Quantized and cast wire formats are not ported: a non-None ``fmt`` raises
 `NotSupportedError`.
+
+`CommCadence` and `resolve_comm_every` are the exchange cadence (the
+``comm_every`` knob, ``IGG_COMM_EVERY``) resolved as the JAX package
+resolves it; the models accept cadence 1 in any spelling and refuse a deep
+one, which is not ported.
 """
 
 from __future__ import annotations
@@ -29,9 +34,90 @@ import numpy as np
 
 from ..utils.exceptions import InvalidArgumentError, NotSupportedError
 
-__all__ = ["WireSchema", "slab_schema", "schema_for_fields", "dtype_name"]
+__all__ = ["WireSchema", "slab_schema", "schema_for_fields", "dtype_name", "CommCadence",
+           "resolve_comm_every"]
 
 _LATER = "a later slice of the PyTorch port"
+
+
+_AXIS_TOKENS = {"x": 0, "y": 1, "z": 2, "gx": 0, "gy": 1, "gz": 2}
+_DIM_NAMES = ("x", "y", "z")
+
+
+@dataclass(frozen=True)
+class CommCadence:
+    """The resolved exchange cadence: one integer ``k >= 1`` per grid
+    dimension (x, y, z); axis ``d`` exchanges once per ``k_d`` steps, 1
+    being every step. The string form round-trips through
+    `resolve_comm_every` (``"4"`` when uniform, else e.g. ``"z:4"``)."""
+
+    per_dim: tuple
+
+    @property
+    def deep(self) -> bool:
+        """Whether any axis runs a deep-halo cadence (``k > 1``)."""
+        return any(k > 1 for k in self.per_dim)
+
+    def __str__(self) -> str:
+        if len(set(self.per_dim)) == 1:
+            return str(self.per_dim[0])
+        parts = [f"{_DIM_NAMES[d]}:{k}" for d, k in enumerate(self.per_dim) if k != 1]
+        return ",".join(parts) if parts else "1"
+
+
+def _parse_cadence_k(token) -> int:
+    try:
+        k = int(str(token).strip())
+    except (TypeError, ValueError):
+        raise InvalidArgumentError(f"comm_every cadence must be an integer >= 1; got {token!r}.")
+    if k < 1:
+        raise InvalidArgumentError(f"comm_every cadence must be >= 1; got {k}.")
+    return k
+
+
+def resolve_comm_every(comm_every=None) -> CommCadence:
+    """Resolve the requested exchange cadence to a `CommCadence` (the JAX
+    package's resolver). ``comm_every=None`` consults ``IGG_COMM_EVERY``; an
+    explicit argument wins over the environment; no argument and no (or an
+    empty) variable is cadence 1. Accepted forms: an integer ``k`` or its
+    string (every axis), a per-axis spec ``"z:4,x:1"`` (axes x/y/z or
+    gx/gy/gz; unnamed axes 1), a ``{axis: k}`` mapping, or a
+    `CommCadence`."""
+    import os
+
+    if comm_every is None:
+        comm_every = os.environ.get("IGG_COMM_EVERY")
+    if comm_every is None or comm_every == "":
+        return CommCadence((1, 1, 1))
+    if isinstance(comm_every, CommCadence):
+        return comm_every
+    if isinstance(comm_every, dict):
+        items = list(comm_every.items())
+    elif isinstance(comm_every, str) and ":" in comm_every:
+        items = []
+        for part in comm_every.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if ":" not in part:
+                raise InvalidArgumentError(
+                    f"Per-axis comm_every spec {comm_every!r}: entry {part!r} must be "
+                    "'<axis>:<k>' (e.g. 'z:4,x:1').")
+            items.append(tuple(part.split(":", 1)))
+    else:
+        return CommCadence((_parse_cadence_k(comm_every),) * 3)
+    per_dim = [1, 1, 1]
+    seen = set()
+    for axis, k in items:
+        dim = _AXIS_TOKENS.get(str(axis).strip().lower())
+        if dim is None:
+            raise InvalidArgumentError(
+                f"Unknown mesh axis {axis!r} in comm_every spec (use x/y/z or gx/gy/gz).")
+        if dim in seen:
+            raise InvalidArgumentError(f"Mesh axis {axis!r} named twice in comm_every spec.")
+        seen.add(dim)
+        per_dim[dim] = _parse_cadence_k(k)
+    return CommCadence(tuple(per_dim))
 
 
 def _reject_fmt(fmt):
@@ -46,6 +132,8 @@ def dtype_name(dtype) -> str:
     s = str(dtype)
     if s.startswith("torch."):
         return s[len("torch."):]
+    if s == "bfloat16":  # a name already (numpy has no bfloat16)
+        return s
     return np.dtype(dtype).name
 
 

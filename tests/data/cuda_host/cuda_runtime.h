@@ -29,6 +29,7 @@
 #define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
+#define __grid_constant__
 
 struct dim3 {
   unsigned x, y, z;

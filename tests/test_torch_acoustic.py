@@ -9,6 +9,12 @@ JAX package, from the SAME state (`acoustic_state_from_numpy`):
   included): float32 rtol/atol 1e-5 (the JAX suite's bound, :124),
   float64 1e-12;
 - the plain route against JAX ``impl="xla"`` on the same grids;
+- bfloat16 states on both routes: the fused route against JAX
+  ``pallas_interpret`` (bitwise on one block; on a multi-rank grid bitwise
+  off the cells near a block face, whose halos JAX computes with XLA, and
+  within 2 bf16 ulps a cell there after a step, within one ulp of each
+  field's largest magnitude after 4 steps), the plain route against
+  ``xla`` bitwise;
 - the K4s wave modes' plain versions against JAX's getters
   (`_make_v_get_slab`, `_make_p_get_slab`) on every field, dim and range;
 - model sanity: distributed equals single, the wave propagates, and
@@ -32,6 +38,7 @@ from implicitglobalgrid_tpu_torch.models import (
     acoustic_state_from_numpy, init_acoustic3d, run_acoustic,
 )
 from implicitglobalgrid_tpu_torch.ops import cuda_wave as cw
+from implicitglobalgrid_tpu_torch.ops.staggered import FIELDS
 from torch_port_util import clean_torch_grid, init_both, to_np  # noqa: F401
 
 TOL = {np.float32: dict(rtol=1e-5, atol=1e-5), np.float64: dict(rtol=1e-12, atol=1e-12)}
@@ -66,15 +73,17 @@ def _port_state(state, p):
                                      "cpu")
 
 
-def _spy(monkeypatch, name):
+def _spy(monkeypatch):
+    """Count the fused route's steps (`AcousticStep.__call__`, which a run
+    resolves once)."""
     calls = []
-    fn = getattr(tac, name)
+    fn = cw.AcousticStep.__call__
 
     def spy(*a, **k):
         calls.append(1)
         return fn(*a, **k)
 
-    monkeypatch.setattr(tac, name, spy)
+    monkeypatch.setattr(cw.AcousticStep, "__call__", spy)
     return calls
 
 
@@ -94,7 +103,7 @@ def test_fused_route_matches_jax_pallas(grid, dtype, monkeypatch):
     modes = cw.wave_exchange_modes(tg.global_grid(), _local(tg.global_grid(), tstate))
     assert modes is not None and modes == jmodes, (modes, jmodes)
     ref = j_run(state, p, 6, nt_chunk=3, impl="pallas_interpret")
-    calls = _spy(monkeypatch, "acoustic_step_exchange")
+    calls = _spy(monkeypatch)
     got = run_acoustic(tstate, tp, 6, nt_chunk=3)
     assert len(calls) == 6  # the port took the fused route, once a step
     for a, b in zip(tstate, state):   # the input is not written
@@ -109,10 +118,125 @@ def test_plain_route_matches_jax_xla(grid, dtype, monkeypatch):
     state, p = j_init(dtype=dtype)
     tstate, tp = _port_state(state, p)
     ref = j_run(state, p, 6, nt_chunk=3, impl="xla")
-    calls = _spy(monkeypatch, "acoustic_step_exchange")
+    calls = _spy(monkeypatch)
     got = run_acoustic(tstate, tp, 6, nt_chunk=3, impl="plain")
     assert not calls
     _compare(got, ref, dtype, grid)
+
+
+def _bf16_ulps(a, b):
+    """Per-cell distance in bfloat16 ulps of two bfloat16-valued arrays
+    (ordered bit patterns, so a sign change counts every step between)."""
+    def key(x):
+        u = (np.asarray(x, dtype=np.float32).view(np.int32) >> 16).astype(np.int64)
+        return np.where(u < 0, -(u & 0x7FFF), u)
+    return np.abs(key(a) - key(b))
+
+
+def _ulp_of_max(r):
+    """One bfloat16 ulp at the largest magnitude of ``r`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(float(np.abs(r).max()), 1e-30))) - 7)
+
+
+def _face_distance(shape, dims):
+    """Per-cell distance, in cells of its own block, of a stacked field to
+    the nearest block face along a dim of more than one block: the halos
+    there come from send slabs (received, or the block's own on a PROC_NULL
+    edge), which JAX computes with XLA."""
+    out = np.full(shape, np.iinfo(np.int64).max)
+    for d, D in enumerate(dims):
+        if int(D) == 1:
+            continue
+        m = shape[d] // int(D)
+        loc = np.arange(shape[d]) % m
+        sh = [1, 1, 1]
+        sh[d] = shape[d]
+        out = np.minimum(out, np.minimum(loc, m - 1 - loc).reshape(sh))
+    return out
+
+
+# (steps, the distance from a face at which every cell is bitwise): the
+# cells nearer hold what the send slabs delivered and its spread, which
+# reached one cell after a step and two after four in the reading that
+# chose these (every field of the three multi-rank grids, steps 1 to 4)
+BF16_REACH = {1: 2, 4: 3}
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_bf16_fused_route_matches_jax_pallas(grid, monkeypatch):
+    """One step, then four, from the same bfloat16 state: the fused route
+    (K9's and the K4s wave modes' plain versions, each operation rounded to
+    bfloat16 with bfloat16 constants) against JAX's Pallas kernel. On one
+    block every cell is bitwise. On a multi-rank grid JAX computes its send
+    slabs with XLA, which rounds the pressure getter's operations elsewhere
+    than its Pallas kernel, so the cells near a block face (`BF16_REACH`)
+    differ: within 2 bf16 ulps a cell after a step, within one ulp of the
+    field's largest magnitude after four (JAX's own two routes differ by
+    up to 5); every cell farther is bitwise, which JAX's XLA route is not
+    after four steps, so the check tells the two roundings apart."""
+    _init(grid)
+    state, p = j_init(dtype=jnp.bfloat16)
+    tstate, tp = _port_state(state, p)
+    assert tstate[0].dtype == torch.bfloat16
+    calls = _spy(monkeypatch)
+    dims = tuple(int(d) for d in tg.global_grid().dims)
+    multi_rank = any(d > 1 for d in dims)
+    for nt in (1, 4):
+        ref = j_run(state, p, nt, nt_chunk=nt, impl="pallas_interpret")
+        got = run_acoustic(tstate, tp, nt, nt_chunk=nt)
+        xla = j_run(state, p, nt, nt_chunk=nt, impl="xla") if multi_rank and nt > 1 else ref
+        xla_far_same = []
+        for g, r, x, name in zip(got, ref, xla, FIELDS):
+            g, r = to_np(g).astype(np.float32), np.asarray(r).astype(np.float32)
+            assert g.shape == r.shape, (grid, name)
+            if not multi_rank:
+                assert np.array_equal(g, r), (grid, nt, name)
+                continue
+            far = _face_distance(g.shape, dims) >= BF16_REACH[nt]
+            assert far.any() and np.array_equal(g[far], r[far]), (grid, nt, name)
+            if nt == 1:
+                ulps = int(_bf16_ulps(g[~far], r[~far]).max())
+                assert ulps <= 2, (grid, name, ulps)
+            else:
+                err = float(np.abs(g - r)[~far].max())
+                assert err <= _ulp_of_max(r), (grid, name, err, _ulp_of_max(r))
+                xla_far_same.append(np.array_equal(np.asarray(x).astype(np.float32)[far],
+                                                   r[far]))
+        assert not xla_far_same or not all(xla_far_same), grid
+    assert len(calls) == 5  # the fused route, once a step
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_bf16_plain_route_matches_jax_xla(grid, monkeypatch):
+    """Four bfloat16 steps of the plain route equal JAX's XLA route bit for
+    bit (both round every operation to bfloat16)."""
+    _init(grid)
+    state, p = j_init(dtype=jnp.bfloat16)
+    tstate, tp = _port_state(state, p)
+    calls = _spy(monkeypatch)
+    ref = j_run(state, p, 4, nt_chunk=2, impl="xla")
+    got = run_acoustic(tstate, tp, 4, nt_chunk=2, impl="plain")
+    assert not calls
+    for g, r, name in zip(got, ref, FIELDS):
+        assert np.array_equal(tg.gather(g), np.asarray(igg.gather(r)).astype(np.float32)), \
+            (grid, name)
+
+
+def test_mesh_step_makes_one_slab_call_a_dim(monkeypatch):
+    """On a 2x2x2 mesh a fused step computes every field's received slabs
+    with one K4s call a dim: 3, not one for each of the 12 (field, dim)."""
+    _init("all multi-rank periodic")
+    state, p = init_acoustic3d(dtype=torch.float64)
+    calls = []
+    fn = cw.wave_slabs_multi_plain
+
+    def spy(st, dim, hw, per_field, **k):
+        calls.append(tuple(per_field))
+        return fn(st, dim, hw, per_field, **k)
+
+    monkeypatch.setattr(cw, "wave_slabs_multi_plain", spy)
+    run_acoustic(state, p, 2, nt_chunk=2)
+    assert calls == [cw.FIELDS] * 6
 
 
 def test_plain_route_exchanges_velocities_as_one_group(monkeypatch):
@@ -267,5 +391,7 @@ def test_unported_options_raise(monkeypatch):
     with pytest.raises(NS):
         tac.make_acoustic_run_deep(p, 1)
     monkeypatch.setenv("IGG_COMM_EVERY", "2")
-    with pytest.raises(NS):
-        run_acoustic(state, p, 1)
+    with pytest.raises(NS):   # no comm_every: the variable's deep cadence
+        init_acoustic3d(dtype=torch.float64)
+    # an explicit cadence 1 (the params' own) wins over the variable, as in JAX
+    run_acoustic(state, dataclasses.replace(p, overlap=False), 1)

@@ -11,7 +11,10 @@ against the JAX package, from the SAME state (`stokes_state_from_numpy`):
   1e-5*max|field|, float64 1e-12 (both sides use the same arithmetic form,
   so this is tighter than the JAX suite's fused-vs-XLA bound, :209-211);
 - the K4s Stokes modes' pipeline, the two forms, the all-self route, an
-  ineligible grid (plain route) and the unported options.
+  ineligible grid (plain route) and the unported options;
+- a bfloat16 state: the gate gives it no fused route (JAX's Pallas route
+  refuses bfloat16), and its plain route equals JAX ``impl="xla"`` bit for
+  bit on every grid (both round every operation to bfloat16).
 
 The plain route, `init_stokes3d`, `stokes_residuals` and the model's sanity
 are in `test_torch_stokes_model.py`; the getters in
@@ -20,6 +23,7 @@ are in `test_torch_stokes_model.py`; the getters in
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -34,7 +38,7 @@ from implicitglobalgrid_tpu_torch.models import init_stokes3d, run_stokes
 from implicitglobalgrid_tpu_torch.ops import cuda_stokes as cst
 from torch_port_util import clean_torch_grid, init_both, to_np  # noqa: F401
 from torch_stokes_util import (
-    CASES, IDS, NAMES, compare, init_grid, local_shapes, port_state, random_rhog, spy,
+    CASES, GRIDS, IDS, NAMES, compare, init_grid, local_shapes, port_state, random_rhog, spy,
 )
 
 @pytest.mark.parametrize("grid,dtype", CASES, ids=IDS)
@@ -177,6 +181,42 @@ def test_ineligible_grid_takes_plain_route(monkeypatch):
     compare(got, j_run(state, p, 3, nt_chunk=3, impl="xla"), np.float64, "halowidth 2")
 
 
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_bf16_takes_the_plain_route_and_matches_jax_xla(grid, monkeypatch):
+    init_grid(grid)
+    sphere, p = j_init(dtype=jnp.bfloat16)
+    state = random_rhog(sphere, 3)
+    tstate, tp = port_state(state, p)
+    gg, loc = tg.global_grid(), local_shapes(tg.global_grid(), tstate)
+    assert cst.stokes_exchange_modes(gg, loc) is not None  # the shapes alone are eligible
+    assert cst.stokes_exchange_modes(gg, loc, tstate[0].dtype) is None
+    calls = spy(monkeypatch, cst.StokesStep, "__call__")
+    ref = j_run(state, p, 4, nt_chunk=2, impl="xla")
+    got = run_stokes(tstate, tp, 4, nt_chunk=2)
+    assert not calls  # no fused iteration
+    for g, r, name in zip(got, ref, NAMES):
+        g, r = tg.gather(g), np.asarray(igg.gather(r)).astype(np.float32)
+        assert g.dtype == np.float32 and np.array_equal(g, r), (grid, name)
+
+
+def test_mesh_iteration_makes_one_slab_call_a_dim(monkeypatch):
+    """On a 2x2x2 mesh a fused iteration computes every field's received
+    slabs with one K4s call a dim: 3, not one for each of the 12 (field,
+    dim)."""
+    init_grid("all multi-rank periodic")
+    state, p = init_stokes3d(dtype=torch.float64)
+    calls = []
+    fn = cst.stokes_slabs_multi_plain
+
+    def wrapped(st, dim, hw, per_field, **k):
+        calls.append(tuple(per_field))
+        return fn(st, dim, hw, per_field, **k)
+
+    monkeypatch.setattr(cst, "stokes_slabs_multi_plain", wrapped)
+    run_stokes(state, p, 2, nt_chunk=2)
+    assert calls == [cst.FIELDS] * 6
+
+
 def test_unported_options_raise(monkeypatch):
     tg.init_global_grid(8, 8, 8, dimx=2, dimy=2, dimz=2, nranks=8, device_type="cpu",
                         quiet=True)
@@ -194,8 +234,10 @@ def test_unported_options_raise(monkeypatch):
     with pytest.raises(NS):
         tst.deep_step(p)
     monkeypatch.setenv("IGG_COMM_EVERY", "2")
-    with pytest.raises(NS):
-        run_stokes(state, p, 1)
+    with pytest.raises(NS):   # no comm_every: the variable's deep cadence
+        init_stokes3d(dtype=torch.float64)
+    # an explicit cadence 1 (the params' own) wins over the variable, as in JAX
+    run_stokes(state, dataclasses.replace(p, overlap=False), 1)
 
 
 def test_stokes_wrappers_refuse_bad_arguments():
@@ -218,8 +260,12 @@ def test_stokes_wrappers_refuse_bad_arguments():
         cst.stokes_step_recv(st[:4] + (st[5], st[5], st[6], st[7]), {}, block=block, consts=k)
     with pytest.raises(E):   # rhog of another dtype
         cst.stokes_step_recv(st[:7] + (st[7].double(),), {}, block=block, consts=k)
-    with pytest.raises(E):   # bfloat16
-        cst.stokes_step_recv(tuple(a.bfloat16() for a in st), {}, block=block, consts=k)
+    bf = tuple(a.bfloat16() for a in st)   # bfloat16: the plain version on the CPU
+    assert all(torch.equal(a, b) for a, b in zip(
+        cst.stokes_step_recv(bf, {}, block=block, consts=k),
+        cst.stokes_step_recv_plain(bf, {}, block=block, consts=k)))
+    with pytest.raises(E):   # float16
+        cst.stokes_step_recv(tuple(a.half() for a in st), {}, block=block, consts=k)
     with pytest.raises(E):   # fewer than 3 planes
         cst.stokes_step_recv(st, {}, block=(2, 3, 5), consts=k)
     with pytest.raises(E):   # out aliasing the state
