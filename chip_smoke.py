@@ -6,29 +6,34 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, in order; any failure exits non-zero without the final line:
 
 1. build the CUDA kernels from `implicitglobalgrid_tpu_torch/csrc/`; print
-   each kernel's ptxas report, K9's and K10's registers, stack and spills
-   for each template, and check
-   K10's SASS for the IEEE division; sweep the division helper of
+   each kernel's ptxas report, K1's, K4's, K9's and K10's registers, stack
+   and spills for each template, and check K1's, K4's and K10's SASS for
+   the IEEE division (K1 and K4: the division by Cp alone; no spills in
+   their float32 and bfloat16 templates); sweep the division helper of
    `cdiv.cuh` over every float32 numerator (and a float64 sample) against
    IEEE division for config 5's divisors and random ones;
 2. hold every kernel against its plain PyTorch version on the card, at the
-   main paths' shapes (steps K1/K4/K5 and the slab kernel K4s to TOL; halo
-   copies K2/K3/K6, K9 in float32, float64 and bfloat16, K10 and the
-   batched K4s wave and Stokes modes bitwise), and time
+   main paths' shapes (K5 and the slab kernel K4s to TOL; K1 and K4 in
+   float32, float64 and bfloat16, halo copies K2/K3/K6, K9 in float32,
+   float64 and bfloat16, K10 and the batched K4s wave and Stokes modes
+   bitwise), and time
    kernel, plain version and PyTorch library call (CUDA events), and each
    kernel's device time alone (torch.profiler);
 3. main path, periodic: `init_global_grid(256, 256, 256, periodic)` ->
    `init_diffusion3d` -> warm chunk -> tic -> `run_diffusion(nt=100)` -> toc
    -> `update_halo` -> `gather_interior`, against the same run with
-   ``IGG_USE_PALLAS=0`` (the plain path on the card);
+   ``IGG_USE_PALLAS=0`` (the plain path on the card); K1 on the run's own
+   states (at the start and after its steps);
 4. the same, non-periodic (the reference example's novis configuration);
 5. the virtual mesh: a 2x2x2 grid of 128^3 blocks (the fused step +
    exchange K4s/K4, the combined `update_halo` K4s/K6), bitwise and
    run-tolerance checks against the plain path, a 2x2x1 `update_halo` with
    z not exchanging and a 2-D `update_halo` with halowidth 2 (the per-dim
-   tier, K4s/K2), and a small run against the CPU;
+   tier, K4s/K2), and a small run against the CPU; K4 on the run's own
+   states;
 6. BASELINE config 3: 2x2x2 blocks of 256^3, periodic, float64, 20 steps,
-   against the plain path and against K1 + `update_halo` for one step;
+   against the plain path and against K1 + `update_halo` for one step; K4
+   on the run's own states;
 7. BASELINE config 2: a 2x2 mesh of 4096^2 blocks, periodic, float32, 100
    steps of the 2-D fused step (K4s/K5), against the plain path;
 8. BASELINE config 4 (3-D acoustic wave) on one 192^3 block, float32, all
@@ -241,8 +246,8 @@ def phase_kernels(igg_ops, counts_before):
         torch.cuda.synchronize()
         name = str(dt).replace("torch.", "")
         err = max_err(got, ref)
-        check(close(got, ref, **TOL[name]),
-              f"K1 {shape} {name} fuse={fuse} matches plain (max abs err {err:.3e})")
+        check(torch.equal(got, ref),
+              f"K1 {shape} {name} fuse={fuse} bitwise equal to plain (max abs err {err:.3e})")
         if k == 0:
             out = torch.empty_like(T)
             ms = median_ms(lambda: cs.diffusion3d_step_halo(
@@ -381,8 +386,9 @@ def name_of(dt):
 
 
 def check_k4(cs):
-    """K4 on every non-empty mode combination, f32/f64/bf16, 2x2x2 x 64^3;
-    then its timing row at 2x2x2 x 256^3 float32, modes (T,T,T)."""
+    """K4 on every non-empty mode combination, f32/f64/bf16, 2x2x2 x 64^3,
+    bitwise; then its timing row at 2x2x2 x 256^3 float32, modes (T,T,T),
+    and its float64 time at that shape (what config 3 runs)."""
     import itertools
 
     import torch
@@ -400,9 +406,9 @@ def check_k4(cs):
             ref = cs.diffusion3d_step_recv_plain(T, Cp, recvs, block=block, **CONSTS)
             torch.cuda.synchronize()
             e = max_err(got, ref)
-            err = max(err, e) if dt != torch.bfloat16 else err
-            check(close(got, ref, **TOL[name_of(dt)]),
-                  f"K4 2x2x2x{N_CHECK}^3 {name_of(dt)} modes={modes} matches plain "
+            err = max(err, e)
+            check(torch.equal(got, ref),
+                  f"K4 2x2x2x{N_CHECK}^3 {name_of(dt)} modes={modes} bitwise equal to plain "
                   f"(max abs err {e:.3e})")
     n = N_CFG3
     block = (n, n, n)
@@ -415,7 +421,7 @@ def check_k4(cs):
 
     ref = cs.diffusion3d_step_recv_plain(T, Cp, recvs, block=block, **CONSTS)
     e = max_err(k4(), ref)
-    check(close(out, ref, **TOL["float32"]), f"K4 2x2x2x{n}^3 float32 matches plain ({e:.3e})")
+    check(torch.equal(out, ref), f"K4 2x2x2x{n}^3 float32 bitwise equal to plain ({e:.3e})")
     del ref
     slab_b = sum(s.numel() for p in recvs.values() for s in p) * 4
     bound_b = (cs.step_bytes(T) + slab_b) / HBM_BYTES_PER_S * 1e3
@@ -423,13 +429,26 @@ def check_k4(cs):
     # K1 on the same stack without halos: what the delivery of received
     # slabs adds to the sweep
     k1_ms = median_ms(lambda: cs.diffusion3d_step(T, Cp, block=block, out=out, **CONSTS))
-    return dict(
+    row = dict(
         max_abs_err=max(err, e), ms=median_ms(k4), k1_same_shape_ms=k1_ms,
         plain_ms=median_ms(lambda: cs.diffusion3d_step_recv_plain(
             T, Cp, recvs, block=block, **CONSTS), batches=3, per_batch=2, warm=1),
         device_ms=device_ms(k4, KERNEL_NAMES["diffusion3d_step_exchange"]),
         bound_ms=max(bound_b, bound_o), bound_by="bytes" if bound_b >= bound_o else "operations",
         library_ms=None, shape=f"2x2x2 x {n}^3 float32, modes (T,T,T)")
+    del T, Cp, out, recvs
+    # float64 at the same shape: what config 3 runs
+    T, Cp = rand_state((2 * n,) * 3, torch.float64, 5)
+    recvs = rand_slabs(T.shape, block, (0, 1, 2), torch.float64, g)
+    out = torch.empty_like(T)
+    ref = cs.diffusion3d_step_recv_plain(T, Cp, recvs, block=block, **CONSTS)
+    e = max_err(k4(), ref)
+    check(torch.equal(out, ref), f"K4 2x2x2x{n}^3 float64 bitwise equal to plain ({e:.3e})")
+    del ref
+    slab_b = sum(s.numel() for p in recvs.values() for s in p) * 8
+    row.update(f64_device_ms=device_ms(k4, KERNEL_NAMES["diffusion3d_step_exchange"]),
+               f64_bound_ms=(cs.step_bytes(T) + slab_b) / HBM_BYTES_PER_S * 1e3)
+    return row
 
 
 def check_k5(cs):
@@ -629,7 +648,7 @@ def grid(tg, *args, plain=False, **kw):
     tg.init_global_grid(*args, quiet=True, **kw)
 
 
-def phase_main(tg, models, cb, label, nt, **kw):
+def phase_main(tg, models, cb, cs, label, nt, **kw):
     """Phases 3 and 4: the main path through the kernels, then the plain
     path on the card from the same state."""
     import torch
@@ -655,6 +674,10 @@ def phase_main(tg, models, cb, label, nt, **kw):
     check(counts["diffusion3d_step_halo"] == nt, f"{label}: K1 launched once per step")
     import numpy as np
 
+    gg = tg.global_grid()
+    k1_own = dict(start=k1_own_ms(cs, gg, T0, Cp, p), after=k1_own_ms(cs, gg, T, Cp, p))
+    print(f"  {label}: K1 device ms on the run's own states {k1_own}", flush=True)
+
     check(G.shape == (tg.nx_g(), tg.ny_g(), tg.nz_g()) and bool(np.isfinite(G).all()),
           f"{label}: gathered interior finite, shape {G.shape}")
     grid(tg, N_MAIN, N_MAIN, N_MAIN, plain=True, **kw)
@@ -669,7 +692,7 @@ def phase_main(tg, models, cb, label, nt, **kw):
     tg.finalize_global_grid()
     os.environ.pop("IGG_USE_PALLAS", None)
     return dict(seconds=t, cell_updates_per_s=rate, plain_seconds=plain_s,
-                launches=counts, max_abs_err_vs_plain=err)
+                launches=counts, max_abs_err_vs_plain=err, k1_own_state_ms=k1_own)
 
 
 def k1_route(tg, cs, p, loc):
@@ -677,6 +700,32 @@ def k1_route(tg, cs, p, loc):
     the port took on multi-block grids before the fused step + exchange."""
     c = dict(lam=p.lam, dt=p.dt, dx=p.dx, dy=p.dy, dz=p.dz)
     return lambda T, Cp: tg.update_halo(cs.diffusion3d_step(T, Cp, block=loc, **c))
+
+
+def k1_own_ms(cs, gg, T, Cp, p):
+    """Device ms of K1 on one state of a single-block run, with the fuse
+    flags the run's route takes."""
+    import torch
+
+    fuse = cs.fusable_halo_dims(gg) or (False, False, False)
+    out = torch.empty_like(T)
+    return device_ms(lambda: cs.diffusion3d_step_halo(
+        T, Cp, fuse=fuse, out=out, lam=p.lam, dt=p.dt, dx=p.dx, dy=p.dy, dz=p.dz),
+        KERNEL_NAMES["diffusion3d_step_halo"])
+
+
+def k4_own_ms(cs, gg, T, Cp, p):
+    """Device ms of K4 on one state of a multi-block run, delivering the
+    slabs the run's pipeline sends from that state."""
+    import torch
+
+    loc = tuple(int(s) // int(d) for s, d in zip(T.shape, gg.dims))
+    consts = dict(lam=p.lam, dt=p.dt, dx=p.dx, dy=p.dy, dz=p.dz)
+    recvs = cs._recv_slabs(T, Cp, gg, cs.step_exchange_modes(gg, loc), loc, consts)
+    out = torch.empty_like(T)
+    return device_ms(lambda: cs.diffusion3d_step_recv(T, Cp, recvs, block=loc, out=out,
+                                                      **consts),
+                     KERNEL_NAMES["diffusion3d_step_exchange"])
 
 
 def phase_mesh(tg, models, cb, cs):
@@ -702,6 +751,9 @@ def phase_mesh(tg, models, cb, cs):
     check(counts["exchange_slabs"] == 3 * 20 + 3, "2x2x2: K4s launched once per dim")
     check(counts["diffusion3d_step_halo"] == 0 and counts["halo_write"] == 0,
           "2x2x2: neither K1 nor K2 on the fused route")
+    gg = tg.global_grid()
+    k4_own = dict(start=k4_own_ms(cs, gg, T0, Cp, p), after=k4_own_ms(cs, gg, T, Cp, p))
+    print(f"  K4 device ms on the run's own states {k4_own}", flush=True)
     step, k1 = models.make_step(p), k1_route(tg, cs, p, (N_MESH,) * 3)
     times = route_times(lambda: step(T0, Cp))
     times_k1 = route_times(lambda: k1(T0, Cp))
@@ -748,7 +800,7 @@ def phase_mesh(tg, models, cb, cs):
           "16^3 float64: card kernel path matches the CPU plain path")
     tg.finalize_global_grid()
     return counts, dict(k4_route=times, k1_update_halo_route=times_k1,
-                        max_abs_err_vs_plain=err)
+                        max_abs_err_vs_plain=err, k4_own_state_ms=k4_own)
 
 
 def phase_config3(tg, models, cb, cs):
@@ -780,6 +832,9 @@ def phase_config3(tg, models, cb, cs):
     check(counts["exchange_slabs"] == 3 * nt + 3, "config 3: K4s launched once per dim")
     check(G.shape == (tg.nx_g(), tg.ny_g(), tg.nz_g()) and bool(np.isfinite(G).all()),
           f"config 3: gathered interior finite, shape {G.shape}")
+    gg = tg.global_grid()
+    k4_own = dict(start=k4_own_ms(cs, gg, T0, Cp, p), after=k4_own_ms(cs, gg, T_run, Cp, p))
+    print(f"  K4 device ms on the run's own states {k4_own}", flush=True)
     step, k1 = models.make_step(p), k1_route(tg, cs, p, (n, n, n))
     times = route_times(lambda: step(T0, Cp), reps=5)
     times_k1 = route_times(lambda: k1(T0, Cp), reps=5)
@@ -807,7 +862,8 @@ def phase_config3(tg, models, cb, cs):
     os.environ.pop("IGG_USE_PALLAS", None)
     return counts, dict(seconds=t, cell_updates_per_s=rate, global_cells=cells,
                         max_abs_err_vs_plain=err, max_abs_err_vs_k1_route=err_k1,
-                        k4_route=times, k1_update_halo_route=times_k1)
+                        k4_route=times, k1_update_halo_route=times_k1,
+                        k4_own_state_ms=k4_own)
 
 
 def phase_config2(tg, models, cb):
@@ -1877,25 +1933,26 @@ CDIV_DIVISORS = (10 / 127, 10 / 253, 3.0, 0.079)
 F64_SAMPLE = 1 << 26
 
 
-def k10_build_report(cb, info):
-    """Registers, stack frame and spills of every K10 template (ptxas), and
-    the IEEE division in its SASS (cuobjdump): the multi-rank kernels' own
-    code must hold no division sequence, only calls to cdiv.cuh's
-    out-of-line fallback. Returns {kernel: {...}}."""
-    import re
-
-    rep = ptxas_report(info.get("ptxas", ""), "stokes_step_kernel")
+def sass_text(cb, info):
+    """The SASS of the kernel library (cuobjdump -sass)."""
     cuobjdump = os.path.join(os.path.dirname(cb._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", info["path"]], capture_output=True, text=True,
                           timeout=300)
     check(sass.returncode == 0, "cuobjdump -sass read the kernel library")
-    # a kernel's listing ends with the subroutines it calls (cdiv.cuh's
-    # out-of-line IEEE division and its slow path): the kernel's own code
-    # lies below the lowest call target. FCHK is the float32 division's range
-    # check, MUFU.RCP64H the float64 division's reciprocal (an integer
-    # division takes MUFU.RCP, not these).
+    return sass.stdout
+
+
+def division_report(rep, sass):
+    """Add to each template of ``rep`` (a `ptxas_report`) the IEEE
+    divisions of its SASS: a kernel's listing ends with the subroutines it
+    calls (cdiv.cuh's out-of-line IEEE division and its slow path), so the
+    kernel's own code lies below the lowest call target. FCHK is the
+    float32 division's range check, MUFU.RCP64H the float64 division's
+    reciprocal (an integer division takes MUFU.RCP, not these)."""
+    import re
+
     listing, fn = {}, None
-    for line in sass.stdout.splitlines():
+    for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1) if m.group(1) in rep else None
@@ -1915,19 +1972,59 @@ def k10_build_report(cb, info):
             calls=sorted(hex(t) for t in set(targets)), kernel_instructions=len(own),
             division_checks=sum("FCHK" in i or "MUFU.RCP64H" in i for i in own),
             division_checks_in_subroutines=sum("FCHK" in i or "MUFU.RCP64H" in i for i in rest))
+    return rep
+
+
+def print_build_report(label, rep):
     for name, r in rep.items():
-        print(f"  K10 {name}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
+        print(f"  {label} {name}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
               f"frame, {r.get('spill_stores')}/{r.get('spill_loads')} bytes spill "
               f"stores/loads; SASS: {r.get('kernel_instructions')} instructions before the "
               f"first subroutine, {r.get('division_checks')} IEEE division checks there, "
               f"{r.get('division_checks_in_subroutines')} in the subroutines, calls "
               f"{r.get('calls')}", flush=True)
+
+
+def k10_build_report(info, sass):
+    """Registers, stack frame and spills of every K10 template (ptxas), and
+    the IEEE division in its SASS: the multi-rank kernels' own code must
+    hold no division sequence, only calls to cdiv.cuh's out-of-line
+    fallback. Returns {kernel: {...}}."""
+    rep = division_report(ptxas_report(info.get("ptxas", ""), "stokes_step_kernel"), sass)
+    print_build_report("K10", rep)
     # the multi-rank route's templates: the tiles and the per-column kernel
     # with SELF false (mangled "Lb0E")
     multi = {n: r for n, r in rep.items() if "column" not in n or "Lb0E" in n}
     check(len(multi) == 4 and all(r.get("division_checks") == 0 for r in multi.values()),
           "K10 multi-rank kernels (tiles and per-column, float32 and float64): no IEEE "
           "division in the kernels' own SASS (only in cdiv.cuh's out-of-line fallback)")
+    return rep
+
+
+# planes in the unrolled loop of K1 and K4 (SLOTS in csrc/stencil.cu)
+STEP_UNROLL = 4
+
+
+def step_build_report(info, sass):
+    """Registers, stack frame and spills of every K1 and K4 template
+    (ptxas), and their IEEE divisions (SASS): each template's own code
+    divides the IEEE way once a plane of its unrolled loop, by the field
+    Cp (the spacings divide through cdiv.cuh, whose fallback is out of
+    line); no float32 or bfloat16 template spills. Returns {kernel: {...}}."""
+    rep = {}
+    for kernel in (KERNEL_NAMES["diffusion3d_step_halo"],
+                   KERNEL_NAMES["diffusion3d_step_exchange"]):
+        rep.update(ptxas_report(info.get("ptxas", ""), kernel))
+    division_report(rep, sass)
+    print_build_report("K1/K4", rep)
+    check(len(rep) == 6 and all(r.get("division_checks") == STEP_UNROLL for r in rep.values()),
+          f"K1 and K4 (float32, float64, bfloat16): {STEP_UNROLL} IEEE divisions in each "
+          f"template's own SASS, the division by Cp of each plane of its unrolled loop")
+    # the mangled template arguments of float64: "IddE"
+    narrow = [r for n, r in rep.items() if "IddE" not in n]
+    check(len(narrow) == 4 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                                   for r in narrow),
+          "K1 and K4 float32 and bfloat16 templates: no spills")
     return rep
 
 
@@ -2060,14 +2157,16 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill")) \
                     or line.startswith("=="):
                 print("  " + line.strip())
-        k10_build = k10_build_report(cb, info)
+        sass = sass_text(cb, info)
+        k10_build = k10_build_report(info, sass)
+        step_build = step_build_report(info, sass)
         k9_build = k9_build_report(info)
         cdiv = phase_cdiv(cb)
         print("phase: kernels vs plain", flush=True)
         rows = phase_kernels((cs, ch, cb, cw, cst, tg), cb.launch_counts())
-        periodic = phase_main(tg, models, cb, "periodic", 100,
+        periodic = phase_main(tg, models, cb, cs, "periodic", 100,
                               periodx=1, periody=1, periodz=1)
-        novis = phase_main(tg, models, cb, "non-periodic", 100)
+        novis = phase_main(tg, models, cb, cs, "non-periodic", 100)
         mesh_counts, mesh = phase_mesh(tg, models, cb, cs)
         cfg3_counts, cfg3 = phase_config3(tg, models, cb, cs)
         cfg2_counts, cfg2 = phase_config2(tg, models, cb)
@@ -2110,6 +2209,13 @@ def main() -> int:
            "stokes_step_exchange": ("implicitglobalgrid_tpu_torch/csrc/stokes.cu",
                                     "implicitglobalgrid_tpu/ops/pallas_stokes.py:132,286")}
     rows["stokes_step_exchange"]["ptxas_sass"] = k10_build
+    for name in ("diffusion3d_step_halo", "diffusion3d_step_exchange"):
+        rows[name]["ptxas_sass"] = {k: v for k, v in step_build.items()
+                                    if KERNEL_NAMES[name] in k}
+    rows["diffusion3d_step_halo"]["own_state_device_ms"] = {
+        "periodic_256": periodic["k1_own_state_ms"], "nonperiodic_256": novis["k1_own_state_ms"]}
+    rows["diffusion3d_step_exchange"]["own_state_device_ms"] = {
+        "mesh_128_f32": mesh["k4_own_state_ms"], "config3_256_f64": cfg3["k4_own_state_ms"]}
     rows["acoustic_step_exchange"]["ptxas"] = k9_build
     rows["acoustic_step_exchange"]["k9_kernels_ms"] = {
         "single_block": cfg4["k9_kernels_ms"], "mesh": cfg4m["k9_kernels_ms"]}
@@ -2133,7 +2239,8 @@ def main() -> int:
                                         "k9_kernels_ms", "ptxas",
                                         "self_route", "single_block", "zeros_device_ms",
                                         "subnormal_device_ms", "solver_device_ms",
-                                        "kernels_device_ms",
+                                        "kernels_device_ms", "own_state_device_ms",
+                                        "f64_device_ms", "f64_bound_ms",
                                         "ptxas_sass")}))
     k1_dev = rows["diffusion3d_step_halo"]["device_ms"]
     if k1_dev is not None:  # the periodic step is one K1 (T,T,T) launch

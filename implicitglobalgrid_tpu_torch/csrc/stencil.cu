@@ -1,8 +1,11 @@
 // The diffusion kernels: K1 (step + folded self-neighbour halos), K4 (3-D
 // step + delivery of received slabs), K5 (2-D step + delivery) and K4s (the
-// send slabs of the exchange pipeline). All four evaluate a cell through the
-// one device function `step_cell`, so a halo value that K4s computes for a
-// neighbour is bit for bit the value K1 computes in place.
+// send slabs of the exchange pipeline). Every cell update rounds as the one
+// expression of `step_cell`: a face flux nlam * (b - a) / d, the difference
+// of a cell's two faces over d, accumulated x, y, z, then tc + dt * (acc /
+// Cp). K1 and K4 divide by the spacings through cdiv.cuh, which is the IEEE
+// quotient bit for bit, so a halo value that K4s computes for a neighbour is
+// bit for bit the value K1 or K4 computes in place.
 //
 // K1 replaces `_plane_halo_kernel` (diffusion3d_step_halo_pallas /
 // diffusion3d_step_pallas, implicitglobalgrid_tpu/ops/pallas_stencil.py:72)
@@ -13,22 +16,21 @@
 // 0 reads n-2 and n-1 reads 1 (`_sigma`, pallas_stencil.py:122). Composing the
 // index maps reproduces the sequential z, x, y exchange, corners included
 // (pallas_stencil.py:93-95,113-118). The interior mask is taken at the SOURCE
-// index (pallas_stencil.py:110-112).
+// index (pallas_stencil.py:110-112). Here each source cell is computed once
+// and written to every output cell that reads it (`mirror_mask`).
 //
 // K4 replaces `_plane_step_recv_kernel` / `_mp_step_recv_kernel`
 // (diffusion3d_step_exchange_pallas, pallas_stencil.py:278,314,366): K1's
 // unfused value, overwritten by the received slabs in the reference's z, x, y
 // write order read as a per-cell rule (pallas_stencil.py:302-311): a y-halo
 // row takes ry, else an x-halo plane takes rx, else a z-halo lane takes rz.
-// A cell that takes a received value does no stencil work.
 //
 // K5 replaces `_strip2d_kernel` (diffusion2d_step_exchange_pallas,
 // pallas_stencil.py:999,1104): the 2-D step in `_stencil_row`'s order
 // (pallas_stencil.py:593-598), then x rows, then y lanes (:1094-1101). A 2-D
-// field (S0, S1) runs as the 3-D sweep over (S0, 1, S1): the y derivative
-// sits in the z slot, on the contiguous axis, and the y rows of the 3-D rule
-// do not exist. The R-row strips and H-row tiles of the TPU kernel are VMEM
-// tiling and have no counterpart here.
+// field (S0, S1) runs as (S0, 1, S1): the y derivative sits in the z slot,
+// on the contiguous axis. The R-row strips and H-row tiles of the TPU kernel
+// are VMEM tiling and have no counterpart here.
 //
 // K4s `exchange_slabs` computes, for one exchanging dim, the RECEIVED slabs of
 // every block in one launch: the send slab of the neighbour block (an update
@@ -48,20 +50,41 @@
 // getters `_pn_get_slab` / `_v_get_slab` (pallas_stokes.py:87,102), through
 // the per-cell functions of stokes.cuh in their getter form.
 //
-// Arithmetic: `_stencil_plane` / `_stencil_row` accumulation order with real
-// divisions; built with -fmad=false so that no multiply-add is contracted and
-// the result stays at ulp distance from the plain version. bfloat16 states
-// are computed in float with float constants.
+// Arithmetic: `_stencil_plane` / `_stencil_row` accumulation order; built
+// with -fmad=false so that no multiply-add is contracted and every operation
+// rounds as the plain version's does. bfloat16 states are computed in float
+// with float constants.
 //
 // Bound on an H100 SXM (3.35 TB/s): K1, K4 and K5 read T and Cp and write
 // the new state, 3 x itemsize bytes a cell (1.61 GB and 0.48 ms for a 512^3
-// float32 stack); ~30 flops a cell is far below the ridge point, so they are
-// bound by bytes. Design: threads run along the contiguous axis (coalesced),
-// each thread walks XCHUNK planes along x keeping the x-neighbours in
-// registers, so T is read about once; the in-plane neighbours are re-read by
-// adjacent threads and hit in L1/L2. Splitting x into chunks keeps enough
-// threads in flight. K4s moves slab bytes only (a few MB) and is bound by its
-// launch. Offsets are 64-bit: stacked fields exceed 2^31 cells.
+// float32 stack); ~30 operations a cell is far below the ridge point, so they
+// are bound by bytes.
+//
+// Design of K1 and K4 (`step_tile`): a thread block is a tile of TZ = 32
+// lanes along z (one warp) by R rows along y of one block (8 rows, 4 for
+// float64), walking a chunk of TCHUNK = 32 planes along x, one thread a
+// column. The tile's T plane with the row and lane around it, and its Cp
+// plane, are staged in shared memory by cp.async two planes ahead of the
+// plane being updated (a plain copy for bfloat16, whose 2 bytes cp.async
+// does not take), so the loads are in flight while earlier planes compute,
+// and every T value is read from device memory once. Each face flux is
+// computed once a plane by one thread: the x face along the walk, carried
+// in a register; the y and z faces beyond a cell by its thread, read by the
+// next row and lane through shared memory; the faces that enter the tile
+// (below row 0, before lane 0) by rows 0 and 1. So a cell takes six
+// quotients by the spacings and the IEEE division by Cp, against nine IEEE
+// divisions. The spacings divide through cdiv.cuh's corrected products,
+// branch-free, again with every fallback only where a numerator left the
+// window (`retry_passes`). One barrier a plane: the faces of plane i+1 are
+// computed after plane i's update, into the other of two face buffers. The
+// loop is unrolled by the four slots of the staged planes, so every slot is
+// a constant. Output cells that take a halo value are not written by the
+// main loop: K1 writes each computed source cell also to the fused halo
+// cells that read it (out of line where that is another plane or row); K4
+// delivers the received values of its column after the walk. 32-bit
+// in-block indices, 64-bit offsets. PERF.md has the designs measured on
+// the way (per-thread strips in registers, deeper staging, out-of-line
+// retries).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -71,22 +94,37 @@
 
 namespace {
 
-constexpr int XCHUNK = 16;   // output planes per thread
 constexpr int THREADS = 256;
-constexpr int BZ = 32;       // 3-D thread block: 32 along z, 8 along y
-constexpr int BY = 8;
 
-template <typename C> struct Consts { C nlam, dt, dx, dy, dz; };
+// -lam, dt and the spacings as cdiv.cuh divisors (`b` is the spacing).
+template <typename C> struct Consts {
+  C nlam, dt;
+  CDiv<C> dx, dy, dz;
+};
 
 template <typename C>
 Consts<C> make_consts(double lam, double dt, double dx, double dy, double dz) {
-  return Consts<C>{-(C)lam, (C)dt, (C)dx, (C)dy, (C)dz};
+  return Consts<C>{-(C)lam, (C)dt, make_cdiv((C)dx), make_cdiv((C)dy), make_cdiv((C)dz)};
 }
 
-// Flux through the x face between a and its right neighbour b.
+// The IEEE division by a spacing (K5 and the K4s step modes).
+struct IEEEDiv {
+  template <typename C>
+  __device__ __forceinline__ C operator()(C a, const CDiv<C>& d) const {
+    return a / d.b;
+  }
+};
+
+// Flux through the face between a and its neighbour b beyond it, along the
+// dim of spacing d.
+template <typename C, typename Div>
+__device__ __forceinline__ C face_flux(C a, C b, C nlam, const CDiv<C>& d, Div&& dv) {
+  return dv(nlam * (b - a), d);
+}
+
 template <typename C>
 __device__ __forceinline__ C xflux(C a, C b, const Consts<C>& k) {
-  return k.nlam * (b - a) / k.dx;
+  return face_flux(a, b, k.nlam, k.dx, IEEEDiv());
 }
 
 // The new value of one interior cell. qxl is the flux through its left x
@@ -96,22 +134,18 @@ __device__ __forceinline__ C xflux(C a, C b, const Consts<C>& k) {
 template <typename C, bool HAS_Y>
 __device__ __forceinline__ C step_cell(C qxl, C tc, C tp, C ym, C yp, C zm, C zp, C cp,
                                        const Consts<C>& k, C& qxr) {
+  const IEEEDiv dv;
   qxr = xflux(tc, tp, k);
-  C acc = -((qxr - qxl) / k.dx);
+  C acc = -dv(qxr - qxl, k.dx);
   if (HAS_Y) {
-    const C qyr = k.nlam * (yp - tc) / k.dy;
-    const C qyl = k.nlam * (tc - ym) / k.dy;
-    acc = acc - (qyr - qyl) / k.dy;
+    const C qyr = face_flux(tc, yp, k.nlam, k.dy, dv);
+    const C qyl = face_flux(ym, tc, k.nlam, k.dy, dv);
+    acc = acc - dv(qyr - qyl, k.dy);
   }
-  const C qzr = k.nlam * (zp - tc) / k.dz;
-  const C qzl = k.nlam * (tc - zm) / k.dz;
-  acc = acc - (qzr - qzl) / k.dz;
+  const C qzr = face_flux(tc, zp, k.nlam, k.dz, dv);
+  const C qzl = face_flux(zm, tc, k.nlam, k.dz, dv);
+  acc = acc - dv(qzr - qzl, k.dz);
   return tc + k.dt * (acc / cp);
-}
-
-__device__ __forceinline__ unsigned src_index(unsigned i, unsigned n, int fuse) {
-  if (!fuse) return i;
-  return i == 0 ? n - 2 : (i == n - 1 ? 1 : i);
 }
 
 // Received slabs of K4/K5 in K2's slab layout: the stacked shape with the
@@ -121,174 +155,423 @@ template <typename S> struct Recv {
   unsigned D1, D2;  // blocks along y and z
 };
 
-// One thread: output column (J, K) of a block, planes [i_lo, i_hi) along x.
-// Per-thread indices are 32-bit (the entry points check the extents) and
-// offsets 64-bit: 64-bit indices cost registers, and so occupancy.
-template <typename S, typename C, bool HAS_Y, bool RECV>
-__device__ __forceinline__ void sweep(const S* __restrict__ T, const S* __restrict__ Cp,
-                                      S* __restrict__ out, unsigned S1, unsigned S2,
-                                      unsigned n0, unsigned n1, unsigned n2,
-                                      const Consts<C>& kc, int fuse_x, int fuse_y,
-                                      int fuse_z, unsigned nchunk, const Recv<S>& r) {
+// ---------------------------------------------------------------------------
+// K1 and K4: the tiled 3-D step.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned TZ = 32;  // lanes of a tile: one warp along z
+// Rows of a tile: 8 for 4- and 2-byte states, 4 for float64 (tiles of 8
+// rows at 80 registers ran K4 slower, PERF.md).
+template <typename S> constexpr unsigned tile_rows = sizeof(S) == 8 ? 4 : 8;
+constexpr unsigned TCHUNK = 32;  // x planes a tile walks
+constexpr unsigned AHEAD = 2;    // planes staged ahead (cp.async groups in flight)
+// Slots of staged planes, a power of two dividing TCHUNK, so that plane i
+// of a chunk sits in slot i % SLOTS, a constant of the unrolled loop: T of
+// planes i+1..i+AHEAD+2 (the faces of plane i+1 read T[i+1] and T[i+2]; T[i]
+// is carried in registers), Cp of planes i..i+AHEAD+1.
+constexpr unsigned SLOTS = AHEAD + 2;
+static_assert((SLOTS & (SLOTS - 1)) == 0 && TCHUNK % SLOTS == 0, "slots of the unrolled loop");
+
+// A tile's shared memory: T of plane p in slot p % SLOTS at [row + 1][lane
+// + 1] (rows -1..R, lanes -1..TZ), Cp of plane p in slot p % SLOTS, and
+// plane p's faces in buffer p % 2: the y face below each row, and the z
+// face before lane 0 ([row][0]) and beyond each lane ([row][lane + 1]).
+template <typename S, typename C, unsigned R>
+struct StepTile {
+  S t[SLOTS][R + 2][TZ + 2];
+  S cp[SLOTS][R][TZ];
+  C qy[2][R][TZ];
+  C qz[2][R][TZ + 1];
+};
+
+// The stacked extents S1, S2, the block (n0, n1, n2), the blocks D1, D2
+// along y and z, a block's tiles along y and z and its x chunks.
+struct StepGeom {
+  unsigned S1, S2, n0, n1, n2, D1, D2, nty, ntz, nchunk;
+};
+
+// The output indices along a dim of n that read source index a, as a mask:
+// bit 0 a itself, bit 1 index 0 (a = n-2), bit 2 index n-1 (a = 1). Without
+// the fused halo update only a itself; with it, the halo indices 0 and n-1
+// read n-2 and 1, and nothing reads them.
+__device__ __forceinline__ unsigned mirror_mask(unsigned a, unsigned n, bool fused) {
+  if (!fused) return 1u;
+  return (a != 0 && a != n - 1 ? 1u : 0u) | (a == n - 2 ? 2u : 0u) | (a == 1 ? 4u : 0u);
+}
+
+__device__ __forceinline__ unsigned mirror_index(unsigned bit, unsigned a, unsigned n) {
+  return bit == 0 ? a : (bit == 1 ? 0u : n - 1);
+}
+
+// Value v of source cell (i, j, k) into every output cell of the block at
+// Ob that reads it in another plane or row (K1's fused halos; the caller
+// writes those in plane i and row j). Out of line: only the cells next to a
+// fused halo plane or row call it, and inlined it slowed K1 (PERF.md).
+template <typename S>
+__device__ __noinline__ void mirror_writes(S* Ob, long long plane, long long S2, unsigned i,
+                                           unsigned j, unsigned k, unsigned n0, unsigned n1,
+                                           unsigned n2, unsigned mx, unsigned my, unsigned mz,
+                                           S v) {
+  for (unsigned a = 0; a < 3; ++a) {
+    if (!(mx >> a & 1u)) continue;
+    const long long ox = (long long)mirror_index(a, i, n0) * plane;
+    for (unsigned b = 0; b < 3; ++b) {
+      if (!(my >> b & 1u)) continue;
+      const long long oy = ox + (long long)mirror_index(b, j, n1) * S2;
+      for (unsigned c = 0; c < 3; ++c)
+        if ((mz >> c & 1u) && (a | b)) Ob[oy + mirror_index(c, k, n2)] = v;
+    }
+  }
+}
+
+// Thread (lane, row) of a tile: column (j0 + row, k0 + lane) of block (c0,
+// c1, c2), x planes [i_lo, i_hi). Blocks: x walks (block row c1, y tile,
+// block lane c2, z tile), y (block plane c0, x chunk). hx, hy, hz: the dims
+// whose halo cells take another value (K1: the fused dims; K4: the dims that
+// receive slabs). Between barrier i and barrier i+1 a thread starts to stage
+// plane i+AHEAD+2's T and i+AHEAD+1's Cp into the slots plane i's left,
+// updates plane i, then computes plane i+1's faces: the x and y faces beyond
+// its cell and the z face beyond it; row 0 also the y face below it, and
+// row 1's lanes 0..R-1 the z face before lane 0 of each row. Values read
+// past the block's last row or lane (clamped) feed only cells off the
+// interior, or outside the block, which are not taken.
+template <typename S, typename C, unsigned R, bool RECV>
+__device__ __forceinline__ void step_tile(StepTile<S, C, R>& t, const S* __restrict__ T,
+                                          const S* __restrict__ Cp, S* __restrict__ out,
+                                          const StepGeom& g, const Consts<C>& kc, bool hx,
+                                          bool hy, bool hz, const Recv<S>& r) {
+  constexpr unsigned TILE = TZ * R, NT = (R + 2) * (TZ + 2);  // NT: T's staged tile
+  const unsigned lane = threadIdx.x, row = threadIdx.y, tid = row * TZ + lane;
+  const unsigned zt = blockIdx.x % (g.D2 * g.ntz), yt = blockIdx.x / (g.D2 * g.ntz);
+  const unsigned c2 = zt / g.ntz, k0 = (zt - c2 * g.ntz) * TZ;
+  const unsigned c1 = yt / g.nty, j0 = (yt - c1 * g.nty) * R;
+  const unsigned c0 = blockIdx.y / g.nchunk, i_lo = (blockIdx.y - c0 * g.nchunk) * TCHUNK;
+  const unsigned n0 = g.n0, n1 = g.n1, n2 = g.n2;
+  const unsigned i_hi = min(n0, i_lo + TCHUNK);
+  const unsigned j = j0 + row, k = k0 + lane;
+  const bool own = j < n1 && k < n2;
+  const long long S2 = g.S2, plane = (long long)g.S1 * S2;
+  const long long origin = (long long)c0 * n0 * plane + (long long)c1 * n1 * S2 + c2 * n2;
+  // what the thread stages (clamped into the block), advanced a plane at a
+  // time: T's tile elements tid and e1 (if any) of the next T plane, and its
+  // own column's Cp of the next Cp plane
+  const auto at = [&](unsigned e) {
+    return (long long)clamp_to((int)(j0 + e / (TZ + 2)) - 1, n1) * S2 +
+           clamp_to((int)(k0 + e % (TZ + 2)) - 1, n2);
+  };
+  const unsigned e1 = tid + TILE;
+  const long long sc = (long long)clamp_to((int)j, n1) * S2 + clamp_to((int)k, n2);
+  const long long first = origin + (long long)i_lo * plane;
+  const S* ta = T + first + at(tid);
+  const S* tb = T + first + (e1 < NT ? at(e1) : 0);
+  const S* cq = Cp + first + sc;
+  S* po = out + first + (long long)j * S2 + k;  // the thread's output cell of plane i
+  unsigned tp = i_lo;  // the T plane at ta, tb
+  const auto stage_t = [&](unsigned slot) {  // the next T plane, clamped into the block
+    S* dst = &t.t[slot][0][0];
+    stage1(dst + tid, ta);
+    if (e1 < NT) stage1(dst + e1, tb);
+    if (++tp < n0) {
+      ta += plane;
+      tb += plane;
+    }
+  };
+  const auto stage_c = [&](unsigned slot) {  // the next Cp plane
+    stage1(&t.cp[slot][0][0] + tid, cq);
+    cq += plane;
+  };
+
+  // T at the cell of plane i and i+1; plane i's faces beyond the cell, and
+  // its x face before it (the y and z faces before it are in the buffers)
+  const S tm = i_lo > 0 ? T[first - plane + sc] : S();
+  stage_t(0);
+  for (unsigned d = 0; d <= AHEAD; ++d) {
+    if (i_lo + d < i_hi) {
+      stage_t(d + 1);
+      stage_c(d);
+    }
+    __pipeline_commit();
+  }
+  __pipeline_wait_prior(AHEAD);
+  __syncthreads();  // plane i_lo's T and Cp, plane i_lo+1's T staged
+  S tc = t.t[0][row + 1][lane + 1];
+  S tn = t.t[1][row + 1][lane + 1];
+  C qxl, qxr, qyr, qzr;
+  {
+    const C c = to_c(tc), m = i_lo > 0 ? to_c(tm) : c;
+    retry_passes([&](auto&& dv) { qxl = face_flux(m, c, kc.nlam, kc.dx, dv); });
+  }
+  // plane p's faces (T[p] in slot s, its centre tc, and T[p+1]'s tn), into
+  // the face buffers of p
+  const auto faces = [&](unsigned p, unsigned s) {
+    const C c = to_c(tc), n = to_c(tn);
+    const C yp = to_c(t.t[s][row + 2][lane + 1]), zp = to_c(t.t[s][row + 1][lane + 2]);
+    const bool below = row == 0, before = row == 1 && lane < R;
+    const C ym = below ? to_c(t.t[s][0][lane + 1]) : C(0);
+    const C z0 = before ? to_c(t.t[s][lane + 1][0]) : C(0);
+    const C z1 = before ? to_c(t.t[s][lane + 1][1]) : C(0);
+    C qyl = C(0), qz0 = C(0);
+    retry_passes([&](auto&& dv) {
+      qxr = face_flux(c, n, kc.nlam, kc.dx, dv);
+      qyr = face_flux(c, yp, kc.nlam, kc.dy, dv);
+      qzr = face_flux(c, zp, kc.nlam, kc.dz, dv);
+      if (below) qyl = face_flux(ym, c, kc.nlam, kc.dy, dv);
+      if (before) qz0 = face_flux(z0, z1, kc.nlam, kc.dz, dv);
+    });
+    const unsigned b = p & 1;
+    if (below) t.qy[b][0][lane] = qyl;
+    if (row + 1 < R) t.qy[b][row + 1][lane] = qyr;
+    if (before) t.qz[b][lane][0] = qz0;
+    t.qz[b][row][lane + 1] = qzr;
+  };
+  faces(i_lo, 0);
+
+  const bool in_yz = j > 0 && j + 1 < n1 && k > 0 && k + 1 < n2;
+  // K1: the column's output cells along y and z (mirror_mask): in row j
+  // (the cell itself, z index 0, z index n2-1), and whether any lies in
+  // another row or could in another plane; K4: whether the column takes a
+  // received value
+  const unsigned my = mirror_mask(j, n1, hy), mz = mirror_mask(k, n2, hz);
+  const bool in_row = my & 1u, z_self = in_row && (mz & 1u), z_lo = in_row && (mz & 2u),
+             z_hi = in_row && (mz & 4u);
+  const bool col_out = my && mz, col_rows = col_out && (my & 6u);
+  const bool col_recv = (hy && (j == 0 || j == n1 - 1)) || (hz && (k == 0 || k == n2 - 1));
+  // plane i, in slot u = i % SLOTS
+  const auto step = [&](unsigned i, unsigned u) {
+    __pipeline_wait_prior(AHEAD - 1);
+    __syncthreads();  // plane i's faces written; plane i+1's T staged; plane i-1 read
+    if (i + AHEAD + 1 < i_hi) {
+      stage_t((u + AHEAD + 2) % SLOTS);
+      stage_c((u + AHEAD + 1) % SLOTS);
+    }
+    __pipeline_commit();
+    const C qyl = t.qy[i & 1][row][lane], qzl = t.qz[i & 1][row][lane];
+    const C cp = to_c(t.cp[u][row][lane]);
+    C acc;
+    retry_passes([&](auto&& dv) {
+      acc = -dv(qxr - qxl, kc.dx);
+      acc = acc - dv(qyr - qyl, kc.dy);
+      acc = acc - dv(qzr - qzl, kc.dz);
+    });
+    const bool x_halo = hx && (i == 0 || i == n0 - 1);
+    if (own) {
+      const bool interior = in_yz && i > 0 && i + 1 < n0;
+      const S v = interior ? from_c<S, C>(to_c(tc) + kc.dt * (acc / cp)) : tc;
+      if (RECV) {
+        if (!(col_recv || x_halo)) *po = v;
+      } else if (!x_halo) {
+        // in plane i and row j: the cell and its z mirrors
+        if (z_self) *po = v;
+        if (z_lo) po[-(long long)k] = v;
+        if (z_hi) po[n2 - 1 - k] = v;
+        if (col_rows || (col_out && hx && (i == 1 || i == n0 - 2)))  // other planes or rows
+          mirror_writes(out + origin, plane, S2, i, j, k, n0, n1, n2, mirror_mask(i, n0, hx),
+                        my, mz, v);
+      }
+    }
+    po += plane;
+    if (i + 1 < i_hi) {
+      tc = tn;
+      tn = t.t[(u + 2) % SLOTS][row + 1][lane + 1];
+      qxl = qxr;
+      faces(i + 1, (u + 1) % SLOTS);
+    }
+  };
+  for (unsigned i = i_lo; i < i_hi; i += SLOTS) {
+#pragma unroll
+    for (unsigned u = 0; u < SLOTS; ++u)
+      if (i + u < i_hi) step(i + u, u);
+  }
+  if (RECV && own) {
+    // the received cells of the column, in the 3-D rule: y over x over z
+    const bool yc = hy && (j == 0 || j == n1 - 1), zc = hz && (k == 0 || k == n2 - 1);
+    const long long J = (long long)c1 * n1 + j, K = (long long)c2 * n2 + k;
+    const long long oc = origin + (long long)j * S2 + k;
+    const auto deliver = [&](unsigned i) {
+      const long long I = (long long)c0 * n0 + i;
+      S v;
+      if (yc)
+        v = (j == 0 ? r.yl : r.yr)[(I * r.D1 + c1) * S2 + K];
+      else if (hx && (i == 0 || i == n0 - 1))
+        v = (i == 0 ? r.xl : r.xr)[c0 * plane + J * S2 + K];
+      else if (zc)
+        v = (k == 0 ? r.zl : r.zr)[(I * g.S1 + J) * r.D2 + c2];
+      else
+        return;
+      out[oc + (long long)i * plane] = v;
+    };
+    if (yc || zc) {
+      for (unsigned i = i_lo; i < i_hi; ++i) deliver(i);
+    } else if (hx) {
+      if (i_lo == 0) deliver(0);
+      if (i_hi == n0) deliver(n0 - 1);
+    }
+  }
+}
+
+// Thread blocks an SM must hold at once, which bounds registers to 64: 4
+// tiles of 256 threads for 4- and 2-byte states, 8 of 128 for float64.
+template <typename S> constexpr int step_min_blocks() { return sizeof(S) == 8 ? 8 : 4; }
+
+template <typename S, typename C>
+__global__ void __launch_bounds__(TZ * tile_rows<S>, step_min_blocks<S>())
+diffusion3d_step_halo_kernel(const S* __restrict__ T, const S* __restrict__ Cp,
+                             S* __restrict__ out, const __grid_constant__ StepGeom g,
+                             const __grid_constant__ Consts<C> kc, int fuse_x, int fuse_y,
+                             int fuse_z) {
+  __shared__ StepTile<S, C, tile_rows<S>> t;
+  step_tile<S, C, tile_rows<S>, false>(t, T, Cp, out, g, kc, fuse_x, fuse_y, fuse_z,
+                                       Recv<S>{});
+}
+
+template <typename S, typename C>
+__global__ void __launch_bounds__(TZ * tile_rows<S>, step_min_blocks<S>())
+diffusion3d_step_exchange_kernel(const S* __restrict__ T, const S* __restrict__ Cp,
+                                 S* __restrict__ out, const __grid_constant__ StepGeom g,
+                                 const __grid_constant__ Consts<C> kc,
+                                 const __grid_constant__ Recv<S> r) {
+  __shared__ StepTile<S, C, tile_rows<S>> t;
+  step_tile<S, C, tile_rows<S>, true>(t, T, Cp, out, g, kc, r.xl != nullptr,
+                                      r.yl != nullptr, r.zl != nullptr, r);
+}
+
+// The geometry of a tiled sweep of a state of S, or false where its
+// extents leave 32-bit indices or its grid the launch limits.
+template <typename S>
+bool step_geom(long long S0, long long S1, long long S2, long long n0, long long n1,
+               long long n2, StepGeom& g, dim3& grid) {
+  const long long lim = 1LL << 31, rows = tile_rows<S>;
+  if (n0 < 1 || n1 < 1 || n2 < 1 || S0 >= lim || S1 >= lim || S2 >= lim) return false;
+  const long long nty = (n1 + rows - 1) / rows, ntz = (n2 + TZ - 1) / TZ;
+  const long long nchunk = (n0 + TCHUNK - 1) / TCHUNK;
+  const long long tiles = (S1 / n1) * nty * (S2 / n2) * ntz;
+  if (tiles >= lim || (S0 / n0) * nchunk > 65535) return false;
+  g = StepGeom{(unsigned)S1, (unsigned)S2, (unsigned)n0, (unsigned)n1, (unsigned)n2,
+               (unsigned)(S1 / n1), (unsigned)(S2 / n2), (unsigned)nty, (unsigned)ntz,
+               (unsigned)nchunk};
+  grid = dim3((unsigned)tiles, (unsigned)((S0 / n0) * nchunk));
+  return true;
+}
+
+template <typename S, typename C>
+int step_halo(const void* T, const void* Cp, void* out, long long S0, long long S1, long long S2,
+              long long n0, long long n1, long long n2, Consts<C> kc, int fx, int fy, int fz,
+              cudaStream_t st) {
+  StepGeom g;
+  dim3 grid;
+  if (!step_geom<S>(S0, S1, S2, n0, n1, n2, g, grid)) return (int)cudaErrorInvalidValue;
+  diffusion3d_step_halo_kernel<S, C><<<grid, dim3(TZ, tile_rows<S>), 0, st>>>(
+      static_cast<const S*>(T), static_cast<const S*>(Cp), static_cast<S*>(out), g, kc, fx,
+      fy, fz);
+  return (int)cudaGetLastError();
+}
+
+template <typename S, typename C>
+int step_exchange3d(const void* T, const void* Cp, void* out, long long S0, long long S1,
+                    long long S2, long long n0, long long n1, long long n2, Consts<C> kc,
+                    Recv<S> r, cudaStream_t st) {
+  StepGeom g;
+  dim3 grid;
+  if (!step_geom<S>(S0, S1, S2, n0, n1, n2, g, grid)) return (int)cudaErrorInvalidValue;
+  diffusion3d_step_exchange_kernel<S, C><<<grid, dim3(TZ, tile_rows<S>), 0, st>>>(
+      static_cast<const S*>(T), static_cast<const S*>(Cp), static_cast<S*>(out), g, kc, r);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K5: the 2-D step.
+// ---------------------------------------------------------------------------
+
+constexpr int XCHUNK = 16;  // output planes per thread
+
+// One thread: output column K of a 2-D field laid out as (S0, 1, S2), planes
+// [i_lo, i_hi) of its block along x, keeping the x-neighbours in registers
+// (T is read about once; the z-neighbours are re-read by adjacent threads and
+// hit in L1). Per-thread indices are 32-bit (the entry point checks the
+// extents) and offsets 64-bit: 64-bit indices cost registers, and so
+// occupancy.
+template <typename S, typename C>
+__device__ __forceinline__ void sweep2d(const S* __restrict__ T, const S* __restrict__ Cp,
+                                        S* __restrict__ out, unsigned S2, unsigned n0,
+                                        unsigned n2, const Consts<C>& kc, unsigned nchunk,
+                                        const Recv<S>& r) {
   const unsigned K = blockIdx.x * blockDim.x + threadIdx.x;
-  const unsigned J = blockIdx.y * blockDim.y + threadIdx.y;
-  if (K >= S2 || J >= S1) return;
+  if (K >= S2) return;
   const unsigned c0 = blockIdx.z / nchunk;
   const unsigned i_lo = (blockIdx.z - c0 * nchunk) * XCHUNK;
   const unsigned i_hi = min(n0, i_lo + XCHUNK);
-
-  const unsigned cj = J / n1, j = J - cj * n1;
   const unsigned ck = K / n2, k = K - ck * n2;
-  const unsigned js = src_index(j, n1, fuse_y);
-  const unsigned ks = src_index(k, n2, fuse_z);
-  const bool yz_interior = (!HAS_Y || (js > 0 && js < n1 - 1)) && ks > 0 && ks < n2 - 1;
-  const long long plane = (long long)S1 * S2;
-  const long long block0 = (long long)c0 * n0 * plane;
-  const long long col = (long long)(cj * n1 + js) * S2 + (ck * n2 + ks);  // source column
-  const long long out_col = (long long)J * S2 + K;
-  // this column's received y row and z lane, if any, at plane I of the
-  // stack: yrow[I * D1 * S2], zlane[I * S1 * D2]
-  const S* yrow = nullptr;
+  const bool z_interior = k > 0 && k < n2 - 1;
+  const long long block0 = (long long)c0 * n0 * S2;
+  // this column's received y lane (the z slot), if any, at plane I of the
+  // stack: zlane[I * D2]
   const S* zlane = nullptr;
-  if (RECV && HAS_Y && r.yl != nullptr && (j == 0 || j == n1 - 1))
-    yrow = (j == 0 ? r.yl : r.yr) + (cj * S2 + K);
-  if (RECV && r.zl != nullptr && (k == 0 || k == n2 - 1))
-    zlane = (k == 0 ? r.zl : r.zr) + ((long long)J * r.D2 + ck);
+  if (r.zl != nullptr && (k == 0 || k == n2 - 1)) zlane = (k == 0 ? r.zl : r.zr) + ck;
 
-  int cached = -2;  // source plane whose x-neighbours sit in tm/tc/tp
+  int cached = -2;  // plane whose x-neighbours sit in tm/tc/tp
   C tm = 0, tc = 0, tp = 0, qxr = 0;
   for (unsigned i = i_lo; i < i_hi; ++i) {
-    const long long o = block0 + i * plane + out_col;
-    if (RECV) {
-      // the last exchanged dim wins: 3-D y over x over z, 2-D y (z slot) over x
-      const long long I = (long long)c0 * n0 + i;
-      if (HAS_Y && yrow != nullptr) {
-        out[o] = yrow[I * r.D1 * S2];
-        continue;
-      }
-      if (!HAS_Y && zlane != nullptr) {
-        out[o] = zlane[I * S1 * r.D2];
-        continue;
-      }
-      if (r.xl != nullptr && (i == 0 || i == n0 - 1)) {
-        out[o] = (i == 0 ? r.xl : r.xr)[c0 * plane + out_col];
-        continue;
-      }
-      if (HAS_Y && zlane != nullptr) {
-        out[o] = zlane[I * S1 * r.D2];
-        continue;
-      }
+    const long long p = block0 + i * (long long)S2 + K;
+    // the last exchanged dim wins: y (z slot) over x
+    if (zlane != nullptr) {
+      out[p] = zlane[((long long)c0 * n0 + i) * r.D2];
+      continue;
     }
-    const int s = (int)src_index(i, n0, fuse_x);
-    const long long p = block0 + s * plane + col;
-    if (!(yz_interior && s > 0 && s < (int)n0 - 1)) {
-      out[o] = T[p];  // boundary cells keep their input
+    if (r.xl != nullptr && (i == 0 || i == n0 - 1)) {
+      out[p] = (i == 0 ? r.xl : r.xr)[(long long)c0 * S2 + K];
+      continue;
+    }
+    if (!(z_interior && i > 0 && i < n0 - 1)) {
+      out[p] = T[p];  // boundary cells keep their input
       continue;
     }
     C qxl;
-    if (s == cached + 1) {
+    if ((int)i == cached + 1) {
       tm = tc;
       tc = tp;
-      tp = to_c(T[p + plane]);
+      tp = to_c(T[p + S2]);
       qxl = qxr;
-    } else if (s == cached) {
-      qxl = xflux(tm, tc, kc);
     } else {
-      tm = to_c(T[p - plane]);
+      tm = to_c(T[p - S2]);
       tc = to_c(T[p]);
-      tp = to_c(T[p + plane]);
+      tp = to_c(T[p + S2]);
       qxl = xflux(tm, tc, kc);
     }
-    cached = s;
-    const C ym = HAS_Y ? to_c(T[p - S2]) : C(0), yp = HAS_Y ? to_c(T[p + S2]) : C(0);
-    const C zm = to_c(T[p - 1]), zp = to_c(T[p + 1]);
-    out[o] = from_c<S, C>(step_cell<C, HAS_Y>(qxl, tc, tp, ym, yp, zm, zp, to_c(Cp[p]), kc, qxr));
+    cached = (int)i;
+    out[p] = from_c<S, C>(step_cell<C, false>(qxl, tc, tp, C(0), C(0), to_c(T[p - 1]),
+                                              to_c(T[p + 1]), to_c(Cp[p]), kc, qxr));
   }
 }
 
 // Thread blocks an SM must hold at once, which bounds registers: 8 (32
-// registers) for float32 states, 6 (40) for the others. Unbounded, K4 used
-// 47 registers and ran 55% slower than K1 on the same stack.
+// registers) for float32 states, 6 (40) for the others.
 template <typename S> constexpr int min_blocks() { return sizeof(S) == 4 ? 8 : 6; }
-
-template <typename S, typename C>
-__global__ void __launch_bounds__(THREADS, min_blocks<S>())
-diffusion3d_step_halo_kernel(const S* __restrict__ T, const S* __restrict__ Cp,
-                             S* __restrict__ out, unsigned S1, unsigned S2, unsigned n0,
-                             unsigned n1, unsigned n2, Consts<C> kc, int fuse_x,
-                             int fuse_y, int fuse_z, unsigned nchunk) {
-  sweep<S, C, true, false>(T, Cp, out, S1, S2, n0, n1, n2, kc, fuse_x, fuse_y, fuse_z,
-                           nchunk, Recv<S>{});
-}
-
-
-template <typename S, typename C>
-__global__ void __launch_bounds__(THREADS, min_blocks<S>())
-diffusion3d_step_exchange_kernel(const S* __restrict__ T, const S* __restrict__ Cp,
-                                 S* __restrict__ out, unsigned S1, unsigned S2, unsigned n0,
-                                 unsigned n1, unsigned n2, Consts<C> kc, unsigned nchunk,
-                                 Recv<S> r) {
-  sweep<S, C, true, true>(T, Cp, out, S1, S2, n0, n1, n2, kc, 0, 0, 0, nchunk, r);
-}
 
 template <typename S, typename C>
 __global__ void __launch_bounds__(THREADS, min_blocks<S>())
 diffusion2d_step_exchange_kernel(const S* __restrict__ T, const S* __restrict__ Cp,
                                  S* __restrict__ out, unsigned S2, unsigned n0, unsigned n2,
                                  Consts<C> kc, unsigned nchunk, Recv<S> r) {
-  sweep<S, C, false, true>(T, Cp, out, 1, S2, n0, 1, n2, kc, 0, 0, 0, nchunk, r);
+  sweep2d<S, C>(T, Cp, out, S2, n0, n2, kc, nchunk, r);
 }
 
-// Extents of a sweep fit its 32-bit indices, and its grid the launch limits.
-bool sweep_fits(long long S0, long long S1, long long S2, long long n0) {
+// Extents of a 2-D sweep fit its 32-bit indices, and its grid the launch
+// limits.
+bool sweep2d_fits(long long S0, long long S2, long long n0) {
   const long long lim = 1LL << 31;
   const long long nchunk = (n0 + XCHUNK - 1) / XCHUNK;
-  return S0 < lim && S1 < lim && S2 < lim && (S0 / n0) * nchunk <= 65535 &&
-         (S1 + BY - 1) / BY <= 65535;
+  return S0 < lim && S2 < lim && (S0 / n0) * nchunk <= 65535;
 }
 
-// Grid of a sweep: thread blocks of `block` over (S2, S1), and one z slice
-// for each (block of the stack along x, chunk of XCHUNK planes).
-dim3 sweep_grid(dim3 block, long long S0, long long S1, long long S2, long long n0,
-                unsigned nchunk) {
-  return dim3((unsigned)((S2 + block.x - 1) / block.x),
-              (unsigned)((S1 + block.y - 1) / block.y), (unsigned)((S0 / n0) * nchunk));
-}
-
-// 3-D: (32, 8) threads tile (z, y).
-template <typename S, typename C>
-void step_halo(const void* T, const void* Cp, void* out, long long S0, long long S1,
-               long long S2, long long n0, long long n1, long long n2, Consts<C> kc,
-               int fx, int fy, int fz, cudaStream_t st) {
-  const unsigned nchunk = (unsigned)((n0 + XCHUNK - 1) / XCHUNK);
-  const dim3 block(BZ, BY);
-  diffusion3d_step_halo_kernel<S, C><<<sweep_grid(block, S0, S1, S2, n0, nchunk), block, 0,
-                                       st>>>(
-      static_cast<const S*>(T), static_cast<const S*>(Cp), static_cast<S*>(out),
-      (unsigned)S1, (unsigned)S2, (unsigned)n0, (unsigned)n1, (unsigned)n2, kc, fx, fy, fz,
-      nchunk);
-}
-
-template <typename S, typename C>
-void step_exchange3d(const void* T, const void* Cp, void* out, long long S0, long long S1,
-                     long long S2, long long n0, long long n1, long long n2, Consts<C> kc,
-                     Recv<S> r, cudaStream_t st) {
-  const unsigned nchunk = (unsigned)((n0 + XCHUNK - 1) / XCHUNK);
-  const dim3 block(BZ, BY);
-  diffusion3d_step_exchange_kernel<S, C><<<sweep_grid(block, S0, S1, S2, n0, nchunk),
-                                           block, 0, st>>>(
-      static_cast<const S*>(T), static_cast<const S*>(Cp), static_cast<S*>(out),
-      (unsigned)S1, (unsigned)S2, (unsigned)n0, (unsigned)n1, (unsigned)n2, kc, nchunk, r);
-}
-
-// 2-D: 256 threads along y, the contiguous axis.
+// 256 threads along y, the contiguous axis; one z slice for each (block of
+// the stack along x, chunk of XCHUNK planes).
 template <typename S, typename C>
 void step_exchange2d(const void* T, const void* Cp, void* out, long long S0, long long S2,
                      long long n0, long long n2, Consts<C> kc, Recv<S> r, cudaStream_t st) {
   const unsigned nchunk = (unsigned)((n0 + XCHUNK - 1) / XCHUNK);
-  const dim3 block(THREADS, 1);
-  diffusion2d_step_exchange_kernel<S, C><<<sweep_grid(block, S0, 1, S2, n0, nchunk), block,
-                                           0, st>>>(
+  const dim3 grid((unsigned)((S2 + THREADS - 1) / THREADS), 1u,
+                  (unsigned)((S0 / n0) * nchunk));
+  diffusion2d_step_exchange_kernel<S, C><<<grid, THREADS, 0, st>>>(
       static_cast<const S*>(T), static_cast<const S*>(Cp), static_cast<S*>(out),
       (unsigned)S2, (unsigned)n0, (unsigned)n2, kc, nchunk, r);
 }
@@ -542,27 +825,22 @@ extern "C" int igg_diffusion3d_step_halo(int dtype, const void* T, const void* C
                                          double dx, double dy, double dz, int fuse_x,
                                          int fuse_y, int fuse_z, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!sweep_fits(S0, S1, S2, n0)) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      step_halo<float, float>(T, Cp, out, S0, S1, S2, n0, n1, n2,
-                              make_consts<float>(lam, dt, dx, dy, dz), fuse_x, fuse_y,
-                              fuse_z, st);
-      break;
+      return step_halo<float, float>(T, Cp, out, S0, S1, S2, n0, n1, n2,
+                                     make_consts<float>(lam, dt, dx, dy, dz), fuse_x, fuse_y,
+                                     fuse_z, st);
     case 1:
-      step_halo<double, double>(T, Cp, out, S0, S1, S2, n0, n1, n2,
-                                make_consts<double>(lam, dt, dx, dy, dz), fuse_x, fuse_y,
-                                fuse_z, st);
-      break;
+      return step_halo<double, double>(T, Cp, out, S0, S1, S2, n0, n1, n2,
+                                       make_consts<double>(lam, dt, dx, dy, dz), fuse_x,
+                                       fuse_y, fuse_z, st);
     case 2:
-      step_halo<__nv_bfloat16, float>(T, Cp, out, S0, S1, S2, n0, n1, n2,
-                                      make_consts<float>(lam, dt, dx, dy, dz), fuse_x,
-                                      fuse_y, fuse_z, st);
-      break;
+      return step_halo<__nv_bfloat16, float>(T, Cp, out, S0, S1, S2, n0, n1, n2,
+                                             make_consts<float>(lam, dt, dx, dy, dz), fuse_x,
+                                             fuse_y, fuse_z, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // K4. x*, y*, z*: received slabs (halowidth 1) in K2's layout, null for a dim
@@ -577,31 +855,27 @@ extern "C" int igg_diffusion3d_step_exchange(int dtype, const void* T, const voi
                                              const void* zl, const void* zr,
                                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!sweep_fits(S0, S1, S2, n0)) return (int)cudaErrorInvalidValue;
+  if (n1 < 1 || n2 < 1) return (int)cudaErrorInvalidValue;
   const unsigned D1 = (unsigned)(S1 / n1), D2 = (unsigned)(S2 / n2);
 #define IGG_RECV(S) \
   Recv<S>{static_cast<const S*>(xl), static_cast<const S*>(xr), static_cast<const S*>(yl), \
           static_cast<const S*>(yr), static_cast<const S*>(zl), static_cast<const S*>(zr), D1, D2}
   switch (dtype) {
     case 0:
-      step_exchange3d<float, float>(T, Cp, out, S0, S1, S2, n0, n1, n2,
-                                    make_consts<float>(lam, dt, dx, dy, dz),
-                                    IGG_RECV(float), st);
-      break;
+      return step_exchange3d<float, float>(T, Cp, out, S0, S1, S2, n0, n1, n2,
+                                           make_consts<float>(lam, dt, dx, dy, dz),
+                                           IGG_RECV(float), st);
     case 1:
-      step_exchange3d<double, double>(T, Cp, out, S0, S1, S2, n0, n1, n2,
-                                      make_consts<double>(lam, dt, dx, dy, dz),
-                                      IGG_RECV(double), st);
-      break;
+      return step_exchange3d<double, double>(T, Cp, out, S0, S1, S2, n0, n1, n2,
+                                             make_consts<double>(lam, dt, dx, dy, dz),
+                                             IGG_RECV(double), st);
     case 2:
-      step_exchange3d<__nv_bfloat16, float>(T, Cp, out, S0, S1, S2, n0, n1, n2,
-                                            make_consts<float>(lam, dt, dx, dy, dz),
-                                            IGG_RECV(__nv_bfloat16), st);
-      break;
+      return step_exchange3d<__nv_bfloat16, float>(T, Cp, out, S0, S1, S2, n0, n1, n2,
+                                                   make_consts<float>(lam, dt, dx, dy, dz),
+                                                   IGG_RECV(__nv_bfloat16), st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // K5. The 2-D field (S0, S1) with blocks (n0, n1); xl/xr are the received x
@@ -615,7 +889,7 @@ extern "C" int igg_diffusion2d_step_exchange(int dtype, const void* T, const voi
                                              const void* yl, const void* yr,
                                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!sweep_fits(S0, 1, S1, n0)) return (int)cudaErrorInvalidValue;
+  if (!sweep2d_fits(S0, S1, n0)) return (int)cudaErrorInvalidValue;
   const void *zl = yl, *zr = yr;  // the 2-D y lanes sit in the z slot
   const unsigned D1 = 1, D2 = (unsigned)(S1 / n1);
   yl = yr = nullptr;

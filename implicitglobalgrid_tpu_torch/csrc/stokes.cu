@@ -283,11 +283,6 @@ struct Tile {
   T tz_lo[2][R], txz_hi[2][R], tyz_hi[2][R];
 };
 
-// v clamped into [0, m-1].
-__device__ __forceinline__ unsigned clamp_to(int v, unsigned m) {
-  return v < 0 ? 0u : ((unsigned)v >= m ? m - 1 : (unsigned)v);
-}
-
 // The element of each staged tile a thread copies every plane (at most one:
 // R <= 14): element `tid` of the velocity tiles (rows -1..R, lanes -1..TZ)
 // and of P's (rows -1..R-1, lanes -1..TZ-1), as offsets within a plane of
@@ -320,12 +315,6 @@ __device__ __forceinline__ Staging staging(const WaveBlock& b, unsigned tid, uns
   g.erh = tid - (TZ + 1);
   g.edv = (ro - 1) * TZ + (lo - 1);
   return g;
-}
-
-// One element from device memory into shared memory.
-template <typename T>
-__device__ __forceinline__ void stage1(T* dst, const T* src) {
-  __pipeline_memcpy_async(dst, src, sizeof(T));
 }
 
 // Stage the velocities of plane p (Vx has nx+1 planes, Vy and Vz nx).

@@ -82,19 +82,6 @@ struct Tile {
   S vz[VSLOTS][TR][TZ + 1];
 };
 
-// One element from device memory into shared memory.
-template <typename S>
-__device__ __forceinline__ void stage1(S* dst, const S* src) {
-  if constexpr (sizeof(S) >= 4)
-    __pipeline_memcpy_async(dst, src, sizeof(S));
-  else
-    *dst = *src;
-}
-
-__device__ __forceinline__ unsigned clamp_to(int v, unsigned m) {
-  return v < 0 ? 0u : ((unsigned)v >= m ? m - 1 : (unsigned)v);
-}
-
 // The in-plane offsets of the elements of each staged tile a thread copies
 // every plane (NONE: no element): elements tid and tid + THREADS of P's, Vy's
 // and Vz's tiles, element tid of Vx's, clamped into the block.

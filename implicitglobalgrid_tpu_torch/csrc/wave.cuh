@@ -20,13 +20,30 @@
 //
 // It also holds what the fused staggered steps K9 and K10 (stokes.cu) share:
 // the offsets of a block's staggered fields (`staggered_block`) and the halo
-// delivery (`Recvs`, `SelfMap`, `self_src`, `received_or`).
+// delivery (`Recvs`, `SelfMap`, `self_src`, `received_or`); and what the
+// tiled kernels K1/K4, K9 and K10 stage with (`stage1`, `clamp_to`).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "cdiv.cuh"
+
+// One element from device memory into shared memory: by cp.async, or a
+// plain copy for a 2-byte element, which cp.async does not take.
+template <typename S>
+__device__ __forceinline__ void stage1(S* dst, const S* src) {
+  if constexpr (sizeof(S) >= 4)
+    __pipeline_memcpy_async(dst, src, sizeof(S));
+  else
+    *dst = *src;
+}
+
+// v clamped into [0, m-1].
+__device__ __forceinline__ unsigned clamp_to(int v, unsigned m) {
+  return v < 0 ? 0u : ((unsigned)v >= m ? m - 1 : (unsigned)v);
+}
 
 // The type a stored value is computed in: float for bfloat16, else itself.
 template <typename S>

@@ -8,8 +8,11 @@ kernel's result is held bitwise against its plain version: K10 on both
 routes and the K4s Stokes modes, K9 on both routes (tile, chunk and block
 edges, mixed magnitudes, float32, float64 and bfloat16) and the K4s wave
 and step modes (whose sources share `exchange_slabs` and `wave.cuh` with
-the Stokes code), the batched K4s launch of every field of a dim, and whole
-`run_stokes` and `run_acoustic` runs with their launch counts; the
+the Stokes code), the batched K4s launch of every field of a dim, the
+diffusion kernels K1 (every fuse combination), K4 (every received-mode
+combination) and K5 (its four) on stacked blocks with tile and chunk edges
+and mixed magnitudes in three dtypes, and whole `run_stokes`,
+`run_acoustic` and `run_diffusion` runs with their launch counts; the
 division helper of `cdiv.cuh` bitwise against IEEE division.
 
 The card's compiler, its float units and its launch limits are not tested
@@ -20,6 +23,7 @@ delivery order are. Skips without a C++ compiler.
 
 import contextlib
 import ctypes
+import itertools
 import pathlib
 import re
 import shutil
@@ -30,7 +34,9 @@ import pytest
 import torch
 
 import implicitglobalgrid_tpu_torch as tg
-from implicitglobalgrid_tpu_torch.models import init_stokes3d, run_stokes
+from implicitglobalgrid_tpu_torch.models import (
+    init_diffusion2d, init_diffusion3d, init_stokes3d, run_diffusion, run_stokes,
+)
 from implicitglobalgrid_tpu_torch.ops import cuda_build as cb
 from implicitglobalgrid_tpu_torch.ops import cuda_stencil as cs
 from implicitglobalgrid_tpu_torch.ops import cuda_stokes as cst
@@ -464,6 +470,110 @@ def test_one_runner_on_states_of_every_dtype_matches_plain(on_host, monkeypatch,
     if model == "acoustic":
         for i in (0, 1):
             assert _equal(one[i], step(states[i][0])), dtypes[i]
+
+
+DIFF_K = dict(lam=1.0, dt=0.0123, dx=0.037, dy=0.041, dz=0.029)
+# a block of several tiles along y and z and two x chunks (none a multiple),
+# 2 blocks along each dim of the stack
+DIFF_BLOCK = (35, 10, 34)
+
+
+def _diffusion_state(shape, dtype, seed):
+    """T with its x planes scaled at random to 1, zero, tiny, subnormal or
+    near-overflow values (every path of the division), and Cp in [1, 2)."""
+    rng = np.random.default_rng(seed)
+    scales = _scales(np.float64 if dtype == np.float64 else np.float32)
+    a = rng.standard_normal(shape) * scales[rng.integers(0, 5, (shape[0],) + (1,) * (len(shape) - 1))]
+    c = 1 + rng.random(shape)
+    return _wave_tensor(a, dtype), _wave_tensor(c, dtype)
+
+
+def _bits_equal(a, b):
+    return a.dtype == b.dtype and _same_bits(a.float() if a.dtype == torch.bfloat16 else a,
+                                             b.float() if b.dtype == torch.bfloat16 else b)
+
+
+@pytest.mark.parametrize("dtype", WAVE_DTYPES)
+def test_k1_every_fuse_matches_plain(on_host, dtype):
+    """K1 on a 2x2x2 stack of blocks with tile and chunk edges, with each
+    of the 8 fuse combinations (the halo cells of a fused dim take the
+    source cells n-2 and 1, corners composed), bitwise; and one 3^3 block,
+    every dim fused (a source read by three output cells a dim)."""
+    shape = tuple(2 * n for n in DIFF_BLOCK)
+    with np.errstate(over="ignore"):
+        T, Cp = _diffusion_state(shape, dtype, 21)
+        t3, c3 = _diffusion_state((3, 3, 3), dtype, 22)
+    for fuse in itertools.product((False, True), repeat=3):
+        got = cs.diffusion3d_step_halo(T, Cp, fuse=fuse, block=DIFF_BLOCK, **DIFF_K)
+        ref = cs.diffusion3d_step_halo_plain(T, Cp, fuse=fuse, block=DIFF_BLOCK, **DIFF_K)
+        assert _bits_equal(got, ref), fuse
+    fuse = (True, True, True)
+    assert _bits_equal(cs.diffusion3d_step_halo(t3, c3, fuse=fuse, **DIFF_K),
+                       cs.diffusion3d_step_halo_plain(t3, c3, fuse=fuse, **DIFF_K))
+    assert cb.launch_counts()["diffusion3d_step_halo"] == 9
+
+
+@pytest.mark.parametrize("dtype", WAVE_DTYPES)
+def test_k4_every_mode_matches_plain(on_host, dtype):
+    """K4 on a 2x2x2 stack of blocks with tile and chunk edges, receiving
+    random slabs on each of the 8 combinations of dims (y rows over x
+    planes over z lanes), bitwise."""
+    shape = tuple(2 * n for n in DIFF_BLOCK)
+    with np.errstate(over="ignore"):
+        T, Cp = _diffusion_state(shape, dtype, 23)
+    rng = np.random.default_rng(24)
+    for modes in itertools.product((False, True), repeat=3):
+        recvs = {d: tuple(_wave_tensor(rng.standard_normal(
+            [2 if e == d else s for e, s in enumerate(shape)]), dtype) for _ in range(2))
+            for d in range(3) if modes[d]}
+        got = cs.diffusion3d_step_recv(T, Cp, recvs, block=DIFF_BLOCK, **DIFF_K)
+        ref = cs.diffusion3d_step_recv_plain(T, Cp, recvs, block=DIFF_BLOCK, **DIFF_K)
+        assert _bits_equal(got, ref), modes
+    assert cb.launch_counts()["diffusion3d_step_exchange"] == 8
+
+
+@pytest.mark.parametrize("dtype", WAVE_DTYPES)
+def test_k5_every_mode_matches_plain(on_host, dtype):
+    """K5 on a 2x2 stack of 2-D blocks (several x chunks, rows not a
+    multiple of its thread block), receiving random slabs on each of its 4
+    combinations of dims (y lanes over x rows), bitwise."""
+    block = (37, 70)
+    shape = tuple(2 * n for n in block)
+    c2 = {k: v for k, v in DIFF_K.items() if k != "dz"}
+    with np.errstate(over="ignore"):
+        T, Cp = _diffusion_state(shape, dtype, 25)
+    rng = np.random.default_rng(26)
+    for modes in itertools.product((False, True), repeat=2):
+        recvs = {d: tuple(_wave_tensor(rng.standard_normal(
+            [2 if e == d else s for e, s in enumerate(shape)]), dtype) for _ in range(2))
+            for d in range(2) if modes[d]}
+        got = cs.diffusion2d_step_recv(T, Cp, recvs, block=block, **c2)
+        ref = cs.diffusion2d_step_recv_plain(T, Cp, recvs, block=block, **c2)
+        assert _bits_equal(got, ref), modes
+    assert cb.launch_counts()["diffusion2d_step_exchange"] == 4
+
+
+@pytest.mark.parametrize("ndim", [3, 2])
+def test_run_diffusion_on_host_kernels_matches_plain(on_host, monkeypatch, ndim):
+    """Four steps through the host build of K4s and K4 (a 2x2x2 mesh: one
+    K4 and 3 K4s launches a step) or K4s and K5 (a 2x2 mesh: one K5 and 2
+    K4s launches a step) equal the plain versions' run bitwise."""
+    if ndim == 3:
+        _grid((10, 9, 35), (2, 2, 2), (1, 0, 1))
+        T0, Cp, p = init_diffusion3d(dtype=torch.float32)
+    else:
+        _grid((19, 37, 1), (2, 2, 1), (1, 1, 0))
+        T0, Cp, p = init_diffusion2d(dtype=torch.float32)
+    a = run_diffusion(T0, Cp, p, 4, nt_chunk=2)
+    counts = cb.launch_counts()
+    _plain(monkeypatch)
+    b = run_diffusion(T0, Cp, p, 4, nt_chunk=2)
+    if ndim == 3:
+        assert (counts["diffusion3d_step_exchange"], counts["exchange_slabs"]) == (4, 12)
+    else:
+        assert (counts["diffusion2d_step_exchange"], counts["exchange_slabs"]) == (4, 8)
+    assert not torch.equal(a, T0)
+    assert torch.equal(a, b)
 
 
 # config 5's dx on one 128^3 block and on the 2x2x2 mesh, the 3 of divV/3 and
