@@ -6,8 +6,8 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, in order; any failure exits non-zero without the final line:
 
 1. build the CUDA kernels from `implicitglobalgrid_tpu_torch/csrc/`; print
-   each kernel's ptxas report, K1's, K4's, K9's and K10's registers, stack
-   and spills for each template, and check K1's, K4's and K10's SASS for
+   each kernel's ptxas report, K1's, K4's, K4s's, K9's and K10's registers,
+   stack and spills for each template, and check K1's, K4's and K10's SASS for
    the IEEE division (K1 and K4: the division by Cp alone; no spills in
    their float32 and bfloat16 templates); sweep the division helper of
    `cdiv.cuh` over every float32 numerator (and a float64 sample) against
@@ -18,7 +18,10 @@ Phases, in order; any failure exits non-zero without the final line:
    float64 and bfloat16, K10 and the batched K4s wave and Stokes modes
    bitwise), and time
    kernel, plain version and PyTorch library call (CUDA events), and each
-   kernel's device time alone (torch.profiler);
+   kernel's device time alone (torch.profiler); each K4s mode's launch
+   along x, y and z beside its byte bound (and along z its 32-byte sector
+   bound): the step on the 128^3 mesh and config 3, the wave and Stokes
+   modes on config 4's and 5's meshes;
 3. main path, periodic: `init_global_grid(256, 256, 256, periodic)` ->
    `init_diffusion3d` -> warm chunk -> tic -> `run_diffusion(nt=100)` -> toc
    -> `update_halo` -> `gather_interior`, against the same run with
@@ -62,8 +65,9 @@ Phases, in order; any failure exits non-zero without the final line:
    K10 an iteration); its first 20 against the plain route (K8 + K7 for the
    (Vx, Vy, Vz, P) group);
 12. numbers: the card's name and power limit, each kernel's time, bound,
-   plain and library times (one JSON line), cell-updates/s, and host
-   against device time per step of the fused routes.
+   plain and library times (one JSON line), cell-updates/s, host against
+   device time per step of the fused routes, and the main paths' K4s
+   launches by mode and dim.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 nothing of JAX. It needs one card and exits non-zero without CUDA or
@@ -350,17 +354,18 @@ def phase_kernels(igg_ops, counts_before):
     rows["diffusion3d_step_exchange"] = check_k4(cs)
     rows["diffusion2d_step_exchange"] = check_k5(cs)
     rows["halo_write_combined"] = check_k6(ch)
-    rows["exchange_slabs"] = check_k4s(cs)
-    k4s_wave_err, wave_times = check_k4s_wave(cs, cw, tg)
-    rows["exchange_slabs"].update(wave_times)
-    rows["exchange_slabs"]["max_abs_err"] = max(rows["exchange_slabs"]["max_abs_err"],
-                                                k4s_wave_err)
+    rows["exchange_slabs"] = k4s = check_k4s(cs)
+    k4s["max_abs_err"] = max(k4s["max_abs_err"], check_k4s_wave(cs, cw, tg))
     rows["wire_pack"], rows["halo_write_multi"] = check_k7_k8(ch, tg)
     rows["acoustic_step_exchange"] = check_k9(cw, tg)
-    k4s_stokes_err, stokes_times = check_k4s_stokes(cs, cst, tg)
-    rows["exchange_slabs"].update(stokes_times)
-    rows["exchange_slabs"]["max_abs_err"] = max(rows["exchange_slabs"]["max_abs_err"],
-                                                k4s_stokes_err)
+    k4s["max_abs_err"] = max(k4s["max_abs_err"], check_k4s_stokes(cs, cst, tg))
+    k4s["dims"] = dims = k4s_dim_times(cs, cw, cst, tg)
+    k4s["max_abs_err"] = max(k4s["max_abs_err"],
+                             *(r["max_abs_err"] for rs in dims.values() for r in rs.values()))
+    for mode in ("wave", "stokes"):  # the y dims' launches, as earlier runs kept them
+        y = dims[mode][1]
+        k4s.update({f"{mode}_mode_ms": y["ms"], f"{mode}_mode_device_ms": y["device_ms"],
+                    f"{mode}_mode_bound_ms": y["bound_ms"], f"{mode}_mode_bound_by": y["bound_by"]})
     rows["stokes_step_exchange"] = check_k10(cst, tg)
     counts = cb.launch_counts()
     for name in rows:
@@ -574,8 +579,9 @@ def check_k4s(cs):
     """K4s: `update_slab` on each dim and range (send and current halo)
     against its plain version (f32/f64/bf16, 2x2x2 x 64^3); the exchange
     form (moves, PROC_NULL edges, two earlier dims' corners; copy and step
-    modes) against `exchange_slabs_plain`; its timing row on the y dim of
-    the 2x2x2 x 256^3 float32 step (two earlier dims, periodic)."""
+    modes) against `exchange_slabs_plain`; all bitwise. Its timing row on
+    the y dim of the 2x2x2 x 256^3 float32 step (two earlier dims,
+    periodic)."""
     import torch
 
     err = 0.0
@@ -589,9 +595,9 @@ def check_k4s(cs):
                 ref = cs.update_slab_plain(T, Cp, dim, st, 1, block=block, **CONSTS)
                 torch.cuda.synchronize()
                 e = max_err(gs, ref)
-                err = max(err, e) if dt != torch.bfloat16 else err
-                check(close(gs, ref, **TOL[name_of(dt)]),
-                      f"K4s update_slab {name_of(dt)} dim {dim} start {st} matches plain ({e:.3e})")
+                err = max(err, e)
+                check(torch.equal(gs, ref), f"K4s update_slab {name_of(dt)} dim {dim} start "
+                                            f"{st} bitwise equal to plain ({e:.3e})")
     g = torch.Generator(device="cuda").manual_seed(24)
     T, Cp = rand_state((2 * N_CHECK,) * 3, torch.float64, 8)
     earlier = []
@@ -607,9 +613,8 @@ def check_k4s(cs):
                 for a, b in zip(got, ref):
                     e = max_err(a, b)
                     err = max(err, e)
-                    ok = close(a, b, **TOL["float64"]) if step else torch.equal(a, b)
-                    check(ok, f"K4s exchange dim {dim} periodic={periodic} step={step} "
-                              f"matches plain ({e:.3e})")
+                    check(torch.equal(a, b), f"K4s exchange dim {dim} periodic={periodic} "
+                                             f"step={step} bitwise equal to plain ({e:.3e})")
         earlier.append((dim, 1, rand_slabs(T.shape, block, (dim,), T.dtype, g)[dim]))
     n = N_CFG3
     block = (n, n, n)
@@ -626,7 +631,10 @@ def check_k4s(cs):
     # neighbours along y) and its Cp read once
     bound_b = out_cells * (1 + 3 + 1) * 4 / HBM_BYTES_PER_S * 1e3
     bound_o = out_cells * STEP_FLOPS_PER_CELL / F32_FLOPS_PER_S * 1e3
-    e = max(max_err(a, b) for a, b in zip(k4s(), cs.exchange_slabs_plain(T, 1, 1, moves, **kw)))
+    got, ref = k4s(), cs.exchange_slabs_plain(T, 1, 1, moves, **kw)
+    e = max(max_err(a, b) for a, b in zip(got, ref))
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+          f"K4s y dim of the {n}^3 float32 step bitwise equal to plain ({e:.3e})")
     return dict(
         max_abs_err=max(err, e), ms=median_ms(k4s),
         plain_ms=median_ms(lambda: cs.exchange_slabs_plain(T, 1, 1, moves, **kw),
@@ -745,6 +753,7 @@ def phase_mesh(tg, models, cb, cs):
     T = models.run_diffusion(T0, Cp, p, 20, nt_chunk=20)
     gU, giU, gT = tg.gather(U), tg.gather_interior(U), tg.gather_interior(T)
     counts = cb.launch_counts()
+    k4s = cb.k4s_launch_counts()  # its K4s launches by mode and dim
     print(f"  launches {counts}", flush=True)
     check(counts["diffusion3d_step_exchange"] == 20, "2x2x2: K4 launched once per step")
     check(counts["halo_write_combined"] == 1, "2x2x2: update_halo went through K6")
@@ -766,6 +775,7 @@ def phase_mesh(tg, models, cb, cs):
     U2 = tg.update_halo(A2.clone())
     torch.cuda.synchronize()
     c2 = cb.launch_counts()
+    k4s.update({k: k4s.get(k, 0) + n for k, n in cb.k4s_launch_counts().items()})
     check(c2["halo_write"] == 2 and c2["halo_write_combined"] == 0,
           "2x2x1: update_halo went through K2 (x and y)")
     counts = {k: counts[k] + c2[k] for k in counts}
@@ -799,7 +809,7 @@ def phase_mesh(tg, models, cb, cs):
     check(np.allclose(Tg, Tc, rtol=1e-12, atol=1e-12),
           "16^3 float64: card kernel path matches the CPU plain path")
     tg.finalize_global_grid()
-    return counts, dict(k4_route=times, k1_update_halo_route=times_k1,
+    return counts, dict(k4s_launches=k4s, k4_route=times, k1_update_halo_route=times_k1,
                         max_abs_err_vs_plain=err, k4_own_state_ms=k4_own)
 
 
@@ -823,6 +833,7 @@ def phase_config3(tg, models, cb, cs):
     G = tg.gather_interior(T)
     torch.cuda.synchronize()
     counts = cb.launch_counts()
+    k4s = cb.k4s_launch_counts()  # its K4s launches by mode and dim
     cells = tg.nx_g() * tg.ny_g() * tg.nz_g()
     rate = cells * nt / t
     print(f"  config 3: nt={nt} in {t:.6f} s = {rate:.6e} cell-updates/s "
@@ -860,7 +871,8 @@ def phase_config3(tg, models, cb, cs):
     check(not np.allclose(G, tg.gather_interior(T0)), "config 3: the state evolved")
     tg.finalize_global_grid()
     os.environ.pop("IGG_USE_PALLAS", None)
-    return counts, dict(seconds=t, cell_updates_per_s=rate, global_cells=cells,
+    return counts, dict(k4s_launches=k4s, seconds=t, cell_updates_per_s=rate,
+                        global_cells=cells,
                         max_abs_err_vs_plain=err, max_abs_err_vs_k1_route=err_k1,
                         k4_route=times, k1_update_halo_route=times_k1,
                         k4_own_state_ms=k4_own)
@@ -883,6 +895,7 @@ def phase_config2(tg, models, cb):
     t = tg.toc()
     G = tg.gather_interior(T)
     counts = cb.launch_counts()
+    k4s = cb.k4s_launch_counts()  # its K4s launches by mode and dim
     cells = tg.nx_g() * tg.ny_g()
     rate = cells * nt / t
     print(f"  config 2: nt={nt} in {t:.6f} s = {rate:.6e} cell-updates/s "
@@ -902,7 +915,8 @@ def phase_config2(tg, models, cb):
     check(not np.allclose(G, tg.gather_interior(T0)), "config 2: the state evolved")
     tg.finalize_global_grid()
     os.environ.pop("IGG_USE_PALLAS", None)
-    return counts, dict(seconds=t, cell_updates_per_s=rate, global_cells=cells,
+    return counts, dict(k4s_launches=k4s, seconds=t, cell_updates_per_s=rate,
+                        global_cells=cells,
                         max_abs_err_vs_plain=err, k5_route=times)
 
 
@@ -944,26 +958,29 @@ def _wave_recvs(cw, gg, state, block, consts, check=None):
                                             dim_fn=dim_fn)
 
 
-def _y_batch(recv_fn, *args):
-    """The y dim's batched K4s arguments (every field, with its z and x
-    slabs as earlier dims) of a fused pipeline: ``recv_fn(*args, check)``."""
+def _dim_batches(recv_fn, *args):
+    """Each dim's batched K4s arguments (every field, with the earlier
+    dims' slabs) of a fused pipeline, ``recv_fn(*args, check)``: {dim:
+    (periodic, per_field)}."""
     seen = {}
 
     def grab(got, dim, periodic, per_field):
-        if dim == 1:
-            seen.update(periodic=periodic, per_field=per_field)
+        seen[dim] = (periodic, per_field)
 
     recv_fn(*args, grab)
-    return seen["periodic"], seen["per_field"]
+    return seen
 
 
 def _slab_reads(mode, f, dim):
     """The planes a send-slab cell of field ``f`` at plane j along ``dim``
-    reads, as {input field: offsets from j}: the wave mode's face and
-    pressure updates (`wave.cuh`), or the Stokes mode's divergence, edge
-    stresses, residual and damped update (`stokes.cuh`)."""
+    reads, as {input field: offsets from j}: the diffusion step's T and Cp,
+    the wave mode's face and pressure updates (`wave.cuh`), or the Stokes
+    mode's divergence, edge stresses, residual and damped update
+    (`stokes.cuh`)."""
     V = ("Vx", "Vy", "Vz")
     vd = V[dim]
+    if mode == "step":
+        return {"T": (-1, 0, 1), "Cp": (0,)}
     if mode == "wave":
         if f == "P":
             return {"P": (-1, 0, 1), vd: (0, 1), **{v: (0,) for v in V if v != vd}}
@@ -983,24 +1000,42 @@ def _slab_reads(mode, f, dim):
 
 
 def slab_batch_bound(mode, fields, dim, per_field):
-    """(bound ms, bound_by) of one batched K4s launch along ``dim`` on the
-    stacked state ``fields`` ({name: tensor}, every block's): each send slab
-    written once, and each plane of an input that some slab cell reads
-    (`_slab_reads`, at the slab's start in every block) read once; the
-    operations are the three of a face update an output cell, the least
-    any cell does. The corners the earlier dims patch in are not counted."""
-    local = {g: int(a.shape[dim]) // 2 for g, a in fields.items()}  # 2 blocks along dim
-    planes, out_cells = set(), 0
+    """(bound ms, bound_by, sector bound ms) of one batched K4s launch along
+    ``dim`` on the stacked state ``fields`` ({name: tensor}, every block's,
+    2 blocks along dim): each send slab written once, and each plane of an
+    input that some slab cell reads (`_slab_reads`, at the slab's start in
+    every block) read once; the operations are the three of a face update
+    an output cell, the least any cell does. The corners the earlier dims
+    patch in are not counted. Along the contiguous axis (z; y in 2-D) a
+    plane is one cell a row, so the sector bound counts instead the 32-byte
+    sectors those reads touch, each once: the least a card that reads whole
+    sectors moves (None along the other dims, where it equals the byte
+    bound)."""
+    import numpy as np
+
+    local = {g: int(a.shape[dim]) // 2 for g, a in fields.items()}
+    planes, written = set(), 0
     for f, (moves, _) in per_field.items():
         for m in moves:
-            out_cells += fields[f].numel() // local[f]
+            written += fields[f].numel() // local[f] * fields[f].element_size()
             for g, offs in _slab_reads(mode, f, dim).items():
                 planes.update((g, m.start + o) for o in offs if 0 <= m.start + o < local[g])
     read = sum(fields[g].numel() // local[g] * fields[g].element_size() for g, _ in planes)
-    elem = fields["P"].element_size()
-    bound_b = (read + out_cells * elem) / HBM_BYTES_PER_S * 1e3
-    bound_o = out_cells * 3 / F32_FLOPS_PER_S * 1e3
-    return max(bound_b, bound_o), "bytes" if bound_b >= bound_o else "operations"
+    bound_b = (read + written) / HBM_BYTES_PER_S * 1e3
+    cells = written // next(iter(fields.values())).element_size()
+    bound_o = cells * 3 / F32_FLOPS_PER_S * 1e3
+    sector = None
+    if dim == next(iter(fields.values())).dim() - 1:  # the contiguous axis
+        read = 0
+        for g in sorted({g for g, _ in planes}):
+            A = fields[g]
+            b, row = A.element_size(), int(A.shape[-1])
+            z = np.array(sorted(c * local[g] + p for c in range(2) for h, p in planes if h == g))
+            sec = (np.arange(A.numel() // row, dtype=np.int64)[:, None] * (row * b)
+                   + z[None, :] * b) // 32
+            read += np.unique(sec).size * 32
+        sector = (read + written) / HBM_BYTES_PER_S * 1e3
+    return max(bound_b, bound_o), "bytes" if bound_b >= bound_o else "operations", sector
 
 
 def _hold_batches(label, plain, errs):
@@ -1025,13 +1060,8 @@ def check_k4s_wave(cs, cw, tg):
     dim and range (send and current) with the identity move on 2x2x2 x 64^3
     blocks, and every batched launch of the fused step's pipeline (one a
     dim for the four fields: moves, PROC_NULL edges, earlier dims'
-    corners), float32, float64 and bfloat16; the time of the y dim's launch
-    (four fields, two slabs each, two earlier dims) at 2x2x2 x 192^3
-    float32, config 4's mesh (events and device). Returns (max abs err,
-    times)."""
+    corners), float32, float64 and bfloat16. Returns the max abs err."""
     import torch
-
-    from implicitglobalgrid_tpu_torch.ops.staggered import SlabBatch
 
     g = torch.Generator(device="cuda").manual_seed(41)
     n = N_CHECK
@@ -1066,24 +1096,88 @@ def check_k4s_wave(cs, cw, tg):
             check(len(errs) == 3, "K4s wave: 3 batched launches (one a dim) held")
             err = max(err, *errs)
         del st
-    n = N_CFG4
-    block = (n, n, n)
-    gg = _acoustic_grid(tg, n, (2, 2, 2), (1, 1, 1))
-    st = _rand_wave_state(cw, block, (2, 2, 2), torch.float32, g)
-    periodic, per_field = _y_batch(_wave_recvs, cw, gg, st, block, k)
-    # the launcher `AcousticStep` keeps for a run: its arrays built once, no checks
-    launcher = SlabBatch("igg_exchange_slabs_wave", block=block, counts=(2, 2, 2), consts=k,
-                         const_order=cw._CONST_ORDER, keep=True)
-
-    def launch():
-        return launcher(st, 1, 1, periodic, per_field)
-
-    bound, by = slab_batch_bound("wave", dict(zip(cw.FIELDS, st)), 1, per_field)
-    times = dict(wave_mode_ms=median_ms(launch),
-                 wave_mode_device_ms=device_ms(launch, K4S_STAGGERED),
-                 wave_mode_bound_ms=bound, wave_mode_bound_by=by)
     tg.finalize_global_grid()
-    return err, times
+    return err
+
+
+def _k4s_times(label, launch, plain, kernel, bound):
+    """A K4s launch, first held bitwise against ``plain()`` (the same slabs
+    by its plain version, as a list), then its time (events, and its
+    kernel's device time) beside its bounds (`slab_batch_bound`)."""
+    import torch
+
+    got, ref = list(launch()), plain()
+    torch.cuda.synchronize()
+    e = max(max_err(a, b) for a, b in zip(got, ref))
+    check(len(got) == len(ref) and all(torch.equal(a, b) for a, b in zip(got, ref)),
+          f"K4s {label}: the timed launch bitwise equal to plain ({e:.3e})")
+    return dict(ms=median_ms(launch), device_ms=device_ms(launch, kernel), bound_ms=bound[0],
+                bound_by=bound[1], sector_bound_ms=bound[2], max_abs_err=e)
+
+
+def k4s_dim_times(cs, cw, cst, tg):
+    """Each K4s mode's launch along x, y and z at the main paths' shapes,
+    as the fused steps' pipelines make them (moves, the earlier dims'
+    slabs): the 3-D step on the 2x2x2 x 128^3 float32 mesh and config 3's
+    2x2x2 x 256^3 float64, the 2-D step on config 2's 2x2 x 4096^2 float32
+    (periodic), the wave modes on config 4's 2x2x2 x 192^3 float32 mesh
+    (periodic) and the Stokes modes on config 5's 2x2x2 x 128^3 float32
+    mesh (not periodic), each launch held bitwise against its plain version
+    and timed beside its bounds; random states. Prints a line each; returns
+    {mode: {dim: {...}}}."""
+    import torch
+
+    from implicitglobalgrid_tpu_torch.ops.staggered import SlabBatch
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(81)
+    for label, n, dt, nd in (("step_128_f32", N_MESH, torch.float32, 3),
+                             ("step_256_f64", N_CFG3, torch.float64, 3),
+                             ("step2d_4096_f32", N_CFG2, torch.float32, 2)):
+        block = (n,) * nd
+        T, Cp = rand_state((2 * n,) * nd, dt, 11)
+        moves = (cs.Move(n - 2, 0, -1), cs.Move(1, n - 1, 1))
+        consts = CONSTS if nd == 3 else {k: v for k, v in CONSTS.items() if k != "dz"}
+        earlier, out[label] = [], {}
+        for dim in ((2, 0, 1) if nd == 3 else (0, 1)):
+            kw = dict(block=block, periodic=True, earlier=tuple(earlier), Cp=Cp, consts=consts)
+            out[label][dim] = _k4s_times(
+                f"{label} dim {dim}", lambda: cs.exchange_slabs(T, dim, 1, moves, **kw),
+                lambda: list(cs.exchange_slabs_plain(T, dim, 1, moves, **kw)),
+                "exchange_slabs_kernel",
+                slab_batch_bound("step", {"T": T, "Cp": Cp}, dim, {"T": (moves, ())}))
+            earlier.append((dim, 1, rand_slabs(T.shape, block, (dim,), dt, g)[dim]))
+        del T, Cp, earlier
+    for mode, n, periods, state, recv_fn, mod, names, consts, plain in (
+            ("wave", N_CFG4, (1, 1, 1), _rand_wave_state, _wave_recvs, cw, cw.FIELDS,
+             cw.wave_consts(**WAVE), cw.wave_slabs_multi_plain),
+            ("stokes", N_CFG5, (0, 0, 0), _rand_stokes_state, _stokes_recvs, cst, cst.STATE,
+             STOKES, cst.stokes_slabs_multi_plain)):
+        block = (n, n, n)
+        gg = _acoustic_grid(tg, n, (2, 2, 2), periods)
+        st = state(mod, block, (2, 2, 2), torch.float32, g)
+        # the launcher the fused route keeps for a run: its arrays built once, no checks
+        launcher = SlabBatch(f"igg_exchange_slabs_{mode}", block=block, counts=(2, 2, 2),
+                             consts=consts, const_order=mod._CONST_ORDER, keep=True)
+        out[mode] = {}
+        for dim, (periodic, per_field) in sorted(
+                _dim_batches(recv_fn, mod, gg, st, block, consts).items()):
+            def flat(slabs):
+                return [a for f in sorted(per_field) for a in slabs[f]]
+
+            out[mode][dim] = _k4s_times(
+                f"{mode} dim {dim}", lambda: flat(launcher(st, dim, 1, periodic, per_field)),
+                lambda: flat(plain(st, dim, 1, per_field, block=block, periodic=periodic,
+                                   consts=consts)),
+                K4S_STAGGERED, slab_batch_bound(mode, dict(zip(names, st)), dim, per_field))
+        tg.finalize_global_grid()
+        del st
+    for label, rows in out.items():
+        for dim, r in sorted(rows.items()):
+            print(f"  K4s {label} dim {dim}: {r['ms']:.5f} ms (events), device "
+                  f"{r['device_ms']} ms, byte bound {r['bound_ms']:.5f} ms, sector bound "
+                  f"{r['sector_bound_ms']} ms", flush=True)
+    return out
 
 
 def check_k7_k8(ch, tg):
@@ -1440,6 +1534,7 @@ def phase_config4_mesh(tg, models, cb, cw):
     s = models.run_acoustic(s0, p, nt, nt_chunk=nt)
     t = tg.toc()
     counts = cb.launch_counts()
+    k4s = cb.k4s_launch_counts()  # its K4s launches by mode and dim
     G = _gather_all(tg, s)
     cells = tg.nx_g() * tg.ny_g() * tg.nz_g()
     rate = cells * nt / t
@@ -1495,7 +1590,8 @@ def phase_config4_mesh(tg, models, cb, cw):
     check(not np.allclose(G[0], tg.gather_interior(s0[0])), "config 4 mesh: the state evolved")
     tg.finalize_global_grid()
     os.environ.pop("IGG_USE_PALLAS", None)
-    return counts, dict(seconds=t, cell_updates_per_s=rate, global_cells=cells,
+    return counts, dict(k4s_launches=k4s, seconds=t, cell_updates_per_s=rate,
+                        global_cells=cells,
                         max_abs_err_vs_plain=err, max_abs_err_plain_route=err_p,
                         k9_route=times, k9_kernels_ms=k9_own, bf16=bf16)
 
@@ -1606,13 +1702,9 @@ def check_k4s_stokes(cs, cst, tg):
     field, dim and range (send and current) with the identity move on 2x2x2
     x 64^3 blocks, and every launch of the fused iteration's pipeline
     (moves, PROC_NULL edges, earlier dims' corners) on 2x2x2 x 128^3,
-    float32 and float64 (one batched launch a dim for the four fields); the
-    time of the y dim's launch (four fields, two slabs each, two earlier
-    dims) at 2x2x2 x 128^3 float32, config 5's mesh (events and device).
-    Returns (max abs err, times)."""
+    float32 and float64 (one batched launch a dim for the four fields).
+    Returns the max abs err."""
     import torch
-
-    from implicitglobalgrid_tpu_torch.ops.staggered import SlabBatch
 
     g = torch.Generator(device="cuda").manual_seed(61)
     err = 0.0
@@ -1650,24 +1742,8 @@ def check_k4s_stokes(cs, cst, tg):
             check(len(errs) == 3, "K4s Stokes: 3 batched launches (one a dim) held")
             err = max(err, *errs)
             del st
-    n = N_CFG5
-    block = (n, n, n)
-    gg = _acoustic_grid(tg, n, (2, 2, 2), (0, 0, 0))
-    st = _rand_stokes_state(cst, block, (2, 2, 2), torch.float32, g)
-    periodic, per_field = _y_batch(_stokes_recvs, cst, gg, st, block, STOKES)
-    # the launcher `StokesStep` keeps for a run: its arrays built once, no checks
-    launcher = SlabBatch("igg_exchange_slabs_stokes", block=block, counts=(2, 2, 2),
-                         consts=STOKES, const_order=cst._CONST_ORDER, keep=True)
-
-    def launch():
-        return launcher(st, 1, 1, periodic, per_field)
-
-    bound, by = slab_batch_bound("stokes", dict(zip(cst.STATE, st)), 1, per_field)
-    times = dict(stokes_mode_ms=median_ms(launch),
-                 stokes_mode_device_ms=device_ms(launch, K4S_STAGGERED),
-                 stokes_mode_bound_ms=bound, stokes_mode_bound_by=by)
     tg.finalize_global_grid()
-    return err, times
+    return err
 
 
 def check_k10(cst, tg):
@@ -1882,6 +1958,7 @@ def phase_config5_mesh(tg, models, cb, cst):
     s = models.run_stokes(s0, p, nt, nt_chunk=nt)
     t = tg.toc()
     counts = cb.launch_counts()
+    k4s = cb.k4s_launch_counts()  # its K4s launches by mode and dim
     res = models.stokes_residuals(s, p)
     G = [tg.gather_interior(a) for a in s[:4]]
     cells = tg.nx_g() * tg.ny_g() * tg.nz_g()
@@ -1921,7 +1998,8 @@ def phase_config5_mesh(tg, models, cb, cst):
     check(ok, f"config 5 mesh: 20 fused iterations match the plain route ({err:.3e})")
     check(not np.allclose(G[3], tg.gather_interior(s0[3])), "config 5 mesh: the flow evolved")
     tg.finalize_global_grid()
-    return counts, dict(seconds=t, cell_updates_per_s=rate, global_cells=cells,
+    return counts, dict(k4s_launches=k4s, seconds=t, cell_updates_per_s=rate,
+                        global_cells=cells,
                         residuals=list(res), max_abs_err_vs_plain_20=err, k10_route=times,
                         k10_solver_device_ms=solver_ms, k10_solver_kernels_device_ms=both,
                         state_magnitudes=mags)
@@ -2114,6 +2192,21 @@ def k9_build_report(info):
     return rep
 
 
+def k4s_build_report(info):
+    """Registers, stack frame and spills of every K4s template (ptxas): the
+    copy (four element sizes), 3-D and 2-D step (float32, float64,
+    bfloat16), wave (the same three) and Stokes (float32, float64) modes,
+    each along x, y and z."""
+    rep = ptxas_report(info.get("ptxas", ""), "exchange_slabs")
+    for name, r in sorted(rep.items()):
+        print(f"  K4s {name}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
+              f"frame, {r.get('spill_stores')}/{r.get('spill_loads')} bytes spill "
+              "stores/loads", flush=True)
+    check(len(rep) == 45, f"K4s: 45 templates (15 modes and dtypes, 3 dims) in the ptxas "
+                          f"report ({len(rep)})")
+    return rep
+
+
 def card_name():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2161,6 +2254,7 @@ def main() -> int:
         k10_build = k10_build_report(info, sass)
         step_build = step_build_report(info, sass)
         k9_build = k9_build_report(info)
+        k4s_build = k4s_build_report(info)
         cdiv = phase_cdiv(cb)
         print("phase: kernels vs plain", flush=True)
         rows = phase_kernels((cs, ch, cb, cw, cst, tg), cb.launch_counts())
@@ -2217,6 +2311,12 @@ def main() -> int:
     rows["diffusion3d_step_exchange"]["own_state_device_ms"] = {
         "mesh_128_f32": mesh["k4_own_state_ms"], "config3_256_f64": cfg3["k4_own_state_ms"]}
     rows["acoustic_step_exchange"]["ptxas"] = k9_build
+    rows["exchange_slabs"]["ptxas"] = k4s_build
+    k4s_launches = {}  # the main paths' K4s launches by mode and dim
+    for ph in (mesh, cfg3, cfg2, cfg4m, cfg5m):
+        for k, n in ph.pop("k4s_launches").items():
+            k4s_launches[k] = k4s_launches.get(k, 0) + n
+    print(f"K4s launches on the main paths by mode/dim: {json.dumps(k4s_launches)}")
     rows["acoustic_step_exchange"]["k9_kernels_ms"] = {
         "single_block": cfg4["k9_kernels_ms"], "mesh": cfg4m["k9_kernels_ms"]}
     rows["stokes_step_exchange"]["solver_device_ms"] = {
@@ -2241,7 +2341,7 @@ def main() -> int:
                                         "subnormal_device_ms", "solver_device_ms",
                                         "kernels_device_ms", "own_state_device_ms",
                                         "f64_device_ms", "f64_bound_ms",
-                                        "ptxas_sass")}))
+                                        "ptxas_sass", "dims")}))
     k1_dev = rows["diffusion3d_step_halo"]["device_ms"]
     if k1_dev is not None:  # the periodic step is one K1 (T,T,T) launch
         periodic["k1_device_share"] = 100 * k1_dev / (periodic["seconds"] * 1e3 / 100)
@@ -2250,7 +2350,7 @@ def main() -> int:
                                     "config2_2x2_4096_f32": cfg2,
                                     "config4_192_f32": cfg4, "config4_2x2x2_192_f32": cfg4m,
                                     "config5_128_f32": cfg5, "config5_2x2x2_128_f32": cfg5m},
-                      "cdiv": cdiv,
+                      "cdiv": cdiv, "k4s_launches": k4s_launches,
                       "seconds_total": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps({"kernels": kernels}))

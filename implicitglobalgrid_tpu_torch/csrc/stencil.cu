@@ -579,21 +579,62 @@ void step_exchange2d(const void* T, const void* Cp, void* out, long long S0, lon
 // ---------------------------------------------------------------------------
 // K4s: the received slabs of one exchanging dim.
 // ---------------------------------------------------------------------------
-
-// Index arithmetic of K4s is 32-bit (the entry point checks the extents):
-// a first version that decomposed 64-bit indices per element, through
-// arrays indexed by the dim (a stack frame), took ~20 us a launch for slabs
-// of 2x256x256 cells. Offsets into the tensors stay 64-bit.
-__device__ __forceinline__ unsigned pick(unsigned a0, unsigned a1, unsigned a2, int d) {
-  return d == 0 ? a0 : (d == 1 ? a1 : a2);
-}
+//
+// A launch computes every received slab of one dim d: for each job (one
+// field's slab on one side) and each target block t, the send slab of block
+// t + shift at local position start (on a PROC_NULL edge block t's own at
+// own), patched with what that block received along earlier dims (the
+// corners), and writes it in K2's slab layout. Every cell applies the
+// per-cell functions of wave.cuh, stokes.cuh and `step_cell` to its
+// operands through a view (`Tile`, `Staged`), so a slab is bitwise what
+// K1, K4, K9 or K10 compute at that cell. No cell divides by a runtime
+// extent: a tile's blocks, side and origin come from blockIdx once, a
+// cell's position from threadIdx and loop counters; the earlier dims'
+// corners are two compares on a local index. A job's field is a template
+// argument of the code that computes it (a switch once a job), so every
+// operand slot is a constant (a runtime index put the operands in local
+// memory).
+//
+// `slab_tile`: a thread block is a tile of 256 cells of one slab position,
+// 8 x 32 over the other two dims u and v (u = y, v = z for d = 0; u = x,
+// v = z for d = 1; u = x, v = y for d = 2; 1 x 256 where a block is one
+// cell wide), inside one block of the stack; a cell reads its operands from
+// device memory through L1. Along x and y the lanes run along z, so a
+// cell's operands and their neighbours come from consecutive addresses.
+// The staggered modes walk every field and side in one tile (the fields'
+// reads of one row meet in L1); a single field's two slabs take a grid row
+// each.
+//
+// The wave modes' z slabs (`z_tile`): a z slab is hw cells of each (x, y)
+// row, a few cells of one or two 32-byte sectors a row, and a pressure
+// cell reads 13 operand cells around it. A thread block takes a group of
+// at most 4 jobs (one shift, starts within a cell of each other: the
+// fields of one side), 64 rows along y (32 where the block has fewer) and
+// a chunk of planes along x, a thread a row and job (each warp one job's).
+// It walks x, staging by cp.async (a plain copy for bfloat16) each plane of
+// every operand the group reads: for each row of the tile and the one on
+// either side, the window of z cells [start-1, start+hw] (the staggered
+// field's extra face included), 1 << wl lanes a row, so each sector is
+// fetched once a launch. Planes sit in a ring of 8 (4 in float64), staged
+// SLOTS-3 planes ahead of the one computed, one barrier a plane; a cell
+// reads its x±1 neighbours in the ring, its y±1 in the next rows and its
+// z±1 in the window, all in shared memory. Slabs wider than the ring holds
+// are split into tiles of slab positions. The other modes' z slabs take
+// `slab_tile` (`z_walks`).
+//
+// Bound: bytes, each operand plane read once and each slab written once
+// (`slab_batch_bound` in chip_smoke.py); along z, where a plane is a cell a
+// row, the 32-byte sectors those cells span.
+//
+// Divisions: the step modes divide the IEEE way as `step_cell` does; the
+// wave and Stokes modes through cdiv.cuh (`retry_passes`), the IEEE
+// quotient bit for bit, so a slab is bitwise the value K9 or K10 computes.
 
 // Slabs an earlier dim received (K2's layout); l == nullptr: no such dim.
-// ext: the slabs' extent along dim (blocks x hw).
 template <typename S> struct Earlier {
   const S *l, *r;
   int dim;
-  unsigned hw, ext;
+  unsigned hw;
 };
 
 // One output slab: block t reads block t + shift (mod D when periodic) at
@@ -603,217 +644,748 @@ struct Move {
   int start, own, shift;
 };
 
-struct Geom {
-  unsigned S0, S1, S2, n0, n1, n2;
+// One received slab of a launch: its output, move and earlier dims' slabs,
+// the field's block extents m, and the field (staggered modes).
+template <typename S> struct SlabJob {
+  S* out;
+  Move mv;
+  Earlier<S> e[2];
+  unsigned m[3];
+  int f;
 };
 
-// Value of stacked cell (g0, g1, g2) as the block holds it after the
-// earlier dims' halos were written: a received value where the cell lies
-// in an earlier dim's halo.
-template <typename S>
-__device__ __forceinline__ bool from_earlier(const Earlier<S>& e, unsigned g0, unsigned g1,
-                                             unsigned g2, const Geom& G, S& v) {
+constexpr int K4S_JOBS = 8;  // two slabs of each of four fields
+
+// The plan of a wave-mode z launch (see the design above): the groups of
+// at most 4 jobs (ng; jobs[g], a mask), the rows along y a tile (ty = 1 <<
+// tyl) and its threads (nt: ty for each job of the largest group), the
+// window's cells w (in 1 << wl lanes a row when staged), the slab positions
+// a tile (qc), the planes along x a chunk (xc), and the tiles a block along
+// y (nrt), x (nxc) and the slab positions (nqc).
+struct ZPlan {
+  unsigned ng, jobs[K4S_JOBS], ty, tyl, nt, w, wl, qc, xc, nrt, nxc, nqc;
+};
+
+// The jobs of a launch, the blocks a dim D, the slab width, the x and y
+// tiles' extent along v (1 << tv_log lanes; K4S_THREADS >> tv_log along u)
+// and tiles a block along u and v (the most any job has), and the z plan.
+template <typename S> struct SlabJobs {
+  SlabJob<S> j[K4S_JOBS];
+  unsigned n, D[3], hw, tv_log, ntu, ntv;
+  int periodic;
+  ZPlan z;
+};
+
+constexpr unsigned K4S_THREADS = 256;  // threads (cells) of an x or y tile
+
+// A cell: its local indices in the source block.
+struct Cell {
+  int l0, l1, l2;
+};
+
+// The cell moved by k along dim a.
+__device__ __forceinline__ Cell shifted(const Cell& c, int a, int k) {
+  return Cell{c.l0 + (a == 0 ? k : 0), c.l1 + (a == 1 ? k : 0), c.l2 + (a == 2 ? k : 0)};
+}
+
+// What a mode's cell reads through a view V (`raw`: operand slot s at the
+// cell moved by (d0, d1, d2), as stored), in its compute type C. Slots and
+// dims are constants of the code that reads them (a runtime index would put
+// the operands in local memory).
+template <typename V, typename C> struct Reads {
+  __device__ __forceinline__ C at(int s, const Cell& c, int d0 = 0, int d1 = 0,
+                                  int d2 = 0) const {
+    return to_c(static_cast<const V*>(this)->raw(s, c, d0, d1, d2));
+  }
+  // slot s at the cell moved by k along dim a
+  __device__ __forceinline__ C along(int s, const Cell& c, int a, int k) const {
+    return at(s, c, a == 0 ? k : 0, a == 1 ? k : 0, a == 2 ? k : 0);
+  }
+};
+
+// A field a tile's cells read: the local (0, 0, 0) of the source block in
+// it, and its plane and row strides.
+template <typename S> struct Operand {
+  const S* p;
+  long long plane, row;
+};
+
+// The x and y tiles' view: each slot's field in device memory, read
+// through L1.
+template <typename S, typename C, int NIN> struct Tile : Reads<Tile<S, C, NIN>, C> {
+  Operand<S> in[NIN];
+  __device__ __forceinline__ S raw(int s, const Cell& c, int d0 = 0, int d1 = 0,
+                                   int d2 = 0) const {
+    const Operand<S>& o = in[s];
+    return o.p[(c.l0 + d0) * o.plane + (c.l1 + d1) * o.row + (c.l2 + d2)];
+  }
+};
+
+// The wave modes' z tiles' view: each slot's staged planes in shared
+// memory (see the design above). b[s]: the slot's operand in ring slot 0,
+// at staged row 0 and window cell 0; plane x sits in ring slot (x & slm),
+// `ring` elements apart; a window cell `rp` elements apart; rows y
+// consecutive from local row r0, window cells from local z0.
+template <typename S, typename C, int NIN> struct Staged : Reads<Staged<S, C, NIN>, C> {
+  const S* b[NIN];
+  unsigned ring, slm, rp;
+  int r0, z0;
+  __device__ __forceinline__ S raw(int s, const Cell& c, int d0 = 0, int d1 = 0,
+                                   int d2 = 0) const {
+    return b[s][((unsigned)(c.l0 + d0) & slm) * ring + (unsigned)(c.l2 + d2 - z0) * rp +
+                (unsigned)(c.l1 + d1 - r0)];
+  }
+};
+
+// Dim a's unit offset along dim d (1 along a, else 0).
+__host__ __device__ __forceinline__ constexpr unsigned unit(int a, int d) {
+  return a == d ? 1u : 0u;
+}
+
+// The slab modes, each for field F (0 P, 1 Vx, 2 Vy, 3 Vz of the staggered
+// modes; 0 the one field of the others): the operands of the state
+// (`operand`: one's pointer and block extents), the operand in each of
+// field F's NIN slots (`op`), and a cell (`cell`) from a view of the slots,
+// which reads only operands in its block, as the per-cell functions do.
+
+// Mode 0: a plain copy (update_halo), of any element of S's size.
+template <typename S> struct CopySlab {
+  using C = S;
+  static constexpr int NIN = 1, NFIELDS = 1;
+  const S* A;
+  unsigned n0, n1, n2;
+  __device__ const S* operand(int, unsigned (&m)[3]) const {
+    m[0] = n0, m[1] = n1, m[2] = n2;
+    return A;
+  }
+  template <int F> __device__ static constexpr int op(int) { return 0; }
+  template <int F, typename V> __device__ S cell(const V& tm, const Cell& c) const {
+    return tm.raw(0, c);
+  }
+};
+
+// Modes 1 and 2: the diffusion step, 3-D, or 2-D laid out as (S0, 1, S1).
+// Operands T and Cp.
+template <typename S, typename C_, bool THREE_D> struct StepSlab {
+  using C = C_;
+  static constexpr int NIN = 2, NFIELDS = 1;
+  const S *Tp, *Cp;
+  unsigned n0, n1, n2;
+  Consts<C> kc;
+  __device__ const S* operand(int o, unsigned (&m)[3]) const {
+    m[0] = n0, m[1] = n1, m[2] = n2;
+    return o == 0 ? Tp : Cp;
+  }
+  template <int F> __device__ static constexpr int op(int s) { return s; }
+  template <int F, typename V> __device__ S cell(const V& tm, const Cell& c) const {
+    const bool interior = c.l0 > 0 && (unsigned)c.l0 + 1 < n0 && c.l2 > 0 &&
+                          (unsigned)c.l2 + 1 < n2 &&
+                          (!THREE_D || (c.l1 > 0 && (unsigned)c.l1 + 1 < n1));
+    if (!interior) return tm.raw(0, c);
+    const C tc = tm.at(0, c);
+    const C ym = THREE_D ? tm.at(0, c, 0, -1) : C(0), yp = THREE_D ? tm.at(0, c, 0, 1) : C(0);
+    C qxr;
+    return from_c<S, C>(step_cell<C, THREE_D>(xflux(tm.at(0, c, -1), tc, kc), tc,
+                                              tm.at(0, c, 1), ym, yp, tm.at(0, c, 0, 0, -1),
+                                              tm.at(0, c, 0, 0, 1), tm.at(1, c), kc, qxr));
+  }
+};
+
+// The wave modes (3 to 6: P, Vx, Vy, Vz): the fields after the acoustic
+// step. Operands (and slots) P, Vx, Vy, Vz (NOPS; `op_mask`: those field f
+// reads, for the z walk). A face cell is its face updated from the
+// pressures on either side; a pressure cell reads the six faces around it,
+// updated (`wave.cuh`'s `wave_pnew` on these operands).
+template <typename S> struct WaveSlab {
+  using C = compute_t<S>;
+  static constexpr int NIN = 4, NOPS = 4, NFIELDS = 4;
+  Wave<S> w;
+  __device__ const S* operand(int o, unsigned (&m)[3]) const {
+    const int a = o - 1;  // the staggered dim of operand o
+    m[0] = w.nx + unit(a, 0), m[1] = w.ny + unit(a, 1), m[2] = w.nz + unit(a, 2);
+    return o == 0 ? w.P : (o == 1 ? w.Vx : (o == 2 ? w.Vy : w.Vz));
+  }
+  __device__ static unsigned op_mask(int f) { return f == 0 ? 15u : 1u | (1u << f); }
+  template <int F> __device__ static constexpr int op(int s) { return s; }
+  // The face of dim A at c, updated (faces 0 and n keep their values).
+  template <int A, typename V> __device__ C face(const V& tm, const Cell& c) const {
+    const C v = tm.at(A + 1, c);
+    const unsigned l = (unsigned)(A == 0 ? c.l0 : (A == 1 ? c.l1 : c.l2));
+    const unsigned n = A == 0 ? w.nx : (A == 1 ? w.ny : w.nz);
+    if (l < 1 || l > n - 1) return v;
+    return wave_face<S>(v, A == 0 ? w.cx : (A == 1 ? w.cy : w.cz), tm.at(0, c),
+                        tm.along(0, c, A, -1));
+  }
+  template <int F, typename V> __device__ S cell(const V& tm, const Cell& c) const {
+    if constexpr (F > 0) {
+      return from_c<S, C>(face<F - 1>(tm, c));
+    } else {
+      C p;
+      retry_passes([&](auto&& dv) {
+        p = wave_pressure(w, tm.at(0, c), face<0>(tm, c), face<0>(tm, shifted(c, 0, 1)),
+                          face<1>(tm, c), face<1>(tm, shifted(c, 1, 1)), face<2>(tm, c),
+                          face<2>(tm, shifted(c, 2, 1)), dv);
+      });
+      return from_c<S, C>(p);
+    }
+  }
+};
+
+// The Stokes modes (7 to 10: P, Vx, Vy, Vz): the fields after the PT
+// iteration in the getter form (`stokes.cuh`'s `stokes_update`, FORM_GETTER,
+// on these operands). Operands P, Vx, Vy, Vz, dVx, dVy, dVz, rhog; slots P,
+// Vx, Vy, Vz, the field's damped momentum (P for P) and rhog. A pressure
+// cell is its cell term; an interior face of dim a reads the cell terms on
+// either side of it and the edge stresses of its other dims b1 < b2 on
+// either side of it.
+template <typename R> struct StokesSlab {
+  using C = R;
+  static constexpr int NIN = 6, NFIELDS = 4;
+  Stokes<R> s;
+  // the other dims b1 < b2 of a face of dim a
+  __host__ __device__ static constexpr int other(int a, int t) {
+    return t == 1 ? (a == 0 ? 1 : 0) : (a == 2 ? 1 : 2);
+  }
+  __device__ const R* operand(int o, unsigned (&m)[3]) const {
+    const int a = o >= 4 ? o - 4 : o - 1;  // the staggered dim of operand o
+    const bool cells = o == 0 || o == 7;
+    m[0] = s.nx + (cells ? 0 : unit(a, 0)), m[1] = s.ny + (cells ? 0 : unit(a, 1));
+    m[2] = s.nz + (cells ? 0 : unit(a, 2));
+    switch (o) {
+      case 0: return s.P;
+      case 1: return s.Vx;
+      case 2: return s.Vy;
+      case 3: return s.Vz;
+      case 4: return s.dVx;
+      case 5: return s.dVy;
+      case 6: return s.dVz;
+      default: return s.rhog;
+    }
+  }
+  template <int F> __device__ static constexpr int op(int k) {
+    return k < 4 ? k : (k == 5 ? 7 : (F == 0 ? 0 : 3 + F));
+  }
+  template <typename V, typename Div>
+  __device__ StokesCell<R> cell_terms(const V& tm, const Cell& c, Div&& dv) const {
+    return stokes_cell_of(s, tm.at(1, c), tm.at(1, c, 1), tm.at(2, c), tm.at(2, c, 0, 1),
+                          tm.at(3, c), tm.at(3, c, 0, 0, 1), tm.at(0, c), dv);
+  }
+  // the cell term a face of dim A reads: txx - Pn, tyy - Pn or tzz - Pn
+  template <int A, typename V, typename Div>
+  __device__ R cell_term(const V& tm, const Cell& c, Div&& dv) const {
+    const StokesCell<R> sc = cell_terms(tm, c, dv);
+    return A == 0 ? sc.a : (A == 1 ? sc.ty : sc.tz);
+  }
+  // the edge stress of dims P < Q: mu*((V_P - V_P[-Q])/dQ + (V_Q - V_Q[-P])/dP)
+  template <int P, int Q, typename V, typename Div>
+  __device__ R edge(const V& tm, const Cell& c, Div&& dv) const {
+    const CDiv<R>& dp = P == 0 ? s.dx : s.dy;
+    const CDiv<R>& dq = Q == 1 ? s.dy : s.dz;
+    return stokes_edge(s, tm.at(P + 1, c), tm.along(P + 1, c, Q, -1), dq, tm.at(Q + 1, c),
+                       tm.along(Q + 1, c, P, -1), dp, dv);
+  }
+  template <int A, int B, typename V, typename Div>
+  __device__ R edge_of(const V& tm, const Cell& c, Div&& dv) const {
+    return edge<(A < B ? A : B), (A < B ? B : A)>(tm, c, dv);
+  }
+  template <int F, typename V> __device__ R cell(const V& tm, const Cell& c) const {
+    R v;
+    if constexpr (F == 0) {
+      retry_passes([&](auto&& dv) { v = cell_terms(tm, c, dv).pn; });
+    } else {
+      constexpr int a = F - 1, b1 = other(a, 1), b2 = other(a, 2);
+      v = tm.at(F, c);
+      const bool in = a == 0   ? vx_interior(s.nx, s.ny, s.nz, c.l0, c.l1, c.l2)
+                      : a == 1 ? vy_interior(s.nx, s.ny, s.nz, c.l0, c.l1, c.l2)
+                               : vz_interior(s.nx, s.ny, s.nz, c.l0, c.l1, c.l2);
+      if (!in) return v;
+      const R V0 = v;
+      retry_passes([&](auto&& dv) {
+        const R tc = cell_term<a>(tm, c, dv), tb = cell_term<a>(tm, shifted(c, a, -1), dv);
+        const R e1 = edge_of<a, b1>(tm, c, dv), e1p = edge_of<a, b1>(tm, shifted(c, b1, 1), dv);
+        const R e2 = edge_of<a, b2>(tm, c, dv), e2p = edge_of<a, b2>(tm, shifted(c, b2, 1), dv);
+        R r;
+        if constexpr (a == 0) {
+          r = stokes_rx(s, tc, tb, e1p, e1, e2p, e2, dv);
+        } else if constexpr (a == 1) {
+          r = stokes_ry(s, tc, tb, e1p, e1, e2p, e2, dv);
+        } else {
+          const R rg = stokes_rg_of<R, FORM_GETTER>(tm.at(5, c), tm.at(5, c, 0, 0, -1));
+          r = stokes_rz(s, tc, tb, e1p, e1, e2p, e2, rg, dv);
+        }
+        v = V0 + s.dt_v * (s.damp * tm.at(4, c) + r);
+      });
+    }
+    return v;
+  }
+};
+
+// The received value of a cell (local index l, block c, stacked index g,
+// field extents m, blocks D) from an earlier dim e (dim DU or DV), if its
+// local index along e lies in e's halo.
+template <int DU, int DV, typename S>
+__device__ __forceinline__ bool from_earlier(const Earlier<S>& e, const unsigned (&l)[3],
+                                             const unsigned (&c)[3], const unsigned (&g)[3],
+                                             const unsigned (&m)[3], const unsigned (&D)[3],
+                                             S& v) {
   if (e.l == nullptr) return false;
-  const unsigned ne = pick(G.n0, G.n1, G.n2, e.dim);
-  const unsigned ge = pick(g0, g1, g2, e.dim);
-  const unsigned c = ge / ne, loc = ge - c * ne;
+  const bool on_u = e.dim == DU;
+  const unsigned loc = on_u ? l[DU] : l[DV], me = on_u ? m[DU] : m[DV];
   const S* src;
   unsigned h;
   if (loc < e.hw) {
     src = e.l;
     h = loc;
-  } else if (loc >= ne - e.hw) {
+  } else if (loc >= me - e.hw) {
     src = e.r;
-    h = loc - (ne - e.hw);
+    h = loc - (me - e.hw);
   } else {
     return false;
   }
-  h += c * e.hw;
-  unsigned X1 = G.S1, X2 = G.S2;
+  h += (on_u ? c[DU] : c[DV]) * e.hw;
+  const unsigned ext = (on_u ? D[DU] : D[DV]) * e.hw;
+  unsigned g0 = g[0], g1 = g[1], g2 = g[2], X1 = D[1] * m[1], X2 = D[2] * m[2];
   if (e.dim == 0) {
     g0 = h;
   } else if (e.dim == 1) {
     g1 = h;
-    X1 = e.ext;
+    X1 = ext;
   } else {
     g2 = h;
-    X2 = e.ext;
+    X2 = ext;
   }
   v = src[((long long)g0 * X1 + g1) * X2 + g2];
   return true;
 }
 
-// The stacked source cell of element q of a received slab of dim `dim`
-// (width hw) under move m: (g0, g1, g2), in the layout of a field of
-// geometry G, blocks D along dim.
-__device__ __forceinline__ void slab_source(const Geom& G, unsigned q, int dim, unsigned hw,
-                                            int periodic, const Move& m, unsigned P1,
-                                            unsigned P2, unsigned nd, int D, unsigned& g0,
-                                            unsigned& g1, unsigned& g2) {
-  g2 = q % P2;
-  const unsigned rest = q / P2;
-  g1 = rest % P1;
-  g0 = rest / P1;
-  const unsigned gd = pick(g0, g1, g2, dim);
-  const unsigned t = gd / hw, qq = gd - t * hw;
-  int s = (int)t + m.shift;
-  bool reached = true;
+// The source block along dim d of target block t for a move of shift
+// `shift`: t + shift (mod D when periodic); on a PROC_NULL edge (no such
+// block) t itself, and `edge` is set.
+__device__ __forceinline__ unsigned source_block(unsigned t, int shift, unsigned D, int periodic,
+                                                 bool& edge) {
+  int sb = (int)t + shift;
+  edge = false;
   if (periodic) {
-    s %= D;
-    if (s < 0) s += D;
-  } else {
-    reached = s >= 0 && s < D;
+    sb %= (int)D;
+    if (sb < 0) sb += (int)D;
+  } else if (sb < 0 || sb >= (int)D) {
+    sb = (int)t;
+    edge = true;
   }
-  const unsigned src = reached ? (unsigned)s * nd + m.start + qq : t * nd + m.own + qq;
-  if (dim == 0) {
-    g0 = src;
-  } else if (dim == 1) {
-    g1 = src;
-  } else {
-    g2 = src;
+  return (unsigned)sb;
+}
+
+// Value v of the cell at local l of source block cb into job J's slab at
+// target block t, slab position q, patched with what that block received
+// along earlier dims (the later dim wins).
+template <int DIM, typename S>
+__device__ __forceinline__ void slab_out(const SlabJobs<S>& jb, const SlabJob<S>& J,
+                                         const unsigned (&cb)[3], const unsigned (&l)[3],
+                                         unsigned t, unsigned q, S v) {
+  constexpr int DU = DIM == 0 ? 1 : 0, DV = DIM == 2 ? 1 : 2;
+  unsigned D[3], m[3], g[3];
+  for (int d = 0; d < 3; ++d) D[d] = jb.D[d], m[d] = J.m[d], g[d] = cb[d] * m[d] + l[d];
+  if (!from_earlier<DU, DV>(J.e[1], l, cb, g, m, D, v))
+    from_earlier<DU, DV>(J.e[0], l, cb, g, m, D, v);
+  unsigned O[3], X[3];
+  for (int d = 0; d < 3; ++d) {
+    O[d] = g[d];
+    X[d] = D[d] * m[d];
+  }
+  O[DIM] = t * jb.hw + q;
+  X[DIM] = D[DIM] * jb.hw;
+  J.out[((long long)O[0] * X[1] + O[1]) * X[2] + O[2]] = v;
+}
+
+// The geometry of an x or y tile: the target block t along the exchange
+// dim, the slab position q, the blocks cu, cv and tile origins ou, ov along
+// u and v, and the thread's cell c in the box.
+struct TileAt {
+  unsigned t, q, cu, cv, ou, ov, c[3];
+};
+
+// Job J of an x or y tile along dim DIM, field F: the thread's cell.
+template <int DIM, int F, typename S, typename M>
+__device__ __forceinline__ void slab_job(const SlabJobs<S>& jb, const SlabJob<S>& J, const M& md,
+                                         const TileAt& ta) {
+  constexpr int DU = DIM == 0 ? 1 : 0, DV = DIM == 2 ? 1 : 2;
+  bool edge;
+  unsigned cb[3], l[3];
+  cb[DIM] = source_block(ta.t, J.mv.shift, jb.D[DIM], jb.periodic, edge);
+  cb[DU] = ta.cu, cb[DV] = ta.cv;
+  l[DIM] = (unsigned)(edge ? J.mv.own : J.mv.start) + ta.q;
+  l[DU] = ta.ou + ta.c[DU], l[DV] = ta.ov + ta.c[DV];
+  if (l[DU] >= J.m[DU] || l[DV] >= J.m[DV]) return;  // past the block
+  Tile<S, typename M::C, M::NIN> tm;
+#pragma unroll
+  for (int s = 0; s < M::NIN; ++s) {  // each operand's source block
+    unsigned mg[3];
+    const S* p = md.operand(M::template op<F>(s), mg);
+    const long long row = (long long)jb.D[2] * mg[2], plane = (long long)jb.D[1] * mg[1] * row;
+    tm.in[s] = Operand<S>{p + cb[0] * mg[0] * plane + cb[1] * mg[1] * row + cb[2] * mg[2],
+                          plane, row};
+  }
+  const S v = md.template cell<F>(tm, Cell{(int)l[0], (int)l[1], (int)l[2]});
+  slab_out<DIM>(jb, J, cb, l, ta.t, ta.q, v);
+}
+
+// An x or y tile of a K4s launch along dim DIM (see the design above).
+template <int DIM, typename S, typename M>
+__device__ __forceinline__ void slab_tile(const SlabJobs<S>& jb, const M& md) {
+  constexpr int DU = DIM == 0 ? 1 : 0, DV = DIM == 2 ? 1 : 2;
+  const unsigned tid = threadIdx.x, tvl = jb.tv_log, TV = 1u << tvl, TU = K4S_THREADS >> tvl;
+  // the tile's index, fastest first: slab position, target block along DIM
+  // (so the tiles that read the two faces of one block run side by side),
+  // tile and block along v, tile and block along u
+  TileAt ta;
+  unsigned r = blockIdx.x;
+  ta.q = r % jb.hw, r /= jb.hw;
+  ta.t = r % jb.D[DIM], r /= jb.D[DIM];
+  const unsigned tv = r % jb.ntv;
+  r /= jb.ntv;
+  ta.cv = r % jb.D[DV], r /= jb.D[DV];
+  const unsigned tu = r % jb.ntu;
+  ta.cu = r / jb.ntu;
+  ta.ou = tu * TU, ta.ov = tv * TV;
+  ta.c[DIM] = 0, ta.c[DU] = tid >> tvl, ta.c[DV] = tid & (TV - 1);
+  // a single field's slabs: a job a thread block (grid row); the staggered
+  // modes: every field's and side's in turn
+  const unsigned j0 = M::NFIELDS == 1 ? blockIdx.y : 0, j1 = M::NFIELDS == 1 ? j0 + 1 : jb.n;
+  for (unsigned jn = j0; jn < j1; ++jn) {
+    const SlabJob<S>& J = jb.j[jn];
+    switch (J.f) {
+      case 0: slab_job<DIM, 0>(jb, J, md, ta); break;
+      case 1: if constexpr (M::NFIELDS > 1) slab_job<DIM, 1>(jb, J, md, ta); break;
+      case 2: if constexpr (M::NFIELDS > 1) slab_job<DIM, 2>(jb, J, md, ta); break;
+      default: if constexpr (M::NFIELDS > 1) slab_job<DIM, 3>(jb, J, md, ta); break;
+    }
   }
 }
 
-// MODE 0: a plain copy (update_halo); 1: the 3-D step; 2: the 2-D step laid
-// out as (S0, 1, S1).
-template <typename S, typename C, int MODE>
-__global__ void __launch_bounds__(THREADS)
-exchange_slabs_kernel(const S* __restrict__ T, const S* __restrict__ Cp, S* out0, S* out1,
-                      Geom G, int dim, unsigned hw, int periodic, Move m0, Move m1,
-                      Earlier<S> e0, Earlier<S> e1, Consts<C> kc) {
-  S* out = blockIdx.y ? out1 : out0;
-  const Move m = blockIdx.y ? m1 : m0;
-  if (out == nullptr) return;
-  const unsigned nd = pick(G.n0, G.n1, G.n2, dim);
-  const int D = (int)(pick(G.S0, G.S1, G.S2, dim) / nd);
-  const unsigned P1 = dim == 1 ? D * hw : G.S1, P2 = dim == 2 ? D * hw : G.S2;
-  const unsigned total = (dim == 0 ? D * hw : G.S0) * P1 * P2;
-  for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < total;
-       q += gridDim.x * blockDim.x) {
-    unsigned g0, g1, g2;
-    slab_source(G, q, dim, hw, periodic, m, P1, P2, nd, D, g0, g1, g2);
-    S v;
-    if (!from_earlier(e1, g0, g1, g2, G, v) &&
-        !from_earlier(e0, g0, g1, g2, G, v)) {  // the later dim wins
-      const long long S1 = G.S1, S2 = G.S2;
-      const long long p = ((long long)g0 * S1 + g1) * S2 + g2;
-      v = T[p];
-      if constexpr (MODE == 1 || MODE == 2) {
-        const unsigned i = g0 % G.n0, j = g1 % G.n1, k = g2 % G.n2;
-        const bool interior = i > 0 && i < G.n0 - 1 && k > 0 && k < G.n2 - 1 &&
-                              (MODE == 2 || (j > 0 && j < G.n1 - 1));
-        if (interior) {
-          const long long plane = S1 * S2;
-          const C tm = to_c(T[p - plane]), tc = to_c(T[p]), tp = to_c(T[p + plane]);
-          const C ym = MODE == 1 ? to_c(T[p - S2]) : C(0);
-          const C yp = MODE == 1 ? to_c(T[p + S2]) : C(0);
-          C qxr;
-          v = from_c<S, C>(step_cell<C, MODE == 1>(xflux(tm, tc, kc), tc, tp, ym, yp,
-                                                   to_c(T[p - 1]), to_c(T[p + 1]),
-                                                   to_c(Cp[p]), kc, qxr));
-        }
+// A z tile's ring: 8 planes where a cell of every operand is at most 16
+// bytes together (float32, bfloat16), else 4; and its shared memory, the
+// ring of 66 rows (64 and the two around them) of 4 window cells.
+template <typename S, typename M> __host__ __device__ constexpr unsigned z_slots() {
+  return M::NOPS * sizeof(S) <= 16 ? 8 : 4;
+}
+template <typename S, typename M> __host__ __device__ constexpr unsigned z_bytes() {
+  const unsigned b = z_slots<S, M>() * M::NOPS * (unsigned)sizeof(S) * 4 * 66;
+  return b < 45056 ? b : 45056;
+}
+
+template <unsigned B> struct alignas(16) ZBuf {
+  unsigned char b[B];
+};
+
+// A z tile's ring (see `Staged`): the elements of one staged operand (opn)
+// and of one ring slot, the slot mask, the row pitch, and the local row and
+// z of staged row 0 and window cell 0.
+struct ZRing {
+  unsigned opn, ring, slm, rp;
+  int r0, z0;
+};
+
+// Job J of a z tile, field F: row y's slab cells at plane x, positions
+// [q0, q1).
+template <int F, typename S, typename M>
+__device__ __forceinline__ void z_job(const SlabJobs<S>& jb, const SlabJob<S>& J, const M& md,
+                                      const S* zs, const ZRing& zr, const unsigned (&cb)[3],
+                                      unsigned t, bool edge, unsigned x, unsigned y, unsigned q0,
+                                      unsigned q1) {
+  if (x >= J.m[0] || y >= J.m[1]) return;
+  Staged<S, typename M::C, M::NIN> v;
+#pragma unroll
+  for (int s = 0; s < M::NIN; ++s) v.b[s] = zs + M::template op<F>(s) * zr.opn;
+  v.ring = zr.ring, v.slm = zr.slm, v.rp = zr.rp, v.r0 = zr.r0, v.z0 = zr.z0;
+  const unsigned pos = (unsigned)(edge ? J.mv.own : J.mv.start);
+  unsigned l[3] = {x, y, 0};
+  for (unsigned q = q0; q < q1; ++q) {
+    l[2] = pos + q;
+    const S val = md.template cell<F>(v, Cell{(int)l[0], (int)l[1], (int)l[2]});
+    slab_out<2>(jb, J, cb, l, t, q, val);
+  }
+}
+
+// A wave-mode z tile (see the design above): rows along y, walking x; a
+// thread computes one job's cells of one row.
+template <typename S, typename M>
+__device__ __forceinline__ void z_tile(const SlabJobs<S>& jb, const M& md) {
+  constexpr unsigned SLOTS = z_slots<S, M>(), AHEAD = SLOTS - 3;
+  __shared__ ZBuf<z_bytes<S, M>()> zbuf;
+  S* const zs = reinterpret_cast<S*>(zbuf.b);
+  const ZPlan& z = jb.z;
+  const unsigned tid = threadIdx.x, wl = z.wl, nt = z.nt;
+  ZRing zr;
+  zr.rp = z.ty + 2, zr.slm = SLOTS - 1, zr.opn = z.w * zr.rp, zr.ring = M::NOPS * zr.opn;
+  // the tile's index, fastest first: slab positions, target block (so the
+  // tiles that read the two faces of one block run side by side), group,
+  // row tile, walk chunk, block along the rows, block along the walk
+  unsigned r = blockIdx.x;
+  const unsigned qi = r % z.nqc;
+  r /= z.nqc;
+  const unsigned t = r % jb.D[2];
+  r /= jb.D[2];
+  const unsigned gi = r % z.ng;
+  r /= z.ng;
+  const unsigned rt = r % z.nrt;
+  r /= z.nrt;
+  const unsigned xi = r % z.nxc;
+  r /= z.nxc;
+  unsigned cb[3];
+  cb[1] = r % jb.D[1], cb[0] = r / jb.D[1];
+  // the group's source block (one shift), window, operands and walk extent;
+  // the thread's job: the group's (tid >> tyl)-th, if any
+  const unsigned gm = z.jobs[gi];
+  bool edge = false;
+  int lo = 1 << 30;
+  unsigned mask = 0, mw = 0, mine = K4S_JOBS, k = 0;
+  for (unsigned jn = 0; jn < jb.n; ++jn) {
+    if (!(gm >> jn & 1)) continue;
+    if (k++ == tid >> z.tyl) mine = jn;
+    const SlabJob<S>& J = jb.j[jn];
+    cb[2] = source_block(t, J.mv.shift, jb.D[2], jb.periodic, edge);
+    lo = min(lo, edge ? J.mv.own : J.mv.start);
+    mask |= M::op_mask(J.f);
+    mw = max(mw, J.m[0]);
+  }
+  const unsigned q0 = qi * z.qc, q1 = min(q0 + z.qc, jb.hw);
+  zr.z0 = lo + (int)q0 - 1, zr.r0 = (int)(rt * z.ty) - 1;
+  const int xa = (int)(xi * z.xc), xb = min(xa + (int)z.xc, (int)mw);  // planes [xa, xb)
+  // plane p of every operand the group reads, rows r0.. and window cells
+  // z0.. inside the operand's block, into ring slot p % SLOTS: 1 << wl
+  // lanes a row, one a window cell
+  auto stage = [&](int p) {
+    if (p < xa - 1 || p > xb || p < 0) return;
+    S* dp = zs + ((unsigned)p & (SLOTS - 1)) * zr.ring;
+#pragma unroll
+    for (int o = 0; o < M::NOPS; ++o) {
+      if (!(mask >> o & 1)) continue;
+      unsigned m[3];
+      const S* src = md.operand(o, m);
+      if ((unsigned)p >= m[0]) continue;
+      const long long row = (long long)jb.D[2] * m[2], plane = (long long)jb.D[1] * m[1] * row;
+      src += cb[0] * m[0] * plane + cb[1] * m[1] * row + cb[2] * m[2] + p * plane;
+      S* d = dp + o * zr.opn;
+      for (unsigned e = tid; e < zr.rp << wl; e += nt) {
+        const unsigned w = e & ((1u << wl) - 1), rr = e >> wl;
+        const int y = zr.r0 + (int)rr, zz = zr.z0 + (int)w;
+        if (w < z.w && y >= 0 && (unsigned)y < m[1] && zz >= 0 && (unsigned)zz < m[2])
+          stage1(d + w * zr.rp + rr, src + y * row + zz);
       }
     }
-    out[q] = v;
+  };
+  // planes xa-1 .. xa+AHEAD in flight, a commit group each; plane x+AHEAD+1
+  // goes into the slot of plane x-2, which iteration x-1 read last (the
+  // barrier of iteration x is after it)
+  for (int p = xa - 1; p <= xa + (int)AHEAD; ++p) {
+    stage(p);
+    __pipeline_commit();
+  }
+  const unsigned y = rt * z.ty + (tid & (z.ty - 1));
+  for (int x = xa; x < xb; ++x) {
+    __pipeline_wait_prior(AHEAD - 1);  // plane x+1 landed
+    __syncthreads();
+    stage(x + (int)AHEAD + 1);
+    __pipeline_commit();
+    if (mine == K4S_JOBS) continue;
+    const SlabJob<S>& J = jb.j[mine];
+#define IGG_Z_JOB(F) z_job<F>(jb, J, md, zs, zr, cb, t, edge, (unsigned)x, y, q0, q1)
+    switch (J.f) {
+      case 0: IGG_Z_JOB(0); break;
+      case 1: IGG_Z_JOB(1); break;
+      case 2: IGG_Z_JOB(2); break;
+      default: IGG_Z_JOB(3); break;
+    }
+#undef IGG_Z_JOB
   }
 }
 
-template <typename S, typename C, int MODE>
-void exchange_slabs(const void* T, const void* Cp, void* o0, void* o1, const Geom& G, int dim,
-                    unsigned hw, int periodic, Move m0, Move m1, Earlier<S> e0,
-                    Earlier<S> e1, Consts<C> kc, unsigned total, cudaStream_t st) {
-  long long blocks = ((long long)total + THREADS - 1) / THREADS;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
-  if (blocks < 1) blocks = 1;
-  exchange_slabs_kernel<S, C, MODE><<<dim3((unsigned)blocks, 2u), THREADS, 0, st>>>(
-      static_cast<const S*>(T), static_cast<const S*>(Cp), static_cast<S*>(o0),
-      static_cast<S*>(o1), G, dim, hw, periodic, m0, m1, e0, e1, kc);
+// Whether mode M's z launch walks x with staged planes (`z_tile`): the
+// wave modes. The other modes' z tiles are `slab_tile`'s, which measured
+// faster for them on the H100 (PERF.md §6): the step modes in every
+// variant, the Stokes modes on the solver's own state (zeros and tiny
+// values, where the division's retries run), though not on random ones.
+template <typename M> constexpr bool z_walks = false;
+template <typename S> constexpr bool z_walks<WaveSlab<S>> = true;
+
+// The copy and diffusion-step modes (CopySlab, StepSlab).
+template <int DIM, typename S, typename M>
+__global__ void __launch_bounds__(K4S_THREADS)
+exchange_slabs_kernel(const __grid_constant__ SlabJobs<S> jb, const __grid_constant__ M md) {
+  slab_tile<DIM>(jb, md);
 }
 
-// The staggered modes of K4s: the received slabs of one dim for each field
-// of the fused acoustic step (wave.cuh) or PT iteration (stokes.cuh), one
-// launch for all four. A field's slabs (`FieldSlabs`: its geometry, moves,
-// earlier dims' slabs and outputs, null outputs where it does not exchange
-// along the dim) are read by the blocks of its grid rows.
-template <typename S>
-struct FieldSlabs {
-  Geom G;
-  Move m[2];
-  Earlier<S> e[2];
-  S* out[2];
-  unsigned total;
-};
-
-template <typename S>
-struct SlabBatch {
-  FieldSlabs<S> f[4];
-};
-
-// Field f of a staggered state updated at stacked cell (g0, g1, g2) of its
-// geometry G: the acoustic step's value (a Wave) or the PT iteration's in
-// the getter form (a Stokes).
-template <typename S>
-__device__ __forceinline__ S staggered_update(const Wave<S>& w, int f, const Geom& G,
-                                              unsigned g0, unsigned g1, unsigned g2) {
-  const unsigned c0 = g0 / G.n0, c1 = g1 / G.n1, c2 = g2 / G.n2;
-  return wave_update(w, wave_block(w, c0, c1, c2), f, g0 - c0 * G.n0, g1 - c1 * G.n1,
-                     g2 - c2 * G.n2);
-}
-template <typename S>
-__device__ __forceinline__ S staggered_update(const Stokes<S>& s, int f, const Geom& G,
-                                              unsigned g0, unsigned g1, unsigned g2) {
-  const unsigned c0 = g0 / G.n0, c1 = g1 / G.n1, c2 = g2 / G.n2;
-  return stokes_update<S, FORM_GETTER>(s, stokes_block(s, c0, c1, c2), f, g0 - c0 * G.n0,
-                                       g1 - c1 * G.n1, g2 - c2 * G.n2);
+// The staggered modes (WaveSlab, StokesSlab): the received slabs of one dim
+// for each field of the fused acoustic step (wave.cuh) or PT iteration
+// (stokes.cuh), one launch for all four.
+template <int DIM, typename S, typename M>
+__global__ void __launch_bounds__(K4S_THREADS)
+exchange_slabs_staggered_kernel(const __grid_constant__ SlabJobs<S> jb,
+                                const __grid_constant__ M md) {
+  if constexpr (DIM == 2 && z_walks<M>)
+    z_tile(jb, md);
+  else
+    slab_tile<DIM>(jb, md);
 }
 
-// Grid rows 2f + side: field f's received slab `side`.
-template <typename S, typename W>
-__global__ void __launch_bounds__(THREADS)
-exchange_slabs_staggered_kernel(const __grid_constant__ SlabBatch<S> batch, int dim, unsigned hw,
-                                int periodic, W wv) {
-  const int f = (int)(blockIdx.y >> 1), side = (int)(blockIdx.y & 1);
-  const FieldSlabs<S>& fs = batch.f[f];
-  S* out = fs.out[side];
-  if (out == nullptr) return;
-  const Geom G = fs.G;
-  const Move m = fs.m[side];
-  const unsigned nd = pick(G.n0, G.n1, G.n2, dim);
-  const int D = (int)(pick(G.S0, G.S1, G.S2, dim) / nd);
-  const unsigned P1 = dim == 1 ? D * hw : G.S1, P2 = dim == 2 ? D * hw : G.S2;
-  for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < fs.total;
-       q += gridDim.x * blockDim.x) {
-    unsigned g0, g1, g2;
-    slab_source(G, q, dim, hw, periodic, m, P1, P2, nd, D, g0, g1, g2);
-    S v;
-    if (!from_earlier(fs.e[1], g0, g1, g2, G, v) &&
-        !from_earlier(fs.e[0], g0, g1, g2, G, v))  // the later dim wins
-      v = staggered_update(wv, f, G, g0, g1, g2);
-    out[q] = v;
-  }
-}
-
-// Checks of one K4s call (32-bit extents and slab cells, earlier dims) and
-// its geometry; returns the slab's cell count, or -1 for invalid arguments.
-long long slabs_geom(long long S0, long long S1, long long S2, long long n0, long long n1,
-                     long long n2, int dim, long long hw, int e0d, long long e0h,
-                     const void* e0l, int e1d, long long e1h, const void* e1l, Geom& G,
-                     unsigned& x0, unsigned& x1) {
+// Checks of one K4s field (32-bit extents and slab cells, earlier dims);
+// returns false for invalid arguments.
+bool slabs_fit(long long S0, long long S1, long long S2, long long n0, long long n1,
+               long long n2, int dim, long long hw, int e0d, const void* e0l, int e1d,
+               const void* e1l) {
   const long long lim = 1LL << 31;
   if (dim < 0 || dim > 2 || hw < 1 || n0 < 1 || n1 < 1 || n2 < 1 || S0 >= lim ||
       S1 >= lim || S2 >= lim)
-    return -1;
-  if (e0d > 2 || e1d > 2 || (e0d < 0 && e0l) || (e1d < 0 && e1l)) return -1;
+    return false;
+  if (e0d > 2 || e1d > 2 || (e0d < 0 && e0l) || (e1d < 0 && e1l) || e0d == dim || e1d == dim)
+    return false;
   const long long Sv[3] = {S0, S1, S2}, nv[3] = {n0, n1, n2};
   long long P[3] = {S0, S1, S2};
   P[dim] = (Sv[dim] / nv[dim]) * hw;
-  if (P[0] * P[1] * P[2] >= lim) return -1;
-  G = Geom{(unsigned)S0, (unsigned)S1, (unsigned)S2, (unsigned)n0, (unsigned)n1, (unsigned)n2};
-  x0 = e0d >= 0 ? (unsigned)((Sv[e0d] / nv[e0d]) * e0h) : 0u;
-  x1 = e1d >= 0 ? (unsigned)((Sv[e1d] / nv[e1d]) * e1h) : 0u;
-  return P[0] * P[1] * P[2];
+  return P[0] * P[1] * P[2] < lim;
 }
 
+// Add the job of output `out` (null: none) of a field of block extents m
+// to the launch.
+template <typename S>
+void add_job(SlabJobs<S>& jb, S* out, Move mv, Earlier<S> e0, Earlier<S> e1,
+             const unsigned (&m)[3], int f, int dim) {
+  if (out == nullptr) return;
+  const int du = dim == 0 ? 1 : 0, dv = dim == 2 ? 1 : 2;
+  const unsigned TV = 1u << jb.tv_log, TU = K4S_THREADS >> jb.tv_log;
+  jb.j[jb.n++] = SlabJob<S>{out, mv, {e0, e1}, {m[0], m[1], m[2]}, f};
+  jb.ntu = std::max(jb.ntu, (m[du] + TU - 1) / TU);
+  jb.ntv = std::max(jb.ntv, (m[dv] + TV - 1) / TV);
+}
+
+// An x or y launch's thread blocks: the tiles of the blocks along u and v,
+// the slab positions and the target blocks along dim.
+template <typename S>
+long long tile_grid(const SlabJobs<S>& jb, int dim) {
+  const int du = dim == 0 ? 1 : 0, dv = dim == 2 ? 1 : 2;
+  return (long long)jb.D[dim] * jb.hw * jb.D[du] * jb.ntu * jb.D[dv] * jb.ntv;
+}
+
+// The x and y tiles' extent along v for blocks m: 32 lanes, or the whole
+// tile along the one of u and v where the block is one cell wide.
+inline unsigned tv_log(const unsigned (&m)[3], int dim) {
+  const int du = dim == 0 ? 1 : 0, dv = dim == 2 ? 1 : 2;
+  if (m[dv] == 1) return 0;
+  if (m[du] == 1) return 8;  // log2 K4S_THREADS
+  return 5;
+}
+
+// Plan a wave-mode z launch (mode M): group the jobs, pick the tile, and
+// return its thread blocks. A group's at most 4 jobs share a shift (so a
+// source block) and lie within one cell of each other at their starts and
+// at their own starts, so one window of width spread + positions + 2 holds
+// the z cells they read. A tile takes 64 rows (32 where the block has no
+// more, or where 64 do not fit the ring), as many slab positions as fit,
+// and enough chunks of the walk for about 1024 tiles, each at least 8
+// planes.
+template <typename S, typename M>
+long long z_plan(SlabJobs<S>& jb) {
+  ZPlan& z = jb.z;
+  z = ZPlan{};
+  int sh[K4S_JOBS], lo[K4S_JOBS][2], hi[K4S_JOBS][2];
+  for (unsigned jn = 0; jn < jb.n; ++jn) {
+    const Move& mv = jb.j[jn].mv;
+    const int at[2] = {mv.start, mv.own};
+    unsigned g = 0;
+    for (; g < z.ng; ++g) {
+      bool near = sh[g] == mv.shift && __builtin_popcount(z.jobs[g]) < 4;
+      for (int k = 0; k < 2; ++k)
+        near = near && std::max(hi[g][k], at[k]) - std::min(lo[g][k], at[k]) <= 1;
+      if (near) break;
+    }
+    if (g == z.ng) {
+      ++z.ng;
+      sh[g] = mv.shift;
+      for (int k = 0; k < 2; ++k) lo[g][k] = hi[g][k] = at[k];
+    }
+    for (int k = 0; k < 2; ++k) {
+      lo[g][k] = std::min(lo[g][k], at[k]);
+      hi[g][k] = std::max(hi[g][k], at[k]);
+    }
+    z.jobs[g] |= 1u << jn;
+  }
+  unsigned spread = 0, mr = 0, mw = 0;
+  for (unsigned g = 0; g < z.ng; ++g)
+    for (int k = 0; k < 2; ++k) spread = std::max(spread, (unsigned)(hi[g][k] - lo[g][k]));
+  for (unsigned jn = 0; jn < jb.n; ++jn) {
+    mr = std::max(mr, jb.j[jn].m[1]);
+    mw = std::max(mw, jb.j[jn].m[0]);
+  }
+  auto fits = [&] {
+    return z_slots<S, M>() * M::NOPS * z.w * (z.ty + 2) * sizeof(S) <= z_bytes<S, M>();
+  };
+  for (z.qc = jb.hw;; --z.qc) {  // one position always fits: w <= 4
+    z.w = spread + z.qc + 2;
+    for (z.ty = mr > 32 ? 64 : 32; z.ty > 32 && !fits(); z.ty /= 2) {
+    }
+    if (fits() || z.qc == 1) break;
+  }
+  for (z.wl = 0; (1u << z.wl) < z.w; ++z.wl) {
+  }
+  for (z.tyl = 0; (1u << z.tyl) < z.ty; ++z.tyl) {
+  }
+  unsigned most = 0;  // jobs of the largest group
+  for (unsigned g = 0; g < z.ng; ++g)
+    most = std::max(most, (unsigned)__builtin_popcount(z.jobs[g]));
+  z.nt = z.ty * most;
+  z.nrt = (mr + z.ty - 1) / z.ty;
+  z.nqc = (jb.hw + z.qc - 1) / z.qc;
+  const long long tiles = (long long)z.nqc * jb.D[2] * z.ng * z.nrt * jb.D[1] * jb.D[0];
+  unsigned nxc = 1;
+  while (tiles * nxc < 1024 && mw / (2 * nxc) >= 8) nxc *= 2;
+  z.xc = (mw + nxc - 1) / nxc;
+  z.nxc = (mw + z.xc - 1) / z.xc;
+  return tiles * z.nxc;
+}
+
+// Launch a K4s batch of `jb` along dim with mode md; STAG picks the
+// staggered kernel.
+template <bool STAG, typename S, typename M>
+int launch_slabs(SlabJobs<S>& jb, const M& md, int dim, cudaStream_t st) {
+  if (jb.n == 0) return (int)cudaSuccess;
+  bool walk = false;
+  long long blocks;
+  if constexpr (z_walks<M>) walk = dim == 2;
+  if constexpr (z_walks<M>)
+    blocks = walk ? z_plan<S, M>(jb) : tile_grid(jb, dim);
+  else
+    blocks = tile_grid(jb, dim);
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, M::NFIELDS == 1 ? jb.n : 1);
+  const unsigned threads = walk ? jb.z.nt : K4S_THREADS;
+#define IGG_K4S(D)                                                              \
+  if constexpr (STAG)                                                           \
+    exchange_slabs_staggered_kernel<D, S, M><<<grid, threads, 0, st>>>(jb, md); \
+  else                                                                          \
+    exchange_slabs_kernel<D, S, M><<<grid, threads, 0, st>>>(jb, md)
+  switch (dim) {
+    case 0: IGG_K4S(0); break;
+    case 1: IGG_K4S(1); break;
+    default: IGG_K4S(2); break;
+  }
+#undef IGG_K4S
+  return (int)cudaGetLastError();
+}
+
+// One field's K4s launch (modes 0 to 2).
+template <typename S, typename M>
+int exchange_slabs(const M& md, void* o0, void* o1, const unsigned (&n)[3], const unsigned (&D)[3],
+                   int dim, unsigned hw, int periodic, Move m0, Move m1, Earlier<S> e0,
+                   Earlier<S> e1, cudaStream_t st) {
+  SlabJobs<S> jb{};
+  jb.periodic = periodic;
+  jb.hw = hw;
+  jb.tv_log = tv_log(n, dim);
+  for (int d = 0; d < 3; ++d) jb.D[d] = D[d];
+  add_job(jb, static_cast<S*>(o0), m0, e0, e1, n, 0, dim);
+  add_job(jb, static_cast<S*>(o1), m1, e0, e1, n, 0, dim);
+  return launch_slabs<false>(jb, md, dim, st);
+}
 }  // namespace
 
 // dtype: 0 float32, 1 float64, 2 bfloat16. (S0, S1, S2) is the stacked
@@ -932,48 +1504,47 @@ extern "C" int igg_exchange_slabs(int mode, int dtype, int itemsize, const void*
                                   double lam, double dt, double dx, double dy, double dz,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Geom G;
-  unsigned x0, x1;
-  const long long cells = slabs_geom(S0, S1, S2, n0, n1, n2, dim, hw, e0d, e0h, e0l, e1d,
-                                     e1h, e1l, G, x0, x1);
-  if (cells < 0) return (int)cudaErrorInvalidValue;
-  const unsigned total = (unsigned)cells;
+  if (!slabs_fit(S0, S1, S2, n0, n1, n2, dim, hw, e0d, e0l, e1d, e1l))
+    return (int)cudaErrorInvalidValue;
+  const unsigned n[3] = {(unsigned)n0, (unsigned)n1, (unsigned)n2};
+  const unsigned D[3] = {(unsigned)(S0 / n0), (unsigned)(S1 / n1), (unsigned)(S2 / n2)};
   const Move m0{(int)start0, (int)own0, (int)shift0}, m1{(int)start1, (int)own1, (int)shift1};
-#define IGG_SLABS(S, C, MODE, K)                                                          \
-  exchange_slabs<S, C, MODE>(                                                             \
-      T, Cp, out0, out1, G, dim, (unsigned)hw, periodic, m0, m1,                          \
-      Earlier<S>{static_cast<const S*>(e0l), static_cast<const S*>(e0r), e0d,             \
-                 (unsigned)e0h, x0},                                                      \
-      Earlier<S>{static_cast<const S*>(e1l), static_cast<const S*>(e1r), e1d,             \
-                 (unsigned)e1h, x1},                                                      \
-      K, total, st)
+#define IGG_SLABS(S, MD)                                                                   \
+  exchange_slabs<S>(MD, out0, out1, n, D, dim, (unsigned)hw, periodic, m0, m1,             \
+                    Earlier<S>{static_cast<const S*>(e0l), static_cast<const S*>(e0r), e0d, \
+                               (unsigned)e0h},                                             \
+                    Earlier<S>{static_cast<const S*>(e1l), static_cast<const S*>(e1r), e1d, \
+                               (unsigned)e1h},                                             \
+                    st)
+#define IGG_COPY(S) IGG_SLABS(S, (CopySlab<S>{static_cast<const S*>(T), n[0], n[1], n[2]}))
   if (mode == 0) {
-    const Consts<float> k0{};
     switch (itemsize) {
-      case 1: IGG_SLABS(uint8_t, float, 0, k0); break;
-      case 2: IGG_SLABS(uint16_t, float, 0, k0); break;
-      case 4: IGG_SLABS(uint32_t, float, 0, k0); break;
-      case 8: IGG_SLABS(unsigned long long, float, 0, k0); break;
+      case 1: return IGG_COPY(uint8_t);
+      case 2: return IGG_COPY(uint16_t);
+      case 4: return IGG_COPY(uint32_t);
+      case 8: return IGG_COPY(unsigned long long);
       default: return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaGetLastError();
   }
   if (mode != 1 && mode != 2) return (int)cudaErrorInvalidValue;
   // the 2-D step's y derivative runs in the z slot with dz = dy
   const double dz_ = mode == 1 ? dz : dy;
-  const Consts<float> kf = make_consts<float>(lam, dt, dx, dy, dz_);
-  const Consts<double> kd = make_consts<double>(lam, dt, dx, dy, dz_);
+#define IGG_STEP(S, C, THREE_D)                                                                \
+  IGG_SLABS(S, (StepSlab<S, C, THREE_D>{static_cast<const S*>(T), static_cast<const S*>(Cp), \
+                                        n[0], n[1], n[2],                                      \
+                                        make_consts<C>(lam, dt, dx, dy, dz_)}))
   switch (dtype * 2 + (mode - 1)) {
-    case 0: IGG_SLABS(float, float, 1, kf); break;
-    case 1: IGG_SLABS(float, float, 2, kf); break;
-    case 2: IGG_SLABS(double, double, 1, kd); break;
-    case 3: IGG_SLABS(double, double, 2, kd); break;
-    case 4: IGG_SLABS(__nv_bfloat16, float, 1, kf); break;
-    case 5: IGG_SLABS(__nv_bfloat16, float, 2, kf); break;
+    case 0: return IGG_STEP(float, float, true);
+    case 1: return IGG_STEP(float, float, false);
+    case 2: return IGG_STEP(double, double, true);
+    case 3: return IGG_STEP(double, double, false);
+    case 4: return IGG_STEP(__nv_bfloat16, float, true);
+    case 5: return IGG_STEP(__nv_bfloat16, float, false);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef IGG_STEP
+#undef IGG_COPY
 #undef IGG_SLABS
-  return (int)cudaGetLastError();
 }
 
 namespace {
@@ -982,55 +1553,48 @@ namespace {
 // fields) hold per field P, Vx, Vy, Vz: out0, out1, e0l, e0r, e1l, e1r; g:
 // nx, ny, nz (P's block), D0, D1, D2 (blocks), dim, hw, periodic, then per
 // field: start0, own0, shift0, start1, own1, shift1, e0d, e0h, e1d, e1h. A
-// field whose outputs are both null takes no part. Returns the largest
-// slab's cell count, or -1 for invalid arguments.
+// field whose outputs are both null takes no part. Returns false for
+// invalid arguments.
 template <typename S>
-long long slab_batch(const void* const* ptrs, int nstate, const long long* g,
-                     SlabBatch<S>& bt) {
+bool slab_batch(const void* const* ptrs, int nstate, const long long* g, SlabJobs<S>& jb) {
   const long long lim = 1LL << 31;  // every field's stacked extents fit 32 bits
   if (g[0] < 1 || g[1] < 1 || g[2] < 1 || g[3] < 1 || g[4] < 1 || g[5] < 1 ||
       g[3] * (g[0] + 1) >= lim || g[4] * (g[1] + 1) >= lim || g[5] * (g[2] + 1) >= lim)
-    return -1;
+    return false;
   const int dim = (int)g[6];
-  long long most = 0;
+  jb = SlabJobs<S>{};
+  jb.periodic = (int)g[8];
+  jb.hw = (unsigned)g[7];
+  const unsigned D[3] = {(unsigned)g[3], (unsigned)g[4], (unsigned)g[5]};
+  const unsigned n[3] = {(unsigned)g[0], (unsigned)g[1], (unsigned)g[2]};
+  for (int d = 0; d < 3; ++d) jb.D[d] = D[d];
+  jb.tv_log = tv_log(n, dim);
   for (int f = 0; f < 4; ++f) {
     const void* const* p = ptrs + nstate + 6 * f;
     const long long* h = g + 9 + 10 * f;
-    FieldSlabs<S>& fs = bt.f[f];
-    fs = FieldSlabs<S>{};
-    fs.out[0] = static_cast<S*>(const_cast<void*>(p[0]));
-    fs.out[1] = static_cast<S*>(const_cast<void*>(p[1]));
-    if (fs.out[0] == nullptr && fs.out[1] == nullptr) continue;
-    const long long n0 = g[0] + (f == 1), n1 = g[1] + (f == 2), n2 = g[2] + (f == 3);
-    unsigned x0, x1;
-    const long long cells = slabs_geom(g[3] * n0, g[4] * n1, g[5] * n2, n0, n1, n2, dim, g[7],
-                                       (int)h[6], h[7], p[2], (int)h[8], h[9], p[4], fs.G,
-                                       x0, x1);
-    if (cells < 0) return -1;
-    fs.m[0] = Move{(int)h[0], (int)h[1], (int)h[2]};
-    fs.m[1] = Move{(int)h[3], (int)h[4], (int)h[5]};
-    fs.e[0] = Earlier<S>{static_cast<const S*>(p[2]), static_cast<const S*>(p[3]), (int)h[6],
-                         (unsigned)h[7], x0};
-    fs.e[1] = Earlier<S>{static_cast<const S*>(p[4]), static_cast<const S*>(p[5]), (int)h[8],
-                         (unsigned)h[9], x1};
-    fs.total = (unsigned)cells;
-    most = cells > most ? cells : most;
+    S* o0 = static_cast<S*>(const_cast<void*>(p[0]));
+    S* o1 = static_cast<S*>(const_cast<void*>(p[1]));
+    if (o0 == nullptr && o1 == nullptr) continue;
+    const unsigned m[3] = {n[0] + (f == 1), n[1] + (f == 2), n[2] + (f == 3)};
+    if (!slabs_fit((long long)D[0] * m[0], (long long)D[1] * m[1], (long long)D[2] * m[2], m[0],
+                   m[1], m[2], dim, g[7], (int)h[6], p[2], (int)h[8], p[4]))
+      return false;
+    const Earlier<S> e0{static_cast<const S*>(p[2]), static_cast<const S*>(p[3]), (int)h[6],
+                        (unsigned)h[7]};
+    const Earlier<S> e1{static_cast<const S*>(p[4]), static_cast<const S*>(p[5]), (int)h[8],
+                        (unsigned)h[9]};
+    add_job(jb, o0, Move{(int)h[0], (int)h[1], (int)h[2]}, e0, e1, m, f, dim);
+    add_job(jb, o1, Move{(int)h[3], (int)h[4], (int)h[5]}, e0, e1, m, f, dim);
   }
-  return most;
+  return true;
 }
 
-template <typename S, typename W>
-int launch_staggered_slabs(const void* const* ptrs, int nstate, const long long* g, W wv,
+template <typename S, typename M>
+int launch_staggered_slabs(const void* const* ptrs, int nstate, const long long* g, const M& md,
                            cudaStream_t st) {
-  SlabBatch<S> bt;
-  const long long most = slab_batch(ptrs, nstate, g, bt);
-  if (most < 0) return (int)cudaErrorInvalidValue;
-  long long blocks = (most + THREADS - 1) / THREADS;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
-  if (blocks < 1) blocks = 1;
-  exchange_slabs_staggered_kernel<S, W><<<dim3((unsigned)blocks, 8u), THREADS, 0, st>>>(
-      bt, (int)g[6], (unsigned)g[7], (int)g[8], wv);
-  return (int)cudaGetLastError();
+  SlabJobs<S> jb;
+  if (!slab_batch(ptrs, nstate, g, jb)) return (int)cudaErrorInvalidValue;
+  return launch_slabs<true>(jb, md, (int)g[6], st);
 }
 
 }  // namespace
@@ -1042,8 +1606,9 @@ int launch_staggered_slabs(const void* const* ptrs, int nstate, const long long*
 extern "C" int igg_exchange_slabs_wave(int dtype, const void* const* ptrs, const long long* g,
                                        const double* c, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define IGG_WAVE_SLABS(S) \
-  launch_staggered_slabs<S>(ptrs, 4, g, make_wave<S>(ptrs[0], ptrs[1], ptrs[2], ptrs[3], g, c), st)
+#define IGG_WAVE_SLABS(S)                                                                  \
+  launch_staggered_slabs<S>(                                                               \
+      ptrs, 4, g, WaveSlab<S>{make_wave<S>(ptrs[0], ptrs[1], ptrs[2], ptrs[3], g, c)}, st)
   switch (dtype) {
     case 0: return IGG_WAVE_SLABS(float);
     case 1: return IGG_WAVE_SLABS(double);
@@ -1062,9 +1627,12 @@ extern "C" int igg_exchange_slabs_stokes(int dtype, const void* const* ptrs,
                                          const long long* g, const double* c, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_staggered_slabs<float>(ptrs, 8, g, make_stokes<float>(ptrs, g, c), st);
+    case 0:
+      return launch_staggered_slabs<float>(ptrs, 8, g,
+                                           StokesSlab<float>{make_stokes<float>(ptrs, g, c)}, st);
     case 1:
-      return launch_staggered_slabs<double>(ptrs, 8, g, make_stokes<double>(ptrs, g, c), st);
+      return launch_staggered_slabs<double>(
+          ptrs, 8, g, StokesSlab<double>{make_stokes<double>(ptrs, g, c)}, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -8,7 +8,8 @@ beside the package (git-ignored), so a changed source rebuilds and an
 unchanged one loads at once.
 
 Every wrapper counts its launches here (`count_launch`); `launch_counts`
-reads the counts and `reset_launch_counts` sets them to 0.
+reads the counts, `k4s_launch_counts` K4s's by mode and dim, and
+`reset_launch_counts` sets them all to 0.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from pathlib import Path
 from ..utils.exceptions import KernelError, NotLoadedError
 
 __all__ = ["build_kernels", "library", "count_launch", "launch_counts",
-           "reset_launch_counts", "check_rc", "BUILD_DIR"]
+           "k4s_launch_counts", "reset_launch_counts", "check_rc", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -75,19 +76,30 @@ _launches: dict = {"diffusion3d_step_halo": 0, "halo_write": 0,
                    "diffusion2d_step_exchange": 0, "halo_write_combined": 0,
                    "exchange_slabs": 0, "wire_pack": 0, "halo_write_multi": 0,
                    "acoustic_step_exchange": 0, "stokes_step_exchange": 0}
+_k4s_launches: dict = {}
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, detail: str = "") -> None:
+    """One launch of kernel ``name``; ``detail`` (a K4s launch's mode and
+    dim, as ``"wave/2"``) also counts it in `k4s_launch_counts`."""
     _launches[name] += 1
+    if detail:
+        _k4s_launches[detail] = _k4s_launches.get(detail, 0) + 1
 
 
 def launch_counts() -> dict:
     return dict(_launches)
 
 
+def k4s_launch_counts() -> dict:
+    """The K4s launches by mode and dim (``"step/2"``, ``"stokes/0"``)."""
+    return dict(_k4s_launches)
+
+
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+    _k4s_launches.clear()
 
 
 def check_rc(rc: int, name: str) -> None:

@@ -492,7 +492,7 @@ def exchange_slabs(A, dim, hw, moves, *, block, periodic, earlier=(), Cp=None,
             *(float(c.get(k, 1.0)) for k in ("lam", "dt", "dx", "dy", "dz")),
             _stream(A))
     check_rc(rc, "exchange_slabs")
-    count_launch("exchange_slabs")
+    count_launch("exchange_slabs", f"{('copy', 'step', 'step2d')[mode]}/{dim}")
     return tuple(outs)
 
 

@@ -322,5 +322,5 @@ class SlabBatch:
                                                 ctypes.addressof(g),
                                                 ctypes.addressof(self.consts), _stream(P))
         check_rc(rc, self.entry)
-        count_launch("exchange_slabs")
+        count_launch("exchange_slabs", f"{self.entry.rsplit('_', 1)[1]}/{dim}")
         return outs

@@ -390,6 +390,208 @@ def test_batched_stokes_slabs_match_plain(on_host, dtype):
     assert cb.launch_counts()["exchange_slabs"] == 4
 
 
+# blocks of K4s's tile tests: none of the extents a multiple of its tiles
+# (8 rows or planes by 32 lanes, 8 planes by 32 rows for the z slabs)
+K4S_BLOCK = (11, 70, 37)
+K4S_STAGGERED_BLOCK = (11, 40, 37)
+
+
+def _moves(n, hw):
+    """The pipeline's two moves of a dim of n cells: the left slab from the
+    block before (PROC_NULL: the own block's first halo), the right from the
+    block after."""
+    return (cs.Move(n - 2 * hw, 0, -1), cs.Move(hw, n - hw, 1))
+
+
+def _earlier(rng, shape, block, dims, hws, dtype):
+    """Random received slabs of earlier dims (K2's layout) of a stacked
+    field."""
+    return tuple((e, h, tuple(_wave_tensor(rng.standard_normal(
+        [s // b * h if a == e else s for a, (s, b) in enumerate(zip(shape, block))]), dtype)
+        for _ in range(2))) for e, h in zip(dims, hws))
+
+
+@pytest.mark.parametrize("dtype", WAVE_DTYPES)
+def test_k4s_copy_and_step_every_dim_match_plain(on_host, dtype):
+    """K4s copy and 3-D step modes on a 2x2x2 stack of blocks whose extents
+    are no multiple of the tiles, every dim and both sides, periodic and
+    not (PROC_NULL edges), without and with two earlier dims' corners
+    (halowidths 1 and 2), a copy of halowidth 2 too, bitwise; mixed
+    magnitudes in the step's state."""
+    rng = np.random.default_rng(31)
+    shape = tuple(2 * n for n in K4S_BLOCK)
+    with np.errstate(over="ignore"):
+        T, Cp = _diffusion_state(shape, dtype, 32)
+    launches = 0
+    for dim in range(3):
+        others = tuple(e for e in (2, 0, 1) if e != dim)
+        ear = _earlier(rng, shape, K4S_BLOCK, others, (1, 2), dtype)
+        for periodic, earlier, step, hw in itertools.product(
+                (True, False), ((), ear), (False, True), (1, 2)):
+            if step and hw == 2:
+                continue
+            kw = dict(block=K4S_BLOCK, periodic=periodic, earlier=earlier,
+                      Cp=Cp if step else None, consts=DIFF_K if step else None)
+            moves = _moves(K4S_BLOCK[dim], hw)
+            got = cs.exchange_slabs(T, dim, hw, moves, **kw)
+            ref = cs.exchange_slabs_plain(T, dim, hw, moves, **kw)
+            launches += 1
+            assert all(_bits_equal(a, b) for a, b in zip(got, ref)), \
+                (dim, periodic, len(earlier), step, hw)
+    assert cb.launch_counts()["exchange_slabs"] == launches
+
+
+@pytest.mark.parametrize("dtype", WAVE_DTYPES)
+def test_k4s_2d_modes_match_plain(on_host, dtype):
+    """K4s on a 2x2 stack of 2-D blocks (laid out as (S0, 1, S1): a tile of
+    one row along y), x rows and y lanes, halowidths 1 and 2 (the per-dim
+    tier's 2-D case), the copy and the 2-D step, with the other dim's
+    corners, periodic and not, bitwise."""
+    rng = np.random.default_rng(33)
+    block = (37, 70)
+    shape = tuple(2 * n for n in block)
+    c2 = {k: v for k, v in DIFF_K.items() if k != "dz"}
+    with np.errstate(over="ignore"):
+        T, Cp = _diffusion_state(shape, dtype, 34)
+    for dim, hw, step, periodic in itertools.product((0, 1), (1, 2), (False, True),
+                                                     (True, False)):
+        earlier = _earlier(rng, shape, block, (1 - dim,), (hw,), dtype)
+        kw = dict(block=block, periodic=periodic, earlier=earlier, Cp=Cp if step else None,
+                  consts=c2 if step else None)
+        moves = _moves(block[dim], hw)
+        got = cs.exchange_slabs(T, dim, hw, moves, **kw)
+        ref = cs.exchange_slabs_plain(T, dim, hw, moves, **kw)
+        assert all(_bits_equal(a, b) for a, b in zip(got, ref)), (dim, hw, step, periodic)
+    assert cb.launch_counts()["exchange_slabs"] == 16
+
+
+def _batches(rng, state, fields, block, shapes, dtype):
+    """The per-field arguments of a batched K4s launch along each dim for
+    ``fields`` (the other field left out), with the pipeline's moves and
+    the earlier dims' corners (z, then x, then y)."""
+    out = {}
+    for dim in range(3):
+        earlier = tuple(e for e in (2, 0, 1)[:(2, 0, 1).index(dim)])
+        per_field = {}
+        for f in fields:
+            A = state[cw.FIELDS.index(f)]
+            m = shapes[f]
+            per_field[f] = (_moves(m[dim], 1), _earlier(rng, A.shape, m, earlier,
+                                                        (1,) * len(earlier), dtype))
+        out[dim] = per_field
+    return out
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("dtype", WAVE_DTYPES)
+def test_k4s_batched_wave_every_dim_match_plain(on_host, dtype, periodic):
+    """The K4s wave modes' batched launch along each dim on 2x2x2 blocks
+    whose extents are no multiple of the tiles, with Vy left out of the
+    batch (it gets no thread blocks), earlier dims' corners, bitwise."""
+    rng = np.random.default_rng(35)
+    n = K4S_STAGGERED_BLOCK
+    shapes = cw.wave_shapes(n)
+    st = tuple(_wave_tensor(rng.standard_normal(tuple(2 * s for s in shp)), dtype)
+               for shp in shapes.values())
+    for dim, per_field in _batches(rng, st, ("P", "Vx", "Vz"), n, shapes, dtype).items():
+        kw = dict(block=n, periodic=periodic, consts=WAVE_K)
+        got = cw.wave_slabs_multi(st, dim, 1, per_field, **kw)
+        ref = cw.wave_slabs_multi_plain(st, dim, 1, per_field, **kw)
+        assert sorted(got) == sorted(per_field)
+        for f in per_field:
+            assert all(_bits_equal(a, b) for a, b in zip(got[f], ref[f])), (dim, f)
+    assert cb.launch_counts()["exchange_slabs"] == 3
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k4s_batched_stokes_every_dim_match_plain(on_host, dtype, periodic):
+    """The K4s Stokes modes' batched launch along each dim on 2x2x2 blocks
+    whose extents are no multiple of the tiles, with Vx left out of the
+    batch, earlier dims' corners, on a state whose x planes are scaled to
+    zero, tiny, subnormal and near-overflow values (every path of the
+    division), bitwise."""
+    rng = np.random.default_rng(36)
+    n = K4S_STAGGERED_BLOCK
+    scales = _scales(dtype)
+    with np.errstate(over="ignore"):
+        st = tuple(torch.from_numpy((rng.standard_normal(tuple(2 * s for s in shp)) * scales[
+            rng.integers(0, 5, (2 * shp[0], 1, 1))]).astype(dtype))
+            for shp in cst.stokes_shapes(n).values())
+    shapes = cst.wave_shapes(n)
+    for dim, per_field in _batches(rng, st, ("P", "Vy", "Vz"), n, shapes, dtype).items():
+        kw = dict(block=n, periodic=periodic, consts=K)
+        got = cst.stokes_slabs_multi(st, dim, 1, per_field, **kw)
+        ref = cst.stokes_slabs_multi_plain(st, dim, 1, per_field, **kw)
+        assert sorted(got) == sorted(per_field)
+        for f in per_field:
+            assert all(_bits_equal(a, b) for a, b in zip(got[f], ref[f])), (dim, f)
+    assert cb.launch_counts()["exchange_slabs"] == 3
+
+
+K4S_WALK_BLOCK = (35, 70, 21)
+
+
+@pytest.mark.parametrize("mode,dtype", [("copy", np.float32), ("step", np.float64),
+                                        ("wave", np.float32), ("stokes", np.float64)])
+def test_k4s_z_launch_long_blocks_match_plain(on_host, mode, dtype):
+    """The K4s z launch on blocks of 35 x 70 x 21, long enough along x for
+    several chunks of the wave modes' walk (and its ring slots reused
+    across them) and rows in two tiles, both sides periodic and not, with
+    earlier dims' corners, bitwise: the copy at halowidths 1, 3 and 8, the
+    3-D step at 1 and on two ranges of one block (update_slab), the wave
+    and Stokes batches of every field, and each wave field on two ranges of
+    8 (shift 0: two groups, slab positions in two tiles)."""
+    rng = np.random.default_rng(37)
+    n = K4S_WALK_BLOCK
+    launches = 0
+    if mode in ("copy", "step"):
+        shape = tuple(2 * b for b in n)
+        with np.errstate(over="ignore"):
+            T, Cp = _diffusion_state(shape, dtype, 38)
+        step = mode == "step"
+        for periodic, hw in itertools.product((True, False), (1,) if step else (1, 3, 8)):
+            earlier = _earlier(rng, shape, n, (0, 1), (1, hw), dtype)
+            kw = dict(block=n, periodic=periodic, earlier=earlier, Cp=Cp if step else None,
+                      consts=DIFF_K if step else None)
+            got = cs.exchange_slabs(T, 2, hw, _moves(n[2], hw), **kw)
+            ref = cs.exchange_slabs_plain(T, 2, hw, _moves(n[2], hw), **kw)
+            launches += 1
+            assert all(_bits_equal(a, b) for a, b in zip(got, ref)), (periodic, hw)
+        if step:
+            starts = [n[2] - 2, 1]
+            got = cs.update_slab(T, Cp, 2, starts, 1, block=n, **DIFF_K)
+            launches += 1
+            for s0, g in zip(starts, got):
+                assert _bits_equal(g, cs.update_slab_plain(T, Cp, 2, s0, 1, block=n, **DIFF_K))
+        assert cb.launch_counts()["exchange_slabs"] == launches
+        return
+    mod = cw if mode == "wave" else cst
+    shapes = mod.wave_shapes(n)
+    all_shapes = shapes if mode == "wave" else cst.stokes_shapes(n)
+    st = tuple(_wave_tensor(rng.standard_normal(tuple(2 * s for s in shp)), dtype)
+               for shp in all_shapes.values())
+    multi, plain, k = ((cw.wave_slabs_multi, cw.wave_slabs_multi_plain, WAVE_K)
+                       if mode == "wave" else
+                       (cst.stokes_slabs_multi, cst.stokes_slabs_multi_plain, K))
+    per_field = _batches(rng, st, cw.FIELDS, n, shapes, dtype)[2]
+    for periodic in (True, False):
+        kw = dict(block=n, periodic=periodic, consts=k)
+        got = multi(st, 2, 1, per_field, **kw)
+        ref = plain(st, 2, 1, per_field, **kw)
+        for f in per_field:
+            assert all(_bits_equal(a, b) for a, b in zip(got[f], ref[f])), (periodic, f)
+    if mode == "wave":
+        for f, m in shapes.items():
+            starts = [m[2] - 9, 1]
+            got = cw.wave_update_slab(st, f, 2, starts, 8, block=n, consts=k)
+            for s0, g in zip(starts, got):
+                ref = cw.wave_slabs_plain(st, f, 2, 8, (cs.Move(s0, s0, 0),), block=n,
+                                          periodic=True, consts=k)[0]
+                assert _bits_equal(g, ref), (f, s0)
+    assert cb.launch_counts()["exchange_slabs"] == (6 if mode == "wave" else 2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dims,periods", [((2, 2, 2), (1, 0, 1)), ((1, 1, 1), (1, 1, 1))])
 def test_run_acoustic_on_host_kernels_matches_plain(on_host, monkeypatch, dims, periods, dtype):
