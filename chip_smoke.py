@@ -21,7 +21,10 @@ Phases, in order; any failure exits non-zero without the final line:
    kernel's device time alone (torch.profiler); each K4s mode's launch
    along x, y and z beside its byte bound (and along z its 32-byte sector
    bound): the step on the 128^3 mesh and config 3, the wave and Stokes
-   modes on config 4's and 5's meshes;
+   modes on config 4's and 5's meshes; K8 and then K7 along x, y and z on
+   config 4's (P, Vx, Vy, Vz) and config 5's (Vx, Vy, Vz, P) coalesced
+   groups, each pair held bitwise first, beside their byte and 32-byte
+   sector bounds (`k78_dim_times`);
 3. main path, periodic: `init_global_grid(256, 256, 256, periodic)` ->
    `init_diffusion3d` -> warm chunk -> tic -> `run_diffusion(nt=100)` -> toc
    -> `update_halo` -> `gather_interior`, against the same run with
@@ -51,7 +54,8 @@ Phases, in order; any failure exits non-zero without the final line:
    group a dim) bitwise against the plain grid's; a few steps of
    ``impl="plain"`` (K8/K7 for the velocities, K4s/K6 for P) against
    ``IGG_USE_PALLAS=0``; K9 on the run's own states (`k9_kernels_ms`), the
-   route's host, wall and device time a step; a bfloat16 run, bitwise
+   fused and the plain route's host, wall and device time a step; a
+   bfloat16 run, bitwise
    against the kernels' plain versions on the card for a few steps and
    held to float64 beside the plain route;
 10. BASELINE config 5 (3-D pseudo-transient Stokes) on one 128^3 block,
@@ -63,7 +67,8 @@ Phases, in order; any failure exits non-zero without the final line:
 11. config 5 on a 2x2x2 mesh of 128^3 blocks, 300 iterations of the fused
    route (3 K4s Stokes-mode launches, one a dim for the four fields, + 1
    K10 an iteration); its first 20 against the plain route (K8 + K7 for the
-   (Vx, Vy, Vz, P) group);
+   (Vx, Vy, Vz, P) group); both routes' host, wall and device time an
+   iteration;
 12. numbers: the card's name and power limit, each kernel's time, bound,
    plain and library times (one JSON line), cell-updates/s, host against
    device time per step of the fused routes, and the main paths' K4s
@@ -357,6 +362,11 @@ def phase_kernels(igg_ops, counts_before):
     rows["exchange_slabs"] = k4s = check_k4s(cs)
     k4s["max_abs_err"] = max(k4s["max_abs_err"], check_k4s_wave(cs, cw, tg))
     rows["wire_pack"], rows["halo_write_multi"] = check_k7_k8(ch, tg)
+    dims78 = k78_dim_times(ch)
+    for name, k in (("wire_pack", "k8"), ("halo_write_multi", "k7")):
+        rows[name]["dims"] = {g: {d: r[k] for d, r in rs.items()} for g, rs in dims78.items()}
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], *(
+            r[k]["max_abs_err"] for rs in dims78.values() for r in rs.values()))
     rows["acoustic_step_exchange"] = check_k9(cw, tg)
     k4s["max_abs_err"] = max(k4s["max_abs_err"], check_k4s_stokes(cs, cst, tg))
     k4s["dims"] = dims = k4s_dim_times(cs, cw, cst, tg)
@@ -1180,9 +1190,22 @@ def k4s_dim_times(cs, cw, cst, tg):
     return out
 
 
+# the coalesced groups of the main paths that K8 and K7 are timed on: config 4's
+# update_halo(P, Vx, Vy, Vz), periodic, and config 5's plain-route exchange of
+# (Vx, Vy, Vz, P), PROC_NULL edges; 2x2x2 blocks of float32, halowidth 1
+K78_GROUPS = {"config4": (N_CFG4, ("P", "Vx", "Vy", "Vz"), True),
+              "config5": (N_CFG5, ("Vx", "Vy", "Vz", "P"), False)}
+
+
+def staggered_loc(n, name):
+    """The local shape of a field of the acoustic or Stokes state."""
+    return tuple(n + (name == f"V{a}") for a in "xyz")
+
+
 def check_k7_k8(ch, tg):
     """K8 and K7 against their plain versions, bitwise: slab and flat
-    layouts, 2 to 4 fields, float32, float64 and int32, dims 0, 1 and 2,
+    layouts, 2 to 4 fields, float32, float64, int32, bfloat16 and int8
+    (every element size), dims 0, 1 and 2,
     halowidths 1 and 2 and per field, staggered fields, periodic and
     PROC_NULL, on 2x2x2 x 64^3 blocks (and 2-D fields on 2x2 x 64^2); then
     their timing rows on the three
@@ -1204,8 +1227,8 @@ def check_k7_k8(ch, tg):
               ([(n, n, n)] * 3, [2, 2, 2]),
               ([(n, n, n), (n + 1, n, n), (n, n, n)], [1, 2, 1])]
     layouts = set()
-    for (locs, hws), dim, dt in itertools.product(groups, range(3),
-                                                  (torch.float32, torch.float64, torch.int32)):
+    for (locs, hws), dim, dt in itertools.product(groups, range(3), (
+            torch.float32, torch.float64, torch.int32, torch.bfloat16, torch.int8)):
         fs = [(1000 * torch.rand(tuple(c * m for c, m in zip(counts, loc)), generator=g,
                                  device="cuda")).to(dt) for loc in locs]
         sch = schema_for_fields(dim, locs, hws, dt)
@@ -1248,8 +1271,8 @@ def check_k7_k8(ch, tg):
               f"K8 and K7, 2-D fields {locs} dim {dim} {sch.layout}: bitwise")
     check(layouts == {"slab", "flat"}, "K7/K8 checked in slab and flat layouts")
     # timing: the coalesced update_halo of the acoustic state, 2x2x2 x 192^3
-    n = N_CFG4
-    locs = [(n, n, n), (n + 1, n, n), (n, n + 1, n), (n, n, n + 1)]
+    n, names, _ = K78_GROUPS["config4"]
+    locs = [staggered_loc(n, f) for f in names]
     fs = [torch.randn(tuple(2 * m for m in loc), generator=g, device="cuda") for loc in locs]
     schemas, starts = [], []
     for d in range(3):
@@ -1314,18 +1337,132 @@ def check_k7_k8(ch, tg):
             dst.copy_(src)
 
     slab_b = sum(2 * sum(s.cells) * 8 * 4 for s in schemas)  # both directions, 8 blocks
+    sectors = [coalesced_bounds(fs, locs, [1] * 4, d, *starts[d], True, 1) for d in range(3)]
     shape = "the 3 dims of one coalesced update_halo(P, Vx, Vy, Vz), 2x2x2 x 192^3 float32"
     k8_row = dict(max_abs_err=max(err8, e8), ms=median_ms(k8), plain_ms=median_ms(
         k8_plain, batches=3, per_batch=2, warm=1),
         device_ms=device_ms(k8, KERNEL_NAMES["wire_pack"]),
         bound_ms=2 * slab_b / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        sector_bound_ms=sum(b["k8"][1] for b in sectors),
         library_ms=median_ms(k8_library, batches=3, per_batch=3, warm=1), shape=shape)
     k7_row = dict(max_abs_err=max(err7, e7), ms=median_ms(k7), plain_ms=median_ms(
         k7_plain, batches=3, per_batch=2, warm=1),
         device_ms=device_ms(k7, KERNEL_NAMES["halo_write_multi"]),
         bound_ms=2 * slab_b / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        sector_bound_ms=sum(b["k7"][1] for b in sectors),
         library_ms=median_ms(k7_library, batches=3, per_batch=3, warm=1), shape=shape)
     return k8_row, k7_row
+
+
+def _slab_sectors(shape, blk, dim, runs, hw, itemsize):
+    """The 32-byte sectors of a stacked field of ``shape`` (blocks ``blk``)
+    that the cells ``[start, start + hw)`` along ``dim`` of the blocks ``c``
+    in ``runs`` ((c, start) pairs, every block along the other dims) lie in,
+    each once."""
+    import numpy as np
+
+    idx = [np.arange(s, dtype=np.int64) for s in shape]
+    idx[dim] = np.array([c * blk[dim] + s + h for c, s in runs for h in range(hw)],
+                        dtype=np.int64)
+    off = (idx[0][:, None, None] * shape[1] + idx[1][None, :, None]) * shape[2] \
+        + idx[2][None, None, :]
+    return np.unique(off.ravel() * itemsize // 32).size
+
+
+def coalesced_bounds(fields, locs, hws, dim, starts_r, starts_l, periodic, disp):
+    """Byte and 32-byte sector bounds (ms) of K8 and of K7 along ``dim`` for
+    a group of stacked 3-D ``fields``: K8 reads both send slabs of every
+    block and writes both buffers; K7 reads the buffer rows that have a
+    neighbour and writes those halos (a PROC_NULL side none). The byte bound
+    counts each cell once; the sector bound counts the field's sectors that
+    the cells touch, each once (the buffers are contiguous: their bytes), the
+    least a card that moves whole sectors moves. Returns ``{"k8": (bytes ms,
+    sectors ms), "k7": (...)}``."""
+    e = fields[0].element_size()
+    D = int(fields[0].shape[dim]) // int(locs[0][dim])
+    cells = {"k8": 0, "k7": 0}  # buffer cells written (K8) or read (K7)
+    sectors = {"k8": 0, "k7": 0}
+    for f, blk, hw, sr, sl in zip(fields, locs, hws, starts_r, starts_l):
+        shape = tuple(int(s) for s in f.shape)
+        slab_cells = f.numel() // blk[dim] * hw  # one start, every block
+        runs8 = [(c, s) for c in range(D) for s in (sr, sl)]
+        runs7 = [(c, s) for c in range(D) for s, shift in ((0, -disp), (blk[dim] - hw, disp))
+                 if periodic or 0 <= c + shift < D]
+        cells["k8"] += 2 * slab_cells
+        cells["k7"] += slab_cells * len(runs7) // D
+        sectors["k8"] += 32 * _slab_sectors(shape, blk, dim, runs8, hw, e)
+        sectors["k7"] += 32 * _slab_sectors(shape, blk, dim, runs7, hw, e)
+    ms = 1e3 / HBM_BYTES_PER_S
+    return {k: (2 * cells[k] * e * ms, (sectors[k] + cells[k] * e) * ms)
+            for k in ("k8", "k7")}
+
+
+def k78_dim_times(ch):
+    """K8 then K7 along x, y and z as `_exchange_dim_coalesced` runs them
+    (the pack, then the unpack into the same fields), on the groups of
+    `K78_GROUPS` (random states, the flat layout); each pair held bitwise
+    against the plain versions first (buffers and fields), then timed: ``ms``
+    the pair (CUDA events, Python included), each kernel's ``ms`` alone and
+    ``device_ms`` inside the pair (torch.profiler), beside its byte and
+    sector bounds (`coalesced_bounds`). Prints a line a launch; returns
+    {group: {dim: {"k8": {...}, "k7": {...}, "pair_ms": t}}}."""
+    import torch
+
+    from implicitglobalgrid_tpu_torch.ops.wire import schema_for_fields
+
+    g = torch.Generator(device="cuda").manual_seed(91)
+    out = {}
+    for label, (n, names, periodic) in K78_GROUPS.items():
+        locs = [staggered_loc(n, f) for f in names]
+        fs = [torch.randn(tuple(2 * m for m in loc), generator=g, device="cuda")
+              for loc in locs]
+        out[label] = {}
+        for dim in range(3):
+            sch = schema_for_fields(dim, locs, [1] * 4, torch.float32)
+            ols = [2 + loc[dim] - n for loc in locs]
+            kw = dict(starts_r=[loc[dim] - ol for loc, ol in zip(locs, ols)],
+                      starts_l=[ol - 1 for ol in ols], blocks=locs)
+            wk = dict(blocks=locs, periodic=periodic, disp=1)
+            f1, f2 = [f.clone() for f in fs], [f.clone() for f in fs]
+            b1 = ch.wire_pack(f1, sch, **kw)
+            ch.halo_write_multi(f1, *b1, sch, **wk)
+            b2 = ch.wire_pack_plain(f2, sch, **kw)
+            ch.halo_write_multi_plain(f2, *b2, sch, **wk)
+            torch.cuda.synchronize()
+            e8 = max(max_err(a, b) for a, b in zip(b1, b2))
+            e7 = max(max_err(a, b) for a, b in zip(f1, f2))
+            check(all(torch.equal(a, b) for a, b in zip(b1, b2))
+                  and all(torch.equal(a, b) for a, b in zip(f1, f2)),
+                  f"K8 + K7 {label} dim {dim} {sch.layout}: the timed pair bitwise equal to "
+                  f"plain ({e8:.3e}, {e7:.3e})")
+            del f1, f2, b1, b2
+            bufs = ch.wire_pack(fs, sch, **kw)
+
+            def pair():
+                ch.halo_write_multi(fs, *ch.wire_pack(fs, sch, **kw), sch, **wk)
+
+            bounds = coalesced_bounds(fs, locs, [1] * 4, dim, kw["starts_r"], kw["starts_l"],
+                                      periodic, 1)
+            row = {"pair_ms": median_ms(pair)}
+            for k, name, alone, err in (
+                    ("k8", "wire_pack", lambda: ch.wire_pack(fs, sch, **kw), e8),
+                    ("k7", "halo_write_multi",
+                     lambda: ch.halo_write_multi(fs, *bufs, sch, **wk), e7)):
+                row[k] = dict(ms=median_ms(alone), device_ms=device_ms(pair, KERNEL_NAMES[name]),
+                              bound_ms=bounds[k][0], bound_by="bytes",
+                              sector_bound_ms=bounds[k][1], max_abs_err=err)
+            out[label][dim] = row
+            del bufs
+        del fs
+    for label, rows in out.items():
+        for dim, r in rows.items():
+            for k in ("k8", "k7"):
+                x = r[k]
+                print(f"  {k.upper()} {label} dim {dim}: {x['ms']:.5f} ms alone (events), device "
+                      f"{x['device_ms']} ms in the pair, byte bound {x['bound_ms']:.5f} ms, sector "
+                      f"bound {x['sector_bound_ms']:.5f} ms", flush=True)
+            print(f"  K8 + K7 {label} dim {dim}: {r['pair_ms']:.5f} ms (events)", flush=True)
+    return out
 
 
 WAVE_GRIDS = {"all self-neighbour": ((1, 1, 1), (1, 1, 1)),
@@ -1565,6 +1702,8 @@ def phase_config4_mesh(tg, models, cb, cw):
     counts = c2
     times = route_times(_acoustic_step(tg, cw, s0, p), reps=5)
     print(f"  K4s + K9 route per step: {times}", flush=True)
+    plain_times = route_times(lambda: models.acoustic_step_local(s0, p, impl="plain"), reps=5)
+    print(f"  plain route per step: {plain_times}", flush=True)
     gg = tg.global_grid()
     block = (n, n, n)
     k = cw.wave_consts(rho=p.rho, K=p.K, dt=p.dt, dx=p.dx, dy=p.dy, dz=p.dz)
@@ -1593,7 +1732,8 @@ def phase_config4_mesh(tg, models, cb, cw):
     return counts, dict(k4s_launches=k4s, seconds=t, cell_updates_per_s=rate,
                         global_cells=cells,
                         max_abs_err_vs_plain=err, max_abs_err_plain_route=err_p,
-                        k9_route=times, k9_kernels_ms=k9_own, bf16=bf16)
+                        k9_route=times, plain_route=plain_times, k9_kernels_ms=k9_own,
+                        bf16=bf16)
 
 
 BF16_STEPS, BF16_HELD = 20, 5
@@ -1992,6 +2132,8 @@ def phase_config5_mesh(tg, models, cb, cst):
     check(dp["wire_pack"] == 60 and dp["halo_write_multi"] == 60 and sum(dp.values()) == 120,
           "config 5 mesh: the plain route exchanged (Vx, Vy, Vz, P) as one group a dim (K8/K7)")
     counts = {k: counts[k] + dp[k] for k in counts}  # the timed run and the plain route's
+    plain_times = route_times(lambda: models.stokes_step_local(s0, p, impl="plain"), reps=5)
+    print(f"  plain route per iteration: {plain_times}", flush=True)
     err = max(float(np.abs(a.astype(np.float64) - b).max()) for a, b in zip(f20, p20))
     ok = all(np.allclose(a, b, rtol=1e-4, atol=1e-5 * max(1e-30, float(np.abs(b).max())))
              for a, b in zip(f20, p20))
@@ -2001,6 +2143,7 @@ def phase_config5_mesh(tg, models, cb, cst):
     return counts, dict(k4s_launches=k4s, seconds=t, cell_updates_per_s=rate,
                         global_cells=cells,
                         residuals=list(res), max_abs_err_vs_plain_20=err, k10_route=times,
+                        plain_route=plain_times,
                         k10_solver_device_ms=solver_ms, k10_solver_kernels_device_ms=both,
                         state_magnitudes=mags)
 
@@ -2341,7 +2484,7 @@ def main() -> int:
                                         "subnormal_device_ms", "solver_device_ms",
                                         "kernels_device_ms", "own_state_device_ms",
                                         "f64_device_ms", "f64_bound_ms",
-                                        "ptxas_sass", "dims")}))
+                                        "ptxas_sass", "dims", "sector_bound_ms")}))
     k1_dev = rows["diffusion3d_step_halo"]["device_ms"]
     if k1_dev is not None:  # the periodic step is one K1 (T,T,T) launch
         periodic["k1_device_share"] = 100 * k1_dev / (periodic["seconds"] * 1e3 / 100)

@@ -58,12 +58,25 @@
 // buffer of block t + disp, unpacked by the same offsets; a PROC_NULL edge
 // keeps its halo. The TPU limits (dims 0 and 1, a shared halowidth, 8-row
 // strips, a VMEM budget) are tiling and have no counterpart: any dim, any
-// per-field halowidth. Bound: read and write every slab cell once, 2 x cells
-// x itemsize (~9 MB and ~3 us per dim for P, Vx, Vy, Vz on a 2x2x2 stack of
-// 192^3 float32 blocks), so a launch is dominated by its fixed cost. Design:
-// one thread per slab cell, threads along the slab's contiguous axis (the
-// field's z), grid.y = (slab, direction or side); 32-bit index arithmetic,
-// 64-bit offsets.
+// per-field halowidth.
+// Bound: read and write every slab cell once, 2 x cells x itemsize (~19 MB
+// and ~5.7 us a dim for P, Vx, Vy, Vz on a 2x2x2 stack of 192^3 float32
+// blocks). A z slab is hw cells of each row, so there the 32-byte sectors
+// those cells touch bound it instead: ~24 us for K8 on that stack.
+// Design: tiles, not cells. A thread block is a tile of one slab in one
+// block of the stack, found from blockIdx once (the slab by a scan of the
+// prefix sums of the slabs' tile counts, which `igg_coalesced_plan` fills in
+// once a group signature; no grid sized to the largest slab); no cell
+// divides by a runtime extent, offsets are 64-bit once a row and 32-bit in
+// it. x and y: a tile is 8 rows (a warp each) of one slab position and one
+// direction (K8) or side (K7); a row is n2 cells contiguous in the field and
+// in the buffer (both layouts), copied in 16-byte words where every span is
+// aligned. z: a thread a row, a tile 8 x planes by 32 y rows, threads along
+// y so the buffer side stays contiguous; a thread moves both directions of
+// its row (K8: the cells at start_r and start_l, read back to back, two
+// sectors of one row) or writes both sides (K7: [0, hw) and [n-hw, n)), and
+// K7 visits the rows in K8's order. K7 decides the source block, the wrap
+// and the PROC_NULL edge once a tile; a tile with no source writes nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -244,161 +257,252 @@ void halo_write_combined(void* a, const void* xl, const void* xr, const void* yl
       (unsigned)n1, (unsigned)n2, (unsigned)hwx);
 }
 
-// K7 and K8: one slab of a coalesced group. The field is stacked, D0 x D1 x
-// D2 blocks of (n0, n1, n2); the slab is (w0, w1, w2) = the block with the
-// exchange dim cut to hw, at local start start[0] (K8: the right send slab;
-// K7: the left halo) or start[1] (K8: the left send slab; K7: the right
-// halo). Element a of the slab sits at base + a . st in its block's buffer.
+// K7 and K8: the slabs of a coalesced group. Field k is stacked, D0 x D1 x D2
+// blocks of (n0, n1, n2); its slab is the block with the exchange dim cut to
+// hw, at local start start[0] (K8: the right send slab; K7: the left halo)
+// or start[1] (K8: the left send slab; K7: the right halo). Cell x of the
+// slab sits at base + x . (st0, st1, st2) in its block's buffer.
 constexpr int MAX_SLABS = 16;
-constexpr int SLAB_DESC = 11;  // long longs a slab in the host descriptor
+constexpr int SLAB_DESC = 14;  // long longs a slab in the host descriptor
+constexpr unsigned TILE_WARPS = THREADS / 32;  // rows of an x or y tile, planes of a z tile
+constexpr unsigned NO_TILE = 0xffffffffu;
 
 struct Slab {
   void* a;
-  unsigned n0, n1, n2, w0, w1, w2, cells;
-  unsigned start[2];
-  unsigned st0, st1, st2;
   long long base;
+  unsigned n0, n1, n2, hw, start[2], st0, st1, st2;
+  // tiles of one block: x and y, nt0 along u (the other of x and y) and
+  // nt1 = hw slab positions, each direction or side; z, nt0 along x and
+  // nt1 along y
+  unsigned nt0, nt1;
+  int vec;  // x and y: rows copied in 16-byte words
 };
 
 struct Slabs {
   Slab s[MAX_SLABS];
+  unsigned first[MAX_SLABS];  // each slab's first tile; NO_TILE past the last slab
+  unsigned D0, D1, D2;
+  long long payload;
 };
 
-// One cell of a slab over all blocks: cell q (32-bit) -> block b, its
-// coordinates (c0, c1, c2) and the slab index (x0, x1, x2). Scalars, not
-// arrays indexed by dim: such arrays live in a stack frame.
-struct Cell {
-  unsigned b, c0, c1, c2, x0, x1, x2;
+struct alignas(16) Word16 {
+  unsigned long long lo, hi;
 };
 
-__device__ __forceinline__ Cell slab_cell(const Slab& s, unsigned q, unsigned D1,
-                                          unsigned D2) {
-  Cell e;
-  e.b = q / s.cells;
-  const unsigned r = q - e.b * s.cells;
-  e.x2 = r % s.w2;
-  const unsigned t = r / s.w2;
-  e.x1 = t % s.w1;
-  e.x0 = t / s.w1;
-  e.c2 = e.b % D2;
-  const unsigned t2 = e.b / D2;
-  e.c1 = t2 % D1;
-  e.c0 = t2 / D1;
-  return e;
+// A thread block's tile, from blockIdx once: its slab k, its block of the
+// stack (index b, coordinates c0, c1, c2) and its index among that slab's
+// tiles of the block. A slab's tiles are block-major.
+struct TileOf {
+  unsigned k, b, c0, c1, c2, idx;
+};
+
+template <int DIM>
+__device__ __forceinline__ TileOf tile_of(const Slabs& d) {
+  TileOf t;
+  t.k = 0;
+#pragma unroll
+  for (int i = 1; i < MAX_SLABS; ++i) t.k += blockIdx.x >= d.first[i];
+  const Slab& s = d.s[t.k];
+  const unsigned per = (DIM == 2 ? 1u : 2u) * s.nt0 * s.nt1, local = blockIdx.x - d.first[t.k];
+  t.b = local / per;
+  t.idx = local - t.b * per;
+  t.c2 = t.b % d.D2;
+  const unsigned r = t.b / d.D2;
+  t.c1 = r % d.D1;
+  t.c0 = r / d.D1;
+  return t;
 }
 
-// Offset of the cell in its block's buffer.
-__device__ __forceinline__ long long buffer_offset(const Slab& s, const Cell& e) {
-  return s.base + (long long)e.x0 * s.st0 + (long long)e.x1 * s.st1 +
-         (long long)e.x2 * s.st2;
+// Offset in the stacked field of the first cell of row (i0, i1) (local) of
+// the tile's block.
+__device__ __forceinline__ long long row_offset(const Slab& s, const Slabs& d, const TileOf& t,
+                                                unsigned i0, unsigned i1) {
+  const long long S1 = (long long)d.D1 * s.n1, S2 = (long long)d.D2 * s.n2;
+  return ((long long)(t.c0 * s.n0 + i0) * S1 + (t.c1 * s.n1 + i1)) * S2 +
+         (long long)t.c2 * s.n2;
 }
 
-// Offset in the stacked field of the cell of block (c0, c1, c2) at local
-// (i0, i1, i2).
-__device__ __forceinline__ long long field_offset(const Slab& s, unsigned c0, unsigned c1,
-                                                  unsigned c2, unsigned i0, unsigned i1,
-                                                  unsigned i2, unsigned D1, unsigned D2) {
-  const long long S1 = (long long)D1 * s.n1, S2 = (long long)D2 * s.n2;
-  return ((long long)c0 * s.n0 + i0) * S1 * S2 + ((long long)c1 * s.n1 + i1) * S2 +
-         (long long)c2 * s.n2 + i2;
+// K7: the block whose buffer feeds side `side` of the tile's block along
+// DIM (disp before it for the left halo, after it for the right; wrapped
+// when periodic); false on a PROC_NULL edge.
+template <int DIM>
+__device__ __forceinline__ bool source_block(const Slabs& d, const TileOf& t, int side,
+                                             int periodic, int disp, unsigned& bs) {
+  const long long D = DIM == 0 ? d.D0 : (DIM == 1 ? d.D1 : d.D2);
+  long long c = (long long)(DIM == 0 ? t.c0 : (DIM == 1 ? t.c1 : t.c2)) + (side ? disp : -disp);
+  if (periodic) {
+    c %= D;
+    if (c < 0) c += D;
+  } else if (c < 0 || c >= D) {
+    return false;
+  }
+  const unsigned c0 = DIM == 0 ? (unsigned)c : t.c0, c1 = DIM == 1 ? (unsigned)c : t.c1,
+                 c2 = DIM == 2 ? (unsigned)c : t.c2;
+  bs = (c0 * d.D1 + c1) * d.D2 + c2;
+  return true;
 }
 
-// The slab index shifted by `start` along dim, as a field-local index.
-__device__ __forceinline__ long long shifted_offset(const Slab& s, const Cell& e, int dim,
-                                                    unsigned start, unsigned D1,
-                                                    unsigned D2) {
-  return field_offset(s, e.c0, e.c1, e.c2, e.x0 + (dim == 0 ? start : 0u),
-                      e.x1 + (dim == 1 ? start : 0u), e.x2 + (dim == 2 ? start : 0u), D1,
-                      D2);
+// An x or y tile: slab position h along DIM, TILE_WARPS rows along u (a
+// warp a row: this thread's u), direction (K8) or side (K7) dir.
+struct RowTile {
+  unsigned h, u, dir;
+};
+
+__device__ __forceinline__ RowTile row_tile(const Slab& s, unsigned idx) {
+  RowTile r;
+  const unsigned q = idx / s.nt0;
+  r.u = (idx - q * s.nt0) * TILE_WARPS + (threadIdx.x >> 5);
+  r.dir = q / s.hw;
+  r.h = q - r.dir * s.hw;
+  return r;
 }
 
-// grid.y = 2 * slab + direction: 0 packs the right send slabs into buf_r, 1
-// the left send slabs into buf_l.
+// The offset of an x or y tile's row in a block's buffer.
+template <int DIM>
+__device__ __forceinline__ long long row_buffer(const Slab& s, const RowTile& r) {
+  return s.base + (DIM == 0 ? (long long)r.h * s.st0 + (long long)r.u * s.st1
+                            : (long long)r.u * s.st0 + (long long)r.h * s.st1);
+}
+
+// One warp copies a row of n cells (contiguous on both sides), in 16-byte
+// words where `vec`.
 template <typename E>
+__device__ __forceinline__ void copy_row(E* __restrict__ dst, const E* __restrict__ src,
+                                         unsigned n, int vec) {
+  const unsigned lane = threadIdx.x & 31;
+  if (vec) {
+    const unsigned nw = n / (16 / sizeof(E));
+    for (unsigned i = lane; i < nw; i += 32)
+      reinterpret_cast<Word16*>(dst)[i] = reinterpret_cast<const Word16*>(src)[i];
+  } else {
+    for (unsigned i = lane; i < n; i += 32) dst[i] = src[i];
+  }
+}
+
+// A z tile: TILE_WARPS planes along x (a warp each) x 32 rows along y (a
+// lane each); this thread's row (x0, x1).
+__device__ __forceinline__ void z_row(const Slab& s, unsigned idx, unsigned& x0, unsigned& x1) {
+  const unsigned tx = idx / s.nt1;
+  x0 = tx * TILE_WARPS + (threadIdx.x >> 5);
+  x1 = (idx - tx * s.nt1) * 32 + (threadIdx.x & 31);
+}
+
+template <int DIM, typename E>
 __global__ void __launch_bounds__(THREADS)
-wire_pack_kernel(Slabs d, E* __restrict__ buf_r, E* __restrict__ buf_l, unsigned D0,
-                 unsigned D1, unsigned D2, long long payload, int dim) {
-  const Slab s = d.s[blockIdx.y >> 1];
-  const int dir = blockIdx.y & 1;
-  E* __restrict__ buf = dir ? buf_l : buf_r;
+wire_pack_kernel(const __grid_constant__ Slabs d, E* __restrict__ buf_r, E* __restrict__ buf_l) {
+  const TileOf t = tile_of<DIM>(d);
+  const Slab& s = d.s[t.k];
   const E* __restrict__ a = static_cast<const E*>(s.a);
-  const unsigned start = dir ? s.start[1] : s.start[0];
-  const unsigned total = D0 * D1 * D2 * s.cells;
-  for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < total;
-       q += gridDim.x * blockDim.x) {
-    const Cell e = slab_cell(s, q, D1, D2);
-    buf[e.b * payload + buffer_offset(s, e)] = a[shifted_offset(s, e, dim, start, D1, D2)];
-  }
-}
-
-// grid.y = 2 * slab + side: 0 writes the left halo from buf_r of block
-// t - disp, 1 the right halo from buf_l of block t + disp (along dim).
-template <typename E>
-__global__ void __launch_bounds__(THREADS)
-halo_write_multi_kernel(Slabs d, const E* __restrict__ buf_r, const E* __restrict__ buf_l,
-                        unsigned D0, unsigned D1, unsigned D2, long long payload, int dim,
-                        int periodic, int disp) {
-  const Slab s = d.s[blockIdx.y >> 1];
-  const int side = blockIdx.y & 1;
-  const E* __restrict__ buf = side ? buf_l : buf_r;
-  E* a = static_cast<E*>(s.a);
-  const unsigned start = side ? s.start[1] : s.start[0];
-  const unsigned total = D0 * D1 * D2 * s.cells;
-  const int Dd = (int)(dim == 0 ? D0 : (dim == 1 ? D1 : D2));
-  for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < total;
-       q += gridDim.x * blockDim.x) {
-    const Cell e = slab_cell(s, q, D1, D2);
-    const unsigned cd = dim == 0 ? e.c0 : (dim == 1 ? e.c1 : e.c2);
-    int sc = (int)cd + (side ? disp : -disp);
-    if (periodic) {
-      sc %= Dd;
-      if (sc < 0) sc += Dd;
-    } else if (sc < 0 || sc >= Dd) {
-      continue;  // PROC_NULL: the block keeps its halo
+  const long long blk = (long long)t.b * d.payload;
+  if constexpr (DIM == 2) {
+    unsigned x0, x1;
+    z_row(s, t.idx, x0, x1);
+    if (x0 >= s.n0 || x1 >= s.n1) return;
+    const E* row = a + row_offset(s, d, t, x0, x1);
+    const long long o = blk + s.base + (long long)x0 * s.st0 + (long long)x1 * s.st1;
+    for (unsigned h = 0; h < s.hw; ++h) {  // both directions of the row
+      const E r = row[s.start[0] + h], l = row[s.start[1] + h];
+      buf_r[o + h * s.st2] = r;
+      buf_l[o + h * s.st2] = l;
     }
-    const long long bs = ((long long)(dim == 0 ? (unsigned)sc : e.c0) * D1 +
-                          (dim == 1 ? (unsigned)sc : e.c1)) * D2 +
-                         (dim == 2 ? (unsigned)sc : e.c2);
-    a[shifted_offset(s, e, dim, start, D1, D2)] = buf[bs * payload + buffer_offset(s, e)];
+  } else {
+    const RowTile r = row_tile(s, t.idx);
+    if (r.u >= (DIM == 0 ? s.n1 : s.n0)) return;
+    const unsigned p = s.start[r.dir] + r.h;
+    copy_row((r.dir ? buf_l : buf_r) + blk + row_buffer<DIM>(s, r),
+             a + row_offset(s, d, t, DIM == 0 ? p : r.u, DIM == 0 ? r.u : p), s.n2, s.vec);
   }
 }
 
-// The host descriptor (SLAB_DESC long longs a slab: pointer, n0, n1, n2, hw,
-// start0, start1, base, st0, st1, st2) -> kernel slabs; the largest slab's
-// cell count over all blocks, or -1 where a count leaves 32 bits.
-long long read_slabs(const long long* desc, int nslabs, int dim, long long nblocks,
-                     Slabs& d) {
-  long long most = 0;
-  for (int k = 0; k < nslabs; ++k) {
+template <int DIM, typename E>
+__global__ void __launch_bounds__(THREADS)
+halo_write_multi_kernel(const __grid_constant__ Slabs d, const E* __restrict__ buf_r,
+                        const E* __restrict__ buf_l, int periodic, int disp) {
+  const TileOf t = tile_of<DIM>(d);
+  const Slab& s = d.s[t.k];
+  E* __restrict__ a = static_cast<E*>(s.a);
+  if constexpr (DIM == 2) {
+    unsigned bl = 0, br = 0;
+    const bool left = source_block<DIM>(d, t, 0, periodic, disp, bl),
+               right = source_block<DIM>(d, t, 1, periodic, disp, br);
+    unsigned x0, x1;
+    z_row(s, t.idx, x0, x1);
+    if ((!left && !right) || x0 >= s.n0 || x1 >= s.n1) return;
+    E* row = a + row_offset(s, d, t, x0, x1);
+    const long long o = s.base + (long long)x0 * s.st0 + (long long)x1 * s.st1;
+    const E* sl = buf_r + (long long)bl * d.payload + o;
+    const E* sr = buf_l + (long long)br * d.payload + o;
+    for (unsigned h = 0; h < s.hw; ++h) {  // both sides of the row
+      if (left) row[s.start[0] + h] = sl[h * s.st2];
+      if (right) row[s.start[1] + h] = sr[h * s.st2];
+    }
+  } else {
+    const RowTile r = row_tile(s, t.idx);
+    unsigned bs;
+    if (!source_block<DIM>(d, t, r.dir, periodic, disp, bs)) return;  // the tile's side
+    if (r.u >= (DIM == 0 ? s.n1 : s.n0)) return;
+    const unsigned p = s.start[r.dir] + r.h;
+    copy_row(a + row_offset(s, d, t, DIM == 0 ? p : r.u, DIM == 0 ? r.u : p),
+             (r.dir ? buf_l : buf_r) + (long long)bs * d.payload + row_buffer<DIM>(s, r), s.n2,
+             s.vec);
+  }
+}
+
+long long cdiv_ll(long long a, long long b) { return (a + b - 1) / b; }
+
+// The kernel slabs of a planned host descriptor, each slab's first tile and
+// the tiles of the launch (0 where the descriptor is not one; a slab's
+// 16-byte copies off where a pointer is not 16-byte aligned).
+unsigned read_plan(const long long* desc, int nslabs, int dim, long long D0, long long D1,
+                   long long D2, long long payload, const void* b0, const void* b1, Slabs& d) {
+  if (nslabs < 1 || nslabs > MAX_SLABS || dim < 0 || dim > 2 || D0 < 1 || D1 < 1 || D2 < 1 ||
+      payload < 1)
+    return 0;
+  d.D0 = (unsigned)D0, d.D1 = (unsigned)D1, d.D2 = (unsigned)D2;
+  d.payload = payload;
+  const bool bufs16 = ((reinterpret_cast<uintptr_t>(b0) | reinterpret_cast<uintptr_t>(b1)) & 15) == 0;
+  long long total = 0;
+  for (int k = 0; k < MAX_SLABS; ++k) {
+    d.first[k] = k < nslabs ? (unsigned)total : NO_TILE;
+    if (k >= nslabs) continue;
     const long long* p = desc + k * SLAB_DESC;
     Slab& s = d.s[k];
     s.a = reinterpret_cast<void*>(p[0]);
-    s.n0 = (unsigned)p[1];
-    s.n1 = (unsigned)p[2];
-    s.n2 = (unsigned)p[3];
-    long long w[3] = {p[1], p[2], p[3]};
-    w[dim] = p[4];
-    s.w0 = (unsigned)w[0];
-    s.w1 = (unsigned)w[1];
-    s.w2 = (unsigned)w[2];
-    const long long cells = w[0] * w[1] * w[2];
-    s.cells = (unsigned)cells;
-    s.start[0] = (unsigned)p[5];
-    s.start[1] = (unsigned)p[6];
+    s.n0 = (unsigned)p[1], s.n1 = (unsigned)p[2], s.n2 = (unsigned)p[3], s.hw = (unsigned)p[4];
+    s.start[0] = (unsigned)p[5], s.start[1] = (unsigned)p[6];
     s.base = p[7];
-    s.st0 = (unsigned)p[8];
-    s.st1 = (unsigned)p[9];
-    s.st2 = (unsigned)p[10];
-    if (cells < 1 || cells * nblocks >= (1LL << 31)) return -1;
-    most = std::max(most, cells * nblocks);
+    s.st0 = (unsigned)p[8], s.st1 = (unsigned)p[9], s.st2 = (unsigned)p[10];
+    s.nt0 = (unsigned)p[11], s.nt1 = (unsigned)p[12];
+    s.vec = p[13] && bufs16 && (reinterpret_cast<uintptr_t>(s.a) & 15) == 0;
+    if (s.nt0 < 1 || s.nt1 < 1) return 0;  // not planned
+    total += (dim == 2 ? 1 : 2) * (long long)s.nt0 * s.nt1 * D0 * D1 * D2;
+    if (total >= (1LL << 31)) return 0;
   }
-  return most;
+  return (unsigned)total;
 }
 
-unsigned grid_x(long long most) {
-  long long blocks = (most + THREADS - 1) / THREADS;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
-  return (unsigned)blocks;
+template <typename E>
+void wire_pack_launch(int dim, const Slabs& d, unsigned tiles, void* buf_r, void* buf_l,
+                      cudaStream_t st) {
+  E* r = static_cast<E*>(buf_r);
+  E* l = static_cast<E*>(buf_l);
+  switch (dim) {
+    case 0: wire_pack_kernel<0, E><<<tiles, THREADS, 0, st>>>(d, r, l); break;
+    case 1: wire_pack_kernel<1, E><<<tiles, THREADS, 0, st>>>(d, r, l); break;
+    default: wire_pack_kernel<2, E><<<tiles, THREADS, 0, st>>>(d, r, l); break;
+  }
+}
+
+template <typename E>
+void halo_write_multi_launch(int dim, const Slabs& d, unsigned tiles, const void* buf_r,
+                             const void* buf_l, int periodic, int disp, cudaStream_t st) {
+  const E* r = static_cast<const E*>(buf_r);
+  const E* l = static_cast<const E*>(buf_l);
+  switch (dim) {
+    case 0: halo_write_multi_kernel<0, E><<<tiles, THREADS, 0, st>>>(d, r, l, periodic, disp); break;
+    case 1: halo_write_multi_kernel<1, E><<<tiles, THREADS, 0, st>>>(d, r, l, periodic, disp); break;
+    default: halo_write_multi_kernel<2, E><<<tiles, THREADS, 0, st>>>(d, r, l, periodic, disp); break;
+  }
 }
 
 }  // namespace
@@ -467,31 +571,61 @@ extern "C" int igg_halo_write_combined(int itemsize, void* a, const void* xl, co
   return (int)cudaGetLastError();
 }
 
-// K8. desc: nslabs descriptors (see read_slabs); the fields are stacked, D0 x
-// D1 x D2 blocks each; buf_r/buf_l: (D0*D1*D2, payload) contiguous, the
-// buffers of the right and the left send slabs.
+// K7 and K8's plan, once a group signature: checks each of the nslabs host
+// descriptors (SLAB_DESC long longs a slab: pointer, n0, n1, n2, hw,
+// start0, start1, base, st0, st1, st2, then the plan) of a group along dim
+// (the fields stacked, D0 x D1 x D2 blocks each; a block's buffer of
+// payload cells of itemsize bytes) and fills in the plan: the slab's tiles
+// a block along its two tiled axes (nt0, nt1) and whether its rows copy in
+// 16-byte words (x and y: every span a multiple of 16 bytes).
+extern "C" int igg_coalesced_plan(int itemsize, int nslabs, long long* desc, long long D0,
+                                  long long D1, long long D2, long long payload, int dim) {
+  if (nslabs < 1 || nslabs > MAX_SLABS || dim < 0 || dim > 2 || D0 < 1 || D1 < 1 || D2 < 1 ||
+      payload < 1 || (itemsize != 1 && itemsize != 2 && itemsize != 4 && itemsize != 8))
+    return (int)cudaErrorInvalidValue;
+  const long long D[3] = {D0, D1, D2}, e = itemsize;
+  long long total = 0;
+  for (int k = 0; k < nslabs; ++k) {
+    long long* p = desc + k * SLAB_DESC;
+    const long long n[3] = {p[1], p[2], p[3]}, hw = p[4], base = p[7],
+                    st[3] = {p[8], p[9], p[10]};
+    long long w[3] = {n[0], n[1], n[2]};
+    w[dim] = hw;
+    // x and y: rows contiguous in the buffer (a 2-D field's rows are a cell)
+    bool ok = hw >= 1 && base >= 0 && (dim == 2 || st[2] == 1 || n[2] == 1);
+    for (int a = 0; a < 3; ++a)  // 32-bit stacked extents and strides
+      ok = ok && n[a] >= 1 && D[a] * n[a] < (1LL << 31) && st[a] >= 0 && st[a] < (1LL << 32);
+    for (int j = 5; j < 7; ++j) ok = ok && p[j] >= 0 && p[j] + hw <= n[dim];
+    // the slab's last cell lies in the buffer
+    ok = ok && base + (w[0] - 1) * st[0] + (w[1] - 1) * st[1] + (w[2] - 1) * st[2] < payload;
+    if (!ok) return (int)cudaErrorInvalidValue;
+    p[11] = dim == 2 ? cdiv_ll(n[0], TILE_WARPS) : cdiv_ll(n[1 - dim], TILE_WARPS);
+    p[12] = dim == 2 ? cdiv_ll(n[1], 32) : hw;
+    p[13] = dim < 2 && (n[2] * e) % 16 == 0 && (base * e) % 16 == 0 && (st[0] * e) % 16 == 0 &&
+            (st[1] * e) % 16 == 0 && (payload * e) % 16 == 0;
+    total += (dim == 2 ? 1 : 2) * p[11] * p[12] * D0 * D1 * D2;
+    if (total >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+// K8. desc: nslabs descriptors planned by igg_coalesced_plan (the pointers
+// filled in); buf_r/buf_l: (D0*D1*D2, payload) contiguous, the buffers of
+// the right and the left send slabs.
 extern "C" int igg_wire_pack(int itemsize, int nslabs, const long long* desc, void* buf_r,
                              void* buf_l, long long D0, long long D1, long long D2,
                              long long payload, int dim, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nslabs < 1 || nslabs > MAX_SLABS || dim < 0 || dim > 2 || D0 < 1 || D1 < 1 || D2 < 1)
-    return (int)cudaErrorInvalidValue;
   Slabs d{};
-  const long long most = read_slabs(desc, nslabs, dim, D0 * D1 * D2, d);
-  if (most < 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(grid_x(most), 2u * (unsigned)nslabs);
-#define IGG_PACK(E)                                                                     \
-  wire_pack_kernel<E><<<grid, THREADS, 0, st>>>(d, static_cast<E*>(buf_r),              \
-                                                static_cast<E*>(buf_l), (unsigned)D0,   \
-                                                (unsigned)D1, (unsigned)D2, payload, dim)
+  const unsigned tiles = read_plan(desc, nslabs, dim, D0, D1, D2, payload, buf_r, buf_l, d);
+  if (tiles == 0) return (int)cudaErrorInvalidValue;
   switch (itemsize) {
-    case 1: IGG_PACK(uint8_t); break;
-    case 2: IGG_PACK(uint16_t); break;
-    case 4: IGG_PACK(uint32_t); break;
-    case 8: IGG_PACK(unsigned long long); break;
+    case 1: wire_pack_launch<uint8_t>(dim, d, tiles, buf_r, buf_l, st); break;
+    case 2: wire_pack_launch<uint16_t>(dim, d, tiles, buf_r, buf_l, st); break;
+    case 4: wire_pack_launch<uint32_t>(dim, d, tiles, buf_r, buf_l, st); break;
+    case 8: wire_pack_launch<unsigned long long>(dim, d, tiles, buf_r, buf_l, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef IGG_PACK
   return (int)cudaGetLastError();
 }
 
@@ -503,24 +637,17 @@ extern "C" int igg_halo_write_multi(int itemsize, int nslabs, const long long* d
                                     long long D1, long long D2, long long payload, int dim,
                                     int periodic, long long disp, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nslabs < 1 || nslabs > MAX_SLABS || dim < 0 || dim > 2 || D0 < 1 || D1 < 1 ||
-      D2 < 1 || disp < 0 || disp >= (1LL << 30))
-    return (int)cudaErrorInvalidValue;
+  if (disp < 0 || disp >= (1LL << 30)) return (int)cudaErrorInvalidValue;
   Slabs d{};
-  const long long most = read_slabs(desc, nslabs, dim, D0 * D1 * D2, d);
-  if (most < 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(grid_x(most), 2u * (unsigned)nslabs);
-#define IGG_UNPACK(E)                                                                    \
-  halo_write_multi_kernel<E><<<grid, THREADS, 0, st>>>(                                  \
-      d, static_cast<const E*>(buf_r), static_cast<const E*>(buf_l), (unsigned)D0,       \
-      (unsigned)D1, (unsigned)D2, payload, dim, periodic, (int)disp)
+  const unsigned tiles = read_plan(desc, nslabs, dim, D0, D1, D2, payload, buf_r, buf_l, d);
+  if (tiles == 0) return (int)cudaErrorInvalidValue;
+  const int p = periodic != 0, s = (int)disp;
   switch (itemsize) {
-    case 1: IGG_UNPACK(uint8_t); break;
-    case 2: IGG_UNPACK(uint16_t); break;
-    case 4: IGG_UNPACK(uint32_t); break;
-    case 8: IGG_UNPACK(unsigned long long); break;
+    case 1: halo_write_multi_launch<uint8_t>(dim, d, tiles, buf_r, buf_l, p, s, st); break;
+    case 2: halo_write_multi_launch<uint16_t>(dim, d, tiles, buf_r, buf_l, p, s, st); break;
+    case 4: halo_write_multi_launch<uint32_t>(dim, d, tiles, buf_r, buf_l, p, s, st); break;
+    case 8: halo_write_multi_launch<unsigned long long>(dim, d, tiles, buf_r, buf_l, p, s, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef IGG_UNPACK
   return (int)cudaGetLastError();
 }

@@ -58,6 +58,7 @@ _SIGNATURES = {
     + [_C_INT, _C_LL, _C_INT] + [_C_LL] * 6
     + [_C_INT, _C_LL, _C_VOID, _C_VOID] * 2 + [_C_DBL] * 5 + [_C_VOID],
     "igg_halo_write_combined": [_C_INT] + [_C_VOID] * 7 + [_C_LL] * 7 + [_C_VOID],
+    "igg_coalesced_plan": [_C_INT, _C_INT, _C_VOID] + [_C_LL] * 4 + [_C_INT],
     "igg_wire_pack": [_C_INT, _C_INT] + [_C_VOID] * 3 + [_C_LL] * 4 + [_C_INT, _C_VOID],
     "igg_halo_write_multi": [_C_INT, _C_INT] + [_C_VOID] * 3 + [_C_LL] * 4
     + [_C_INT, _C_INT, _C_LL, _C_VOID],

@@ -47,6 +47,24 @@ __all__ = ["halo_write_supported", "halo_write", "halo_write_plain",
 
 # fields a K7/K8 launch takes (`MAX_SLABS` in csrc/halo.cu)
 MAX_SLABS = 16
+# long longs a slab in the K7/K8 descriptor (`SLAB_DESC` in csrc/halo.cu)
+_SLAB_DESC = 14
+
+
+def _on_card(t):
+    """False for a CPU tensor (the plain version runs); True for a CUDA one;
+    raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise NotSupportedError(f"no kernel for device {t.device}.")
+    return True
+
+
+def _stream(t):
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def halo_write_supported(shape, dim: int, hw: int) -> bool:
@@ -106,10 +124,8 @@ def halo_write(a, slab_l, slab_r, *, dim: int, hw: int, block=None):
     default the whole extent) of stacked ``a``, in place; returns ``a``.
     Slab ``c`` of width ``hw`` along ``dim`` goes to block ``c``."""
     dim, hw, n = _check_write(a, slab_l, slab_r, dim, hw, block)
-    if a.device.type == "cpu":
+    if not _on_card(a):
         return halo_write_plain(a, slab_l, slab_r, dim=dim, hw=hw, block=n)
-    if a.device.type != "cuda":
-        raise NotSupportedError(f"no kernel for device {a.device}.")
     import torch
 
     shape = tuple(int(s) for s in a.shape) + (1,) * (3 - a.dim())
@@ -117,8 +133,7 @@ def halo_write(a, slab_l, slab_r, *, dim: int, hw: int, block=None):
     with torch.cuda.device(a.device):
         rc = lib.igg_halo_write(
             a.element_size(), a.data_ptr(), slab_l.data_ptr(), slab_r.data_ptr(),
-            *shape, dim, n, hw,
-            torch.cuda.current_stream(a.device).cuda_stream)
+            *shape, dim, n, hw, _stream(a))
     check_rc(rc, "halo_write")
     count_launch("halo_write")
     return a
@@ -185,10 +200,8 @@ def halo_self_exchange(a, *, modes, ols, block=None):
     stacked ``a`` in one pass: ``modes[d]`` flags a periodic single-rank
     dim, ``ols[d]`` its overlap. Out of place: returns a new tensor."""
     block, modes, ols = _check_self(a, modes, ols, block)
-    if a.device.type == "cpu":
+    if not _on_card(a):
         return halo_self_exchange_plain(a, modes=modes, ols=ols, block=block)
-    if a.device.type != "cuda":
-        raise NotSupportedError(f"no kernel for device {a.device}.")
     import torch
 
     out = torch.empty_like(a)
@@ -196,8 +209,7 @@ def halo_self_exchange(a, *, modes, ols, block=None):
     with torch.cuda.device(a.device):
         rc = lib.igg_halo_self_exchange(
             a.element_size(), a.data_ptr(), out.data_ptr(),
-            *(int(s) for s in a.shape), *block, *(int(m) for m in modes), *ols,
-            torch.cuda.current_stream(a.device).cuda_stream)
+            *(int(s) for s in a.shape), *block, *(int(m) for m in modes), *ols, _stream(a))
     check_rc(rc, "halo_self_exchange")
     count_launch("halo_self_exchange")
     return out
@@ -265,10 +277,8 @@ def halo_write_combined(a, recvs, *, modes, hws, block=None):
     z-halo lane: the reference's z, x, y write order."""
     block, modes, hws = _check_combined(
         a, recvs, modes, hws, tuple(a.shape) if block is None else block)
-    if a.device.type == "cpu":
+    if not _on_card(a):
         return halo_write_combined_plain(a, recvs, modes=modes, hws=hws, block=block)
-    if a.device.type != "cuda":
-        raise NotSupportedError(f"no kernel for device {a.device}.")
     import torch
 
     slabs = [p.data_ptr() if modes[d] else None
@@ -277,7 +287,7 @@ def halo_write_combined(a, recvs, *, modes, hws, block=None):
     with torch.cuda.device(a.device):
         rc = lib.igg_halo_write_combined(
             a.element_size(), a.data_ptr(), *slabs, *(int(s) for s in a.shape), *block,
-            hws[0], torch.cuda.current_stream(a.device).cuda_stream)
+            hws[0], _stream(a))
     check_rc(rc, "halo_write_combined")
     count_launch("halo_write_combined")
     return a
@@ -352,7 +362,6 @@ def _check_buffers(fields, bufs, schema, counts, name):
     import torch
 
     want = _buffer_shape(schema, counts)
-    stores = {f.untyped_storage().data_ptr() for f in fields}
     for b in bufs:
         if not isinstance(b, torch.Tensor) or tuple(b.shape) != want \
                 or b.dtype != fields[0].dtype or b.device != fields[0].device \
@@ -360,21 +369,68 @@ def _check_buffers(fields, bufs, schema, counts, name):
             raise InvalidArgumentError(
                 f"{name}: wire buffers must be contiguous {want} {fields[0].dtype} on "
                 f"{fields[0].device}.")
-        if b.untyped_storage().data_ptr() in stores:
-            raise InvalidArgumentError(f"{name}: a wire buffer must not alias a field.")
+    _check_alias(fields, bufs, name)
 
 
-def _descriptors(fields, schema, blocks, starts):
-    """The host descriptor of `igg_wire_pack` / `igg_halo_write_multi`: per
-    slab its field pointer, block shape (padded to 3-D), halowidth, the two
-    starts, and its base and strides in the buffer."""
-    dim = schema.dim
-    vals = []
-    for f, blk, (a, b), (base, st), shp in zip(fields, blocks, starts,
-                                                schema.slab_offsets(), schema.shapes):
-        blk3 = tuple(blk) + (1,) * (3 - len(blk))
-        vals += [f.data_ptr(), *blk3, int(shp[dim]), int(a), int(b), int(base), *st]
-    return (ctypes.c_longlong * len(vals))(*vals)
+def _check_alias(fields, bufs, name):
+    stores = {f.untyped_storage().data_ptr() for f in fields}
+    if any(b.untyped_storage().data_ptr() in stores for b in bufs):
+        raise InvalidArgumentError(f"{name}: a wire buffer must not alias a field.")
+
+
+# checked K7/K8 groups by call signature: [dim, block counts, blocks,
+# halowidths, buffer shape, descriptor (built at the group's first launch)]
+_GROUPS: dict = {}
+_MAX_GROUPS = 64
+
+
+def _group(check, schema, tensors, *extra):
+    """The checked group of a kernel call: ``check()`` (which raises on a
+    bad call) runs once a signature (``schema``, the tensors' shapes,
+    dtypes, devices and contiguity, and ``extra``), later calls of the
+    signature reuse its result."""
+    import torch
+
+    try:
+        key = (schema, *extra, tuple((t.shape, t.dtype, t.device, t.is_contiguous())
+                                     for t in tensors))
+        hash(key)
+    except (AttributeError, TypeError):
+        key = None  # not tensors: the check raises
+    g = _GROUPS.get(key) if key is not None and all(
+        isinstance(t, torch.Tensor) for t in tensors) else None
+    if g is None:
+        dim, counts, blks, hws = check()
+        g = [dim, counts, blks, hws, _buffer_shape(schema, counts), None]
+        if key is not None:
+            if len(_GROUPS) >= _MAX_GROUPS:
+                _GROUPS.clear()
+            _GROUPS[key] = g
+    return g
+
+
+def _descriptor(g, fields, schema, starts):
+    """The host descriptor of `igg_wire_pack` / `igg_halo_write_multi` for
+    group ``g``: per slab its field pointer, block shape (padded to 3-D),
+    halowidth, the two starts, its base and strides in the buffer, and the
+    plan `igg_coalesced_plan` fills in (the slab's tile counts and whether
+    its rows copy in 16-byte words). Built and planned at the group's first
+    launch; a call fills in only the field pointers."""
+    dim, counts, blks, _, shape, desc = g
+    if desc is None:
+        vals = []
+        for blk, (a, b), (base, st), shp in zip(blks, starts, schema.slab_offsets(),
+                                                schema.shapes):
+            blk3 = tuple(blk) + (1,) * (3 - len(blk))
+            vals += [0, *blk3, int(shp[dim]), int(a), int(b), int(base), *st, 0, 0, 0]
+        desc = (ctypes.c_longlong * len(vals))(*vals)
+        check_rc(library().igg_coalesced_plan(fields[0].element_size(), len(fields),
+                                              ctypes.addressof(desc), *counts, shape[1],
+                                              dim), "coalesced plan")
+        g[5] = desc
+    for k, f in enumerate(fields):
+        desc[k * _SLAB_DESC] = f.data_ptr()
+    return desc
 
 
 def wire_pack_plain(fields, schema, *, starts_r, starts_l, blocks):
@@ -403,32 +459,30 @@ def wire_pack(fields, schema, *, starts_r, starts_l, blocks):
     field k), raveled; ``buf_l`` the same of the left send slabs. Blocks in
     row-major order of their coordinates. Returns ``(buf_r, buf_l)``, each
     ``(blocks, payload cells)``, in one launch."""
-    dim, counts, blks, hws = _check_pack(fields, schema, blocks, starts_r, starts_l)
+    starts = tuple(zip(starts_r, starts_l))
+    g = _group(lambda: _check_pack(fields, schema, blocks, starts_r, starts_l), schema,
+               fields, "pack", tuple(map(tuple, blocks)), starts)
+    dim, counts, blks, _, shape = g[:5]
     f0 = fields[0]
-    if f0.device.type == "cpu":
+    if not _on_card(f0):
         return wire_pack_plain(fields, schema, starts_r=starts_r, starts_l=starts_l,
                                blocks=blks)
-    if f0.device.type != "cuda":
-        raise NotSupportedError(f"no kernel for device {f0.device}.")
     import torch
 
-    shape = _buffer_shape(schema, counts)
     buf_r = torch.empty(shape, dtype=f0.dtype, device=f0.device)
     buf_l = torch.empty(shape, dtype=f0.dtype, device=f0.device)
-    desc = _descriptors(fields, schema, blks, list(zip(starts_r, starts_l)))
-    lib = library()
+    desc = _descriptor(g, fields, schema, starts)
     with torch.cuda.device(f0.device):
-        rc = lib.igg_wire_pack(
+        rc = library().igg_wire_pack(
             f0.element_size(), len(fields), ctypes.addressof(desc), buf_r.data_ptr(),
-            buf_l.data_ptr(), *counts, shape[1], dim,
-            torch.cuda.current_stream(f0.device).cuda_stream)
+            buf_l.data_ptr(), *counts, shape[1], dim, _stream(f0))
     check_rc(rc, "wire_pack")
     count_launch("wire_pack")
     return buf_r, buf_l
 
 
 def _halo_starts(blks, hws, dim):
-    return [(0, blk[dim] - hw) for blk, hw in zip(blks, hws)]
+    return tuple((0, blk[dim] - hw) for blk, hw in zip(blks, hws))
 
 
 def _check_multi(fields, bufs, schema, blocks, disp):
@@ -472,22 +526,22 @@ def halo_write_multi(fields, buf_r, buf_l, schema, *, blocks, periodic, disp):
     slabs), the right halo ``[n-hw, n)`` from row ``t + disp`` of ``buf_l``,
     unpacked by the schema (wrapping when ``periodic``; else an edge block
     keeps its halo). Returns the list of fields."""
-    dim, counts, blks, hws = _check_multi(fields, (buf_r, buf_l), schema, blocks, disp)
+    g = _group(lambda: _check_multi(fields, (buf_r, buf_l), schema, blocks, disp), schema,
+               (*fields, buf_r, buf_l), "multi", tuple(map(tuple, blocks)), int(disp) >= 0)
+    dim, counts, blks, hws, shape = g[:5]
+    _check_alias(fields, (buf_r, buf_l), "halo_write_multi")
     f0 = fields[0]
-    if f0.device.type == "cpu":
+    if not _on_card(f0):
         return halo_write_multi_plain(fields, buf_r, buf_l, schema, blocks=blks,
                                       periodic=periodic, disp=disp)
-    if f0.device.type != "cuda":
-        raise NotSupportedError(f"no kernel for device {f0.device}.")
     import torch
 
-    desc = _descriptors(fields, schema, blks, _halo_starts(blks, hws, dim))
-    lib = library()
+    desc = _descriptor(g, fields, schema, _halo_starts(blks, hws, dim))
     with torch.cuda.device(f0.device):
-        rc = lib.igg_halo_write_multi(
+        rc = library().igg_halo_write_multi(
             f0.element_size(), len(fields), ctypes.addressof(desc), buf_r.data_ptr(),
-            buf_l.data_ptr(), *counts, buf_r.shape[1], dim, int(bool(periodic)), int(disp),
-            torch.cuda.current_stream(f0.device).cuda_stream)
+            buf_l.data_ptr(), *counts, shape[1], dim,
+            int(bool(periodic)), int(disp), _stream(f0))
     check_rc(rc, "halo_write_multi")
     count_launch("halo_write_multi")
     return list(fields)

@@ -12,8 +12,11 @@ the Stokes code), the batched K4s launch of every field of a dim, the
 diffusion kernels K1 (every fuse combination), K4 (every received-mode
 combination) and K5 (its four) on stacked blocks with tile and chunk edges
 and mixed magnitudes in three dtypes, and whole `run_stokes`,
-`run_acoustic` and `run_diffusion` runs with their launch counts; the
-division helper of `cdiv.cuh` bitwise against IEEE division.
+`run_acoustic` and `run_diffusion` runs with their launch counts; the halo
+copies K8 and K7 (every dim, both wire layouts, per-field halowidths, 2-D
+fields, periodic and PROC_NULL edges, four dtypes, groups of 16 and 17
+fields) and K2, K3 and K6; the division helper of `cdiv.cuh` bitwise
+against IEEE division.
 
 The card's compiler, its float units and its launch limits are not tested
 here (`chip_smoke.py` does that on a GPU); the kernels' index arithmetic,
@@ -38,10 +41,12 @@ from implicitglobalgrid_tpu_torch.models import (
     init_diffusion2d, init_diffusion3d, init_stokes3d, run_diffusion, run_stokes,
 )
 from implicitglobalgrid_tpu_torch.ops import cuda_build as cb
+from implicitglobalgrid_tpu_torch.ops import cuda_halo as ch
 from implicitglobalgrid_tpu_torch.ops import cuda_stencil as cs
 from implicitglobalgrid_tpu_torch.ops import cuda_stokes as cst
 from implicitglobalgrid_tpu_torch.ops import cuda_wave as cw
 from implicitglobalgrid_tpu_torch.ops.halo import exchange_recv_slabs_multi
+from implicitglobalgrid_tpu_torch.ops.wire import schema_for_fields
 from torch_port_util import clean_torch_grid  # noqa: F401
 
 SHIM = pathlib.Path(__file__).resolve().parent / "data" / "cuda_host"
@@ -100,7 +105,7 @@ def on_host(host_lib, monkeypatch):
     """The wrappers take CPU tensors for the card's: they launch the host
     build of their kernels (and count the launches)."""
     monkeypatch.setattr(cb, "_lib", host_lib)
-    for m in (cs, cw, cst):
+    for m in (cs, cw, cst, ch):
         monkeypatch.setattr(m, "_on_card", lambda t: True)
         monkeypatch.setattr(m, "_stream", lambda t: None)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
@@ -109,7 +114,7 @@ def on_host(host_lib, monkeypatch):
 
 
 def _plain(monkeypatch):
-    for m in (cs, cw, cst):
+    for m in (cs, cw, cst, ch):
         monkeypatch.setattr(m, "_on_card", lambda t: False)
 
 
@@ -835,3 +840,158 @@ def test_cdiv_equals_ieee_division(host_lib, dtype, n):
             same = (q.view(f"u{a.itemsize}") == ref.view(f"u{a.itemsize}")) | (
                 np.isnan(q) & np.isnan(ref))
             assert same.all(), (b, mode, a[~same][:5], q[~same][:5], ref[~same][:5])
+
+
+# K8 and K7: blocks that no tile divides (8 rows or planes of a tile, 32 rows
+# of a z tile), and one whose rows copy in 16-byte words along x and y
+K78_BLOCK = (11, 70, 37)
+K78_VEC_BLOCK = (11, 70, 40)
+K78_DTYPES = {"float32": np.float32, "float64": np.float64, "bfloat16": "bfloat16",
+              "int8": np.int8}
+
+
+def _k78_field(rng, shape, dtype):
+    if dtype == np.int8:
+        return torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8))
+    return _wave_tensor(rng.standard_normal(shape), dtype)
+
+
+def _staggered(n, names):
+    return [tuple(m + (f == f"V{a}") for a, m in zip("xyz", n)) for f in names]
+
+
+# (block shapes, halowidths, block counts, dtype): the slab layout (every
+# field the same cross extents) with a shared and with per-field
+# halowidths, and the flat layout (the staggered fields); grids of 2x2x2
+# and 3x1x2 blocks
+K78_CASES = {
+    "slab-hw1-vec-f32": ([K78_VEC_BLOCK] * 3, [1, 1, 1], (2, 2, 2), "float32"),
+    "slab-per-field-bf16": ([K78_BLOCK] * 3, [1, 2, 3], (2, 2, 2), "bfloat16"),
+    "flat-hw2-f64": (_staggered(K78_BLOCK, ("P", "Vx", "Vy", "Vz")), [2] * 4, (3, 1, 2),
+                     "float64"),
+    "flat-per-field-int8": (_staggered(K78_BLOCK, ("Vx", "Vy", "Vz", "P")), [1, 2, 1, 3],
+                            (3, 1, 2), "int8"),
+}
+
+
+@pytest.mark.parametrize("dim", [0, 1, 2])
+@pytest.mark.parametrize("case", sorted(K78_CASES))
+def test_k8_k7_match_plain(on_host, monkeypatch, case, dim):
+    """K8 (both directions, send starts inside the block) and then K7
+    (periodic and PROC_NULL edges, disp 1 and 2) along each dim on a group
+    of stacked fields, each launch bitwise against its plain version: both
+    wire layouts, shared and per-field halowidths, blocks no tile divides
+    and a 3x1x2 grid (a single block along y, disp 2 past the 2 blocks
+    along z); rows in 16-byte words where the slabs align."""
+    blocks, hws, counts, dname = K78_CASES[case]
+    dtype = K78_DTYPES[dname]
+    monkeypatch.setattr(ch, "_GROUPS", {})  # this test's groups only
+    rng = np.random.default_rng(71 + dim)
+    fs = [_k78_field(rng, tuple(c * m for c, m in zip(counts, blk)), dtype) for blk in blocks]
+    sch = schema_for_fields(dim, blocks, hws, fs[0].dtype)
+    assert sch.layout == case.split("-")[0]
+    kw = dict(starts_r=[blk[dim] - 2 * h for blk, h in zip(blocks, hws)],
+              starts_l=[h for h in hws], blocks=blocks)
+    bufs = ch.wire_pack(fs, sch, **kw)
+    assert _equal(bufs, ch.wire_pack_plain(fs, sch, **kw)), "K8"
+    launches = 1
+    for periodic, disp in itertools.product((True, False), (1, 2)):
+        got, want = [f.clone() for f in fs], [f.clone() for f in fs]
+        wk = dict(blocks=blocks, periodic=periodic, disp=disp)
+        ch.halo_write_multi(got, *bufs, sch, **wk)
+        ch.halo_write_multi_plain(want, *bufs, sch, **wk)
+        launches += 1
+        assert _equal(got, want), ("K7", periodic, disp)
+    counts = cb.launch_counts()
+    assert (counts["wire_pack"], counts["halo_write_multi"]) == (1, launches - 1)
+    vec = [g[5][k * ch._SLAB_DESC + 13] for g in ch._GROUPS.values() for k in range(len(fs))]
+    if dim == 2:
+        assert not any(vec)  # a z slab is hw cells a row
+    elif case.startswith("slab-hw1-vec"):
+        assert all(vec)
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+def test_k8_k7_2d_fields_match_plain(on_host, dim):
+    """K8 and K7 on 2-D fields (rows of one cell: the trailing dim padded),
+    slab and flat layouts, periodic and PROC_NULL, bitwise."""
+    rng = np.random.default_rng(75)
+    for blocks, hws in (([(37, 70)] * 2, [1, 2]), ([(37, 70), (38, 70), (37, 71)], [1, 1, 2])):
+        fs = [_k78_field(rng, (2 * b[0], 2 * b[1]), np.float32) for b in blocks]
+        sch = schema_for_fields(dim, blocks, hws, fs[0].dtype)
+        kw = dict(starts_r=[b[dim] - 2 * h for b, h in zip(blocks, hws)], starts_l=hws,
+                  blocks=blocks)
+        bufs = ch.wire_pack(fs, sch, **kw)
+        assert _equal(bufs, ch.wire_pack_plain(fs, sch, **kw)), (sch.layout, "K8")
+        for periodic in (True, False):
+            got, want = [f.clone() for f in fs], [f.clone() for f in fs]
+            ch.halo_write_multi(got, *bufs, sch, blocks=blocks, periodic=periodic, disp=1)
+            ch.halo_write_multi_plain(want, *bufs, sch, blocks=blocks, periodic=periodic,
+                                      disp=1)
+            assert _equal(got, want), (sch.layout, periodic)
+
+
+@pytest.mark.parametrize("nfields", [4, 16, 17])
+def test_coalesced_update_halo_on_host_kernels(on_host, monkeypatch, nfields):
+    """`update_halo` of a group through the host build of K8 and K7, with
+    their launch counts, bitwise against the plain versions' call: (P, Vx,
+    Vy, Vz) on a 2x2x2 periodic grid (one K8 and one K7 a dim), and 16 and
+    17 fields on a 2x1x2 grid with y not periodic (17 take two launches a
+    dim)."""
+    if nfields == 4:
+        n, dims, periods = (9, 8, 10), (2, 2, 2), (1, 1, 1)
+        shapes = _staggered(n, ("P", "Vx", "Vy", "Vz"))
+    else:
+        n, dims, periods = (6, 5, 7), (2, 1, 2), (1, 0, 0)
+        shapes = [n] * nfields
+    _grid(n, dims, periods)
+    rng = np.random.default_rng(77)
+    fs = [_k78_field(rng, tuple(d * m for d, m in zip(dims, s)), np.float32) for s in shapes]
+    got = tg.update_halo(*[f.clone() for f in fs])
+    counts = cb.launch_counts()
+    _plain(monkeypatch)
+    want = tg.update_halo(*[f.clone() for f in fs])
+    ndims = sum(d > 1 or p for d, p in zip(dims, periods))
+    per_dim = 1 if nfields <= ch.MAX_SLABS else 2
+    assert (counts["wire_pack"], counts["halo_write_multi"]) == (ndims * per_dim,) * 2
+    assert sum(counts.values()) == 2 * ndims * per_dim
+    assert _equal(got, want)
+
+
+# K2, K3 and K6 on a 2x2x2 stack of blocks that no thread block divides
+HALO_BLOCK = (6, 5, 37)
+
+
+@pytest.mark.parametrize("kernel,arg", [("k2", (0, 1)), ("k2", (1, 2)), ("k2", (2, 1)),
+                                        ("k3", (True, False, True)), ("k3", (True, True, True)),
+                                        ("k6", (True, True, True)), ("k6", (False, True, True))])
+def test_k2_k3_k6_match_plain(on_host, kernel, arg):
+    """The host build of K2 (a dim and halowidth), K3 (self-exchange modes)
+    and K6 (combined delivery of the dims flagged) bitwise against their
+    plain versions, float64 and int8."""
+    rng = np.random.default_rng(79)
+    shape = tuple(2 * b for b in HALO_BLOCK)
+    for dtype in (np.float64, np.int8):
+        A = _k78_field(rng, shape, dtype)
+        if kernel == "k2":
+            dim, hw = arg
+            ss = [2 * hw if a == dim else s for a, s in enumerate(shape)]
+            sl, sr = (_k78_field(rng, tuple(ss), dtype) for _ in range(2))
+            kw = dict(dim=dim, hw=hw, block=HALO_BLOCK[dim])
+            got = ch.halo_write(A.clone(), sl, sr, **kw)
+            want = ch.halo_write_plain(A.clone(), sl, sr, **kw)
+        elif kernel == "k3":
+            kw = dict(modes=arg, ols=(2, 2, 3), block=HALO_BLOCK)
+            got = ch.halo_self_exchange(A, **kw)
+            want = ch.halo_self_exchange_plain(A, **kw)
+        else:
+            hws = (2, 1, 1)
+            recvs = {d: tuple(_k78_field(rng, tuple(2 * hws[d] if a == d else s for a, s in
+                                                      enumerate(shape)), dtype)
+                              for _ in range(2)) for d in range(3) if arg[d]}
+            kw = dict(modes=arg, hws=hws, block=HALO_BLOCK)
+            got = ch.halo_write_combined(A.clone(), recvs, **kw)
+            want = ch.halo_write_combined_plain(A.clone(), recvs, **kw)
+        assert torch.equal(got, want), dtype
+    name = {"k2": "halo_write", "k3": "halo_self_exchange", "k6": "halo_write_combined"}[kernel]
+    assert cb.launch_counts()[name] == 2
