@@ -24,7 +24,11 @@ Phases, in order; any failure exits non-zero without the final line:
    modes on config 4's and 5's meshes; K8 and then K7 along x, y and z on
    config 4's (P, Vx, Vy, Vz) and config 5's (Vx, Vy, Vz, P) coalesced
    groups, each pair held bitwise first, beside their byte and 32-byte
-   sector bounds (`k78_dim_times`);
+   sector bounds (`k78_dim_times`); K6 by part at 2x2x2 x 256^3 in float32
+   and float64 (`k6_part_times`) and K2 a launch on the main paths' shapes
+   (`k2_dim_times`), each held bitwise first, beside byte and sector
+   bounds; the device time of the library calls beside K2, K3, K6, K7 and
+   K8 (`library_device_ms`);
 3. main path, periodic: `init_global_grid(256, 256, 256, periodic)` ->
    `init_diffusion3d` -> warm chunk -> tic -> `run_diffusion(nt=100)` -> toc
    -> `update_halo` -> `gather_interior`, against the same run with
@@ -275,90 +279,13 @@ def phase_kernels(igg_ops, counts_before):
                 library_ms=None, shape="256^3 float32 fuse (T,T,T)")
         del T, Cp, got, ref
 
-    # K2: halo writes of the 2x2x2 grid of 128^3 blocks (stacked 256^3)
-    g = torch.Generator(device="cuda").manual_seed(7)
-    A = torch.randn((256, 256, 256), generator=g, device="cuda")
-    k2_err = 0.0
-    for dim in range(3):
-        for hw in (1, 2):
-            ss = list(A.shape)
-            ss[dim] = 2 * hw
-            sl = torch.randn(ss, generator=g, device="cuda")
-            sr = torch.randn(ss, generator=g, device="cuda")
-            a1, a2 = A.clone(), A.clone()
-            ch.halo_write(a1, sl, sr, dim=dim, hw=hw, block=128)
-            ch.halo_write_plain(a2, sl, sr, dim=dim, hw=hw, block=128)
-            torch.cuda.synchronize()
-            k2_err = max(k2_err, max_err(a1, a2))
-            check(torch.equal(a1, a2), f"K2 dim {dim} hw {hw} bitwise equal to plain")
-    slabs = []
-    for dim in range(3):
-        ss = list(A.shape)
-        ss[dim] = 2
-        slabs.append((torch.randn(ss, generator=g, device="cuda"),
-                      torch.randn(ss, generator=g, device="cuda")))
-
-    def k2_all():
-        for dim, (sl, sr) in enumerate(slabs):
-            ch.halo_write(A, sl, sr, dim=dim, hw=1, block=128)
-
-    def k2_plain():
-        for dim, (sl, sr) in enumerate(slabs):
-            ch.halo_write_plain(A, sl, sr, dim=dim, hw=1, block=128)
-
-    def k2_library():  # one slice copy_ per block and side, as a user writes it
-        for dim, (sl, sr) in enumerate(slabs):
-            for c in range(2):
-                A.narrow(dim, c * 128, 1).copy_(sl.narrow(dim, c, 1))
-                A.narrow(dim, c * 128 + 127, 1).copy_(sr.narrow(dim, c, 1))
-
-    slab_bytes = sum(sl.numel() + sr.numel() for sl, sr in slabs) * 4
-    rows["halo_write"] = dict(
-        max_abs_err=k2_err, ms=median_ms(k2_all), plain_ms=median_ms(k2_plain),
-        device_ms=device_ms(k2_all, "halo_write_kernel"),
-        bound_ms=2 * slab_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=median_ms(k2_library),
-        shape="dims 0,1,2 (3 launches) of one update_halo, 2x2x2 x 128^3 float32, hw 1")
-
-    # K3: every non-empty mode combination on a 256^3 block
-    import itertools
-
-    k3_err = 0.0
-    for modes in itertools.product((False, True), repeat=3):
-        if not any(modes):
-            continue
-        got = ch.halo_self_exchange(A, modes=modes, ols=(2, 2, 2))
-        ref = ch.halo_self_exchange_plain(A, modes=modes, ols=(2, 2, 2))
-        torch.cuda.synchronize()
-        k3_err = max(k3_err, max_err(got, ref))
-        check(torch.equal(got, ref), f"K3 modes {modes} bitwise equal to plain")
-
-    def k3_library():  # the sequential z, x, y slab copies on a clone
-        u = A.clone()
-        u[:, :, 0].copy_(u[:, :, 254])
-        u[:, :, 255].copy_(u[:, :, 1])
-        u[0].copy_(u[254])
-        u[255].copy_(u[1])
-        u[:, 0].copy_(u[:, 254])
-        u[:, 255].copy_(u[:, 1])
-        return u
-
-    check(torch.equal(k3_library(), ch.halo_self_exchange(
-        A, modes=(True, True, True), ols=(2, 2, 2))), "K3 equals the slice-copy form")
-    rows["halo_self_exchange"] = dict(
-        max_abs_err=k3_err,
-        ms=median_ms(lambda: ch.halo_self_exchange(A, modes=(True, True, True),
-                                                   ols=(2, 2, 2))),
-        plain_ms=median_ms(lambda: ch.halo_self_exchange_plain(
-            A, modes=(True, True, True), ols=(2, 2, 2)), batches=3, per_batch=3, warm=1),
-        device_ms=device_ms(lambda: ch.halo_self_exchange(
-            A, modes=(True, True, True), ols=(2, 2, 2)), "self_exchange_kernel"),
-        bound_ms=2 * A.numel() * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=median_ms(k3_library),
-        shape="256^3 float32, modes (T,T,T)")
+    rows["halo_write"] = check_k2(ch)
+    rows["halo_self_exchange"] = check_k3(ch)
     rows["diffusion3d_step_exchange"] = check_k4(cs)
     rows["diffusion2d_step_exchange"] = check_k5(cs)
     rows["halo_write_combined"] = check_k6(ch)
+    rows["halo_write_combined"]["parts"] = k6_part_times(ch)
+    rows["halo_write"]["dims"] = k2_dim_times(ch)
     rows["exchange_slabs"] = k4s = check_k4s(cs)
     k4s["max_abs_err"] = max(k4s["max_abs_err"], check_k4s_wave(cs, cw, tg))
     rows["wire_pack"], rows["halo_write_multi"] = check_k7_k8(ch, tg)
@@ -398,6 +325,146 @@ def rand_slabs(shape, block, dims, dtype, g, hws=(1, 1, 1)):
 
 def name_of(dt):
     return str(dt).replace("torch.", "")
+
+
+def rand_field(shape, dtype, g):
+    """A random stacked field on the card: floats in [0, 1000), integers
+    over their whole range."""
+    import torch
+
+    if dtype.is_floating_point:
+        return (1000 * torch.rand(shape, generator=g, device="cuda")).to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.randint(info.min, info.max, shape, generator=g, device="cuda", dtype=dtype)
+
+
+def library_device_ms(fn, reps=10, tries=3):
+    """Device time (ms) a call of ``fn`` spends in every kernel and copy it
+    runs on the card, from torch.profiler over ``reps`` calls, and their
+    count a call: a library function of several PyTorch calls without its
+    host time. (None, count) where the profiler records no device time."""
+    from torch.autograd import DeviceType
+
+    for _ in range(tries):
+        evs = [ev for ev in _profile(fn, reps) if ev.device_type == DeviceType.CUDA]
+        n = sum(ev.count for ev in evs)
+        if n % reps == 0:
+            break
+    tot = sum(ev.device_time_total for ev in evs)
+    return (tot / reps / 1e3 if tot > 0 else None), n // reps
+
+
+# K2's card checks: (block, dtype); 2 blocks a dim (4 for the 1-D field).
+# 128 cells of 4 bytes and 64 of 1, 2 or 8 make rows of whole 16-byte words,
+# 61 does not (scalar copies)
+K2_CHECKS = [((128,) * 3, "float32"), ((N_CHECK,) * 3, "float64"), ((N_CHECK,) * 3, "int8"),
+             ((N_CHECK,) * 3, "int16"), ((N_CHECK, N_CHECK, N_CHECK - 3), "float32"),
+             ((N_CHECK, N_CHECK, N_CHECK - 3), "int8"), ((N_CHECK, N_CHECK), "float32"),
+             ((N_CHECK, N_CHECK), "int16"), ((N_CHECK,), "float64")]
+
+
+def check_k2(ch):
+    """K2 against its plain version, bitwise: every dim and halowidths 1 and
+    2 on the blocks and dtypes of `K2_CHECKS` (3-D, 2-D and 1-D fields; rows
+    in 16-byte words and in scalars); then its timing row, the three
+    launches of one `update_halo` of 2x2x2 x 128^3 float32, hw 1, beside
+    its byte and 32-byte sector bounds and the slice copies' device time."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    k2_err = 0.0
+    for block, dname in K2_CHECKS:
+        dt = getattr(torch, dname)
+        counts = (4,) if len(block) == 1 else (2,) * len(block)
+        shape = tuple(c * b for c, b in zip(counts, block))
+        A = rand_field(shape, dt, g)
+        for dim in range(len(block)):
+            for hw in (1, 2):
+                ss = list(shape)
+                ss[dim] = counts[dim] * hw
+                sl, sr = rand_field(tuple(ss), dt, g), rand_field(tuple(ss), dt, g)
+                a1, a2 = A.clone(), A.clone()
+                ch.halo_write(a1, sl, sr, dim=dim, hw=hw, block=block[dim])
+                ch.halo_write_plain(a2, sl, sr, dim=dim, hw=hw, block=block[dim])
+                torch.cuda.synchronize()
+                k2_err = max(k2_err, max_err(a1, a2))
+                check(torch.equal(a1, a2),
+                      f"K2 {counts} x {block} {dname} dim {dim} hw {hw} bitwise equal to plain")
+    A = torch.randn((256, 256, 256), generator=g, device="cuda")
+    slabs = []
+    for dim in range(3):
+        ss = list(A.shape)
+        ss[dim] = 2
+        slabs.append((torch.randn(ss, generator=g, device="cuda"),
+                      torch.randn(ss, generator=g, device="cuda")))
+
+    def k2_all():
+        for dim, (sl, sr) in enumerate(slabs):
+            ch.halo_write(A, sl, sr, dim=dim, hw=1, block=128)
+
+    def k2_plain():
+        for dim, (sl, sr) in enumerate(slabs):
+            ch.halo_write_plain(A, sl, sr, dim=dim, hw=1, block=128)
+
+    def k2_library():  # one slice copy_ per block and side, as a user writes it
+        for dim, (sl, sr) in enumerate(slabs):
+            for c in range(2):
+                A.narrow(dim, c * 128, 1).copy_(sl.narrow(dim, c, 1))
+                A.narrow(dim, c * 128 + 127, 1).copy_(sr.narrow(dim, c, 1))
+
+    bound, sectors = halo_write_bounds(A.shape, 4, [
+        k2_box(A.shape, (128,) * 3, dim, 1) for dim in range(3)])
+    lib_dev, lib_n = library_device_ms(k2_library)
+    return dict(
+        max_abs_err=k2_err, ms=median_ms(k2_all), plain_ms=median_ms(k2_plain),
+        device_ms=device_ms(k2_all, "halo_write_kernel"),
+        bound_ms=bound, bound_by="bytes", sector_bound_ms=sectors,
+        library_ms=median_ms(k2_library), library_device_ms=lib_dev, library_kernels=lib_n,
+        shape="dims 0,1,2 (3 launches) of one update_halo, 2x2x2 x 128^3 float32, hw 1")
+
+
+def check_k3(ch):
+    """K3 on every non-empty mode combination on a 256^3 block, bitwise, and
+    against the sequential slice copies; its timing row, modes (T,T,T)."""
+    import itertools
+
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    A = torch.randn((256, 256, 256), generator=g, device="cuda")
+    k3_err = 0.0
+    for modes in itertools.product((False, True), repeat=3):
+        if not any(modes):
+            continue
+        got = ch.halo_self_exchange(A, modes=modes, ols=(2, 2, 2))
+        ref = ch.halo_self_exchange_plain(A, modes=modes, ols=(2, 2, 2))
+        torch.cuda.synchronize()
+        k3_err = max(k3_err, max_err(got, ref))
+        check(torch.equal(got, ref), f"K3 modes {modes} bitwise equal to plain")
+
+    def k3_library():  # the sequential z, x, y slab copies on a clone
+        u = A.clone()
+        u[:, :, 0].copy_(u[:, :, 254])
+        u[:, :, 255].copy_(u[:, :, 1])
+        u[0].copy_(u[254])
+        u[255].copy_(u[1])
+        u[:, 0].copy_(u[:, 254])
+        u[:, 255].copy_(u[:, 1])
+        return u
+
+    def k3():
+        return ch.halo_self_exchange(A, modes=(True, True, True), ols=(2, 2, 2))
+
+    check(torch.equal(k3_library(), k3()), "K3 equals the slice-copy form")
+    lib_dev, lib_n = library_device_ms(k3_library)
+    return dict(
+        max_abs_err=k3_err, ms=median_ms(k3),
+        plain_ms=median_ms(lambda: ch.halo_self_exchange_plain(
+            A, modes=(True, True, True), ols=(2, 2, 2)), batches=3, per_batch=3, warm=1),
+        device_ms=device_ms(k3, "self_exchange_kernel"),
+        bound_ms=2 * A.numel() * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=median_ms(k3_library), library_device_ms=lib_dev, library_kernels=lib_n,
+        shape="256^3 float32, modes (T,T,T)")
 
 
 def check_k4(cs):
@@ -514,44 +581,103 @@ def check_k5(cs):
         library_ms=None, shape=f"2x2 x {n}^2 float32, modes (T,T)")
 
 
-def halo_cells(block, nblocks, modes, hws):
-    """Distinct halo cells of ``nblocks`` blocks: every cell in a flagged
-    dim's halo, counted once."""
+def _box_sectors(shape, idx, itemsize):
+    """The 32-byte sectors of a contiguous tensor of 3-D ``shape`` that the
+    cells of the box ``idx`` (an index array a dim) lie in, each once."""
     import numpy as np
 
-    inner = 1
-    for n, m, h in zip(block, modes, hws):
-        inner *= n - 2 * h if m else n
-    return nblocks * (int(np.prod(block)) - inner)
+    off = (idx[0][:, None, None] * shape[1] + idx[1][None, :, None]) * shape[2] \
+        + idx[2][None, None, :]
+    return np.unique(off.ravel() * itemsize // 32).size
+
+
+def _halo_index(S, n, hw):
+    """The indices of the ``[0, hw)`` and ``[n-hw, n)`` halos of every block
+    of ``n`` along an extent ``S``."""
+    import numpy as np
+
+    return np.array([c * n + s + h for c in range(S // n) for s in (0, n - hw)
+                     for h in range(hw)], dtype=np.int64)
+
+
+def _pad3(shape):
+    return tuple(int(s) for s in shape) + (1,) * (3 - len(shape))
+
+
+def k2_box(shape, block, dim, hw):
+    """The index box of K2's halo cells along ``dim`` (3-D, padded)."""
+    import numpy as np
+
+    idx = [np.arange(s, dtype=np.int64) for s in _pad3(shape)]
+    idx[dim] = _halo_index(int(shape[dim]), int(block[dim]), hw)
+    return idx
+
+
+def k6_boxes(shape, block, modes, hws):
+    """The index boxes of K6's parts: ``"x"`` the x-halo planes, ``"y"`` the
+    y-halo rows outside them, ``"z"`` the z-halo lanes outside both (a dim
+    not in ``modes`` excludes nothing)."""
+    import numpy as np
+
+    every = [np.arange(s, dtype=np.int64) for s in shape]
+    inner = [np.array([i for i in range(s) if h <= i % n < n - h], dtype=np.int64) if m else a
+             for s, n, h, m, a in zip(shape, block, hws, modes, every)]
+    halo = [_halo_index(s, n, h) for s, n, h in zip(shape, block, hws)]
+    out = {}
+    if modes[0]:
+        out["x"] = [halo[0], every[1], every[2]]
+    if modes[1]:
+        out["y"] = [inner[0], halo[1], every[2]]
+    out["z"] = [inner[0], inner[1], halo[2]]
+    return out
+
+
+def halo_write_bounds(shape, itemsize, boxes):
+    """Byte and 32-byte sector bounds (ms) of writing the halo cells of the
+    disjoint index ``boxes`` of a contiguous tensor from contiguous slabs:
+    the byte bound reads and writes each cell once; the sector bound counts
+    the field's 32-byte sectors the cells lie in, each once, and the slabs'
+    bytes (the least a card that writes whole sectors moves)."""
+    import numpy as np
+
+    shape = _pad3(shape)
+    cells = sum(int(np.prod([len(i) for i in b])) for b in boxes)
+    sectors = sum(_box_sectors(shape, b, itemsize) for b in boxes)
+    ms = 1e3 / HBM_BYTES_PER_S
+    return 2 * cells * itemsize * ms, (32 * sectors + cells * itemsize) * ms
 
 
 def check_k6(ch):
     """K6 on every combination its gate admits (z exchanging; hw 1 or 2 on
-    x), float32, float64 and int32 (the 4- and 8-byte paths), bitwise; its
-    timing row on one `update_halo` of 2x2x2 x 256^3 float32, that call
-    also held bitwise against the plain version."""
+    x), in float32, float64, int32, int8 and int16 on 2x2x2 x 64^3 (rows of
+    whole 16-byte words) and in float32 and int8 on 64 x 64 x 61 blocks
+    (scalar rows), bitwise; its timing row on one `update_halo` of 2x2x2 x
+    256^3 float32, that call also held bitwise against the plain version,
+    beside its byte and 32-byte sector bounds and the slice copies' device
+    time."""
     import itertools
 
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(23)
-    block = (N_CHECK,) * 3
     err = 0.0
-    for dt, modes, hwx in itertools.product(
-            (torch.float32, torch.float64, torch.int32),
-            itertools.product((False, True), repeat=2), (1, 2)):
+    cases = [((N_CHECK,) * 3, dt) for dt in ("float32", "float64", "int32", "int8", "int16")]
+    cases += [((N_CHECK, N_CHECK, N_CHECK - 3), dt) for dt in ("float32", "int8")]
+    for (block, dname), modes, hwx in itertools.product(
+            cases, itertools.product((False, True), repeat=2), (1, 2)):
         modes = modes + (True,)
         if hwx == 2 and not modes[0]:
             continue
+        dt = getattr(torch, dname)
         hws = (hwx, 1, 1)
-        A = (1000 * torch.rand((2 * N_CHECK,) * 3, generator=g, device="cuda")).to(dt)
+        A = rand_field(tuple(2 * b for b in block), dt, g)
         recvs = rand_slabs(A.shape, block, [d for d in range(3) if modes[d]], dt, g, hws)
         got = ch.halo_write_combined(A.clone(), recvs, modes=modes, hws=hws, block=block)
         ref = ch.halo_write_combined_plain(A.clone(), recvs, modes=modes, hws=hws, block=block)
         torch.cuda.synchronize()
         err = max(err, max_err(got, ref))
         check(torch.equal(got, ref),
-              f"K6 {name_of(dt)} modes={modes} hw_x={hwx} bitwise equal to plain")
+              f"K6 2x2x2 x {block} {dname} modes={modes} hw_x={hwx} bitwise equal to plain")
     n = N_CFG3
     block = (n, n, n)
     A = torch.randn((2 * n,) * 3, generator=g, device="cuda")
@@ -574,15 +700,125 @@ def check_k6(ch):
                 A.narrow(d, c * n, 1).copy_(sl.narrow(d, c, 1))
                 A.narrow(d, c * n + n - 1, 1).copy_(sr.narrow(d, c, 1))
 
-    cells = halo_cells(block, 8, modes, hws)
+    bound, sectors = halo_write_bounds(A.shape, 4, k6_boxes(A.shape, block, modes, hws).values())
+    lib_dev, lib_n = library_device_ms(k6_library)
     return dict(
         max_abs_err=max(err, e), ms=median_ms(k6),
         plain_ms=median_ms(lambda: ch.halo_write_combined_plain(
             A, recvs, modes=modes, hws=hws, block=block)),
         device_ms=device_ms(k6, KERNEL_NAMES["halo_write_combined"]),
-        bound_ms=2 * cells * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=median_ms(k6_library),
+        bound_ms=bound, bound_by="bytes", sector_bound_ms=sectors,
+        library_ms=median_ms(k6_library), library_device_ms=lib_dev, library_kernels=lib_n,
         shape=f"one update_halo of 2x2x2 x {n}^3 float32, hw 1 (all halo cells)")
+
+
+# K6's launches by part: the mode combinations the gate admits at halowidth 1
+K6_MODES = {"FFT": (False, False, True), "TFT": (True, False, True),
+            "FTT": (False, True, True), "TTT": (True, True, True)}
+
+
+def k6_part_times(ch):
+    """K6 by part on one `update_halo` of 2x2x2 x 256^3 (the K6 row's shape),
+    float32 and config 3's float64: a launch with each mode combination of
+    `K6_MODES` ("FFT": the z lanes of every row), held bitwise against the
+    plain version, then its device ms alone (torch.profiler) and ms
+    (events) beside its byte and 32-byte sector bounds; then the parts by
+    difference, x = TTT - FTT, y = TTT - TFT and z the rest, beside their
+    own bounds (`k6_boxes`). Prints a line a launch; returns {dtype:
+    {"modes": {key: {...}}, "parts": {part: {...}}}}."""
+    import torch
+
+    n = N_CFG3
+    block, hws = (n,) * 3, (1, 1, 1)
+    g = torch.Generator(device="cuda").manual_seed(29)
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        A = torch.randn((2 * n,) * 3, generator=g, device="cuda").to(dt)
+        recvs = rand_slabs(A.shape, block, (0, 1, 2), dt, g)
+        e = A.element_size()
+        res = {}
+        for key, modes in K6_MODES.items():
+            r = {d: recvs[d] for d in range(3) if modes[d]}
+            got = ch.halo_write_combined(A.clone(), r, modes=modes, hws=hws, block=block)
+            ref = ch.halo_write_combined_plain(A.clone(), r, modes=modes, hws=hws, block=block)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f"K6 {name_of(dt)} {key}: the timed launch bitwise "
+                                         "equal to plain")
+            del got, ref
+
+            def k6():
+                return ch.halo_write_combined(A, r, modes=modes, hws=hws, block=block)
+
+            bound, sectors = halo_write_bounds(A.shape, e, k6_boxes(A.shape, block, modes,
+                                                                    hws).values())
+            res[key] = dict(device_ms=device_ms(k6, KERNEL_NAMES["halo_write_combined"]),
+                            ms=median_ms(k6), bound_ms=bound, sector_bound_ms=sectors)
+            print(f"  K6 {name_of(dt)} {key}: device {res[key]['device_ms']} ms, "
+                  f"{res[key]['ms']:.5f} ms (events), byte bound {bound:.5f} ms, sector bound "
+                  f"{sectors:.5f} ms", flush=True)
+        t = {k: v["device_ms"] for k, v in res.items()}
+        split = {}
+        if None not in t.values():
+            split = {"x": t["TTT"] - t["FTT"], "y": t["TTT"] - t["TFT"]}
+            split["z"] = t["TTT"] - split["x"] - split["y"]
+        boxes = k6_boxes(A.shape, block, (True,) * 3, hws)
+        parts = {}
+        for part, box in boxes.items():
+            bound, sectors = halo_write_bounds(A.shape, e, [box])
+            parts[part] = dict(device_ms=split.get(part), bound_ms=bound,
+                               sector_bound_ms=sectors)
+        print(f"  K6 {name_of(dt)} parts: {json.dumps(parts)}", flush=True)
+        out[name_of(dt)] = dict(modes=res, parts=parts)
+        del A, recvs
+    return out
+
+
+# K2's launches on the main paths: label -> (block, block counts, halowidth
+# a dim, the dims launched); float32
+K2_DIMS = {"update_halo 2x2x2 x 128^3 (the K2 row)": ((128,) * 3, (2, 2, 2), (1, 1, 1),
+                                                    (0, 1, 2)),
+           "update_halo 2x2x1 x 128^3 (phase_mesh)": ((128,) * 3, (2, 2, 1), (1, 1, 1),
+                                                     (0, 1)),
+           "update_halo 4x2 x 128^2, hw (2, 1) (phase_mesh)": ((128, 128), (4, 2), (2, 1),
+                                                               (0, 1))}
+
+
+def k2_dim_times(ch):
+    """K2 a launch on the shapes of `K2_DIMS`, float32: each held bitwise
+    against the plain version, then its device ms alone (torch.profiler)
+    and ms (events, Python included) beside its byte and 32-byte sector
+    bounds. Prints a line a launch; returns {label: {dim: {...}}}."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(37)
+    out = {}
+    for label, (block, counts, hws, dims) in K2_DIMS.items():
+        shape = tuple(c * b for c, b in zip(counts, block))
+        A = torch.randn(shape, generator=g, device="cuda")
+        out[label] = {}
+        for dim in dims:
+            hw, n = hws[dim], block[dim]
+            ss = list(shape)
+            ss[dim] = counts[dim] * hw
+            sl, sr = (torch.randn(ss, generator=g, device="cuda") for _ in range(2))
+            a1, a2 = A.clone(), A.clone()
+            ch.halo_write(a1, sl, sr, dim=dim, hw=hw, block=n)
+            ch.halo_write_plain(a2, sl, sr, dim=dim, hw=hw, block=n)
+            torch.cuda.synchronize()
+            check(torch.equal(a1, a2), f"K2 {label} dim {dim}: the timed launch bitwise equal "
+                                       "to plain")
+            del a1, a2
+
+            def k2():
+                return ch.halo_write(A, sl, sr, dim=dim, hw=hw, block=n)
+
+            bound, sectors = halo_write_bounds(shape, 4, [k2_box(shape, block, dim, hw)])
+            r = out[label][dim] = dict(device_ms=device_ms(k2, KERNEL_NAMES["halo_write"]),
+                                       ms=median_ms(k2), bound_ms=bound, sector_bound_ms=sectors)
+            print(f"  K2 {label} dim {dim}: device {r['device_ms']} ms, {r['ms']:.5f} ms "
+                  f"(events), byte bound {bound:.5f} ms, sector bound {sectors:.5f} ms",
+                  flush=True)
+    return out
 
 
 def check_k4s(cs):
@@ -1344,13 +1580,17 @@ def check_k7_k8(ch, tg):
         device_ms=device_ms(k8, KERNEL_NAMES["wire_pack"]),
         bound_ms=2 * slab_b / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         sector_bound_ms=sum(b["k8"][1] for b in sectors),
-        library_ms=median_ms(k8_library, batches=3, per_batch=3, warm=1), shape=shape)
+        library_ms=median_ms(k8_library, batches=3, per_batch=3, warm=1),
+        **dict(zip(("library_device_ms", "library_kernels"), library_device_ms(k8_library))),
+        shape=shape)
     k7_row = dict(max_abs_err=max(err7, e7), ms=median_ms(k7), plain_ms=median_ms(
         k7_plain, batches=3, per_batch=2, warm=1),
         device_ms=device_ms(k7, KERNEL_NAMES["halo_write_multi"]),
         bound_ms=2 * slab_b / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         sector_bound_ms=sum(b["k7"][1] for b in sectors),
-        library_ms=median_ms(k7_library, batches=3, per_batch=3, warm=1), shape=shape)
+        library_ms=median_ms(k7_library, batches=3, per_batch=3, warm=1),
+        **dict(zip(("library_device_ms", "library_kernels"), library_device_ms(k7_library))),
+        shape=shape)
     return k8_row, k7_row
 
 
@@ -1364,9 +1604,7 @@ def _slab_sectors(shape, blk, dim, runs, hw, itemsize):
     idx = [np.arange(s, dtype=np.int64) for s in shape]
     idx[dim] = np.array([c * blk[dim] + s + h for c, s in runs for h in range(hw)],
                         dtype=np.int64)
-    off = (idx[0][:, None, None] * shape[1] + idx[1][None, :, None]) * shape[2] \
-        + idx[2][None, None, :]
-    return np.unique(off.ravel() * itemsize // 32).size
+    return _box_sectors(shape, idx, itemsize)
 
 
 def coalesced_bounds(fields, locs, hws, dim, starts_r, starts_l, periodic, disp):
@@ -2453,6 +2691,11 @@ def main() -> int:
         "periodic_256": periodic["k1_own_state_ms"], "nonperiodic_256": novis["k1_own_state_ms"]}
     rows["diffusion3d_step_exchange"]["own_state_device_ms"] = {
         "mesh_128_f32": mesh["k4_own_state_ms"], "config3_256_f64": cfg3["k4_own_state_ms"]}
+    rows["halo_write_combined"]["route_device_ms"] = {  # K6 in "K1 + update_halo", a step
+        "mesh_128_f32": mesh["k1_update_halo_route"]["device_ms_by_kernel"].get(
+            "halo_write_combined"),
+        "config3_256_f64": cfg3["k1_update_halo_route"]["device_ms_by_kernel"].get(
+            "halo_write_combined")}
     rows["acoustic_step_exchange"]["ptxas"] = k9_build
     rows["exchange_slabs"]["ptxas"] = k4s_build
     k4s_launches = {}  # the main paths' K4s launches by mode and dim
@@ -2484,7 +2727,9 @@ def main() -> int:
                                         "subnormal_device_ms", "solver_device_ms",
                                         "kernels_device_ms", "own_state_device_ms",
                                         "f64_device_ms", "f64_bound_ms",
-                                        "ptxas_sass", "dims", "sector_bound_ms")}))
+                                        "ptxas_sass", "dims", "sector_bound_ms", "parts",
+                                        "library_device_ms", "library_kernels",
+                                        "route_device_ms")}))
     k1_dev = rows["diffusion3d_step_halo"]["device_ms"]
     if k1_dev is not None:  # the periodic step is one K1 (T,T,T) launch
         periodic["k1_device_share"] = 100 * k1_dev / (periodic["seconds"] * 1e3 / 100)

@@ -15,10 +15,15 @@
 // Bound (H100 SXM, 3.35 TB/s): read both slabs once and write them once,
 // 2 x 2 x hw x cross-section x itemsize bytes; at 128^3 float32 blocks with
 // hw 1 that is ~0.5 MB a dim for a 2x2x2 grid, ~0.2 us, so a launch is
-// dominated by its fixed cost. Design: one thread per halo element, a 2-D
-// launch so that no 64-bit division runs per element (they cost tens of
-// instructions each); slab reads are contiguous; halo writes are contiguous
-// for dims 0 and 1 and strided for dim 2.
+// dominated by its fixed cost (along the last dim each cell sits in its own
+// 32-byte sector: ~2.8 us of sectors). Design: tiles, not cells. Seen as
+// (outer, L, inner) about `dim`, every halo plane of a block is `inner`
+// cells contiguous in the field and in the slab for each outer index. Where
+// inner > 1, a thread block is a tile of 8 rows (a warp a row, 16-byte words
+// where every span aligns) of one slab plane and side, found from blockIdx
+// once: rows of the plane's one run (dim 0) or one row an outer index. Where
+// inner == 1 (the last dim), a thread owns a row and writes both halos of
+// every block in it. No cell divides by a runtime extent.
 //
 // K3 `igg_halo_self_exchange` replaces `halo_self_exchange_pallas`
 // (pallas_halo.py:384, kernel `_self_exchange_kernel` :558): every
@@ -43,7 +48,14 @@
 // a lane is a strided access, so K6 touches only halo cells, each once.
 // Bound: read the slabs and write the halo cells once, 2 x halo cells x
 // itemsize: ~25 MB and ~7.5 us for a 2x2x2 stack of 256^3 float32 blocks,
-// against ~320 us for a full pass.
+// against ~320 us for a full pass; the z lanes each sit in their own 32-byte
+// sector, which makes ~54 MB and ~16 us. Design: tiles of three parts, each
+// found from blockIdx once (prefix sums of the parts' tile counts, planned
+// on the host): the z lanes outside the x and y halos (a thread a row,
+// threads along y, writing both lanes of every block of the row), the x
+// planes (a warp a row along z, 16-byte words where aligned; a row that is a
+// y-halo row takes ry, decided once a row) and the y rows outside the x
+// halos (skipped by the tiles' bounds). Each halo cell is written once.
 //
 // K8 `igg_wire_pack` and K7 `igg_halo_write_multi` are the two ends of the
 // coalesced multi-field exchange (implicitglobalgrid_tpu/ops/halo.py:555,
@@ -81,6 +93,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <initializer_list>
 
 namespace {
 
@@ -89,28 +102,6 @@ constexpr unsigned MAX_GRID_YZ = 65535;
 
 unsigned clamp_grid(long long n) {
   return (unsigned)(n < 1 ? 1 : (n < MAX_GRID_YZ ? n : MAX_GRID_YZ));
-}
-
-// One thread per element of a slab plane (p1, p2), flattened in 32 bits;
-// grid.y walks the (p0, side) pairs. The slab has shape (P0, P1, P2).
-template <typename E>
-__global__ void halo_write_kernel(E* __restrict__ a, const E* __restrict__ sl,
-                                  const E* __restrict__ sr, long long S1, long long S2,
-                                  int dim, long long n, unsigned hw, long long P0,
-                                  unsigned P1, unsigned P2) {
-  const unsigned q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= P1 * P2) return;
-  unsigned p1 = q / P2, p2 = q - p1 * P2;
-  for (long long z = blockIdx.y; z < 2 * P0; z += gridDim.y) {
-    const bool right = z & 1;
-    long long p0 = z >> 1;
-    const long long src = (p0 * P1 + p1) * (long long)P2 + p2;
-    long long d0 = p0, d1 = p1, d2 = p2;
-    long long& pd = dim == 0 ? d0 : (dim == 1 ? d1 : d2);
-    const long long c = (unsigned)pd / hw, r = pd - c * hw;  // pd < 2^31
-    pd = c * n + (right ? n - hw + r : r);
-    a[(d0 * S1 + d1) * S2 + d2] = right ? sr[src] : sl[src];
-  }
 }
 
 __device__ __forceinline__ unsigned remap32(unsigned K, unsigned n, int mode,
@@ -149,18 +140,6 @@ __global__ void self_exchange_kernel(const E* __restrict__ a, E* __restrict__ ou
 }
 
 template <typename E>
-void halo_write(void* a, const void* sl, const void* sr, long long S0, long long S1,
-                long long S2, int dim, long long n, long long hw, cudaStream_t st) {
-  long long P[3] = {S0, S1, S2};
-  P[dim] = (P[dim] / n) * hw;
-  const long long plane = P[1] * P[2];
-  dim3 grid((unsigned)((plane + THREADS - 1) / THREADS), clamp_grid(2 * P[0]));
-  halo_write_kernel<E><<<grid, THREADS, 0, st>>>(
-      static_cast<E*>(a), static_cast<const E*>(sl), static_cast<const E*>(sr), S1,
-      S2, dim, n, (unsigned)hw, P[0], (unsigned)P[1], (unsigned)P[2]);
-}
-
-template <typename E>
 void self_exchange(const void* a, void* out, long long S0, long long S1, long long S2,
                    long long n0, long long n1, long long n2, int m0, int m1, int m2,
                    long long ol0, long long ol1, long long ol2, cudaStream_t st) {
@@ -170,91 +149,6 @@ void self_exchange(const void* a, void* out, long long S0, long long S1, long lo
       static_cast<const E*>(a), static_cast<E*>(out), (unsigned)S0, (unsigned)S1,
       (unsigned)S2, (unsigned)n0, (unsigned)n1, (unsigned)n2, m0, m1, m2,
       (unsigned)ol0, (unsigned)ol1, (unsigned)ol2);
-}
-
-// K6: every halo cell of every block written once, in three parts (grid.y):
-// 0 the x-halo planes (a y-halo row in them takes ry, else rx), 1 the y-halo
-// rows outside the x halos, 2 the z-halo lanes outside both. That is the
-// reference's z, x, y write order read as a per-cell rule. Parts 0 and 1 run
-// threads along z (coalesced); part 2 writes one lane cell per thread. Index
-// arithmetic is 32-bit (the entry point checks the extents): a first version
-// that decomposed 64-bit indices took 100 us at 2x2x2 x 256^3 float32.
-template <typename E>
-__global__ void __launch_bounds__(THREADS)
-halo_write_combined_kernel(E* __restrict__ a, const E* __restrict__ xl,
-                           const E* __restrict__ xr, const E* __restrict__ yl,
-                           const E* __restrict__ yr, const E* __restrict__ zl,
-                           const E* __restrict__ zr, unsigned S0, unsigned S1, unsigned S2,
-                           unsigned n0, unsigned n1, unsigned n2, unsigned hwx) {
-  const int part = blockIdx.y;
-  const unsigned D0 = S0 / n0, D1 = S1 / n1, D2 = S2 / n2;
-  unsigned total;
-  if (part == 0) {
-    if (xl == nullptr) return;
-    total = D0 * 2 * hwx * S1 * S2;
-  } else if (part == 1) {
-    if (yl == nullptr) return;
-    total = S0 * 2 * D1 * S2;
-  } else {
-    if (zl == nullptr) return;
-    total = S0 * S1 * 2 * D2;
-  }
-  for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < total;
-       q += gridDim.x * blockDim.x) {
-    unsigned I, J, K;
-    if (part == 2) {
-      const unsigned zc = q % (2 * D2), rest = q / (2 * D2);
-      J = rest % S1;
-      I = rest / S1;
-      const unsigned i = I % n0, j = J % n1;
-      if (xl != nullptr && (i < hwx || i >= n0 - hwx)) continue;
-      if (yl != nullptr && (j == 0 || j == n1 - 1)) continue;
-      const unsigned ck = zc >> 1;
-      K = ck * n2 + ((zc & 1) ? n2 - 1 : 0);
-      const long long row = (long long)I * S1 + J;
-      a[row * S2 + K] = ((zc & 1) ? zr : zl)[row * D2 + ck];
-      continue;
-    }
-    K = q % S2;
-    const unsigned rest = q / S2;
-    if (part == 1) {
-      const unsigned yc = rest % (2 * D1);
-      I = rest / (2 * D1);
-      const unsigned i = I % n0;
-      if (xl != nullptr && (i < hwx || i >= n0 - hwx)) continue;
-      const unsigned cj = yc >> 1;
-      J = cj * n1 + ((yc & 1) ? n1 - 1 : 0);
-      a[((long long)I * S1 + J) * S2 + K] =
-          ((yc & 1) ? yr : yl)[((long long)I * D1 + cj) * S2 + K];
-      continue;
-    }
-    J = rest % S1;
-    const unsigned pl = rest / S1, c0 = pl / (2 * hwx), h = pl - c0 * 2 * hwx;
-    const bool right = h >= hwx;
-    const unsigned r = right ? h - hwx : h;
-    I = c0 * n0 + (right ? n0 - hwx + r : r);
-    const unsigned cj = J / n1, j = J - cj * n1;
-    E v;
-    if (yl != nullptr && (j == 0 || j == n1 - 1))
-      v = (j == 0 ? yl : yr)[((long long)I * D1 + cj) * S2 + K];
-    else
-      v = (right ? xr : xl)[((long long)(c0 * hwx + r) * S1 + J) * S2 + K];
-    a[((long long)I * S1 + J) * S2 + K] = v;
-  }
-}
-
-template <typename E>
-void halo_write_combined(void* a, const void* xl, const void* xr, const void* yl,
-                         const void* yr, const void* zl, const void* zr, long long S0,
-                         long long S1, long long S2, long long n0, long long n1,
-                         long long n2, long long hwx, long long most, cudaStream_t st) {
-  long long blocks = (most + THREADS - 1) / THREADS;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
-  halo_write_combined_kernel<E><<<dim3((unsigned)blocks, 3u), THREADS, 0, st>>>(
-      static_cast<E*>(a), static_cast<const E*>(xl), static_cast<const E*>(xr),
-      static_cast<const E*>(yl), static_cast<const E*>(yr), static_cast<const E*>(zl),
-      static_cast<const E*>(zr), (unsigned)S0, (unsigned)S1, (unsigned)S2, (unsigned)n0,
-      (unsigned)n1, (unsigned)n2, (unsigned)hwx);
 }
 
 // K7 and K8: the slabs of a coalesced group. Field k is stacked, D0 x D1 x D2
@@ -448,7 +342,196 @@ halo_write_multi_kernel(const __grid_constant__ Slabs d, const E* __restrict__ b
   }
 }
 
+// K2. A field is seen as (outer, L, inner) about the dim written (blocks of
+// n along L, D = L / n). For every outer index o, halo plane l of the field
+// (l = c * n + h or c * n + n - hw + h) and plane s = c * hw + h of its slab
+// are `inner` cells, contiguous at (o * L + l) * inner in the field and at
+// (o * D * hw + s) * inner in the slab.
+struct HaloWrite {
+  // rows (inner > 1): row u of slab plane s at s * bs + u * bu in the slab
+  // and at l * aL + u * au in the field, R cells (a plane's last to
+  // `cells`); lanes (inner == 1): row u of the field at u * au, of the slab
+  // at u * bu, `rows` of them
+  long long aL, au, bs, bu, cells, rows;
+  unsigned R, nt, n, hw, P;  // nt: tiles of a slab plane; P = D * hw slab planes a side
+  int vec;                   // rows copied in 16-byte words
+};
+
+constexpr long long ROW_BYTES = 1024;  // a warp's row where a plane is one contiguous run
+
+// Rows: a thread block is a tile of TILE_WARPS rows (a warp a row) of one
+// slab plane and side, found from blockIdx once. Lanes: a thread a row, both
+// halos of every block of the row.
+template <bool LANES, typename E>
+__global__ void __launch_bounds__(THREADS)
+halo_write_kernel(const __grid_constant__ HaloWrite p, E* __restrict__ a,
+                  const E* __restrict__ sl, const E* __restrict__ sr) {
+  if constexpr (LANES) {
+    const long long u = (long long)blockIdx.x * THREADS + threadIdx.x;
+    if (u >= p.rows) return;
+    E* row = a + u * p.au;
+    const E* l = sl + u * p.bu;
+    const E* r = sr + u * p.bu;
+    for (unsigned k = 0, s = 0; s < p.P; k += p.n, s += p.hw)
+      for (unsigned h = 0; h < p.hw; ++h) {
+        row[k + h] = l[s + h];
+        row[k + p.n - p.hw + h] = r[s + h];
+      }
+  } else {
+    const unsigned q = blockIdx.x / p.nt;  // the tile's side and slab plane
+    const unsigned side = q >= p.P, s = q - side * p.P, c = s / p.hw, h = s - c * p.hw;
+    const long long u = (long long)(blockIdx.x - q * p.nt) * TILE_WARPS + (threadIdx.x >> 5),
+                    first = u * p.R;
+    if (first >= p.cells) return;
+    const long long l = (long long)c * p.n + (side ? p.n - p.hw : 0) + h,
+                    left = p.cells - first;
+    copy_row(a + l * p.aL + u * p.au, (side ? sr : sl) + s * p.bs + u * p.bu,
+             (unsigned)(left < p.R ? left : p.R), p.vec);
+  }
+}
+
+// K6's plan: three parts of tiles, in launch order z, x, y.
+struct Combined {
+  long long S1, S2;
+  unsigned n0, n1, n2, D0, D1, D2, hwx;
+  unsigned i0, i1, j0, j1;  // local rows outside the x and y halos: [i0, i1) x [j0, j1)
+  unsigned first[3];        // the parts' first tiles
+  // z: tiles a block along x (TILE_WARPS planes) and y (32 rows); x: row
+  // tiles of a block's y extent; y: row tiles of its x extent [i0, i1)
+  unsigned zt0, zt1, xt, yt;
+  int vec;  // x and y rows copied in 16-byte words
+};
+
+// K6: a thread block is a tile of one part in one block of the stack, found
+// from blockIdx once. z: TILE_WARPS x planes by 32 y rows outside the x and
+// y halos, a thread a row (threads along y) writing its two lanes of every
+// block; x: TILE_WARPS rows of one received plane along y in one block, a
+// warp a row, which takes ry where it is a y-halo row; y: TILE_WARPS rows of
+// one side along x in one block, inside [i0, i1) only.
+template <typename E>
+__global__ void __launch_bounds__(THREADS)
+halo_write_combined_kernel(const __grid_constant__ Combined p, E* __restrict__ a,
+                           const E* __restrict__ xl, const E* __restrict__ xr,
+                           const E* __restrict__ yl, const E* __restrict__ yr,
+                           const E* __restrict__ zl, const E* __restrict__ zr) {
+  const unsigned b = blockIdx.x, warp = threadIdx.x >> 5;
+  if (b < p.first[1]) {
+    const unsigned per = p.zt0 * p.zt1, blk = b / per, t = b - blk * per;
+    const unsigned c0 = blk / p.D1, c1 = blk - c0 * p.D1, tx = t / p.zt1, ty = t - tx * p.zt1;
+    const unsigned i = p.i0 + tx * TILE_WARPS + warp, j = p.j0 + ty * 32 + (threadIdx.x & 31);
+    if (i >= p.i1 || j >= p.j1) return;
+    const long long r = (long long)(c0 * p.n0 + i) * p.S1 + (c1 * p.n1 + j);
+    E* row = a + r * p.S2;
+    const E* l = zl + r * p.D2;
+    const E* rr = zr + r * p.D2;
+    for (unsigned c2 = 0, k = 0; c2 < p.D2; ++c2, k += p.n2) {
+      row[k] = l[c2];
+      row[k + p.n2 - 1] = rr[c2];
+    }
+  } else if (b < p.first[2]) {
+    const unsigned per = p.D1 * p.xt, q = (b - p.first[1]) / per, t = b - p.first[1] - q * per;
+    const unsigned c1 = t / p.xt, j = (t - c1 * p.xt) * TILE_WARPS + warp;
+    if (j >= p.n1) return;
+    const unsigned P = p.D0 * p.hwx, side = q >= P, s = q - side * P, c0 = s / p.hwx,
+                   h = s - c0 * p.hwx;
+    const unsigned I = c0 * p.n0 + (side ? p.n0 - p.hwx : 0) + h, J = c1 * p.n1 + j;
+    const E* src = yl != nullptr && (j == 0 || j == p.n1 - 1)
+                       ? (j == 0 ? yl : yr) + ((long long)I * p.D1 + c1) * p.S2
+                       : (side ? xr : xl) + ((long long)s * p.S1 + J) * p.S2;
+    copy_row(a + ((long long)I * p.S1 + J) * p.S2, src, (unsigned)p.S2, p.vec);
+  } else {
+    const unsigned per = p.D0 * p.yt, q = (b - p.first[2]) / per, t = b - p.first[2] - q * per;
+    const unsigned side = q >= p.D1, c1 = q - side * p.D1, c0 = t / p.yt;
+    const unsigned i = p.i0 + (t - c0 * p.yt) * TILE_WARPS + warp;
+    if (i >= p.i1) return;
+    const unsigned I = c0 * p.n0 + i, J = c1 * p.n1 + (side ? p.n1 - 1 : 0);
+    copy_row(a + ((long long)I * p.S1 + J) * p.S2,
+             (side ? yr : yl) + ((long long)I * p.D1 + c1) * p.S2, (unsigned)p.S2, p.vec);
+  }
+}
+
 long long cdiv_ll(long long a, long long b) { return (a + b - 1) / b; }
+
+bool item_size(int e) { return e == 1 || e == 2 || e == 4 || e == 8; }
+
+bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* q : ps)
+    if (reinterpret_cast<uintptr_t>(q) & 15) return false;
+  return true;
+}
+
+// K2's plan of one launch (0 tiles where a bound is exceeded).
+long long plan_halo_write(int e, const void* a, const void* sl, const void* sr,
+                          const long long S[3], int dim, long long n, long long hw,
+                          HaloWrite& p) {
+  long long outer = 1, inner = 1;
+  for (int i = 0; i < dim; ++i) outer *= S[i];
+  for (int i = dim + 1; i < 3; ++i) inner *= S[i];
+  const long long L = S[dim], P = L / n * hw;
+  if (L >= (1LL << 31) || inner >= (1LL << 31)) return 0;
+  p = HaloWrite{};
+  p.n = (unsigned)n, p.hw = (unsigned)hw, p.P = (unsigned)P;
+  if (inner == 1) {
+    p.au = L, p.bu = P, p.rows = outer;
+    return cdiv_ll(outer, THREADS);
+  }
+  p.aL = p.bs = inner;
+  if (outer == 1) {  // a plane is one run: rows of ROW_BYTES
+    p.R = (unsigned)(ROW_BYTES / e), p.au = p.bu = p.R, p.cells = inner;
+  } else {  // a row of inner cells an outer index
+    p.R = (unsigned)inner, p.au = L * inner, p.bu = P * inner, p.cells = outer * inner;
+  }
+  const long long nt = cdiv_ll(cdiv_ll(p.cells, p.R), TILE_WARPS);
+  p.nt = (unsigned)nt;
+  p.vec = (inner * e) % 16 == 0 && aligned16({a, sl, sr});
+  return 2 * P * nt;
+}
+
+template <typename E>
+void halo_write_launch(const HaloWrite& p, long long tiles, void* a, const void* sl,
+                       const void* sr, cudaStream_t st) {
+  E* d = static_cast<E*>(a);
+  const E* l = static_cast<const E*>(sl);
+  const E* r = static_cast<const E*>(sr);
+  if (p.rows)
+    halo_write_kernel<true, E><<<(unsigned)tiles, THREADS, 0, st>>>(p, d, l, r);
+  else
+    halo_write_kernel<false, E><<<(unsigned)tiles, THREADS, 0, st>>>(p, d, l, r);
+}
+
+template <typename E>
+void combined_launch(const Combined& p, long long tiles, void* a, const void* xl, const void* xr,
+                     const void* yl, const void* yr, const void* zl, const void* zr,
+                     cudaStream_t st) {
+  halo_write_combined_kernel<E><<<(unsigned)tiles, THREADS, 0, st>>>(
+      p, static_cast<E*>(a), static_cast<const E*>(xl), static_cast<const E*>(xr),
+      static_cast<const E*>(yl), static_cast<const E*>(yr), static_cast<const E*>(zl),
+      static_cast<const E*>(zr));
+}
+
+// K6's plan of one launch (its tiles; 0 where there are none).
+long long plan_combined(int e, const void* a, const void* xl, const void* yl, const void* zl,
+                        const void* xr, const void* yr, long long S0, long long S1,
+                        long long S2, long long n0, long long n1, long long n2, long long hwx,
+                        Combined& p) {
+  const bool x = xl != nullptr, y = yl != nullptr, z = zl != nullptr;
+  p = Combined{};
+  p.S1 = S1, p.S2 = S2;
+  p.n0 = (unsigned)n0, p.n1 = (unsigned)n1, p.n2 = (unsigned)n2, p.hwx = (unsigned)hwx;
+  p.D0 = (unsigned)(S0 / n0), p.D1 = (unsigned)(S1 / n1), p.D2 = (unsigned)(S2 / n2);
+  p.i0 = x ? p.hwx : 0, p.i1 = x ? p.n0 - p.hwx : p.n0;
+  p.j0 = y ? 1 : 0, p.j1 = y ? p.n1 - 1 : p.n1;
+  p.zt0 = (unsigned)cdiv_ll(p.i1 - p.i0, TILE_WARPS), p.zt1 = (unsigned)cdiv_ll(p.j1 - p.j0, 32);
+  p.xt = (unsigned)cdiv_ll(n1, TILE_WARPS), p.yt = p.zt0;
+  const long long D0 = p.D0, D1 = p.D1;
+  const long long tz = z ? D0 * D1 * p.zt0 * p.zt1 : 0, tx = x ? 2 * D0 * hwx * D1 * p.xt : 0,
+                  ty = y ? 2 * D1 * D0 * p.yt : 0;
+  if (tz + tx + ty >= (1LL << 31)) return 0;
+  p.first[0] = 0, p.first[1] = (unsigned)tz, p.first[2] = (unsigned)(tz + tx);
+  p.vec = (S2 * e) % 16 == 0 && aligned16({a}) && (!x || aligned16({xl, xr})) &&
+          (!y || aligned16({yl, yr}));
+  return tz + tx + ty;
+}
 
 // The kernel slabs of a planned host descriptor, each slab's first tile and
 // the tiles of the launch (0 where the descriptor is not one; a slab's
@@ -460,7 +543,6 @@ unsigned read_plan(const long long* desc, int nslabs, int dim, long long D0, lon
     return 0;
   d.D0 = (unsigned)D0, d.D1 = (unsigned)D1, d.D2 = (unsigned)D2;
   d.payload = payload;
-  const bool bufs16 = ((reinterpret_cast<uintptr_t>(b0) | reinterpret_cast<uintptr_t>(b1)) & 15) == 0;
   long long total = 0;
   for (int k = 0; k < MAX_SLABS; ++k) {
     d.first[k] = k < nslabs ? (unsigned)total : NO_TILE;
@@ -473,7 +555,7 @@ unsigned read_plan(const long long* desc, int nslabs, int dim, long long D0, lon
     s.base = p[7];
     s.st0 = (unsigned)p[8], s.st1 = (unsigned)p[9], s.st2 = (unsigned)p[10];
     s.nt0 = (unsigned)p[11], s.nt1 = (unsigned)p[12];
-    s.vec = p[13] && bufs16 && (reinterpret_cast<uintptr_t>(s.a) & 15) == 0;
+    s.vec = p[13] && aligned16({b0, b1, s.a});
     if (s.nt0 < 1 || s.nt1 < 1) return 0;  // not planned
     total += (dim == 2 ? 1 : 2) * (long long)s.nt0 * s.nt1 * D0 * D1 * D2;
     if (total >= (1LL << 31)) return 0;
@@ -513,15 +595,17 @@ extern "C" int igg_halo_write(int itemsize, void* a, const void* sl, const void*
                               long long S0, long long S1, long long S2, int dim,
                               long long n, long long hw, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dim < 0 || dim > 2 || n < 1 || hw < 1) return (int)cudaErrorInvalidValue;
-  long long P[3] = {S0, S1, S2};
-  P[dim] = (P[dim] / n) * hw;
-  if (P[1] * P[2] >= (1LL << 31)) return (int)cudaErrorInvalidValue;  // 32-bit plane index
+  if (dim < 0 || dim > 2 || n < 1 || hw < 1 || !item_size(itemsize))
+    return (int)cudaErrorInvalidValue;
+  const long long S[3] = {S0, S1, S2};
+  HaloWrite p;
+  const long long tiles = plan_halo_write(itemsize, a, sl, sr, S, dim, n, hw, p);
+  if (tiles < 1 || tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   switch (itemsize) {
-    case 1: halo_write<uint8_t>(a, sl, sr, S0, S1, S2, dim, n, hw, st); break;
-    case 2: halo_write<uint16_t>(a, sl, sr, S0, S1, S2, dim, n, hw, st); break;
-    case 4: halo_write<uint32_t>(a, sl, sr, S0, S1, S2, dim, n, hw, st); break;
-    case 8: halo_write<unsigned long long>(a, sl, sr, S0, S1, S2, dim, n, hw, st); break;
+    case 1: halo_write_launch<uint8_t>(p, tiles, a, sl, sr, st); break;
+    case 2: halo_write_launch<uint16_t>(p, tiles, a, sl, sr, st); break;
+    case 4: halo_write_launch<uint32_t>(p, tiles, a, sl, sr, st); break;
+    case 8: halo_write_launch<unsigned long long>(p, tiles, a, sl, sr, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -556,16 +640,22 @@ extern "C" int igg_halo_write_combined(int itemsize, void* a, const void* xl, co
                                        long long S2, long long n0, long long n1,
                                        long long n2, long long hwx, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n0 < 1 || n1 < 1 || n2 < 1 || hwx < 1) return (int)cudaErrorInvalidValue;
+  if (n0 < 1 || n1 < 1 || n2 < 1 || hwx < 1 || (xl != nullptr && n0 < 2 * hwx) ||
+      (yl != nullptr && n1 < 2) || (zl != nullptr && n2 < 2))
+    return (int)cudaErrorInvalidValue;  // each dim's halos disjoint
   // 32-bit indices: each part's cell count below 2^31
   const long long most = std::max(std::max((S0 / n0) * 2 * hwx * S1 * S2, S0 * 2 * (S1 / n1) * S2),
                                   S0 * S1 * 2 * (S2 / n2));
   if (most >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  Combined p;
+  const long long tiles = plan_combined(itemsize, a, xl, yl, zl, xr, yr, S0, S1, S2, n0, n1, n2,
+                                        hwx, p);
+  if (tiles < 1) return (int)cudaErrorInvalidValue;
   switch (itemsize) {
-    case 1: halo_write_combined<uint8_t>(a, xl, xr, yl, yr, zl, zr, S0, S1, S2, n0, n1, n2, hwx, most, st); break;
-    case 2: halo_write_combined<uint16_t>(a, xl, xr, yl, yr, zl, zr, S0, S1, S2, n0, n1, n2, hwx, most, st); break;
-    case 4: halo_write_combined<uint32_t>(a, xl, xr, yl, yr, zl, zr, S0, S1, S2, n0, n1, n2, hwx, most, st); break;
-    case 8: halo_write_combined<unsigned long long>(a, xl, xr, yl, yr, zl, zr, S0, S1, S2, n0, n1, n2, hwx, most, st); break;
+    case 1: combined_launch<uint8_t>(p, tiles, a, xl, xr, yl, yr, zl, zr, st); break;
+    case 2: combined_launch<uint16_t>(p, tiles, a, xl, xr, yl, yr, zl, zr, st); break;
+    case 4: combined_launch<uint32_t>(p, tiles, a, xl, xr, yl, yr, zl, zr, st); break;
+    case 8: combined_launch<unsigned long long>(p, tiles, a, xl, xr, yl, yr, zl, zr, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -581,7 +671,7 @@ extern "C" int igg_halo_write_combined(int itemsize, void* a, const void* xl, co
 extern "C" int igg_coalesced_plan(int itemsize, int nslabs, long long* desc, long long D0,
                                   long long D1, long long D2, long long payload, int dim) {
   if (nslabs < 1 || nslabs > MAX_SLABS || dim < 0 || dim > 2 || D0 < 1 || D1 < 1 || D2 < 1 ||
-      payload < 1 || (itemsize != 1 && itemsize != 2 && itemsize != 4 && itemsize != 8))
+      payload < 1 || !item_size(itemsize))
     return (int)cudaErrorInvalidValue;
   const long long D[3] = {D0, D1, D2}, e = itemsize;
   long long total = 0;

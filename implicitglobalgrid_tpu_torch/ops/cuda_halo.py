@@ -67,6 +67,41 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# signatures a cache keeps
+_MAX_CHECKED = 64
+# checked K2 and K6 calls by signature: what their checks return
+_CALLS: dict = {}
+
+
+def _checked(cache, check, tensors, *extra):
+    """``check()``'s result (``check`` raises on a bad call), once a call
+    signature: the tensors' shapes, dtypes, devices and contiguity, and
+    ``extra``; later calls of the signature reuse it from ``cache``."""
+    import torch
+
+    try:
+        key = (*extra, tuple((t.shape, t.dtype, t.device, t.is_contiguous())
+                             for t in tensors))
+        hash(key)
+    except (AttributeError, TypeError):
+        key = None  # not tensors: the check raises
+    g = cache.get(key) if key is not None and all(
+        isinstance(t, torch.Tensor) for t in tensors) else None
+    if g is None:
+        g = check()
+        if key is not None:
+            if len(cache) >= _MAX_CHECKED:
+                cache.clear()
+            cache[key] = g
+    return g
+
+
+def _check_not_aliased(a, slabs, name):
+    store = a.untyped_storage().data_ptr()
+    if any(s.untyped_storage().data_ptr() == store for s in slabs):
+        raise InvalidArgumentError(f"{name}: a slab must not alias the field.")
+
+
 def halo_write_supported(shape, dim: int, hw: int) -> bool:
     """Whether `halo_write` takes halos of width ``hw`` along ``dim`` of a
     block of this LOCAL shape: 1-D to 3-D with disjoint left and right
@@ -103,9 +138,7 @@ def _check_write(a, slab_l, slab_r, dim, hw, block):
             raise InvalidArgumentError(
                 f"halo_write: slabs must be contiguous {tuple(want)} {a.dtype} on "
                 f"{a.device}; got {tuple(s.shape)} {s.dtype} on {s.device}.")
-        if s.untyped_storage().data_ptr() == a.untyped_storage().data_ptr():
-            raise InvalidArgumentError("halo_write: a slab must not alias the field.")
-    return dim, hw, n
+    return dim, hw, n, tuple(int(s) for s in a.shape) + (1,) * (3 - a.dim())
 
 
 def halo_write_plain(a, slab_l, slab_r, *, dim: int, hw: int, block=None):
@@ -123,12 +156,13 @@ def halo_write(a, slab_l, slab_r, *, dim: int, hw: int, block=None):
     ``[n-hw, n)`` halo along ``dim`` of every block (length ``block``,
     default the whole extent) of stacked ``a``, in place; returns ``a``.
     Slab ``c`` of width ``hw`` along ``dim`` goes to block ``c``."""
-    dim, hw, n = _check_write(a, slab_l, slab_r, dim, hw, block)
+    dim, hw, n, shape = _checked(_CALLS, lambda: _check_write(a, slab_l, slab_r, dim, hw, block),
+                                 (a, slab_l, slab_r), "write", dim, hw, block)
+    _check_not_aliased(a, (slab_l, slab_r), "halo_write")
     if not _on_card(a):
         return halo_write_plain(a, slab_l, slab_r, dim=dim, hw=hw, block=n)
     import torch
 
-    shape = tuple(int(s) for s in a.shape) + (1,) * (3 - a.dim())
     lib = library()
     with torch.cuda.device(a.device):
         rc = lib.igg_halo_write(
@@ -255,8 +289,6 @@ def _check_combined(a, recvs, modes, hws, block):
                 raise InvalidArgumentError(
                     f"halo_write_combined: the slabs of dim {d} must be contiguous "
                     f"{tuple(want)} {a.dtype}; got {tuple(s.shape)} {s.dtype}.")
-            if s.untyped_storage().data_ptr() == a.untyped_storage().data_ptr():
-                raise InvalidArgumentError("halo_write_combined: a slab must not alias the field.")
     return block, modes, hws
 
 
@@ -275,8 +307,14 @@ def halo_write_combined(a, recvs, *, modes, hws, block=None):
     of every block of stacked ``a``, in one pass, in place; returns ``a``. A
     y-halo row takes its received value, else an x-halo plane, else a
     z-halo lane: the reference's z, x, y write order."""
-    block, modes, hws = _check_combined(
-        a, recvs, modes, hws, tuple(a.shape) if block is None else block)
+    try:
+        slabs = tuple(s for d in range(3) if modes[d] for s in recvs[d])
+    except (TypeError, KeyError, IndexError):
+        slabs = (None,)  # the check raises
+    block, modes, hws = _checked(_CALLS, lambda: _check_combined(
+        a, recvs, modes, hws, tuple(a.shape) if block is None else block), (a, *slabs),
+        "combined", modes, hws, block)
+    _check_not_aliased(a, slabs, "halo_write_combined")
     if not _on_card(a):
         return halo_write_combined_plain(a, recvs, modes=modes, hws=hws, block=block)
     import torch
@@ -381,32 +419,16 @@ def _check_alias(fields, bufs, name):
 # checked K7/K8 groups by call signature: [dim, block counts, blocks,
 # halowidths, buffer shape, descriptor (built at the group's first launch)]
 _GROUPS: dict = {}
-_MAX_GROUPS = 64
 
 
 def _group(check, schema, tensors, *extra):
-    """The checked group of a kernel call: ``check()`` (which raises on a
-    bad call) runs once a signature (``schema``, the tensors' shapes,
-    dtypes, devices and contiguity, and ``extra``), later calls of the
-    signature reuse its result."""
-    import torch
-
-    try:
-        key = (schema, *extra, tuple((t.shape, t.dtype, t.device, t.is_contiguous())
-                                     for t in tensors))
-        hash(key)
-    except (AttributeError, TypeError):
-        key = None  # not tensors: the check raises
-    g = _GROUPS.get(key) if key is not None and all(
-        isinstance(t, torch.Tensor) for t in tensors) else None
-    if g is None:
+    """The checked group of a kernel call (`_checked`, keyed also by
+    ``schema``)."""
+    def checked():
         dim, counts, blks, hws = check()
-        g = [dim, counts, blks, hws, _buffer_shape(schema, counts), None]
-        if key is not None:
-            if len(_GROUPS) >= _MAX_GROUPS:
-                _GROUPS.clear()
-            _GROUPS[key] = g
-    return g
+        return [dim, counts, blks, hws, _buffer_shape(schema, counts), None]
+
+    return _checked(_GROUPS, checked, tensors, schema, *extra)
 
 
 def _descriptor(g, fields, schema, starts):

@@ -958,40 +958,112 @@ def test_coalesced_update_halo_on_host_kernels(on_host, monkeypatch, nfields):
     assert _equal(got, want)
 
 
-# K2, K3 and K6 on a 2x2x2 stack of blocks that no thread block divides
+# K2, K3 and K6 on a 2x2x2 stack of blocks that no thread block divides; the
+# new cases also on blocks whose rows are whole 16-byte words in every
+# element size (K2: 1-D fields of 4 blocks, 2-D and 3-D of 2 a dim)
 HALO_BLOCK = (6, 5, 37)
+HALO_VEC_BLOCK = (6, 10, 64)
+K2_BLOCKS = {(1, False): (37,), (1, True): (32,), (2, False): (37, 70), (2, True): (37, 64),
+             (3, False): HALO_BLOCK, (3, True): HALO_VEC_BLOCK}
+# every element size
+HALO_DTYPES = (np.int8, np.int16, np.float32, np.float64)
 
 
-@pytest.mark.parametrize("kernel,arg", [("k2", (0, 1)), ("k2", (1, 2)), ("k2", (2, 1)),
-                                        ("k3", (True, False, True)), ("k3", (True, True, True)),
-                                        ("k6", (True, True, True)), ("k6", (False, True, True))])
+def _halo_field(rng, shape, dtype):
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        return torch.from_numpy(rng.integers(info.min, info.max, shape).astype(dtype))
+    return _k78_field(rng, shape, dtype)
+
+
+def _halo_case(kernel, arg, rng, dtype):
+    """One K2, K3 or K6 call and its plain version's on a random field:
+    ``arg`` is (dim, hw) or (dim, hw, block) for K2, the modes for K3, the
+    modes or (modes, hw_x, block) for K6."""
+    if kernel == "k2":
+        dim, hw, block = arg if len(arg) == 3 else (*arg, HALO_BLOCK)
+        counts = (4,) if len(block) == 1 else (2,) * len(block)
+        shape = tuple(c * b for c, b in zip(counts, block))
+        A = _halo_field(rng, shape, dtype)
+        ss = [c * hw if a == dim else s for a, (c, s) in enumerate(zip(counts, shape))]
+        sl, sr = (_halo_field(rng, tuple(ss), dtype) for _ in range(2))
+        kw = dict(dim=dim, hw=hw, block=block[dim])
+        return ch.halo_write(A.clone(), sl, sr, **kw), ch.halo_write_plain(A.clone(), sl, sr, **kw)
+    if kernel == "k3":
+        A = _halo_field(rng, tuple(2 * b for b in HALO_BLOCK), dtype)
+        kw = dict(modes=arg, ols=(2, 2, 3), block=HALO_BLOCK)
+        return ch.halo_self_exchange(A, **kw), ch.halo_self_exchange_plain(A, **kw)
+    modes, hws, block = (arg, (2, 1, 1), HALO_BLOCK) if len(arg) == 3 and isinstance(arg[0], bool) \
+        else (arg[0], (arg[1], 1, 1), arg[2])
+    shape = tuple(2 * b for b in block)
+    A = _halo_field(rng, shape, dtype)
+    recvs = {d: tuple(_halo_field(rng, tuple(2 * hws[d] if a == d else s for a, s in
+                                              enumerate(shape)), dtype) for _ in range(2))
+             for d in range(3) if modes[d]}
+    kw = dict(modes=modes, hws=hws, block=block)
+    return (ch.halo_write_combined(A.clone(), recvs, **kw),
+            ch.halo_write_combined_plain(A.clone(), recvs, **kw))
+
+
+K6_MODES = [(False, False, True), (True, False, True), (False, True, True), (True, True, True)]
+HALO_CASES = ([("k2", (0, 1)), ("k2", (1, 2)), ("k2", (2, 1)), ("k3", (True, False, True)),
+               ("k3", (True, True, True)), ("k6", (True, True, True)), ("k6", (False, True, True))]
+              + [("k2", (dim, hw, K2_BLOCKS[nd, vec])) for nd in (1, 2, 3) for vec in (False, True)
+                 for dim in range(nd) for hw in (1, 2)]
+              + [("k6", (modes, hwx, block)) for block in (HALO_BLOCK, HALO_VEC_BLOCK)
+                 for modes in K6_MODES for hwx in (1, 2)])
+
+
+@pytest.mark.parametrize("kernel,arg", HALO_CASES)
 def test_k2_k3_k6_match_plain(on_host, kernel, arg):
     """The host build of K2 (a dim and halowidth), K3 (self-exchange modes)
     and K6 (combined delivery of the dims flagged) bitwise against their
-    plain versions, float64 and int8."""
+    plain versions: the first seven cases in float64 and int8 on 2x2x2
+    stacks of (6, 5, 37) blocks; then K2 on every dim, halowidths 1 and 2,
+    1-D, 2-D and 3-D fields, and K6 on every mode combination its gate
+    admits with x halowidths 1 and 2, each on blocks whose rows are and are
+    not whole 16-byte words, in every element size (1, 2, 4 and 8 bytes)."""
     rng = np.random.default_rng(79)
-    shape = tuple(2 * b for b in HALO_BLOCK)
-    for dtype in (np.float64, np.int8):
-        A = _k78_field(rng, shape, dtype)
-        if kernel == "k2":
-            dim, hw = arg
-            ss = [2 * hw if a == dim else s for a, s in enumerate(shape)]
-            sl, sr = (_k78_field(rng, tuple(ss), dtype) for _ in range(2))
-            kw = dict(dim=dim, hw=hw, block=HALO_BLOCK[dim])
-            got = ch.halo_write(A.clone(), sl, sr, **kw)
-            want = ch.halo_write_plain(A.clone(), sl, sr, **kw)
-        elif kernel == "k3":
-            kw = dict(modes=arg, ols=(2, 2, 3), block=HALO_BLOCK)
-            got = ch.halo_self_exchange(A, **kw)
-            want = ch.halo_self_exchange_plain(A, **kw)
-        else:
-            hws = (2, 1, 1)
-            recvs = {d: tuple(_k78_field(rng, tuple(2 * hws[d] if a == d else s for a, s in
-                                                      enumerate(shape)), dtype)
-                              for _ in range(2)) for d in range(3) if arg[d]}
-            kw = dict(modes=arg, hws=hws, block=HALO_BLOCK)
-            got = ch.halo_write_combined(A.clone(), recvs, **kw)
-            want = ch.halo_write_combined_plain(A.clone(), recvs, **kw)
+    dtypes = (np.float64, np.int8) if HALO_CASES.index((kernel, arg)) < 7 else HALO_DTYPES
+    for dtype in dtypes:
+        got, want = _halo_case(kernel, arg, rng, dtype)
         assert torch.equal(got, want), dtype
     name = {"k2": "halo_write", "k3": "halo_self_exchange", "k6": "halo_write_combined"}[kernel]
-    assert cb.launch_counts()[name] == 2
+    assert cb.launch_counts()[name] == len(dtypes)
+
+
+def test_k2_k6_check_once_a_signature(on_host, monkeypatch):
+    """K2's and K6's wrappers check a call once a signature: a second call
+    with the same shapes, dtypes and arguments reuses the first's result
+    and still launches (and matches the plain version); a new shape is
+    checked again; a slab that aliases the field raises on every call."""
+    monkeypatch.setattr(ch, "_CALLS", {})
+    checks = []
+    for name in ("_check_write", "_check_combined"):
+        real = getattr(ch, name)
+        monkeypatch.setattr(ch, name, lambda *a, real=real, name=name: (checks.append(name),
+                                                                          real(*a))[1])
+    rng = np.random.default_rng(80)
+    for k in range(2):
+        got, want = _halo_case("k2", (2, 1), rng, np.float32)
+        assert torch.equal(got, want), k
+        got, want = _halo_case("k6", (True, True, True), rng, np.float32)
+        assert torch.equal(got, want), k
+    assert checks == ["_check_write", "_check_combined"]
+    assert (cb.launch_counts()["halo_write"], cb.launch_counts()["halo_write_combined"]) == (2, 2)
+    _halo_case("k2", (2, 1, HALO_VEC_BLOCK), rng, np.float32)
+    assert checks[-1] == "_check_write" and len(checks) == 3
+    shape = tuple(2 * b for b in HALO_BLOCK)
+    whole = torch.zeros(int(np.prod(shape)) + 2 * 2 * shape[0] * shape[1], dtype=torch.float32)
+    A = whole[:int(np.prod(shape))].view(shape)
+    sl = whole[int(np.prod(shape)):].view(shape[0], shape[1], 4)[..., :2].contiguous()
+    alias = whole[int(np.prod(shape)):int(np.prod(shape)) + sl.numel()].view(sl.shape)
+    E = tg.exceptions.InvalidArgumentError
+    for _ in range(2):
+        with pytest.raises(E, match="alias"):
+            ch.halo_write(A, alias, sl, dim=2, hw=1, block=HALO_BLOCK[2])
+        with pytest.raises(E, match="alias"):
+            ch.halo_write_combined(A, {2: (sl, alias)}, modes=(False, False, True),
+                                   hws=(1, 1, 1), block=HALO_BLOCK)
+    assert checks[3:] == ["_check_combined"]  # the aliased calls' one new signature
+    assert cb.launch_counts()["halo_write"] == 3
