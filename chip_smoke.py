@@ -63,24 +63,36 @@ Phases, in order; any failure exits non-zero without the final line:
    against the kernels' plain versions on the card for a few steps and
    held to float64 beside the plain route;
 10. BASELINE config 5 (3-D pseudo-transient Stokes) on one 128^3 block,
-   float32, non-periodic, the example's solver loop
-   (`examples/stokes3D_multixpu.py`): `init_stokes3d` -> warm chunk -> tic
-   -> `run_stokes` in chunks of 500 with `stokes_residuals` after each until
-   max(residuals) < 5e-4 or 6000 iterations -> toc -> `gather_interior(P)`,
-   K10 alone; its first 100 iterations against ``IGG_USE_PALLAS=0``;
+   float32, non-periodic, through the port's Stokes example
+   (`implicitglobalgrid_tpu_torch.examples.stokes3D_multixpu`):
+   `init_stokes3d` -> warm chunk -> tic -> `run_stokes` in chunks of 500
+   with `stokes_residuals` after each until max(residuals) < 5e-4 or 6000
+   iterations -> toc -> `gather_interior(P)`, K10 alone; its first 100
+   iterations against ``IGG_USE_PALLAS=0``;
 11. config 5 on a 2x2x2 mesh of 128^3 blocks, 300 iterations of the fused
    route (3 K4s Stokes-mode launches, one a dim for the four fields, + 1
    K10 an iteration); its first 20 against the plain route (K8 + K7 for the
    (Vx, Vy, Vz, P) group); both routes' host, wall and device time an
    iteration;
-12. numbers: the card's name and power limit, each kernel's time, bound,
+12. the transport: two processes of this script (``--transport-child``)
+   share cuda:0 in a gloo process group (NCCL refuses two processes on one
+   card), the grids split along z (``IGG_TPU_DCN_AXES=z``, a 2x2x1 box
+   each): config 3 (20 fused steps, K4s + K4, then `update_halo`, K4s +
+   K6), config 4's mesh (10 fused steps, K4s wave modes + K9, then a
+   coalesced `update_halo(P, Vx, Vy, Vz)`, K8 + K7) and config 5's mesh
+   (20 iterations, K4s Stokes modes + K10, and `stokes_residuals`), each
+   gathered to process 0 and held bitwise against phases 6, 9 and 11's runs
+   of the same steps on the virtual mesh; per step the wall ms, the wire
+   bytes and gloo's host staging ms, beside the virtual mesh's step;
+13. numbers: the card's name and power limit, each kernel's time, bound,
    plain and library times (one JSON line), cell-updates/s, host against
    device time per step of the fused routes, and the main paths' K4s
    launches by mode and dim.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 nothing of JAX. It needs one card and exits non-zero without CUDA or
-without the package beside it.
+without the package beside it. ``--transport-child <pid> <port>`` runs one
+process of phase 12 (the script starts them itself).
 """
 
 import json
@@ -1109,6 +1121,7 @@ def phase_config3(tg, models, cb, cs):
     err_uh = max_err(T, Up)
     check(torch.equal(T, Up), "config 3: update_halo (K4s + K6) bitwise equal to the plain "
                               f"path's, halos included (max abs err {err_uh:.3e})")
+    ref = {"config3_T": tg.gather(T)}  # the transport phase's reference, halos included
     del T, T_run, Up
     Gp = tg.gather_interior(tg.update_halo(models.run_diffusion(T0, Cp, p, nt, nt_chunk=nt)))
     err = float(np.abs(G - Gp).max())
@@ -1121,7 +1134,8 @@ def phase_config3(tg, models, cb, cs):
                         global_cells=cells,
                         max_abs_err_vs_plain=err, max_abs_err_vs_k1_route=err_k1,
                         k4_route=times, k1_update_halo_route=times_k1,
-                        k4_own_state_ms=k4_own)
+                        k4_own_state_ms=k4_own, step_ms=t * 1e3 / nt,
+                        transport_ref=ref)
 
 
 def phase_config2(tg, models, cb):
@@ -1948,6 +1962,11 @@ def phase_config4_mesh(tg, models, cb, cw):
     k9_own = dict(initial=k9_kernels_ms(cw, gg, s0, block, k),
                   after_steps=k9_kernels_ms(cw, gg, s, block, k), steps=nt)
     print(f"  K9 on config 4's own states (device ms): {k9_own}", flush=True)
+    # the transport phase's reference: 10 fused steps, then update_halo
+    s10 = models.run_acoustic(s0, p, 10, nt_chunk=10)
+    ref = {f"config4_{f}": tg.gather(a) for f, a in zip(
+        ("P", "Vx", "Vy", "Vz"), tg.update_halo(*[a.clone() for a in s10]))}
+    del s10
     bf16 = acoustic_bf16_mesh(tg, models, cw, p)
     grid(tg, n, n, n, plain=True, **kw)
     Up = tg.update_halo(*[a.clone() for a in s])
@@ -1971,7 +1990,7 @@ def phase_config4_mesh(tg, models, cb, cw):
                         global_cells=cells,
                         max_abs_err_vs_plain=err, max_abs_err_plain_route=err_p,
                         k9_route=times, plain_route=plain_times, k9_kernels_ms=k9_own,
-                        bf16=bf16)
+                        bf16=bf16, step_ms=t * 1e3 / nt, transport_ref=ref)
 
 
 BF16_STEPS, BF16_HELD = 20, 5
@@ -2257,26 +2276,21 @@ def phase_config5_single(tg, models, cb, cst):
     import numpy as np
     import torch
 
+    from implicitglobalgrid_tpu_torch.examples.stokes3D_multixpu import stokes3D
+
     n, chunk, max_iters, tol = N_CFG5, 500, 6000, 5e-4
-    print(f"phase: BASELINE config 5, one {n}^3 block float32, <= {max_iters} PT iterations",
-          flush=True)
-    grid(tg, n, n, n)
-    s0, p = models.init_stokes3d(dtype=torch.float32)
-    models.stokes_residuals(models.run_stokes(s0, p, chunk, nt_chunk=chunk), p)  # warm
+    print(f"phase: BASELINE config 5, one {n}^3 block float32, <= {max_iters} PT iterations "
+          "(the port's examples/stokes3D_multixpu.py)", flush=True)
+    if tg.grid_is_initialized():
+        tg.finalize_global_grid()  # the example initializes its own grid
+    os.environ.pop("IGG_USE_PALLAS", None)
     cb.reset_launch_counts()
-    tg.tic()
-    it, state, res = 0, s0, (float("inf"), float("inf"))
-    history = []
-    while it < max_iters:
-        state = models.run_stokes(state, p, chunk, nt_chunk=chunk)
-        it += chunk
-        res = models.stokes_residuals(state, p)
-        history.append((it, *res))
-        print(f"  iters={it:6d}  max|divV|={res[0]:.3e}  max|R|={res[1]:.3e}", flush=True)
-        if max(res) < tol:
-            break
-    t = tg.toc()
-    P = tg.gather_interior(state[0])
+    run = stokes3D(n=n, max_iters=max_iters, check_every=chunk, tol=tol, finalize=False,
+                   log=lambda line: print("  " + line, flush=True))
+    s0, p, state, it, t = run["init"], run["params"], run["state"], run["iterations"], \
+        run["seconds"]
+    history, P = run["history"], run["P"]
+    res = history[-1][1:]
     torch.cuda.synchronize()
     counts = cb.launch_counts()
     cells = tg.nx_g() * tg.ny_g() * tg.nz_g()
@@ -2285,8 +2299,9 @@ def phase_config5_single(tg, models, cb, cst):
     print(f"  config 5 single: {status} after {it} PT iterations in {t:.6f} s = {rate:.6e} "
           f"cell-updates/s (global {tg.nx_g()}x{tg.ny_g()}x{tg.nz_g()}); P range "
           f"[{float(P.min()):+.3e}, {float(P.max()):+.3e}]; launches {counts}", flush=True)
-    check(counts["stokes_step_exchange"] == it and sum(counts.values()) == it,
-          "config 5 single: K10 once per iteration, nothing else")
+    check(counts["stokes_step_exchange"] == it + chunk and sum(counts.values()) == it + chunk,
+          "config 5 single: K10 once per iteration (the example's warm chunk included), "
+          "nothing else")
     check(P.shape == (tg.nx_g(), tg.ny_g(), tg.nz_g()) and bool(np.isfinite(P).all())
           and all(np.isfinite(h[1:]).all() for h in history),
           f"config 5 single: P finite, shape {P.shape}; residuals finite")
@@ -2359,7 +2374,11 @@ def phase_config5_mesh(tg, models, cb, cst):
     mags = state_magnitudes(s[:7])
     print(f"  K10 on the state after {nt} iterations: {solver_ms} ms (device); its kernels: "
           f"{both}; its values: {mags}", flush=True)
-    f20 = [tg.gather_interior(a) for a in models.run_stokes(s0, p, 20, nt_chunk=20)[:4]]
+    s20 = models.run_stokes(s0, p, 20, nt_chunk=20)
+    f20 = [tg.gather_interior(a) for a in s20[:4]]
+    ref = {f"config5_{f}": g for f, g in zip(("P", "Vx", "Vy", "Vz"), f20)}
+    ref["config5_residuals"] = np.array(models.stokes_residuals(s20, p))
+    del s20
     c0 = cb.launch_counts()
     p20 = [tg.gather_interior(a) for a in models.run_stokes(s0, p, 20, nt_chunk=20,
                                                             impl="plain")[:4]]
@@ -2383,7 +2402,212 @@ def phase_config5_mesh(tg, models, cb, cst):
                         residuals=list(res), max_abs_err_vs_plain_20=err, k10_route=times,
                         plain_route=plain_times,
                         k10_solver_device_ms=solver_ms, k10_solver_kernels_device_ms=both,
-                        state_magnitudes=mags)
+                        state_magnitudes=mags, step_ms=t * 1e3 / nt, transport_ref=ref)
+
+
+TRANSPORT_PROCS = 2
+TRANSPORT_TIMEOUT = 600  # seconds, for the two processes together
+
+
+def _transport_dir():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "implicitglobalgrid_tpu_torch", "_build", "transport")
+
+
+def transport_child(pid, port):
+    """One of the transport phase's processes (``chip_smoke.py
+    --transport-child <pid> <port>``): a gloo group of two processes on
+    cuda:0, the grids split along z (``IGG_TPU_DCN_AXES=z``, each process a
+    2x2x1 box), each run of the phase timed over its steps; process 0
+    writes the gathered results and every process its record into
+    `_transport_dir()`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import implicitglobalgrid_tpu_torch as tg
+    from implicitglobalgrid_tpu_torch import models
+    from implicitglobalgrid_tpu_torch.ops import cuda_build as cb
+
+    torch.cuda.set_device(0)
+    os.environ["IGG_TPU_DCN_AXES"] = "z"
+    os.environ.pop("IGG_USE_PALLAS", None)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=TRANSPORT_PROCS, rank=pid)
+    out, rec = _transport_dir(), {}
+
+    def grid(n, **kw):
+        tg.init_global_grid(n, n, n, dimx=2, dimy=2, dimz=2, quiet=True, init_dist=False,
+                            select_device=False, **kw)
+        gg = tg.global_grid()
+        return dict(box=gg.box.tolist(), coords=gg.coords.tolist(),
+                    backend=gg.transport.backend, staged=gg.transport.stage)
+
+    def timed(fn, nt):
+        """``fn()`` between tic and toc, with its launches and the
+        transport's bytes and staging time."""
+        tr = tg.global_grid().transport
+        cb.reset_launch_counts()
+        tr.reset_stats()
+        tg.tic()
+        res = fn()
+        t = tg.toc()
+        st = dict(tr.stats)
+        return res, dict(steps=nt, step_ms=t * 1e3 / nt,
+                         wire_bytes_per_step=st["wire_bytes"] / nt,
+                         messages_per_step=st["messages"] / nt,
+                         exchange_ms_per_step=st["exchange_s"] * 1e3 / nt,
+                         staging_ms_per_step=st["staging_s"] * 1e3 / nt,
+                         launches=cb.launch_counts(), k4s=cb.k4s_launch_counts())
+
+    def save(name, a):
+        if pid == 0:
+            np.save(os.path.join(out, name + ".npy"), a)
+
+    # BASELINE config 3: 20 fused steps (K4s + K4), then update_halo (K4s + K6)
+    r = rec["config3"] = grid(N_CFG3, periodx=1, periody=1, periodz=1)
+    T0, Cp, p = models.init_diffusion3d(dtype=torch.float64)
+    models.run_diffusion(T0, Cp, p, 2, nt_chunk=2)  # warm chunk
+    T, r["steps"] = timed(lambda: models.run_diffusion(T0, Cp, p, 20, nt_chunk=20), 20)
+    tg.update_halo(T.clone())  # warm: the route's first call checks and plans it
+    T, r["update_halo"] = timed(lambda: tg.update_halo(T), 1)
+    save("config3_T", tg.gather(T))
+    del T, T0, Cp
+    tg.finalize_global_grid()
+    # config 4's mesh: 10 fused acoustic steps (K4s wave modes + K9), then a
+    # coalesced update_halo(P, Vx, Vy, Vz) (K8 + K7)
+    r = rec["config4"] = grid(N_CFG4, periodx=1, periody=1, periodz=1)
+    s0, p = models.init_acoustic3d(dtype=torch.float32)
+    models.run_acoustic(s0, p, 2, nt_chunk=2)  # warm chunk
+    s10, r["steps"] = timed(lambda: models.run_acoustic(s0, p, 10, nt_chunk=10), 10)
+    tg.update_halo(*[a.clone() for a in s10])  # warm
+    U, r["update_halo"] = timed(lambda: tg.update_halo(*[a.clone() for a in s10]), 1)
+    for f, a in zip(("P", "Vx", "Vy", "Vz"), U):
+        save(f"config4_{f}", tg.gather(a))
+    del s0, s10, U
+    tg.finalize_global_grid()
+    # config 5's mesh: 20 Stokes iterations (K4s Stokes modes + K10), residuals
+    r = rec["config5"] = grid(N_CFG5)
+    s0, p = models.init_stokes3d(dtype=torch.float32)
+    models.run_stokes(s0, p, 2, nt_chunk=2)  # warm chunk
+    s20, r["steps"] = timed(lambda: models.run_stokes(s0, p, 20, nt_chunk=20), 20)
+    res = models.stokes_residuals(s20, p)
+    r["residuals"] = list(res)
+    for f, a in zip(("P", "Vx", "Vy", "Vz"), s20[:4]):
+        save(f"config5_{f}", tg.gather_interior(a))
+    save("config5_residuals", np.array(res))
+    tg.finalize_global_grid()
+    with open(os.path.join(out, f"record_{pid}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    print(f"transport child {pid} done", flush=True)
+    return 0
+
+
+def phase_transport(refs, virtual_step_ms):
+    """Phase 12: the transport. Two processes of this script share cuda:0
+    in a gloo group (NCCL refuses two processes on one card) and run config
+    3, config 4's mesh and config 5's mesh split along z; each gathered
+    result is held bitwise against the virtual mesh's run of the same
+    phase (``refs``). Returns (launches summed over the processes, record)."""
+    import shutil
+    import socket
+
+    import numpy as np
+    import torch
+
+    print(f"phase: transport, {TRANSPORT_PROCS} processes on cuda:0 under gloo, the grids "
+          f"split along z; card {card_name()}", flush=True)
+    torch.cuda.empty_cache()
+    out = _transport_dir()
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "WORLD_SIZE", "IGG_USE_PALLAS")}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--transport-child",
+                               str(pid), str(port)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for pid in range(TRANSPORT_PROCS)]
+    logs, deadline = [], time.monotonic() + TRANSPORT_TIMEOUT
+    try:
+        for pr in procs:
+            try:
+                logs.append(pr.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                logs.append(f"timed out after {TRANSPORT_TIMEOUT} s")
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    for pid, (pr, log) in enumerate(zip(procs, logs)):
+        for line in log.splitlines()[-12:]:
+            print(f"  [{pid}] {line}")
+        check(pr.returncode == 0, f"transport: process {pid} exited {pr.returncode}")
+    recs = []
+    for pid in range(TRANSPORT_PROCS):
+        with open(os.path.join(out, f"record_{pid}.json")) as f:
+            recs.append(json.load(f))
+    errs = {}
+    for name, ref in refs.items():
+        got = np.load(os.path.join(out, name + ".npy"))
+        same = got.dtype == ref.dtype and got.shape == ref.shape and np.array_equal(
+            got.view(np.uint8), ref.view(np.uint8))
+        errs[name] = 0.0 if same else (float(np.abs(got.astype(np.float64) - ref).max())
+                                       if got.shape == ref.shape else -1.0)
+        check(same, f"transport: {name} bitwise equal to the virtual mesh's run "
+                    f"(max abs err {errs[name]!r})")
+    shutil.rmtree(out, ignore_errors=True)
+    launches = {}
+    for r in recs:
+        for cfg in r.values():
+            for part in ("steps", "update_halo"):
+                for k, n in cfg.get(part, {}).get("launches", {}).items():
+                    launches[k] = launches.get(k, 0) + n
+    r0 = recs[0]
+    for cfg, nt in (("config3", 20), ("config4", 10), ("config5", 20)):
+        st = r0[cfg]["steps"]
+        check(st["launches"]["exchange_slabs"] == 4 * nt,
+              f"transport {cfg}: K4s twice along z (moves, send slabs), once along x and y")
+        check(st["wire_bytes_per_step"] > 0, f"transport {cfg}: slabs crossed the processes")
+    check(r0["config3"]["steps"]["launches"]["diffusion3d_step_exchange"] == 20
+          and r0["config3"]["update_halo"]["launches"]["halo_write_combined"] == 1,
+          "transport config 3: K4 a step, update_halo through K6")
+    check(r0["config4"]["steps"]["launches"]["acoustic_step_exchange"] == 10
+          and r0["config4"]["update_halo"]["launches"]["wire_pack"] == 3
+          and r0["config4"]["update_halo"]["launches"]["halo_write_multi"] == 3,
+          "transport config 4: K9 a step, update_halo through K8 and K7 a dim")
+    check(r0["config5"]["steps"]["launches"]["stokes_step_exchange"] == 20,
+          "transport config 5: K10 an iteration")
+    per = {}
+    for cfg in ("config3", "config4", "config5"):
+        st = [r[cfg]["steps"] for r in recs]
+        per[cfg] = dict(box=r0[cfg]["box"], backend=r0[cfg]["backend"],
+                        staged=r0[cfg]["staged"],
+                        step_ms=[x["step_ms"] for x in st],
+                        wire_bytes_per_step=[x["wire_bytes_per_step"] for x in st],
+                        messages_per_step=[x["messages_per_step"] for x in st],
+                        exchange_ms_per_step=[x["exchange_ms_per_step"] for x in st],
+                        staging_ms_per_step=[x["staging_ms_per_step"] for x in st],
+                        virtual_step_ms=virtual_step_ms[cfg],
+                        k4s=r0[cfg]["steps"]["k4s"])
+        if "update_halo" in r0[cfg]:
+            per[cfg]["update_halo"] = {k: [r[cfg]["update_halo"][k] for r in recs] for k in (
+                "step_ms", "wire_bytes_per_step", "exchange_ms_per_step", "staging_ms_per_step")}
+        print(f"  transport {cfg}: box {per[cfg]['box']} a process, a step "
+              f"{per[cfg]['step_ms']} ms wall (virtual mesh {virtual_step_ms[cfg]!r} ms), "
+              f"{per[cfg]['wire_bytes_per_step']} wire bytes, exchange "
+              f"{per[cfg]['exchange_ms_per_step']} ms of it, gloo staging "
+              f"{per[cfg]['staging_ms_per_step']} ms; update_halo "
+              f"{per[cfg].get('update_halo')}", flush=True)
+    per["residuals"] = r0["config5"]["residuals"]
+    per["max_abs_err_vs_virtual"] = errs
+    return launches, per
 
 
 # config 5's dx on one 128^3 block and on the 2x2x2 mesh, the 3 of divV/3,
@@ -2597,6 +2821,8 @@ def card_name():
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--transport-child"]:
+        return transport_child(int(sys.argv[2]), int(sys.argv[3]))
     try:
         import torch
     except ImportError:
@@ -2649,13 +2875,18 @@ def main() -> int:
         cfg4m_counts, cfg4m = phase_config4_mesh(tg, models, cb, cw)
         cfg5_counts, cfg5 = phase_config5_single(tg, models, cb, cst)
         cfg5m_counts, cfg5m = phase_config5_mesh(tg, models, cb, cst)
+        refs = {k: v for ph in (cfg3, cfg4m, cfg5m) for k, v in ph.pop("transport_ref").items()}
+        transport_counts, transport = phase_transport(
+            refs, {"config3": cfg3["step_ms"], "config4": cfg4m["step_ms"],
+                   "config5": cfg5m["step_ms"]})
+        del refs
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts,
-             cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts]
-    launches = {k: sum(c[k] for c in paths) for k in KERNEL_NAMES}
+             cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts, transport_counts]
+    launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNEL_NAMES}
     for name, n in launches.items():
         if n == 0:
             print(f"chip_smoke: FAILED: {name} never launched on the main path",
@@ -2737,7 +2968,8 @@ def main() -> int:
                                     "mesh_2x2x2_128": mesh, "config3_2x2x2_256_f64": cfg3,
                                     "config2_2x2_4096_f32": cfg2,
                                     "config4_192_f32": cfg4, "config4_2x2x2_192_f32": cfg4m,
-                                    "config5_128_f32": cfg5, "config5_2x2x2_128_f32": cfg5m},
+                                    "config5_128_f32": cfg5, "config5_2x2x2_128_f32": cfg5m,
+                                    "transport_2_processes_z": transport},
                       "cdiv": cdiv, "k4s_launches": k4s_launches,
                       "seconds_total": time.perf_counter() - t_start}))
     print(card)

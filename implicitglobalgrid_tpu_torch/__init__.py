@@ -5,10 +5,13 @@ decomposition, on PyTorch with hand-written CUDA kernels for Hopper
 (`csrc/`). The JAX package `implicitglobalgrid_tpu` is the reference this
 package is tested against; this package imports neither `jax` nor it.
 
-Ranks are virtual: every rank's block lives in this one process, as a view
-of one stacked tensor (shape ``dims * local_shape``) on the grid's device,
-and a halo exchange is a copy between block views. Entry points run on the
-current CUDA device unless the caller passes ``device_type="cpu"``.
+Each process owns a box of ranks: their blocks are views of one stacked
+tensor (shape ``box * local_shape``) on the process's device, and a halo
+exchange between them is a copy between block views; between processes of a
+`torch.distributed` group (``torchrun``, one process a card) the edge slabs
+go through `parallel.transport`. One process owns every rank (the virtual
+mesh, ``box == dims``). Entry points run on the current CUDA device unless
+the caller passes ``device_type="cpu"``.
 
 Public API — the reference's 13 exported symbols::
 
@@ -16,7 +19,7 @@ Public API — the reference's 13 exported symbols::
     select_device, nx_g, ny_g, nz_g, x_g, y_g, z_g, tic, toc
 
 plus `local_update_halo`, `halo_comm_plan`, `zeros_g`/`ones_g`/`full_g`/`device_put_g`,
-`coords_g`/`x_g_vec`, `gather_interior`, `barrier`/`sync`, the stencil
+`coords_g`/`x_g_vec`, `gather_interior`, `gather_sub`, `barrier`/`sync`, the stencil
 helpers (`d_xa` … `inn`) and the `Field` wrapper. Usage::
 
     import implicitglobalgrid_tpu_torch as igg
@@ -33,7 +36,7 @@ from .parallel.topology import (
     neighbors_table, ol, dims_create,
 )
 from .ops.halo import update_halo, local_update_halo, halo_comm_plan, DEFAULT_DIMS_ORDER
-from .ops.gather import gather, gather_interior
+from .ops.gather import gather, gather_interior, gather_sub
 from .ops.alloc import zeros_g, ones_g, full_g, device_put_g
 from .ops.fields import Field, wrap_field, extract, local_shape_of, stacked_shape
 from .ops.stencil import d_xa, d_ya, d_za, d_xi, d_yi, d_zi, inn
@@ -53,7 +56,8 @@ __version__ = "0.1.0"
 __all__ = [
     "init_global_grid", "finalize_global_grid", "update_halo", "gather",
     "select_device", "nx_g", "ny_g", "nz_g", "x_g", "y_g", "z_g", "tic", "toc",
-    "local_update_halo", "halo_comm_plan", "gather_interior", "barrier", "sync",
+    "local_update_halo", "halo_comm_plan", "gather_interior", "gather_sub", "barrier",
+    "sync",
     "zeros_g", "ones_g", "full_g", "device_put_g",
     "Field", "wrap_field", "extract", "local_shape_of", "stacked_shape",
     "x_g_vec", "y_g_vec", "z_g_vec", "coords_g",

@@ -1,4 +1,4 @@
-"""Models on the virtual mesh: 3-D/2-D heat diffusion, the 3-D acoustic
+"""Models on the grid's stacked boxes: 3-D/2-D heat diffusion, the 3-D acoustic
 wave and the 3-D pseudo-transient Stokes solver."""
 
 from .diffusion import (

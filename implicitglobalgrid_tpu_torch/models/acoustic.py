@@ -6,7 +6,7 @@ velocity-pressure leapfrog
     dV/dt = -grad(P) / rho      (velocities on cell faces: Vx is (nx+1, ny, nz))
     dP/dt = -K div(V)           (pressure at cell centres)
 
-on stacked tensors over the virtual mesh. Two routes (``impl``):
+on the stacked tensors of each process's box. Two routes (``impl``):
 
 - ``"cuda"`` (the default while every ``IGG_USE_PALLAS`` flag is on), the
   JAX package's ``"pallas"`` route: where `wave_exchange_modes` admits the

@@ -5,7 +5,8 @@ example's hot loop
 
     q = -λ ∇T;   δT/δt = -∇·q / cₚ;   T += dt δT/δt;   update_halo(T)
 
-on stacked tensors over the virtual mesh. Two routes (``impl``):
+on the stacked tensors of each process's box of ranks (the whole grid on
+the virtual mesh). Two routes (``impl``):
 
 - ``"cuda"`` (the default while ``IGG_USE_PALLAS`` is on), the JAX
   package's Pallas route order. 3-D: every exchanging dim self-neighbour ->
@@ -164,7 +165,8 @@ def _plain_step(T, Cp, p, loc):
 
 
 def _local_shape(gg, T):
-    return tuple(int(s) // int(gg.dims[d]) for d, s in enumerate(T.shape))
+    """The LOCAL block shape of a stacked tensor of this process's box."""
+    return tuple(int(s) // int(gg.box[d]) for d, s in enumerate(T.shape))
 
 
 def _cuda_step3(T, Cp, p, gg, loc, out):

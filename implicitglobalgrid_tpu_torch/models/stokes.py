@@ -3,7 +3,7 @@ config 5).
 
 Counterpart of `implicitglobalgrid_tpu/models/stokes.py`: isoviscous,
 incompressible Stokes flow driven by a buoyant sphere, solved by damped
-pseudo-transient iteration, on stacked tensors over the virtual mesh::
+pseudo-transient iteration, on the stacked tensors of each process's box::
 
     cell centres: P, txx, tyy, tzz, rhog     faces: Vx, Vy, Vz (and dV)
     divV = div(V);  P <- P - dt_p*divV
@@ -198,7 +198,9 @@ def run_stokes(state, p: StokesParams, nt: int, *, nt_chunk: int = 100,
 def stokes_residuals(state, p: StokesParams):
     """Global (max |divV|, max |R|) over every block: the convergence
     monitor of the PT loop, `_stokes_terms` per block (plain tensor
-    operations, as the JAX package computes it outside any kernel)."""
+    operations, as the JAX package computes it outside any kernel), the
+    maximum over the processes' boxes taken by an all-reduce (COLLECTIVE
+    where a process group is up)."""
     check_initialized()
     state = _check_state(state)
     gg = global_grid()
@@ -206,4 +208,5 @@ def stokes_residuals(state, p: StokesParams):
                                              consts=stokes_consts(p))
     err_div = divV.abs().max()
     err_mom = Rx.abs().max().maximum(Ry.abs().max()).maximum(Rz.abs().max())
-    return float(err_div), float(err_mom)
+    err_div, err_mom = gg.transport.all_max([float(err_div), float(err_mom)])
+    return err_div, err_mom

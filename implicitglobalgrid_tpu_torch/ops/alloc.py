@@ -2,7 +2,8 @@
 
 Counterpart of `implicitglobalgrid_tpu/ops/alloc.py`: pass the LOCAL block
 shape a reference user would pass (``zeros_g((nx+1, ny, nz))``); the result
-is one tensor of shape ``dims * local_shape`` on the grid's device.
+is this process's box, one tensor of shape ``box * local_shape`` on its
+device (``dims * local_shape`` on the virtual mesh).
 """
 
 from __future__ import annotations
@@ -11,14 +12,14 @@ import numpy as np
 
 from ..parallel.topology import check_initialized, global_grid
 from ..utils.exceptions import InvalidArgumentError
-from .fields import stacked_shape
+from .fields import is_global_shape, stacked_shape
 
 __all__ = ["zeros_g", "ones_g", "full_g", "device_put_g"]
 
 
 def full_g(local_shape=None, fill_value=0.0, dtype=None):
-    """Stacked tensor with every block a ``local_shape`` block of
-    ``fill_value``. ``local_shape=None`` uses the grid's ``(nx, ny, nz)``;
+    """Stacked tensor of this process's box with every block a
+    ``local_shape`` block of ``fill_value``. ``local_shape=None`` uses the grid's ``(nx, ny, nz)``;
     ``dtype=None`` is torch's default float dtype."""
     import torch
 
@@ -43,12 +44,19 @@ def ones_g(local_shape=None, dtype=None):
 
 
 def device_put_g(A):
-    """A contiguous copy of host array or tensor ``A`` (stacked layout) on
-    the grid's device, with its dtype. Always a copy, so the in-place halo
-    writes never reach the caller's array."""
+    """A contiguous copy of host array or tensor ``A`` on the grid's device,
+    with its dtype: the whole grid's stacked array (``dims * local``, as
+    the JAX package takes it) gives this process's box of it; a box-shaped
+    array (``box * local``, `fields.is_global_shape`) is taken as it is.
+    Always a copy, so the in-place halo writes never reach the caller's
+    array."""
     import torch
 
     check_initialized()
+    gg = global_grid()
     if not isinstance(A, torch.Tensor):
         A = torch.from_numpy(np.ascontiguousarray(A))
-    return A.to(global_grid().device, copy=True).contiguous()
+    if is_global_shape(A.shape):
+        A = A[tuple(slice(int(c) * (int(s) // int(D)), (int(c) + int(b)) * (int(s) // int(D)))
+                    for s, D, b, c in zip(A.shape, gg.dims, gg.box, gg.coords))]
+    return A.to(gg.device, copy=True).contiguous()

@@ -1,9 +1,10 @@
 """Field abstraction: tensor + per-field halo widths.
 
 Counterpart of `implicitglobalgrid_tpu/ops/fields.py`. A field is ONE stacked
-tensor of shape ``dims * local_shape`` on the grid's device; the block of the
-virtual rank at Cartesian coordinates ``c`` is the view starting at
-``c * local_shape`` (`block_slices`).
+tensor of shape ``box * local_shape`` on the process's device (``box``: the
+ranks this process owns per dim, ``dims`` on the virtual mesh); the block of
+the rank at box position ``c`` is the view starting at ``c * local_shape``
+(`block_slices`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from ..utils.exceptions import IncoherentArgumentError, InvalidArgumentError
 __all__ = [
     "Field", "wrap_field", "extract", "check_fields",
     "local_shape_of", "stacked_shape", "has_halo", "block_slices", "block_view",
+    "is_global_shape",
 ]
 
 
@@ -66,9 +68,10 @@ def extract(x):
 
 def local_shape_of(shape, layout: str | None = None) -> tuple:
     """Infer the LOCAL (per-rank) shape of a tensor of ``shape``: stacked
-    (``shape[d] == dims[d] * l`` with ``l`` within one overlap of
-    ``nxyz[d]``) or already local. ``layout`` ("local"/"stacked") overrides
-    the inference for ambiguous small blocks."""
+    (``shape[d] == box[d] * l`` with ``l`` within one overlap of
+    ``nxyz[d]``, ``box`` this process's ranks per dim) or already local.
+    ``layout`` ("local"/"stacked") overrides the inference for ambiguous
+    small blocks."""
     if layout not in (None, "local", "stacked"):
         raise InvalidArgumentError(
             f"layout must be None, 'local' or 'stacked'; got {layout!r}.")
@@ -78,14 +81,14 @@ def local_shape_of(shape, layout: str | None = None) -> tuple:
     local = []
     for d in range(len(shape)):
         s = int(shape[d])
-        dd = int(gg.dims[d]) if d < NDIMS else 1
+        dd = int(gg.box[d]) if d < NDIMS else 1
         n = int(gg.nxyz[d]) if d < NDIMS else 1
         tol = int(gg.overlaps[d]) + 1 if d < NDIMS else 1
         if layout == "stacked":
             if s % dd != 0:
                 raise IncoherentArgumentError(
                     f"Stacked array size {s} along dimension {d} is not divisible "
-                    f"by dims[{d}]={dd}.")
+                    f"by the box's {dd} rank(s).")
             local.append(s // dd)
             continue
         if dd == 1:
@@ -99,18 +102,42 @@ def local_shape_of(shape, layout: str | None = None) -> tuple:
             local.append(s)
         else:
             raise IncoherentArgumentError(
-                f"Array size {s} along dimension {d} is neither a stacked-global size "
-                f"(dims[{d}]={dd} times ~nxyz[{d}]={n}) nor a local size (~{n})."
+                f"Array size {s} along dimension {d} is neither a stacked size "
+                f"({dd} rank(s) times ~nxyz[{d}]={n}) nor a local size (~{n})."
             )
     return tuple(local)
 
 
 def stacked_shape(local_shape) -> tuple:
+    """The stacked shape of this process's box of ``local_shape`` blocks."""
     gg = global_grid()
     return tuple(
-        int(gg.dims[d]) * int(local_shape[d]) if d < NDIMS else int(local_shape[d])
+        int(gg.box[d]) * int(local_shape[d]) if d < NDIMS else int(local_shape[d])
         for d in range(len(local_shape))
     )
+
+
+def is_global_shape(shape) -> bool:
+    """Whether ``shape`` is the whole grid's stacked shape (``dims *
+    local``) rather than this process's box (``box * local``): the
+    reading whose block is nearer ``nxyz`` wins, a tie is the box. Always
+    False on the virtual mesh, where the two are one."""
+    gg = global_grid()
+    if np.array_equal(gg.box, gg.dims):
+        return False
+    dist = {}
+    for name, per in (("box", gg.box), ("global", gg.dims)):
+        total = 0
+        for d in range(min(len(shape), NDIMS)):
+            s, k = int(shape[d]), int(per[d])
+            if s % k:
+                total = None
+                break
+            total += abs(s // k - int(gg.nxyz[d]))
+        dist[name] = total
+    if dist["global"] is None:
+        return False
+    return dist["box"] is None or dist["global"] < dist["box"]
 
 
 def block_slices(stacked, local):

@@ -1,10 +1,16 @@
-"""Gather a stacked field to the host: `gather`, `gather_interior`.
+"""Gather a stacked field to the host: `gather`, `gather_interior`,
+`gather_sub`.
 
-Counterpart of `implicitglobalgrid_tpu/ops/gather.py`. The stacked tensor
-already IS the concatenation of every rank's block, so `gather` is a copy to
-host memory; `gather_interior` strips the overlap duplication and returns
-the implicit global grid (size ``nxyz_g``). One process holds every virtual
-rank, so it is the root.
+Counterpart of `implicitglobalgrid_tpu/ops/gather.py`. Each process holds a
+box of the stacked field; the boxes go to ``root`` (a process rank) over the
+grid's transport and are placed by their position, which gives the whole
+grid's stacked array (every rank's block, halos included). On the virtual
+mesh the one box IS that array, so `gather` is a copy to host memory.
+`gather_interior` strips the overlap duplication and returns the implicit
+global grid (size ``nxyz_g``); `gather_sub` returns the blocks of a box of
+rank coordinates and moves only the processes' boxes that meet it. Only
+``root`` returns an array; the others return None. Every process must call
+them, as any collective.
 """
 
 from __future__ import annotations
@@ -15,32 +21,103 @@ from ..parallel.topology import check_initialized, global_grid
 from ..utils.exceptions import IncoherentArgumentError, InvalidArgumentError
 from .fields import local_shape_of
 
-__all__ = ["gather", "gather_interior"]
+__all__ = ["gather", "gather_interior", "gather_sub"]
 
 
-def _to_host(A) -> np.ndarray:
-    """Host numpy copy of tensor ``A``. bfloat16 (which numpy lacks) comes
-    back widened to float32, an exact conversion."""
+def _host_dtype(dtype):
+    """The numpy dtype of a gathered ``dtype``: `ml_dtypes.bfloat16` for
+    bfloat16 where ml_dtypes imports (numpy has no bfloat16), else float32,
+    an exact widening."""
+    import torch
+
+    if dtype != torch.bfloat16:
+        return None
+    try:
+        import ml_dtypes
+    except ImportError:
+        return np.float32
+    return ml_dtypes.bfloat16
+
+
+def _numpy(t) -> np.ndarray:
+    """A host numpy copy of tensor ``t`` (bfloat16: `_host_dtype`)."""
+    import torch
+
+    t = t.detach().cpu().contiguous()
+    hd = _host_dtype(t.dtype)
+    if hd is None:
+        return t.numpy().copy()
+    if hd is np.float32:
+        return t.float().numpy()
+    return t.view(torch.int16).numpy().view(hd).copy()
+
+
+def _check_tensor(A):
     import torch
 
     if not isinstance(A, torch.Tensor):
         raise InvalidArgumentError("gather expects a torch.Tensor.")
-    A = A.detach()
-    if A.dtype == torch.bfloat16:
-        A = A.float()
-    return A.cpu().numpy().copy()
+    return A.detach()
+
+
+def _boxes_to_host(A, root, loc, sel=None):
+    """COLLECTIVE: the whole grid's stacked array of ``A`` (every process's
+    box, blocks of ``loc``) on ``root``, None elsewhere; with ``sel`` (per
+    dim ``(lo, hi)`` rank ranges) only the selected blocks, moving only the
+    boxes that meet them."""
+    gg = global_grid()
+    nd = len(loc)
+    box = [int(gg.box[d]) if d < 3 else 1 for d in range(nd)]
+    dims = [int(gg.dims[d]) if d < 3 else 1 for d in range(nd)]
+    sel = sel or [(0, D) for D in dims]
+    tr = gg.transport
+    firsts = {int(p): [int(c) * b for c, b in zip(np.argwhere(gg.procs == p)[0], gg.box)]
+              for p in range(tr.world)}
+
+    def part_of(p):
+        """The slices of process ``p``'s box and of the result it fills, or
+        None where its box misses the selection."""
+        src, dst = [], []
+        for d in range(nd):
+            f = firsts[p][d] if d < 3 else 0
+            lo, hi = max(f, sel[d][0]), min(f + box[d], sel[d][1])
+            if lo >= hi:
+                return None
+            n = int(loc[d])
+            src.append(slice((lo - f) * n, (hi - f) * n))
+            dst.append(slice((lo - sel[d][0]) * n, (hi - sel[d][0]) * n))
+        return tuple(src), tuple(dst)
+
+    parts = {p: part_of(p) for p in range(tr.world)}
+    got = tr.gather(A.contiguous(), root, [p for p, pt in parts.items() if pt is not None])
+    if gg.me != root:
+        return None
+    out = None
+    for p, boxed in got.items():
+        src, dst = parts[p]
+        host = _numpy(boxed[src])
+        if out is None:
+            out = np.empty(tuple((hi - lo) * int(n) for (lo, hi), n in zip(sel, loc)),
+                           dtype=host.dtype)
+        out[dst] = host
+    return out
 
 
 def gather(A, A_global=None, *, root: int = 0, layout: str | None = None):
-    """Gather stacked field ``A`` to the host: the full stacked array (shape
-    ``dims * local_shape``). With ``A_global`` (numpy) the result is written
-    into it in place. ``root`` is accepted for API parity (this process is
-    the only one, rank 0)."""
+    """Gather stacked field ``A`` (this process's box) to the host.
+
+    Returns the whole grid's stacked array (shape ``dims * local_shape``) on
+    process ``root``, None on the others. With ``A_global`` (numpy) the
+    result is written into it in place. COLLECTIVE: every process must call
+    it (before any check on root can raise)."""
     check_initialized()
     gg = global_grid()
-    host = _to_host(A)
+    A = _check_tensor(A)
+    loc = local_shape_of(A.shape, layout)
+    host = _boxes_to_host(A, int(root), loc)
+    if gg.me != root:
+        return None
     if A_global is not None:
-        loc = local_shape_of(A.shape, layout)
         expected = tuple(
             int(gg.dims[d]) * int(loc[d]) if d < 3 else int(loc[d])
             for d in range(len(loc))
@@ -56,14 +133,73 @@ def gather(A, A_global=None, *, root: int = 0, layout: str | None = None):
     return host
 
 
-def gather_interior(A, *, root: int = 0, layout: str | None = None):
-    """Gather ``A`` and strip the overlap duplication: local cell ``i`` of
-    the rank at ``c`` is global cell ``c*(n - ol) + i`` (non-periodic; later
-    ranks win ties); periodic dims shift by one ghost cell and wrap."""
+def gather_sub(A, box, A_global=None, *, root: int = 0, layout: str | None = None):
+    """Gather only the blocks whose Cartesian coordinates lie in ``box``: a
+    per-dimension sequence of ``(lo, hi)`` half-open rank ranges (up to 3
+    entries; omitted or None entries mean the full axis). The result on
+    ``root`` is the stacked array of the selected blocks, shape ``(hi-lo) *
+    local_shape`` per dimension; the other processes return None. Only the
+    processes' boxes that meet ``box`` are moved. ``A_global`` (numpy)
+    receives the result in place like `gather`. COLLECTIVE (the JAX
+    package's `gather_sub`)."""
     check_initialized()
     gg = global_grid()
-    host = _to_host(A)
-    loc = local_shape_of(host.shape, layout)
+    A = _check_tensor(A)
+    loc = local_shape_of(A.shape, layout)
+    nd = len(loc)
+    for d in range(min(nd, 3)):
+        if int(A.shape[d]) != int(gg.box[d]) * int(loc[d]):
+            raise InvalidArgumentError(
+                "gather_sub requires a STACKED array (this process's box * local "
+                f"size); got shape {tuple(A.shape)} (local along dimension {d}). The "
+                "coordinate box selects blocks of the stacked layout."
+            )
+    box = list(box) + [None] * (3 - len(list(box)))
+    if any(b is not None for b in box[nd:]):
+        raise InvalidArgumentError(
+            f"gather_sub box selects dimension(s) beyond the array's rank "
+            f"({nd}-D): {tuple(box)}."
+        )
+    ranges = []
+    for d in range(nd):
+        D = int(gg.dims[d]) if d < 3 else 1
+        sel = box[d] if d < 3 else None
+        if sel is None:
+            ranges.append((0, D))
+            continue
+        lo, hi = (int(sel[0]), int(sel[1]))
+        if not (0 <= lo < hi <= D):
+            raise InvalidArgumentError(
+                f"gather_sub box along dimension {d} must satisfy "
+                f"0 <= lo < hi <= dims[{d}]={D}; got ({lo}, {hi})."
+            )
+        ranges.append((lo, hi))
+    sub = _boxes_to_host(A, int(root), loc, ranges)
+    if gg.me != root:
+        return None
+    if A_global is not None:
+        if tuple(int(s) for s in A_global.shape) != sub.shape:
+            raise IncoherentArgumentError(
+                f"gather_sub: A_global shape {tuple(A_global.shape)} does "
+                f"not match the selected block shape {sub.shape}."
+            )
+        np.copyto(np.asarray(A_global), sub)
+        return A_global
+    return sub
+
+
+def gather_interior(A, *, root: int = 0, layout: str | None = None):
+    """Gather ``A`` and strip the overlap duplication, returning the implicit
+    global grid on ``root`` (None elsewhere): local cell ``i`` of the rank
+    at ``c`` is global cell ``c*(n - ol) + i`` (non-periodic; later ranks
+    win ties); periodic dims shift by one ghost cell and wrap. COLLECTIVE."""
+    check_initialized()
+    gg = global_grid()
+    A = _check_tensor(A)
+    loc = local_shape_of(A.shape, layout)
+    host = _boxes_to_host(A, int(root), loc)
+    if gg.me != root:
+        return None
     nd = len(loc)
     out_shape = []
     for d in range(nd):

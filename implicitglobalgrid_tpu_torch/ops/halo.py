@@ -1,9 +1,12 @@
-"""Halo exchange on the virtual mesh: `update_halo` and `local_update_halo`.
+"""Halo exchange: `update_halo` and `local_update_halo`.
 
-Counterpart of `implicitglobalgrid_tpu/ops/halo.py`. Every rank's block is a
-view of one stacked tensor, so the "send/recv" of the JAX package's
-per-axis `ppermute` becomes a tensor copy between block views. The exchange
-semantics are the JAX package's, 0-based:
+Counterpart of `implicitglobalgrid_tpu/ops/halo.py`. Every rank's block of a
+process's box is a view of one stacked tensor, so the "send/recv" of the JAX
+package's per-axis `ppermute` becomes a tensor copy between block views
+inside the box; along a dim split across processes (`topology.crosses`) the
+blocks at the box's edges take their neighbours' slabs through the grid's
+transport (`parallel.transport`). The exchange semantics are the JAX
+package's, 0-based:
 
 - send slab, right side: ``[s-ol, s-ol+hw)``; left: ``[ol-hw, ol)``
 - recv slab, right side: ``[s-hw, s)``;       left: ``[0, hw)``
@@ -36,9 +39,14 @@ takes, and the groups of the coalesced tier by dim):
 The whole-exchange kernels (K3, K6) need every ``IGG_USE_PALLAS`` flag on;
 with a dim's flag off, that dim's packs, slabs and writes are plain PyTorch.
 
-Differences from the JAX package: the wire buffers of a group are copied
-between blocks of one tensor (the `torch.distributed` transport that would
-send them comes in a later slice); wire dtypes and staging raise
+Across processes, each route computes every block's slabs of the box with
+its kernels, then: K4s's moves stay inside the box (a non-periodic launch,
+so an edge block keeps its own slab), a second K4s launch with the identity
+moves gives every block's corner-patched send slabs, and `transport.
+fill_edges` moves the edge blocks' ones between processes (`_recv_dim`);
+the coalesced route sends K8's wire buffer rows and runs K7 with ``disp`` 0
+on the rows each block reads (`transport.shift_rows`). The virtual mesh
+takes none of these steps. Wire dtypes and staging raise
 `NotSupportedError`. The halo writes are IN PLACE on the given tensor (on a
 contiguous copy of a field that is not contiguous), while the self-exchange
 pass returns a new one: always use the returned tensors,
@@ -49,7 +57,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..parallel.topology import NDIMS, axis_perm_pairs, check_initialized, global_grid
+from ..parallel.topology import (
+    NDIMS, axis_perm_pairs, check_initialized, crosses, global_grid,
+)
 from ..utils.exceptions import (
     IncoherentArgumentError, InvalidArgumentError, NotSupportedError,
 )
@@ -108,6 +118,11 @@ def resolve_halo_coalesce(coalesce=None) -> bool:
 
 def _dim_meta(gg, dim: int):
     return int(gg.dims[dim]), bool(gg.periods[dim]), int(gg.disp)
+
+
+def _box_locals(gg, shape) -> tuple:
+    """The LOCAL block shape of a stacked tensor of this process's box."""
+    return tuple(int(s) // int(gg.box[d]) for d, s in enumerate(shape))
 
 
 def _ol(gg, shape, dim) -> int:
@@ -178,23 +193,57 @@ def _moves(s, ol_d, hw, disp):
     return (Move(s - ol_d, 0, -disp), Move(ol_d - hw, s - hw, disp))
 
 
+def _send_moves(moves):
+    """Each block's own send slabs at the starts ``moves`` read: ``(send_r,
+    send_l)``."""
+    from .cuda_stencil import Move
+
+    return tuple(Move(m.start, m.start, 0) for m in moves)
+
+
+def _recv_dim(gg, dim, hw, per_field, dim_fn):
+    """One dim's received slabs ``{f: (recv_l, recv_r)}`` from ``dim_fn``
+    (`exchange_recv_slabs_multi`). Along a dim that crosses processes: the
+    moves inside the box (a non-periodic launch), every block's send slabs
+    (the identity moves), and the box's edge blocks' slabs through
+    `transport.fill_edges`."""
+    _, periodic, _ = _dim_meta(gg, dim)
+    if not crosses(gg, dim):
+        return dim_fn(dim, hw, periodic, per_field)
+    from ..parallel.transport import fill_edges
+
+    got = dim_fn(dim, hw, False, per_field)
+    sends = dim_fn(dim, hw, False, {f: (_send_moves(mv), ear)
+                                    for f, (mv, ear) in per_field.items()})
+    Db = int(gg.box[dim])
+    items = []
+    for f in per_field:
+        for side, (dst, src) in enumerate(zip(got[f], sends[f])):
+            items.append((dst.unflatten(dim, (Db, hw)), src.unflatten(dim, (Db, hw)), side))
+    fill_edges(gg, dim, items)
+    return got
+
+
 def _exchange_dim(gg, A, dim, hw, ol_d, use_kernel):
     """Exchange the halos of every block of stacked ``A`` along ``dim``, in
-    place: the received slabs (K4s), then K2 writes them (the plain
-    versions with ``use_kernel`` off)."""
+    place: the received slabs (K4s, `_recv_dim`), then K2 writes them (the
+    plain versions with ``use_kernel`` off)."""
     from .cuda_halo import halo_write, halo_write_plain
     from .cuda_stencil import exchange_slabs, exchange_slabs_plain
 
     D, periodic, disp = _dim_meta(gg, dim)
     if not periodic and disp >= D:
         return A  # no neighbours along this dim: every halo is PROC_NULL
-    loc = tuple(int(s) // int(gg.dims[d]) for d, s in enumerate(A.shape))
+    loc = _box_locals(gg, A.shape)
     n = loc[dim]
     _check_slab_fit(n, dim, ol_d, hw)
     slabs, write = (exchange_slabs, halo_write) if use_kernel \
         else (exchange_slabs_plain, halo_write_plain)
-    recv_l, recv_r = slabs(A, dim, hw, _moves(n, ol_d, hw, disp), block=loc,
-                           periodic=periodic)
+
+    def dim_fn(dim, hw, periodic, per_field):
+        return {"A": slabs(A, dim, hw, per_field["A"][0], block=loc, periodic=periodic)}
+
+    recv_l, recv_r = _recv_dim(gg, dim, hw, {"A": (_moves(n, ol_d, hw, disp), ())}, dim_fn)["A"]
     return write(A, recv_l, recv_r, dim=dim, hw=hw, block=n)
 
 
@@ -203,9 +252,10 @@ def exchange_recv_slabs_multi(gg, shapes, hws, modes, dim_fn):
     pipeline of the fused kernel tiers (the JAX package's function of the
     same name, on the virtual mesh).
 
-    Per dim, in the reference's write order (z, x, y), one call
+    Per dim, in the reference's write order (z, x, y), a call
     ``dim_fn(dim, hw, periodic, {f: (moves, earlier)})`` returns ``{f:
-    (recv_l, recv_r)}`` for every field exchanging along ``dim``: each
+    (recv_l, recv_r)}`` for every field exchanging along ``dim`` (two calls
+    along a dim that crosses processes, `_recv_dim`): each
     block's received slabs, the neighbour block's send slab ``[s-ol,
     s-ol+hw)`` or ``[ol-hw, ol)`` (a plain slice for a standalone exchange,
     a freshly computed slab when a model fuses its update with the
@@ -222,7 +272,7 @@ def exchange_recv_slabs_multi(gg, shapes, hws, modes, dim_fn):
     earlier = {f: [] for f in shapes}  # [(dim, hw, (recv_l, recv_r))]
     recvs = {f: {} for f in shapes}
     for dim in DEFAULT_DIMS_ORDER:
-        _, periodic, disp = _dim_meta(gg, dim)
+        _, _, disp = _dim_meta(gg, dim)
         per_field = {}
         for f in shapes:
             if not modes[f][dim]:
@@ -234,7 +284,7 @@ def exchange_recv_slabs_multi(gg, shapes, hws, modes, dim_fn):
             per_field[f] = (_moves(s, ol_d, hw, disp), tuple(earlier[f]))
         if not per_field:
             continue
-        got = dim_fn(dim, hw, periodic, per_field)
+        got = _recv_dim(gg, dim, hw, per_field, dim_fn)
         for f in per_field:
             recvs[f][dim] = tuple(got[f])
             earlier[f].append((dim, hw, recvs[f][dim]))
@@ -352,9 +402,11 @@ def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel):
     on every block: K8 packs both directions' send slabs of every field into
     the blocks' wire buffers (`WireSchema` of the group), K7 writes every
     field's halos from the neighbour blocks' buffers, in place (the plain
-    versions with ``use_kernel`` off). A group of more than `MAX_SLABS`
-    fields goes in several launches of the same schema rule; the values are
-    the same."""
+    versions with ``use_kernel`` off). Along a dim that crosses processes,
+    the buffer rows go over the transport and K7 runs with ``disp`` 0 on the
+    rows each block reads (`transport.shift_rows`). A group of more than
+    `MAX_SLABS` fields goes in several launches of the same schema rule;
+    the values are the same."""
     from .cuda_halo import (
         MAX_SLABS, halo_write_multi, halo_write_multi_plain, wire_pack, wire_pack_plain,
     )
@@ -375,7 +427,25 @@ def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel):
             starts_l.append(ol_d - h)
         schema = schema_for_fields(dim, blks, hw, fs[0].dtype)
         buf_r, buf_l = pack(fs, schema, starts_r=starts_r, starts_l=starts_l, blocks=blks)
-        write(fs, buf_r, buf_l, schema, blocks=blks, periodic=periodic, disp=disp)
+        if not crosses(gg, dim):
+            write(fs, buf_r, buf_l, schema, blocks=blks, periodic=periodic, disp=disp)
+            continue
+        from ..parallel.transport import shift_rows
+
+        counts = [int(s) // int(b) for s, b in zip(fs[0].shape, blks[0])]
+        counts += [1] * (3 - len(counts))
+
+        def rows(bufs):
+            return [b.view(*counts, b.shape[1]) for b in bufs]
+
+        def own(fs=fs, blks=blks, hw=hw):
+            # every block's own halos: what a block on a non-periodic edge keeps
+            return rows(pack(fs, schema, starts_r=[0] * len(fs),
+                             starts_l=[b[dim] - h for b, h in zip(blks, hw)], blocks=blks))
+
+        src_r, src_l = shift_rows(gg, dim, rows((buf_r, buf_l)), own)
+        write(fs, src_r.reshape(buf_r.shape), src_l.reshape(buf_l.shape), schema,
+              blocks=blks, periodic=True, disp=0)
 
 
 def _exchange_arrays(gg, arrays, hws, dims_order, coalesce=None):
@@ -388,7 +458,7 @@ def _exchange_arrays(gg, arrays, hws, dims_order, coalesce=None):
 
     coalesce = resolve_halo_coalesce(coalesce)
     arrays = [A.contiguous() for A in arrays]
-    locs = [tuple(int(s) // int(gg.dims[d]) for d, s in enumerate(A.shape)) for A in arrays]
+    locs = [_box_locals(gg, A.shape) for A in arrays]
     hws = [tuple(int(h) for h in hw) for hw in hws]
     handled = [False] * len(arrays)
     for i, A in enumerate(arrays):
@@ -449,18 +519,18 @@ def _normalized_fields(fields):
     gg = global_grid()
     for f in fs:
         for d in range(f.A.dim()):
-            if int(f.A.shape[d]) % int(gg.dims[d]) != 0:
+            if int(f.A.shape[d]) % int(gg.box[d]) != 0:
                 raise IncoherentArgumentError(
-                    f"Global (stacked) array size {f.A.shape[d]} along dimension {d} is not "
-                    f"divisible by dims[{d}]={int(gg.dims[d])}. update_halo operates on "
-                    "stacked global arrays (dims * local size)."
+                    f"Stacked array size {f.A.shape[d]} along dimension {d} is not "
+                    f"divisible by the box's {int(gg.box[d])} rank(s). update_halo operates "
+                    "on stacked arrays (this process's box * local size)."
                 )
     return fs
 
 
 def update_halo(*fields, dims=None, coalesce=None, wire_dtype=None,
                 wire_stage=None):
-    """Update the halos of the given stacked field(s) on the virtual mesh::
+    """Update the halos of the given stacked field(s) (this process's box)::
 
         T = update_halo(T)
         A, B, C = update_halo(A, B, (C, (2, 2, 2)))   # per-field halowidths
@@ -484,8 +554,8 @@ def update_halo(*fields, dims=None, coalesce=None, wire_dtype=None,
 def local_update_halo(*fields, dims=None, coalesce=None, wire_dtype=None,
                       wire_stage=None):
     """The step-side form of `update_halo` (the JAX package calls it inside
-    `shard_map` on local blocks). On the virtual mesh every rank's block is
-    part of the stacked tensor, so it takes the stacked tensors and is
+    `shard_map` on local blocks). Every rank's block of the box is part of
+    the stacked tensor, so it takes the stacked tensors and is
     `update_halo` without the argument normalization of containers."""
     check_initialized()
     _reject_wire(wire_dtype, wire_stage)
@@ -534,11 +604,11 @@ def halo_comm_plan(*fields, dims=None, coalesce=None, wire_dtype=None,
     sigs = []
     for f in fs:
         shape = tuple(int(s) for s in f.A.shape)
-        if any(s % int(gg.dims[d]) for d, s in enumerate(shape)):
+        if any(s % int(gg.box[d]) for d, s in enumerate(shape)):
             raise IncoherentArgumentError(
-                f"Global (stacked) array size {shape} is not divisible by dims "
-                f"{tuple(int(d) for d in gg.dims)}.")
-        sigs.append(_Sig([s // int(gg.dims[d]) for d, s in enumerate(shape)], f.A.dtype))
+                f"Stacked array size {shape} is not divisible by the box "
+                f"{tuple(int(d) for d in gg.box)}.")
+        sigs.append(_Sig(_box_locals(gg, shape), f.A.dtype))
     hws = [tuple(int(h) for h in f.halowidths) for f in fs]
 
     def slab_cells(i, dim):

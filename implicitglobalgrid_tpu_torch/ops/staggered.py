@@ -266,7 +266,8 @@ class SlabBatch:
         self._g, self._outs = {}, {}
 
     def _args(self, dim, hw, periodic, per_field):
-        key = (dim, hw, bool(periodic), tuple(per_field))
+        key = (dim, hw, bool(periodic),
+               tuple((f, tuple(tuple(m) for m in mv)) for f, (mv, _) in per_field.items()))
         g = self._g.get(key)
         if g is None:
             vals = [*self.block, *self.counts, dim, hw, int(bool(periodic))]

@@ -2,9 +2,11 @@
 
 Counterpart of `implicitglobalgrid_tpu/parallel/grid.py`, with every argument
 check of its `init_global_grid` (same messages). The JAX package takes its
-ranks from the devices of a JAX mesh; here the ranks are virtual
-(`parallel.mesh`): their number comes from ``dimx*dimy*dimz`` or, where dims
-are left at 0, from ``nranks`` through `dims_create`.
+ranks from the devices of a JAX mesh; here the rank count comes from
+``dimx*dimy*dimz`` or, where dims are left at 0, from ``nranks`` through
+`dims_create`, and each process of a `torch.distributed` group owns a box of
+them (`parallel.mesh.process_boxes`). One process owns every rank (the
+virtual mesh).
 """
 
 from __future__ import annotations
@@ -18,7 +20,10 @@ from ..utils.exceptions import (
     AlreadyInitializedError, IncoherentArgumentError, InvalidArgumentError,
 )
 from . import topology as top
-from .mesh import build_mesh, controller_coords_of, resolve_device
+from .mesh import (
+    _dcn_factorization, build_mesh, controller_coords_of, process_boxes, process_grid,
+    resolve_device,
+)
 from .topology import GlobalGrid, NDIMS, dims_create, set_global_grid
 
 __all__ = ["init_global_grid", "finalize_global_grid", "select_device"]
@@ -36,24 +41,33 @@ def init_global_grid(
     halowidths=None,
     disp: int = 1,
     reorder: int = 1,
-    nranks: int = 1,
+    nranks: int | None = None,
+    init_dist: bool | None = None,
     device_type: str = "gpu",
     select_device: bool = True,
     quiet: bool = False,
 ):
-    """Initialize the Cartesian grid of virtual ranks, implicitly defining
-    the global grid.
+    """Initialize the Cartesian grid of ranks, implicitly defining the
+    global grid.
 
     ``nx, ny, nz`` are the size of each LOCAL block; ``dimx/y/z`` fix ranks
     per dimension (0 = choose with `dims_create`); ``periodx/y/z`` make
     dimensions periodic; ``overlaps``/``halowidths``/``disp`` as in the JAX
-    package. ``reorder`` is accepted for API parity; the virtual mesh is
-    always the identity layout.
+    package. ``reorder`` is accepted for API parity; ranks are laid out over
+    processes in plain order, or along ``IGG_TPU_DCN_AXES``
+    (`parallel.mesh`).
 
     Port-specific:
 
-    - ``nranks``: the number of virtual ranks when some dims are left at 0
-      (the JAX package uses its device count there).
+    - ``nranks``: the number of ranks when some dims are left at 0 (the JAX
+      package uses its device count there); a multiple of the process
+      count. Default: the process count.
+    - ``init_dist``: start the `torch.distributed` process group (from
+      ``torchrun``'s environment: ``MASTER_ADDR``, ``MASTER_PORT``,
+      ``RANK``, ``WORLD_SIZE``), with NCCL on a CUDA grid and gloo on the
+      CPU. ``None`` starts it where ``MASTER_ADDR`` and ``WORLD_SIZE`` are
+      set and no group is up; ``False`` uses a group the caller started, if
+      any. `finalize_global_grid(finalize_dist=True)` ends the group.
     - ``device_type``: "gpu" (the default; "auto" means the same) puts every
       field on the current CUDA device and raises `NotLoadedError` when
       CUDA is absent; "cpu" (or "none") runs on the CPU.
@@ -113,9 +127,16 @@ def init_global_grid(
         )
     dims[(nxyz == 1) & (dims == 0)] = 1
 
+    device, resolved_type = resolve_device(device_type)
+    _init_dist(init_dist, resolved_type)
+    from .transport import transport_for
+
+    transport = transport_for(device)
+    world = transport.world
+    if nranks is None:
+        nranks = world
     if int(nranks) < 1:
         raise InvalidArgumentError(f"nranks must be >= 1; got {nranks}.")
-    device, resolved_type = resolve_device(device_type)
 
     if np.all(dims > 0):
         nprocs = int(np.prod(dims))
@@ -136,10 +157,23 @@ def init_global_grid(
                 f"product ({fixed}); using {new} rank(s).")
             nprocs = new
     dims = dims_create(nprocs, dims)
+    if nprocs % world:
+        raise IncoherentArgumentError(
+            f"The grid's {nprocs} rank(s) are not a multiple of the {world} processes.")
 
     mesh = build_mesh(dims)
-    me = 0  # one process holds every virtual rank
-    coords = controller_coords_of(mesh, me)
+    me = transport.rank
+    box, firsts = process_boxes(dims, world, cfg.dcn_axes if world > 1 else ())
+    coords = controller_coords_of(firsts, me)
+    if world > 1 and cfg.dcn_axes:
+        dcn_granules, _ = _dcn_factorization(dims, cfg.dcn_axes, world)
+    else:
+        dcn_granules = tuple(int(g) for g in cfg.dcn_granules)
+        for d in range(NDIMS):
+            if dcn_granules[d] > 1 and int(dims[d]) % dcn_granules[d]:
+                raise IncoherentArgumentError(
+                    f"IGG_TPU_DCN_GRANULES: {dcn_granules[d]} granule(s) along "
+                    f"{'xyz'[d]} do not divide the axis' {int(dims[d])} shard(s).")
     nxyz_g = dims * (nxyz - overlaps) + overlaps * (periods == 0)
 
     gg = GlobalGrid(
@@ -151,7 +185,8 @@ def init_global_grid(
         # the kernels' wrappers run their plain PyTorch versions.
         use_pallas=np.array([True if v is None else v for v in cfg.use_pallas],
                             dtype=bool),
-        quiet=bool(quiet),
+        quiet=bool(quiet), box=box, procs=process_grid(dims, box, firsts),
+        transport=transport, dcn_axes=tuple(cfg.dcn_axes), dcn_granules=dcn_granules,
     )
     set_global_grid(gg)
 
@@ -163,7 +198,7 @@ def init_global_grid(
         )
 
     if select_device and resolved_type == "gpu":
-        gg.device = _select_device()
+        gg.device = transport.device = _select_device()
 
     from ..utils.timing import init_timing_functions
 
@@ -171,34 +206,76 @@ def init_global_grid(
     return me, dims.copy(), nprocs, coords.copy(), mesh
 
 
-def finalize_global_grid() -> None:
-    """Finalize the global grid: reset the singleton and the chronometer."""
+def _init_dist(init_dist, resolved_type) -> None:
+    """Start the process group where ``init_dist`` asks (the JAX package's
+    rule for `jax.distributed`)."""
+    import torch.distributed as dist
+
+    up = dist.is_available() and dist.is_initialized()
+    if init_dist is None:
+        init_dist = bool(os.environ.get("MASTER_ADDR") and os.environ.get("WORLD_SIZE")) \
+            and not up
+    if not init_dist:
+        return
+    if up:
+        raise AlreadyInitializedError(
+            "torch.distributed is already initialized. Pass init_dist=False.")
+    try:
+        dist.init_process_group(backend="nccl" if resolved_type == "gpu" else "gloo")
+    except (RuntimeError, ValueError) as e:
+        raise AlreadyInitializedError(
+            f"torch.distributed failed to initialize: {e}. If the process group was "
+            "already set up, pass init_dist=False.") from e
+
+
+def finalize_global_grid(*, finalize_dist: bool = False) -> None:
+    """Finalize the global grid: reset the singleton and the chronometer;
+    with ``finalize_dist``, end the process group."""
     top.check_initialized()
     from ..utils import timing
 
+    gg = top.global_grid()
     timing._t0 = None
+    if finalize_dist:
+        gg.transport.shutdown()
     set_global_grid(None)
 
 
 def node_local_rank():
-    """(node-local rank, processes on this host, CUDA devices on this
-    host). One process holds every virtual rank, so the rank is
-    ``LOCAL_RANK`` when a launcher sets it, else 0."""
+    """(node-local rank, processes on this host, CUDA devices on this host):
+    the analog of the reference's shared-memory communicator split.
+
+    COLLECTIVE where a process group is up: every process must call it.
+    Processes are grouped by host name (an all-gather); the rank is this
+    process's index among its host's processes in process order. One
+    process returns ``(0, 1, local device count)`` without a collective."""
+    import hashlib
+    import socket
+
     import torch
 
-    return int(os.environ.get("LOCAL_RANK", 0)), 1, torch.cuda.device_count()
+    n_local = torch.cuda.device_count()
+    gg = top.global_grid()
+    if gg.transport.world == 1:
+        return 0, 1, n_local
+    h = hashlib.sha1(socket.gethostname().encode()).hexdigest()
+    rows = gg.transport.all_gather_object((h, n_local))
+    same = [i for i, r in enumerate(rows) if r[0] == h]
+    return same.index(gg.me), len(same), int(rows[same[0]][1])
 
 
 def _select_device():
     """Bind this process to the CUDA device of its node-local rank
-    (`torch.cuda.set_device`) and return that device."""
+    (`torch.cuda.set_device`) and return that device. COLLECTIVE where a
+    process group is up (`node_local_rank`)."""
     import torch
 
     me_l, n_procs_node, dev_on_node = node_local_rank()
     if n_procs_node > dev_on_node or me_l >= dev_on_node:
         raise IncoherentArgumentError(
-            f"Node-local rank {me_l} of {n_procs_node} process(es) has no "
-            f"CUDA device: this host has {dev_on_node}."
+            f"This host runs {n_procs_node} process(es) but only {dev_on_node} CUDA "
+            "device(s): it is not possible to run more processes per node than there "
+            "are devices on it."
         )
     torch.cuda.set_device(me_l)
     return torch.device("cuda", me_l)
@@ -211,5 +288,5 @@ def select_device() -> int:
     gg = top.global_grid()
     if gg.device_type != "gpu":
         return 0
-    gg.device = _select_device()
+    gg.device = gg.transport.device = _select_device()
     return gg.device.index

@@ -5,10 +5,12 @@ is never allocated; it exists only through the implicit-global-grid formula
 
     nxyz_g = dims * (nxyz - overlaps) + overlaps * (periods == 0)
 
-Ranks are VIRTUAL: every rank's block lives in this one process, in one
-stacked tensor of shape ``dims * local_shape`` on the grid's ``torch.device``
-(`parallel.mesh`). A halo "send/recv" between ranks is a tensor copy between
-block views (`ops.halo`).
+Each process owns a BOX of ranks of the Cartesian grid (`parallel.mesh.
+process_boxes`): their blocks live in one stacked tensor of shape ``box *
+local_shape`` on the process's ``torch.device``. A halo "send/recv" between
+two ranks of one box is a tensor copy between block views (`ops.halo`); one
+between boxes goes through the grid's transport (`parallel.transport`). One
+process (the virtual mesh) owns the whole grid: ``box == dims``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ __all__ = [
     "GlobalGrid", "global_grid", "set_global_grid", "grid_is_initialized",
     "check_initialized", "get_global_grid", "grid_epoch",
     "dims_create", "cart_rank", "cart_coords", "cart_shift", "neighbors_table",
-    "ol", "axis_perm_pairs",
+    "ol", "axis_perm_pairs", "crosses",
 ]
 
 NDIMS = 3
@@ -46,12 +48,12 @@ class GlobalGrid:
     mutable on purpose (tests simulate topologies by editing it)."""
     nxyz_g: np.ndarray          # implicit global grid size (3,)
     nxyz: np.ndarray            # local block size (3,)
-    dims: np.ndarray            # virtual ranks per dimension (3,)
+    dims: np.ndarray            # ranks per dimension (3,), the whole grid's
     overlaps: np.ndarray        # (3,)
     halowidths: np.ndarray      # (3,)
-    nprocs: int                 # number of virtual ranks = prod(dims)
-    me: int                     # this process's rank (always 0: one process)
-    coords: np.ndarray          # this process's coords (zeros)
+    nprocs: int                 # number of ranks = prod(dims)
+    me: int                     # this process's rank in the process group (0 alone)
+    coords: np.ndarray          # coords of this process's first rank
     periods: np.ndarray         # (3,) of 0/1
     disp: int
     reorder: int
@@ -61,6 +63,17 @@ class GlobalGrid:
     use_pallas: np.ndarray      # (3,) bool — CUDA kernel tier per dim
     quiet: bool
     epoch: int = 0              # bumped at every init
+    box: Any = None             # (3,) ranks per dim this process owns (None: dims)
+    procs: Any = None           # process rank of each box position, shape dims // box
+    transport: Any = None       # parallel.transport: InProcess or Dist
+    dcn_axes: tuple = ()        # grid axes the processes split (IGG_TPU_DCN_AXES)
+    dcn_granules: tuple = (1, 1, 1)  # granules (processes) per dim
+
+    def __post_init__(self):
+        if self.box is None:
+            self.box = np.array(self.dims, dtype=np.int64).copy()
+        if self.procs is None:
+            self.procs = np.zeros((1, 1, 1), dtype=np.int64)
 
     def __iter__(self):  # me, dims, nprocs, coords, mesh unpacking
         return iter((self.me, self.dims, self.nprocs, self.coords, self.mesh))
@@ -223,6 +236,12 @@ def axis_perm_pairs(D: int, periodic, disp: int):
         return [], []
     return ([(i, i + disp) for i in range(D - disp)],
             [(i, i - disp) for i in range(disp, D)])
+
+
+def crosses(gg, dim: int) -> bool:
+    """Whether ``dim`` is split across processes, so that its halo exchange
+    goes through the transport at the box's edges."""
+    return dim < NDIMS and int(gg.procs.shape[dim]) > 1
 
 
 def ol(dim: int, local_shape=None) -> int:

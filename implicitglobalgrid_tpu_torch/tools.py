@@ -5,7 +5,9 @@ tools.py`: ``nx_g/ny_g/nz_g`` (with per-array overloads for staggered
 fields), ``x_g/y_g/z_g`` (global coordinate of a 0-based local index,
 including the staggering offset and the periodic ghost-cell shift and wrap)
 and the vectorized builders ``x_g_vec``/``coords_g`` for initial conditions.
-Coordinates are computed on the host in float64 numpy.
+Coordinates are computed on the host in float64 numpy. A stacked index is
+one of this process's box, whose first rank sits at ``coords``, so the
+coordinates of every process's box are global.
 """
 
 from __future__ import annotations
@@ -82,9 +84,9 @@ def _coord_g(i0, dim: int, dcoord, size_d: int, coord):
 
 def _x_g(ix, dcoord, A, dim: int, coords=None, layout=None):
     """Global coordinate of index ``ix`` of ``A`` along ``dim``: a stacked
-    index for a stacked array, else a local index of the rank at
-    ``coords`` (required for a local block: there is no implicit current
-    rank outside the JAX package's shard_map)."""
+    index of this process's box for a stacked array, else a local index of
+    the rank at ``coords`` (required for a local block: there is no
+    implicit current rank outside the JAX package's shard_map)."""
     check_initialized()
     gg = global_grid()
     shape = _shape_of(A)
@@ -92,12 +94,12 @@ def _x_g(ix, dcoord, A, dim: int, coords=None, layout=None):
     size_d = loc[dim] if dim < len(loc) else 1
     shape_d = shape[dim] if dim < len(shape) else 1
     if layout is None:
-        stacked = shape_d != size_d or int(gg.dims[dim]) == 1
+        stacked = shape_d != size_d or int(gg.box[dim]) == 1
     else:
-        stacked = layout == "stacked" or int(gg.dims[dim]) == 1
+        stacked = layout == "stacked" or int(gg.box[dim]) == 1
     if stacked and coords is None:
         coord, i_local = divmod(int(ix), size_d)
-        return _coord_g(i_local, dim, dcoord, size_d, coord)
+        return _coord_g(i_local, dim, dcoord, size_d, coord + int(gg.coords[dim]))
     if coords is None:
         raise InvalidArgumentError(
             "x_g/y_g/z_g on a local block requires the rank's coordinate: "
@@ -123,21 +125,23 @@ def z_g(iz, dz, A, coords=None, *, layout=None):
 
 def _x_g_vec(dcoord, A, dim: int, layout=None):
     """Stacked 1-D coordinate vector along ``dim``: entry ``i`` is the
-    global coordinate of stacked index ``i`` (float64 numpy)."""
+    global coordinate of stacked index ``i`` of this process's box (float64
+    numpy)."""
     check_initialized()
     shape = _shape_of(A) if hasattr(A, "shape") else tuple(A)
     loc = local_shape_of(shape, layout)
     gg = global_grid()
     size_d = loc[dim] if dim < len(loc) else 1
-    n_stack = int(gg.dims[dim]) * size_d if dim < NDIMS else size_d
+    n_stack = int(gg.box[dim]) * size_d if dim < NDIMS else size_d
     idx = np.arange(n_stack)
-    coord, i_local = idx // size_d, idx % size_d
+    coord, i_local = idx // size_d + int(gg.coords[dim]), idx % size_d
     return _coord_g(i_local.astype(np.float64), dim, dcoord, size_d,
                     coord.astype(np.float64))
 
 
 def x_g_vec(dx, A, *, layout=None):
-    """Vector of global x-coordinates for every stacked index of ``A``."""
+    """Vector of global x-coordinates for every stacked index of ``A`` (this
+    process's box)."""
     return _x_g_vec(dx, A, 0, layout)
 
 
@@ -151,7 +155,8 @@ def z_g_vec(dz, A, *, layout=None):
 
 def coords_g(dx, dy, dz, A):
     """Broadcastable (x, y, z) global-coordinate numpy arrays for stacked
-    array (or shape) ``A``: shapes (nx,1,1), (1,ny,1), (1,1,nz)."""
+    array (or shape) ``A`` of this process's box: shapes (nx,1,1),
+    (1,ny,1), (1,1,nz)."""
     shape = _shape_of(A) if hasattr(A, "shape") else tuple(A)
     nd = len(shape)
     outs = []

@@ -2,8 +2,9 @@
 
 Counterpart of `implicitglobalgrid_tpu/utils/timing.py`. PyTorch enqueues
 CUDA work and returns, so every barrier here synchronizes the grid's CUDA
-device before the host clock is read. All virtual ranks live in this process,
-so there is no cross-process part.
+device before the host clock is read; where a process group is up, every
+process then waits for the others (`transport.barrier`), so that a span
+covers the slowest process.
 """
 
 from __future__ import annotations
@@ -17,13 +18,17 @@ __all__ = ["tic", "toc", "barrier", "sync", "init_timing_functions"]
 _t0 = None
 
 
-def _device_barrier() -> None:
+def _device_barrier(processes: bool = False) -> None:
+    """Drain the grid's device; with ``processes``, then wait for every
+    process of the grid (COLLECTIVE)."""
     import torch
 
     if grid_is_initialized():
-        dev = global_grid().device
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        gg = global_grid()
+        if gg.device.type == "cuda":
+            torch.cuda.synchronize(gg.device)
+        if processes:
+            gg.transport.barrier()
     elif torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 
@@ -36,22 +41,25 @@ def sync(tree):
 
 
 def barrier(sync_on=None) -> None:
-    """Block until the grid's device has drained its queue. ``sync_on`` is
-    accepted for API parity: the whole device is synchronized."""
+    """Block until the grid's device has drained its queue and every process
+    has reached the barrier. ``sync_on`` is accepted for API parity: the
+    whole device is synchronized. COLLECTIVE."""
     check_initialized()
-    _device_barrier()
+    _device_barrier(processes=True)
 
 
 def tic(sync_on=None) -> None:
-    """Start the chronometer once the device has drained."""
+    """Start the chronometer once the device has drained and every process
+    has reached it. COLLECTIVE."""
     global _t0
     check_initialized()
-    _device_barrier()
+    _device_barrier(processes=True)
     _t0 = time.perf_counter()
 
 
 def toc(sync_on=None) -> float:
-    """Seconds since `tic`, read after the CUDA stream has drained."""
+    """Seconds since `tic`, read after the CUDA stream has drained and every
+    process has reached it. COLLECTIVE."""
     check_initialized()
     if _t0 is None:
         from .exceptions import InvalidArgumentError
@@ -59,7 +67,7 @@ def toc(sync_on=None) -> float:
         raise InvalidArgumentError(
             "toc() called with no running chronometer: call tic() first "
             "(finalize_global_grid resets it).")
-    _device_barrier()
+    _device_barrier(processes=True)
     return time.perf_counter() - _t0
 
 

@@ -1,0 +1,242 @@
+"""The port across processes: spawned gloo processes on the CPU, the twin of
+`tests/test_multiprocess.py`.
+
+Each configuration spawns its processes once (`tests/torch_dist_child.py`;
+each spawn has a timeout of its own, so a hang fails its tests only); every
+process computes the cases on the
+8-rank virtual mesh first, then with its box of ranks in the process group,
+and holds its own box of every result bitwise against the same box of the
+virtual mesh's. The tests read those results:
+
+- 2 processes x 4 ranks in plain order and with ``IGG_TPU_DCN_AXES=z``, 4
+  processes x 2 ranks with ``y,z``: ``me``, ``dims``, ``nprocs``,
+  ``coords`` and the process grid as `tests/test_multiprocess.py` asserts
+  them, and `node_local_rank`;
+- the encoded field restored by `update_halo`;
+- `gather`, `gather_interior` and `gather_sub` (roots 0 and 1, bfloat16, in
+  place): None off root, bitwise equal to the virtual mesh's on root;
+- `update_halo` on each route (combined, per dim, coalesced groups of 2 and
+  4 fields), also with halowidth 2, ``disp`` 2 and a non-periodic dim;
+- a few steps of diffusion (3-D and 2-D), acoustic and Stokes through the
+  fused and the plain routes, and `stokes_residuals`;
+- `tic`/`toc` spanning the processes.
+"""
+
+import json
+import os
+import pathlib
+import socket
+import subprocess
+import sys
+import time
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CHILD = ROOT / "tests" / "torch_dist_child.py"
+CONFIGS = {"plain_2": (2, ""), "z_2": (2, "z"), "yz_4": (4, "y,z")}
+TIMEOUT = 120  # seconds, for each configuration's processes together
+
+# what each process of a configuration must report (`tests/test_multiprocess.py`)
+COORDS = {"plain_2": lambda p: [p, 0, 0], "z_2": lambda p: [0, 0, p],
+          "yz_4": lambda p: [0, p // 2, p % 2]}
+DCN = {"plain_2": [[], [1, 1, 1]], "z_2": [["z"], [1, 1, 2]],
+       "yz_4": [["y", "z"], [1, 2, 2]]}
+PROCS = {"plain_2": [[[0]], [[1]]], "z_2": [[[0, 1]]], "yz_4": [[[0, 1], [2, 3]]]}
+
+CHECKS = [
+    "encoded/restored", "encoded/gather",
+    "gather/gather_root0", "gather/gather_root1", "gather/gather_interior_root0",
+    "gather/gather_interior_root1", "gather/gather_sub_root0", "gather/gather_sub_root1",
+    "gather/gather_sub_corner", "gather/gather_bf16", "gather/gather_into",
+    "halo_g1/combined", "halo_g1/per_dim_2d", "halo_g1/per_dim_3d", "halo_g1/coalesced_2",
+    "halo_g1/coalesced_4", "halo_g2/per_dim_hw2", "halo_g2/coalesced_2_hw2",
+    "halo_g2/coalesced_4_hw2",
+    "models/diffusion_fused", "models/diffusion_plain", "models/acoustic_fused",
+    "models/acoustic_plain", "models/stokes_fused", "models/stokes_plain",
+    "models/stokes_residuals", "models/stokes_interior",
+    "models_2d/diffusion2d_fused", "models_2d/diffusion2d_plain",
+]
+
+_RESULTS: dict = {}
+
+
+def _free_port():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def results(config, tmp_path_factory):
+    """Every process's results of ``config`` (spawned once per module)."""
+    if config not in _RESULTS:
+        nproc, dcn = CONFIGS[config]
+        out = tmp_path_factory.mktemp(config)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("IGG_TPU_DCN_AXES", "MASTER_ADDR", "WORLD_SIZE")}
+        port = str(_free_port())
+        procs = [subprocess.Popen([sys.executable, str(CHILD), str(p), str(nproc), port, dcn,
+                                   str(out)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
+                 for p in range(nproc)]
+        logs, deadline = [], time.monotonic() + TIMEOUT
+        try:
+            for p in procs:
+                try:
+                    logs.append(p.communicate(
+                        timeout=max(1.0, deadline - time.monotonic()))[0])
+                except subprocess.TimeoutExpired:
+                    logs.append(f"timed out after {TIMEOUT} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        got = []
+        for pid, log in enumerate(logs):
+            f = out / f"{pid}.json"
+            got.append(json.loads(f.read_text()) if f.exists() and f"DIST_OK {pid}" in log
+                       else {"error": log[-3000:]})
+        _RESULTS[config] = got
+    return _RESULTS[config]
+
+
+def _each(config, tmp_path_factory, key):
+    got = results(config, tmp_path_factory)
+    for pid, r in enumerate(got):
+        assert "error" not in r, f"process {pid} of {config} failed:\n{r['error']}"
+        assert key in r, f"process {pid} of {config} did not reach {key}: {list(r)[-3:]}"
+        yield pid, r[key]
+
+
+@pytest.mark.parametrize("key", CHECKS)
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_box_matches_virtual_mesh(config, key, tmp_path_factory):
+    """Every process's box (or root's gather, None elsewhere) bitwise equal
+    to the virtual mesh's."""
+    for pid, v in _each(config, tmp_path_factory, key):
+        assert v == "ok", f"process {pid} of {config}, {key}: {v}"
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_layout_matches_multiprocess(config, tmp_path_factory):
+    """``me``, ``dims``, ``nprocs``, ``coords`` and which process owns each
+    block, as `tests/test_multiprocess.py` asserts them for the JAX
+    package."""
+    nproc = CONFIGS[config][0]
+    for pid, r in enumerate(results(config, tmp_path_factory)):
+        assert "error" not in r, r.get("error")
+        assert r["layout/me"] == pid
+        assert r["layout/dims"] == [2, 2, 2] and r["layout/nprocs"] == 8
+        assert r["layout/coords"] == COORDS[config](pid)
+        assert r["layout/procs"] == PROCS[config]
+        assert r["layout/node"][:2] == [pid, nproc]
+        assert r["layout/dcn"] == DCN[config]  # the JAX package's dcn_axes, dcn_granules
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_node_local_rank_counts_devices(config, tmp_path_factory):
+    import torch
+
+    for pid, v in _each(config, tmp_path_factory, "layout/node"):
+        assert v == [pid, CONFIGS[config][0], torch.cuda.device_count()]
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_encoded_field_restored(config, tmp_path_factory):
+    """The encoded field (x + 1e3 y + 1e6 z) is restored exactly on every
+    process's box."""
+    for pid, v in _each(config, tmp_path_factory, "encoded/matches_encoding"):
+        assert v is True, pid
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_halos_went_over_the_transport(config, tmp_path_factory):
+    for pid, v in _each(config, tmp_path_factory, "halo_g1/messages"):
+        assert v > 0, pid
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_tic_toc_span_the_processes(config, tmp_path_factory):
+    """Process 1 sleeps 0.3 s between `tic` and `toc`: every process's span
+    covers it."""
+    for pid, v in _each(config, tmp_path_factory, "timing/toc_spans_processes"):
+        assert v >= 0.3, (pid, v)
+
+
+@pytest.mark.parametrize("dims,world,dcn,box", [
+    ((2, 2, 2), 2, (), (1, 2, 2)), ((2, 2, 2), 2, ("z",), (2, 2, 1)),
+    ((2, 2, 2), 4, ("y", "z"), (2, 1, 1)), ((4, 1, 2), 2, (), (2, 1, 2)),
+    ((4, 1, 2), 4, ("x",), (1, 1, 2)), ((4, 2, 1), 2, (), (2, 2, 1)),
+])
+def test_process_boxes(dims, world, dcn, box):
+    """Each process's box and first rank, as the JAX package lays devices
+    out (plain order; `_dcn_factorization` over the named axes)."""
+    import numpy as np
+
+    from implicitglobalgrid_tpu.parallel.mesh import _dcn_factorization as j_dcn
+    from implicitglobalgrid_tpu_torch.parallel.mesh import process_boxes
+
+    got, firsts = process_boxes(dims, world, dcn)
+    assert tuple(got) == box
+    if dcn:
+        assert tuple(got) == j_dcn(dims, dcn, world)[1]
+    starts = {tuple(int(c) for c in f) for f in firsts}
+    assert len(starts) == world
+    owned = np.zeros(dims, dtype=int)
+    for f in firsts:
+        owned[tuple(slice(int(c), int(c) + int(b)) for c, b in zip(f, got))] += 1
+    assert (owned == 1).all()  # the boxes tile the grid
+
+
+def test_plain_order_chunk_that_is_no_box_raises():
+    from implicitglobalgrid_tpu_torch.parallel.mesh import process_boxes
+    from implicitglobalgrid_tpu_torch.utils.exceptions import NotSupportedError
+
+    with pytest.raises(NotSupportedError):
+        process_boxes((2, 3, 1), 3, ())
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"IGG_TPU_DCN_AXES": "z"}, {"IGG_TPU_DCN_AXES": "y, z"},
+    {"IGG_TPU_DCN_GRANULES": "z:2"}, {"IGG_TPU_DCN_GRANULES": "x:2, y:4"},
+    {"IGG_TPU_DCN_AXES": "w"}, {"IGG_TPU_DCN_AXES": "z,z"},
+    {"IGG_TPU_DCN_GRANULES": "z2"}, {"IGG_TPU_DCN_GRANULES": "z:0"},
+    {"IGG_TPU_DCN_GRANULES": "q:2"}, {"IGG_TPU_DCN_GRANULES": "z:2,z:2"},
+])
+def test_dcn_environment_read_as_jax_reads_it(env, monkeypatch):
+    from implicitglobalgrid_tpu.utils.config import read_env_config as j_read
+    from implicitglobalgrid_tpu_torch.utils.config import read_env_config as t_read
+
+    for k in ("IGG_TPU_DCN_AXES", "IGG_TPU_DCN_GRANULES"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    try:
+        want = j_read()
+    except Exception as e:  # noqa: BLE001 - the port must raise the same kind
+        with pytest.raises(Exception) as got:
+            t_read()
+        assert type(got.value).__name__ == type(e).__name__
+        return
+    cfg = t_read()
+    assert (cfg.dcn_axes, cfg.dcn_granules) == (tuple(want.dcn_axes), tuple(want.dcn_granules))
+
+
+def test_grid_takes_the_declared_granules(monkeypatch):
+    import implicitglobalgrid_tpu_torch as tg
+    from implicitglobalgrid_tpu_torch.utils.exceptions import IncoherentArgumentError
+
+    monkeypatch.setenv("IGG_TPU_DCN_GRANULES", "z:2")
+    tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=2, device_type="cpu", quiet=True)
+    try:
+        gg = tg.global_grid()
+        assert gg.dcn_granules == (1, 1, 2) and gg.dcn_axes == ()
+        assert tuple(gg.box) == (2, 2, 2) and gg.me == 0
+    finally:
+        tg.finalize_global_grid()
+    monkeypatch.setenv("IGG_TPU_DCN_GRANULES", "z:3")
+    with pytest.raises(IncoherentArgumentError):
+        tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=2, device_type="cpu", quiet=True)

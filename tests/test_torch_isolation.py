@@ -17,6 +17,10 @@ def test_import_leaves_jax_out():
         "import implicitglobalgrid_tpu_torch.ops.cuda_stencil, implicitglobalgrid_tpu_torch.ops.cuda_build\n"
         "import implicitglobalgrid_tpu_torch.models.acoustic, implicitglobalgrid_tpu_torch.ops.cuda_wave\n"
         "import implicitglobalgrid_tpu_torch.models.stokes, implicitglobalgrid_tpu_torch.ops.cuda_stokes\n"
+        "import implicitglobalgrid_tpu_torch.parallel.transport\n"
+        "import implicitglobalgrid_tpu_torch.examples.diffusion3D_multixpu_novis\n"
+        "import implicitglobalgrid_tpu_torch.examples.acoustic3D_multixpu\n"
+        "import implicitglobalgrid_tpu_torch.examples.stokes3D_multixpu\n"
         "tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=2, device_type='cpu', quiet=True)\n"
         "T, Cp, p = implicitglobalgrid_tpu_torch.models.init_diffusion3d()\n"
         "T = implicitglobalgrid_tpu_torch.models.run_diffusion(T, Cp, p, 2)\n"
@@ -28,6 +32,7 @@ def test_import_leaves_jax_out():
         "state = implicitglobalgrid_tpu_torch.models.run_stokes(state, q, 2)\n"
         "implicitglobalgrid_tpu_torch.models.stokes_residuals(state, q)\n"
         "tg.gather_interior(state[3])\n"
+        "tg.gather_sub(state[0], ((0, 1), None, None))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'implicitglobalgrid_tpu' or m.startswith('implicitglobalgrid_tpu.'))\n"
         "print(bad)\n"
@@ -42,6 +47,9 @@ def test_sources_name_no_jax():
     pkg = ROOT / "implicitglobalgrid_tpu_torch"
     files = [f for f in pkg.rglob("*.py") if "_build" not in f.relative_to(pkg).parts]
     files.append(ROOT / "chip_smoke.py")
+    names = {f.relative_to(pkg).as_posix() for f in files if f.parent != ROOT}
+    assert {"parallel/transport.py", "examples/diffusion3D_multixpu_novis.py",
+            "examples/acoustic3D_multixpu.py", "examples/stokes3D_multixpu.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

@@ -24,6 +24,7 @@ are in `test_torch_stokes_model.py`; the getters in
 import dataclasses
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -195,8 +196,9 @@ def test_bf16_takes_the_plain_route_and_matches_jax_xla(grid, monkeypatch):
     got = run_stokes(tstate, tp, 4, nt_chunk=2)
     assert not calls  # no fused iteration
     for g, r, name in zip(got, ref, NAMES):
-        g, r = tg.gather(g), np.asarray(igg.gather(r)).astype(np.float32)
-        assert g.dtype == np.float32 and np.array_equal(g, r), (grid, name)
+        g, r = tg.gather(g), np.asarray(igg.gather(r))
+        assert g.dtype == r.dtype == ml_dtypes.bfloat16, (grid, name)
+        assert np.array_equal(g.view(np.uint16), r.view(np.uint16)), (grid, name)
 
 
 def test_mesh_iteration_makes_one_slab_call_a_dim(monkeypatch):

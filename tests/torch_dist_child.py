@@ -1,0 +1,261 @@
+"""One process of the port's multi-process check (`tests/test_torch_dist.py`).
+
+Run as ``python tests/torch_dist_child.py <pid> <nproc> <port> <dcn> <outdir>``:
+computes every case on the 8-rank virtual mesh (one process, CPU), then
+joins a gloo process group of ``nproc`` processes on localhost and runs the
+same cases with each process owning its box of ranks. Each process holds its
+own box of every result bitwise against the same box of the virtual mesh's,
+and the gathers' results on root against the virtual mesh's gathers; it
+writes ``{case: "ok" | reason}`` to ``<outdir>/<pid>.json``.
+"""
+
+import json
+import os
+import pathlib
+import sys
+import time
+import traceback
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import implicitglobalgrid_tpu_torch as tg  # noqa: E402
+from implicitglobalgrid_tpu_torch import models  # noqa: E402
+
+PID, NPROC, PORT, DCN, OUT = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                              pathlib.Path(sys.argv[5]))
+
+# The grid of the JAX package's multi-process test: 2x2x2 blocks of 5^3,
+# all periodic, split by the configuration's layout (plain order, "z" or
+# "y,z").
+G0 = dict(nx=5, ny=5, nz=5, dimx=2, dimy=2, dimz=2, periodx=1, periody=1, periodz=1)
+# 2x2x2 blocks of 6^3, z non-periodic, split as G0.
+G1 = dict(nx=6, ny=6, nz=6, dimx=2, dimy=2, dimz=2, periodx=1, periody=1)
+# 4x1x2 ranks, halowidth 2 with disp 2: x non-periodic (blocks two apart
+# exchange, PROC_NULL at both ends), y self-neighbour, z periodic with two
+# ranks (each block is its own neighbour two away). Split along x (plain
+# order, or "x" for four processes) or z (the "z" configuration: the
+# neighbour of a process is itself).
+G2 = dict(nx=10, ny=10, nz=10, dimx=4, dimy=1, dimz=2, periody=1, periodz=1,
+          overlaps=(4, 4, 4), halowidths=(2, 2, 2), disp=2)
+# a 2-D grid of 4x2 ranks (plain order)
+G3 = dict(nx=8, ny=8, nz=1, periodx=1)
+DCN_G2 = {"": "", "z": "z", "y,z": "x"}[DCN]
+
+
+def seeded(shape, seed, dtype=torch.float64):
+    g = np.random.default_rng(seed)
+    return torch.from_numpy(g.standard_normal(shape)).to(dtype)
+
+
+def global_input(loc, seed, dtype=torch.float64):
+    """A random whole-grid stacked array of ``loc`` blocks: every process
+    builds the same one and `device_put_g` keeps its box."""
+    gg = tg.global_grid()
+    shape = tuple(int(d) * int(n) for d, n in zip(gg.dims, loc))
+    return tg.device_put_g(seeded(shape, seed, dtype))
+
+
+def case_layout():
+    gg = tg.global_grid()
+    from implicitglobalgrid_tpu_torch.parallel.grid import node_local_rank
+
+    return {"me": ("proc", int(gg.me)), "dims": ("same", tuple(int(d) for d in gg.dims)),
+            "nprocs": ("same", int(gg.nprocs)), "coords": ("proc", tuple(int(c) for c in gg.coords)),
+            "node": ("proc", tuple(node_local_rank())),
+            "procs": ("proc", gg.procs.tolist()),
+            "dcn": ("proc", [list(gg.dcn_axes), list(gg.dcn_granules)])}
+
+
+def case_encoded():
+    """The JAX package's encoded field: every cell holds x + 1e3 y + 1e6 z;
+    the halos zeroed and restored by `update_halo`."""
+    A = tg.zeros_g(dtype=torch.float32)
+    x, y, z = tg.coords_g(1.0, 1.0, 1.0, A)
+    enc = np.broadcast_to((x + 1e3 * y + 1e6 * z).astype(np.float32), tuple(A.shape)).copy()
+    zeroed = enc.copy()
+    gg = tg.global_grid()
+    for d in range(3):
+        for c in range(int(gg.box[d])):
+            sl = [slice(None)] * 3
+            sl[d] = slice(c * 5, c * 5 + 1)
+            zeroed[tuple(sl)] = 0
+            sl[d] = slice((c + 1) * 5 - 1, (c + 1) * 5)
+            zeroed[tuple(sl)] = 0
+    res = tg.update_halo(tg.device_put_g(zeroed))
+    return {"restored": ("box", res), "matches_encoding": ("proc", bool(np.array_equal(
+        res.numpy(), enc))), "gather": ("root", tg.gather(res, root=0))}
+
+
+def case_gather():
+    A = global_input((6, 6, 6), 1)
+    V = global_input((7, 6, 6), 2)
+    B = global_input((6, 6, 6), 3, torch.bfloat16)
+    out = {}
+    for root in (0, 1):
+        r = root if tg.global_grid().transport.world > 1 else 0  # the virtual mesh's root is 0
+        out[f"gather_root{root}"] = ("root", tg.gather(A, root=r), root)
+        out[f"gather_interior_root{root}"] = ("root", tg.gather_interior(V, root=r), root)
+        out[f"gather_sub_root{root}"] = ("root", tg.gather_sub(A, ((0, 1), (1, 2), None),
+                                                               root=r), root)
+    out["gather_sub_corner"] = ("root", tg.gather_sub(V, ((1, 2), (1, 2), (1, 2))))
+    out["gather_bf16"] = ("root", tg.gather(B))
+    A_g = np.zeros((12, 12, 12)) if tg.global_grid().me == 0 else None
+    out["gather_into"] = ("root", tg.gather(A, A_g))
+    return out
+
+
+def wave_fields(loc, seed, dtype=torch.float32):
+    nx, ny, nz = loc
+    return [global_input(s, seed + k, dtype) for k, s in enumerate(
+        [(nx, ny, nz), (nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1)])]
+
+
+def case_halo_g1():
+    from implicitglobalgrid_tpu_torch.ops.halo import halo_routes
+
+    gg = tg.global_grid()
+    A = global_input((6, 6, 6), 4)
+    P, Vx, Vy, Vz = wave_fields((6, 6, 6), 5)
+    T2 = global_input((6, 6), 6)
+    tiers = halo_routes(gg, [(6, 6, 6)], [A.dtype], [(1, 1, 1)])[0]
+    assert tiers == ["combined"], tiers
+    out = {"combined": ("box", tg.update_halo(A.clone())),
+           "per_dim_2d": ("box", tg.update_halo(T2.clone())),
+           "coalesced_2": ("boxes", tg.update_halo(P.clone(), Vx.clone())),
+           "coalesced_4": ("boxes", tg.update_halo(P.clone(), Vx.clone(), Vy.clone(),
+                                                   Vz.clone())),
+           "per_dim_3d": ("box", tg.update_halo(A.clone(), coalesce=False,
+                                                dims=(0, 1, 2)))}
+    out["messages"] = ("proc", gg.transport.stats["messages"])
+    return out
+
+
+def case_halo_g2():
+    P, Vx, Vy, Vz = wave_fields((10, 10, 10), 7, torch.float64)
+    A = global_input((10, 10, 10), 8)
+    return {"per_dim_hw2": ("box", tg.update_halo(A.clone())),
+            "coalesced_2_hw2": ("boxes", tg.update_halo(P.clone(), Vz.clone())),
+            "coalesced_4_hw2": ("boxes", tg.update_halo(P.clone(), Vx.clone(), Vy.clone(),
+                                                        Vz.clone()))}
+
+
+def case_models():
+    out = {}
+    T, Cp, p = models.init_diffusion3d(dtype=torch.float64)
+    out["diffusion_fused"] = ("box", models.run_diffusion(T, Cp, p, 3, nt_chunk=3))
+    out["diffusion_plain"] = ("box", models.run_diffusion(T, Cp, p, 2, nt_chunk=2,
+                                                          impl="plain"))
+    s, q = models.init_acoustic3d(dtype=torch.float64)
+    out["acoustic_fused"] = ("boxes", models.run_acoustic(s, q, 3, nt_chunk=3))
+    out["acoustic_plain"] = ("boxes", models.run_acoustic(s, q, 2, nt_chunk=2, impl="plain"))
+    st, sp = models.init_stokes3d(dtype=torch.float64)
+    fused = models.run_stokes(st, sp, 3, nt_chunk=3)
+    out["stokes_fused"] = ("boxes", fused[:7])
+    out["stokes_plain"] = ("boxes", models.run_stokes(st, sp, 2, nt_chunk=2, impl="plain")[:7])
+    out["stokes_residuals"] = ("same", models.stokes_residuals(fused, sp))
+    out["stokes_interior"] = ("root", tg.gather_interior(fused[3]))
+    return out
+
+
+def case_models_2d():
+    T, Cp, p = models.init_diffusion2d(dtype=torch.float64)
+    return {"diffusion2d_fused": ("box", models.run_diffusion(T, Cp, p, 3, nt_chunk=3)),
+            "diffusion2d_plain": ("box", models.run_diffusion(T, Cp, p, 2, nt_chunk=2,
+                                                              impl="plain"))}
+
+
+def case_timing():
+    tg.tic()
+    if tg.global_grid().me == 1:
+        time.sleep(0.3)
+    return {"toc_spans_processes": ("min", tg.toc())}
+
+
+CASES = [("layout", G0, DCN, case_layout), ("encoded", G0, DCN, case_encoded),
+         ("gather", G1, DCN, case_gather), ("halo_g1", G1, DCN, case_halo_g1),
+         ("halo_g2", G2, DCN_G2, case_halo_g2), ("models", G1, DCN, case_models),
+         ("models_2d", G3, "", case_models_2d), ("timing", G1, DCN, case_timing)]
+
+
+def run(grid_kw, dcn, fn, **init):
+    if dcn:
+        os.environ["IGG_TPU_DCN_AXES"] = dcn
+    else:
+        os.environ.pop("IGG_TPU_DCN_AXES", None)
+    kw = dict(grid_kw)
+    n = (kw.pop("nx"), kw.pop("ny"), kw.pop("nz"))
+    tg.init_global_grid(*n, device_type="cpu", quiet=True, nranks=8, **kw, **init)
+    try:
+        gg = tg.global_grid()
+        return fn(), (gg.coords.copy(), gg.box.copy(), gg.dims.copy())
+    finally:
+        tg.finalize_global_grid()
+
+
+def box_of(ref, layout):
+    coords, box, dims = layout
+    sl = []
+    for d in range(ref.dim()):
+        n = ref.shape[d] // int(dims[d])
+        sl.append(slice(int(coords[d]) * n, (int(coords[d]) + int(box[d])) * n))
+    return ref[tuple(sl)]
+
+
+def compare(kind, got, ref, layout, me):
+    """"ok" or why a result of ``kind`` differs from the virtual mesh's."""
+    if kind in ("box", "boxes"):
+        got, ref = (got, ref) if kind == "boxes" else ((got,), (ref,))
+        for k, (g, r) in enumerate(zip(got, ref)):
+            r = box_of(r, layout)
+            if tuple(g.shape) != tuple(r.shape) or not torch.equal(g, r):
+                err = (g.double() - r.double()).abs().max().item() \
+                    if g.shape == r.shape else (tuple(g.shape), tuple(r.shape))
+                return f"field {k} of the box differs ({err})"
+        return "ok"
+    if kind == "root":
+        root = ref[2] if len(ref) > 2 else 0
+        if me != root:
+            return "ok" if got[1] is None else f"process {me} got an array off root"
+        if got[1] is None or got[1].dtype != ref[1].dtype or got[1].shape != ref[1].shape:
+            return f"root got {None if got[1] is None else (got[1].dtype, got[1].shape)}"
+        return "ok" if np.array_equal(got[1].view(np.uint8), ref[1].view(np.uint8)) \
+            else "root's array differs"
+    if kind == "same":
+        return "ok" if got == ref else f"{got} != {ref}"
+    return "ok"
+
+
+def main():
+    refs = {name: run(grid_kw, "", fn)[0] for name, grid_kw, _, fn in CASES
+            if name not in ("layout", "timing")}
+    refs["layout"] = None
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{PORT}",
+                                         world_size=NPROC, rank=PID)
+    results = {}
+    for name, grid_kw, dcn, fn in CASES:
+        try:
+            got, layout = run(grid_kw, dcn, fn, init_dist=False)
+        except Exception:  # noqa: BLE001 - recorded, then every process stops
+            results[name] = traceback.format_exc()[-2000:]
+            break
+        for key, val in got.items():
+            kind = val[0]
+            if kind in ("proc", "min") or refs.get(name) is None:
+                results[f"{name}/{key}"] = val[1]
+                continue
+            ref = refs[name][key]
+            if kind == "root":
+                results[f"{name}/{key}"] = compare(kind, val, ref, layout, PID)
+            else:
+                results[f"{name}/{key}"] = compare(kind, val[1], ref[1], layout, PID)
+    (OUT / f"{PID}.json").write_text(json.dumps(results, default=list))
+    torch.distributed.destroy_process_group()
+    print(f"DIST_OK {PID}", flush=True)
+
+
+if __name__ == "__main__":
+    main()
