@@ -74,17 +74,33 @@ Phases, in order; any failure exits non-zero without the final line:
    K10 an iteration); its first 20 against the plain route (K8 + K7 for the
    (Vx, Vy, Vz, P) group); both routes' host, wall and device time an
    iteration;
-12. the transport: two processes of this script (``--transport-child``)
+12. overlap and deep halos on the virtual mesh, the plain route, float32:
+   diffusion on phase 5's mesh, 20 steps with ``overlap=True`` (the
+   exchange of the shells on a side stream, the interior on the current
+   one), then on overlaps 4, halowidths 2, 20 steps at ``comm_every=2`` and
+   ``"z:2"`` against cadence 1; acoustic on config 4's mesh, 10 steps
+   overlapped, then 10 at ``comm_every=2``; Stokes on config 5's mesh, 20
+   iterations overlapped, then 20 at ``comm_every=2`` on overlaps 8,
+   halowidths 4 (dV skipped); every run bitwise against the same grid's
+   plain run at cadence 1, its exchange launches a step checked; host, wall
+   and device ms a step of each overlapped and deep route beside its plain
+   route, the device's busy time, and the hidden share of the exchange (the
+   side stream's device time under the other streams' work, from the
+   torch.profiler trace by stream);
+13. the transport: two processes of this script (``--transport-child``)
    share cuda:0 in a gloo process group (NCCL refuses two processes on one
    card), the grids split along z (``IGG_TPU_DCN_AXES=z``, a 2x2x1 box
    each): config 3 (20 fused steps, K4s + K4, then `update_halo`, K4s +
    K6), config 4's mesh (10 fused steps, K4s wave modes + K9, then a
-   coalesced `update_halo(P, Vx, Vy, Vz)`, K8 + K7) and config 5's mesh
-   (20 iterations, K4s Stokes modes + K10, and `stokes_residuals`), each
-   gathered to process 0 and held bitwise against phases 6, 9 and 11's runs
-   of the same steps on the virtual mesh; per step the wall ms, the wire
-   bytes and gloo's host staging ms, beside the virtual mesh's step;
-13. numbers: the card's name and power limit, each kernel's time, bound,
+   coalesced `update_halo(P, Vx, Vy, Vz)`, K8 + K7), config 5's mesh
+   (20 iterations, K4s Stokes modes + K10, and `stokes_residuals`) and
+   phase 12's diffusion mesh (10 plain-route steps without and with
+   ``overlap=True``, 10 at ``comm_every=2`` on the halowidth-2 grid), each
+   gathered to process 0 and held bitwise against phases 6, 9, 11 and 12's
+   runs of the same steps on the virtual mesh; per step the wall ms, the
+   wire bytes, the exchange's and gloo's host staging ms, beside the
+   virtual mesh's step;
+14. numbers: the card's name and power limit, each kernel's time, bound,
    plain and library times (one JSON line), cell-updates/s, host against
    device time per step of the fused routes, and the main paths' K4s
    launches by mode and dim.
@@ -92,7 +108,7 @@ Phases, in order; any failure exits non-zero without the final line:
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 nothing of JAX. It needs one card and exits non-zero without CUDA or
 without the package beside it. ``--transport-child <pid> <port>`` runs one
-process of phase 12 (the script starts them itself).
+process of phase 13 (the script starts them itself).
 """
 
 import json
@@ -2405,6 +2421,257 @@ def phase_config5_mesh(tg, models, cb, cst):
                         state_magnitudes=mags, step_ms=t * 1e3 / nt, transport_ref=ref)
 
 
+# the kernels of `update_halo`'s tiers: what an overlapped step's exchange launches
+EXCHANGE_KERNELS = ("halo_write", "halo_self_exchange", "halo_write_combined",
+                    "exchange_slabs", "wire_pack", "halo_write_multi")
+
+
+def _build_dir():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "implicitglobalgrid_tpu_torch", "_build")
+
+
+def _merged(spans):
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(a, b, merged):
+    """The length of [a, b) that the merged spans cover."""
+    return sum(max(0.0, min(b, e) - max(a, s)) for s, e in merged)
+
+
+def _device_spans(fn, reps):
+    """Every kernel, copy and set of ``reps`` calls of ``fn`` from a
+    torch.profiler trace: [(CUDA stream, start us, end us, name)]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    path = os.path.join(_build_dir(), f"overlap_trace_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(path)
+    return [(ev.get("args", {}).get("stream", ev.get("tid")), float(ev["ts"]),
+             float(ev["ts"]) + float(ev["dur"]), ev.get("name", ""))
+            for ev in events
+            if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in ev]
+
+
+def busy_ms(fn, reps=3):
+    """The device's busy time a call of ``fn``: the union of its spans."""
+    spans = _device_spans(fn, reps)
+    return sum(b - a for a, b in _merged([(a, b) for _, a, b, _ in spans])) / reps / 1e3
+
+
+def overlap_profile(fn, reps=3):
+    """Device activity of ``reps`` calls of ``fn`` (one overlapped step) by
+    CUDA stream: the side stream is the one the exchange kernels
+    (`EXCHANGE_KERNELS`) ran on; ``hidden_share`` is the part of the side
+    stream's device time that lies under device work on the other streams
+    (the interior); ``busy_ms`` the device's busy time a step (the union of
+    every span), ``side_ms`` and ``other_ms`` each side's time a step."""
+    spans = _device_spans(fn, reps)
+    names = tuple(KERNEL_NAMES[k] for k in EXCHANGE_KERNELS)
+    side = {st for st, _, _, nm in spans if any(k in nm for k in names)}
+    check(len(side) == 1, f"the exchange kernels ran on one stream ({sorted(map(str, side))})")
+    side = side.pop()
+    mine = [(a, b) for st, a, b, _ in spans if st == side]
+    others = _merged([(a, b) for st, a, b, _ in spans if st != side])
+    check(bool(others), "the interior ran on another stream than the exchange")
+    side_us = sum(b - a for a, b in mine)
+    hidden = sum(_covered(a, b, others) for a, b in mine)
+    return dict(hidden_share=hidden / side_us if side_us else None,
+                side_ms=side_us / reps / 1e3,
+                other_ms=sum(b - a for a, b in others) / reps / 1e3,
+                busy_ms=sum(b - a for a, b in _merged([(a, b) for _, a, b, _ in spans]))
+                / reps / 1e3)
+
+
+def _bitwise(a, b):
+    import numpy as np
+
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.view(np.uint8), b.view(np.uint8))
+
+
+def phase_overlap_deep(tg, models, cb):
+    """Phase 12: interior-first overlap (``overlap=True``: the exchange of
+    the shells on a side stream, the interior on the current one) and deep
+    halos (``comm_every`` > 1) of the three models on the virtual mesh, the
+    plain route, float32, each run held bitwise against the same grid's
+    plain run at cadence 1. Prints host, wall and device ms a step of each
+    overlapped route beside its plain route (`route_times`), the device's
+    busy time and the exchange's hidden share (`overlap_profile`), and the
+    exchange launches a physical step at each cadence. Returns (launches of
+    the timed runs, record, the transport phase's references)."""
+    import dataclasses
+
+    import torch
+
+    print(f"phase: overlap and deep halos on the virtual mesh, plain route, float32; card "
+          f"{card_name()}", flush=True)
+    counts, rec, refs = {}, {}, {}
+
+    def launched(fn, nt):
+        """``fn()`` between launch-count resets: (result, launches, exchange
+        launches a physical step)."""
+        cb.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        c = cb.launch_counts()
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        return res, c, sum(c[k] for k in EXCHANGE_KERNELS) / nt
+
+    def beside(plain_fn, overlap_fn):
+        t = dict(plain=route_times(plain_fn, reps=4, batches=3),
+                 overlap=route_times(overlap_fn, reps=4, batches=3))
+        t["overlap_profile"] = overlap_profile(overlap_fn)
+        t["plain_busy_ms"] = busy_ms(plain_fn)
+        return t
+
+    def interiors(state):
+        return [tg.gather_interior(a) for a in state]
+
+    def same(got, ref, label):
+        ok = all(_bitwise(a, b) for a, b in zip(got, ref))
+        err = max(float(abs(a.astype("float64") - b).max()) for a, b in zip(got, ref))
+        check(ok, f"{label} bitwise equal to the plain route at cadence 1 (max abs err {err!r})")
+
+    n, kw = N_MESH, dict(dimx=2, dimy=2, dimz=2, periodx=1)
+    # diffusion, the README run's mesh: 20 steps interior-first
+    grid(tg, n, n, n, **kw)
+    T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    po = dataclasses.replace(p, overlap=True)
+    models.run_diffusion(T0, Cp, po, 1, impl="plain")  # warm
+    ref = interiors([models.run_diffusion(T0, Cp, p, 20, nt_chunk=20, impl="plain")])
+    T, c, per = launched(lambda: models.run_diffusion(T0, Cp, po, 20, nt_chunk=20,
+                                                      impl="plain"), 20)
+    same(interiors([T]), ref, "diffusion overlap, 20 steps:")
+    check(c["exchange_slabs"] == 60 and c["halo_write_combined"] == 20 and per == 4,
+          "diffusion overlap: the shells exchanged by K4s + K6 a step")
+    r = rec["diffusion"] = beside(lambda: models.diffusion_step_local(T0, Cp, p, "plain"),
+                                  lambda: models.diffusion_step_local(T0, Cp, po, "plain"))
+    r["overlap_exchange_launches_per_step"] = per
+    refs["diffusion_plain_T"] = refs["diffusion_overlap_T"] = tg.gather_interior(
+        models.run_diffusion(T0, Cp, p, 10, nt_chunk=10, impl="plain"))
+    # the same mesh with overlaps 4, halowidths 2: comm_every 2 and "z:2"
+    grid(tg, n, n, n, overlaps=(4, 4, 4), halowidths=(2, 2, 2), **kw)
+    T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    T0, Cp = tg.update_halo(T0, Cp)  # halos set to what they mirror
+    T, _, per1 = launched(lambda: models.run_diffusion(T0, Cp, p, 20, nt_chunk=20,
+                                                       impl="plain"), 20)
+    ref = interiors([T])
+    r = rec["diffusion_deep"] = dict(exchange_launches_per_step={"1": per1})
+    for ce, want in ((2, 3), ("z:2", 5)):
+        q = dataclasses.replace(p, comm_every=ce)
+        models.run_diffusion(T0, Cp, q, 2, impl="plain")  # warm
+        T, c, per = launched(lambda: models.run_diffusion(T0, Cp, q, 20, nt_chunk=20), 20)
+        same(interiors([T]), ref, f"diffusion comm_every={ce!r}, 20 steps:")
+        check(per1 == 6 and per == want,
+              f"diffusion comm_every={ce!r}: {per} exchange launches a step (cadence 1: {per1})")
+        r["exchange_launches_per_step"][str(ce)] = per
+    deep = dataclasses.replace(p, comm_every=2)
+    run_deep = models.make_run_deep(deep, 1)
+    r["routes"] = dict(plain=route_times(lambda: models.diffusion_step_local(T0, Cp, p, "plain"),
+                                         reps=4, batches=3),
+                       deep_super_step_of_2=route_times(lambda: run_deep(T0, Cp), reps=4,
+                                                        batches=3))
+    refs["diffusion_deep_T"] = tg.gather_interior(models.run_diffusion(T0, Cp, deep, 10,
+                                                                       nt_chunk=10))
+
+    # acoustic, config 4's mesh (all periodic): 10 steps interior-first
+    n, kw = N_CFG4, dict(dimx=2, dimy=2, dimz=2, periodx=1, periody=1, periodz=1)
+    grid(tg, n, n, n, **kw)
+    s0, p = models.init_acoustic3d(dtype=torch.float32)
+    po = dataclasses.replace(p, overlap=True)
+    models.run_acoustic(s0, po, 1, impl="plain")  # warm
+    ref = interiors(models.run_acoustic(s0, p, 10, nt_chunk=10, impl="plain"))
+    s, c, per = launched(lambda: models.run_acoustic(s0, po, 10, nt_chunk=10, impl="plain"), 10)
+    same(interiors(s), ref, "acoustic overlap, 10 steps:")
+    check(c["wire_pack"] == 30 and c["halo_write_multi"] == 30 and c["exchange_slabs"] == 30
+          and c["halo_write_combined"] == 10,
+          "acoustic overlap: V's shells by K8 + K7 a dim, P's by K4s + K6")
+    r = rec["acoustic"] = beside(lambda: models.acoustic_step_local(s0, p, "plain"),
+                                 lambda: models.acoustic_step_local(s0, po, "plain"))
+    r["overlap_exchange_launches_per_step"] = per
+    del s
+    grid(tg, n, n, n, overlaps=(4, 4, 4), halowidths=(2, 2, 2), **kw)
+    s0, p = models.init_acoustic3d(dtype=torch.float32)
+    s0 = tg.update_halo(*s0)
+    s, _, per1 = launched(lambda: models.run_acoustic(s0, p, 10, nt_chunk=10, impl="plain"), 10)
+    ref = interiors(s)
+    deep = dataclasses.replace(p, comm_every=2)
+    models.run_acoustic(s0, deep, 2)  # warm
+    s, c, per = launched(lambda: models.run_acoustic(s0, deep, 10, nt_chunk=10), 10)
+    same(interiors(s), ref, "acoustic comm_every=2, 10 steps:")
+    check(per1 == 12 and per == 3 and c["wire_pack"] == 15,
+          f"acoustic comm_every=2: one 4-field K8 + K7 round a dim every 2 steps ({per} "
+          f"exchange launches a step; cadence 1: {per1})")
+    run_deep = models.make_acoustic_run_deep(deep, 1)
+    rec["acoustic_deep"] = dict(
+        exchange_launches_per_step={"1": per1, "2": per},
+        routes=dict(plain=route_times(lambda: models.acoustic_step_local(s0, p, "plain"),
+                                      reps=4, batches=3),
+                    deep_super_step_of_2=route_times(lambda: run_deep(*s0), reps=4,
+                                                     batches=3)))
+    del s, s0, ref
+
+    # Stokes, config 5's mesh (non-periodic): 20 iterations interior-first
+    n, kw = N_CFG5, dict(dimx=2, dimy=2, dimz=2)
+    grid(tg, n, n, n, **kw)
+    s0, p = models.init_stokes3d(dtype=torch.float32)
+    po = dataclasses.replace(p, overlap=True)
+    models.run_stokes(s0, po, 1, impl="plain")  # warm
+    ref = interiors(models.run_stokes(s0, p, 20, nt_chunk=20, impl="plain")[:7])
+    s, c, per = launched(lambda: models.run_stokes(s0, po, 20, nt_chunk=20, impl="plain"), 20)
+    same(interiors(s[:7]), ref, "Stokes overlap, 20 iterations:")
+    check(c["wire_pack"] == 60 and c["halo_write_multi"] == 60 and per == 6,
+          "Stokes overlap: the shells of (Vx, Vy, Vz, P) by K8 + K7 a dim")
+    r = rec["stokes"] = beside(lambda: models.stokes_step_local(s0, p, "plain"),
+                               lambda: models.stokes_step_local(s0, po, "plain"))
+    r["overlap_exchange_launches_per_step"] = per
+    del s
+    # overlaps 8, halowidths 4 (the iteration's radius is 2); dV skipped:
+    # its halos are undefined state at cadence 1, which never exchanges it
+    grid(tg, n, n, n, overlaps=(8, 8, 8), halowidths=(4, 4, 4), **kw)
+    s0, p = models.init_stokes3d(dtype=torch.float32)
+    s0 = tg.update_halo(*s0)
+    s, _, per1 = launched(lambda: models.run_stokes(s0, p, 20, nt_chunk=20, impl="plain"), 20)
+    ref = interiors(s[:4])
+    deep = dataclasses.replace(p, comm_every=2)
+    models.run_stokes(s0, deep, 2)  # warm
+    s, c, per = launched(lambda: models.run_stokes(s0, deep, 20, nt_chunk=20), 20)
+    same(interiors(s[:4]), ref, "Stokes comm_every=2, 20 iterations (P, V):")
+    check(per1 == 6 and per == 3 and c["wire_pack"] == 30,
+          f"Stokes comm_every=2: one 7-field K8 + K7 round a dim every 2 iterations ({per} "
+          f"exchange launches an iteration; cadence 1: {per1})")
+    run_deep = models.make_stokes_run_deep(deep, 1)
+    rec["stokes_deep"] = dict(
+        exchange_launches_per_step={"1": per1, "2": per},
+        routes=dict(plain=route_times(lambda: models.stokes_step_local(s0, p, "plain"),
+                                      reps=4, batches=3),
+                    deep_super_step_of_2=route_times(lambda: run_deep(*s0), reps=4,
+                                                     batches=3)))
+    del s, s0, ref
+    tg.finalize_global_grid()
+    for name, r in rec.items():
+        print(f"  {name}: {json.dumps(r)}", flush=True)
+    return counts, rec, refs
+
+
 TRANSPORT_PROCS = 2
 TRANSPORT_TIMEOUT = 600  # seconds, for the two processes together
 
@@ -2421,6 +2688,8 @@ def transport_child(pid, port):
     2x2x1 box), each run of the phase timed over its steps; process 0
     writes the gathered results and every process its record into
     `_transport_dir()`."""
+    import dataclasses
+
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2498,6 +2767,26 @@ def transport_child(pid, port):
         save(f"config5_{f}", tg.gather_interior(a))
     save("config5_residuals", np.array(res))
     tg.finalize_global_grid()
+    # the README run's mesh (periodic x): 10 plain-route diffusion steps
+    # without and with overlap=True, then 10 at comm_every=2 on the
+    # halowidth-2 grid (its halos first set to what they mirror)
+    r = rec["diffusion_overlap"] = grid(N_MESH, periodx=1)
+    T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    for name, q in (("plain", p), ("overlap", dataclasses.replace(p, overlap=True))):
+        models.run_diffusion(T0, Cp, q, 2, nt_chunk=2, impl="plain")  # warm chunk
+        T, r[name] = timed(lambda: models.run_diffusion(T0, Cp, q, 10, nt_chunk=10,
+                                                        impl="plain"), 10)
+        save(f"diffusion_{name}_T", tg.gather_interior(T))
+    tg.finalize_global_grid()
+    r = rec["diffusion_deep"] = grid(N_MESH, periodx=1, overlaps=(4, 4, 4),
+                                     halowidths=(2, 2, 2))
+    T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    T0, Cp = tg.update_halo(T0, Cp)
+    q = dataclasses.replace(p, comm_every=2)
+    models.run_diffusion(T0, Cp, q, 2, nt_chunk=2)  # warm chunk
+    T, r["steps"] = timed(lambda: models.run_diffusion(T0, Cp, q, 10, nt_chunk=10), 10)
+    save("diffusion_deep_T", tg.gather_interior(T))
+    tg.finalize_global_grid()
     with open(os.path.join(out, f"record_{pid}.json"), "w") as f:
         json.dump(rec, f)
     dist.destroy_process_group()
@@ -2506,11 +2795,13 @@ def transport_child(pid, port):
 
 
 def phase_transport(refs, virtual_step_ms):
-    """Phase 12: the transport. Two processes of this script share cuda:0
+    """Phase 13: the transport. Two processes of this script share cuda:0
     in a gloo group (NCCL refuses two processes on one card) and run config
-    3, config 4's mesh and config 5's mesh split along z; each gathered
-    result is held bitwise against the virtual mesh's run of the same
-    phase (``refs``). Returns (launches summed over the processes, record)."""
+    3, config 4's mesh, config 5's mesh and the README run's diffusion mesh
+    (plain route, with and without overlap, and at comm_every=2) split
+    along z; each gathered result is held bitwise against the virtual
+    mesh's run of the same steps (``refs``). Returns (launches summed over
+    the processes, record)."""
     import shutil
     import socket
 
@@ -2566,9 +2857,10 @@ def phase_transport(refs, virtual_step_ms):
     launches = {}
     for r in recs:
         for cfg in r.values():
-            for part in ("steps", "update_halo"):
-                for k, n in cfg.get(part, {}).get("launches", {}).items():
-                    launches[k] = launches.get(k, 0) + n
+            for part in cfg.values():
+                if isinstance(part, dict):
+                    for k, n in part.get("launches", {}).items():
+                        launches[k] = launches.get(k, 0) + n
     r0 = recs[0]
     for cfg, nt in (("config3", 20), ("config4", 10), ("config5", 20)):
         st = r0[cfg]["steps"]
@@ -2605,6 +2897,28 @@ def phase_transport(refs, virtual_step_ms):
               f"{per[cfg]['exchange_ms_per_step']} ms of it, gloo staging "
               f"{per[cfg]['staging_ms_per_step']} ms; update_halo "
               f"{per[cfg].get('update_halo')}", flush=True)
+    for cfg, part, label in (("diffusion_overlap", "plain", "plain route"),
+                             ("diffusion_overlap", "overlap", "overlap=True"),
+                             ("diffusion_deep", "steps", "comm_every=2 (hw 2)")):
+        st = [r[cfg][part] for r in recs]
+        per[f"{cfg}_{part}"] = dict(
+            box=r0[cfg]["box"], step_ms=[x["step_ms"] for x in st],
+            exchange_ms_per_step=[x["exchange_ms_per_step"] for x in st],
+            staging_ms_per_step=[x["staging_ms_per_step"] for x in st],
+            messages_per_step=[x["messages_per_step"] for x in st],
+            wire_bytes_per_step=[x["wire_bytes_per_step"] for x in st],
+            exchange_launches=sum(st[0]["launches"][k] for k in EXCHANGE_KERNELS))
+        print(f"  transport diffusion 2x2x2 x {N_MESH}^3, {label}: a step "
+              f"{per[f'{cfg}_{part}']['step_ms']} ms wall, exchange "
+              f"{per[f'{cfg}_{part}']['exchange_ms_per_step']} ms, "
+              f"{per[f'{cfg}_{part}']['messages_per_step']} messages", flush=True)
+    ovl = r0["diffusion_overlap"]
+    check(ovl["overlap"]["launches"]["halo_write_combined"] == 10
+          and ovl["plain"]["launches"]["halo_write_combined"] == 10,
+          "transport diffusion: plain and overlapped exchanges through K4s + K6 a step")
+    check(r0["diffusion_deep"]["steps"]["messages_per_step"] * 2
+          == ovl["plain"]["messages_per_step"],
+          "transport diffusion comm_every=2: half the z messages a step of cadence 1")
     per["residuals"] = r0["config5"]["residuals"]
     per["max_abs_err_vs_virtual"] = errs
     return launches, per
@@ -2875,7 +3189,9 @@ def main() -> int:
         cfg4m_counts, cfg4m = phase_config4_mesh(tg, models, cb, cw)
         cfg5_counts, cfg5 = phase_config5_single(tg, models, cb, cst)
         cfg5m_counts, cfg5m = phase_config5_mesh(tg, models, cb, cst)
+        ovl_counts, ovl, ovl_refs = phase_overlap_deep(tg, models, cb)
         refs = {k: v for ph in (cfg3, cfg4m, cfg5m) for k, v in ph.pop("transport_ref").items()}
+        refs.update(ovl_refs)
         transport_counts, transport = phase_transport(
             refs, {"config3": cfg3["step_ms"], "config4": cfg4m["step_ms"],
                    "config5": cfg5m["step_ms"]})
@@ -2885,7 +3201,7 @@ def main() -> int:
         return 1
 
     paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts,
-             cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts, transport_counts]
+             cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts, ovl_counts, transport_counts]
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNEL_NAMES}
     for name, n in launches.items():
         if n == 0:
@@ -2969,6 +3285,7 @@ def main() -> int:
                                     "config2_2x2_4096_f32": cfg2,
                                     "config4_192_f32": cfg4, "config4_2x2x2_192_f32": cfg4m,
                                     "config5_128_f32": cfg5, "config5_2x2x2_128_f32": cfg5m,
+                                    "overlap_deep_virtual_mesh_f32": ovl,
                                     "transport_2_processes_z": transport},
                       "cdiv": cdiv, "k4s_launches": k4s_launches,
                       "seconds_total": time.perf_counter() - t_start}))

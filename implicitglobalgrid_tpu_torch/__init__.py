@@ -18,7 +18,7 @@ Public API — the reference's 13 exported symbols::
     init_global_grid, finalize_global_grid, update_halo, gather,
     select_device, nx_g, ny_g, nz_g, x_g, y_g, z_g, tic, toc
 
-plus `local_update_halo`, `halo_comm_plan`, `zeros_g`/`ones_g`/`full_g`/`device_put_g`,
+plus `local_update_halo`, `hide_communication`, `halo_comm_plan`, `zeros_g`/`ones_g`/`full_g`/`device_put_g`,
 `coords_g`/`x_g_vec`, `gather_interior`, `gather_sub`, `barrier`/`sync`, the stencil
 helpers (`d_xa` … `inn`) and the `Field` wrapper. Usage::
 
@@ -36,6 +36,7 @@ from .parallel.topology import (
     neighbors_table, ol, dims_create,
 )
 from .ops.halo import update_halo, local_update_halo, halo_comm_plan, DEFAULT_DIMS_ORDER
+from .ops.overlap import hide_communication
 from .ops.gather import gather, gather_interior, gather_sub
 from .ops.alloc import zeros_g, ones_g, full_g, device_put_g
 from .ops.fields import Field, wrap_field, extract, local_shape_of, stacked_shape
@@ -56,7 +57,7 @@ __version__ = "0.1.0"
 __all__ = [
     "init_global_grid", "finalize_global_grid", "update_halo", "gather",
     "select_device", "nx_g", "ny_g", "nz_g", "x_g", "y_g", "z_g", "tic", "toc",
-    "local_update_halo", "halo_comm_plan", "gather_interior", "gather_sub", "barrier",
+    "local_update_halo", "hide_communication", "halo_comm_plan", "gather_interior", "gather_sub", "barrier",
     "sync",
     "zeros_g", "ones_g", "full_g", "device_put_g",
     "Field", "wrap_field", "extract", "local_shape_of", "stacked_shape",

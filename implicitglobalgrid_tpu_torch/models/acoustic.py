@@ -22,10 +22,13 @@ on the stacked tensors of each process's box. Two routes (``impl``):
 
 Both run the two-buffer runner of `models/common.py` over the four-tensor
 state; a run resolves the fused route once (`ops.cuda_wave.AcousticStep`).
-Not ported yet (each raises `NotSupportedError`): a deep ``comm_every``
-cadence (`deep_step`, `make_acoustic_run_deep`; every spelling of cadence 1
-runs), ``ensemble``, and ``overlap=True`` on the plain route. Both routes
-take float32, float64 and bfloat16 states.
+With ``overlap=True`` the plain route goes interior-first
+(`models.common.interior_first_step` for the velocity round, radius 1,
+then `ops.overlap.hide_communication` for the pressure round, radius 0).
+A deep ``comm_every`` cadence runs the masked super-step (`deep_step`,
+`make_acoustic_run_deep`) with one 4-field k-wide exchange per axis and
+k_d sub-steps. Not ported yet (raises `NotSupportedError`): ``ensemble``.
+Both routes take float32, float64 and bfloat16 states.
 """
 
 from __future__ import annotations
@@ -38,23 +41,28 @@ from ..ops.alloc import device_put_g, zeros_g
 from ..ops.cuda_wave import AcousticStep, wave_exchange_modes
 from ..ops.fields import block_view
 from ..ops.halo import local_update_halo
+from ..ops.overlap import hide_communication
+from ..ops.staggered import const_tensors
 from ..ops.wire import resolve_comm_every
 from ..parallel.topology import check_initialized, global_grid
 from ..tools import coords_g, nx_g, ny_g, nz_g
-from ..utils.exceptions import InvalidArgumentError, NotSupportedError
-from .common import reject_deep
+from ..utils.exceptions import InvalidArgumentError
+from .common import (
+    fresh_mask, interior_first_step, reject_comm_every, run_deep, validate_deep_halo,
+)
 from .diffusion import IMPLS, _local_shape, _reject_ensemble, _resolve_impl
 
 __all__ = ["AcousticParams", "init_acoustic3d", "acoustic_step_local",
            "make_acoustic_run", "make_acoustic_run_deep", "deep_step", "run_acoustic"]
 
-_LATER = "a later slice of the PyTorch port"
-
 
 @dataclass(frozen=True)
 class AcousticParams:
-    """Physics/numerics constants (the JAX package's fields; a deep
-    ``comm_every`` cadence is not ported yet)."""
+    """Physics/numerics constants (the JAX package's fields). ``overlap``
+    takes the plain route interior-first; ``comm_every`` is the deep-halo
+    cadence (``overlaps[d] >= 2*k_d``, ``halowidths[d] >= k_d``): between
+    an axis's exchanges the velocity updates retreat ``r_d`` cells a
+    neighbour side and the pressure update ``r_d + 1``."""
     rho: float
     K: float
     dt: float
@@ -63,12 +71,6 @@ class AcousticParams:
     dz: float
     overlap: bool = False
     comm_every: int | str = 1
-
-
-def check_supported(p: AcousticParams) -> None:
-    """Raise `NotSupportedError` for the deep-halo cadence, which a later
-    slice ports."""
-    reject_deep(p.comm_every, "AcousticParams")
 
 
 def init_acoustic3d(*, rho=1.0, K=1.0, lx=10.0, ly=10.0, lz=10.0, dtype=None,
@@ -87,7 +89,6 @@ def init_acoustic3d(*, rho=1.0, K=1.0, lx=10.0, ly=10.0, lz=10.0, dtype=None,
     dt = float(min(dx, dy, dz) / c / np.sqrt(3.1))
     p = AcousticParams(rho=rho, K=K, dt=dt, dx=dx, dy=dy, dz=dz, overlap=overlap,
                        comm_every=str(resolve_comm_every(comm_every)))
-    check_supported(p)
     Pz = zeros_g((nx, ny, nz), dtype=dtype)
     x, y, z = coords_g(dx, dy, dz, Pz)
     r2 = (x - lx / 2) ** 2 + (y - ly / 2) ** 2 + (z - lz / 2) ** 2
@@ -104,37 +105,64 @@ def _dP(Ab, axis, n):
     return Ab.narrow(2 * axis + 1, 1, n - 1) - Ab.narrow(2 * axis + 1, 0, n - 1)
 
 
-def _plain_step(state, p: AcousticParams, loc):
-    """The plain route: the XLA tier's updates per block (broadcast over the
-    block views), each followed by its exchange."""
-    import torch
+def _consts(p: AcousticParams, P):
+    """The step's constants as 0-d tensors of the state's dtype and device."""
+    return const_tensors({"c_v": -p.dt / p.rho, "dtK": p.dt * p.K, "dx": p.dx, "dy": p.dy,
+                          "dz": p.dz}, P)
 
-    P, Vx, Vy, Vz = state
-    nx, ny, nz = loc
 
-    def t(v):
-        return torch.tensor(float(v), dtype=P.dtype, device=P.device)
-
-    c_v, dtK = t(-p.dt / p.rho), t(p.dt * p.K)
-    d = (t(p.dx), t(p.dy), t(p.dz))
+def _v_update(P, vs, c, loc):
+    """The velocity update of every block of ``P`` (blocks ``loc``) and
+    ``vs`` (Vx, Vy, Vz): new tensors, the XLA tier's arithmetic (``v +
+    ((-dt/rho) * dP) / dx``) on the inner faces. Also one block's slab,
+    with ``loc`` its P shape."""
     Pb = block_view(P, loc)
-    vs = []
-    for ax, V in enumerate((Vx, Vy, Vz)):
-        m = [nx, ny, nz]
+    out = []
+    for ax, V in enumerate(vs):
+        m = list(loc)
         m[ax] += 1
         U = V.clone()
         inner = block_view(U, m).narrow(2 * ax + 1, 1, loc[ax] - 1)
-        inner.copy_(inner + (c_v * _dP(Pb, ax, loc[ax])) / d[ax])
-        vs.append(U)
-    Vx, Vy, Vz = local_update_halo(*vs)
+        inner.copy_(inner + (c["c_v"] * _dP(Pb, ax, loc[ax])) / c["d" + "xyz"[ax]])
+        out.append(U)
+    return out
+
+
+def _p_update(P, vs, c, loc):
+    """The pressure update ``P - (dt*K) * divV`` of every block, new."""
     div = None
-    for ax, V in enumerate((Vx, Vy, Vz)):
-        m = [nx, ny, nz]
+    for ax, V in enumerate(vs):
+        m = list(loc)
         m[ax] += 1
-        term = _dP(block_view(V, m), ax, m[ax]) / d[ax]
+        term = _dP(block_view(V, m), ax, m[ax]) / c["d" + "xyz"[ax]]
         div = term if div is None else div + term
-    P = (Pb - dtK * div).reshape(P.shape)
-    return (local_update_halo(P), Vx, Vy, Vz)
+    return (block_view(P, loc) - c["dtK"] * div).reshape(P.shape)
+
+
+def _plain_step(state, p: AcousticParams, loc):
+    """The plain route: the XLA tier's updates per block (broadcast over the
+    block views), each followed by its exchange."""
+    P, Vx, Vy, Vz = state
+    c = _consts(p, P)
+    Vx, Vy, Vz = local_update_halo(*_v_update(P, (Vx, Vy, Vz), c, loc))
+    return (local_update_halo(_p_update(P, (Vx, Vy, Vz), c, loc)), Vx, Vy, Vz)
+
+
+def _overlap_step(state, p: AcousticParams):
+    """The plain route interior-first: the velocity round (one exchange of
+    the three face-staggered fields) hidden under the interior velocity
+    update, then the pressure round likewise (radius 0)."""
+    P, Vx, Vy, Vz = state
+    c = _consts(p, P)
+
+    def v_upd(vx, vy, vz, Pc):
+        return _v_update(Pc, (vx, vy, vz), c, tuple(Pc.shape))
+
+    def p_upd(Pc, vx, vy, vz):
+        return _p_update(Pc, (vx, vy, vz), c, tuple(Pc.shape))
+
+    Vx, Vy, Vz = interior_first_step(v_upd, (Vx, Vy, Vz), (P,), radius=1)
+    return (hide_communication(p_upd, P, Vx, Vy, Vz, radius=0), Vx, Vy, Vz)
 
 
 def _check_state(state):
@@ -148,7 +176,7 @@ def _resolve(state, p: AcousticParams, impl: str):
     """The step on the current grid for states shaped like ``state``, as
     ``fn(state, out) -> state``: the fused route's `AcousticStep` where
     ``impl`` is "cuda" and the gate admits the grid, else the plain route
-    (which ignores ``out``)."""
+    (interior-first with ``p.overlap``), which ignores ``out``."""
     gg = global_grid()
     locs = [_local_shape(gg, a) for a in _check_state(state)]
     if impl == "cuda":
@@ -157,8 +185,7 @@ def _resolve(state, p: AcousticParams, impl: str):
             return AcousticStep(gg, modes, rho=p.rho, K=p.K, dt=p.dt, dx=p.dx, dy=p.dy,
                                 dz=p.dz, block=locs[0])
     if p.overlap:
-        raise NotSupportedError(
-            f"AcousticParams(overlap=True) on the plain route is not ported yet ({_LATER}).")
+        return lambda st, out: _overlap_step(st, p)
     return lambda st, out: _plain_step(st, p, locs[0])
 
 
@@ -168,7 +195,6 @@ def acoustic_step_local(state, p: AcousticParams, impl: str = "plain", out=None)
     admits it, else the plain route) or "plain". ``out`` is a spare state
     the fused route may write into (it must not alias ``state``); the new
     state is returned either way."""
-    check_supported(p)
     if impl not in IMPLS:
         raise InvalidArgumentError(f"impl must be one of {IMPLS}; got {impl!r}.")
     state = tuple(state)
@@ -180,33 +206,83 @@ def make_acoustic_run(p: AcousticParams, nt_chunk: int, impl: str | None = None,
     """A runner advancing ``nt_chunk`` steps: ``state = run(P, Vx, Vy, Vz)``
     (pass ``donate=True`` to let it overwrite the input state). The route,
     the gate's modes and the constants are resolved once for the grid and
-    the state's shapes, not every step."""
+    the state's shapes, not every step. A deep cadence raises
+    `InvalidArgumentError`: use `run_acoustic` or `make_acoustic_run_deep`."""
     from .common import make_state_runner, resolve_once
 
+    reject_comm_every(p.comm_every, "AcousticParams", "make_acoustic_run",
+                      "run_acoustic or make_acoustic_run_deep")
     _reject_ensemble(ensemble)
-    check_supported(p)
     impl = _resolve_impl(impl)
     return make_state_runner(resolve_once(lambda state: _resolve(state, p, impl)),
                              nt_chunk=nt_chunk)
 
 
 def deep_step(p: AcousticParams):
-    """The deep-halo super-step (``comm_every`` > 1): not ported yet."""
-    raise NotSupportedError(f"deep-halo stepping (comm_every) is not ported yet ({_LATER}).")
+    """The deep-halo leapfrog super-step: ``cycle`` masked sub-steps of the
+    plain route, the 4-field k-wide exchange issued per axis when its
+    cadence makes it due. Returns ``(step, cycle)``, ``step(state) ->
+    state`` on the stacked tensors.
+
+    Masks per dim ``d``, staleness ``r_d = j mod k_d`` (`common.fresh_mask`):
+    each V field retreats ``r_d`` with base 1 in its staggered dim (its
+    update touches faces ``[1, n)`` of ``n + 1``) and 0 elsewhere; P
+    retreats ``r_d + 1`` with base 0 (it reads this sub-step's V). The
+    skipped bands are what the k-wide exchange overwrites."""
+    import torch
+
+    check_initialized()
+    gg = global_grid()
+    cad = resolve_comm_every(p.comm_every)
+    validate_deep_halo(gg, 3, cad)
+
+    def step(state):
+        P, Vx, Vy, Vz = _check_state(state)
+        loc = _local_shape(global_grid(), P)
+        c = _consts(p, P)
+        for j in range(cad.cycle):
+            r = cad.retreats(j)
+            Vn = _v_update(P, (Vx, Vy, Vz), c, loc)
+            if any(r):
+                for s in range(3):
+                    base = tuple(int(d == s) for d in range(3))
+                    m = list(loc)
+                    m[s] += 1
+                    Vn[s] = torch.where(fresh_mask(m, r, base, base), Vn[s], (Vx, Vy, Vz)[s])
+            Vx, Vy, Vz = Vn
+            Pn = _p_update(P, (Vx, Vy, Vz), c, loc)
+            P = torch.where(fresh_mask(loc, tuple(x + 1 for x in r), (0, 0, 0), (0, 0, 0)),
+                            Pn, P)
+            due = cad.due_dims(j)
+            if due:
+                P, Vx, Vy, Vz = local_update_halo(P, Vx, Vy, Vz, dims=due)
+        return (P, Vx, Vy, Vz)
+
+    return step, cad.cycle
 
 
 def make_acoustic_run_deep(p: AcousticParams, nt_chunk_super: int,
                            ensemble: int | None = None):
-    """The deep-halo runner (``comm_every`` > 1): not ported yet."""
-    raise NotSupportedError(f"deep-halo stepping (comm_every) is not ported yet ({_LATER}).")
+    """The deep-halo leapfrog runner: ``state = run(P, Vx, Vy, Vz)``
+    advances ``nt_chunk_super`` super-steps (`deep_step`). The input is
+    never written."""
+    from .common import make_state_runner
+
+    _reject_ensemble(ensemble)
+    step, _ = deep_step(p)
+    return make_state_runner(lambda state, spare: (step(state), None),
+                             nt_chunk=nt_chunk_super)
 
 
 def run_acoustic(state, p: AcousticParams, nt: int, *, nt_chunk: int = 100,
                  impl: str | None = None, ensemble: int | None = None):
     """Advance ``nt`` steps and return the new state (the input is not
-    written). Returns after the device has drained."""
+    written). Returns after the device has drained. A deep ``comm_every``
+    cadence runs `make_acoustic_run_deep` (``nt`` a multiple of its
+    cycle)."""
     from .common import run_chunked
 
     _reject_ensemble(ensemble)
-    check_supported(p)
+    if resolve_comm_every(p.comm_every).deep:
+        return run_deep(lambda c: make_acoustic_run_deep(p, c), tuple(state), p, nt, nt_chunk, impl)
     return run_chunked(lambda c: make_acoustic_run(p, c, impl), tuple(state), nt, nt_chunk)

@@ -6,27 +6,107 @@ eagerly, so a chunk is a Python loop over the step, and the runner
 ping-pongs two buffers: a step writes its new state into the buffer the
 step before last wrote, so a run allocates two buffers at most and never
 writes the caller's input.
+
+The deep-halo machinery of the three models lives here too
+(`validate_deep_halo`, `fresh_mask` on the stacked layout, `run_deep`), and
+`interior_first_step`, the entry of their ``overlap=True`` steps.
 """
 
 from __future__ import annotations
 
 from ..ops.wire import resolve_comm_every
-from ..parallel.topology import check_initialized
-from ..utils.exceptions import NotSupportedError
+from ..parallel.topology import check_initialized, global_grid
+from ..utils.exceptions import IncoherentArgumentError, InvalidArgumentError
 
-__all__ = ["make_state_runner", "resolve_once", "run_chunked", "reject_deep"]
+__all__ = ["make_state_runner", "resolve_once", "run_chunked", "resolve_comm_every",
+           "fresh_mask", "validate_deep_halo", "interior_first_step", "reject_comm_every",
+           "run_deep"]
 
-_LATER = "a later slice of the PyTorch port"
+# fresh masks by grid and request: the current epoch's only
+_masks: dict = {}
 
 
-def reject_deep(comm_every, params: str) -> None:
-    """Raise `NotSupportedError` where ``comm_every`` resolves to a deep-halo
-    cadence (`resolve_comm_every`: an explicit value wins over
-    ``IGG_COMM_EVERY``), which a later slice ports; every spelling of
-    cadence 1 passes."""
-    if resolve_comm_every(comm_every).deep:
-        raise NotSupportedError(
-            f"{params}(comm_every={comm_every!r}) (deep halos) is not ported yet ({_LATER}).")
+def fresh_mask(shape, retreat, base_lo, base_hi):
+    """Update-region mask of the deep-halo sub-steps (True: the cell's
+    stencil dependencies are fresh), as ONE boolean tensor of the stacked
+    shape of this process's box of ``shape`` blocks, on the grid's device.
+
+    Per dim ``d`` of each block: ``[base_lo[d] + r_d*L, n_d - base_hi[d] -
+    r_d*R)``, where L/R flag a neighbour on that side of the block (its
+    GLOBAL block coordinate, the box's first rank ``gg.coords`` plus its
+    position in the box; a periodic side always has one). ``base_lo/hi``
+    give the scheme's update region when fresh; ``retreat`` is the
+    sub-steps of staleness, a scalar or one per dim (`CommCadence.retreats`).
+    The skipped cells keep stale values, which that axis's next k-wide
+    exchange overwrites. Built once per grid and request, as the JAX
+    package's per-shard `lax.axis_index` mask."""
+    import numpy as np
+    import torch
+
+    gg = global_grid()
+    nd = len(shape)
+    ret = tuple(int(r) for r in retreat) if np.iterable(retreat) else (int(retreat),) * nd
+    key = (gg.epoch, str(gg.device), tuple(int(s) for s in shape), ret,
+           tuple(int(b) for b in base_lo), tuple(int(b) for b in base_hi),
+           tuple(int(c) for c in gg.coords[:nd]), tuple(int(b) for b in gg.box[:nd]),
+           tuple(int(p) for p in gg.periods[:nd]))
+    m = _masks.get(key)
+    if m is not None:
+        return m
+    for k in [k for k in _masks if k[0] != gg.epoch]:
+        del _masks[k]
+    mask = None
+    for d in range(nd):
+        n, per = int(shape[d]), bool(int(gg.periods[d]))
+        g = int(gg.coords[d]) + np.arange(int(gg.box[d]))  # global block coordinates
+        lo = base_lo[d] + np.where((g > 0) | per, ret[d], 0)
+        hi = n - base_hi[d] - np.where((g < int(gg.dims[d]) - 1) | per, ret[d], 0)
+        i = np.arange(n)
+        md = ((i >= lo[:, None]) & (i < hi[:, None])).reshape(-1)
+        md = md.reshape([-1 if dd == d else 1 for dd in range(nd)])
+        mask = md if mask is None else mask & md
+    _masks[key] = m = torch.from_numpy(np.ascontiguousarray(mask)).to(gg.device)
+    return m
+
+
+def validate_deep_halo(gg, ndim: int, k, depth_per_step: int = 1) -> None:
+    """The ``comm_every`` coherence checks (the JAX package's). ``k`` is the
+    cadence (an int, a spec or a `CommCadence`); ``depth_per_step`` the
+    scheme's dependency radius a sub-step (1: diffusion and the acoustic
+    leapfrog; 2: the Stokes PT iteration). Every exchanging dim ``d`` needs
+    halowidth >= depth_per_step*k_d and local size >= overlap +
+    depth_per_step*k_d (the send slabs must lie inside the last sub-step's
+    freshly updated region, or an interior block ships stale values)."""
+    cad = resolve_comm_every(k)
+    for d in range(ndim):
+        need = depth_per_step * cad.for_dim(d)
+        if not (int(gg.dims[d]) > 1 or int(gg.periods[d])):
+            continue
+        if int(gg.halowidths[d]) < need:
+            raise IncoherentArgumentError(
+                f"comm_every={cad} needs halowidths[{d}] >= {need} on every exchanging "
+                f"dim (got {int(gg.halowidths[d])}): init the grid with overlaps[{d}] >= "
+                f"{2 * need} and halowidths[{d}] = {need}.")
+        n_d, ol_d = int(gg.nxyz[d]), int(gg.overlaps[d])
+        if n_d < ol_d + need:
+            raise IncoherentArgumentError(
+                f"comm_every={cad} needs local size >= overlap + {need} on dim {d} (got "
+                f"n={n_d}, overlap={ol_d}): the send slabs would leave the freshly-updated "
+                "region.")
+
+
+def interior_first_step(update_fn, outs, aux=(), *, radius: int = 1,
+                        n_exchange: int | None = None, coalesce=None, wire_dtype=None):
+    """The interior-first shape of a step (every model's ``overlap=True``
+    route): boundary shells, then ONE exchange round of the first
+    ``n_exchange`` of ``outs`` on a side stream while the interior runs,
+    then the stitch. A thin, named entry over the multi-field form of
+    `ops.overlap.hide_communication`; the same values as
+    ``local_update_halo(*update_fn(*outs, *aux))`` per block."""
+    from ..ops.overlap import hide_communication
+
+    return hide_communication(update_fn, tuple(outs), *aux, radius=radius,
+                              n_exchange=n_exchange, coalesce=coalesce, wire_dtype=wire_dtype)
 
 
 def make_state_runner(step_local, *, nt_chunk: int):
@@ -86,3 +166,33 @@ def run_chunked(runner_factory, state, nt: int, nt_chunk: int):
     if rem:
         state = runner_factory(rem)(*state, donate=donate)
     return sync(state)
+
+
+def reject_comm_every(comm_every, params: str, runner: str, deep_runners: str) -> None:
+    """A runner that exchanges every step refuses a deep cadence
+    (`InvalidArgumentError`, the JAX package's rule) rather than silently
+    ignore it."""
+    if resolve_comm_every(comm_every).deep:
+        raise InvalidArgumentError(
+            f"{params}(comm_every={comm_every!r}) needs the deep-halo runner: use "
+            f"{deep_runners} ({runner} exchanges every step and cannot honor the cadence).")
+
+
+def run_deep(make_run_deep, state, p, nt: int, nt_chunk: int, impl):
+    """The deep branch of the models' ``run_*``: ``nt`` steps of params
+    ``p``'s deep cadence as ``nt / cycle`` super-steps of
+    ``make_run_deep(chunk)``, in chunks of ``nt_chunk`` steps. Deep stepping
+    runs the plain route only (an explicit other ``impl`` raises, as the JAX
+    package's non-XLA impls do), and ``nt`` must be a multiple of the cycle
+    (the cadence defines the trajectory)."""
+    cad = resolve_comm_every(p.comm_every)
+    if impl is not None and impl != "plain":
+        raise InvalidArgumentError(
+            f"impl={impl!r} is incompatible with comm_every={cad}: deep-halo stepping runs "
+            "only the plain route.")
+    if int(nt) % cad.cycle:
+        raise InvalidArgumentError(
+            f"nt={nt} must be a multiple of the cadence cycle {cad.cycle} (comm_every={cad} "
+            "defines the trajectory).")
+    return run_chunked(make_run_deep, state, int(nt) // cad.cycle,
+                       max(1, int(nt_chunk) // cad.cycle))

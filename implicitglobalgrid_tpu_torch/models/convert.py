@@ -14,10 +14,8 @@ import dataclasses
 import numpy as np
 
 from .acoustic import AcousticParams
-from .acoustic import check_supported as check_acoustic
 from .diffusion import DiffusionParams, check_supported
 from .stokes import StokesParams
-from .stokes import check_supported as check_stokes
 
 __all__ = ["state_from_numpy", "acoustic_state_from_numpy", "stokes_state_from_numpy"]
 
@@ -57,7 +55,6 @@ def acoustic_state_from_numpy(P, Vx, Vy, Vz, params: dict, device):
     """``((P, Vx, Vy, Vz), AcousticParams)`` on ``device`` from the JAX
     package's stacked numpy arrays and a parameter dict."""
     p = _params(AcousticParams, params)
-    check_acoustic(p)
     return tuple(_tensor_from_numpy(a, device) for a in (P, Vx, Vy, Vz)), p
 
 
@@ -65,6 +62,5 @@ def stokes_state_from_numpy(P, Vx, Vy, Vz, dVx, dVy, dVz, rhog, params: dict, de
     """``((P, Vx, Vy, Vz, dVx, dVy, dVz, rhog), StokesParams)`` on ``device``
     from the JAX package's stacked numpy arrays and a parameter dict."""
     p = _params(StokesParams, params)
-    check_stokes(p)
     return tuple(_tensor_from_numpy(a, device)
                  for a in (P, Vx, Vy, Vz, dVx, dVy, dVz, rhog)), p

@@ -19,10 +19,16 @@ the virtual mesh). Two routes (``impl``):
   there). On CPU tensors the kernels' plain versions run; on a CUDA tensor
   every step is a kernel.
 - ``"plain"``: the broadcast flux form (`_upd3`/`_upd2`) then
-  `local_update_halo`, in plain PyTorch (the JAX package's ``"xla"``).
+  `local_update_halo`, in plain PyTorch (the JAX package's ``"xla"``);
+  with ``overlap=True`` the step goes interior-first through
+  `ops.overlap.hide_communication` (the exchange of the shells on a side
+  stream under the interior update). The kernel route ignores ``overlap``,
+  as the JAX package's Pallas route does.
 
-Not ported yet (each raises `NotSupportedError`): ``overlap``, ``sr``,
-a deep ``comm_every`` cadence and ``ensemble``.
+A deep ``comm_every`` cadence runs the communication-avoiding super-step
+(`deep_step`, `make_run_deep`): masked sub-steps on the plain route, each
+axis's k-wide exchange once per k_d sub-steps. Not ported yet (each raises
+`NotSupportedError`): ``sr`` and ``ensemble``.
 """
 
 from __future__ import annotations
@@ -36,15 +42,18 @@ from ..ops.cuda_stencil import (
 )
 from ..ops.fields import block_slices
 from ..ops.halo import DEFAULT_DIMS_ORDER, _dim_exchanges, local_update_halo
+from ..ops.overlap import hide_communication
+from ..ops.staggered import const_tensors
 from ..ops.stencil import d_xa, d_xi, d_ya, d_yi, d_za, d_zi, inn
 from ..ops.wire import resolve_comm_every
 from ..parallel.topology import check_initialized, global_grid
 from ..tools import coords_g, nx_g, ny_g, nz_g
 from ..utils.exceptions import InvalidArgumentError, NotSupportedError
-from .common import reject_deep
+from .common import fresh_mask, reject_comm_every, run_deep, validate_deep_halo
 
 __all__ = ["DiffusionParams", "init_diffusion3d", "init_diffusion2d",
-           "diffusion_step_local", "make_step", "make_run", "run_diffusion"]
+           "diffusion_step_local", "make_step", "make_run", "make_run_deep", "deep_step",
+           "run_diffusion"]
 
 _LATER = "a later slice of the PyTorch port"
 IMPLS = ("cuda", "plain")
@@ -52,8 +61,11 @@ IMPLS = ("cuda", "plain")
 
 @dataclass(frozen=True)
 class DiffusionParams:
-    """Physics/numerics constants (the JAX package's fields; ``overlap``,
-    ``sr`` and a deep ``comm_every`` cadence are not ported yet)."""
+    """Physics/numerics constants (the JAX package's fields; ``sr`` is not
+    ported yet). ``overlap`` takes the plain route interior-first;
+    ``comm_every`` (an int, a per-axis spec such as ``"z:2"``) is the deep-halo
+    cadence: needs a grid with ``overlaps[d] >= 2*k_d`` and ``halowidths[d]
+    >= k_d`` on the exchanging dims; the trajectory equals cadence 1's."""
     lam: float
     dt: float
     dx: float
@@ -66,12 +78,16 @@ class DiffusionParams:
 
 
 def check_supported(p: DiffusionParams) -> None:
-    """Raise `NotSupportedError` for the options a later slice ports."""
-    if p.overlap:
-        raise NotSupportedError(f"DiffusionParams(overlap=True) is not ported yet ({_LATER}).")
+    """Raise `NotSupportedError` for the option a later slice ports."""
     if p.sr:
         raise NotSupportedError(f"DiffusionParams(sr=True) is not ported yet ({_LATER}).")
-    reject_deep(p.comm_every, "DiffusionParams")
+
+
+def _fresh_mask(shape, retreat):
+    """Diffusion's deep-halo sub-step mask: the interior update retreats
+    ``retreat`` cells per neighbour side (a scalar, or one per dim),
+    ``[1 + r_d*L, n-1 - r_d*R)`` per dim (`common.fresh_mask`)."""
+    return fresh_mask(shape, retreat, (1,) * len(shape), (1,) * len(shape))
 
 
 def init_diffusion3d(*, lam=1.0, cp_min=1.0, lx=10.0, ly=10.0, lz=10.0,
@@ -128,10 +144,7 @@ def _plain_consts(p: DiffusionParams, T):
     """The parameters as 0-d tensors of the state's dtype on its device (the
     JAX package's weakly-typed Python scalars take the array's dtype), so
     every division is a true division on every device."""
-    import torch
-
-    return {k: torch.tensor(float(getattr(p, k)), dtype=T.dtype, device=T.device)
-            for k in ("lam", "dt", "dx", "dy", "dz")}
+    return const_tensors({k: getattr(p, k) for k in ("lam", "dt", "dx", "dy", "dz")}, T)
 
 
 def _upd3(Tb, Cpb, c):
@@ -162,6 +175,20 @@ def _plain_step(T, Cp, p, loc):
     for sl in block_slices(T.shape, loc):
         inn(out[sl]).add_(upd(T[sl], Cp[sl], c))
     return out
+
+
+def _block_update(p, T):
+    """The update of one block (or slab of one) as `hide_communication`
+    takes it: `_plain_step`'s arithmetic, into a new tensor."""
+    c = _plain_consts(p, T)
+    upd = _upd3 if T.dim() == 3 else _upd2
+
+    def fn(Tb, Cpb):
+        out = Tb.clone()
+        inn(out).add_(upd(Tb, Cpb, c))
+        return out
+
+    return fn
 
 
 def _local_shape(gg, T):
@@ -225,6 +252,8 @@ def diffusion_step_local(T, Cp, p: DiffusionParams, impl: str = "plain",
         if T.device.type != "cpu":
             raise NotSupportedError(
                 f"the step kernels need blocks of >= 3 planes; got {loc}.")
+    if p.overlap:
+        return hide_communication(_block_update(p, T), T, Cp, radius=1)
     return local_update_halo(_plain_step(T, Cp, p, loc))
 
 
@@ -248,6 +277,8 @@ def _reject_ensemble(ensemble):
 
 def make_step(p: DiffusionParams, ndim: int = 3, impl: str | None = None):
     """A single step on stacked tensors: ``T = step(T, Cp)``."""
+    reject_comm_every(p.comm_every, "DiffusionParams", "make_step",
+                      "run_diffusion or make_run_deep")
     check_initialized()
     check_supported(p)
     impl = _resolve_impl(impl)
@@ -264,6 +295,8 @@ def make_run(p: DiffusionParams, nt_chunk: int, ndim: int = 3,
     (pass ``donate=True`` to let it overwrite the input ``T``)."""
     from .common import make_state_runner
 
+    reject_comm_every(p.comm_every, "DiffusionParams", "make_run",
+                      "run_diffusion or make_run_deep")
     _reject_ensemble(ensemble)
     check_supported(p)
     impl = _resolve_impl(impl)
@@ -275,13 +308,61 @@ def make_run(p: DiffusionParams, nt_chunk: int, ndim: int = 3,
     return make_state_runner(step, nt_chunk=nt_chunk)
 
 
+def deep_step(p: DiffusionParams, ndim: int = 3):
+    """The communication-avoiding super-step: ``cycle`` (the lcm of the
+    per-axis cadences) masked sub-steps of the plain route (`_fresh_mask`,
+    per-dim retreats), each axis's k-wide exchange issued after the
+    sub-steps its cadence makes it due (`CommCadence.due_dims`). Validates
+    the grid's halos against the cadence; returns ``(step, cycle)``, where
+    ``step((T, Cp)) -> (T, Cp)`` advances ``cycle`` physical steps of the
+    stacked tensors."""
+    import torch
+
+    check_initialized()
+    check_supported(p)
+    gg = global_grid()
+    cad = resolve_comm_every(p.comm_every)
+    validate_deep_halo(gg, ndim, cad)
+
+    def step(state):
+        T, Cp = state
+        loc = _local_shape(global_grid(), T)
+        for j in range(cad.cycle):
+            Tn = _plain_step(T, Cp, p, loc)
+            r = cad.retreats(j, ndim)
+            T = torch.where(_fresh_mask(loc, r), Tn, T) if any(r) else Tn
+            due = cad.due_dims(j, ndim)
+            if due:
+                T = local_update_halo(T, dims=due)
+        return T, Cp
+
+    return step, cad.cycle
+
+
+def make_run_deep(p: DiffusionParams, nt_chunk_super: int, ndim: int = 3,
+                  ensemble: int | None = None):
+    """The communication-avoiding runner: ``(T, Cp) = run(T, Cp)`` advances
+    ``nt_chunk_super`` super-steps (`deep_step`), each ``cycle`` physical
+    steps. The input is never written."""
+    from .common import make_state_runner
+
+    _reject_ensemble(ensemble)
+    step, _ = deep_step(p, ndim)
+    return make_state_runner(lambda state, spare: (step(state), None),
+                             nt_chunk=nt_chunk_super)
+
+
 def run_diffusion(T, Cp, p: DiffusionParams, nt: int, *, nt_chunk: int = 100,
                   impl: str | None = None, ensemble: int | None = None):
     """Advance ``nt`` steps and return the new ``T`` (the input is not
-    written). Returns after the device has drained."""
+    written). Returns after the device has drained. A deep ``comm_every``
+    cadence runs `make_run_deep` (``nt`` a multiple of its cycle)."""
     from .common import run_chunked
 
     _reject_ensemble(ensemble)
+    if resolve_comm_every(p.comm_every).deep:
+        return run_deep(lambda c: make_run_deep(p, c, T.dim()), (T, Cp), p, nt, nt_chunk,
+                        impl)[0]
     T, Cp = run_chunked(lambda c: make_run(p, c, T.dim(), impl), (T, Cp),
                         nt, nt_chunk)
     return T

@@ -28,9 +28,13 @@ Both run the two-buffer runner of `models/common.py` over the eight-tensor
 state (rhog is never written). `stokes_residuals` is the convergence
 monitor: the global (max |divV|, max |R|). A bfloat16 state takes the
 plain route (the gate gives it no fused route: JAX's Pallas route refuses
-it). Not ported yet (each raises `NotSupportedError`): a deep
-``comm_every`` cadence (`deep_step`, `make_stokes_run_deep`; every spelling
-of cadence 1 runs), ``ensemble``, and ``overlap=True`` on the plain route.
+it). With ``overlap=True`` the plain route goes interior-first
+(`models.common.interior_first_step`: shells of the 7 updated fields, the
+exchange of the first 4 on a side stream under the interior). A deep
+``comm_every`` cadence runs the masked super-step (`deep_step`,
+`make_stokes_run_deep`): a dependency radius of 2 an iteration, one
+7-field exchange (P, V, dV) per axis and k_d iterations. Not ported yet
+(raises `NotSupportedError`): ``ensemble``.
 """
 
 from __future__ import annotations
@@ -47,20 +51,22 @@ from ..ops.halo import local_update_halo
 from ..ops.wire import resolve_comm_every
 from ..parallel.topology import check_initialized, global_grid
 from ..tools import coords_g, nx_g, ny_g, nz_g
-from ..utils.exceptions import InvalidArgumentError, NotSupportedError
-from .common import reject_deep
+from ..utils.exceptions import InvalidArgumentError
+from .common import (
+    fresh_mask, interior_first_step, reject_comm_every, run_deep, validate_deep_halo,
+)
 from .diffusion import IMPLS, _local_shape, _reject_ensemble, _resolve_impl
 
 __all__ = ["StokesParams", "init_stokes3d", "stokes_step_local", "make_stokes_run",
            "make_stokes_run_deep", "deep_step", "run_stokes", "stokes_residuals"]
 
-_LATER = "a later slice of the PyTorch port"
-
 
 @dataclass(frozen=True)
 class StokesParams:
-    """Physics/numerics constants (the JAX package's fields; a deep
-    ``comm_every`` cadence is not ported yet)."""
+    """Physics/numerics constants (the JAX package's fields). ``overlap``
+    takes the plain route interior-first; ``comm_every`` is the deep-halo
+    cadence, on grids with ``halowidths[d] >= 2*k_d`` and ``overlaps[d] >=
+    4*k_d`` (the iteration's dependency radius is 2)."""
     mu: float       # shear viscosity
     dt_v: float     # pseudo time step, momentum
     dt_p: float     # pseudo time step, pressure
@@ -70,12 +76,6 @@ class StokesParams:
     dz: float
     comm_every: int | str = 1
     overlap: bool = False
-
-
-def check_supported(p: StokesParams) -> None:
-    """Raise `NotSupportedError` for the deep-halo cadence, which a later
-    slice ports."""
-    reject_deep(p.comm_every, "StokesParams")
 
 
 def init_stokes3d(*, mu=1.0, lx=10.0, ly=10.0, lz=10.0, rhog_mag=1.0, r_incl=1.0,
@@ -96,7 +96,6 @@ def init_stokes3d(*, mu=1.0, lx=10.0, ly=10.0, lz=10.0, rhog_mag=1.0, r_incl=1.0
     p = StokesParams(mu=mu, dt_v=min_d ** 2 / mu / 6.1 / 2.0, dt_p=6.1 * mu / n_max,
                      damp=1.0 - 6.0 / n_max, dx=dx, dy=dy, dz=dz,
                      comm_every=str(resolve_comm_every(comm_every)), overlap=overlap)
-    check_supported(p)
     P = zeros_g((nx, ny, nz), dtype=dtype)
     x, y, z = coords_g(dx, dy, dz, P)
     r2 = (x - lx / 2) ** 2 + (y - ly / 2) ** 2 + (z - lz / 2) ** 2
@@ -128,11 +127,28 @@ def _plain_step(state, p: StokesParams, block):
     return (Pn, Vx, Vy, Vz, dVx, dVy, dVz, state[7])
 
 
+def _overlap_step(state, p: StokesParams):
+    """The plain route interior-first: the 7 updated fields' shells, the
+    exchange of (Vx, Vy, Vz, Pn) on them under the interior update."""
+    consts = stokes_consts(p)
+
+    def pt_update(vx, vy, vz, Pc, dvx, dvy, dvz, rh):
+        blk = tuple(a.contiguous() for a in (Pc, vx, vy, vz, dvx, dvy, dvz, rh))
+        Pn, Vx, Vy, Vz, dVx, dVy, dVz = stokes_update_plain(
+            blk, block=tuple(Pc.shape), consts=consts, form="getter")
+        return Vx, Vy, Vz, Pn, dVx, dVy, dVz
+
+    P, Vx, Vy, Vz, dVx, dVy, dVz, rhog = state
+    Vx, Vy, Vz, Pn, dVx, dVy, dVz = interior_first_step(
+        pt_update, (Vx, Vy, Vz, P, dVx, dVy, dVz), (rhog,), radius=1, n_exchange=4)
+    return (Pn, Vx, Vy, Vz, dVx, dVy, dVz, rhog)
+
+
 def _resolve(state, p: StokesParams, impl: str):
     """The iteration on the current grid for states shaped like ``state``,
     as ``fn(state, out) -> state``: the fused route's `StokesStep` where
     ``impl`` is "cuda" and the gate admits the grid, else the plain route
-    (which ignores ``out``)."""
+    (interior-first with ``p.overlap``), which ignores ``out``."""
     gg = global_grid()
     block = _local_shape(gg, _check_state(state)[0])
     if impl == "cuda":
@@ -140,8 +156,7 @@ def _resolve(state, p: StokesParams, impl: str):
         if modes is not None:
             return StokesStep(gg, modes, p, block=block)
     if p.overlap:
-        raise NotSupportedError(
-            f"StokesParams(overlap=True) on the plain route is not ported yet ({_LATER}).")
+        return lambda st, out: _overlap_step(st, p)
     return lambda st, out: _plain_step(st, p, block)
 
 
@@ -152,7 +167,6 @@ def stokes_step_local(state, p: StokesParams, impl: str = "plain", out=None):
     ``out`` is a spare state the fused route may write into (it must not
     alias ``state``; its rhog is never written); the new state is returned
     either way, with the input's rhog."""
-    check_supported(p)
     if impl not in IMPLS:
         raise InvalidArgumentError(f"impl must be one of {IMPLS}; got {impl!r}.")
     state = tuple(state)
@@ -164,34 +178,89 @@ def make_stokes_run(p: StokesParams, nt_chunk: int, impl: str | None = None,
     """A runner advancing ``nt_chunk`` iterations: ``state = run(*state)``
     (pass ``donate=True`` to let it overwrite the input state). The route,
     the gate's modes and the constants are resolved once for the grid and
-    the state's shapes, not every iteration."""
+    the state's shapes, not every iteration. A deep cadence raises
+    `InvalidArgumentError`: use `run_stokes` or `make_stokes_run_deep`."""
     from .common import make_state_runner, resolve_once
 
+    reject_comm_every(p.comm_every, "StokesParams", "make_stokes_run",
+                      "run_stokes or make_stokes_run_deep")
     _reject_ensemble(ensemble)
-    check_supported(p)
     impl = _resolve_impl(impl)
     return make_state_runner(resolve_once(lambda state: _resolve(state, p, impl)),
                              nt_chunk=nt_chunk)
 
 
 def deep_step(p: StokesParams):
-    """The deep-halo super-step (``comm_every`` > 1): not ported yet."""
-    raise NotSupportedError(f"deep-halo stepping (comm_every) is not ported yet ({_LATER}).")
+    """The deep-halo PT super-step: ``cycle`` masked iterations of the plain
+    route, the 7-field exchange (P, Vx, Vy, Vz, dVx, dVy, dVz) issued per
+    axis when its cadence makes it due. Returns ``(step, cycle)``,
+    ``step(state) -> state`` on the stacked tensors.
+
+    Masks per dim ``d``, staleness ``r_d = j mod k_d`` (`common.fresh_mask`;
+    the dependency radius is 2 an iteration): P retreats ``2 r_d`` with base
+    0; V and dV retreat ``2 r_d + 1`` where ``r_d >= 1`` (0 on an axis that
+    just exchanged) with base 1 (they read this iteration's Pn and the edge
+    stresses one cell deeper). dV joins the exchange: the base scheme keeps
+    its band consistent by recomputing every face an iteration, which the
+    masks skip."""
+    import torch
+
+    check_initialized()
+    gg = global_grid()
+    cad = resolve_comm_every(p.comm_every)
+    validate_deep_halo(gg, 3, cad, depth_per_step=2)
+    consts = stokes_consts(p)
+
+    def step(state):
+        P, Vx, Vy, Vz, dVx, dVy, dVz, rhog = _check_state(state)
+        g = global_grid()
+        loc = _local_shape(g, P)
+        for j in range(cad.cycle):
+            r = cad.retreats(j)
+            Pn, *new = stokes_update_plain((P, Vx, Vy, Vz, dVx, dVy, dVz, rhog), block=loc,
+                                           consts=consts, form="getter")
+            if any(r):
+                Pn = torch.where(fresh_mask(loc, tuple(2 * x for x in r), (0, 0, 0), (0, 0, 0)),
+                                 Pn, P)
+                old = (Vx, Vy, Vz, dVx, dVy, dVz)
+                for s in range(3):
+                    m = fresh_mask(_local_shape(g, old[s]), tuple(2 * x + 1 if x else 0 for x in r),
+                                   (1, 1, 1), (1, 1, 1))
+                    new[s] = torch.where(m, new[s], old[s])
+                    new[s + 3] = torch.where(m, new[s + 3], old[s + 3])
+            P = Pn
+            Vx, Vy, Vz, dVx, dVy, dVz = new
+            due = cad.due_dims(j)
+            if due:
+                P, Vx, Vy, Vz, dVx, dVy, dVz = local_update_halo(
+                    P, Vx, Vy, Vz, dVx, dVy, dVz, dims=due)
+        return (P, Vx, Vy, Vz, dVx, dVy, dVz, rhog)
+
+    return step, cad.cycle
 
 
 def make_stokes_run_deep(p: StokesParams, nt_chunk_super: int, ensemble: int | None = None):
-    """The deep-halo runner (``comm_every`` > 1): not ported yet."""
-    raise NotSupportedError(f"deep-halo stepping (comm_every) is not ported yet ({_LATER}).")
+    """The deep-halo PT runner: ``state = run(*state)`` advances
+    ``nt_chunk_super`` super-steps (`deep_step`). The input is never
+    written."""
+    from .common import make_state_runner
+
+    _reject_ensemble(ensemble)
+    step, _ = deep_step(p)
+    return make_state_runner(lambda state, spare: (step(state), None),
+                             nt_chunk=nt_chunk_super)
 
 
 def run_stokes(state, p: StokesParams, nt: int, *, nt_chunk: int = 100,
                impl: str | None = None, ensemble: int | None = None):
     """Run ``nt`` PT iterations and return the new state (the input is not
-    written). Returns after the device has drained."""
+    written). Returns after the device has drained. A deep ``comm_every``
+    cadence runs `make_stokes_run_deep` (``nt`` a multiple of its cycle)."""
     from .common import run_chunked
 
     _reject_ensemble(ensemble)
-    check_supported(p)
+    if resolve_comm_every(p.comm_every).deep:
+        return run_deep(lambda c: make_stokes_run_deep(p, c), tuple(state), p, nt, nt_chunk, impl)
     return run_chunked(lambda c: make_stokes_run(p, c, impl), tuple(state), nt, nt_chunk)
 
 

@@ -145,13 +145,25 @@ def check_out(state, out, n, name):
     return out
 
 
+# const_tensors' results by values, dtype and device (never written)
+_CONSTS: dict = {}
+
+
 def const_tensors(consts, like):
     """The constants ``{name: value}`` as 0-d tensors of ``like``'s dtype and
-    device, so every operation of a plain version rounds as the kernel's."""
+    device, so every operation of a plain version rounds as the kernel's.
+    Made once per values, dtype and device, then shared (callers only read
+    them): a blocking copy to the card in every step would stall the host."""
     import torch
 
-    return {k: torch.tensor(float(v), dtype=like.dtype, device=like.device)
-            for k, v in consts.items()}
+    key = (tuple((k, float(v)) for k, v in consts.items()), like.dtype, like.device)
+    got = _CONSTS.get(key)
+    if got is None:
+        if len(_CONSTS) >= 64:
+            _CONSTS.clear()
+        got = _CONSTS[key] = {k: torch.tensor(float(v), dtype=like.dtype, device=like.device)
+                              for k, v in consts.items()}
+    return got
 
 
 def check_recvs(state, recvs, counts, out, name):

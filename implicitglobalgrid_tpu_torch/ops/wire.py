@@ -22,12 +22,13 @@ Quantized and cast wire formats are not ported: a non-None ``fmt`` raises
 
 `CommCadence` and `resolve_comm_every` are the exchange cadence (the
 ``comm_every`` knob, ``IGG_COMM_EVERY``) resolved as the JAX package
-resolves it; the models accept cadence 1 in any spelling and refuse a deep
-one, which is not ported.
+resolves it; a deep cadence runs the models' deep-halo super-steps
+(`models.diffusion.deep_step` and its acoustic and Stokes twins).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,14 +54,48 @@ class CommCadence:
 
     per_dim: tuple
 
+    def for_dim(self, dim: int) -> int:
+        """Cadence along grid dimension ``dim`` (dims beyond the cadence,
+        as a 2-D field's missing z, exchange every step)."""
+        if 0 <= int(dim) < len(self.per_dim):
+            return self.per_dim[int(dim)]
+        return 1
+
+    @property
+    def uniform(self):
+        """The single cadence when every dim shares one, else ``None``."""
+        return self.per_dim[0] if len(set(self.per_dim)) == 1 else None
+
     @property
     def deep(self) -> bool:
         """Whether any axis runs a deep-halo cadence (``k > 1``)."""
         return any(k > 1 for k in self.per_dim)
 
+    @property
+    def cycle(self) -> int:
+        """The super-cycle length, the lcm of the per-axis cadences: after
+        ``cycle`` sub-steps every axis has just exchanged, so a deep
+        runner's super-step advances this many physical steps."""
+        return math.lcm(*self.per_dim)
+
+    def retreats(self, j: int, ndim: int = 3) -> tuple:
+        """Per-dim staleness at sub-step ``j`` of a super-cycle: the
+        sub-steps since the last exchange along each dim (``j mod k_d``;
+        an exchange lands after each sub-step with ``(j+1) % k_d == 0``)."""
+        return tuple(int(j) % self.for_dim(d) for d in range(ndim))
+
+    def due_dims(self, j: int, ndim: int = 3, order=None) -> tuple:
+        """Grid dims whose exchange is due after sub-step ``j``, in the
+        exchange order (default z, x, y: `ops.halo.DEFAULT_DIMS_ORDER`)."""
+        if order is None:
+            from .halo import DEFAULT_DIMS_ORDER
+
+            order = DEFAULT_DIMS_ORDER
+        return tuple(d for d in order if d < ndim and (int(j) + 1) % self.for_dim(d) == 0)
+
     def __str__(self) -> str:
-        if len(set(self.per_dim)) == 1:
-            return str(self.per_dim[0])
+        if self.uniform is not None:
+            return str(self.uniform)
         parts = [f"{_DIM_NAMES[d]}:{k}" for d, k in enumerate(self.per_dim) if k != 1]
         return ",".join(parts) if parts else "1"
 

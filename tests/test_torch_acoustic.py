@@ -377,21 +377,29 @@ def test_init_matches_jax_bitwise(dtype):
 
 
 def test_unported_options_raise(monkeypatch):
-    tg.init_global_grid(8, 8, 8, dimx=2, dimy=2, dimz=2, nranks=8, device_type="cpu",
-                        quiet=True)
+    """``ensemble`` still raises `NotSupportedError`; ``overlap=True`` on the
+    plain route, `make_acoustic_run_deep` and the variable's deep cadence
+    (ported since) run and match the plain route bitwise."""
+    tg.init_global_grid(12, 12, 12, dimx=2, dimy=2, dimz=2, nranks=8, overlaps=(4, 4, 4),
+                        halowidths=(2, 2, 2), device_type="cpu", quiet=True)
     NS = tg.exceptions.NotSupportedError
-    with pytest.raises(NS):
-        init_acoustic3d(comm_every=2)
     state, p = init_acoustic3d(dtype=torch.float64, overlap=True)
+    state = tg.update_halo(*state)   # halos consistent with what they mirror
+    plain = dataclasses.replace(p, overlap=False)
+    ref = run_acoustic(state, plain, 2, impl="plain")
+
+    def same(got):
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+    same(run_acoustic(state, p, 2, impl="plain"))
+    fused = run_acoustic(state, plain, 1, impl="cuda")  # the fused route ignores overlap
+    assert all(torch.equal(a, b) for a, b in zip(run_acoustic(state, p, 1, impl="cuda"), fused))
     with pytest.raises(NS):
-        run_acoustic(state, p, 1, impl="plain")
-    run_acoustic(state, p, 1, impl="cuda")  # the fused route ignores overlap
-    with pytest.raises(NS):
-        run_acoustic(state, dataclasses.replace(p, overlap=False), 1, ensemble=2)
-    with pytest.raises(NS):
-        tac.make_acoustic_run_deep(p, 1)
+        run_acoustic(state, plain, 1, ensemble=2)
+    same(tac.make_acoustic_run_deep(dataclasses.replace(plain, comm_every=2), 1)(*state))
     monkeypatch.setenv("IGG_COMM_EVERY", "2")
-    with pytest.raises(NS):   # no comm_every: the variable's deep cadence
-        init_acoustic3d(dtype=torch.float64)
+    q = init_acoustic3d(dtype=torch.float64)[1]   # no comm_every: the variable's cadence
+    assert q.comm_every == "2"
+    same(run_acoustic(state, q, 2))
     # an explicit cadence 1 (the params' own) wins over the variable, as in JAX
-    run_acoustic(state, dataclasses.replace(p, overlap=False), 1)
+    same(run_acoustic(state, plain, 2, impl="plain"))

@@ -110,17 +110,27 @@ def test_state_from_numpy_round_trip():
 
 
 def test_unported_options_raise():
-    tg.init_global_grid(8, 8, 8, device_type="cpu", quiet=True)
+    """``sr`` and ``ensemble`` still raise `NotSupportedError`; ``overlap``
+    and a deep ``comm_every`` (ported since) run, from ``init_diffusion3d``
+    and from `state_from_numpy`, and match the plain route bitwise."""
+    tg.init_global_grid(12, 8, 8, periodx=1, overlaps=(4, 2, 2), halowidths=(2, 1, 1),
+                        device_type="cpu", quiet=True)
     NS = tg.exceptions.NotSupportedError
-    for kw in (dict(overlap=True), dict(sr=True), dict(comm_every=2)):
-        with pytest.raises(NS):
-            init_diffusion3d(**kw)
+    with pytest.raises(NS):
+        init_diffusion3d(sr=True)
     T, Cp, p = init_diffusion3d()
+    T, Cp = tg.update_halo(T, Cp)   # halos consistent with what they mirror
+    ref = run_diffusion(T, Cp, p, 2, impl="plain")
+    for kw in (dict(overlap=True), dict(comm_every=2)):
+        q = init_diffusion3d(**kw)[2]
+        assert torch.equal(run_diffusion(T, Cp, q, 2, impl="plain"), ref), kw
     with pytest.raises(NS):
         run_diffusion(T, Cp, p, 2, ensemble=2)
+    t, c, q = state_from_numpy(to_np(T), to_np(Cp), dict(dataclasses.asdict(p),
+                                                         comm_every="x:2"), "cpu")
+    assert q.comm_every == "x:2" and torch.equal(run_diffusion(t, c, q, 2), ref)
     with pytest.raises(NS):
-        state_from_numpy(to_np(T), to_np(Cp), dict(dataclasses.asdict(p),
-                                                   comm_every="z:2"), "cpu")
+        state_from_numpy(to_np(T), to_np(Cp), dict(dataclasses.asdict(p), sr=True), "cpu")
     with pytest.raises(tg.exceptions.InvalidArgumentError):
         run_diffusion(T, Cp, p, 2, impl="pallas")
 

@@ -19,6 +19,10 @@ virtual mesh's. The tests read those results:
   4 fields), also with halowidth 2, ``disp`` 2 and a non-periodic dim;
 - a few steps of diffusion (3-D and 2-D), acoustic and Stokes through the
   fused and the plain routes, and `stokes_residuals`;
+- the plain routes with ``overlap=True`` (diffusion, acoustic, Stokes), and
+  deep cadences (diffusion and acoustic at 2, diffusion at ``"z:2"``), whose
+  masks take each block's global coordinate; with z split, ``"z:2"`` sends
+  half the z messages of cadence 1;
 - `tic`/`toc` spanning the processes.
 """
 
@@ -56,6 +60,8 @@ CHECKS = [
     "models/acoustic_plain", "models/stokes_fused", "models/stokes_plain",
     "models/stokes_residuals", "models/stokes_interior",
     "models_2d/diffusion2d_fused", "models_2d/diffusion2d_plain",
+    "overlap/diffusion", "overlap/acoustic", "overlap/stokes",
+    "deep/diffusion", "deep/acoustic", "deep/diffusion_1", "deep/diffusion_z2",
 ]
 
 _RESULTS: dict = {}
@@ -156,6 +162,16 @@ def test_encoded_field_restored(config, tmp_path_factory):
 def test_halos_went_over_the_transport(config, tmp_path_factory):
     for pid, v in _each(config, tmp_path_factory, "halo_g1/messages"):
         assert v > 0, pid
+
+
+def test_per_axis_cadence_halves_z_messages(tmp_path_factory):
+    """With z split across the processes (the "z" layout), 4 steps at
+    ``comm_every="z:2"`` send half the transport's messages of cadence 1:
+    only z crosses processes, and it exchanges every other step."""
+    for pid, r in enumerate(results("z_2", tmp_path_factory)):
+        assert "error" not in r, r.get("error")
+        assert r["deep/messages_1"] > 0, pid
+        assert 2 * r["deep/messages_z2"] == r["deep/messages_1"], (pid, r["deep/messages_z2"])
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))

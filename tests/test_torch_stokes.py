@@ -220,26 +220,44 @@ def test_mesh_iteration_makes_one_slab_call_a_dim(monkeypatch):
 
 
 def test_unported_options_raise(monkeypatch):
-    tg.init_global_grid(8, 8, 8, dimx=2, dimy=2, dimz=2, nranks=8, device_type="cpu",
+    """``ensemble`` still raises `NotSupportedError`; ``overlap=True`` on the
+    plain route, `deep_step`, `make_stokes_run_deep` and the variable's deep
+    cadence (ported since) run and match the plain route bitwise (P and V:
+    dV's halos are undefined state in the base scheme)."""
+    tg.init_global_grid(12, 12, 12, dimx=2, dimy=2, dimz=2, nranks=8, device_type="cpu",
                         quiet=True)
     NS = tg.exceptions.NotSupportedError
-    with pytest.raises(NS):
-        init_stokes3d(comm_every=2)
     state, p = init_stokes3d(dtype=torch.float64, overlap=True)
+    plain = dataclasses.replace(p, overlap=False)
+    ref = run_stokes(state, plain, 2, impl="plain")
+    assert all(torch.equal(a, b) for a, b in zip(run_stokes(state, p, 2, impl="plain"), ref))
+    fused = run_stokes(state, plain, 1, impl="cuda")  # the fused route ignores overlap
+    assert all(torch.equal(a, b) for a, b in zip(run_stokes(state, p, 1, impl="cuda"), fused))
     with pytest.raises(NS):
-        run_stokes(state, p, 1, impl="plain")
-    run_stokes(state, p, 1, impl="cuda")  # the fused route ignores overlap
-    with pytest.raises(NS):
-        run_stokes(state, dataclasses.replace(p, overlap=False), 1, ensemble=2)
-    with pytest.raises(NS):
-        tst.make_stokes_run_deep(p, 1)
-    with pytest.raises(NS):
-        tst.deep_step(p)
+        run_stokes(state, plain, 1, ensemble=2)
+    tg.finalize_global_grid()
+    # the iteration's radius is 2: k = 2 needs halowidth 4
+    tg.init_global_grid(12, 12, 12, dimx=2, dimy=2, dimz=2, nranks=8, overlaps=(8, 8, 8),
+                        halowidths=(4, 4, 4), device_type="cpu", quiet=True)
+    state, p = init_stokes3d(dtype=torch.float64)
+    state = tg.update_halo(*state)   # halos consistent with what they mirror
+    ref = run_stokes(state, p, 2, impl="plain")
+
+    def same(got):
+        assert all(np.array_equal(tg.gather_interior(a), tg.gather_interior(b))
+                   for a, b in zip(got[:4], ref[:4]))
+
+    deep = dataclasses.replace(p, comm_every=2)
+    same(tst.make_stokes_run_deep(deep, 1)(*state))
+    step, cycle = tst.deep_step(deep)
+    assert cycle == 2
+    same(step(state))
     monkeypatch.setenv("IGG_COMM_EVERY", "2")
-    with pytest.raises(NS):   # no comm_every: the variable's deep cadence
-        init_stokes3d(dtype=torch.float64)
+    q = init_stokes3d(dtype=torch.float64)[1]   # no comm_every: the variable's cadence
+    assert q.comm_every == "2"
+    same(run_stokes(state, q, 2))
     # an explicit cadence 1 (the params' own) wins over the variable, as in JAX
-    run_stokes(state, dataclasses.replace(p, overlap=False), 1)
+    same(run_stokes(state, p, 2, impl="plain"))
 
 
 def test_stokes_wrappers_refuse_bad_arguments():

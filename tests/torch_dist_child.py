@@ -9,6 +9,7 @@ and the gathers' results on root against the virtual mesh's gathers; it
 writes ``{case: "ok" | reason}`` to ``<outdir>/<pid>.json``.
 """
 
+import dataclasses
 import json
 import os
 import pathlib
@@ -43,6 +44,14 @@ G2 = dict(nx=10, ny=10, nz=10, dimx=4, dimy=1, dimz=2, periody=1, periodz=1,
           overlaps=(4, 4, 4), halowidths=(2, 2, 2), disp=2)
 # a 2-D grid of 4x2 ranks (plain order)
 G3 = dict(nx=8, ny=8, nz=1, periodx=1)
+# 2x2x2 blocks of 8^3, z non-periodic, split as G0: blocks thick enough for
+# the shells of the interior-first steps (overlap 2, radius 1)
+G4 = dict(nx=8, ny=8, nz=8, dimx=2, dimy=2, dimz=2, periodx=1, periody=1)
+# 2x2x2 blocks of 9^3, halowidth 2 and overlap 4 (a cadence of 2), z
+# non-periodic, split as G0: the deep-halo runs, whose masks need each
+# block's global coordinate (a process's box need not start at 0)
+G5 = dict(nx=9, ny=9, nz=9, dimx=2, dimy=2, dimz=2, periodx=1, periody=1,
+          overlaps=(4, 4, 4), halowidths=(2, 2, 2))
 DCN_G2 = {"": "", "z": "z", "y,z": "x"}[DCN]
 
 
@@ -168,6 +177,32 @@ def case_models_2d():
                                                               impl="plain"))}
 
 
+def case_overlap():
+    """The three models' plain routes with ``overlap=True``."""
+    T, Cp, p = models.init_diffusion3d(dtype=torch.float64, overlap=True)
+    s, q = models.init_acoustic3d(dtype=torch.float64, overlap=True)
+    st, sp = models.init_stokes3d(dtype=torch.float64, overlap=True)
+    return {"diffusion": ("box", models.run_diffusion(T, Cp, p, 3, nt_chunk=3, impl="plain")),
+            "acoustic": ("boxes", models.run_acoustic(s, q, 2, nt_chunk=2, impl="plain")),
+            "stokes": ("boxes", models.run_stokes(st, sp, 2, nt_chunk=2, impl="plain")[:7])}
+
+
+def case_deep():
+    """Diffusion and acoustic at ``comm_every=2``; diffusion at cadence 1 and
+    ``"z:2"`` on the same grid, with the transport's messages of each."""
+    tr = tg.global_grid().transport
+    T, Cp, p = models.init_diffusion3d(dtype=torch.float64, comm_every=2)
+    s, q = models.init_acoustic3d(dtype=torch.float64, comm_every=2)
+    out = {"diffusion": ("box", models.run_diffusion(T, Cp, p, 4, nt_chunk=4)),
+           "acoustic": ("boxes", models.run_acoustic(s, q, 4, nt_chunk=4))}
+    for name, ce in (("1", 1), ("z2", "z:2")):
+        tr.reset_stats()
+        out[f"diffusion_{name}"] = ("box", models.run_diffusion(
+            T, Cp, dataclasses.replace(p, comm_every=ce), 4, nt_chunk=4, impl="plain"))
+        out[f"messages_{name}"] = ("proc", tr.stats["messages"])
+    return out
+
+
 def case_timing():
     tg.tic()
     if tg.global_grid().me == 1:
@@ -178,7 +213,8 @@ def case_timing():
 CASES = [("layout", G0, DCN, case_layout), ("encoded", G0, DCN, case_encoded),
          ("gather", G1, DCN, case_gather), ("halo_g1", G1, DCN, case_halo_g1),
          ("halo_g2", G2, DCN_G2, case_halo_g2), ("models", G1, DCN, case_models),
-         ("models_2d", G3, "", case_models_2d), ("timing", G1, DCN, case_timing)]
+         ("models_2d", G3, "", case_models_2d), ("overlap", G4, DCN, case_overlap),
+         ("deep", G5, DCN, case_deep), ("timing", G1, DCN, case_timing)]
 
 
 def run(grid_kw, dcn, fn, **init):

@@ -38,3 +38,30 @@ def init_both(*args, nranks=8, **kw):
 
     igg.init_global_grid(*args, quiet=True, **kw)
     tg.init_global_grid(*args, quiet=True, nranks=nranks, device_type="cpu", **kw)
+
+
+def stacked_from_global_index(n, ol, dims, periods, fn):
+    """A whole-grid stacked numpy array whose every cell is ``fn(gx, gy, gz)``
+    of its INTEGER global index (`tests/test_comm_avoid.py`'s
+    `_stacked_per_dim`): the same value lands on the same physical cell
+    whatever the overlap, so halos, overlapping faces of staggered fields and
+    two decompositions of one implicit grid all start consistent. Per dim:
+    ``g = ix + b*(n-ol)``; a periodic dim shifts by one ghost cell and wraps
+    ``g`` modulo the global size. ``n`` and ``ol`` are per dim; a staggered
+    field passes ``n + 1`` and ``ol + 1`` along its face dim."""
+    S = np.zeros(tuple(d * m for d, m in zip(dims, n)))
+
+    def gidx(b, d):
+        g = np.arange(n[d]) + b * (n[d] - ol[d])
+        if periods[d]:
+            g = (g - 1) % (dims[d] * (n[d] - ol[d]))
+        return g
+
+    for bx in range(dims[0]):
+        for by in range(dims[1]):
+            for bz in range(dims[2]):
+                S[bx * n[0]:(bx + 1) * n[0], by * n[1]:(by + 1) * n[1],
+                  bz * n[2]:(bz + 1) * n[2]] = fn(
+                      gidx(bx, 0)[:, None, None], gidx(by, 1)[None, :, None],
+                      gidx(bz, 2)[None, None, :])
+    return S
