@@ -87,7 +87,25 @@ Phases, in order; any failure exits non-zero without the final line:
    route, the device's busy time, and the hidden share of the exchange (the
    side stream's device time under the other streams' work, from the
    torch.profiler trace by stream);
-13. the transport: two processes of this script (``--transport-child``)
+13. the halo wire formats (``wire_dtype`` / ``IGG_HALO_WIRE_DTYPE``) and
+   stochastic-rounding storage: `update_halo` on the 2x2x2 mesh of 128^3
+   blocks, periodic and mixed, under bfloat16, float16, int8, int4 and
+   ``"z:int8,x:float32"``: config 4's (P, Vx, Vy, Vz) group (K8 + K7) and one
+   field (K4s + K2 under a cast, K8 + K7 quantized), bitwise against the
+   kernels' plain versions, a NaN in one send slab arriving as a wholly NaN
+   slab, ms beside the exact wire's and the device's busy time outside the
+   kernels (the codec); the fused routes of config 3's, config 4's and
+   config 5's meshes under int8 and bfloat16 against the kernels' plain
+   versions and the plain route under the same wire, their distance from
+   the exact wire's run, ms a step beside the exact wire's (config 4 under
+   int8, whose two routes quantize different slabs as the JAX package's own
+   two tiers do, held to the plain route within `INT8_LEVELS_A_STEP` int8
+   levels a step); the int8 wire's
+   drift at bench_f64_accuracy.py's configuration (2x2x2 x 48^3, 400 steps)
+   under 0.02; sr=True bfloat16 against float32 (within 0.05 and a fifth of
+   plain bfloat16's error), one seed reproducible and another different, and
+   the sr step's ms beside plain bfloat16's on the 128^3 mesh;
+14. the transport: two processes of this script (``--transport-child``)
    share cuda:0 in a gloo process group (NCCL refuses two processes on one
    card), the grids split along z (``IGG_TPU_DCN_AXES=z``, a 2x2x1 box
    each): config 3 (20 fused steps, K4s + K4, then `update_halo`, K4s +
@@ -95,12 +113,14 @@ Phases, in order; any failure exits non-zero without the final line:
    coalesced `update_halo(P, Vx, Vy, Vz)`, K8 + K7), config 5's mesh
    (20 iterations, K4s Stokes modes + K10, and `stokes_residuals`) and
    phase 12's diffusion mesh (10 plain-route steps without and with
-   ``overlap=True``, 10 at ``comm_every=2`` on the halowidth-2 grid), each
-   gathered to process 0 and held bitwise against phases 6, 9, 11 and 12's
-   runs of the same steps on the virtual mesh; per step the wall ms, the
-   wire bytes, the exchange's and gloo's host staging ms, beside the
+   ``overlap=True``, 10 at ``comm_every=2`` on the halowidth-2 grid), and
+   under int8 and bfloat16 config 3's fused steps and config 4's coalesced
+   `update_halo`, each gathered to process 0 and held bitwise against
+   phases 6, 9, 11, 12 and 13's runs of the same steps on the virtual mesh;
+   per step the wall ms, the wire bytes (under a wire format beside the
+   exact wire's), the exchange's and gloo's host staging ms, beside the
    virtual mesh's step;
-14. numbers: the card's name and power limit, each kernel's time, bound,
+15. numbers: the card's name and power limit, each kernel's time, bound,
    plain and library times (one JSON line), cell-updates/s, host against
    device time per step of the fused routes, and the main paths' K4s
    launches by mode and dim.
@@ -108,7 +128,7 @@ Phases, in order; any failure exits non-zero without the final line:
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 nothing of JAX. It needs one card and exits non-zero without CUDA or
 without the package beside it. ``--transport-child <pid> <port>`` runs one
-process of phase 13 (the script starts them itself).
+process of phase 14 (the script starts them itself).
 """
 
 import json
@@ -2676,6 +2696,405 @@ TRANSPORT_PROCS = 2
 TRANSPORT_TIMEOUT = 600  # seconds, for the two processes together
 
 
+WIRE_FORMATS = ("bfloat16", "float16", "int8", "int4", "z:int8,x:float32")
+FUSED_WIRES = ("int8", "bfloat16")  # the fused routes' and the transport's formats
+WIRE_STEPS = {"config3": 20, "config4": 10, "config5": 20}
+TRANSPORT_WIRE_STEPS = 5  # config 3's fused steps across the processes, each format
+DRIFT_N, DRIFT_STEPS = 48, 400  # bench_f64_accuracy.py's configuration
+INT8_WIRE_MAX_REL = 0.02  # the JAX package's documented drift bound of the int8 wire
+SR_MAX_REL = 0.05  # tests/test_precision.py's bound on the stochastic-rounding run
+SR_SEED_STEPS = 50
+# Where a model's fused and plain routes quantize different slabs under int8
+# (config 4's acoustic leapfrog, as the JAX package's own two tiers do), the
+# two routes' runs are held to one int8 level of the largest field a step,
+# nt * max|field| / 127: each exchange leaves a halo cell within half a
+# level of its source in either route, so the routes part by at most one
+# level a step before the stable update spreads it (PERF.md §6).
+INT8_LEVELS_A_STEP = 1.0
+
+
+class wire_env:
+    """``IGG_HALO_WIRE_DTYPE`` set to ``fmt`` (None: unset) while inside."""
+
+    def __init__(self, fmt):
+        self.fmt = fmt
+
+    def __enter__(self):
+        self.saved = os.environ.pop("IGG_HALO_WIRE_DTYPE", None)
+        if self.fmt is not None:
+            os.environ["IGG_HALO_WIRE_DTYPE"] = self.fmt
+
+    def __exit__(self, *exc):
+        os.environ.pop("IGG_HALO_WIRE_DTYPE", None)
+        if self.saved is not None:
+            os.environ["IGG_HALO_WIRE_DTYPE"] = self.saved
+
+
+class plain_versions:
+    """The kernels' plain versions on the card: the wrappers of ``mods``
+    take every tensor for a CPU tensor while inside."""
+
+    def __init__(self, *mods):
+        self.mods = mods
+
+    def __enter__(self):
+        self.saved = [m._on_card for m in self.mods]
+        for m in self.mods:
+            m._on_card = lambda t: False
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.saved):
+            m._on_card = f
+
+
+def _bits_equal(a, b):
+    """Bitwise equality of two tensors (NaN payloads included)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    iv = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.contiguous().view(iv), b.contiguous().view(iv))
+
+
+def _rel(a, b):
+    """max |a - b| / max |b| of two host arrays."""
+    import numpy as np
+
+    return float(np.abs(a.astype(np.float64) - b).max() / np.abs(b).max())
+
+
+def wire_update_halo(tg, cb, n):
+    """Part 1 of the wire phase: `update_halo` on the 2x2x2 virtual mesh of
+    ``n``^3 blocks, periodic and mixed, under every format of
+    `WIRE_FORMATS`: config 4's staggered (P, Vx, Vy, Vz) group (K8 + K7) and
+    one field (K4s + K2 under a cast, K8 + K7 quantized), each bitwise
+    against the kernels' plain versions on the card (``IGG_USE_PALLAS=0``);
+    a NaN in one send slab arrives as a wholly NaN slab under int8 and int4;
+    ms of each call beside the exact wire's, and the share of the device's
+    busy time outside the port's kernels (the codec: casts, reductions,
+    copies)."""
+    import torch
+
+    out, launches, checks = {}, {}, []
+    for label, periods in (("periodic", (1, 1, 1)), ("mixed", (1, 0, 1))):
+        kw = dict(dimx=2, dimy=2, dimz=2, periodx=periods[0], periody=periods[1],
+                  periodz=periods[2])
+        g = torch.Generator(device="cuda").manual_seed(41)
+        group = [rand_field(tuple(2 * s for s in staggered_loc(n, f)), torch.float32, g)
+                 for f in ("P", "Vx", "Vy", "Vz")]
+        one = rand_field((2 * n,) * 3, torch.float32, g)
+        nan = one.clone()
+        nan[n - 2, 5, 7] = float("nan")  # block (0,0,0)'s right send slab along x
+        got = {}
+        rec = out[label] = {}
+        for plain in (False, True):
+            grid(tg, n, n, n, plain=plain, **kw)
+            for fmt in ("off",) + WIRE_FORMATS:
+                cb.reset_launch_counts()
+                U = tg.update_halo(*[a.clone() for a in group], wire_dtype=fmt)
+                S = tg.update_halo(one.clone(), wire_dtype=fmt)
+                torch.cuda.synchronize()
+                c = cb.launch_counts()
+                got[plain, fmt] = (U, S)
+                if plain:
+                    continue
+                for k, v in c.items():
+                    launches[k] = launches.get(k, 0) + v
+                r = rec[fmt] = dict(launches={k: v for k, v in c.items() if v})
+                ug = [a.clone() for a in group]
+                us = one.clone()
+                r["group_ms"] = median_ms(lambda: tg.update_halo(*ug, wire_dtype=fmt))
+                r["one_ms"] = median_ms(lambda: tg.update_halo(us, wire_dtype=fmt))
+                t = route_times(lambda: tg.update_halo(*ug, wire_dtype=fmt), reps=5)
+                busy = busy_ms(lambda: tg.update_halo(*ug, wire_dtype=fmt))
+                r["group_device_ms"] = t["device_ms_per_step"]
+                r["group_busy_ms"] = busy
+                r["group_codec_share"] = (None if not busy or t["device_ms_per_step"] is None
+                                          else 1 - t["device_ms_per_step"] / busy)
+                if fmt in ("int8", "int4"):
+                    A = tg.update_halo(nan.clone(), dims=(0,), wire_dtype=fmt)
+                    poisoned = bool(torch.isnan(A[n, :n, :n]).all())
+                    rest = torch.isfinite(A)
+                    rest[n, :n, :n] = True
+                    rest[n - 2, 5, 7] = True
+                    checks.append((poisoned and bool(rest.all()),
+                                   f"wire {label} {fmt}: a NaN in one send slab arrives as "
+                                   "a wholly NaN slab, every other halo finite"))
+        for fmt in WIRE_FORMATS:
+            U, E = got[False, fmt][0], got[False, "off"][0]
+            checks.append((any(not _bits_equal(a, b) for a, b in zip(U, E)),
+                           f"wire {label} {fmt}: the group's halos differ from the exact "
+                           "wire's"))
+        for fmt in ("off",) + WIRE_FORMATS:
+            (Uk, Sk), (Up, Sp) = got[False, fmt], got[True, fmt]
+            same = all(_bits_equal(a, b) for a, b in zip(Uk + (Sk,), Up + (Sp,)))
+            checks.append((same, f"wire {label} {fmt}: update_halo of the group and of one "
+                                 "field bitwise the kernels' plain versions'"))
+        del got
+        routes = {f: rec[f]["launches"] for f in ("off",) + WIRE_FORMATS}
+        checks.append((routes["int8"].get("wire_pack") == 6
+                       and routes["int8"].get("halo_write_multi") == 6
+                       and "halo_write" not in routes["int8"],
+                       f"wire {label} int8: the group and the lone field on K8 + K7, a dim"))
+        checks.append((routes["bfloat16"].get("wire_pack") == 3
+                       and routes["bfloat16"].get("halo_write") == 3
+                       and routes["bfloat16"].get("exchange_slabs") == 3
+                       and "halo_write_combined" not in routes["bfloat16"],
+                       f"wire {label} bfloat16: the group on K8 + K7, the lone field on "
+                       "K4s + K2 (no K6 under a wire)"))
+        print(f"  wire update_halo {label}: " + json.dumps(rec), flush=True)
+    tg.finalize_global_grid()
+    os.environ.pop("IGG_USE_PALLAS", None)
+    return launches, out, checks
+
+
+def _wire_model_runs(tg, cb, name, n, kw, init, run, mods, tol, bitwise, step_fn,
+                     route_levels=()):
+    """Part 2 of the wire phase for one model: its fused route on the 2x2x2
+    mesh under each of `FUSED_WIRES` (``IGG_HALO_WIRE_DTYPE``), against the
+    kernels' plain versions on the card under the same wire (bitwise where
+    the kernels are, else ``tol``) and against the plain route under the
+    same wire (``tol``); the distance from the exact wire's run; ms a step
+    beside the exact wire's. Under the quantized formats of
+    ``route_levels`` the two routes quantize different slabs, as the JAX
+    package's own two tiers do: there the fused run is held to the plain
+    route's within `INT8_LEVELS_A_STEP` levels a step, and the plain
+    route's run differs from its exact-wire run by no more than that.
+    Returns (launches, record, checks, the exact run's state, the initial
+    state)."""
+    import torch
+
+    nt = WIRE_STEPS[name]
+    grid(tg, n, n, n, **kw)
+    s0, p = init()
+    s_exact = run(s0, p, nt)
+    rec, checks, launches, fused = {}, [], {}, {}
+    with wire_env("off"):
+        rec["exact_step"] = route_times(step_fn(s0, p), reps=5)
+    for fmt in FUSED_WIRES:
+        with wire_env(fmt):
+            cb.reset_launch_counts()
+            s = run(s0, p, nt)
+            torch.cuda.synchronize()
+            c = cb.launch_counts()
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+            with plain_versions(*mods):
+                sp = run(s0, p, nt)
+            fused[fmt] = s
+            r = rec[fmt] = dict(launches={k: v for k, v in c.items() if v})
+            r["step"] = route_times(step_fn(s0, p), reps=5)
+            if bitwise:
+                ok = all(_bits_equal(a, b) for a, b in zip(s, sp))
+            else:
+                ok = all(close(a, b, **tol) for a, b in zip(s, sp))
+            r["max_abs_err_vs_plain_versions"] = max(max_err(a, b) for a, b in zip(s, sp))
+            r["max_abs_dist_from_exact_wire"] = max(max_err(a, b) for a, b in zip(s, s_exact))
+            checks.append((ok, f"wire {name} {fmt}: {nt} fused steps "
+                               f"{'bitwise' if bitwise else 'within tolerance of'} the "
+                               "kernels' plain versions on the card"))
+            checks.append((r["max_abs_dist_from_exact_wire"] > 0,
+                           f"wire {name} {fmt}: the run differs from the exact wire's "
+                           f"({r['max_abs_dist_from_exact_wire']!r})"))
+            del sp
+    grid(tg, n, n, n, plain=True, **kw)
+    if route_levels:
+        with wire_env("off"):
+            sp_exact = run(s0, p, nt)
+        level = max(float(a.abs().max()) for a in tuple(s0) + tuple(s_exact)) / 127
+        rec["int8_level"] = level
+    for fmt in FUSED_WIRES:
+        with wire_env(fmt):
+            sp = run(s0, p, nt)
+        err = max(max_err(a, b) for a, b in zip(fused[fmt], sp))
+        rec[fmt]["max_abs_err_vs_plain_route"] = err
+        if fmt in route_levels:
+            budget = INT8_LEVELS_A_STEP * nt * level
+            own = max(max_err(a, b) for a, b in zip(sp, sp_exact))
+            rec[fmt]["plain_route_dist_from_exact_wire"] = own
+            rec[fmt]["levels_a_step_vs_plain_route"] = err / (nt * level)
+            checks.append((err <= budget,
+                           f"wire {name} {fmt}: {nt} fused steps {err!r} from the plain route "
+                           f"under the same wire, within {INT8_LEVELS_A_STEP} int8 level a "
+                           f"step ({budget!r})"))
+            checks.append((0 < own <= budget,
+                           f"wire {name} {fmt}: the plain route's run {own!r} from its exact "
+                           f"wire's, non-zero and within the same budget"))
+        else:
+            checks.append((all(close(a, b, **tol) for a, b in zip(fused[fmt], sp)),
+                           f"wire {name} {fmt}: {nt} fused steps match the plain route under "
+                           f"the same wire ({err!r})"))
+        del sp
+    grid(tg, n, n, n, **kw)
+    print(f"  wire {name}: " + json.dumps(rec), flush=True)
+    return launches, rec, checks, s_exact, (s0, p)
+
+
+def wire_fused_routes(tg, models, cb):
+    """Part 2 of the wire phase: config 3's diffusion mesh (float64), config
+    4's acoustic mesh and config 5's Stokes mesh under int8 and bfloat16
+    (`_wire_model_runs`); the transport phase's references (config 3's
+    fused steps under each format, config 4's coalesced update_halo under
+    each format after 10 exact steps)."""
+    import torch
+
+    from implicitglobalgrid_tpu_torch.ops import cuda_halo, cuda_stencil, cuda_stokes, cuda_wave
+
+    launches, rec, checks, refs = {}, {}, [], {}
+
+    def add(c):
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+
+    per = dict(dimx=2, dimy=2, dimz=2, periodx=1, periody=1, periodz=1)
+
+    def diff_init():
+        T, Cp, p = models.init_diffusion3d(dtype=torch.float64)
+        return (T, Cp), p
+
+    def diff_run(s, p, nt):
+        return (models.run_diffusion(s[0], s[1], p, nt, nt_chunk=nt),)
+
+    def diff_step(s, p):
+        step = models.make_step(p)
+        return lambda: step(*s)
+
+    c, rec["config3"], ch_, _, (s0, p) = _wire_model_runs(
+        tg, cb, "config3", N_CFG3, per, diff_init, diff_run, (cuda_stencil, cuda_halo),
+        F64_RUN_TOL, False, diff_step)
+    add(c)
+    checks += ch_
+    for fmt in FUSED_WIRES:
+        with wire_env(fmt):
+            refs[f"wire_config3_{fmt}_T"] = tg.gather(models.run_diffusion(
+                s0[0], s0[1], p, TRANSPORT_WIRE_STEPS, nt_chunk=TRANSPORT_WIRE_STEPS))
+    del s0
+    tg.finalize_global_grid()
+
+    def ac_init():
+        return models.init_acoustic3d(dtype=torch.float32)
+
+    def ac_run(s, p, nt):
+        return models.run_acoustic(s, p, nt, nt_chunk=nt)
+
+    def ac_step(s, p):
+        return _acoustic_step(tg, cuda_wave, s, p)
+
+    # under int8 the acoustic fused and plain routes quantize different slabs,
+    # as the JAX package's pallas and xla tiers do (`tests/test_torch_wire_models.py::
+    # test_acoustic_int8_tiers_differ_as_jax_tiers`; each port route is held to its
+    # JAX tier there): held to a budget of int8 levels here
+    c, rec["config4"], ch_, s10, _ = _wire_model_runs(
+        tg, cb, "config4", N_CFG4, per, ac_init, ac_run, (cuda_wave,), RUN_TOL, True, ac_step,
+        route_levels=("int8",))
+    add(c)
+    checks += ch_
+    for fmt in FUSED_WIRES:
+        U = tg.update_halo(*[a.clone() for a in s10], wire_dtype=fmt)
+        for f, a in zip(("P", "Vx", "Vy", "Vz"), U):
+            refs[f"wire_config4_{fmt}_{f}"] = tg.gather(a)
+        del U
+    del s10
+    tg.finalize_global_grid()
+
+    def st_init():
+        return models.init_stokes3d(dtype=torch.float32)
+
+    def st_run(s, p, nt):
+        return models.run_stokes(s, p, nt, nt_chunk=nt)
+
+    def st_step(s, p):
+        return _stokes_iteration(tg, cuda_stokes, s, p)
+
+    stokes_tol = dict(rtol=1e-4, atol=1e-5)  # config 5 mesh's bound against the plain route
+    c, rec["config5"], ch_, _, _ = _wire_model_runs(
+        tg, cb, "config5", N_CFG5, dict(dimx=2, dimy=2, dimz=2), st_init, st_run,
+        (cuda_stokes,), stokes_tol, True, st_step)
+    add(c)
+    checks += ch_
+    tg.finalize_global_grid()
+    return launches, rec, checks, refs
+
+
+def wire_accuracy(tg, models, cb):
+    """Parts 3 and 4 of the wire phase at bench_f64_accuracy.py's
+    configuration (2x2x2 blocks of 48^3, periodic, 400 steps): the int8
+    wire's drift from the exact wire (float32, the kernel route) under the
+    documented 0.02; stochastic-rounding bfloat16 storage (sr=True) against
+    the float32 run, within 0.05 and a fifth of plain bfloat16's error; one
+    seed bitwise reproducible, another different; then the sr step's ms
+    beside the plain bfloat16 step's on the 2x2x2 mesh of 128^3 blocks."""
+    import numpy as np
+    import torch
+
+    rec, checks, launches = {}, [], {}
+    n = DRIFT_N
+    grid(tg, n, n, n, dimx=2, dimy=2, dimz=2, periodx=1, periody=1, periodz=1)
+    cb.reset_launch_counts()
+    T, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    with wire_env("off"):
+        exact = tg.gather_interior(models.run_diffusion(T, Cp, p, DRIFT_STEPS, nt_chunk=100))
+    with wire_env("int8"):
+        q8 = tg.gather_interior(models.run_diffusion(T, Cp, p, DRIFT_STEPS, nt_chunk=100))
+    with wire_env("z:int8"):
+        z8 = tg.gather_interior(models.run_diffusion(T, Cp, p, DRIFT_STEPS, nt_chunk=100))
+    rec["int8_drift"], rec["z_int8_drift"] = _rel(q8, exact), _rel(z8, exact)
+    checks.append((0 < rec["int8_drift"] < INT8_WIRE_MAX_REL,
+                   f"wire drift: int8 {rec['int8_drift']!r} from the exact wire after "
+                   f"{DRIFT_STEPS} steps, within {INT8_WIRE_MAX_REL}"))
+    checks.append((0 < rec["z_int8_drift"] <= rec["int8_drift"] * 1.05,
+                   f"wire drift: z:int8 {rec['z_int8_drift']!r} within the all-axes drift"))
+    Tb, Cb, pb = models.init_diffusion3d(dtype=torch.bfloat16)
+    plain = tg.gather_interior(models.run_diffusion(Tb, Cb, pb, DRIFT_STEPS, nt_chunk=100))
+    Ts, Cs, ps = models.init_diffusion3d(dtype=torch.bfloat16, sr=True, sr_seed=0)
+    t0 = time.perf_counter()
+    srd = tg.gather_interior(models.run_diffusion(Ts, Cs, ps, DRIFT_STEPS, nt_chunk=100))
+    rec["sr_run_s"] = time.perf_counter() - t0
+    rec["err_plain_bf16"] = _rel(plain.astype(np.float64), exact)
+    rec["err_sr"] = _rel(srd.astype(np.float64), exact)
+    checks.append((rec["err_sr"] < SR_MAX_REL and rec["err_sr"] < rec["err_plain_bf16"] / 5,
+                   f"sr: stochastic rounding {rec['err_sr']!r} from float32, plain bfloat16 "
+                   f"{rec['err_plain_bf16']!r}"))
+    runs = []
+    for seed in (7, 7, 8):
+        Ts, Cs, ps = models.init_diffusion3d(dtype=torch.bfloat16, sr=True, sr_seed=seed)
+        runs.append(models.run_diffusion(Ts, Cs, ps, SR_SEED_STEPS, nt_chunk=SR_SEED_STEPS))
+    checks.append((_bits_equal(runs[0], runs[1]) and not _bits_equal(runs[0], runs[2]),
+                   f"sr: one seed bitwise reproducible over {SR_SEED_STEPS} steps, another "
+                   "seed different"))
+    del runs
+    torch.cuda.synchronize()
+    launches = cb.launch_counts()
+    n = N_MESH
+    grid(tg, n, n, n, dimx=2, dimy=2, dimz=2, periodx=1, periody=1, periodz=1)
+    Tb, Cb, pb = models.init_diffusion3d(dtype=torch.bfloat16)
+    ps = models.init_diffusion3d(dtype=torch.bfloat16, sr=True)[2]
+    step = models.make_step(pb)
+    rec["mesh_128_plain_bf16_step"] = route_times(lambda: step(Tb, Cb), reps=5)
+    rec["mesh_128_sr_step"] = route_times(
+        lambda: models.diffusion_step_local(Tb, Cb, ps, sr_step=3), reps=5)
+    tg.finalize_global_grid()
+    print(f"  wire accuracy and sr: " + json.dumps(rec), flush=True)
+    return launches, rec, checks
+
+
+def phase_wire(tg, models, cb):
+    """Phase 13: the halo wire formats and stochastic-rounding storage
+    (`wire_update_halo`, `wire_fused_routes`, `wire_accuracy`). Every check
+    is recorded and printed, then all are held; returns (launches of the
+    phase's runs, record, the transport phase's references)."""
+    print(f"phase: halo wire formats {WIRE_FORMATS} and stochastic rounding; card "
+          f"{card_name()}", flush=True)
+    l1, uh, c1 = wire_update_halo(tg, cb, N_MESH)
+    l2, fused, c2, refs = wire_fused_routes(tg, models, cb)
+    l3, acc, c3 = wire_accuracy(tg, models, cb)
+    for ok, msg in c1 + c2 + c3:
+        check(ok, msg)
+    launches = {k: l1.get(k, 0) + l2.get(k, 0) + l3.get(k, 0) for k in KERNEL_NAMES}
+    return launches, dict(update_halo=uh, fused=fused, accuracy=acc), refs
+
+
 def _transport_dir():
     return os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "implicitglobalgrid_tpu_torch", "_build", "transport")
@@ -2742,7 +3161,17 @@ def transport_child(pid, port):
     tg.update_halo(T.clone())  # warm: the route's first call checks and plans it
     T, r["update_halo"] = timed(lambda: tg.update_halo(T), 1)
     save("config3_T", tg.gather(T))
-    del T, T0, Cp
+    del T
+    # the same fused steps under each wire format (the wire phase's references)
+    for fmt in FUSED_WIRES:
+        with wire_env(fmt):
+            models.run_diffusion(T0, Cp, p, 2, nt_chunk=2)  # warm chunk
+            T, r[f"wire_{fmt}"] = timed(lambda: models.run_diffusion(
+                T0, Cp, p, TRANSPORT_WIRE_STEPS, nt_chunk=TRANSPORT_WIRE_STEPS),
+                TRANSPORT_WIRE_STEPS)
+        save(f"wire_config3_{fmt}_T", tg.gather(T))
+        del T
+    del T0, Cp
     tg.finalize_global_grid()
     # config 4's mesh: 10 fused acoustic steps (K4s wave modes + K9), then a
     # coalesced update_halo(P, Vx, Vy, Vz) (K8 + K7)
@@ -2754,6 +3183,12 @@ def transport_child(pid, port):
     U, r["update_halo"] = timed(lambda: tg.update_halo(*[a.clone() for a in s10]), 1)
     for f, a in zip(("P", "Vx", "Vy", "Vz"), U):
         save(f"config4_{f}", tg.gather(a))
+    for fmt in FUSED_WIRES:  # the coalesced update_halo under each wire format
+        tg.update_halo(*[a.clone() for a in s10], wire_dtype=fmt)  # warm
+        U, r[f"update_halo_{fmt}"] = timed(
+            lambda: tg.update_halo(*[a.clone() for a in s10], wire_dtype=fmt), 1)
+        for f, a in zip(("P", "Vx", "Vy", "Vz"), U):
+            save(f"wire_config4_{fmt}_{f}", tg.gather(a))
     del s0, s10, U
     tg.finalize_global_grid()
     # config 5's mesh: 20 Stokes iterations (K4s Stokes modes + K10), residuals
@@ -2795,11 +3230,12 @@ def transport_child(pid, port):
 
 
 def phase_transport(refs, virtual_step_ms):
-    """Phase 13: the transport. Two processes of this script share cuda:0
+    """Phase 14: the transport. Two processes of this script share cuda:0
     in a gloo group (NCCL refuses two processes on one card) and run config
     3, config 4's mesh, config 5's mesh and the README run's diffusion mesh
     (plain route, with and without overlap, and at comm_every=2) split
-    along z; each gathered result is held bitwise against the virtual
+    along z, and config 3's steps and config 4's update_halo under int8 and
+    bfloat16; each gathered result is held bitwise against the virtual
     mesh's run of the same steps (``refs``). Returns (launches summed over
     the processes, record)."""
     import shutil
@@ -2919,6 +3355,26 @@ def phase_transport(refs, virtual_step_ms):
     check(r0["diffusion_deep"]["steps"]["messages_per_step"] * 2
           == ovl["plain"]["messages_per_step"],
           "transport diffusion comm_every=2: half the z messages a step of cadence 1")
+    for cfg, part, nt in [("config3", f"wire_{f}", TRANSPORT_WIRE_STEPS) for f in FUSED_WIRES] \
+            + [("config4", f"update_halo_{f}", 1) for f in FUSED_WIRES]:
+        st = [r[cfg][part] for r in recs]
+        exact = r0[cfg]["steps" if cfg == "config3" else "update_halo"]
+        per[f"{cfg}_{part}"] = dict(
+            step_ms=[x["step_ms"] for x in st],
+            wire_bytes_per_step=[x["wire_bytes_per_step"] for x in st],
+            exact_wire_bytes_per_step=exact["wire_bytes_per_step"],
+            exchange_ms_per_step=[x["exchange_ms_per_step"] for x in st],
+            staging_ms_per_step=[x["staging_ms_per_step"] for x in st])
+        print(f"  transport {cfg} {part}: a step {per[f'{cfg}_{part}']['step_ms']} ms wall, "
+              f"{per[f'{cfg}_{part}']['wire_bytes_per_step']} wire bytes (exact wire "
+              f"{exact['wire_bytes_per_step']!r}), exchange "
+              f"{per[f'{cfg}_{part}']['exchange_ms_per_step']} ms", flush=True)
+        ratio = st[0]["wire_bytes_per_step"] / exact["wire_bytes_per_step"]
+        check(0 < ratio < 1, f"transport {cfg} {part}: the wire sent fewer bytes than the "
+                             f"exact wire (ratio {ratio!r})")
+        if part.endswith("bfloat16") and cfg == "config4":
+            check(ratio == 0.5, f"transport {cfg} {part}: bfloat16 on float32 state sends "
+                                "half the exact wire's bytes")
     per["residuals"] = r0["config5"]["residuals"]
     per["max_abs_err_vs_virtual"] = errs
     return launches, per
@@ -3190,8 +3646,11 @@ def main() -> int:
         cfg5_counts, cfg5 = phase_config5_single(tg, models, cb, cst)
         cfg5m_counts, cfg5m = phase_config5_mesh(tg, models, cb, cst)
         ovl_counts, ovl, ovl_refs = phase_overlap_deep(tg, models, cb)
+        wire_counts, wire, wire_refs = phase_wire(tg, models, cb)
         refs = {k: v for ph in (cfg3, cfg4m, cfg5m) for k, v in ph.pop("transport_ref").items()}
         refs.update(ovl_refs)
+        refs.update(wire_refs)
+        del wire_refs
         transport_counts, transport = phase_transport(
             refs, {"config3": cfg3["step_ms"], "config4": cfg4m["step_ms"],
                    "config5": cfg5m["step_ms"]})
@@ -3201,7 +3660,8 @@ def main() -> int:
         return 1
 
     paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts,
-             cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts, ovl_counts, transport_counts]
+             cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts, ovl_counts, wire_counts,
+             transport_counts]
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNEL_NAMES}
     for name, n in launches.items():
         if n == 0:
@@ -3286,6 +3746,7 @@ def main() -> int:
                                     "config4_192_f32": cfg4, "config4_2x2x2_192_f32": cfg4m,
                                     "config5_128_f32": cfg5, "config5_2x2x2_128_f32": cfg5m,
                                     "overlap_deep_virtual_mesh_f32": ovl,
+                                    "wire_formats_and_sr": wire,
                                     "transport_2_processes_z": transport},
                       "cdiv": cdiv, "k4s_launches": k4s_launches,
                       "seconds_total": time.perf_counter() - t_start}))

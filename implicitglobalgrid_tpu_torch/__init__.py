@@ -18,7 +18,8 @@ Public API — the reference's 13 exported symbols::
     init_global_grid, finalize_global_grid, update_halo, gather,
     select_device, nx_g, ny_g, nz_g, x_g, y_g, z_g, tic, toc
 
-plus `local_update_halo`, `hide_communication`, `halo_comm_plan`, `zeros_g`/`ones_g`/`full_g`/`device_put_g`,
+plus `local_update_halo`, `hide_communication`, `halo_comm_plan`, `stochastic_round_bf16`,
+`zeros_g`/`ones_g`/`full_g`/`device_put_g`,
 `coords_g`/`x_g_vec`, `gather_interior`, `gather_sub`, `barrier`/`sync`, the stencil
 helpers (`d_xa` … `inn`) and the `Field` wrapper. Usage::
 
@@ -37,6 +38,7 @@ from .parallel.topology import (
 )
 from .ops.halo import update_halo, local_update_halo, halo_comm_plan, DEFAULT_DIMS_ORDER
 from .ops.overlap import hide_communication
+from .ops.precision import stochastic_round_bf16
 from .ops.gather import gather, gather_interior, gather_sub
 from .ops.alloc import zeros_g, ones_g, full_g, device_put_g
 from .ops.fields import Field, wrap_field, extract, local_shape_of, stacked_shape
@@ -58,7 +60,7 @@ __all__ = [
     "init_global_grid", "finalize_global_grid", "update_halo", "gather",
     "select_device", "nx_g", "ny_g", "nz_g", "x_g", "y_g", "z_g", "tic", "toc",
     "local_update_halo", "hide_communication", "halo_comm_plan", "gather_interior", "gather_sub", "barrier",
-    "sync",
+    "sync", "stochastic_round_bf16",
     "zeros_g", "ones_g", "full_g", "device_put_g",
     "Field", "wrap_field", "extract", "local_shape_of", "stacked_shape",
     "x_g_vec", "y_g_vec", "z_g_vec", "coords_g",

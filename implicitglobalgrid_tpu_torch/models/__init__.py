@@ -3,7 +3,7 @@ wave and the 3-D pseudo-transient Stokes solver."""
 
 from .diffusion import (
     DiffusionParams, diffusion_step_local, init_diffusion2d, init_diffusion3d,
-    make_run, make_run_deep, make_step, run_diffusion,
+    make_run, make_run_deep, make_run_sr, make_step, run_diffusion,
 )
 from .acoustic import (
     AcousticParams, acoustic_step_local, init_acoustic3d, make_acoustic_run,
@@ -16,7 +16,8 @@ from .stokes import (
 from .convert import acoustic_state_from_numpy, state_from_numpy, stokes_state_from_numpy
 
 __all__ = ["DiffusionParams", "init_diffusion3d", "init_diffusion2d",
-           "diffusion_step_local", "make_step", "make_run", "make_run_deep", "run_diffusion",
+           "diffusion_step_local", "make_step", "make_run", "make_run_deep", "make_run_sr",
+           "run_diffusion",
            "AcousticParams", "init_acoustic3d", "acoustic_step_local",
            "make_acoustic_run", "make_acoustic_run_deep", "run_acoustic",
            "StokesParams", "init_stokes3d", "stokes_step_local", "make_stokes_run",

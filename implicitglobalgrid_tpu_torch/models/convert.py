@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 
 from .acoustic import AcousticParams
-from .diffusion import DiffusionParams, check_supported
+from .diffusion import DiffusionParams
 from .stokes import StokesParams
 
 __all__ = ["state_from_numpy", "acoustic_state_from_numpy", "stokes_state_from_numpy"]
@@ -47,7 +47,6 @@ def state_from_numpy(T, Cp, params: dict, device):
     """``(T, Cp, DiffusionParams)`` on ``device`` from numpy arrays and a
     parameter dict (unknown keys are ignored)."""
     p = _params(DiffusionParams, params)
-    check_supported(p)
     return _tensor_from_numpy(T, device), _tensor_from_numpy(Cp, device), p
 
 

@@ -27,8 +27,11 @@ the virtual mesh). Two routes (``impl``):
 
 A deep ``comm_every`` cadence runs the communication-avoiding super-step
 (`deep_step`, `make_run_deep`): masked sub-steps on the plain route, each
-axis's k-wide exchange once per k_d sub-steps. Not ported yet (each raises
-`NotSupportedError`): ``sr`` and ``ensemble``.
+axis's k-wide exchange once per k_d sub-steps. ``sr=True`` on a bfloat16
+state runs stochastic-rounding storage (`make_run_sr`, the plain route:
+float32 flux, an unbiased round to bfloat16 with the bits of
+`ops.precision.sr_bits`, then the exchange). Not ported yet (raises
+`NotSupportedError`): ``ensemble``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from ..ops.cuda_stencil import (
 from ..ops.fields import block_slices
 from ..ops.halo import DEFAULT_DIMS_ORDER, _dim_exchanges, local_update_halo
 from ..ops.overlap import hide_communication
+from ..ops.precision import sr_bits, stochastic_round_bf16
 from ..ops.staggered import const_tensors
 from ..ops.stencil import d_xa, d_xi, d_ya, d_yi, d_za, d_zi, inn
 from ..ops.wire import resolve_comm_every
@@ -52,8 +56,8 @@ from ..utils.exceptions import InvalidArgumentError, NotSupportedError
 from .common import fresh_mask, reject_comm_every, run_deep, validate_deep_halo
 
 __all__ = ["DiffusionParams", "init_diffusion3d", "init_diffusion2d",
-           "diffusion_step_local", "make_step", "make_run", "make_run_deep", "deep_step",
-           "run_diffusion"]
+           "diffusion_step_local", "make_step", "make_run", "make_run_sr", "make_run_deep",
+           "deep_step", "run_diffusion"]
 
 _LATER = "a later slice of the PyTorch port"
 IMPLS = ("cuda", "plain")
@@ -61,8 +65,9 @@ IMPLS = ("cuda", "plain")
 
 @dataclass(frozen=True)
 class DiffusionParams:
-    """Physics/numerics constants (the JAX package's fields; ``sr`` is not
-    ported yet). ``overlap`` takes the plain route interior-first;
+    """Physics/numerics constants (the JAX package's fields). ``sr`` stores
+    a bfloat16 state by stochastic rounding (seeded ``sr_seed``; the
+    runner `make_run_sr`). ``overlap`` takes the plain route interior-first;
     ``comm_every`` (an int, a per-axis spec such as ``"z:2"``) is the deep-halo
     cadence: needs a grid with ``overlaps[d] >= 2*k_d`` and ``halowidths[d]
     >= k_d`` on the exchanging dims; the trajectory equals cadence 1's."""
@@ -75,12 +80,6 @@ class DiffusionParams:
     sr: bool = False
     sr_seed: int = 0
     comm_every: int | str = 1
-
-
-def check_supported(p: DiffusionParams) -> None:
-    """Raise `NotSupportedError` for the option a later slice ports."""
-    if p.sr:
-        raise NotSupportedError(f"DiffusionParams(sr=True) is not ported yet ({_LATER}).")
 
 
 def _fresh_mask(shape, retreat):
@@ -106,7 +105,6 @@ def init_diffusion3d(*, lam=1.0, cp_min=1.0, lx=10.0, ly=10.0, lz=10.0,
     dz = lz / (nz_g() - 1)
     dt = min(dx * dx, dy * dy, dz * dz) * cp_min / lam / 8.1
     p = DiffusionParams(lam=lam, dt=dt, dx=dx, dy=dy, dz=dz, **p_opts)
-    check_supported(p)
 
     Tz = zeros_g(dtype=dtype)
     x, y, z = (torch.as_tensor(v, device=Tz.device).to(Tz.dtype)
@@ -231,13 +229,39 @@ def _cuda_step2(T, Cp, p, gg, loc, out):
     return T if modes is not None else local_update_halo(T)
 
 
+def _sr_step(T, Cp, p, gg, loc, n):
+    """The stochastic-rounding step: the plain route's arithmetic in
+    float32, rounded to bfloat16 with the bits of global step ``n``
+    (`sr_bits`: a function of the seed, ``n`` and each block's mesh
+    coordinates), then the exchange."""
+    import torch
+
+    Tf = _plain_step(T.to(torch.float32), Cp.to(torch.float32), p, loc)
+    nd = T.dim()
+    bits = sr_bits(tuple(T.shape), loc, tuple(int(c) for c in gg.coords[:nd]),
+                   tuple(int(d) for d in gg.dims[:nd]), p.sr_seed, n, T.device)
+    return local_update_halo(stochastic_round_bf16(Tf, bits))
+
+
 def diffusion_step_local(T, Cp, p: DiffusionParams, impl: str = "plain",
-                         out=None):
+                         out=None, sr_step=None):
     """One time step of stacked ``T`` (every rank's block) followed by the
     halo exchange. ``impl`` is "cuda" (the kernel route) or "plain".
     ``out`` is a spare buffer the kernel route may write the new state into
-    (it must not alias ``T``); the result is returned either way."""
-    check_supported(p)
+    (it must not alias ``T``); the result is returned either way.
+    ``sr_step`` (with ``p.sr`` and a bfloat16 state) is the global step
+    number of the stochastic-rounding step (`make_run_sr` threads it); such
+    a state without it raises `InvalidArgumentError`."""
+    import torch
+
+    if p.sr and T.dtype == torch.bfloat16 and T.dim() in (2, 3):
+        if sr_step is None:
+            raise InvalidArgumentError(
+                "DiffusionParams(sr=True) with a bfloat16 state needs the stochastic-rounding "
+                "runner: use run_diffusion or make_run_sr (make_step/make_run cannot thread "
+                "the global step the rounding bits depend on).")
+        gg = global_grid()
+        return _sr_step(T, Cp, p, gg, _local_shape(gg, T), int(sr_step))
     if impl not in IMPLS:
         raise InvalidArgumentError(f"impl must be one of {IMPLS}; got {impl!r}.")
     if T.dim() not in (2, 3):
@@ -280,7 +304,6 @@ def make_step(p: DiffusionParams, ndim: int = 3, impl: str | None = None):
     reject_comm_every(p.comm_every, "DiffusionParams", "make_step",
                       "run_diffusion or make_run_deep")
     check_initialized()
-    check_supported(p)
     impl = _resolve_impl(impl)
 
     def step(T, Cp):
@@ -298,12 +321,25 @@ def make_run(p: DiffusionParams, nt_chunk: int, ndim: int = 3,
     reject_comm_every(p.comm_every, "DiffusionParams", "make_run",
                       "run_diffusion or make_run_deep")
     _reject_ensemble(ensemble)
-    check_supported(p)
     impl = _resolve_impl(impl)
 
     def step(state, spare):
         T, Cp = state
         return (diffusion_step_local(T, Cp, p, impl, out=spare), Cp), T
+
+    return make_state_runner(step, nt_chunk=nt_chunk)
+
+
+def make_run_sr(p: DiffusionParams, nt_chunk: int, ndim: int = 3):
+    """The stochastic-rounding runner: the state is ``(T, Cp, n)`` with
+    ``n`` the GLOBAL step counter (an int), so the rounding bits of step
+    ``n`` never repeat across chunk calls: ``(T, Cp, n) = run(T, Cp, n)``.
+    The plain route; the input is never written."""
+    from .common import make_state_runner
+
+    def step(state, spare):
+        T, Cp, n = state
+        return (diffusion_step_local(T, Cp, p, "plain", sr_step=n), Cp, int(n) + 1), None
 
     return make_state_runner(step, nt_chunk=nt_chunk)
 
@@ -319,7 +355,6 @@ def deep_step(p: DiffusionParams, ndim: int = 3):
     import torch
 
     check_initialized()
-    check_supported(p)
     gg = global_grid()
     cad = resolve_comm_every(p.comm_every)
     validate_deep_halo(gg, ndim, cad)
@@ -356,13 +391,30 @@ def run_diffusion(T, Cp, p: DiffusionParams, nt: int, *, nt_chunk: int = 100,
                   impl: str | None = None, ensemble: int | None = None):
     """Advance ``nt`` steps and return the new ``T`` (the input is not
     written). Returns after the device has drained. A deep ``comm_every``
-    cadence runs `make_run_deep` (``nt`` a multiple of its cycle)."""
+    cadence runs `make_run_deep` (``nt`` a multiple of its cycle); ``sr``
+    with a bfloat16 state runs `make_run_sr` from step 0 (the plain route:
+    another ``impl`` raises `InvalidArgumentError`, as does a deep
+    cadence)."""
+    import torch
+
     from .common import run_chunked
 
     _reject_ensemble(ensemble)
+    sr = p.sr and T.dtype == torch.bfloat16
     if resolve_comm_every(p.comm_every).deep:
+        if sr:
+            raise InvalidArgumentError(
+                "a deep comm_every cadence with sr=True is not supported (the deep-halo "
+                "runner does not thread the rounding bits' step counter).")
         return run_deep(lambda c: make_run_deep(p, c, T.dim()), (T, Cp), p, nt, nt_chunk,
                         impl)[0]
+    if sr:
+        if impl is not None and impl != "plain":
+            raise InvalidArgumentError(
+                f"impl={impl!r} is incompatible with DiffusionParams(sr=True) on a bfloat16 "
+                "state: stochastic-rounding storage runs only the plain route.")
+        return run_chunked(lambda c: make_run_sr(p, c, T.dim()), (T, Cp, 0), nt,
+                           nt_chunk)[0]
     T, Cp = run_chunked(lambda c: make_run(p, c, T.dim(), impl), (T, Cp),
                         nt, nt_chunk)
     return T

@@ -620,14 +620,17 @@ def diffusion2d_step_recv(T, Cp, recvs, *, lam, dt, dx, dy, block=None, out=None
 
 def _recv_slabs(T, Cp, gg, modes, block, consts):
     """The received slabs of the fused step: send slabs by K4s from the
-    current state, through the exchange pipeline."""
+    current state, through the exchange pipeline and the halo wire format
+    of ``IGG_HALO_WIRE_DTYPE`` (as the JAX package's fused tiers read it)."""
     from .halo import exchange_recv_slabs
+    from .precision import resolve_wire_dtype
 
     def slab_fn(dim, hw, moves, periodic, earlier):
         return exchange_slabs(T, dim, hw, moves, block=block, periodic=periodic,
                               earlier=earlier, Cp=Cp, consts=consts)
 
-    return exchange_recv_slabs(gg, block, (1,) * T.dim(), modes, slab_fn)
+    return exchange_recv_slabs(gg, block, (1,) * T.dim(), modes, slab_fn,
+                               wire=resolve_wire_dtype(None))
 
 
 def diffusion3d_step_exchange(T, Cp, gg, modes, *, lam, dt, dx, dy, dz, block=None,

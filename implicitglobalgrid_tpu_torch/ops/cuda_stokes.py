@@ -414,6 +414,7 @@ class StokesStep:
 
     def __call__(self, state, out=None):
         from .halo import exchange_recv_slabs_multi
+        from .precision import resolve_wire_dtype
 
         block, counts = _check_state(state, self.block, "stokes_step")
         out = check_out(state, out, 7, "stokes_step")
@@ -433,7 +434,7 @@ class StokesStep:
                                                 periodic=periodic, consts=self.consts)
 
         recvs = exchange_recv_slabs_multi(self.gg, self.shapes, (1, 1, 1), self.modes,
-                                          dim_fn=dim_fn)
+                                          dim_fn=dim_fn, wire=resolve_wire_dtype(None))
         return _step_recv(state, recvs, block, counts, self.consts, out, args)
 
 

@@ -292,6 +292,7 @@ class AcousticStep:
 
     def __call__(self, state, out=None):
         from .halo import exchange_recv_slabs_multi
+        from .precision import resolve_wire_dtype
 
         block, counts = check_state(state, self.block, wave_shapes, "acoustic_step", DTYPES)
         out = check_out(state, out, 4, "acoustic_step")
@@ -312,7 +313,7 @@ class AcousticStep:
                                               periodic=periodic, consts=self.consts)
 
         recvs = exchange_recv_slabs_multi(self.gg, self.shapes, (1, 1, 1), self.modes,
-                                          dim_fn=dim_fn)
+                                          dim_fn=dim_fn, wire=resolve_wire_dtype(None))
         if not card:
             return acoustic_step_recv_plain(state, recvs, block=block, consts=self.consts,
                                             out=out)

@@ -46,11 +46,27 @@ moves gives every block's corner-patched send slabs, and `transport.
 fill_edges` moves the edge blocks' ones between processes (`_recv_dim`);
 the coalesced route sends K8's wire buffer rows and runs K7 with ``disp`` 0
 on the rows each block reads (`transport.shift_rows`). The virtual mesh
-takes none of these steps. Wire dtypes and staging raise
-`NotSupportedError`. The halo writes are IN PLACE on the given tensor (on a
-contiguous copy of a field that is not contiguous), while the self-exchange
-pass returns a new one: always use the returned tensors,
-as with the JAX package (``T = update_halo(T)``).
+takes none of these steps.
+
+The wire (``wire_dtype``/``IGG_HALO_WIRE_DTYPE``, `ops.precision`): float
+state may cross between blocks cast or quantized, per mesh axis. K4s's
+received slabs go through `wire.SlabCodec` block by block (cast and back,
+or each block's slab quantized against its own scale, with the corners
+received along earlier dims already patched in) before K2, K6 or the
+model's step kernel reads them; the coalesced route casts or codes K8's
+staging rows (`WireSchema.encode_rows`) before K7 reads them; a quantized
+field always takes the coalesced route, a single field too; a field the
+wire touches skips the combined tier. A block on a PROC_NULL edge keeps
+its current halo exact, and a self-neighbour dim ships no wire. Across
+processes the payload crosses in the wire format (`parallel.transport`).
+A staged axis (``wire_stage``/``IGG_HALO_WIRE_STAGE``) sends every
+exchanging field down the coalesced route and moves the flat route's
+halos; `halo_comm_plan` prices the staged stages.
+
+The halo writes are IN PLACE on the given tensor (on a contiguous copy of a
+field that is not contiguous), while the self-exchange pass returns a new
+one: always use the returned tensors, as with the JAX package (``T =
+update_halo(T)``).
 """
 
 from __future__ import annotations
@@ -64,7 +80,10 @@ from ..utils.exceptions import (
     IncoherentArgumentError, InvalidArgumentError, NotSupportedError,
 )
 from .fields import Field, check_fields, extract, wrap_field
-from .wire import dtype_name, schema_for_fields
+from .precision import resolve_wire_dtype, wire_format_for
+from .wire import (
+    SlabCodec, StagedWireSchema, dtype_name, resolve_wire_stage, schema_for_fields,
+)
 
 __all__ = ["update_halo", "local_update_halo", "DEFAULT_DIMS_ORDER", "halo_route",
            "halo_routes", "halo_comm_plan", "resolve_halo_coalesce",
@@ -86,15 +105,6 @@ def _normalize_dims_order(dims):
             "(Note: this API is 0-based; the Julia reference's default (3,1,2) is (2,0,1) here.)"
         )
     return out
-
-
-def _reject_wire(wire_dtype, wire_stage):
-    import os
-
-    if wire_dtype not in (None, "none", "off") or os.environ.get("IGG_HALO_WIRE_DTYPE"):
-        raise NotSupportedError(f"wire dtypes are not ported yet ({_LATER}).")
-    if wire_stage not in (None, "none", "off") or os.environ.get("IGG_HALO_WIRE_STAGE"):
-        raise NotSupportedError(f"the staged wire is not ported yet ({_LATER}).")
 
 
 def resolve_halo_coalesce(coalesce=None) -> bool:
@@ -201,33 +211,77 @@ def _send_moves(moves):
     return tuple(Move(m.start, m.start, 0) for m in moves)
 
 
-def _recv_dim(gg, dim, hw, per_field, dim_fn):
+def _codecs(gg, dim, hw, got, shapes, wire):
+    """``{f: SlabCodec}`` for the fields whose received slabs ``got`` cross
+    the wire in a narrowed format along ``dim`` (none along a
+    self-neighbour dim); ``shapes`` the fields' LOCAL block shapes."""
+    if wire is None or int(gg.dims[dim]) == 1:
+        return {}
+    out = {}
+    for f, pair in got.items():
+        fmt = wire_format_for(pair[0].dtype, wire, dim)
+        if fmt is not None:
+            blk = list(shapes[f])
+            blk[dim] = int(hw)
+            out[f] = SlabCodec(fmt, blk, pair[0].dtype)
+    return out
+
+
+def _wire_inside(gg, dim, hw, got, codecs, periodic):
+    """Pass the received slabs ``got`` that moved between blocks of the box
+    through their wire, in place: every block's along a periodic dim, else
+    a block's left (right) slab where the block ``disp`` before (after) it
+    lies in the box; an edge block's own slab stays exact."""
+    import torch
+
+    Db, disp = int(gg.box[dim]), int(gg.disp)
+    for f, codec in codecs.items():
+        for side, t in enumerate(got[f]):
+            if periodic:
+                t.copy_(codec.roundtrip(t))
+                continue
+            if disp >= Db:
+                continue  # no block of the box reaches another
+            pos = torch.arange(Db, device=t.device)
+            reached = pos >= disp if side == 0 else pos < Db - disp
+            view = t.unflatten(dim, (Db, hw))
+            mask = reached.view([-1 if d == dim else 1 for d in range(view.dim())])
+            view.copy_(torch.where(mask, codec.roundtrip(t).unflatten(dim, (Db, hw)), view))
+
+
+def _recv_dim(gg, dim, hw, per_field, dim_fn, wire=None, shapes=None):
     """One dim's received slabs ``{f: (recv_l, recv_r)}`` from ``dim_fn``
-    (`exchange_recv_slabs_multi`). Along a dim that crosses processes: the
+    (`exchange_recv_slabs_multi`), through the ``wire`` policy (``shapes``
+    the fields' LOCAL block shapes). Along a dim that crosses processes: the
     moves inside the box (a non-periodic launch), every block's send slabs
     (the identity moves), and the box's edge blocks' slabs through
-    `transport.fill_edges`."""
+    `transport.fill_edges` (in the wire format)."""
     _, periodic, _ = _dim_meta(gg, dim)
     if not crosses(gg, dim):
-        return dim_fn(dim, hw, periodic, per_field)
+        got = dim_fn(dim, hw, periodic, per_field)
+        _wire_inside(gg, dim, hw, got, _codecs(gg, dim, hw, got, shapes, wire), periodic)
+        return got
     from ..parallel.transport import fill_edges
 
     got = dim_fn(dim, hw, False, per_field)
+    codecs = _codecs(gg, dim, hw, got, shapes, wire)
+    _wire_inside(gg, dim, hw, got, codecs, False)
     sends = dim_fn(dim, hw, False, {f: (_send_moves(mv), ear)
                                     for f, (mv, ear) in per_field.items()})
     Db = int(gg.box[dim])
     items = []
     for f in per_field:
         for side, (dst, src) in enumerate(zip(got[f], sends[f])):
-            items.append((dst.unflatten(dim, (Db, hw)), src.unflatten(dim, (Db, hw)), side))
+            items.append((dst.unflatten(dim, (Db, hw)), src.unflatten(dim, (Db, hw)), side,
+                          codecs.get(f)))
     fill_edges(gg, dim, items)
     return got
 
 
-def _exchange_dim(gg, A, dim, hw, ol_d, use_kernel):
+def _exchange_dim(gg, A, dim, hw, ol_d, use_kernel, wire=None):
     """Exchange the halos of every block of stacked ``A`` along ``dim``, in
-    place: the received slabs (K4s, `_recv_dim`), then K2 writes them (the
-    plain versions with ``use_kernel`` off)."""
+    place: the received slabs (K4s, `_recv_dim`, through the ``wire``), then
+    K2 writes them (the plain versions with ``use_kernel`` off)."""
     from .cuda_halo import halo_write, halo_write_plain
     from .cuda_stencil import exchange_slabs, exchange_slabs_plain
 
@@ -243,11 +297,12 @@ def _exchange_dim(gg, A, dim, hw, ol_d, use_kernel):
     def dim_fn(dim, hw, periodic, per_field):
         return {"A": slabs(A, dim, hw, per_field["A"][0], block=loc, periodic=periodic)}
 
-    recv_l, recv_r = _recv_dim(gg, dim, hw, {"A": (_moves(n, ol_d, hw, disp), ())}, dim_fn)["A"]
+    recv_l, recv_r = _recv_dim(gg, dim, hw, {"A": (_moves(n, ol_d, hw, disp), ())}, dim_fn,
+                               wire, {"A": loc})["A"]
     return write(A, recv_l, recv_r, dim=dim, hw=hw, block=n)
 
 
-def exchange_recv_slabs_multi(gg, shapes, hws, modes, dim_fn):
+def exchange_recv_slabs_multi(gg, shapes, hws, modes, dim_fn, *, wire=None):
     """Corner-patched RECEIVED slabs for every (field, dim): the slab
     pipeline of the fused kernel tiers (the JAX package's function of the
     same name, on the virtual mesh).
@@ -265,6 +320,11 @@ def exchange_recv_slabs_multi(gg, shapes, hws, modes, dim_fn):
     keeps its own patched current halo. K4s (`cuda_stencil.exchange_slabs`,
     or its staggered modes for every field of a dim) does all of that in
     one launch.
+
+    ``wire`` is the resolved wire policy (`precision.resolve_wire_dtype`;
+    None: exact): each block's received slab crosses in its format (a
+    quantized slab against its own scale, its earlier dims' corners
+    patched in first), and a PROC_NULL edge keeps its halo exact.
 
     ``shapes``/``modes`` are dicts keyed by field name; ``hws`` is the
     shared per-dim halowidth tuple. Returns ``{field: {dim: (recv_l,
@@ -284,14 +344,14 @@ def exchange_recv_slabs_multi(gg, shapes, hws, modes, dim_fn):
             per_field[f] = (_moves(s, ol_d, hw, disp), tuple(earlier[f]))
         if not per_field:
             continue
-        got = _recv_dim(gg, dim, hw, per_field, dim_fn)
+        got = _recv_dim(gg, dim, hw, per_field, dim_fn, wire, shapes)
         for f in per_field:
             recvs[f][dim] = tuple(got[f])
             earlier[f].append((dim, hw, recvs[f][dim]))
     return recvs
 
 
-def exchange_recv_slabs(gg, shape, hws, modes, slab_fn):
+def exchange_recv_slabs(gg, shape, hws, modes, slab_fn, *, wire=None):
     """Single-field form of `exchange_recv_slabs_multi`: ``slab_fn(dim, hw,
     moves, periodic, earlier)`` returns one dim's ``(recv_l, recv_r)``;
     returns ``{dim: (recv_l, recv_r)}``."""
@@ -299,7 +359,8 @@ def exchange_recv_slabs(gg, shape, hws, modes, slab_fn):
         moves, ear = per_field["A"]
         return {"A": slab_fn(dim, hw, moves, periodic, ear)}
 
-    return exchange_recv_slabs_multi(gg, {"A": shape}, hws, {"A": modes}, dim_fn)["A"]
+    return exchange_recv_slabs_multi(gg, {"A": shape}, hws, {"A": modes}, dim_fn,
+                                     wire=wire)["A"]
 
 
 def _combined_plan(gg, shape, hws, dims_order):
@@ -317,11 +378,11 @@ def _combined_plan(gg, shape, hws, dims_order):
 
 
 def halo_route(gg, shape, hws, dims_order=DEFAULT_DIMS_ORDER) -> str:
-    """The kernel tier `update_halo` takes for one field alone, of LOCAL
-    ``shape``: ``"self"`` (K3), ``"combined"`` (K4s + K6) or ``"per_dim"``
-    (K4s + K2 for each dim, or their plain versions with the tier off), in
-    the JAX package's order. A lone field never coalesces; see
-    `halo_routes` for several."""
+    """The kernel tier `update_halo` takes for one float64 field alone, of
+    LOCAL ``shape``: ``"self"`` (K3), ``"coalesced"`` (K8 + K7, under a
+    quantized ``IGG_HALO_WIRE_DTYPE`` or a staged dim), ``"combined"`` (K4s
+    + K6) or ``"per_dim"`` (K4s + K2 for each dim, or their plain versions
+    with the tier off), in the JAX package's order; see `halo_routes`."""
     return halo_routes(gg, [shape], [None], [hws], dims_order)[0][0]
 
 
@@ -336,11 +397,33 @@ class _Sig:
         self.dtype = dtype_name(dtype)
 
 
-def _coalesce_groups(gg, fields, hws, handled, dims_order, coalesce=True):
+def _staged_layouts(gg, stage) -> dict:
+    """``{dim: StagedWireLayout}`` for every dim the resolved staging policy
+    stages and whose granule geometry supports it
+    (`parallel.topology.staged_wire_layout`; a degenerate axis stays
+    flat)."""
+    if stage is None:
+        return {}
+    from ..parallel.topology import staged_wire_layout
+
+    out = {}
+    for d in stage.staged_dims:
+        lay = staged_wire_layout(gg, d)
+        if lay is not None:
+            out[d] = lay
+    return out
+
+
+def _coalesce_groups(gg, fields, hws, handled, dims_order, coalesce=True, wire=None,
+                     staged_dims=frozenset()):
     """Packing plan of the coalesced exchange: ``{dim: [group, ...]}``, each
-    group a tuple of the indices of two or more fields of ONE dtype that all
-    exchange along the multi-rank axis ``dim`` (``fields`` carry LOCAL
-    shapes). A lone field of a dtype keeps its per-field route."""
+    group a tuple of the indices of fields of ONE dtype that all exchange
+    along the multi-rank axis ``dim`` (``fields`` carry LOCAL shapes).
+    Without a quantized wire a group needs two or more fields (a lone field
+    keeps its per-field route). A dtype the policy quantizes along ``dim``,
+    or a dim in ``staged_dims``, sends every exchanging field of it down the
+    packed route, a single field too (with ``coalesce`` off, one group a
+    field)."""
     out = {}
     for dim in dims_order:
         D, _, _ = _dim_meta(gg, dim)
@@ -352,33 +435,61 @@ def _coalesce_groups(gg, fields, hws, handled, dims_order, coalesce=True):
                 continue
             if _dim_exchanges(gg, f.shape, hws[i], dim):
                 by_dt.setdefault(dtype_name(f.dtype), []).append(i)
-        groups = [tuple(idxs) for idxs in by_dt.values() if coalesce and len(idxs) >= 2]
+        groups = []
+        for dt, idxs in by_dt.items():
+            fmt = wire_format_for(dt, wire, dim)
+            packed = (fmt is not None and fmt.is_quant) or dim in staged_dims
+            if packed and not coalesce:
+                groups.extend((i,) for i in idxs)
+            elif packed or (coalesce and len(idxs) >= 2):
+                groups.append(tuple(idxs))
         if groups:
             out[dim] = groups
     return out
 
 
-def halo_routes(gg, shapes, dtypes, hws, dims_order=DEFAULT_DIMS_ORDER, coalesce=None):
-    """The tiers `update_halo` takes for several fields at once (LOCAL
-    ``shapes``, their ``dtypes`` and halowidths): ``(tiers, groups)``, one of
-    ``"self"``, ``"coalesced"``, ``"combined"`` or ``"per_dim"`` per field,
-    and the coalesced groups by dim (`_coalesce_groups`). A grouped field
-    takes the per-dim route on the dims where it has no group."""
-    coalesce = resolve_halo_coalesce(coalesce)
-    fields = [_Sig(s, d) for s, d in zip(shapes, dtypes)]
-    hws = [tuple(int(h) for h in hw) for hw in hws]
+def _plan_routes(gg, fields, hws, dims_order, coalesce, wire, stage):
+    """The tiers of `halo_routes` for resolved policies: ``(tiers, groups,
+    staged layouts)``."""
     tiers = [None] * len(fields)
     for i, f in enumerate(fields):
         if _self_exchange_plan(gg, f.shape, hws[i], dims_order) is not None:
             tiers[i] = "self"
-    groups = _coalesce_groups(gg, fields, hws, [t is not None for t in tiers],
-                              dims_order, coalesce)
+    staged = _staged_layouts(gg, stage)
+    groups = _coalesce_groups(gg, fields, hws, [t is not None for t in tiers], dims_order,
+                              coalesce, wire, frozenset(staged))
     grouped = {i for gs in groups.values() for g in gs for i in g}
+
+    def touched(f, hw):
+        # whether the wire or the staging reaches one of this field's
+        # multi-rank exchanges: such a field skips the combined tier
+        return any(_dim_exchanges(gg, f.shape, hw, d) and (
+            d in staged or (wire_format_for(f.dtype, wire, d) is not None
+                            and _dim_meta(gg, d)[0] > 1)) for d in dims_order)
+
     for i, f in enumerate(fields):
         if tiers[i] is None:
             tiers[i] = ("coalesced" if i in grouped else
-                        "combined" if _combined_plan(gg, f.shape, hws[i], dims_order)
-                        is not None else "per_dim")
+                        "combined" if not touched(f, hws[i]) and _combined_plan(
+                            gg, f.shape, hws[i], dims_order) is not None else "per_dim")
+    return tiers, groups, staged
+
+
+def halo_routes(gg, shapes, dtypes, hws, dims_order=DEFAULT_DIMS_ORDER, coalesce=None,
+                wire_dtype=None, wire_stage=None):
+    """The tiers `update_halo` takes for several fields at once (LOCAL
+    ``shapes``, their ``dtypes`` and halowidths): ``(tiers, groups)``, one of
+    ``"self"``, ``"coalesced"``, ``"combined"`` or ``"per_dim"`` per field,
+    and the coalesced groups by dim (`_coalesce_groups`), the JAX package's
+    selection: a field the wire or the staging touches skips the combined
+    tier. A grouped field takes the per-dim route on the dims where it has
+    no group. ``wire_dtype``/``wire_stage`` resolve as in `update_halo`."""
+    fields = [_Sig(s, d) for s, d in zip(shapes, dtypes)]
+    hws = [tuple(int(h) for h in hw) for hw in hws]
+    tiers, groups, _ = _plan_routes(gg, fields, hws, dims_order,
+                                    resolve_halo_coalesce(coalesce),
+                                    resolve_wire_dtype(wire_dtype),
+                                    resolve_wire_stage(wire_stage))
     return tiers, groups
 
 
@@ -397,16 +508,19 @@ def _combined_exchange(gg, A, hws, modes, loc):
     return halo_write_combined(A, recvs, modes=modes, hws=hws, block=loc)
 
 
-def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel):
+def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel, wire=None):
     """Exchange the halos of the fields ``idxs`` (one dtype) along ``dim``
     on every block: K8 packs both directions' send slabs of every field into
-    the blocks' wire buffers (`WireSchema` of the group), K7 writes every
-    field's halos from the neighbour blocks' buffers, in place (the plain
-    versions with ``use_kernel`` off). Along a dim that crosses processes,
-    the buffer rows go over the transport and K7 runs with ``disp`` 0 on the
-    rows each block reads (`transport.shift_rows`). A group of more than
-    `MAX_SLABS` fields goes in several launches of the same schema rule;
-    the values are the same."""
+    the blocks' staging rows (`WireSchema.staging` of the group), the rows
+    cross the wire (`WireSchema.encode_rows`/`decode_rows`: cast, or each
+    slab quantized against its own scale), and K7 writes every field's halos
+    from the neighbour blocks' rows, in place (the plain versions with
+    ``use_kernel`` off); a block on a PROC_NULL edge keeps its halo. Along a
+    dim that crosses processes, the payload rows go over the transport and
+    K7 runs with ``disp`` 0 on the rows each block reads
+    (`transport.shift_rows`). A group of more than `MAX_SLABS` fields goes
+    in several launches of the same schema rule; the values are the
+    same."""
     from .cuda_halo import (
         MAX_SLABS, halo_write_multi, halo_write_multi_plain, wire_pack, wire_pack_plain,
     )
@@ -425,10 +539,15 @@ def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel):
             _check_slab_fit(s, dim, ol_d, h)
             starts_r.append(s - ol_d)
             starts_l.append(ol_d - h)
-        schema = schema_for_fields(dim, blks, hw, fs[0].dtype)
-        buf_r, buf_l = pack(fs, schema, starts_r=starts_r, starts_l=starts_l, blocks=blks)
+        schema = schema_for_fields(dim, blks, hw, fs[0].dtype,
+                                   wire_format_for(fs[0].dtype, wire, dim))
+        staging = schema.staging
+        buf_r, buf_l = pack(fs, staging, starts_r=starts_r, starts_l=starts_l, blocks=blks)
         if not crosses(gg, dim):
-            write(fs, buf_r, buf_l, schema, blocks=blks, periodic=periodic, disp=disp)
+            if schema.fmt is not None:
+                buf_r = schema.decode_rows(schema.encode_rows(buf_r))
+                buf_l = schema.decode_rows(schema.encode_rows(buf_l))
+            write(fs, buf_r, buf_l, staging, blocks=blks, periodic=periodic, disp=disp)
             continue
         from ..parallel.transport import shift_rows
 
@@ -438,44 +557,41 @@ def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel):
         def rows(bufs):
             return [b.view(*counts, b.shape[1]) for b in bufs]
 
-        def own(fs=fs, blks=blks, hw=hw):
+        def own(fs=fs, blks=blks, hw=hw, staging=staging):
             # every block's own halos: what a block on a non-periodic edge keeps
-            return rows(pack(fs, schema, starts_r=[0] * len(fs),
+            return rows(pack(fs, staging, starts_r=[0] * len(fs),
                              starts_l=[b[dim] - h for b, h in zip(blks, hw)], blocks=blks))
 
-        src_r, src_l = shift_rows(gg, dim, rows((buf_r, buf_l)), own)
-        write(fs, src_r.reshape(buf_r.shape), src_l.reshape(buf_l.shape), schema,
+        src_r, src_l = shift_rows(gg, dim, rows((buf_r, buf_l)), own,
+                                  schema if schema.fmt is not None else None)
+        write(fs, src_r.reshape(buf_r.shape), src_l.reshape(buf_l.shape), staging,
               blocks=blks, periodic=True, disp=0)
 
 
-def _exchange_arrays(gg, arrays, hws, dims_order, coalesce=None):
+def _exchange_arrays(gg, arrays, hws, dims_order, coalesce=None, wire=None, stage=None):
     """Exchange every field's halos (stacked tensors), each by its tier of
     `halo_routes`: self (K3) > coalesced groups (K8 + K7 per dim) >
-    combined (K4s + K6) > per dim (K4s + K2). Returns the list of updated
-    tensors: K3 out of place, the others in place (on a dense copy where a
-    field is not contiguous, as the kernels take only dense blocks)."""
+    combined (K4s + K6) > per dim (K4s + K2), through the resolved ``wire``
+    policy; a staged dim takes the coalesced route. Returns the list of
+    updated tensors: K3 out of place, the others in place (on a dense copy
+    where a field is not contiguous, as the kernels take only dense
+    blocks)."""
     from .cuda_halo import halo_self_exchange
 
     coalesce = resolve_halo_coalesce(coalesce)
     arrays = [A.contiguous() for A in arrays]
     locs = [_box_locals(gg, A.shape) for A in arrays]
     hws = [tuple(int(h) for h in hw) for hw in hws]
-    handled = [False] * len(arrays)
+    tiers, groups_by_dim, _ = _plan_routes(gg, [_Sig(l, A.dtype) for l, A in zip(locs, arrays)],
+                                           hws, dims_order, coalesce, wire, stage)
+    handled = [t in ("self", "combined") for t in tiers]
     for i, A in enumerate(arrays):
-        plan = _self_exchange_plan(gg, locs[i], hws[i], dims_order)
-        if plan is not None:
+        if tiers[i] == "self":
+            plan = _self_exchange_plan(gg, locs[i], hws[i], dims_order)
             arrays[i] = halo_self_exchange(A, modes=plan[0], ols=plan[1], block=locs[i])
-            handled[i] = True
-    groups_by_dim = _coalesce_groups(gg, [_Sig(l, A.dtype) for l, A in zip(locs, arrays)],
-                                     hws, handled, dims_order, coalesce)
-    grouped = {i for gs in groups_by_dim.values() for g in gs for i in g}
-    for i, A in enumerate(arrays):
-        if handled[i] or i in grouped:
-            continue
-        modes = _combined_plan(gg, locs[i], hws[i], dims_order)
-        if modes is not None:
+        elif tiers[i] == "combined":
+            modes = _combined_plan(gg, locs[i], hws[i], dims_order)
             arrays[i] = _combined_exchange(gg, A, hws[i], modes, locs[i])
-            handled[i] = True
     for dim in dims_order:
         D, periodic, _ = _dim_meta(gg, dim)
         if D == 1 and not periodic:
@@ -484,7 +600,7 @@ def _exchange_arrays(gg, arrays, hws, dims_order, coalesce=None):
         in_group = set()
         for g in groups_by_dim.get(dim, ()):
             in_group.update(g)
-            _exchange_dim_coalesced(gg, arrays, list(g), locs, hws, dim, use_kernel)
+            _exchange_dim_coalesced(gg, arrays, list(g), locs, hws, dim, use_kernel, wire)
         for i, A in enumerate(arrays):
             if handled[i] or i in in_group or dim >= A.dim():
                 continue
@@ -492,7 +608,7 @@ def _exchange_arrays(gg, arrays, hws, dims_order, coalesce=None):
             ol_d = _ol(gg, locs[i], dim)
             if ol_d < 2 * hw:
                 continue
-            arrays[i] = _exchange_dim(gg, A, dim, hw, ol_d, use_kernel)
+            arrays[i] = _exchange_dim(gg, A, dim, hw, ol_d, use_kernel, wire)
     return arrays
 
 
@@ -539,15 +655,20 @@ def update_halo(*fields, dims=None, coalesce=None, wire_dtype=None,
     tuples or containers of tensors. ``dims`` is the 0-based dim order
     (default z, x, y). ``coalesce`` packs same-dtype fields into one wire
     buffer per (axis, group) (default from ``IGG_HALO_COALESCE``: on); the
-    values are the same either way. Use the returned tensors: see the
-    module docstring."""
+    values are the same either way. ``wire_dtype`` (default from
+    ``IGG_HALO_WIRE_DTYPE``: off) sends float halos cast
+    (``"bfloat16"``, ``"float16"``, ``"float32"``) or per-slab quantized
+    (``"int8"``, ``"int4"``), per mesh axis (``"z:int8,x:f32"``);
+    ``wire_stage`` (default from ``IGG_HALO_WIRE_STAGE``: off) stages an
+    axis (``"z:staged"``): the same halos, the coalesced route. Use the
+    returned tensors: see the module docstring."""
     check_initialized()
-    _reject_wire(wire_dtype, wire_stage)
     gg = global_grid()
     dims_order = _normalize_dims_order(dims)
     fs = _normalized_fields(fields)
     out = _exchange_arrays(gg, [f.A for f in fs], [f.halowidths for f in fs],
-                           dims_order, coalesce)
+                           dims_order, coalesce, resolve_wire_dtype(wire_dtype),
+                           resolve_wire_stage(wire_stage))
     return out[0] if len(out) == 1 else tuple(out)
 
 
@@ -558,40 +679,43 @@ def local_update_halo(*fields, dims=None, coalesce=None, wire_dtype=None,
     the stacked tensor, so it takes the stacked tensors and is
     `update_halo` without the argument normalization of containers."""
     check_initialized()
-    _reject_wire(wire_dtype, wire_stage)
     gg = global_grid()
     dims_order = _normalize_dims_order(dims)
     fs = [wrap_field(f) for f in fields]
     out = _exchange_arrays(gg, [f.A for f in fs], [f.halowidths for f in fs],
-                           dims_order, coalesce)
+                           dims_order, coalesce, resolve_wire_dtype(wire_dtype),
+                           resolve_wire_stage(wire_stage))
     return out[0] if len(out) == 1 else tuple(out)
 
 
 def halo_comm_plan(*fields, dims=None, coalesce=None, wire_dtype=None,
                    ensemble=None, wire_stage=None) -> dict:
     """Static message-count and byte plan of an `update_halo` call with these
-    stacked fields (the JAX package's `halo_comm_plan` for the exact,
-    unstaged wire), from shapes, overlaps and dtypes alone: per mesh axis the
-    permute count (two a packed group or a lone field), the bytes on the
-    wire over every link of both directions (`WireSchema.payload_bytes` for a
-    group), and the self-neighbour copies that never leave a device. Fields
-    take the forms of `update_halo`, or anything with ``shape`` and
-    ``dtype``. The ensemble axis, wire dtypes and the staged wire raise
-    `NotSupportedError`.
+    stacked fields (the JAX package's `halo_comm_plan`), from shapes,
+    overlaps, dtypes and the wire policy alone: per mesh axis the permute
+    count (two a packed group or a lone field), the bytes on the wire over
+    every link of both directions (`WireSchema.payload_bytes` for a group:
+    quantized slabs and their scales, or the cast's bytes), and the
+    self-neighbour copies that never leave a device. A staged axis
+    (``wire_stage``) carries the staged stages' exact counts and absolute
+    bytes (`StagedWireSchema`) and a ``staged`` record. Fields take the
+    forms of `update_halo`, or anything with ``shape`` and ``dtype``. The
+    ensemble axis raises `NotSupportedError`.
 
     Returns ``{fields, coalesce, wire_dtype, wire_stage, staged_axes,
-    ensemble, axes: {axis: {ppermutes, wire_bytes, by_dtype}}, ppermutes,
-    wire_bytes, local_copy_bytes, local_copy_by_axis}``."""
+    ensemble, axes: {axis: {ppermutes, wire_bytes, by_dtype[, staged]}},
+    ppermutes, wire_bytes, local_copy_bytes, local_copy_by_axis}``."""
     from ..parallel.topology import AXIS_NAMES
     from .wire import _itemsize
 
     check_initialized()
-    _reject_wire(wire_dtype, wire_stage)
     if ensemble is not None:
         raise NotSupportedError(f"ensemble batching is not ported yet ({_LATER}).")
     gg = global_grid()
     dims_order = _normalize_dims_order(dims)
     coalesce = resolve_halo_coalesce(coalesce)
+    wire = resolve_wire_dtype(wire_dtype)
+    stage = resolve_wire_stage(wire_stage)
     fs = []
     for f in fields:
         if isinstance(f, tuple) and not isinstance(f, Field) and len(f) == 2 \
@@ -617,9 +741,12 @@ def halo_comm_plan(*fields, dims=None, coalesce=None, wire_dtype=None,
 
     axes: dict = {}
 
+    def axis_rec(dim):
+        return axes.setdefault(AXIS_NAMES[dim], {"ppermutes": 0, "wire_bytes": 0,
+                                                 "by_dtype": {}})
+
     def add_wire(dim, payload_bytes, key, npairs):
-        rec = axes.setdefault(AXIS_NAMES[dim], {"ppermutes": 0, "wire_bytes": 0,
-                                                "by_dtype": {}})
+        rec = axis_rec(dim)
         rec["ppermutes"] += 2
         b = payload_bytes * npairs
         rec["wire_bytes"] += b
@@ -627,8 +754,9 @@ def halo_comm_plan(*fields, dims=None, coalesce=None, wire_dtype=None,
 
     local_bytes = 0
     local_by_axis: dict = {}
+    staged = _staged_layouts(gg, stage)
     groups_by_dim = _coalesce_groups(gg, sigs, hws, [False] * len(sigs), dims_order,
-                                     coalesce)
+                                     coalesce, wire, frozenset(staged))
     for dim in dims_order:
         D, periodic, disp = _dim_meta(gg, dim)
         if D == 1 and not periodic:
@@ -638,8 +766,27 @@ def halo_comm_plan(*fields, dims=None, coalesce=None, wire_dtype=None,
         in_group = set()
         for g in groups_by_dim.get(dim, ()):
             in_group.update(g)
+            dt = sigs[g[0]].dtype
             schema = schema_for_fields(dim, [sigs[i].shape for i in g],
-                                       [hws[i][dim] for i in g], sigs[g[0]].dtype)
+                                       [hws[i][dim] for i in g], dt,
+                                       wire_format_for(dt, wire, dim))
+            if dim in staged:
+                sws = StagedWireSchema(schema=schema, layout=staged[dim])
+                rec = axis_rec(dim)
+                rec["ppermutes"] += sws.ppermute_ops
+                rec["wire_bytes"] += sws.wire_bytes
+                rec["by_dtype"][schema.wire_key] = (
+                    rec["by_dtype"].get(schema.wire_key, 0) + sws.wire_bytes)
+                det = rec.setdefault("staged", {
+                    "fold": int(sws.layout.fold),
+                    "gather_axis": AXIS_NAMES[sws.layout.gather_dim],
+                    "granules": int(sws.layout.granules),
+                    "dcn_pairs": sws.dcn_pair_count,
+                    "flat_dcn_pairs": sws.flat_dcn_pair_count(),
+                    "stages": [],
+                })
+                det["stages"].extend(dict(r, group=tuple(g)) for r in sws.stage_table())
+                continue
             add_wire(dim, schema.payload_bytes, schema.wire_key, npairs)
         for i, f in enumerate(sigs):
             if i in in_group or not _dim_exchanges(gg, f.shape, hws[i], dim):
@@ -649,13 +796,15 @@ def halo_comm_plan(*fields, dims=None, coalesce=None, wire_dtype=None,
                 local_bytes += b
                 local_by_axis[AXIS_NAMES[dim]] = local_by_axis.get(AXIS_NAMES[dim], 0) + b
                 continue
-            add_wire(dim, slab_cells(i, dim) * _itemsize(f.dtype), f.dtype, npairs)
+            fmt = wire_format_for(f.dtype, wire, dim)
+            wd = f.dtype if fmt is None else fmt.dtype_name
+            add_wire(dim, slab_cells(i, dim) * _itemsize(wd), wd, npairs)
     return {
         "fields": len(sigs),
         "coalesce": bool(coalesce),
-        "wire_dtype": None,
-        "wire_stage": None,
-        "staged_axes": (),
+        "wire_dtype": None if wire is None else str(wire),
+        "wire_stage": None if stage is None else str(stage),
+        "staged_axes": tuple(sorted(AXIS_NAMES[d] for d in staged)),
         "ensemble": 1,
         "axes": axes,
         "ppermutes": sum(r["ppermutes"] for r in axes.values()),

@@ -32,7 +32,8 @@ import itertools
 
 from ..parallel.topology import check_initialized, global_grid
 from ..utils.exceptions import InvalidArgumentError
-from .halo import _box_locals, _normalize_dims_order, _reject_wire, local_update_halo
+from .halo import _box_locals, _normalize_dims_order, local_update_halo
+from .precision import resolve_wire_dtype
 
 __all__ = ["hide_communication", "side_stream"]
 
@@ -78,14 +79,15 @@ def hide_communication(update_fn, T, *aux, radius: int = 1, dims=None, halowidth
     shell and stitch regions grow by its stagger.
 
     The exchange is ONE `local_update_halo` round of the first
-    ``n_exchange`` outputs (default: all) with ``dims`` and ``coalesce``;
+    ``n_exchange`` outputs (default: all) with ``dims``, ``coalesce`` and
+    ``wire_dtype`` (default from ``IGG_HALO_WIRE_DTYPE``: the shells' halos
+    cross in that wire format, as the plain order's would);
     ``halowidths`` (single-field form only) forwards per-field halowidths.
     A block too thin to split (``n < 2*(ol + radius) + 1``, or ``radius >
-    ol``) takes the plain order: update, then exchange. A wire dtype raises
-    `NotSupportedError` (not ported). Returns the updated, exchanged
+    ol``) takes the plain order: update, then exchange. Returns the updated, exchanged
     tensor(s), new ones; the inputs are not written."""
     check_initialized()
-    _reject_wire(wire_dtype, None)
+    wire = resolve_wire_dtype(wire_dtype)
     gg = global_grid()
     r = int(radius)
     if r < 0:
@@ -139,7 +141,8 @@ def hide_communication(update_fn, T, *aux, radius: int = 1, dims=None, halowidth
     def exchange(fields):
         if halowidths is not None:
             fields = [{"A": f, "halowidths": halowidths} for f in fields]
-        got = local_update_halo(*fields, dims=dims_order, coalesce=coalesce)
+        got = local_update_halo(*fields, dims=dims_order, coalesce=coalesce,
+                                wire_dtype=wire if wire is not None else "off")
         return list(got) if isinstance(got, tuple) else [got]
 
     def finish(new):

@@ -1,48 +1,57 @@
-"""The exact wire schema: how a group of send slabs packs into one buffer.
+"""The wire schema: how a group of send slabs packs into one buffer.
 
-Counterpart of `WireSchema`, `_slab_layout_ok`, `slab_schema` and
-`schema_for_fields` of `implicitglobalgrid_tpu/ops/wire.py`, for the exact
-wire (the state dtype on the wire). A schema is derived from the slab
-signature alone (slab shapes, state dtype, exchange axis) and fixes:
+Counterpart of `implicitglobalgrid_tpu/ops/wire.py`. A `WireSchema` is
+derived from the slab signature alone (slab shapes, state dtype, exchange
+axis, `WireFormat`) and fixes:
 
 - the **layout**: ``"slab"`` concatenates the send slabs along the
   exchange axis (every slab shares its cross extents); ``"flat"`` ravels
   each slab and concatenates (cross extents differ, as for staggered
-  fields);
-- the **byte accounting**: ``payload_bytes``, one direction's buffer,
-  which `ops.halo.halo_comm_plan` prices;
-- where each slab lies in the buffer (`slab_offsets`), which the pack
-  kernel K8 and the multi-field unpack kernel K7 (`ops/cuda_halo.py`) use
-  as their addressing.
+  fields, or the payload is quantized: its per-slab scales ride a byte
+  tail only a flat buffer has);
+- the **wire dtype**: the state dtype, a narrower float cast, or int8
+  bytes (bit-packed int4 included), per `precision.wire_format_for`;
+- the **byte accounting**: ``payload_bytes``, one direction's payload,
+  which `ops.halo.halo_comm_plan` prices and the transport sends;
+- where each slab lies in the STAGING buffer, the state-dtype buffer the
+  pack kernel K8 writes and the multi-field unpack kernel K7 reads
+  (`slab_offsets`, `buffer_shape`; `staging` is the schema they take).
 
-`pack`/`unpack` are the plain PyTorch program; on the virtual mesh every
-block's buffer is what `pack` returns for that block's slabs, raveled.
-Quantized and cast wire formats are not ported: a non-None ``fmt`` raises
-`NotSupportedError`.
+`encode_rows`/`decode_rows` are the codec, in plain PyTorch: K8's staging
+rows (one row a block) to wire payloads and back. `pack`/`unpack` give one
+block's payload from its slabs and back: the staging buffer, coded by the
+same two functions. `SlabCodec` codes
+the received slabs of the K4s routes block by block (`ops.halo`) and the
+edge slabs the transport sends.
 
-`CommCadence` and `resolve_comm_every` are the exchange cadence (the
-``comm_every`` knob, ``IGG_COMM_EVERY``) resolved as the JAX package
-resolves it; a deep cadence runs the models' deep-halo super-steps
-(`models.diffusion.deep_step` and its acoustic and Stokes twins).
+`CommCadence`/`resolve_comm_every` are the exchange cadence (the
+``comm_every`` knob, ``IGG_COMM_EVERY``), and `WireStagePolicy`/
+`resolve_wire_stage` the per-axis topology staging (``IGG_HALO_WIRE_STAGE``)
+with its `StagedWireSchema` accounting, resolved as the JAX package
+resolves them. The port's transport already sends one message a
+neighbour process and dim holding every edge slab of the box, so a staged
+axis moves the flat route's halos (bit-identical, as the JAX package
+guarantees); the staging changes the grouping and the plan.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 
 from ..utils.exceptions import InvalidArgumentError, NotSupportedError
+from .precision import (
+    SCALE_BYTES, _DIM_NAMES, _per_axis, decode_scales, dequantize_rows, dtype_name,
+    encode_scales, narrow, quant_slab_bytes, quantize_rows,
+)
 
 __all__ = ["WireSchema", "slab_schema", "schema_for_fields", "dtype_name", "CommCadence",
-           "resolve_comm_every"]
+           "resolve_comm_every", "WireStagePolicy", "resolve_wire_stage",
+           "StagedWireSchema", "SlabCodec", "block_rows", "from_block_rows"]
 
 _LATER = "a later slice of the PyTorch port"
-
-
-_AXIS_TOKENS = {"x": 0, "y": 1, "z": 2, "gx": 0, "gy": 1, "gz": 2}
-_DIM_NAMES = ("x", "y", "z")
 
 
 @dataclass(frozen=True)
@@ -126,50 +135,11 @@ def resolve_comm_every(comm_every=None) -> CommCadence:
         return CommCadence((1, 1, 1))
     if isinstance(comm_every, CommCadence):
         return comm_every
-    if isinstance(comm_every, dict):
-        items = list(comm_every.items())
-    elif isinstance(comm_every, str) and ":" in comm_every:
-        items = []
-        for part in comm_every.split(","):
-            part = part.strip()
-            if not part:
-                continue
-            if ":" not in part:
-                raise InvalidArgumentError(
-                    f"Per-axis comm_every spec {comm_every!r}: entry {part!r} must be "
-                    "'<axis>:<k>' (e.g. 'z:4,x:1').")
-            items.append(tuple(part.split(":", 1)))
-    else:
+    per_dim = _per_axis(comm_every, "comm_every", "'<axis>:<k>' (e.g. 'z:4,x:1')", 1,
+                        _parse_cadence_k)
+    if per_dim is None:
         return CommCadence((_parse_cadence_k(comm_every),) * 3)
-    per_dim = [1, 1, 1]
-    seen = set()
-    for axis, k in items:
-        dim = _AXIS_TOKENS.get(str(axis).strip().lower())
-        if dim is None:
-            raise InvalidArgumentError(
-                f"Unknown mesh axis {axis!r} in comm_every spec (use x/y/z or gx/gy/gz).")
-        if dim in seen:
-            raise InvalidArgumentError(f"Mesh axis {axis!r} named twice in comm_every spec.")
-        seen.add(dim)
-        per_dim[dim] = _parse_cadence_k(k)
     return CommCadence(tuple(per_dim))
-
-
-def _reject_fmt(fmt):
-    if fmt is not None:
-        raise NotSupportedError(f"wire formats (casts, quantization) are not ported yet "
-                                f"({_LATER}).")
-
-
-def dtype_name(dtype) -> str:
-    """The numpy-style name of a torch or numpy dtype (``"float32"``,
-    ``"bfloat16"``, ...)."""
-    s = str(dtype)
-    if s.startswith("torch."):
-        return s[len("torch."):]
-    if s == "bfloat16":  # a name already (numpy has no bfloat16)
-        return s
-    return np.dtype(dtype).name
 
 
 def _itemsize(name: str) -> int:
@@ -183,13 +153,14 @@ class WireSchema:
     """One direction's packing program for a group of same-dtype slabs.
 
     ``shapes`` are the send-slab shapes in pack order, ``dim`` the exchange
-    axis, ``layout`` ``"slab"`` or ``"flat"``, ``members`` the ensemble
-    member count (1: the ensemble axis is not ported)."""
+    axis, ``fmt`` the resolved `WireFormat` (None: the exact wire),
+    ``layout`` ``"slab"`` or ``"flat"``, ``members`` the ensemble member
+    count (1: the ensemble axis is not ported)."""
 
     dim: int
     shapes: tuple          # per-slab shapes, pack order
     state_dtype: str       # dtype name
-    fmt: object = None     # exact wire only
+    fmt: object = None     # WireFormat | None
     layout: str = "slab"
     members: int = 1
 
@@ -204,26 +175,40 @@ class WireSchema:
 
     @property
     def is_quant(self) -> bool:
-        return False
+        return self.fmt is not None and self.fmt.is_quant
 
     @property
     def wire_dtype(self) -> str:
-        return self.state_dtype
+        """The dtype name the payload crosses in (``"int8"`` quantized)."""
+        return self.state_dtype if self.fmt is None else self.fmt.dtype_name
 
     @property
     def payload_bytes(self) -> int:
-        """Exact bytes of one direction's packed buffer."""
-        return sum(self.cells) * _itemsize(self.state_dtype) * max(1, int(self.members))
+        """Exact bytes of one direction's payload: the quantized slabs and
+        a `SCALE_BYTES` scale each, or every cell in the wire dtype."""
+        if self.is_quant:
+            per = sum(quant_slab_bytes(c, self.fmt) for c in self.cells) \
+                + SCALE_BYTES * self.n_slabs
+        else:
+            per = sum(self.cells) * _itemsize(self.wire_dtype)
+        return per * max(1, int(self.members))
 
     @property
     def wire_key(self) -> str:
-        """The `halo_comm_plan` ``by_dtype`` key of this payload."""
-        return self.state_dtype
+        """The `halo_comm_plan` ``by_dtype`` key of this payload (the format
+        name for a quantized wire, the dtype name otherwise)."""
+        return self.fmt.name if self.is_quant else self.wire_dtype
+
+    @property
+    def staging(self) -> "WireSchema":
+        """The schema of the state-dtype buffer K8 packs and K7 unpacks (no
+        wire format; the same layout)."""
+        return self if self.fmt is None else replace(self, fmt=None)
 
     @property
     def buffer_shape(self) -> tuple:
-        """The shape `pack` returns: the concat shape (slab layout) or the
-        payload's cell count (flat)."""
+        """The shape of the staging buffer: the concat shape (slab layout)
+        or the payload's cell count (flat)."""
         if self.layout == "flat":
             return (sum(self.cells),)
         cat = list(self.shapes[0])
@@ -231,8 +216,8 @@ class WireSchema:
         return tuple(cat)
 
     def slab_offsets(self):
-        """Where each slab lies in one block's raveled buffer: per slab
-        ``(base, strides)``, the element at slab index ``a`` sitting at
+        """Where each slab lies in one block's raveled staging buffer: per
+        slab ``(base, strides)``, the element at slab index ``a`` sitting at
         ``base + sum(a[d] * strides[d])``. Shapes of fewer than 3 dims are
         padded with trailing 1s (strides 0)."""
         out = []
@@ -251,11 +236,15 @@ class WireSchema:
         return out
 
     def pack(self, slabs):
-        """Pack the per-field send slabs (tensors of exactly ``shapes``,
-        pack order) into ONE buffer: the concat along ``dim`` (slab layout)
-        or the concat of the ravels (flat layout)."""
+        """Pack the per-field send slabs (tensors of exactly ``shapes``, pack
+        order) into ONE payload: the concat along ``dim`` (slab layout) or
+        of the ravels (flat), then `encode_rows` of it under a wire format
+        (cast to the wire dtype; quantized, each slab's int8 payload in
+        order, then the scales' bytes)."""
         import torch
 
+        if self.fmt is not None:
+            return self.encode_rows(self.staging.pack(slabs))
         self._check(slabs)
         if self.layout == "flat":
             return torch.cat([s.reshape(-1) for s in slabs])
@@ -264,8 +253,11 @@ class WireSchema:
         return torch.cat(list(slabs), dim=self.dim)
 
     def unpack(self, buf):
-        """Inverse of `pack`: the buffer back into per-field slabs of
-        ``shapes`` (views of ``buf``)."""
+        """Inverse of `pack`: the payload back into per-field slabs of
+        ``shapes`` in the state dtype (views of ``buf`` on the exact wire,
+        of its `decode_rows` otherwise)."""
+        if self.fmt is not None:
+            return self.staging.unpack(self.decode_rows(buf))
         out = []
         if self.layout == "flat":
             buf = buf.reshape(-1)
@@ -283,6 +275,52 @@ class WireSchema:
             off += w
         return out
 
+    def encode_rows(self, rows):
+        """The payloads of staging rows ``rows`` (..., sum of ``cells``; one
+        block's raveled staging buffer a row, as K8 writes them; a cast
+        takes any shape): each row's wire payload, as (..., payload
+        elements) of the wire dtype. The exact wire returns ``rows``."""
+        if self.fmt is None:
+            return rows
+        if not self.is_quant:
+            return narrow(rows, self.fmt.dtype)
+        import torch
+
+        if self.layout != "flat":
+            raise InvalidArgumentError("a quantized payload takes the flat layout.")
+        lead = rows.shape[:-1]
+        flat = rows.reshape(-1, rows.shape[-1])
+        parts, scales, off = [], [], 0
+        for c in self.cells:
+            q, s = quantize_rows(flat.narrow(1, off, c), self.fmt)
+            parts.append(q)
+            scales.append(s)
+            off += c
+        parts.append(encode_scales(torch.stack(scales, dim=1)))
+        return torch.cat(parts, dim=1).reshape(lead + (-1,))
+
+    def decode_rows(self, wire):
+        """Inverse of `encode_rows`: payload rows back into staging rows of
+        the state dtype (K7 reads them)."""
+        if self.fmt is None:
+            return wire
+        out_dt = _torch_dtype(self.state_dtype)
+        if not self.is_quant:
+            return wire.to(out_dt)
+        import torch
+
+        lead = wire.shape[:-1]
+        flat = wire.reshape(-1, wire.shape[-1])
+        qsizes = [quant_slab_bytes(c, self.fmt) for c in self.cells]
+        data = sum(qsizes)
+        scales = decode_scales(flat.narrow(1, data, SCALE_BYTES * self.n_slabs), self.n_slabs)
+        parts, off = [], 0
+        for k, (c, qb) in enumerate(zip(self.cells, qsizes)):
+            parts.append(dequantize_rows(flat.narrow(1, off, qb), scales[:, k], c, self.fmt,
+                                         out_dt))
+            off += qb
+        return torch.cat(parts, dim=1).reshape(lead + (-1,))
+
     def _check(self, slabs) -> None:
         if len(slabs) != self.n_slabs:
             raise InvalidArgumentError(
@@ -296,6 +334,12 @@ class WireSchema:
                 raise InvalidArgumentError(
                     f"WireSchema.pack: slab dtype {s.dtype} is not the schema's "
                     f"{self.state_dtype}.")
+
+
+def _torch_dtype(name: str):
+    import torch
+
+    return getattr(torch, name)
 
 
 def _strides(shape) -> tuple:
@@ -321,16 +365,22 @@ def _slab_layout_ok(dim: int, shapes) -> bool:
 
 def slab_schema(dim: int, shapes, state_dtype, fmt=None, members: int = 1) -> WireSchema:
     """The canonical schema for one (axis, dtype group) from its slab
-    shapes."""
-    _reject_fmt(fmt)
+    shapes. ``fmt`` is the resolved `WireFormat` of the axis
+    (`precision.wire_format_for`), or None for the exact wire; a quantized
+    payload takes the flat layout."""
+    from .precision import WireFormat, _parse_format
+
     shapes = tuple(tuple(int(v) for v in s) for s in shapes)
     if not shapes:
         raise InvalidArgumentError("slab_schema needs at least one slab.")
     if int(members) != 1:
         raise NotSupportedError(f"ensemble batching is not ported yet ({_LATER}).")
-    layout = "slab" if _slab_layout_ok(dim, shapes) else "flat"
+    if fmt is not None and not isinstance(fmt, WireFormat):
+        fmt = _parse_format(fmt)
+    quant = fmt is not None and fmt.is_quant
+    layout = "flat" if quant or not _slab_layout_ok(dim, shapes) else "slab"
     return WireSchema(dim=int(dim), shapes=shapes, state_dtype=dtype_name(state_dtype),
-                      layout=layout)
+                      fmt=fmt, layout=layout)
 
 
 def schema_for_fields(dim: int, shapes, hws, state_dtype, fmt=None,
@@ -343,3 +393,233 @@ def schema_for_fields(dim: int, shapes, hws, state_dtype, fmt=None,
         s[dim] = int(hw)
         slab_shapes.append(tuple(s))
     return slab_schema(dim, slab_shapes, state_dtype, fmt, members=members)
+
+
+# ---------------------------------------------------------------------------
+# the received slabs of the K4s routes, block by block
+# ---------------------------------------------------------------------------
+
+def block_rows(t, blk):
+    """The blocks of stacked ``t`` (blocks of shape ``blk``) as rows:
+    (blocks in row-major order of their coordinates, raveled block)."""
+    nd = t.dim()
+    counts = [int(s) // int(b) for s, b in zip(t.shape, blk)]
+    split = [v for c, b in zip(counts, blk) for v in (c, int(b))]
+    perm = list(range(0, 2 * nd, 2)) + list(range(1, 2 * nd, 2))
+    return t.reshape(split).permute(perm).reshape(int(np.prod(counts)), int(np.prod(blk)))
+
+
+def from_block_rows(rows, shape, blk):
+    """Inverse of `block_rows`: rows back into a stacked tensor of
+    ``shape``."""
+    nd = len(shape)
+    counts = [int(s) // int(b) for s, b in zip(shape, blk)]
+    v = rows.reshape(counts + [int(b) for b in blk])
+    perm = [p for d in range(nd) for p in (d, nd + d)]
+    return v.permute(perm).reshape(tuple(int(s) for s in shape))
+
+
+class SlabCodec:
+    """The wire of one field's slabs along one dim, block by block: ``fmt``
+    the `WireFormat`, ``blk`` the LOCAL slab shape (the block with the dim
+    at the halowidth). A stacked slab tensor (a whole number of such
+    slabs along every dim) is one `WireSchema` payload a block, in
+    row-major block order."""
+
+    def __init__(self, fmt, blk, state_dtype):
+        self.fmt = fmt
+        self.blk = tuple(int(b) for b in blk)
+        self.schema = slab_schema(0, [self.blk], state_dtype, fmt)
+
+    def roundtrip(self, t):
+        """``t`` as it arrives through the wire: cast and back, or every
+        block's slab quantized and dequantized (a new tensor)."""
+        if not self.fmt.is_quant:
+            return narrow(t, self.fmt.dtype).to(t.dtype)
+        rows = self.schema.decode_rows(self.schema.encode_rows(block_rows(t, self.blk)))
+        return from_block_rows(rows, tuple(t.shape), self.blk)
+
+    def encode(self, t):
+        """The payload bytes of stacked slab tensor ``t`` (uint8, flat)."""
+        import torch
+
+        if not self.fmt.is_quant:
+            return narrow(t, self.fmt.dtype).contiguous().reshape(-1).view(torch.uint8)
+        return self.schema.encode_rows(block_rows(t, self.blk)).reshape(-1).view(torch.uint8)
+
+    def nbytes(self, t) -> int:
+        """Payload bytes of a stacked slab tensor shaped as ``t``."""
+        blocks = int(np.prod([int(s) // b for s, b in zip(t.shape, self.blk)]))
+        return blocks * self.schema.payload_bytes
+
+    def decode_into(self, wire, out) -> None:
+        """Write the slabs of payload bytes ``wire`` into ``out``."""
+        import torch
+
+        if not self.fmt.is_quant:
+            out.copy_(wire.view(self.fmt.dtype).view(out.shape))
+            return
+        rows = self.schema.decode_rows(wire.view(torch.int8).view(-1, self.schema.payload_bytes))
+        out.copy_(from_block_rows(rows, tuple(out.shape), self.blk))
+
+
+# ---------------------------------------------------------------------------
+# per-axis topology staging (the IGG_HALO_WIRE_STAGE knob's resolved form)
+# ---------------------------------------------------------------------------
+
+_STAGE_OFF = (None, "", "0", "off", "none", "flat", "false")
+_STAGE_ON = ("staged", "hier", "hierarchical", "1", "on", "true")
+
+
+def _parse_stage(token) -> bool:
+    if isinstance(token, bool):
+        return token
+    if isinstance(token, str):
+        token = token.strip().lower()
+    if token in _STAGE_OFF:
+        return False
+    if token in _STAGE_ON:
+        return True
+    raise InvalidArgumentError(
+        f"Unsupported halo wire stage {token!r}; supported: 'staged' "
+        "(hierarchical gather->DCN->scatter) or 'flat'/'off'.")
+
+
+@dataclass(frozen=True)
+class WireStagePolicy:
+    """Resolved per-mesh-axis topology staging: one bool per grid dimension
+    (x, y, z), whether that axis's exchange is staged. An axis whose granule
+    layout is degenerate (`parallel.topology.staged_wire_layout` returns
+    None) keeps the flat wire. The string form round-trips through
+    `resolve_wire_stage` (``"staged"``, ``"z:staged"``, ``"off"``)."""
+
+    per_dim: tuple
+
+    def for_dim(self, dim: int) -> bool:
+        """Whether grid dimension ``dim`` is staged (dims beyond the policy
+        stay flat)."""
+        if 0 <= int(dim) < len(self.per_dim):
+            return bool(self.per_dim[int(dim)])
+        return False
+
+    @property
+    def any_staged(self) -> bool:
+        return any(self.per_dim)
+
+    @property
+    def staged_dims(self) -> tuple:
+        """Grid dims requesting the staged pipeline, ascending."""
+        return tuple(d for d, s in enumerate(self.per_dim) if s)
+
+    def __str__(self) -> str:
+        if not self.any_staged:
+            return "off"
+        if all(self.per_dim):
+            return "staged"
+        return ",".join(f"{_DIM_NAMES[d]}:staged" for d in self.staged_dims)
+
+    def __repr__(self) -> str:
+        return f"WireStagePolicy({self})"
+
+
+def resolve_wire_stage(wire_stage=None):
+    """The requested topology staging as a `WireStagePolicy`, or None for
+    the flat wire everywhere (the default). ``wire_stage=None`` consults
+    ``IGG_HALO_WIRE_STAGE``; an explicit argument (``"off"`` included)
+    wins. Accepted forms: ``"staged"`` (every axis), a per-axis spec
+    ``"z:staged"`` / ``"z:staged,x:flat"`` (axes x/y/z or gx/gy/gz), a
+    ``{axis: "staged" | bool}`` mapping, or a `WireStagePolicy`."""
+    import os
+
+    if wire_stage is None:
+        wire_stage = os.environ.get("IGG_HALO_WIRE_STAGE")
+    if isinstance(wire_stage, WireStagePolicy):
+        return wire_stage if wire_stage.any_staged else None
+    if isinstance(wire_stage, str):
+        wire_stage = wire_stage.strip().lower()
+    if wire_stage in _STAGE_OFF:
+        return None
+    per_dim = _per_axis(wire_stage, "wire stage", "'<axis>:staged' (e.g. 'z:staged')", False,
+                        _parse_stage)
+    if per_dim is None:
+        return WireStagePolicy((True,) * 3) if _parse_stage(wire_stage) else None
+    if not any(per_dim):
+        return None
+    return WireStagePolicy(tuple(per_dim))
+
+
+@dataclass(frozen=True)
+class StagedWireSchema:
+    """One staged axis's three-stage wire accounting (the JAX package's
+    ledger): the flat `WireSchema` payload plus the
+    `parallel.topology.StagedWireLayout` routes it would travel (gather
+    ``fold - 1`` hops along the gather axis, ONE striped transfer of
+    ``fold`` payloads leader to leader across the granule boundary,
+    scatter ``fold - 1`` hops back; same-granule pairs keep the flat
+    pair). The port moves the flat route's halos (module docstring); this
+    object prices the staged wire in `ops.halo.halo_comm_plan`."""
+
+    schema: WireSchema
+    layout: object  # parallel.topology.StagedWireLayout
+
+    @property
+    def fold(self) -> int:
+        return int(self.layout.fold)
+
+    @property
+    def payload_bytes(self) -> int:
+        """Bytes of ONE packed buffer (a gather, scatter or intra hop)."""
+        return self.schema.payload_bytes
+
+    @property
+    def dcn_payload_bytes(self) -> int:
+        return self.schema.payload_bytes * self.fold
+
+    def stage_table(self) -> tuple:
+        """Per (direction, stage) records ``{"direction", "stage", "ops",
+        "pairs", "payload_bytes", "wire_bytes"}``, ``wire_bytes = ops *
+        pairs * payload_bytes`` over the whole mesh."""
+        out = []
+        pb = self.payload_bytes
+        f = self.fold
+        for d in self.layout.directions:
+            if d.intra_pairs_lin:
+                out.append({"direction": d.name, "stage": "intra", "ops": 1,
+                            "pairs": len(d.intra_pairs_lin), "payload_bytes": pb,
+                            "wire_bytes": pb * len(d.intra_pairs_lin)})
+            if not d.cross_pairs:
+                continue
+            out.append({"direction": d.name, "stage": "gather", "ops": f - 1,
+                        "pairs": len(d.gather_pairs), "payload_bytes": pb,
+                        "wire_bytes": (f - 1) * pb * len(d.gather_pairs)})
+            out.append({"direction": d.name, "stage": "dcn", "ops": 1,
+                        "pairs": len(d.dcn_pairs), "payload_bytes": pb * f,
+                        "wire_bytes": pb * f * len(d.dcn_pairs)})
+            out.append({"direction": d.name, "stage": "scatter", "ops": f - 1,
+                        "pairs": len(d.scatter_pairs), "payload_bytes": pb,
+                        "wire_bytes": (f - 1) * pb * len(d.scatter_pairs)})
+        return tuple(out)
+
+    @property
+    def ppermute_ops(self) -> int:
+        """Collective-permute ops of one exchange round on this axis."""
+        return sum(r["ops"] for r in self.stage_table())
+
+    @property
+    def wire_bytes(self) -> int:
+        """Absolute wire bytes of one exchange round on this axis."""
+        return sum(r["wire_bytes"] for r in self.stage_table())
+
+    @property
+    def dcn_pair_count(self) -> int:
+        """Granule-crossing source-target pairs per round (both
+        directions)."""
+        return sum(r["pairs"] for r in self.stage_table() if r["stage"] == "dcn")
+
+    def flat_dcn_pair_count(self) -> int:
+        """The flat wire's granule-crossing pair count on the same axis."""
+        n_lines = 1
+        for d, n in enumerate(self.layout.dims):
+            if d != self.layout.dim:
+                n_lines *= int(n)
+        return sum(len(d.cross_pairs) for d in self.layout.directions) * n_lines

@@ -34,6 +34,7 @@ __all__ = [
     "check_initialized", "get_global_grid", "grid_epoch",
     "dims_create", "cart_rank", "cart_coords", "cart_shift", "neighbors_table",
     "ol", "axis_perm_pairs", "crosses",
+    "StagedDirection", "StagedWireLayout", "staged_wire_layout",
 ]
 
 NDIMS = 3
@@ -242,6 +243,128 @@ def crosses(gg, dim: int) -> bool:
     """Whether ``dim`` is split across processes, so that its halo exchange
     goes through the transport at the box's edges."""
     return dim < NDIMS and int(gg.procs.shape[dim]) > 1
+
+
+# ---------------------------------------------------------------------------
+# Topology-staged wire layout (the JAX package's hierarchical exchange routes)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class StagedDirection:
+    """One direction's routes of a staged axis exchange. ``axis_pairs``
+    are the flat single-axis pairs this direction would ship unstaged;
+    they partition into ``intra_pairs`` (same granule — stay a flat
+    single-axis ppermute) and ``cross_pairs`` (granule-crossing — replaced
+    by the gather/dcn/scatter pipeline). All ``*_lin``/``gather``/``dcn``/
+    ``scatter`` pair lists are LINEARIZED over the full mesh (row-major
+    over ``dims``, the index space of a ppermute over the whole axis-name
+    tuple and of a compiled collective-permute's source_target_pairs)."""
+
+    name: str            # "+" (data moves toward +dim) or "-"
+    axis_pairs: tuple    # flat single-axis pairs, axis index space
+    intra_pairs: tuple   # same-granule subset, axis index space
+    cross_pairs: tuple   # granule-crossing subset, axis index space
+    intra_pairs_lin: tuple
+    gather_pairs: tuple  # gather_dim k -> k-1 shifts on sending planes
+    dcn_pairs: tuple     # leader -> leader across the granule boundary
+    scatter_pairs: tuple  # gather_dim k -> k+1 shifts on receiving planes
+    cross_sources: tuple  # axis coords that send across a boundary
+    cross_targets: tuple  # axis coords that receive across a boundary
+
+
+@dataclass(frozen=True)
+class StagedWireLayout:
+    """The staged exchange's complete route table for one mesh axis:
+    which single-axis pairs cross a DCN granule boundary, which ICI axis
+    the per-granule leaders fold over (``gather_dim``, fold ``fold``),
+    and the exact linearized pair set of every stage in both directions.
+    Derived once from the grid geometry by `staged_wire_layout` and read
+    by the grouping and the static plan (`ops.halo`)."""
+
+    dim: int             # the staged (DCN-crossing) grid dimension
+    gather_dim: int      # the perpendicular pure-ICI dim leaders fold over
+    fold: int            # dims[gather_dim] — the DCN message-count fold
+    granules: int        # DCN granules along `dim`
+    block: int           # devices per granule along `dim`
+    dims: tuple          # full mesh shape (linearization basis)
+    directions: tuple    # (StagedDirection, ...) — "+" then "-"
+
+    @property
+    def dcn_pair_count(self) -> int:
+        return sum(len(d.dcn_pairs) for d in self.directions)
+
+
+def staged_wire_layout(gg, dim: int):
+    """Derive the staged wire layout of grid dimension ``dim`` from the
+    grid's granule metadata, or ``None`` when staging is degenerate there
+    (single granule, granule count not dividing the axis, no perpendicular
+    pure-ICI axis with extent >= 2, or no granule-crossing pair), as the
+    JAX package decides. The granules are the grid's ``dcn_granules``
+    (``IGG_TPU_DCN_GRANULES``, or the processes along the axes of
+    ``IGG_TPU_DCN_AXES``)."""
+    import itertools
+
+    dims = tuple(int(v) for v in gg.dims)
+    dim = int(dim)
+    D = dims[dim]
+    granules = tuple(int(v) for v in getattr(gg, "dcn_granules", (1, 1, 1)))
+    G = granules[dim] if dim < len(granules) else 1
+    if D < 2 or G < 2 or D % G != 0:
+        return None
+    # the gather axis: the largest perpendicular pure-ICI axis
+    cands = [g for g in range(NDIMS)
+             if g != dim and granules[g] == 1 and dims[g] > 1]
+    if not cands:
+        return None
+    gather_dim = max(cands, key=lambda g: (dims[g], -g))
+    F = dims[gather_dim]
+    if F < 2:
+        return None
+    B = D // G
+    periodic = bool(gg.periods[dim])
+    disp = int(gg.disp)
+    perm_p, perm_m = axis_perm_pairs(D, periodic, disp)
+    other_dims = [d for d in range(NDIMS) if d not in (dim, gather_dim)]
+    other_ranges = [range(dims[d]) for d in other_dims]
+
+    def lin(axis_c, gather_c, other_c):
+        c = [0] * NDIMS
+        c[dim] = axis_c
+        c[gather_dim] = gather_c
+        for d, v in zip(other_dims, other_c):
+            c[d] = v
+        return cart_rank(c, dims)
+
+    directions = []
+    for name, pairs in (("+", perm_p), ("-", perm_m)):
+        intra = tuple((s, t) for s, t in pairs if s // B == t // B)
+        cross = tuple((s, t) for s, t in pairs if s // B != t // B)
+        srcs = tuple(sorted({s for s, _ in cross}))
+        tgts = tuple(sorted({t for _, t in cross}))
+        intra_lin, gather, dcn, scatter = [], [], [], []
+        for oc in itertools.product(*other_ranges):
+            for s, t in intra:
+                for k in range(F):
+                    intra_lin.append((lin(s, k, oc), lin(t, k, oc)))
+            for s in srcs:
+                for k in range(1, F):
+                    gather.append((lin(s, k, oc), lin(s, k - 1, oc)))
+            for s, t in cross:
+                dcn.append((lin(s, 0, oc), lin(t, 0, oc)))
+            for t in tgts:
+                for k in range(F - 1):
+                    scatter.append((lin(t, k, oc), lin(t, k + 1, oc)))
+        directions.append(StagedDirection(
+            name=name, axis_pairs=tuple(pairs), intra_pairs=intra,
+            cross_pairs=cross, intra_pairs_lin=tuple(intra_lin),
+            gather_pairs=tuple(gather), dcn_pairs=tuple(dcn),
+            scatter_pairs=tuple(scatter), cross_sources=srcs,
+            cross_targets=tgts))
+    if not any(d.cross_pairs for d in directions):
+        return None
+    return StagedWireLayout(dim=dim, gather_dim=gather_dim, fold=F,
+                            granules=G, block=B, dims=dims,
+                            directions=tuple(directions))
 
 
 def ol(dim: int, local_shape=None) -> int:

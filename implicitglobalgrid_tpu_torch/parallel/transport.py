@@ -24,6 +24,13 @@ a process boundary (or wrap around onto this process) into the received
 slabs of the blocks at the box's edges. The order of the messages is the
 same on every process, so every process must call it for every crossing
 dim, in the same order, as for any collective.
+
+Under a halo wire format (`ops.precision`) a slab crosses in that format:
+`fill_edges` sends each item's payload bytes (`ops.wire.SlabCodec`: the cast
+slab, or every block's int8 payload with its scale) and decodes them on
+arrival; `shift_rows` sends K8's rows coded by the group's `WireSchema`
+(`encode_rows`) and decodes them. ``stats["wire_bytes"]`` counts the bytes
+sent.
 """
 
 from __future__ import annotations
@@ -92,48 +99,75 @@ def edge_plan(gg, dim: int):
 
 def fill_edges(gg, dim: int, items) -> None:
     """Complete one crossing dim's received slabs, in place. ``items``:
-    ``(dst, src, side)`` tensors whose axis ``dim`` indexes the box's blocks
-    along ``dim``: ``dst`` the received slabs (right inside the box, and a
-    block's own slab on a non-periodic edge), ``src`` every block's send
-    slabs for ``side`` (`EdgeMessage`). Every process calls it for every
-    crossing dim in the same order."""
+    ``(dst, src, side)`` or ``(dst, src, side, codec)`` tensors whose axis
+    ``dim`` indexes the box's blocks along ``dim``: ``dst`` the received
+    slabs (right inside the box, and a block's own slab on a non-periodic
+    edge), ``src`` every block's send slabs for ``side`` (`EdgeMessage`);
+    ``codec`` (`ops.wire.SlabCodec`, or None for the exact wire) the wire
+    format the slabs cross in. Every process calls it for every crossing
+    dim in the same order."""
+    import torch
+
     tr = gg.transport
-    msgs = []
+    items = [tuple(it) + (None,) * (4 - len(it)) for it in items]
+    msgs, decodes = [], []
     for m in edge_plan(gg, dim):
-        its = [(dst, src) for dst, src, side in items if side == m.side]
+        its = [(dst, src, codec) for dst, src, side, codec in items if side == m.side]
         if m.recv_from == tr.rank:  # wraps around onto this process
-            for dst, src in its:
+            for dst, src, codec in its:
                 for t, b in m.pairs:
-                    dst.select(dim, t).copy_(src.select(dim, b))
+                    if codec is None:
+                        dst.select(dim, t).copy_(src.select(dim, b))
+                    else:
+                        codec.decode_into(codec.encode(src.select(dim, b)), dst.select(dim, t))
             continue
         send = None
         if m.send_to is not None:
-            send = [src.select(dim, b) for _, src in its for _, b in m.pairs]
+            send = [src.select(dim, b) if codec is None else codec.encode(src.select(dim, b))
+                    for _, src, codec in its for _, b in m.pairs]
         recv = None
         if m.recv_from is not None:
-            recv = [dst.select(dim, t) for dst, _ in its for t, _ in m.pairs]
+            recv = []
+            for dst, _, codec in its:
+                for t, _ in m.pairs:
+                    d = dst.select(dim, t)
+                    if codec is None:
+                        recv.append(d)
+                    else:
+                        w = torch.empty(codec.nbytes(d), dtype=torch.uint8, device=d.device)
+                        recv.append(w)
+                        decodes.append((codec, w, d))
         msgs.append((m.send_to, send, m.recv_from, recv))
     tr.exchange(msgs)
+    for codec, w, d in decodes:
+        codec.decode_into(w, d)
 
 
-def shift_rows(gg, dim: int, bufs, own):
+def shift_rows(gg, dim: int, bufs, own, schema=None):
     """The rows a K7 launch with ``disp`` 0 reads, one per block of the box,
     for the two sides of a crossing dim: row ``t`` of side 0 (the left
     halos) is the right buffer row of block ``t - disp``, of side 1 the left
     buffer row of block ``t + disp``; rows inside the box are copied, rows
     from other processes come through `fill_edges`, and a block on a
     non-periodic edge keeps its halo (``own()``: its own halos packed, side
-    0 the left ones). ``bufs``: ``(buf_r, buf_l)`` of `cuda_halo.wire_pack`
-    viewed with the blocks' coordinates first."""
+    0 the left ones, exact). ``bufs``: ``(buf_r, buf_l)`` of
+    `cuda_halo.wire_pack` viewed with the blocks' coordinates first.
+    ``schema``: the group's `WireSchema` when a wire format applies; every
+    row then moves as its payload (`WireSchema.encode_rows`), decoded on
+    arrival."""
     import torch
 
     Db, disp = int(gg.box[dim]), int(gg.disp)
     buf_r, buf_l = bufs
+    if schema is not None:
+        buf_r, buf_l = schema.encode_rows(buf_r), schema.encode_rows(buf_l)
     rows = (torch.empty_like(buf_r), torch.empty_like(buf_l))
     if disp < Db:
         rows[0].narrow(dim, disp, Db - disp).copy_(buf_r.narrow(dim, 0, Db - disp))
         rows[1].narrow(dim, 0, Db - disp).copy_(buf_l.narrow(dim, disp, Db - disp))
     fill_edges(gg, dim, [(rows[0], buf_r, 0), (rows[1], buf_l, 1)])
+    if schema is not None:
+        rows = (schema.decode_rows(rows[0]), schema.decode_rows(rows[1]))
     nulls = [(m.side, t) for m in edge_plan(gg, dim) if m.recv_from is None
              for t, _ in m.pairs]
     if nulls:

@@ -2,8 +2,9 @@
 
 Counterpart of `implicitglobalgrid_tpu/utils/timing.py`. PyTorch enqueues
 CUDA work and returns, so every barrier here synchronizes the grid's CUDA
-device before the host clock is read; where a process group is up, every
-process then waits for the others (`transport.barrier`), so that a span
+device before the host clock is read; where a process group is up, `tic`
+then waits for every process (`transport.barrier`), and `toc` returns the
+longest span over the processes (`transport.all_max`), so that a span
 covers the slowest process.
 """
 
@@ -58,8 +59,10 @@ def tic(sync_on=None) -> None:
 
 
 def toc(sync_on=None) -> float:
-    """Seconds since `tic`, read after the CUDA stream has drained and every
-    process has reached it. COLLECTIVE."""
+    """Seconds since `tic`, read once the CUDA stream has drained: the
+    longest such span over the processes, so every process returns one
+    span that covers the slowest (a process that leaves `tic`'s barrier
+    late still reports the span of one that left it early). COLLECTIVE."""
     check_initialized()
     if _t0 is None:
         from .exceptions import InvalidArgumentError
@@ -67,8 +70,9 @@ def toc(sync_on=None) -> float:
         raise InvalidArgumentError(
             "toc() called with no running chronometer: call tic() first "
             "(finalize_global_grid resets it).")
-    _device_barrier(processes=True)
-    return time.perf_counter() - _t0
+    _device_barrier()
+    span = time.perf_counter() - _t0
+    return global_grid().transport.all_max([span])[0]
 
 
 def init_timing_functions() -> None:

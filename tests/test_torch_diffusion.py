@@ -110,14 +110,14 @@ def test_state_from_numpy_round_trip():
 
 
 def test_unported_options_raise():
-    """``sr`` and ``ensemble`` still raise `NotSupportedError`; ``overlap``
-    and a deep ``comm_every`` (ported since) run, from ``init_diffusion3d``
-    and from `state_from_numpy`, and match the plain route bitwise."""
+    """``ensemble`` still raises `NotSupportedError`; ``overlap``, a deep
+    ``comm_every`` and ``sr`` (ported since) run, from ``init_diffusion3d``
+    and from `state_from_numpy`, and match the plain route bitwise (``sr``
+    is a no-op on a float64 state)."""
     tg.init_global_grid(12, 8, 8, periodx=1, overlaps=(4, 2, 2), halowidths=(2, 1, 1),
                         device_type="cpu", quiet=True)
     NS = tg.exceptions.NotSupportedError
-    with pytest.raises(NS):
-        init_diffusion3d(sr=True)
+    assert init_diffusion3d(sr=True, sr_seed=3)[2].sr_seed == 3
     T, Cp, p = init_diffusion3d()
     T, Cp = tg.update_halo(T, Cp)   # halos consistent with what they mirror
     ref = run_diffusion(T, Cp, p, 2, impl="plain")
@@ -129,8 +129,9 @@ def test_unported_options_raise():
     t, c, q = state_from_numpy(to_np(T), to_np(Cp), dict(dataclasses.asdict(p),
                                                          comm_every="x:2"), "cpu")
     assert q.comm_every == "x:2" and torch.equal(run_diffusion(t, c, q, 2), ref)
-    with pytest.raises(NS):
-        state_from_numpy(to_np(T), to_np(Cp), dict(dataclasses.asdict(p), sr=True), "cpu")
+    t, c, q = state_from_numpy(to_np(T), to_np(Cp), dict(dataclasses.asdict(p), sr=True,
+                                                         sr_seed=5), "cpu")
+    assert q.sr and q.sr_seed == 5 and torch.equal(run_diffusion(t, c, q, 2), ref)
     with pytest.raises(tg.exceptions.InvalidArgumentError):
         run_diffusion(T, Cp, p, 2, impl="pallas")
 

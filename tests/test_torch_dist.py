@@ -23,6 +23,11 @@ virtual mesh's. The tests read those results:
   deep cadences (diffusion and acoustic at 2, diffusion at ``"z:2"``), whose
   masks take each block's global coordinate; with z split, ``"z:2"`` sends
   half the z messages of cadence 1;
+- under a halo wire format: `update_halo` on the coalesced route (int8,
+  bfloat16) and the per-dim route (bfloat16, float16), the fused diffusion
+  route under int8, and a stochastic-rounding bfloat16 run, each bitwise
+  the virtual mesh's; the transport's wire bytes are the payloads' (half
+  the exact wire's under bfloat16 on float32 state);
 - `tic`/`toc` spanning the processes.
 """
 
@@ -55,13 +60,15 @@ CHECKS = [
     "gather/gather_sub_corner", "gather/gather_bf16", "gather/gather_into",
     "halo_g1/combined", "halo_g1/per_dim_2d", "halo_g1/per_dim_3d", "halo_g1/coalesced_2",
     "halo_g1/coalesced_4", "halo_g2/per_dim_hw2", "halo_g2/coalesced_2_hw2",
-    "halo_g2/coalesced_4_hw2",
+    "halo_g2/coalesced_4_hw2", "halo_g2/per_dim_hw2_bfloat16", "halo_g2/coalesced_4_hw2_int4",
     "models/diffusion_fused", "models/diffusion_plain", "models/acoustic_fused",
     "models/acoustic_plain", "models/stokes_fused", "models/stokes_plain",
     "models/stokes_residuals", "models/stokes_interior",
     "models_2d/diffusion2d_fused", "models_2d/diffusion2d_plain",
     "overlap/diffusion", "overlap/acoustic", "overlap/stokes",
     "deep/diffusion", "deep/acoustic", "deep/diffusion_1", "deep/diffusion_z2",
+    "wire/coalesced_int8", "wire/coalesced_bfloat16", "wire/per_dim_bfloat16",
+    "wire/per_dim_float16", "wire/diffusion_fused_int8", "wire/diffusion_sr",
 ]
 
 _RESULTS: dict = {}
@@ -172,6 +179,19 @@ def test_per_axis_cadence_halves_z_messages(tmp_path_factory):
         assert "error" not in r, r.get("error")
         assert r["deep/messages_1"] > 0, pid
         assert 2 * r["deep/messages_z2"] == r["deep/messages_1"], (pid, r["deep/messages_z2"])
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_wire_bytes_are_the_payloads(config, tmp_path_factory):
+    """Under a wire format the transport sends the payloads: along each
+    crossing dim a coalesced group's rows of `WireSchema.payload_bytes`
+    (int8 slabs and their scales; bfloat16), a lone field's bfloat16 slabs
+    (half the exact wire's bytes), and the fused diffusion route's int8
+    slabs with their scales."""
+    for pid, checks in _each(config, tmp_path_factory, "wire/wire_bytes"):
+        assert {c[0] for c in checks} == {"coalesced", "per_dim", "fused"}, (pid, checks)
+        for route, dim, fmt, got, want in checks:
+            assert got > 0 and got == want, (pid, route, dim, fmt, got, want)
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))

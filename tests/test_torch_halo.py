@@ -114,7 +114,7 @@ def test_update_halo_errors():
         tg.update_halo(T, T)
     with pytest.raises(tg.exceptions.IncoherentArgumentError):
         tg.update_halo(T[:15])
-    with pytest.raises(tg.exceptions.NotSupportedError):
-        tg.update_halo(T, wire_dtype="bfloat16")
-    with pytest.raises(tg.exceptions.NotSupportedError):
-        tg.update_halo(T, wire_stage="z:staged")
+    with pytest.raises(tg.exceptions.InvalidArgumentError):
+        tg.update_halo(T, wire_dtype="bfloat17")
+    with pytest.raises(tg.exceptions.InvalidArgumentError):
+        tg.update_halo(T, wire_stage="z:sideways")

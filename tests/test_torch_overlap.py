@@ -322,13 +322,16 @@ def test_interior_first_step_and_refusals(monkeypatch):
                                     radius=1, n_exchange=1)
     assert torch.equal(a[0], tg.hide_communication(upd, t, c))
     assert torch.equal(a[1], c)   # not exchanged: its own values
-    NS, IA = tg.exceptions.NotSupportedError, tg.exceptions.InvalidArgumentError
-    with pytest.raises(NS):
-        tg.hide_communication(upd, t, c, wire_dtype="bf16")
+    IA = tg.exceptions.InvalidArgumentError
+    # a wire format reaches the shells' exchange (argument and environment)
     monkeypatch.setenv("IGG_HALO_WIRE_DTYPE", "bf16")
-    with pytest.raises(NS):
-        tg.hide_communication(upd, t, c)
+    wired = _plain(upd, t, c)
+    assert torch.equal(tg.hide_communication(upd, t, c), wired)
     monkeypatch.delenv("IGG_HALO_WIRE_DTYPE")
+    assert torch.equal(tg.hide_communication(upd, t, c, wire_dtype="bf16"), wired)
+    assert not torch.equal(tg.hide_communication(upd, t, c), wired)
+    with pytest.raises(IA):
+        tg.hide_communication(upd, t, c, wire_dtype="bf17")
     for kw in (dict(radius=-1), dict(n_exchange=2)):
         with pytest.raises(IA):
             tg.hide_communication(upd, t, c, **kw)

@@ -80,8 +80,8 @@ def test_schema_for_fields_and_checks():
     ts = twire.schema_for_fields(0, fields, [1, 1], torch.float64)
     assert ts.shapes == js.shapes == ((1, 6, 8), (1, 6, 8))
     assert ts.payload_bytes == js.payload_bytes == 2 * 48 * 8
-    with pytest.raises(NotSupportedError):
-        twire.slab_schema(0, [(1, 4, 4)], torch.float32, fmt="int8")
+    q = twire.slab_schema(0, [(1, 4, 4)], torch.float32, fmt="int8")   # quantized: flat
+    assert q.layout == "flat" and q.payload_bytes == 16 + 4
     with pytest.raises(tg.exceptions.InvalidArgumentError):
         ts.pack([torch.zeros((1, 6, 8), dtype=torch.float64)])
     with pytest.raises(tg.exceptions.InvalidArgumentError):
@@ -325,8 +325,9 @@ def test_halo_comm_plan_refuses_what_is_not_ported():
     tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=2, nranks=8, device_type="cpu",
                         quiet=True)
     A = tg.zeros_g()
-    for kw in (dict(ensemble=2), dict(wire_dtype="bfloat16"), dict(wire_stage="z:staged")):
-        with pytest.raises(NotSupportedError):
-            tg.halo_comm_plan(A, **kw)
+    with pytest.raises(NotSupportedError):   # the ensemble axis is not ported
+        tg.halo_comm_plan(A, ensemble=2)
+    for kw in (dict(wire_dtype="bfloat16"), dict(wire_stage="z:staged")):   # ported
+        assert tg.halo_comm_plan(A, **kw)["fields"] == 1
     plan = tg.halo_comm_plan(A, tg.zeros_g(), jax.ShapeDtypeStruct((12, 12, 12), np.float32))
     assert plan["fields"] == 3 and plan["axes"]["gx"]["ppermutes"] == 2

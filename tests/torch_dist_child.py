@@ -149,7 +149,11 @@ def case_halo_g2():
     return {"per_dim_hw2": ("box", tg.update_halo(A.clone())),
             "coalesced_2_hw2": ("boxes", tg.update_halo(P.clone(), Vz.clone())),
             "coalesced_4_hw2": ("boxes", tg.update_halo(P.clone(), Vx.clone(), Vy.clone(),
-                                                        Vz.clone()))}
+                                                        Vz.clone())),
+            # under a wire format, also where a process is its own neighbour
+            "per_dim_hw2_bfloat16": ("box", tg.update_halo(A.clone(), wire_dtype="bfloat16")),
+            "coalesced_4_hw2_int4": ("boxes", tg.update_halo(
+                P.clone(), Vx.clone(), Vy.clone(), Vz.clone(), wire_dtype="int4"))}
 
 
 def case_models():
@@ -203,6 +207,74 @@ def case_deep():
     return out
 
 
+def _wire_bytes(fn):
+    """``fn()`` and the bytes the transport sent for it."""
+    tr = tg.global_grid().transport
+    tr.reset_stats()
+    out = fn()
+    return out, tr.stats["wire_bytes"]
+
+
+def case_wire():
+    """`update_halo` under int8 and bfloat16 on the coalesced and per-dim
+    routes, the fused diffusion route under int8, and a stochastic-rounding
+    run; the wire bytes of each exchange along the crossing dims against
+    `WireSchema.payload_bytes` a slab (a row), and bfloat16's against half
+    the exact wire's."""
+    from implicitglobalgrid_tpu_torch.ops.halo import crosses
+    from implicitglobalgrid_tpu_torch.ops.wire import schema_for_fields
+
+    gg = tg.global_grid()
+    out = {}
+    P, Vx, Vy, Vz = wave_fields((6, 6, 6), 9)
+    A = global_input((6, 6, 6), 10, torch.float32)
+    group = [(P, (6, 6, 6)), (Vx, (7, 6, 6)), (Vy, (6, 7, 6)), (Vz, (6, 6, 7))]
+    for fmt in ("int8", "bfloat16"):
+        out[f"coalesced_{fmt}"] = ("boxes", tg.update_halo(
+            *[f.clone() for f, _ in group], wire_dtype=fmt))
+    out["per_dim_bfloat16"] = ("box", tg.update_halo(A.clone(), wire_dtype="bfloat16"))
+    out["per_dim_float16"] = ("box", tg.update_halo(A.clone(), wire_dtype="float16"))
+    T, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    os.environ["IGG_HALO_WIRE_DTYPE"] = "int8"
+    try:
+        out["diffusion_fused_int8"] = ("box", models.run_diffusion(T, Cp, p, 3, nt_chunk=3))
+    finally:
+        os.environ.pop("IGG_HALO_WIRE_DTYPE")
+    Tb, Cb, pb = models.init_diffusion3d(dtype=torch.bfloat16, sr=True, sr_seed=4)
+    out["diffusion_sr"] = ("box", models.run_diffusion(Tb, Cb, pb, 3, nt_chunk=2))
+    checks = []
+    for d in range(3):
+        if not crosses(gg, d):
+            continue
+        locs = [loc for _, loc in group]
+        rows = schema_for_fields(d, locs, [1] * 4, torch.float32)
+        _, exact = _wire_bytes(lambda: tg.update_halo(*[f.clone() for f, _ in group],
+                                                      dims=(d,)))
+        for fmt in ("int8", "bfloat16"):
+            wired = schema_for_fields(d, locs, [1] * 4, torch.float32, fmt)
+            _, got = _wire_bytes(lambda: tg.update_halo(*[f.clone() for f, _ in group],
+                                                        dims=(d,), wire_dtype=fmt))
+            checks.append(("coalesced", d, fmt, got,
+                           exact // rows.payload_bytes * wired.payload_bytes))
+        _, exact = _wire_bytes(lambda: tg.update_halo(A.clone(), dims=(d,)))
+        _, got = _wire_bytes(lambda: tg.update_halo(A.clone(), dims=(d,),
+                                                    wire_dtype="bfloat16"))
+        checks.append(("per_dim", d, "bfloat16", got, exact // 2))
+    # the fused route: every crossing dim's slabs (blocks of 6^3: 36 cells
+    # each, whatever the dim) cross as int8 payloads with their scales
+    one = schema_for_fields(0, [(6, 6, 6)], [1], torch.float32)
+    wired = schema_for_fields(0, [(6, 6, 6)], [1], torch.float32, "int8")
+    _, exact = _wire_bytes(lambda: models.run_diffusion(T, Cp, p, 1, nt_chunk=1))
+    os.environ["IGG_HALO_WIRE_DTYPE"] = "int8"
+    try:
+        _, got = _wire_bytes(lambda: models.run_diffusion(T, Cp, p, 1, nt_chunk=1))
+    finally:
+        os.environ.pop("IGG_HALO_WIRE_DTYPE")
+    checks.append(("fused", -1, "int8", got, exact // one.payload_bytes * wired.payload_bytes))
+    out["wire_bytes"] = ("proc", checks)
+    return out
+
+
 def case_timing():
     tg.tic()
     if tg.global_grid().me == 1:
@@ -214,7 +286,8 @@ CASES = [("layout", G0, DCN, case_layout), ("encoded", G0, DCN, case_encoded),
          ("gather", G1, DCN, case_gather), ("halo_g1", G1, DCN, case_halo_g1),
          ("halo_g2", G2, DCN_G2, case_halo_g2), ("models", G1, DCN, case_models),
          ("models_2d", G3, "", case_models_2d), ("overlap", G4, DCN, case_overlap),
-         ("deep", G5, DCN, case_deep), ("timing", G1, DCN, case_timing)]
+         ("deep", G5, DCN, case_deep), ("wire", G1, DCN, case_wire),
+         ("timing", G1, DCN, case_timing)]
 
 
 def run(grid_kw, dcn, fn, **init):
