@@ -86,7 +86,22 @@ Phases, in order; any failure exits non-zero without the final line:
    and device ms a step of each overlapped and deep route beside its plain
    route, the device's busy time, and the hidden share of the exchange (the
    side stream's device time under the other streams' work, from the
-   torch.profiler trace by stream);
+   package's `trace` read back through `utils.trace_events`, by stream);
+12b. profiling: the package's `trace`, `overlap_stats` and `op_breakdown`
+   on phase 5's mesh, 10 steps of the kernel route, then 4 overlapped
+   plain-route steps: a device plane, each kernel's count in
+   `op_breakdown` equal to its launch counter, ``comm_us`` equal to the
+   exchange spans' summed device time, ``overlap_frac`` equal to phase
+   12's hidden share of the same capture;
+12c. the ensemble axis (`ensemble_state`, ``run_*(..., ensemble=E)``), plain
+   route, float32: K8 and K7 with 4 members bitwise their plain versions;
+   diffusion on 2x2x2 x 128^3, all periodic, at E = 1, 4 and 16; acoustic
+   on config 4's mesh and Stokes on config 5's at E = 4: member 0 bitwise
+   the solo run, member 1 not, K8 and K7 launches a step flat in E, the
+   int8 wire's members bitwise their solo int8 runs; wall ms a step a
+   member beside the solo step, `overlap_stats` of the E = 16 run;
+12d. the advanced-modes example at its card sizes (stochastic rounding
+   nearer float32 than plain bfloat16);
 13. the halo wire formats (``wire_dtype`` / ``IGG_HALO_WIRE_DTYPE``) and
    stochastic-rounding storage: `update_halo` on the 2x2x2 mesh of 128^3
    blocks, periodic and mixed, under bfloat16, float16, int8, int4 and
@@ -113,10 +128,12 @@ Phases, in order; any failure exits non-zero without the final line:
    coalesced `update_halo(P, Vx, Vy, Vz)`, K8 + K7), config 5's mesh
    (20 iterations, K4s Stokes modes + K10, and `stokes_residuals`) and
    phase 12's diffusion mesh (10 plain-route steps without and with
-   ``overlap=True``, 10 at ``comm_every=2`` on the halowidth-2 grid), and
+   ``overlap=True``, each process's `overlap_stats` of both, 10 at
+   ``comm_every=2`` on the halowidth-2 grid), diffusion at E = 1 and 4 on
+   the all-periodic mesh (E = 4's messages a step E = 1's, 4x its bytes), and
    under int8 and bfloat16 config 3's fused steps and config 4's coalesced
    `update_halo`, each gathered to process 0 and held bitwise against
-   phases 6, 9, 11, 12 and 13's runs of the same steps on the virtual mesh;
+   phases 6, 9, 11, 12, 12c and 13's runs of the same steps on the virtual mesh;
    per step the wall ms, the wire bytes (under a wire format beside the
    exact wire's), the exchange's and gloo's host staging ms, beside the
    virtual mesh's step;
@@ -128,7 +145,8 @@ Phases, in order; any failure exits non-zero without the final line:
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 nothing of JAX. It needs one card and exits non-zero without CUDA or
 without the package beside it. ``--transport-child <pid> <port>`` runs one
-process of phase 14 (the script starts them itself).
+process of phase 14, ``--profiling-child <out.json>`` phase 12b in a process
+of its own (the script starts them itself).
 """
 
 import json
@@ -158,18 +176,12 @@ N_CFG5 = 128  # BASELINE config 5: 128^3 per block, float32 (one block; a 2x2x2 
 # a PT iteration a cell: its cell terms 21, three edge stresses 18, three
 # residuals with their damped-momentum and velocity updates 39
 STOKES_FLOPS_PER_CELL = 78
-# every kernel of the port, by its launch counter, with the name torch.profiler shows
-KERNEL_NAMES = {"diffusion3d_step_halo": "diffusion3d_step_halo_kernel",
-                "halo_write": "halo_write_kernel",
-                "halo_self_exchange": "self_exchange_kernel",
-                "diffusion3d_step_exchange": "diffusion3d_step_exchange_kernel",
-                "diffusion2d_step_exchange": "diffusion2d_step_exchange_kernel",
-                "halo_write_combined": "halo_write_combined_kernel",
-                "exchange_slabs": "exchange_slabs",  # its copy, step and staggered kernels
-                "wire_pack": "wire_pack_kernel",
-                "halo_write_multi": "halo_write_multi_kernel",
-                "acoustic_step_exchange": "acoustic_step_kernel",
-                "stokes_step_exchange": "stokes_step_kernel"}
+# every kernel of the port, by its launch counter, with the part of its name
+# torch.profiler shows that every kernel it launches holds, and the counters
+# of the exchange's kernels: filled from the package's
+# (`implicitglobalgrid_tpu_torch.utils.profiling`) once it imports (`_load_names`)
+KERNEL_NAMES: dict = {}
+EXCHANGE_KERNELS: tuple = ()
 K4S_STAGGERED = "exchange_slabs_staggered_kernel"  # the batched staggered modes of K4s
 
 
@@ -1488,6 +1500,11 @@ def staggered_loc(n, name):
     return tuple(n + (name == f"V{a}") for a in "xyz")
 
 
+# K8's and K7's device ms on this row's group before they took a member count
+# (PERF.md's kernel table, rows 8 and 7; H100 80GB HBM3 at 700 W)
+PR13_DEVICE_MS = {"k8": 0.0956, "k7": 0.1927}
+
+
 def check_k7_k8(ch, tg):
     """K8 and K7 against their plain versions, bitwise: slab and flat
     layouts, 2 to 4 fields, float32, float64, int32, bfloat16 and int8
@@ -1627,7 +1644,7 @@ def check_k7_k8(ch, tg):
     shape = "the 3 dims of one coalesced update_halo(P, Vx, Vy, Vz), 2x2x2 x 192^3 float32"
     k8_row = dict(max_abs_err=max(err8, e8), ms=median_ms(k8), plain_ms=median_ms(
         k8_plain, batches=3, per_batch=2, warm=1),
-        device_ms=device_ms(k8, KERNEL_NAMES["wire_pack"]),
+        device_ms=device_ms(k8, KERNEL_NAMES["wire_pack"]), pr13_device_ms=PR13_DEVICE_MS["k8"],
         bound_ms=2 * slab_b / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         sector_bound_ms=sum(b["k8"][1] for b in sectors),
         library_ms=median_ms(k8_library, batches=3, per_batch=3, warm=1),
@@ -1636,6 +1653,7 @@ def check_k7_k8(ch, tg):
     k7_row = dict(max_abs_err=max(err7, e7), ms=median_ms(k7), plain_ms=median_ms(
         k7_plain, batches=3, per_batch=2, warm=1),
         device_ms=device_ms(k7, KERNEL_NAMES["halo_write_multi"]),
+        pr13_device_ms=PR13_DEVICE_MS["k7"],
         bound_ms=2 * slab_b / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         sector_bound_ms=sum(b["k7"][1] for b in sectors),
         library_ms=median_ms(k7_library, batches=3, per_batch=3, warm=1),
@@ -2441,9 +2459,16 @@ def phase_config5_mesh(tg, models, cb, cst):
                         state_magnitudes=mags, step_ms=t * 1e3 / nt, transport_ref=ref)
 
 
-# the kernels of `update_halo`'s tiers: what an overlapped step's exchange launches
-EXCHANGE_KERNELS = ("halo_write", "halo_self_exchange", "halo_write_combined",
-                    "exchange_slabs", "wire_pack", "halo_write_multi")
+def _load_names():
+    """`KERNEL_NAMES` and `EXCHANGE_KERNELS` from the package's profiling
+    module (one tuple of kernel names a launch counter there; here their
+    common prefix, which every profiler key of the counter's kernels
+    holds)."""
+    global KERNEL_NAMES, EXCHANGE_KERNELS
+    from implicitglobalgrid_tpu_torch.utils import profiling
+
+    KERNEL_NAMES = {k: os.path.commonprefix(list(v)) for k, v in profiling.KERNEL_NAMES.items()}
+    EXCHANGE_KERNELS = tuple(profiling.EXCHANGE_KERNELS)
 
 
 def _build_dir():
@@ -2466,57 +2491,86 @@ def _covered(a, b, merged):
     return sum(max(0.0, min(b, e) - max(a, s)) for s, e in merged)
 
 
-def _device_spans(fn, reps):
-    """Every kernel, copy and set of ``reps`` calls of ``fn`` from a
-    torch.profiler trace: [(CUDA stream, start us, end us, name)]."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _capture(fn, reps, warm=True):
+    """A `trace` (the package's, `utils.profiling`) of ``reps`` calls of
+    ``fn`` (after a warm one), into a new directory under `_build_dir()`:
+    (the directory, every device span read back through
+    `utils.trace_events`, as (line, start ps, end ps, kind, category))."""
+    import tempfile
 
-    fn()
+    import torch
+
+    import implicitglobalgrid_tpu_torch as tg
+    from implicitglobalgrid_tpu_torch.utils.profiling import _op_kind
+    from implicitglobalgrid_tpu_torch.utils.trace_events import find_trace_files, parse_trace
+
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    os.makedirs(_build_dir(), exist_ok=True)
+    d = tempfile.mkdtemp(dir=_build_dir(), prefix="trace_")
+    with tg.trace(d):
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    path = os.path.join(_build_dir(), f"overlap_trace_{os.getpid()}.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    os.remove(path)
-    return [(ev.get("args", {}).get("stream", ev.get("tid")), float(ev["ts"]),
-             float(ev["ts"]) + float(ev["dur"]), ev.get("name", ""))
-            for ev in events
-            if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in ev]
+    spans = [(ln.name, ev.start_ps, ev.end_ps, _op_kind(ev.name), ev.cat)
+             for path in find_trace_files(d) for pl in parse_trace(path)
+             if pl.name.startswith("/device:") for ln in pl.lines for ev in ln.events]
+    return d, spans
+
+
+def _device_spans(fn, reps):
+    """Every kernel, copy and set of ``reps`` calls of ``fn`` (`_capture`),
+    the capture removed after: [(line, start ps, end ps, kind, category)]."""
+    import shutil
+
+    d, spans = _capture(fn, reps)
+    shutil.rmtree(d, ignore_errors=True)
+    return spans
 
 
 def busy_ms(fn, reps=3):
     """The device's busy time a call of ``fn``: the union of its spans."""
     spans = _device_spans(fn, reps)
-    return sum(b - a for a, b in _merged([(a, b) for _, a, b, _ in spans])) / reps / 1e3
+    return sum(b - a for a, b in _merged([(a, b) for _, a, b, _, _ in spans])) / reps / 1e9
+
+
+def hidden_share(spans, reps):
+    """Device activity by CUDA stream (phase 12's measure): the side stream
+    is the one the exchange kernels (`EXCHANGE_KERNELS`) ran on;
+    ``hidden_share`` is the part of its device time that lies under device
+    work on the other streams (the interior); ``busy_ms`` the device's busy
+    time a call (the union of every span), ``side_ms`` and ``other_ms``
+    each side's time a call."""
+    from implicitglobalgrid_tpu_torch.utils.profiling import EXCHANGE_KINDS
+
+    side = {ln for ln, _, _, k, _ in spans if k in EXCHANGE_KINDS}
+    check(len(side) == 1, f"the exchange kernels ran on one stream ({sorted(side)})")
+    side = side.pop()
+    mine = [(a, b) for ln, a, b, _, _ in spans if ln == side]
+    others = _merged([(a, b) for ln, a, b, _, _ in spans if ln != side])
+    check(bool(others), "the interior ran on another stream than the exchange")
+    side_ps = sum(b - a for a, b in mine)
+    hidden = sum(_covered(a, b, others) for a, b in mine)
+    return dict(hidden_share=hidden / side_ps if side_ps else None,
+                side_ms=side_ps / reps / 1e9,
+                other_ms=sum(b - a for a, b in others) / reps / 1e9,
+                busy_ms=sum(b - a for a, b in _merged([(a, b) for _, a, b, _, _ in spans]))
+                / reps / 1e9)
 
 
 def overlap_profile(fn, reps=3):
-    """Device activity of ``reps`` calls of ``fn`` (one overlapped step) by
-    CUDA stream: the side stream is the one the exchange kernels
-    (`EXCHANGE_KERNELS`) ran on; ``hidden_share`` is the part of the side
-    stream's device time that lies under device work on the other streams
-    (the interior); ``busy_ms`` the device's busy time a step (the union of
-    every span), ``side_ms`` and ``other_ms`` each side's time a step."""
-    spans = _device_spans(fn, reps)
-    names = tuple(KERNEL_NAMES[k] for k in EXCHANGE_KERNELS)
-    side = {st for st, _, _, nm in spans if any(k in nm for k in names)}
-    check(len(side) == 1, f"the exchange kernels ran on one stream ({sorted(map(str, side))})")
-    side = side.pop()
-    mine = [(a, b) for st, a, b, _ in spans if st == side]
-    others = _merged([(a, b) for st, a, b, _ in spans if st != side])
-    check(bool(others), "the interior ran on another stream than the exchange")
-    side_us = sum(b - a for a, b in mine)
-    hidden = sum(_covered(a, b, others) for a, b in mine)
-    return dict(hidden_share=hidden / side_us if side_us else None,
-                side_ms=side_us / reps / 1e3,
-                other_ms=sum(b - a for a, b in others) / reps / 1e3,
-                busy_ms=sum(b - a for a, b in _merged([(a, b) for _, a, b, _ in spans]))
-                / reps / 1e3)
+    """`hidden_share` of ``reps`` calls of ``fn`` (one overlapped step),
+    beside the package's `overlap_stats` of the same capture
+    (``overlap_stats``)."""
+    import shutil
+
+    import implicitglobalgrid_tpu_torch as tg
+
+    d, spans = _capture(fn, reps)
+    out = hidden_share(spans, reps)
+    out["overlap_stats"] = tg.overlap_stats(d).get("GPU:0")
+    shutil.rmtree(d, ignore_errors=True)
+    return out
 
 
 def _bitwise(a, b):
@@ -2690,6 +2744,324 @@ def phase_overlap_deep(tg, models, cb):
     for name, r in rec.items():
         print(f"  {name}: {json.dumps(r)}", flush=True)
     return counts, rec, refs
+
+
+def phase_profiling(tg, models, cb):
+    """Phase 12b: the package's profiling (`trace`, `overlap_stats`,
+    `op_breakdown`) on the virtual mesh's diffusion, 2x2x2 x 128^3,
+    periodic in x: 10 steps of the kernel route (K4s + K4), then 4
+    overlapped plain-route steps (the shells' exchange, K4s + K6, on the
+    side stream). For each capture: a ``/device:GPU:0`` plane; each port
+    kernel's count in `op_breakdown` equal to its launch counter over the
+    capture; ``comm_us`` equal to the summed device time of the exchange's
+    kernels (no copy crosses devices or the host on the virtual mesh); for
+    the overlapped route, ``overlap_frac`` equal to phase 12's hidden share
+    of the same file. Returns (launches, record)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from implicitglobalgrid_tpu_torch.utils import profiling
+
+    print(f"phase: profiling (trace, overlap_stats, op_breakdown) on the virtual mesh; card "
+          f"{card_name()}", flush=True)
+    counts, rec = {}, {}
+    grid(tg, N_MESH, N_MESH, N_MESH, dimx=2, dimy=2, dimz=2, periodx=1)
+    T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    po = dataclasses.replace(p, overlap=True)
+    runs = (("kernel_route_10_steps",
+             lambda: models.run_diffusion(T0, Cp, p, 10, nt_chunk=10, impl="cuda")),
+            ("overlapped_plain_route_4_steps",
+             lambda: models.run_diffusion(T0, Cp, po, 4, nt_chunk=4, impl="plain")))
+    for name, fn in runs:
+        fn()  # warm: the route's first call checks and plans it
+        torch.cuda.synchronize()
+        cb.reset_launch_counts()
+        d, spans = _capture(fn, 1, warm=False)
+        c = cb.launch_counts()
+        stats = tg.overlap_stats(d)
+        rows = tg.op_breakdown(d, top=1000)
+        by_kind = {k: n for k, _, n in rows}
+        got = {k: sum(by_kind.get(kn, 0) for kn in profiling.KERNEL_NAMES[k]) for k in c}
+        if got != c:
+            _trace_report(d, name)
+        shutil.rmtree(d, ignore_errors=True)
+        check("GPU:0" in stats, f"profiling {name}: the capture has a /device:GPU:0 plane")
+        s = stats["GPU:0"]
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        check(got == c and sum(c.values()) > 0,
+              f"profiling {name}: op_breakdown's count of each port kernel equals its launch "
+              f"counter ({ {k: v for k, v in c.items() if v} }; in the trace "
+              f"{ {k: v for k, v in got.items() if v} })")
+        exch = sum(b - a for _, a, b, k, _ in spans if k in profiling.EXCHANGE_KINDS)
+        check(abs(s["comm_us"] - exch / 1e6) <= 1e-9 * max(1.0, exch / 1e6),
+              f"profiling {name}: comm_us {s['comm_us']!r} equals the exchange kernels' summed "
+              f"device time {exch / 1e6!r} us")
+        r = rec[name] = dict(overlap_stats=s, op_breakdown=rows[:8], launches=c)
+        if name.startswith("overlapped"):
+            h = hidden_share(spans, 1)
+            r["hidden_share"] = h
+            check(s["overlap_frac"] is not None and h["hidden_share"] is not None
+                  and abs(s["overlap_frac"] - h["hidden_share"]) <= 1e-12,
+                  f"profiling {name}: overlap_frac {s['overlap_frac']!r} equals phase 12's "
+                  f"hidden share {h['hidden_share']!r} of the same capture")
+        print(f"  {name}: overlap_stats {json.dumps(s)}", flush=True)
+        for k, us, n in rows[:8]:
+            print(f"    {k}: {us:.1f} us, {n} spans", flush=True)
+    tg.finalize_global_grid()
+    return counts, rec
+
+
+PROFILING_TIMEOUT = 300  # seconds, for the profiling phase's process
+
+
+def profiling_child(out_path):
+    """Phase 12b in a process of its own (``chip_smoke.py --profiling-child
+    <out.json>``): writes its launches and record to ``out_path``. A
+    capture in the main process after phase 12 lost the device records of
+    the first 4-9 kernels it launched (every capture after it; a fresh
+    process's captures lose none: PERF.md §7), so the phase that holds the
+    counts of a capture against the launch counters runs in a fresh one."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import implicitglobalgrid_tpu_torch as tg
+    from implicitglobalgrid_tpu_torch import models
+    from implicitglobalgrid_tpu_torch.ops import cuda_build as cb
+
+    _load_names()
+    torch.cuda.set_device(0)
+    try:
+        counts, rec = phase_profiling(tg, models, cb)
+    except SmokeFailure as e:
+        print(f"profiling child: FAILED: {e}", flush=True)
+        return 1
+    with open(out_path, "w") as f:
+        json.dump({"counts": counts, "record": rec}, f)
+    return 0
+
+
+def run_profiling_phase():
+    """Phase 12b: `profiling_child` in a new process of this script; returns
+    its (launches, record)."""
+    out = os.path.join(_build_dir(), f"profiling_{os.getpid()}.json")
+    env = {k: v for k, v in os.environ.items() if k != "IGG_USE_PALLAS"}
+    try:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--profiling-child",
+                               out], capture_output=True, text=True, env=env,
+                              timeout=PROFILING_TIMEOUT)
+        log, rc = proc.stdout + proc.stderr, proc.returncode
+    except subprocess.TimeoutExpired:
+        log, rc = f"timed out after {PROFILING_TIMEOUT} s", -1
+    for line in log.splitlines():
+        if not line.startswith(("  _warn_once", "/")):
+            print(line, flush=True)
+    check(rc == 0, f"profiling: the phase's process exited {rc}")
+    with open(out) as f:
+        got = json.load(f)
+    os.remove(out)
+    return got["counts"], got["record"]
+
+
+def _trace_report(d, name):
+    """Print what a capture holds of the port's kernel launches: by trace
+    category, the runtime's launch calls, the kernels without their launch
+    and the launches without their kernel."""
+    import glob
+
+    for path in glob.glob(os.path.join(d, "*.pt.trace.json")):
+        with open(path) as f:
+            evs = json.load(f).get("traceEvents", [])
+        cats = {}
+        for ev in evs:
+            if "exchange_slabs" in str(ev.get("name", "")) or "step_exchange" in str(
+                    ev.get("name", "")):
+                cats[ev.get("cat")] = cats.get(ev.get("cat"), 0) + 1
+        launch = {ev.get("args", {}).get("correlation") for ev in evs
+                  if "LaunchKernel" in str(ev.get("name", ""))}
+        kern = {ev.get("args", {}).get("correlation") for ev in evs if ev.get("cat") == "kernel"}
+        print(f"  trace of {name}: the port's kernels by category {cats}, "
+              f"{len(launch)} launch calls, {len(kern)} kernels, {len(kern - launch)} kernels "
+              f"without a launch, {len(launch - kern)} launches without a kernel", flush=True)
+ENSEMBLE_MEMBERS = (1, 4, 16)  # bench_ensemble.py's diffusion sweep on the chip
+ENSEMBLE_STEPS = 20  # nt_chunk of bench_ensemble.py; diffusion's steps
+ENSEMBLE_WIRE_STEPS = 5
+
+
+def phase_ensemble(tg, models, cb):
+    """Phase 12c: the ensemble axis on the virtual mesh, plain route,
+    float32 (`ensemble_state`, ``run_*(..., ensemble=E)``). Diffusion on
+    2x2x2 x 128^3, all periodic, 20 steps at E = 1, 4 and 16; acoustic on
+    config 4's mesh (2x2x2 x 192^3) and Stokes on config 5's (2x2x2 x
+    128^3) at E = 4. Each: member 0 bitwise the solo plain-route run,
+    member 1 not (``perturb=0.01``), K8 and K7 launches a step the same at
+    every E (every member in one launch a dim); the int8 wire's members
+    bitwise their solo int8 runs. Prints wall ms a step a member at each E
+    beside the solo step (`route_times`) and `overlap_stats` of the E = 16
+    run. Returns (launches, record, the transport phase's references)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    print(f"phase: ensemble axis on the virtual mesh, plain route, float32; card "
+          f"{card_name()}", flush=True)
+    counts, rec, refs = {}, {}, {}
+
+    def launched(fn, nt):
+        cb.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        c = cb.launch_counts()
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        return res, (c["wire_pack"] / nt, c["halo_write_multi"] / nt)
+
+    def members_hold(label, out, solo):
+        """Member 0 bitwise the solo run, member 1 (if any) different."""
+        first = all(torch.equal(a[0], b) for a, b in zip(out, solo))
+        check(first, f"ensemble {label}: member 0 bitwise the solo plain-route run")
+        if out[0].shape[0] > 1:
+            check(any(not torch.equal(a[1], a[0]) for a in out),
+                  f"ensemble {label}: member 1 differs from member 0 (perturb=0.01)")
+
+    # K8 and K7 with a member axis against their plain versions, every dim:
+    # config 4's group (P, Vx, Vy, Vz) at E = 4 on 2x2x2 x 64^3 blocks
+    from implicitglobalgrid_tpu_torch.ops import cuda_halo as ch
+    from implicitglobalgrid_tpu_torch.ops.wire import schema_for_fields
+
+    n = N_CHECK
+    g = torch.Generator(device="cuda").manual_seed(14)
+    locs = [staggered_loc(n, f) for f in ("P", "Vx", "Vy", "Vz")]
+    fs = [torch.rand((4,) + tuple(2 * m for m in loc), generator=g, device="cuda")
+          for loc in locs]
+    ok = True
+    for dim in range(3):
+        sch = schema_for_fields(dim, locs, [1] * 4, torch.float32, members=4)
+        kw = dict(starts_r=[loc[dim] - 2 for loc in locs], starts_l=[1] * 4, blocks=locs)
+        bufs = ch.wire_pack(fs, sch, **kw)
+        ok &= all(torch.equal(a, b) for a, b in zip(bufs, ch.wire_pack_plain(fs, sch, **kw)))
+        got, want = [f.clone() for f in fs], [f.clone() for f in fs]
+        ch.halo_write_multi(got, *bufs, sch, blocks=locs, periodic=True, disp=1)
+        ch.halo_write_multi_plain(want, *bufs, sch, blocks=locs, periodic=True, disp=1)
+        ok &= all(torch.equal(a, b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+    check(ok, "K8 and K7 with 4 members of (P, Vx, Vy, Vz), 2x2x2 x 64^3, every dim: bitwise "
+              "their plain versions")
+    del fs, bufs, got, want
+
+    # diffusion at bench_ensemble.py's chip size
+    n = N_MESH
+    grid(tg, n, n, n, dimx=2, dimy=2, dimz=2, periodx=1, periody=1, periodz=1)
+    T0, Cp0, p = models.init_diffusion3d(dtype=torch.float32)
+    nt = ENSEMBLE_STEPS
+    solo = models.run_diffusion(T0, Cp0, p, nt, nt_chunk=nt, impl="plain")
+    r = rec["diffusion_128_periodic"] = dict(
+        solo=route_times(lambda: models.diffusion_step_local(T0, Cp0, p, "plain"), reps=4,
+                         batches=3))
+    per = {}
+    for E in ENSEMBLE_MEMBERS:
+        ET, EC = models.ensemble_state((T0, Cp0), E, perturb=0.01)
+        models.run_diffusion(ET, EC, p, 1, ensemble=E)  # warm
+        out, per[E] = launched(lambda: models.run_diffusion(ET, EC, p, nt, nt_chunk=nt,
+                                                            ensemble=E), nt)
+        members_hold(f"diffusion E={E}", (out,), (solo,))
+        if E == 4:
+            refs["ensemble_diffusion_e4"] = np.stack([tg.gather_interior(
+                models.run_diffusion(ET, EC, p, 10, nt_chunk=10, ensemble=E)[m])
+                for m in range(E)])
+        t = route_times(lambda: models.diffusion_step_local(ET, EC, p, "plain", members=E),
+                        reps=4, batches=3)
+        t["wall_ms_per_step_per_member"] = t["wall_ms_per_step"] / E
+        t["k8_k7_launches_per_step"] = per[E]
+        r[f"E{E}"] = t
+        print(f"  diffusion E={E}: {t['wall_ms_per_step']:.3f} ms a step, "
+              f"{t['wall_ms_per_step_per_member']:.3f} a member (solo "
+              f"{r['solo']['wall_ms_per_step']:.3f}), K8/K7 a step {per[E]}", flush=True)
+        if E == max(ENSEMBLE_MEMBERS):
+            d, _ = _capture(lambda: models.run_diffusion(ET, EC, p, 2, nt_chunk=2, ensemble=E), 1)
+            r["overlap_stats_E16"] = tg.overlap_stats(d).get("GPU:0")
+            r["op_breakdown_E16"] = tg.op_breakdown(d, top=8)
+            shutil.rmtree(d, ignore_errors=True)
+            print(f"  diffusion E={E} overlap_stats {json.dumps(r['overlap_stats_E16'])}",
+                  flush=True)
+        del ET, EC, out
+        torch.cuda.empty_cache()
+    check(len(set(per.values())) == 1 and per[1] == (3.0, 3.0),
+          f"ensemble diffusion: one K8 and one K7 a dim a step at every E ({per})")
+    # the int8 wire: each member bitwise its own solo int8 run
+    with wire_env("int8"):
+        E, nw = 4, ENSEMBLE_WIRE_STEPS
+        ET, EC = models.ensemble_state((T0, Cp0), E, perturb=0.01)
+        out = models.run_diffusion(ET, EC, p, nw, nt_chunk=nw, ensemble=E)
+        same = all(torch.equal(out[m], models.run_diffusion(
+            ET[m].contiguous(), EC[m].contiguous(), p, nw, nt_chunk=nw, impl="plain"))
+            for m in range(E))
+        check(same, f"ensemble diffusion int8 wire, E={E}: each member bitwise its solo int8 "
+                    "run (its slabs quantized against its own scales)")
+        del ET, EC, out
+    del T0, Cp0, solo
+    tg.finalize_global_grid()
+
+    # acoustic on config 4's mesh and Stokes on config 5's, E = 4
+    for label, n, kw, init, run, step, nt in (
+            ("acoustic_config4_mesh", N_CFG4, dict(periodx=1, periody=1, periodz=1),
+             models.init_acoustic3d, models.run_acoustic, models.acoustic_step_local, 5),
+            ("stokes_config5_mesh", N_CFG5, {}, models.init_stokes3d, models.run_stokes,
+             models.stokes_step_local, 10)):
+        grid(tg, n, n, n, dimx=2, dimy=2, dimz=2, **kw)
+        s0, p = init(dtype=torch.float32)
+        solo = run(s0, p, nt, nt_chunk=nt, impl="plain")
+        r = rec[label] = dict(solo=route_times(lambda: step(s0, p, "plain"), reps=3, batches=3))
+        per = {}
+        for E in (1, 4):
+            es = models.ensemble_state(tuple(s0), E, perturb=0.01)
+            run(es, p, 1, ensemble=E)  # warm
+            out, per[E] = launched(lambda: run(es, p, nt, nt_chunk=nt, ensemble=E), nt)
+            members_hold(f"{label} E={E}", out, solo)
+            if E == 4:
+                t = route_times(lambda: step(es, p, "plain", members=E), reps=3, batches=3)
+                t["wall_ms_per_step_per_member"] = t["wall_ms_per_step"] / E
+                r["E4"] = t
+                print(f"  {label} E=4: {t['wall_ms_per_step']:.3f} ms a step, "
+                      f"{t['wall_ms_per_step_per_member']:.3f} a member (solo "
+                      f"{r['solo']['wall_ms_per_step']:.3f})", flush=True)
+            del es, out
+        r["k8_k7_launches_per_step"] = per
+        check(per[1] == per[4] and per[1][0] > 0,
+              f"ensemble {label}: K8 and K7 launches a step the same at E = 1 and 4 ({per})")
+        with wire_env("int8"):
+            es = models.ensemble_state(tuple(s0), 2, perturb=0.01)
+            out = run(es, p, 2, nt_chunk=2, ensemble=2)
+            same = all(all(torch.equal(a[m], b) for a, b in zip(out, run(
+                tuple(x[m].contiguous() for x in es), p, 2, nt_chunk=2, impl="plain")))
+                for m in range(2))
+            check(same, f"ensemble {label} int8 wire: each member bitwise its solo int8 run")
+            del es, out
+        del s0, solo
+        tg.finalize_global_grid()
+        torch.cuda.empty_cache()
+    return counts, rec, refs
+
+
+def phase_example(tg):
+    """Phase 12d: the advanced-modes example
+    (`implicitglobalgrid_tpu_torch.examples.diffusion3D_advanced_modes`) at
+    its card sizes (one 192^3 block, 400 steps): stochastic-rounding
+    bfloat16 nearer float32 than plain bfloat16, the deep-halo run, the
+    measured overlap. Returns its record."""
+    from implicitglobalgrid_tpu_torch.examples import diffusion3D_advanced_modes as ex
+
+    print(f"phase: the advanced-modes example, card sizes; card {card_name()}", flush=True)
+    got = ex.main(cpu=False)
+    sr = got["sr"]
+    check(sr["bf16_sr"] < sr["bf16"],
+          f"advanced modes: sr bfloat16 nearer float32 (max-rel {sr['bf16_sr']!r}) than plain "
+          f"bfloat16 ({sr['bf16']!r})")
+    check("GPU:0" in got["overlap"], "advanced modes: the overlap was measured on the card")
+    return dict(sr_max_rel=sr, deep_seconds=got["deep_s"], overlap=got["overlap"])
 
 
 TRANSPORT_PROCS = 2
@@ -3108,6 +3480,7 @@ def transport_child(pid, port):
     writes the gathered results and every process its record into
     `_transport_dir()`."""
     import dataclasses
+    import shutil
 
     import numpy as np
     import torch
@@ -3117,6 +3490,8 @@ def transport_child(pid, port):
     import implicitglobalgrid_tpu_torch as tg
     from implicitglobalgrid_tpu_torch import models
     from implicitglobalgrid_tpu_torch.ops import cuda_build as cb
+
+    _load_names()
 
     torch.cuda.set_device(0)
     os.environ["IGG_TPU_DCN_AXES"] = "z"
@@ -3212,6 +3587,13 @@ def transport_child(pid, port):
         T, r[name] = timed(lambda: models.run_diffusion(T0, Cp, q, 10, nt_chunk=10,
                                                         impl="plain"), 10)
         save(f"diffusion_{name}_T", tg.gather_interior(T))
+        # this process's overlap_stats of 2 steps (the hidden share across processes)
+        d = os.path.join(out, f"trace_{name}_{pid}")
+        with tg.trace(d):
+            models.run_diffusion(T0, Cp, q, 2, nt_chunk=2, impl="plain")
+        r[name]["overlap_stats"] = tg.overlap_stats(d).get("GPU:0")
+        r[name]["op_breakdown"] = tg.op_breakdown(d, top=6)
+        shutil.rmtree(d, ignore_errors=True)
     tg.finalize_global_grid()
     r = rec["diffusion_deep"] = grid(N_MESH, periodx=1, overlaps=(4, 4, 4),
                                      halowidths=(2, 2, 2))
@@ -3221,6 +3603,20 @@ def transport_child(pid, port):
     models.run_diffusion(T0, Cp, q, 2, nt_chunk=2)  # warm chunk
     T, r["steps"] = timed(lambda: models.run_diffusion(T0, Cp, q, 10, nt_chunk=10), 10)
     save("diffusion_deep_T", tg.gather_interior(T))
+    tg.finalize_global_grid()
+    # an ensemble's diffusion on the all-periodic mesh, E = 1 and 4, 10 steps
+    # (the members of E = 4 against the ensemble phase's virtual mesh)
+    r = rec["ensemble"] = grid(N_MESH, periodx=1, periody=1, periodz=1)
+    T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    for E in (1, 4):
+        ET, EC = models.ensemble_state((T0, Cp), E, perturb=0.01)
+        models.run_diffusion(ET, EC, p, 2, nt_chunk=2, ensemble=E)  # warm chunk
+        T, r[f"E{E}"] = timed(lambda: models.run_diffusion(ET, EC, p, 10, nt_chunk=10,
+                                                           ensemble=E), 10)
+    G = [tg.gather_interior(T[m]) for m in range(4)]
+    if pid == 0:
+        save("ensemble_diffusion_e4", np.stack(G))
+    del T, ET, EC, G
     tg.finalize_global_grid()
     with open(os.path.join(out, f"record_{pid}.json"), "w") as f:
         json.dump(rec, f)
@@ -3355,6 +3751,30 @@ def phase_transport(refs, virtual_step_ms):
     check(r0["diffusion_deep"]["steps"]["messages_per_step"] * 2
           == ovl["plain"]["messages_per_step"],
           "transport diffusion comm_every=2: half the z messages a step of cadence 1")
+    for part in ("plain", "overlap"):
+        per[f"diffusion_overlap_{part}"]["overlap_stats"] = [
+            r["diffusion_overlap"][part]["overlap_stats"] for r in recs]
+        per[f"diffusion_overlap_{part}"]["op_breakdown"] = [
+            r["diffusion_overlap"][part]["op_breakdown"] for r in recs]
+        for pid, r in enumerate(recs):
+            st = r["diffusion_overlap"][part]["overlap_stats"]
+            check(st is not None and st["comm_us"] > 0,
+                  f"transport diffusion {part}: process {pid}'s capture has the exchange's "
+                  f"device spans")
+            print(f"  transport diffusion {part}, process {pid}: overlap_stats "
+                  f"{json.dumps(st)}", flush=True)
+    ens = [r["ensemble"] for r in recs]
+    per["ensemble_diffusion"] = {f"E{E}": {k: [e[f"E{E}"][k] for e in ens] for k in (
+        "step_ms", "messages_per_step", "wire_bytes_per_step", "exchange_ms_per_step")}
+        for E in (1, 4)}
+    for pid, e in enumerate(ens):
+        check(e["E4"]["messages_per_step"] == e["E1"]["messages_per_step"] > 0
+              and e["E4"]["wire_bytes_per_step"] == 4 * e["E1"]["wire_bytes_per_step"]
+              and e["E4"]["launches"]["wire_pack"] == e["E1"]["launches"]["wire_pack"],
+              f"transport ensemble, process {pid}: E = 4 sends E = 1's messages a step "
+              f"({e['E4']['messages_per_step']!r}) with 4 times its wire bytes and K8 launches")
+    print(f"  transport ensemble diffusion: {json.dumps(per['ensemble_diffusion'])}",
+          flush=True)
     for cfg, part, nt in [("config3", f"wire_{f}", TRANSPORT_WIRE_STEPS) for f in FUSED_WIRES] \
             + [("config4", f"update_halo_{f}", 1) for f in FUSED_WIRES]:
         st = [r[cfg][part] for r in recs]
@@ -3593,6 +4013,8 @@ def card_name():
 def main() -> int:
     if sys.argv[1:2] == ["--transport-child"]:
         return transport_child(int(sys.argv[2]), int(sys.argv[3]))
+    if sys.argv[1:2] == ["--profiling-child"]:
+        return profiling_child(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -3615,6 +4037,7 @@ def main() -> int:
         print(f"chip_smoke: the package is not beside this script: {e}",
               file=sys.stderr)
         return 3
+    _load_names()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -3646,9 +4069,13 @@ def main() -> int:
         cfg5_counts, cfg5 = phase_config5_single(tg, models, cb, cst)
         cfg5m_counts, cfg5m = phase_config5_mesh(tg, models, cb, cst)
         ovl_counts, ovl, ovl_refs = phase_overlap_deep(tg, models, cb)
+        prof_counts, prof = run_profiling_phase()
+        ens_counts, ens, ens_refs = phase_ensemble(tg, models, cb)
+        example = phase_example(tg)
         wire_counts, wire, wire_refs = phase_wire(tg, models, cb)
         refs = {k: v for ph in (cfg3, cfg4m, cfg5m) for k, v in ph.pop("transport_ref").items()}
         refs.update(ovl_refs)
+        refs.update(ens_refs)
         refs.update(wire_refs)
         del wire_refs
         transport_counts, transport = phase_transport(
@@ -3660,8 +4087,8 @@ def main() -> int:
         return 1
 
     paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts,
-             cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts, ovl_counts, wire_counts,
-             transport_counts]
+             cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts, ovl_counts, prof_counts,
+             ens_counts, wire_counts, transport_counts]
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNEL_NAMES}
     for name, n in launches.items():
         if n == 0:
@@ -3736,7 +4163,7 @@ def main() -> int:
                                         "f64_device_ms", "f64_bound_ms",
                                         "ptxas_sass", "dims", "sector_bound_ms", "parts",
                                         "library_device_ms", "library_kernels",
-                                        "route_device_ms")}))
+                                        "route_device_ms", "pr13_device_ms")}))
     k1_dev = rows["diffusion3d_step_halo"]["device_ms"]
     if k1_dev is not None:  # the periodic step is one K1 (T,T,T) launch
         periodic["k1_device_share"] = 100 * k1_dev / (periodic["seconds"] * 1e3 / 100)
@@ -3746,6 +4173,8 @@ def main() -> int:
                                     "config4_192_f32": cfg4, "config4_2x2x2_192_f32": cfg4m,
                                     "config5_128_f32": cfg5, "config5_2x2x2_128_f32": cfg5m,
                                     "overlap_deep_virtual_mesh_f32": ovl,
+                                    "profiling": prof, "ensemble": ens,
+                                    "advanced_modes_example": example,
                                     "wire_formats_and_sr": wire,
                                     "transport_2_processes_z": transport},
                       "cdiv": cdiv, "k4s_launches": k4s_launches,

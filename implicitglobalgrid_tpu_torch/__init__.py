@@ -21,7 +21,9 @@ Public API — the reference's 13 exported symbols::
 plus `local_update_halo`, `hide_communication`, `halo_comm_plan`, `stochastic_round_bf16`,
 `zeros_g`/`ones_g`/`full_g`/`device_put_g`,
 `coords_g`/`x_g_vec`, `gather_interior`, `gather_sub`, `barrier`/`sync`, the stencil
-helpers (`d_xa` … `inn`) and the `Field` wrapper. Usage::
+helpers (`d_xa` … `inn`), the `Field` wrapper, profiling (`trace`, `annotate`,
+`overlap_stats`, `op_breakdown`) and the ensemble axis (`ensemble_state`,
+`ensemble_partition_spec`). Usage::
 
     import implicitglobalgrid_tpu_torch as igg
     me, dims, nprocs, coords, mesh = igg.init_global_grid(nx, ny, nz)
@@ -47,12 +49,14 @@ from .tools import (
     nx_g, ny_g, nz_g, x_g, y_g, z_g, x_g_vec, y_g_vec, z_g_vec, coords_g,
 )
 from .utils.timing import tic, toc, barrier, sync
+from .utils.profiling import trace, annotate, overlap_stats, op_breakdown
 from .utils import exceptions
 from .models import (
     AcousticParams, acoustic_state_from_numpy, acoustic_step_local, init_acoustic3d,
     make_acoustic_run, run_acoustic, StokesParams, init_stokes3d, run_stokes,
     stokes_residuals, stokes_state_from_numpy, stokes_step_local, make_stokes_run,
 )
+from .models.common import ensemble_partition_spec, ensemble_state
 
 __version__ = "0.1.0"
 
@@ -60,7 +64,8 @@ __all__ = [
     "init_global_grid", "finalize_global_grid", "update_halo", "gather",
     "select_device", "nx_g", "ny_g", "nz_g", "x_g", "y_g", "z_g", "tic", "toc",
     "local_update_halo", "hide_communication", "halo_comm_plan", "gather_interior", "gather_sub", "barrier",
-    "sync", "stochastic_round_bf16",
+    "sync", "stochastic_round_bf16", "trace", "annotate", "overlap_stats", "op_breakdown",
+    "ensemble_state", "ensemble_partition_spec",
     "zeros_g", "ones_g", "full_g", "device_put_g",
     "Field", "wrap_field", "extract", "local_shape_of", "stacked_shape",
     "x_g_vec", "y_g_vec", "z_g_vec", "coords_g",

@@ -152,18 +152,20 @@ void self_exchange(const void* a, void* out, long long S0, long long S1, long lo
 }
 
 // K7 and K8: the slabs of a coalesced group. Field k is stacked, D0 x D1 x D2
-// blocks of (n0, n1, n2); its slab is the block with the exchange dim cut to
-// hw, at local start start[0] (K8: the right send slab; K7: the left halo)
-// or start[1] (K8: the left send slab; K7: the right halo). Cell x of the
-// slab sits at base + x . (st0, st1, st2) in its block's buffer.
+// blocks of (n0, n1, n2), M times (an ensemble's members, mstride elements
+// apart); its slab is the block with the exchange dim cut to hw, at local
+// start start[0] (K8: the right send slab; K7: the left halo) or start[1]
+// (K8: the left send slab; K7: the right halo). Cell x of member m's slab
+// sits at base + x . (st0, st1, st2) in row b * M + m of the buffer (b the
+// block), a row of payload cells.
 constexpr int MAX_SLABS = 16;
-constexpr int SLAB_DESC = 14;  // long longs a slab in the host descriptor
+constexpr int SLAB_DESC = 16;  // long longs a slab in the host descriptor
 constexpr unsigned TILE_WARPS = THREADS / 32;  // rows of an x or y tile, planes of a z tile
 constexpr unsigned NO_TILE = 0xffffffffu;
 
 struct Slab {
   void* a;
-  long long base;
+  long long base, mstride;
   unsigned n0, n1, n2, hw, start[2], st0, st1, st2;
   // tiles of one block: x and y, nt0 along u (the other of x and y) and
   // nt1 = hw slab positions, each direction or side; z, nt0 along x and
@@ -175,19 +177,19 @@ struct Slab {
 struct Slabs {
   Slab s[MAX_SLABS];
   unsigned first[MAX_SLABS];  // each slab's first tile; NO_TILE past the last slab
-  unsigned D0, D1, D2;
-  long long payload;
+  unsigned D0, D1, D2, M;     // blocks along each dim; members
+  long long payload;          // cells of a member's row
 };
 
 struct alignas(16) Word16 {
   unsigned long long lo, hi;
 };
 
-// A thread block's tile, from blockIdx once: its slab k, its block of the
-// stack (index b, coordinates c0, c1, c2) and its index among that slab's
-// tiles of the block. A slab's tiles are block-major.
+// A thread block's tile, from blockIdx once: its slab k, its buffer row
+// (block b, coordinates c0, c1, c2; member m) and its index among that
+// slab's tiles of the row. A slab's tiles are row-major.
 struct TileOf {
-  unsigned k, b, c0, c1, c2, idx;
+  unsigned k, row, b, m, c0, c1, c2, idx;
 };
 
 template <int DIM>
@@ -198,8 +200,10 @@ __device__ __forceinline__ TileOf tile_of(const Slabs& d) {
   for (int i = 1; i < MAX_SLABS; ++i) t.k += blockIdx.x >= d.first[i];
   const Slab& s = d.s[t.k];
   const unsigned per = (DIM == 2 ? 1u : 2u) * s.nt0 * s.nt1, local = blockIdx.x - d.first[t.k];
-  t.b = local / per;
-  t.idx = local - t.b * per;
+  t.row = local / per;
+  t.idx = local - t.row * per;
+  t.b = t.row / d.M;
+  t.m = t.row - t.b * d.M;
   t.c2 = t.b % d.D2;
   const unsigned r = t.b / d.D2;
   t.c1 = r % d.D1;
@@ -286,8 +290,8 @@ __global__ void __launch_bounds__(THREADS)
 wire_pack_kernel(const __grid_constant__ Slabs d, E* __restrict__ buf_r, E* __restrict__ buf_l) {
   const TileOf t = tile_of<DIM>(d);
   const Slab& s = d.s[t.k];
-  const E* __restrict__ a = static_cast<const E*>(s.a);
-  const long long blk = (long long)t.b * d.payload;
+  const E* __restrict__ a = static_cast<const E*>(s.a) + t.m * s.mstride;
+  const long long blk = (long long)t.row * d.payload;
   if constexpr (DIM == 2) {
     unsigned x0, x1;
     z_row(s, t.idx, x0, x1);
@@ -314,7 +318,7 @@ halo_write_multi_kernel(const __grid_constant__ Slabs d, const E* __restrict__ b
                         const E* __restrict__ buf_l, int periodic, int disp) {
   const TileOf t = tile_of<DIM>(d);
   const Slab& s = d.s[t.k];
-  E* __restrict__ a = static_cast<E*>(s.a);
+  E* __restrict__ a = static_cast<E*>(s.a) + t.m * s.mstride;
   if constexpr (DIM == 2) {
     unsigned bl = 0, br = 0;
     const bool left = source_block<DIM>(d, t, 0, periodic, disp, bl),
@@ -324,8 +328,8 @@ halo_write_multi_kernel(const __grid_constant__ Slabs d, const E* __restrict__ b
     if ((!left && !right) || x0 >= s.n0 || x1 >= s.n1) return;
     E* row = a + row_offset(s, d, t, x0, x1);
     const long long o = s.base + (long long)x0 * s.st0 + (long long)x1 * s.st1;
-    const E* sl = buf_r + (long long)bl * d.payload + o;
-    const E* sr = buf_l + (long long)br * d.payload + o;
+    const E* sl = buf_r + ((long long)bl * d.M + t.m) * d.payload + o;
+    const E* sr = buf_l + ((long long)br * d.M + t.m) * d.payload + o;
     for (unsigned h = 0; h < s.hw; ++h) {  // both sides of the row
       if (left) row[s.start[0] + h] = sl[h * s.st2];
       if (right) row[s.start[1] + h] = sr[h * s.st2];
@@ -337,7 +341,9 @@ halo_write_multi_kernel(const __grid_constant__ Slabs d, const E* __restrict__ b
     if (r.u >= (DIM == 0 ? s.n1 : s.n0)) return;
     const unsigned p = s.start[r.dir] + r.h;
     copy_row(a + row_offset(s, d, t, DIM == 0 ? p : r.u, DIM == 0 ? r.u : p),
-             (r.dir ? buf_l : buf_r) + (long long)bs * d.payload + row_buffer<DIM>(s, r), s.n2,
+             (r.dir ? buf_l : buf_r) + ((long long)bs * d.M + t.m) * d.payload +
+                 row_buffer<DIM>(s, r),
+             s.n2,
              s.vec);
   }
 }
@@ -542,6 +548,7 @@ unsigned read_plan(const long long* desc, int nslabs, int dim, long long D0, lon
       payload < 1)
     return 0;
   d.D0 = (unsigned)D0, d.D1 = (unsigned)D1, d.D2 = (unsigned)D2;
+  d.M = (unsigned)desc[14];
   d.payload = payload;
   long long total = 0;
   for (int k = 0; k < MAX_SLABS; ++k) {
@@ -556,8 +563,9 @@ unsigned read_plan(const long long* desc, int nslabs, int dim, long long D0, lon
     s.st0 = (unsigned)p[8], s.st1 = (unsigned)p[9], s.st2 = (unsigned)p[10];
     s.nt0 = (unsigned)p[11], s.nt1 = (unsigned)p[12];
     s.vec = p[13] && aligned16({b0, b1, s.a});
-    if (s.nt0 < 1 || s.nt1 < 1) return 0;  // not planned
-    total += (dim == 2 ? 1 : 2) * (long long)s.nt0 * s.nt1 * D0 * D1 * D2;
+    s.mstride = p[15];
+    if (s.nt0 < 1 || s.nt1 < 1 || p[14] != d.M || d.M < 1) return 0;  // not planned
+    total += (dim == 2 ? 1 : 2) * (long long)s.nt0 * s.nt1 * D0 * D1 * D2 * d.M;
     if (total >= (1LL << 31)) return 0;
   }
   return (unsigned)total;
@@ -663,11 +671,13 @@ extern "C" int igg_halo_write_combined(int itemsize, void* a, const void* xl, co
 
 // K7 and K8's plan, once a group signature: checks each of the nslabs host
 // descriptors (SLAB_DESC long longs a slab: pointer, n0, n1, n2, hw,
-// start0, start1, base, st0, st1, st2, then the plan) of a group along dim
-// (the fields stacked, D0 x D1 x D2 blocks each; a block's buffer of
-// payload cells of itemsize bytes) and fills in the plan: the slab's tiles
-// a block along its two tiled axes (nt0, nt1) and whether its rows copy in
-// 16-byte words (x and y: every span a multiple of 16 bytes).
+// start0, start1, base, st0, st1, st2, the plan nt0, nt1, vec, then the
+// member count M, one for every slab, and the member stride) of a group
+// along dim (the fields stacked, D0 x D1 x D2 blocks each, M members
+// apart; a member's row of the buffer holds payload cells of itemsize
+// bytes) and fills in the plan: the slab's tiles a block along its two
+// tiled axes (nt0, nt1) and whether its rows copy in 16-byte words (x and
+// y: every span a multiple of 16 bytes).
 extern "C" int igg_coalesced_plan(int itemsize, int nslabs, long long* desc, long long D0,
                                   long long D1, long long D2, long long payload, int dim) {
   if (nslabs < 1 || nslabs > MAX_SLABS || dim < 0 || dim > 2 || D0 < 1 || D1 < 1 || D2 < 1 ||
@@ -678,7 +688,7 @@ extern "C" int igg_coalesced_plan(int itemsize, int nslabs, long long* desc, lon
   for (int k = 0; k < nslabs; ++k) {
     long long* p = desc + k * SLAB_DESC;
     const long long n[3] = {p[1], p[2], p[3]}, hw = p[4], base = p[7],
-                    st[3] = {p[8], p[9], p[10]};
+                    st[3] = {p[8], p[9], p[10]}, M = p[14], mstride = p[15];
     long long w[3] = {n[0], n[1], n[2]};
     w[dim] = hw;
     // x and y: rows contiguous in the buffer (a 2-D field's rows are a cell)
@@ -688,20 +698,23 @@ extern "C" int igg_coalesced_plan(int itemsize, int nslabs, long long* desc, lon
     for (int j = 5; j < 7; ++j) ok = ok && p[j] >= 0 && p[j] + hw <= n[dim];
     // the slab's last cell lies in the buffer
     ok = ok && base + (w[0] - 1) * st[0] + (w[1] - 1) * st[1] + (w[2] - 1) * st[2] < payload;
+    // one member count for the group; members of a field do not overlap
+    ok = ok && M >= 1 && M == desc[14] && M < (1LL << 20) &&
+         (M == 1 || mstride >= D[0] * n[0] * D[1] * n[1] * D[2] * n[2]);
     if (!ok) return (int)cudaErrorInvalidValue;
     p[11] = dim == 2 ? cdiv_ll(n[0], TILE_WARPS) : cdiv_ll(n[1 - dim], TILE_WARPS);
     p[12] = dim == 2 ? cdiv_ll(n[1], 32) : hw;
     p[13] = dim < 2 && (n[2] * e) % 16 == 0 && (base * e) % 16 == 0 && (st[0] * e) % 16 == 0 &&
-            (st[1] * e) % 16 == 0 && (payload * e) % 16 == 0;
-    total += (dim == 2 ? 1 : 2) * p[11] * p[12] * D0 * D1 * D2;
+            (st[1] * e) % 16 == 0 && (payload * e) % 16 == 0 && (mstride * e) % 16 == 0;
+    total += (dim == 2 ? 1 : 2) * p[11] * p[12] * D0 * D1 * D2 * M;
     if (total >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   }
   return 0;
 }
 
 // K8. desc: nslabs descriptors planned by igg_coalesced_plan (the pointers
-// filled in); buf_r/buf_l: (D0*D1*D2, payload) contiguous, the buffers of
-// the right and the left send slabs.
+// filled in); buf_r/buf_l: (D0*D1*D2*M, payload) contiguous, the buffers of
+// the right and the left send slabs, a row a block and member.
 extern "C" int igg_wire_pack(int itemsize, int nslabs, const long long* desc, void* buf_r,
                              void* buf_l, long long D0, long long D1, long long D2,
                              long long payload, int dim, void* stream) {

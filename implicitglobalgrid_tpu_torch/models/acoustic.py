@@ -27,8 +27,11 @@ With ``overlap=True`` the plain route goes interior-first
 then `ops.overlap.hide_communication` for the pressure round, radius 0).
 A deep ``comm_every`` cadence runs the masked super-step (`deep_step`,
 `make_acoustic_run_deep`) with one 4-field k-wide exchange per axis and
-k_d sub-steps. Not ported yet (raises `NotSupportedError`): ``ensemble``.
-Both routes take float32, float64 and bfloat16 states.
+k_d sub-steps. ``ensemble=E`` advances E members (each state tensor
+leading with the member axis, `common.ensemble_state`) on the plain route,
+every member of the four fields in one K8 + K7 launch a dim; deep cadences
+and ``overlap=True`` compose with it. Both routes take float32, float64 and
+bfloat16 states.
 """
 
 from __future__ import annotations
@@ -48,9 +51,10 @@ from ..parallel.topology import check_initialized, global_grid
 from ..tools import coords_g, nx_g, ny_g, nz_g
 from ..utils.exceptions import InvalidArgumentError
 from .common import (
-    fresh_mask, interior_first_step, reject_comm_every, run_deep, validate_deep_halo,
+    check_ensemble, fresh_mask, interior_first_step, reject_comm_every,
+    resolve_ensemble_impl, run_deep, validate_deep_halo,
 )
-from .diffusion import IMPLS, _local_shape, _reject_ensemble, _resolve_impl
+from .diffusion import IMPLS, _local_shape, _resolve_impl
 
 __all__ = ["AcousticParams", "init_acoustic3d", "acoustic_step_local",
            "make_acoustic_run", "make_acoustic_run_deep", "deep_step", "run_acoustic"]
@@ -101,8 +105,9 @@ def init_acoustic3d(*, rho=1.0, K=1.0, lx=10.0, ly=10.0, lz=10.0, dtype=None,
 
 
 def _dP(Ab, axis, n):
-    """The difference of neighbours along local ``axis`` of a block view."""
-    return Ab.narrow(2 * axis + 1, 1, n - 1) - Ab.narrow(2 * axis + 1, 0, n - 1)
+    """The difference of neighbours along local ``axis`` of a block view
+    (axis ``2 axis - 5`` from the end: a leading member axis stays whole)."""
+    return Ab.narrow(2 * axis - 5, 1, n - 1) - Ab.narrow(2 * axis - 5, 0, n - 1)
 
 
 def _consts(p: AcousticParams, P):
@@ -122,7 +127,7 @@ def _v_update(P, vs, c, loc):
         m = list(loc)
         m[ax] += 1
         U = V.clone()
-        inner = block_view(U, m).narrow(2 * ax + 1, 1, loc[ax] - 1)
+        inner = block_view(U, m).narrow(2 * ax - 5, 1, loc[ax] - 1)
         inner.copy_(inner + (c["c_v"] * _dP(Pb, ax, loc[ax])) / c["d" + "xyz"[ax]])
         out.append(U)
     return out
@@ -139,45 +144,60 @@ def _p_update(P, vs, c, loc):
     return (block_view(P, loc) - c["dtK"] * div).reshape(P.shape)
 
 
-def _plain_step(state, p: AcousticParams, loc):
+def _plain_step(state, p: AcousticParams, loc, members=None):
     """The plain route: the XLA tier's updates per block (broadcast over the
-    block views), each followed by its exchange."""
+    block views, and over an ensemble's ``members``), each followed by its
+    exchange."""
     P, Vx, Vy, Vz = state
     c = _consts(p, P)
-    Vx, Vy, Vz = local_update_halo(*_v_update(P, (Vx, Vy, Vz), c, loc))
-    return (local_update_halo(_p_update(P, (Vx, Vy, Vz), c, loc)), Vx, Vy, Vz)
+    Vx, Vy, Vz = local_update_halo(*_v_update(P, (Vx, Vy, Vz), c, loc), members=members)
+    return (local_update_halo(_p_update(P, (Vx, Vy, Vz), c, loc), members=members),
+            Vx, Vy, Vz)
 
 
-def _overlap_step(state, p: AcousticParams):
+def _overlap_step(state, p: AcousticParams, members=None):
     """The plain route interior-first: the velocity round (one exchange of
     the three face-staggered fields) hidden under the interior velocity
     update, then the pressure round likewise (radius 0)."""
     P, Vx, Vy, Vz = state
     c = _consts(p, P)
+    lead = int(members is not None)
 
     def v_upd(vx, vy, vz, Pc):
-        return _v_update(Pc, (vx, vy, vz), c, tuple(Pc.shape))
+        return _v_update(Pc, (vx, vy, vz), c, tuple(Pc.shape[lead:]))
 
     def p_upd(Pc, vx, vy, vz):
-        return _p_update(Pc, (vx, vy, vz), c, tuple(Pc.shape))
+        return _p_update(Pc, (vx, vy, vz), c, tuple(Pc.shape[lead:]))
 
-    Vx, Vy, Vz = interior_first_step(v_upd, (Vx, Vy, Vz), (P,), radius=1)
-    return (hide_communication(p_upd, P, Vx, Vy, Vz, radius=0), Vx, Vy, Vz)
+    Vx, Vy, Vz = interior_first_step(v_upd, (Vx, Vy, Vz), (P,), radius=1, members=members)
+    return (hide_communication(p_upd, P, Vx, Vy, Vz, radius=0, members=members), Vx, Vy, Vz)
 
 
-def _check_state(state):
+def _check_state(state, members=None):
     state = tuple(state)
-    if len(state) != 4 or any(a.dim() != 3 for a in state):
-        raise InvalidArgumentError("the acoustic state is four 3-D tensors (P, Vx, Vy, Vz).")
+    nd = 3 if members is None else 4
+    if len(state) != 4 or any(a.dim() != nd for a in state):
+        raise InvalidArgumentError(
+            "the acoustic state is four 3-D tensors (P, Vx, Vy, Vz)"
+            + ("" if members is None else f", each leading with its {members} members") + ".")
+    if members is not None:
+        check_ensemble(state, members)
     return state
 
 
-def _resolve(state, p: AcousticParams, impl: str):
+def _resolve(state, p: AcousticParams, impl: str, members=None):
     """The step on the current grid for states shaped like ``state``, as
     ``fn(state, out) -> state``: the fused route's `AcousticStep` where
     ``impl`` is "cuda" and the gate admits the grid, else the plain route
-    (interior-first with ``p.overlap``), which ignores ``out``."""
+    (interior-first with ``p.overlap``), which ignores ``out``. An
+    ensemble's state (``members``) takes the plain route."""
     gg = global_grid()
+    if members is not None:
+        resolve_ensemble_impl(impl, "acoustic")
+        locs = [_local_shape(gg, a, 1) for a in _check_state(state, members)]
+        if p.overlap:
+            return lambda st, out: _overlap_step(st, p, members)
+        return lambda st, out: _plain_step(st, p, locs[0], members)
     locs = [_local_shape(gg, a) for a in _check_state(state)]
     if impl == "cuda":
         modes = wave_exchange_modes(gg, locs)
@@ -189,16 +209,18 @@ def _resolve(state, p: AcousticParams, impl: str):
     return lambda st, out: _plain_step(st, p, locs[0])
 
 
-def acoustic_step_local(state, p: AcousticParams, impl: str = "plain", out=None):
+def acoustic_step_local(state, p: AcousticParams, impl: str = "plain", out=None,
+                        members: int | None = None):
     """One leapfrog step of the stacked state (every rank's block) with the
     halo exchanges. ``impl`` is "cuda" (the fused route where the grid
     admits it, else the plain route) or "plain". ``out`` is a spare state
     the fused route may write into (it must not alias ``state``); the new
-    state is returned either way."""
+    state is returned either way. ``members``: an ensemble's state, each
+    tensor leading with that many members (the plain route)."""
     if impl not in IMPLS:
         raise InvalidArgumentError(f"impl must be one of {IMPLS}; got {impl!r}.")
     state = tuple(state)
-    return _resolve(state, p, impl)(state, out)
+    return _resolve(state, p, impl, members)(state, out)
 
 
 def make_acoustic_run(p: AcousticParams, nt_chunk: int, impl: str | None = None,
@@ -207,18 +229,20 @@ def make_acoustic_run(p: AcousticParams, nt_chunk: int, impl: str | None = None,
     (pass ``donate=True`` to let it overwrite the input state). The route,
     the gate's modes and the constants are resolved once for the grid and
     the state's shapes, not every step. A deep cadence raises
-    `InvalidArgumentError`: use `run_acoustic` or `make_acoustic_run_deep`."""
+    `InvalidArgumentError`: use `run_acoustic` or `make_acoustic_run_deep`.
+    ``ensemble=E``: the state leads with E members (the plain route)."""
     from .common import make_state_runner, resolve_once
 
     reject_comm_every(p.comm_every, "AcousticParams", "make_acoustic_run",
                       "run_acoustic or make_acoustic_run_deep")
-    _reject_ensemble(ensemble)
-    impl = _resolve_impl(impl)
-    return make_state_runner(resolve_once(lambda state: _resolve(state, p, impl)),
-                             nt_chunk=nt_chunk)
+    members = None if ensemble is None else int(ensemble)
+    impl = _resolve_impl(impl) if members is None \
+        else resolve_ensemble_impl(impl, "acoustic")
+    return make_state_runner(resolve_once(lambda state: _resolve(state, p, impl, members)),
+                             nt_chunk=nt_chunk, ensemble=ensemble)
 
 
-def deep_step(p: AcousticParams):
+def deep_step(p: AcousticParams, members: int | None = None):
     """The deep-halo leapfrog super-step: ``cycle`` masked sub-steps of the
     plain route, the 4-field k-wide exchange issued per axis when its
     cadence makes it due. Returns ``(step, cycle)``, ``step(state) ->
@@ -228,7 +252,8 @@ def deep_step(p: AcousticParams):
     each V field retreats ``r_d`` with base 1 in its staggered dim (its
     update touches faces ``[1, n)`` of ``n + 1``) and 0 elsewhere; P
     retreats ``r_d + 1`` with base 0 (it reads this sub-step's V). The
-    skipped bands are what the k-wide exchange overwrites."""
+    skipped bands are what the k-wide exchange overwrites. ``members``: an
+    ensemble's state."""
     import torch
 
     check_initialized()
@@ -237,8 +262,8 @@ def deep_step(p: AcousticParams):
     validate_deep_halo(gg, 3, cad)
 
     def step(state):
-        P, Vx, Vy, Vz = _check_state(state)
-        loc = _local_shape(global_grid(), P)
+        P, Vx, Vy, Vz = _check_state(state, members)
+        loc = _local_shape(global_grid(), P, int(members is not None))
         c = _consts(p, P)
         for j in range(cad.cycle):
             r = cad.retreats(j)
@@ -255,7 +280,7 @@ def deep_step(p: AcousticParams):
                             Pn, P)
             due = cad.due_dims(j)
             if due:
-                P, Vx, Vy, Vz = local_update_halo(P, Vx, Vy, Vz, dims=due)
+                P, Vx, Vy, Vz = local_update_halo(P, Vx, Vy, Vz, dims=due, members=members)
         return (P, Vx, Vy, Vz)
 
     return step, cad.cycle
@@ -265,13 +290,12 @@ def make_acoustic_run_deep(p: AcousticParams, nt_chunk_super: int,
                            ensemble: int | None = None):
     """The deep-halo leapfrog runner: ``state = run(P, Vx, Vy, Vz)``
     advances ``nt_chunk_super`` super-steps (`deep_step`). The input is
-    never written."""
+    never written. ``ensemble=E``: the state leads with E members."""
     from .common import make_state_runner
 
-    _reject_ensemble(ensemble)
-    step, _ = deep_step(p)
+    step, _ = deep_step(p, None if ensemble is None else int(ensemble))
     return make_state_runner(lambda state, spare: (step(state), None),
-                             nt_chunk=nt_chunk_super)
+                             nt_chunk=nt_chunk_super, ensemble=ensemble)
 
 
 def run_acoustic(state, p: AcousticParams, nt: int, *, nt_chunk: int = 100,
@@ -279,10 +303,13 @@ def run_acoustic(state, p: AcousticParams, nt: int, *, nt_chunk: int = 100,
     """Advance ``nt`` steps and return the new state (the input is not
     written). Returns after the device has drained. A deep ``comm_every``
     cadence runs `make_acoustic_run_deep` (``nt`` a multiple of its
-    cycle)."""
+    cycle). ``ensemble=E``: every tensor of the state leads with E members
+    (`common.ensemble_state`)."""
     from .common import run_chunked
 
-    _reject_ensemble(ensemble)
+    E = None if ensemble is None else check_ensemble(tuple(state), ensemble)
     if resolve_comm_every(p.comm_every).deep:
-        return run_deep(lambda c: make_acoustic_run_deep(p, c), tuple(state), p, nt, nt_chunk, impl)
-    return run_chunked(lambda c: make_acoustic_run(p, c, impl), tuple(state), nt, nt_chunk)
+        return run_deep(lambda c: make_acoustic_run_deep(p, c, ensemble=E), tuple(state), p,
+                        nt, nt_chunk, impl)
+    return run_chunked(lambda c: make_acoustic_run(p, c, impl, ensemble=E), tuple(state), nt,
+                       nt_chunk)

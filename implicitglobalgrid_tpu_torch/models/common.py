@@ -8,8 +8,14 @@ step before last wrote, so a run allocates two buffers at most and never
 writes the caller's input.
 
 The deep-halo machinery of the three models lives here too
-(`validate_deep_halo`, `fresh_mask` on the stacked layout, `run_deep`), and
-`interior_first_step`, the entry of their ``overlap=True`` steps.
+(`validate_deep_halo`, `fresh_mask` on the stacked layout, `run_deep`),
+`interior_first_step`, the entry of their ``overlap=True`` steps, and the
+ensemble axis (`ensemble_state`, `ensemble_partition_spec`,
+`resolve_ensemble_impl`, ``make_state_runner(ensemble=)``): E scenario
+members advanced together, each state tensor leading with a member axis.
+The JAX package vmaps its step over that axis; here the plain route's
+arithmetic broadcasts over it and the exchange carries every member in
+one K8 + K7 launch a dim (`ops.halo.local_update_halo(members=)`).
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ from ..utils.exceptions import IncoherentArgumentError, InvalidArgumentError
 
 __all__ = ["make_state_runner", "resolve_once", "run_chunked", "resolve_comm_every",
            "fresh_mask", "validate_deep_halo", "interior_first_step", "reject_comm_every",
-           "run_deep"]
+           "run_deep", "ensemble_partition_spec", "ensemble_state", "resolve_ensemble_impl",
+           "check_ensemble"]
 
 # fresh masks by grid and request: the current epoch's only
 _masks: dict = {}
@@ -96,20 +103,94 @@ def validate_deep_halo(gg, ndim: int, k, depth_per_step: int = 1) -> None:
 
 
 def interior_first_step(update_fn, outs, aux=(), *, radius: int = 1,
-                        n_exchange: int | None = None, coalesce=None, wire_dtype=None):
+                        n_exchange: int | None = None, coalesce=None, wire_dtype=None,
+                        members: int | None = None):
     """The interior-first shape of a step (every model's ``overlap=True``
     route): boundary shells, then ONE exchange round of the first
     ``n_exchange`` of ``outs`` on a side stream while the interior runs,
     then the stitch. A thin, named entry over the multi-field form of
     `ops.overlap.hide_communication`; the same values as
-    ``local_update_halo(*update_fn(*outs, *aux))`` per block."""
+    ``local_update_halo(*update_fn(*outs, *aux))`` per block. ``members``:
+    an ensemble's state (`ops.overlap.hide_communication`)."""
     from ..ops.overlap import hide_communication
 
     return hide_communication(update_fn, tuple(outs), *aux, radius=radius,
-                              n_exchange=n_exchange, coalesce=coalesce, wire_dtype=wire_dtype)
+                              n_exchange=n_exchange, coalesce=coalesce, wire_dtype=wire_dtype,
+                              members=members)
 
 
-def make_state_runner(step_local, *, nt_chunk: int):
+def ensemble_partition_spec(ndim: int) -> tuple:
+    """The layout of an ensemble's field of ``ndim`` physical axes, as the
+    JAX package's ``PartitionSpec`` names it: a leading member axis that no
+    mesh axis splits (every block holds all members), then the mesh axes
+    of the physical ones, ``(None, "gx", "gy", "gz")[:ndim + 1]``."""
+    from ..parallel.topology import AXIS_NAMES
+
+    return (None, *AXIS_NAMES[:int(ndim)])
+
+
+def ensemble_state(state, members: int, *, perturb: float = 0.0):
+    """``members`` copies of stacked field(s) along a NEW leading member
+    axis, on the grid's device: the state an ensemble runner
+    (``run_*(..., ensemble=members)``) advances. ``state`` is one tensor
+    (or anything `torch.as_tensor` takes), a tuple/list or a dict of them;
+    the container is kept. ``perturb`` scales member ``m`` by ``1 +
+    perturb * m`` (computed in float32, cast to the state's dtype): member 0
+    stays bitwise the base state, so it compares with the solo run."""
+    import torch
+
+    check_initialized()
+    gg = global_grid()
+    E = int(members)
+    if E < 1:
+        raise InvalidArgumentError(f"ensemble_state: members must be >= 1; got {members}.")
+
+    def one(A):
+        A = torch.as_tensor(A, device=gg.device)
+        stacked = A.unsqueeze(0).expand((E,) + tuple(A.shape)).contiguous()
+        if perturb:
+            fac = (1.0 + float(perturb) * torch.arange(E, dtype=torch.float32,
+                                                       device=gg.device)).to(A.dtype)
+            stacked = stacked * fac.reshape((E,) + (1,) * A.dim())
+        return stacked
+
+    if isinstance(state, dict):
+        return {k: one(v) for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return type(state)(one(v) for v in state)
+    return one(state)
+
+
+def resolve_ensemble_impl(impl, model: str = "step") -> str:
+    """The ensemble's route: its members broadcast through the plain
+    route's arithmetic (the JAX package runs its XLA tier under ``vmap``);
+    ``None``/"plain" resolve to "plain", an explicit kernel route raises
+    `InvalidArgumentError` rather than run another route."""
+    if impl is not None and impl != "plain":
+        raise InvalidArgumentError(
+            f"impl={impl!r} is incompatible with ensemble batching: the ensemble axis "
+            f"currently runs the {model} step's plain route (the fused kernels take one "
+            "member). Pass impl=None/'plain' or drop ensemble=.")
+    return "plain"
+
+
+def check_ensemble(state, ensemble: int, ndim_min: int = 2) -> int:
+    """``ensemble`` as an int after the JAX package's checks: ``>= 1`` and
+    every tensor of ``state`` leading with that many members (build it
+    with `ensemble_state`)."""
+    E = int(ensemble)
+    if E < 1:
+        raise InvalidArgumentError(f"ensemble must be >= 1; got {ensemble}.")
+    for A in state:
+        if A.dim() < ndim_min or int(A.shape[0]) != E:
+            raise InvalidArgumentError(
+                f"ensemble={E} expects the state to lead with the member axis (shape (E, "
+                f"...)); got {tuple(A.shape)} — build the state with "
+                "models.common.ensemble_state.")
+    return E
+
+
+def make_state_runner(step_local, *, nt_chunk: int, ensemble: int | None = None):
     """A runner ``run(*state, donate=False) -> state`` advancing
     ``nt_chunk`` steps.
 
@@ -117,8 +198,11 @@ def make_state_runner(step_local, *, nt_chunk: int):
     write the new state into ``spare`` (a buffer it may overwrite, or None
     to allocate) and returns the new state and the buffer it no longer needs
     (which becomes the next step's ``spare``). The caller's input is used as
-    a spare only with ``donate=True``."""
+    a spare only with ``donate=True``. ``ensemble``: the member count of an
+    ensemble's state (``>= 1``; the step carries the member axis)."""
     check_initialized()
+    if ensemble is not None and int(ensemble) < 1:
+        raise InvalidArgumentError(f"make_state_runner: ensemble must be >= 1; got {ensemble}.")
     nt_chunk = int(nt_chunk)
 
     def run(*state, donate: bool = False):

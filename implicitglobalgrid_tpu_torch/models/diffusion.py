@@ -30,8 +30,12 @@ A deep ``comm_every`` cadence runs the communication-avoiding super-step
 axis's k-wide exchange once per k_d sub-steps. ``sr=True`` on a bfloat16
 state runs stochastic-rounding storage (`make_run_sr`, the plain route:
 float32 flux, an unbiased round to bfloat16 with the bits of
-`ops.precision.sr_bits`, then the exchange). Not ported yet (raises
-`NotSupportedError`): ``ensemble``.
+`ops.precision.sr_bits`, then the exchange). ``ensemble=E`` advances E
+members (each state tensor leads with the member axis,
+`common.ensemble_state`) on the plain route: the update broadcasts over
+the members, and every member crosses in one K8 + K7 launch a dim; deep
+cadences and ``overlap=True`` compose with it, ``sr=True`` and
+``impl="cuda"`` raise, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -53,13 +57,15 @@ from ..ops.wire import resolve_comm_every
 from ..parallel.topology import check_initialized, global_grid
 from ..tools import coords_g, nx_g, ny_g, nz_g
 from ..utils.exceptions import InvalidArgumentError, NotSupportedError
-from .common import fresh_mask, reject_comm_every, run_deep, validate_deep_halo
+from .common import (
+    check_ensemble, fresh_mask, reject_comm_every, resolve_ensemble_impl, run_deep,
+    validate_deep_halo,
+)
 
 __all__ = ["DiffusionParams", "init_diffusion3d", "init_diffusion2d",
            "diffusion_step_local", "make_step", "make_run", "make_run_sr", "make_run_deep",
            "deep_step", "run_diffusion"]
 
-_LATER = "a later slice of the PyTorch port"
 IMPLS = ("cuda", "plain")
 
 
@@ -145,53 +151,60 @@ def _plain_consts(p: DiffusionParams, T):
     return const_tensors({k: getattr(p, k) for k in ("lam", "dt", "dx", "dy", "dz")}, T)
 
 
-def _upd3(Tb, Cpb, c):
+def _upd3(Tb, Cpb, c, lead=0):
     """The 3-D flux/divergence/update stencil of one block (the JAX
-    package's `_upd3`); returns the increment of the interior."""
-    qx = -c["lam"] * d_xi(Tb) / c["dx"]
-    qy = -c["lam"] * d_yi(Tb) / c["dy"]
-    qz = -c["lam"] * d_zi(Tb) / c["dz"]
-    dTdt = (-d_xa(qx) / c["dx"] - d_ya(qy) / c["dy"]
-            - d_za(qz) / c["dz"]) / inn(Cpb)
+    package's `_upd3`); returns the increment of the interior. ``lead``:
+    leading member axes, broadcast over."""
+    k = dict(lead=lead)
+    qx = -c["lam"] * d_xi(Tb, **k) / c["dx"]
+    qy = -c["lam"] * d_yi(Tb, **k) / c["dy"]
+    qz = -c["lam"] * d_zi(Tb, **k) / c["dz"]
+    dTdt = (-d_xa(qx, **k) / c["dx"] - d_ya(qy, **k) / c["dy"]
+            - d_za(qz, **k) / c["dz"]) / inn(Cpb, **k)
     return c["dt"] * dTdt
 
 
-def _upd2(Tb, Cpb, c):
+def _upd2(Tb, Cpb, c, lead=0):
     """2-D variant of `_upd3`."""
-    qx = -c["lam"] * d_xi(Tb) / c["dx"]
-    qy = -c["lam"] * d_yi(Tb) / c["dy"]
-    dTdt = (-d_xa(qx) / c["dx"] - d_ya(qy) / c["dy"]) / inn(Cpb)
+    k = dict(lead=lead)
+    qx = -c["lam"] * d_xi(Tb, **k) / c["dx"]
+    qy = -c["lam"] * d_yi(Tb, **k) / c["dy"]
+    dTdt = (-d_xa(qx, **k) / c["dx"] - d_ya(qy, **k) / c["dy"]) / inn(Cpb, **k)
     return c["dt"] * dTdt
 
 
-def _plain_step(T, Cp, p, loc):
+def _plain_step(T, Cp, p, loc, lead=0):
     """Every block's interior updated by the broadcast flux form (the JAX
-    package runs it per shard inside `shard_map`), into a new tensor."""
+    package runs it per shard inside `shard_map`), into a new tensor;
+    ``lead`` leading member axes broadcast over."""
     c = _plain_consts(p, T)
-    upd = _upd3 if T.dim() == 3 else _upd2
+    upd = _upd3 if T.dim() - lead == 3 else _upd2
     out = T.clone()
-    for sl in block_slices(T.shape, loc):
-        inn(out[sl]).add_(upd(T[sl], Cp[sl], c))
+    whole = (slice(None),) * lead
+    for sl in block_slices(T.shape[lead:], loc):
+        sl = whole + sl
+        inn(out[sl], lead=lead).add_(upd(T[sl], Cp[sl], c, lead))
     return out
 
 
-def _block_update(p, T):
+def _block_update(p, T, lead=0):
     """The update of one block (or slab of one) as `hide_communication`
     takes it: `_plain_step`'s arithmetic, into a new tensor."""
     c = _plain_consts(p, T)
-    upd = _upd3 if T.dim() == 3 else _upd2
+    upd = _upd3 if T.dim() - lead == 3 else _upd2
 
     def fn(Tb, Cpb):
         out = Tb.clone()
-        inn(out).add_(upd(Tb, Cpb, c))
+        inn(out, lead=lead).add_(upd(Tb, Cpb, c, lead))
         return out
 
     return fn
 
 
-def _local_shape(gg, T):
-    """The LOCAL block shape of a stacked tensor of this process's box."""
-    return tuple(int(s) // int(gg.box[d]) for d, s in enumerate(T.shape))
+def _local_shape(gg, T, lead=0):
+    """The LOCAL block shape of a stacked tensor of this process's box
+    (after ``lead`` leading member axes)."""
+    return tuple(int(s) // int(gg.box[d]) for d, s in enumerate(T.shape[lead:]))
 
 
 def _cuda_step3(T, Cp, p, gg, loc, out):
@@ -244,16 +257,20 @@ def _sr_step(T, Cp, p, gg, loc, n):
 
 
 def diffusion_step_local(T, Cp, p: DiffusionParams, impl: str = "plain",
-                         out=None, sr_step=None):
+                         out=None, sr_step=None, members: int | None = None):
     """One time step of stacked ``T`` (every rank's block) followed by the
     halo exchange. ``impl`` is "cuda" (the kernel route) or "plain".
     ``out`` is a spare buffer the kernel route may write the new state into
     (it must not alias ``T``); the result is returned either way.
     ``sr_step`` (with ``p.sr`` and a bfloat16 state) is the global step
     number of the stochastic-rounding step (`make_run_sr` threads it); such
-    a state without it raises `InvalidArgumentError`."""
+    a state without it raises `InvalidArgumentError`. ``members``: ``T``
+    and ``Cp`` are an ensemble's, leading with that many members (the
+    plain route only)."""
     import torch
 
+    if members is not None:
+        return _ensemble_step(T, Cp, p, impl, int(members))
     if p.sr and T.dtype == torch.bfloat16 and T.dim() in (2, 3):
         if sr_step is None:
             raise InvalidArgumentError(
@@ -294,9 +311,30 @@ def _resolve_impl(impl):
     return "cuda" if bool(gg.use_pallas.all()) else "plain"
 
 
-def _reject_ensemble(ensemble):
-    if ensemble is not None:
-        raise NotSupportedError(f"ensemble batching is not ported yet ({_LATER}).")
+def _ensemble_step(T, Cp, p, impl, members):
+    """One plain-route step of an ensemble's ``T`` (leading with
+    ``members`` members): the update broadcast over the members, then one
+    exchange of every member (interior-first with ``p.overlap``)."""
+    resolve_ensemble_impl(impl, "diffusion")
+    if T.dim() not in (3, 4) or int(T.shape[0]) != members:
+        raise InvalidArgumentError(
+            f"an ensemble's diffusion state leads with its {members} members; got shape "
+            f"{tuple(T.shape)}.")
+    gg = global_grid()
+    if p.overlap:
+        return hide_communication(_block_update(p, T, 1), T, Cp, radius=1, members=members)
+    return local_update_halo(_plain_step(T, Cp, p, _local_shape(gg, T, 1), 1),
+                             members=members)
+
+
+def _check_ensemble_params(p: DiffusionParams, T, ensemble):
+    """The JAX package's checks of an ensemble run: no ``sr``, ``T``
+    leading with the members. Returns the member count."""
+    if p.sr:
+        raise InvalidArgumentError(
+            "ensemble batching does not support sr=True (stochastic-rounding storage is a "
+            "solo-run feature).")
+    return check_ensemble((T,), ensemble)
 
 
 def make_step(p: DiffusionParams, ndim: int = 3, impl: str | None = None):
@@ -315,19 +353,21 @@ def make_step(p: DiffusionParams, ndim: int = 3, impl: str | None = None):
 def make_run(p: DiffusionParams, nt_chunk: int, ndim: int = 3,
              impl: str | None = None, ensemble: int | None = None):
     """A runner advancing ``nt_chunk`` steps: ``(T, Cp) = run(T, Cp)``
-    (pass ``donate=True`` to let it overwrite the input ``T``)."""
+    (pass ``donate=True`` to let it overwrite the input ``T``).
+    ``ensemble=E``: the state leads with E members (the plain route)."""
     from .common import make_state_runner
 
     reject_comm_every(p.comm_every, "DiffusionParams", "make_run",
                       "run_diffusion or make_run_deep")
-    _reject_ensemble(ensemble)
-    impl = _resolve_impl(impl)
+    impl = _resolve_impl(impl) if ensemble is None \
+        else resolve_ensemble_impl(impl, "diffusion")
+    members = None if ensemble is None else int(ensemble)
 
     def step(state, spare):
         T, Cp = state
-        return (diffusion_step_local(T, Cp, p, impl, out=spare), Cp), T
+        return (diffusion_step_local(T, Cp, p, impl, out=spare, members=members), Cp), T
 
-    return make_state_runner(step, nt_chunk=nt_chunk)
+    return make_state_runner(step, nt_chunk=nt_chunk, ensemble=ensemble)
 
 
 def make_run_sr(p: DiffusionParams, nt_chunk: int, ndim: int = 3):
@@ -344,31 +384,32 @@ def make_run_sr(p: DiffusionParams, nt_chunk: int, ndim: int = 3):
     return make_state_runner(step, nt_chunk=nt_chunk)
 
 
-def deep_step(p: DiffusionParams, ndim: int = 3):
+def deep_step(p: DiffusionParams, ndim: int = 3, members: int | None = None):
     """The communication-avoiding super-step: ``cycle`` (the lcm of the
     per-axis cadences) masked sub-steps of the plain route (`_fresh_mask`,
     per-dim retreats), each axis's k-wide exchange issued after the
     sub-steps its cadence makes it due (`CommCadence.due_dims`). Validates
     the grid's halos against the cadence; returns ``(step, cycle)``, where
     ``step((T, Cp)) -> (T, Cp)`` advances ``cycle`` physical steps of the
-    stacked tensors."""
+    stacked tensors (leading with ``members`` members: an ensemble's)."""
     import torch
 
     check_initialized()
     gg = global_grid()
     cad = resolve_comm_every(p.comm_every)
     validate_deep_halo(gg, ndim, cad)
+    lead = int(members is not None)
 
     def step(state):
         T, Cp = state
-        loc = _local_shape(global_grid(), T)
+        loc = _local_shape(global_grid(), T, lead)
         for j in range(cad.cycle):
-            Tn = _plain_step(T, Cp, p, loc)
+            Tn = _plain_step(T, Cp, p, loc, lead)
             r = cad.retreats(j, ndim)
             T = torch.where(_fresh_mask(loc, r), Tn, T) if any(r) else Tn
             due = cad.due_dims(j, ndim)
             if due:
-                T = local_update_halo(T, dims=due)
+                T = local_update_halo(T, dims=due, members=members)
         return T, Cp
 
     return step, cad.cycle
@@ -378,13 +419,13 @@ def make_run_deep(p: DiffusionParams, nt_chunk_super: int, ndim: int = 3,
                   ensemble: int | None = None):
     """The communication-avoiding runner: ``(T, Cp) = run(T, Cp)`` advances
     ``nt_chunk_super`` super-steps (`deep_step`), each ``cycle`` physical
-    steps. The input is never written."""
+    steps. The input is never written. ``ensemble=E``: the state leads with
+    E members."""
     from .common import make_state_runner
 
-    _reject_ensemble(ensemble)
-    step, _ = deep_step(p, ndim)
+    step, _ = deep_step(p, ndim, None if ensemble is None else int(ensemble))
     return make_state_runner(lambda state, spare: (step(state), None),
-                             nt_chunk=nt_chunk_super)
+                             nt_chunk=nt_chunk_super, ensemble=ensemble)
 
 
 def run_diffusion(T, Cp, p: DiffusionParams, nt: int, *, nt_chunk: int = 100,
@@ -394,12 +435,20 @@ def run_diffusion(T, Cp, p: DiffusionParams, nt: int, *, nt_chunk: int = 100,
     cadence runs `make_run_deep` (``nt`` a multiple of its cycle); ``sr``
     with a bfloat16 state runs `make_run_sr` from step 0 (the plain route:
     another ``impl`` raises `InvalidArgumentError`, as does a deep
-    cadence)."""
+    cadence). ``ensemble=E``: ``T`` and ``Cp`` lead with E members
+    (`common.ensemble_state`); one exchange a dim carries them all."""
     import torch
 
     from .common import run_chunked
 
-    _reject_ensemble(ensemble)
+    if ensemble is not None:
+        E = _check_ensemble_params(p, T, ensemble)
+        ndim = T.dim() - 1
+        if resolve_comm_every(p.comm_every).deep:
+            return run_deep(lambda c: make_run_deep(p, c, ndim, ensemble=E), (T, Cp), p, nt,
+                            nt_chunk, impl)[0]
+        return run_chunked(lambda c: make_run(p, c, ndim, impl, ensemble=E), (T, Cp), nt,
+                           nt_chunk)[0]
     sr = p.sr and T.dtype == torch.bfloat16
     if resolve_comm_every(p.comm_every).deep:
         if sr:

@@ -33,8 +33,12 @@ it). With ``overlap=True`` the plain route goes interior-first
 exchange of the first 4 on a side stream under the interior). A deep
 ``comm_every`` cadence runs the masked super-step (`deep_step`,
 `make_stokes_run_deep`): a dependency radius of 2 an iteration, one
-7-field exchange (P, V, dV) per axis and k_d iterations. Not ported yet
-(raises `NotSupportedError`): ``ensemble``.
+7-field exchange (P, V, dV) per axis and k_d iterations. ``ensemble=E``
+advances E members (each state tensor leading with the member axis,
+`common.ensemble_state`) on the plain route, every member of the exchanged
+fields in one K8 + K7 launch a dim; deep cadences and ``overlap=True``
+compose with it. `stokes_residuals` takes one member's state (the JAX
+package's fails on an ensemble's).
 """
 
 from __future__ import annotations
@@ -53,9 +57,10 @@ from ..parallel.topology import check_initialized, global_grid
 from ..tools import coords_g, nx_g, ny_g, nz_g
 from ..utils.exceptions import InvalidArgumentError
 from .common import (
-    fresh_mask, interior_first_step, reject_comm_every, run_deep, validate_deep_halo,
+    check_ensemble, fresh_mask, interior_first_step, reject_comm_every,
+    resolve_ensemble_impl, run_deep, validate_deep_halo,
 )
-from .diffusion import IMPLS, _local_shape, _reject_ensemble, _resolve_impl
+from .diffusion import IMPLS, _local_shape, _resolve_impl
 
 __all__ = ["StokesParams", "init_stokes3d", "stokes_step_local", "make_stokes_run",
            "make_stokes_run_deep", "deep_step", "run_stokes", "stokes_residuals"]
@@ -110,46 +115,60 @@ def init_stokes3d(*, mu=1.0, lx=10.0, ly=10.0, lz=10.0, rhog_mag=1.0, r_incl=1.0
     return (P, Vx, Vy, Vz, dVx, dVy, dVz, rhog), p
 
 
-def _check_state(state):
+def _check_state(state, members=None):
     state = tuple(state)
-    if len(state) != 8 or any(a.dim() != 3 for a in state):
+    nd = 3 if members is None else 4
+    if len(state) != 8 or any(a.dim() != nd for a in state):
         raise InvalidArgumentError(
-            "the Stokes state is eight 3-D tensors (P, Vx, Vy, Vz, dVx, dVy, dVz, rhog).")
+            "the Stokes state is eight 3-D tensors (P, Vx, Vy, Vz, dVx, dVy, dVz, rhog)"
+            + ("" if members is None else f", each leading with its {members} members") + ".")
+    if members is not None:
+        check_ensemble(state, members)
     return state
 
 
-def _plain_step(state, p: StokesParams, block):
-    """The plain route: the iteration in `_stokes_terms`' arithmetic, then
+def _plain_step(state, p: StokesParams, block, members=None):
+    """The plain route: the iteration in `_stokes_terms`' arithmetic
+    (broadcast over an ensemble's ``members``), then
     ``local_update_halo(Vx, Vy, Vz, Pn)``."""
     Pn, Vx, Vy, Vz, dVx, dVy, dVz = stokes_update_plain(
         state, block=block, consts=stokes_consts(p), form="getter")
-    Vx, Vy, Vz, Pn = local_update_halo(Vx, Vy, Vz, Pn)
+    Vx, Vy, Vz, Pn = local_update_halo(Vx, Vy, Vz, Pn, members=members)
     return (Pn, Vx, Vy, Vz, dVx, dVy, dVz, state[7])
 
 
-def _overlap_step(state, p: StokesParams):
+def _overlap_step(state, p: StokesParams, members=None):
     """The plain route interior-first: the 7 updated fields' shells, the
     exchange of (Vx, Vy, Vz, Pn) on them under the interior update."""
     consts = stokes_consts(p)
+    lead = int(members is not None)
 
     def pt_update(vx, vy, vz, Pc, dvx, dvy, dvz, rh):
         blk = tuple(a.contiguous() for a in (Pc, vx, vy, vz, dvx, dvy, dvz, rh))
         Pn, Vx, Vy, Vz, dVx, dVy, dVz = stokes_update_plain(
-            blk, block=tuple(Pc.shape), consts=consts, form="getter")
+            blk, block=tuple(Pc.shape[lead:]), consts=consts, form="getter")
         return Vx, Vy, Vz, Pn, dVx, dVy, dVz
 
     P, Vx, Vy, Vz, dVx, dVy, dVz, rhog = state
     Vx, Vy, Vz, Pn, dVx, dVy, dVz = interior_first_step(
-        pt_update, (Vx, Vy, Vz, P, dVx, dVy, dVz), (rhog,), radius=1, n_exchange=4)
+        pt_update, (Vx, Vy, Vz, P, dVx, dVy, dVz), (rhog,), radius=1, n_exchange=4,
+        members=members)
     return (Pn, Vx, Vy, Vz, dVx, dVy, dVz, rhog)
 
 
-def _resolve(state, p: StokesParams, impl: str):
+def _resolve(state, p: StokesParams, impl: str, members=None):
     """The iteration on the current grid for states shaped like ``state``,
     as ``fn(state, out) -> state``: the fused route's `StokesStep` where
     ``impl`` is "cuda" and the gate admits the grid, else the plain route
-    (interior-first with ``p.overlap``), which ignores ``out``."""
+    (interior-first with ``p.overlap``), which ignores ``out``. An
+    ensemble's state (``members``) takes the plain route."""
     gg = global_grid()
+    if members is not None:
+        resolve_ensemble_impl(impl, "stokes")
+        block = _local_shape(gg, _check_state(state, members)[0], 1)
+        if p.overlap:
+            return lambda st, out: _overlap_step(st, p, members)
+        return lambda st, out: _plain_step(st, p, block, members)
     block = _local_shape(gg, _check_state(state)[0])
     if impl == "cuda":
         modes = stokes_exchange_modes(gg, [_local_shape(gg, a) for a in state], state[0].dtype)
@@ -160,17 +179,19 @@ def _resolve(state, p: StokesParams, impl: str):
     return lambda st, out: _plain_step(st, p, block)
 
 
-def stokes_step_local(state, p: StokesParams, impl: str = "plain", out=None):
+def stokes_step_local(state, p: StokesParams, impl: str = "plain", out=None,
+                      members: int | None = None):
     """One damped PT iteration of the stacked state (every rank's block)
     with the halo exchange of (Vx, Vy, Vz, P). ``impl`` is "cuda" (the fused
     route where the grid admits it, else the plain route) or "plain".
     ``out`` is a spare state the fused route may write into (it must not
     alias ``state``; its rhog is never written); the new state is returned
-    either way, with the input's rhog."""
+    either way, with the input's rhog. ``members``: an ensemble's state,
+    each tensor leading with that many members (the plain route)."""
     if impl not in IMPLS:
         raise InvalidArgumentError(f"impl must be one of {IMPLS}; got {impl!r}.")
     state = tuple(state)
-    return _resolve(state, p, impl)(state, out)
+    return _resolve(state, p, impl, members)(state, out)
 
 
 def make_stokes_run(p: StokesParams, nt_chunk: int, impl: str | None = None,
@@ -179,18 +200,19 @@ def make_stokes_run(p: StokesParams, nt_chunk: int, impl: str | None = None,
     (pass ``donate=True`` to let it overwrite the input state). The route,
     the gate's modes and the constants are resolved once for the grid and
     the state's shapes, not every iteration. A deep cadence raises
-    `InvalidArgumentError`: use `run_stokes` or `make_stokes_run_deep`."""
+    `InvalidArgumentError`: use `run_stokes` or `make_stokes_run_deep`.
+    ``ensemble=E``: the state leads with E members (the plain route)."""
     from .common import make_state_runner, resolve_once
 
     reject_comm_every(p.comm_every, "StokesParams", "make_stokes_run",
                       "run_stokes or make_stokes_run_deep")
-    _reject_ensemble(ensemble)
-    impl = _resolve_impl(impl)
-    return make_state_runner(resolve_once(lambda state: _resolve(state, p, impl)),
-                             nt_chunk=nt_chunk)
+    members = None if ensemble is None else int(ensemble)
+    impl = _resolve_impl(impl) if members is None else resolve_ensemble_impl(impl, "stokes")
+    return make_state_runner(resolve_once(lambda state: _resolve(state, p, impl, members)),
+                             nt_chunk=nt_chunk, ensemble=ensemble)
 
 
-def deep_step(p: StokesParams):
+def deep_step(p: StokesParams, members: int | None = None):
     """The deep-halo PT super-step: ``cycle`` masked iterations of the plain
     route, the 7-field exchange (P, Vx, Vy, Vz, dVx, dVy, dVz) issued per
     axis when its cadence makes it due. Returns ``(step, cycle)``,
@@ -202,7 +224,7 @@ def deep_step(p: StokesParams):
     just exchanged) with base 1 (they read this iteration's Pn and the edge
     stresses one cell deeper). dV joins the exchange: the base scheme keeps
     its band consistent by recomputing every face an iteration, which the
-    masks skip."""
+    masks skip. ``members``: an ensemble's state."""
     import torch
 
     check_initialized()
@@ -210,11 +232,12 @@ def deep_step(p: StokesParams):
     cad = resolve_comm_every(p.comm_every)
     validate_deep_halo(gg, 3, cad, depth_per_step=2)
     consts = stokes_consts(p)
+    lead = int(members is not None)
 
     def step(state):
-        P, Vx, Vy, Vz, dVx, dVy, dVz, rhog = _check_state(state)
+        P, Vx, Vy, Vz, dVx, dVy, dVz, rhog = _check_state(state, members)
         g = global_grid()
-        loc = _local_shape(g, P)
+        loc = _local_shape(g, P, lead)
         for j in range(cad.cycle):
             r = cad.retreats(j)
             Pn, *new = stokes_update_plain((P, Vx, Vy, Vz, dVx, dVy, dVz, rhog), block=loc,
@@ -224,7 +247,8 @@ def deep_step(p: StokesParams):
                                  Pn, P)
                 old = (Vx, Vy, Vz, dVx, dVy, dVz)
                 for s in range(3):
-                    m = fresh_mask(_local_shape(g, old[s]), tuple(2 * x + 1 if x else 0 for x in r),
+                    m = fresh_mask(_local_shape(g, old[s], lead),
+                                   tuple(2 * x + 1 if x else 0 for x in r),
                                    (1, 1, 1), (1, 1, 1))
                     new[s] = torch.where(m, new[s], old[s])
                     new[s + 3] = torch.where(m, new[s + 3], old[s + 3])
@@ -233,7 +257,7 @@ def deep_step(p: StokesParams):
             due = cad.due_dims(j)
             if due:
                 P, Vx, Vy, Vz, dVx, dVy, dVz = local_update_halo(
-                    P, Vx, Vy, Vz, dVx, dVy, dVz, dims=due)
+                    P, Vx, Vy, Vz, dVx, dVy, dVz, dims=due, members=members)
         return (P, Vx, Vy, Vz, dVx, dVy, dVz, rhog)
 
     return step, cad.cycle
@@ -242,26 +266,29 @@ def deep_step(p: StokesParams):
 def make_stokes_run_deep(p: StokesParams, nt_chunk_super: int, ensemble: int | None = None):
     """The deep-halo PT runner: ``state = run(*state)`` advances
     ``nt_chunk_super`` super-steps (`deep_step`). The input is never
-    written."""
+    written. ``ensemble=E``: the state leads with E members."""
     from .common import make_state_runner
 
-    _reject_ensemble(ensemble)
-    step, _ = deep_step(p)
+    step, _ = deep_step(p, None if ensemble is None else int(ensemble))
     return make_state_runner(lambda state, spare: (step(state), None),
-                             nt_chunk=nt_chunk_super)
+                             nt_chunk=nt_chunk_super, ensemble=ensemble)
 
 
 def run_stokes(state, p: StokesParams, nt: int, *, nt_chunk: int = 100,
                impl: str | None = None, ensemble: int | None = None):
     """Run ``nt`` PT iterations and return the new state (the input is not
     written). Returns after the device has drained. A deep ``comm_every``
-    cadence runs `make_stokes_run_deep` (``nt`` a multiple of its cycle)."""
+    cadence runs `make_stokes_run_deep` (``nt`` a multiple of its cycle).
+    ``ensemble=E``: every tensor of the state leads with E members
+    (`common.ensemble_state`)."""
     from .common import run_chunked
 
-    _reject_ensemble(ensemble)
+    E = None if ensemble is None else check_ensemble(tuple(state), ensemble)
     if resolve_comm_every(p.comm_every).deep:
-        return run_deep(lambda c: make_stokes_run_deep(p, c), tuple(state), p, nt, nt_chunk, impl)
-    return run_chunked(lambda c: make_stokes_run(p, c, impl), tuple(state), nt, nt_chunk)
+        return run_deep(lambda c: make_stokes_run_deep(p, c, ensemble=E), tuple(state), p, nt,
+                        nt_chunk, impl)
+    return run_chunked(lambda c: make_stokes_run(p, c, impl, ensemble=E), tuple(state), nt,
+                       nt_chunk)
 
 
 def stokes_residuals(state, p: StokesParams):

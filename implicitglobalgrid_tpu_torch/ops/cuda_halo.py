@@ -21,6 +21,10 @@ points on this slice's path:
   halos along one dim, on every block, from the neighbour blocks' wire
   buffers, in one launch, in place.
 
+K8 and K7 also take an ensemble's fields (a leading axis of the schema's
+`WireSchema.members` members): every member of every field in the one
+launch, each member's payload in its own part of a block's row.
+
 All are pure copies and match their plain versions bitwise. On a CUDA
 tensor the wrapper launches the kernel (or raises); on a CPU tensor it runs
 the plain version.
@@ -48,7 +52,7 @@ __all__ = ["halo_write_supported", "halo_write", "halo_write_plain",
 # fields a K7/K8 launch takes (`MAX_SLABS` in csrc/halo.cu)
 MAX_SLABS = 16
 # long longs a slab in the K7/K8 descriptor (`SLAB_DESC` in csrc/halo.cu)
-_SLAB_DESC = 14
+_SLAB_DESC = 16
 
 
 def _on_card(t):
@@ -336,13 +340,30 @@ def halo_write_combined(a, recvs, *, modes, hws, block=None):
 # ---------------------------------------------------------------------------
 
 def _block_counts(f, blk):
-    """Blocks of stacked ``f`` along each of three dims (1 past its ndim)."""
-    return tuple(int(s) // int(n) for s, n in zip(f.shape, blk)) + (1,) * (3 - f.dim())
+    """Blocks of stacked ``f`` along each of three dims (1 past its ndim);
+    a leading member axis is not a dim."""
+    shape = f.shape[f.dim() - len(blk):]
+    return tuple(int(s) // int(n) for s, n in zip(shape, blk)) + (1,) * (3 - len(blk))
+
+
+def _members(f, blk, schema, name):
+    """Whether stacked ``f`` leads with the schema's member axis (an
+    ensemble's field, one more axis than its block), else it has none and
+    the schema one member."""
+    M = int(schema.members)
+    if f.dim() == len(blk) + 1 and int(f.shape[0]) == M:
+        return True
+    if f.dim() == len(blk) and M == 1:
+        return False
+    raise InvalidArgumentError(
+        f"{name}: a field of shape {tuple(f.shape)} with block {tuple(blk)} does not hold "
+        f"the schema's {M} member(s) on a leading axis.")
 
 
 def _check_group(fields, schema, blocks, name):
     """Validate a group of stacked fields against ``schema``; returns
-    (dim, block counts, blocks, halowidths)."""
+    (dim, block counts, blocks, halowidths). A field of a schema of E
+    members leads with an axis of E (an ensemble's members)."""
     import torch
 
     dim = int(schema.dim)
@@ -355,16 +376,16 @@ def _check_group(fields, schema, blocks, name):
     counts = None
     blks, hws = [], []
     for f, blk, shp in zip(fields, blocks, schema.shapes):
-        if not isinstance(f, torch.Tensor) or not 1 <= f.dim() <= 3 or not f.is_contiguous():
+        blk = tuple(int(b) for b in blk)
+        if not isinstance(f, torch.Tensor) or not 1 <= len(blk) <= 3 or not f.is_contiguous():
             raise InvalidArgumentError(f"{name} needs contiguous 1-D to 3-D tensors.")
         if f.dtype != f0.dtype or f.device != f0.device \
                 or dtype_name(f.dtype) != schema.state_dtype:
             raise InvalidArgumentError(
                 f"{name}: every field must be {schema.state_dtype} on {f0.device}; got "
                 f"{f.dtype} on {f.device}.")
-        blk = tuple(int(b) for b in blk)
-        if len(blk) != f.dim() or any(b < 1 or s % b for s, b in zip(f.shape, blk)) \
-                or not dim < f.dim():
+        lead = int(_members(f, blk, schema, name))
+        if any(b < 1 or s % b for s, b in zip(f.shape[lead:], blk)) or not dim < len(blk):
             raise InvalidArgumentError(
                 f"{name}: block {blk} does not tile {tuple(f.shape)} along dim {dim}.")
         c = _block_counts(f, blk)
@@ -393,7 +414,8 @@ def _check_pack(fields, schema, blocks, starts_r, starts_l):
 
 
 def _buffer_shape(schema, counts):
-    return (int(np.prod(counts)), sum(schema.cells))
+    """A wire buffer: a row a block, its members' payloads member-major."""
+    return (int(np.prod(counts)), int(schema.members) * sum(schema.cells))
 
 
 def _check_buffers(fields, bufs, schema, counts, name):
@@ -434,42 +456,56 @@ def _group(check, schema, tensors, *extra):
 def _descriptor(g, fields, schema, starts):
     """The host descriptor of `igg_wire_pack` / `igg_halo_write_multi` for
     group ``g``: per slab its field pointer, block shape (padded to 3-D),
-    halowidth, the two starts, its base and strides in the buffer, and the
-    plan `igg_coalesced_plan` fills in (the slab's tile counts and whether
-    its rows copy in 16-byte words). Built and planned at the group's first
+    halowidth, the two starts, its base and strides in a member's buffer,
+    the plan `igg_coalesced_plan` fills in (the slab's tile counts and
+    whether its rows copy in 16-byte words), and its member count and
+    member stride (the elements between two members of the field; 0 for a
+    field without a member axis). Built and planned at the group's first
     launch; a call fills in only the field pointers."""
     dim, counts, blks, _, shape, desc = g
+    M = int(schema.members)
     if desc is None:
         vals = []
-        for blk, (a, b), (base, st), shp in zip(blks, starts, schema.slab_offsets(),
-                                                schema.shapes):
+        for f, blk, (a, b), (base, st), shp in zip(fields, blks, starts, schema.slab_offsets(),
+                                                   schema.shapes):
             blk3 = tuple(blk) + (1,) * (3 - len(blk))
-            vals += [0, *blk3, int(shp[dim]), int(a), int(b), int(base), *st, 0, 0, 0]
+            mstride = f[0].numel() if f.dim() > len(blk) else 0
+            vals += [0, *blk3, int(shp[dim]), int(a), int(b), int(base), *st, 0, 0, 0, M,
+                     mstride]
         desc = (ctypes.c_longlong * len(vals))(*vals)
         check_rc(library().igg_coalesced_plan(fields[0].element_size(), len(fields),
-                                              ctypes.addressof(desc), *counts, shape[1],
-                                              dim), "coalesced plan")
+                                              ctypes.addressof(desc), *counts,
+                                              shape[1] // M, dim), "coalesced plan")
         g[5] = desc
     for k, f in enumerate(fields):
         desc[k * _SLAB_DESC] = f.data_ptr()
     return desc
 
 
+def _member_views(f, blk, M):
+    """The members of stacked ``f``: its leading axis' views, or ``f``."""
+    return [f[m] for m in range(M)] if f.dim() > len(blk) else [f]
+
+
 def wire_pack_plain(fields, schema, *, starts_r, starts_l, blocks):
-    """Plain PyTorch version of K8: each block's slabs through
-    `WireSchema.pack`, raveled into that block's row."""
+    """Plain PyTorch version of K8: each block's slabs of each member
+    through `WireSchema.pack`, raveled into that block's row, member-major."""
     import torch
 
     dim, counts, blks, hws = _check_pack(fields, schema, blocks, starts_r, starts_l)
     shape = _buffer_shape(schema, counts)
+    M = int(schema.members)
     out = []
     for starts in (starts_r, starts_l):
         buf = torch.empty(shape, dtype=fields[0].dtype, device=fields[0].device)
-        per_field = [block_slices(f.shape, blk) for f, blk in zip(fields, blks)]
-        for b, sls in enumerate(zip(*per_field)):
-            slabs = [f[sl].narrow(dim, int(st), hw)
-                     for f, sl, st, hw in zip(fields, sls, starts, hws)]
-            buf[b] = schema.pack(slabs).reshape(-1)
+        rows = buf.view(shape[0], M, -1)
+        for m in range(M):
+            fm = [_member_views(f, blk, M)[m] for f, blk in zip(fields, blks)]
+            per_field = [block_slices(f.shape, blk) for f, blk in zip(fm, blks)]
+            for b, sls in enumerate(zip(*per_field)):
+                slabs = [f[sl].narrow(dim, int(st), hw)
+                         for f, sl, st, hw in zip(fm, sls, starts, hws)]
+                rows[b, m] = schema.pack(slabs).reshape(-1)
         out.append(buf)
     return tuple(out)
 
@@ -478,9 +514,11 @@ def wire_pack(fields, schema, *, starts_r, starts_l, blocks):
     """K8: the wire buffers of a group of stacked ``fields`` along
     ``schema.dim``: row ``b`` of ``buf_r`` is `WireSchema.pack` of block
     ``b``'s right send slabs (local ``[starts_r[k], starts_r[k]+hw_k)`` of
-    field k), raveled; ``buf_l`` the same of the left send slabs. Blocks in
-    row-major order of their coordinates. Returns ``(buf_r, buf_l)``, each
-    ``(blocks, payload cells)``, in one launch."""
+    field k), raveled, for each of the schema's members in turn (fields of
+    an E-member schema lead with the member axis); ``buf_l`` the same of the
+    left send slabs. Blocks in row-major order of their coordinates. Returns
+    ``(buf_r, buf_l)``, each ``(blocks, members x payload cells)``, in one
+    launch."""
     starts = tuple(zip(starts_r, starts_l))
     g = _group(lambda: _check_pack(fields, schema, blocks, starts_r, starts_l), schema,
                fields, "pack", tuple(map(tuple, blocks)), starts)
@@ -497,7 +535,7 @@ def wire_pack(fields, schema, *, starts_r, starts_l, blocks):
     with torch.cuda.device(f0.device):
         rc = library().igg_wire_pack(
             f0.element_size(), len(fields), ctypes.addressof(desc), buf_r.data_ptr(),
-            buf_l.data_ptr(), *counts, shape[1], dim, _stream(f0))
+            buf_l.data_ptr(), *counts, shape[1] // int(schema.members), dim, _stream(f0))
     check_rc(rc, "wire_pack")
     count_launch("wire_pack")
     return buf_r, buf_l
@@ -518,36 +556,42 @@ def _check_multi(fields, bufs, schema, blocks, disp):
 
 
 def halo_write_multi_plain(fields, buf_r, buf_l, schema, *, blocks, periodic, disp):
-    """Plain PyTorch version of K7: for every block, `WireSchema.unpack` of
-    the neighbour blocks' buffers, slice `copy_` into the halos."""
+    """Plain PyTorch version of K7: for every block and member,
+    `WireSchema.unpack` of the neighbour blocks' rows of that member, slice
+    `copy_` into the halos."""
     dim, counts, blks, hws = _check_multi(fields, (buf_r, buf_l), schema, blocks, disp)
     D = counts[dim]
+    M = int(schema.members)
     coords = list(itertools.product(*(range(c) for c in counts)))
     index = {c: b for b, c in enumerate(coords)}
     shape = schema.buffer_shape
-    for c, sls in zip(coords, zip(*[block_slices(f.shape, blk)
-                                    for f, blk in zip(fields, blks)])):
-        for side, buf, shift in ((0, buf_r, -int(disp)), (1, buf_l, int(disp))):
-            s = c[dim] + shift
-            if periodic:
-                s %= D
-            elif not 0 <= s < D:
-                continue  # PROC_NULL: the block keeps its halo
-            src = list(c)
-            src[dim] = s
-            slabs = schema.unpack(buf[index[tuple(src)]].view(shape))
-            for f, sl, blk, hw, slab in zip(fields, sls, blks, hws, slabs):
-                f[sl].narrow(dim, 0 if side == 0 else blk[dim] - hw, hw).copy_(slab)
+    for m in range(M):
+        fm = [_member_views(f, blk, M)[m] for f, blk in zip(fields, blks)]
+        for c, sls in zip(coords, zip(*[block_slices(f.shape, blk)
+                                        for f, blk in zip(fm, blks)])):
+            for side, buf, shift in ((0, buf_r, -int(disp)), (1, buf_l, int(disp))):
+                s = c[dim] + shift
+                if periodic:
+                    s %= D
+                elif not 0 <= s < D:
+                    continue  # PROC_NULL: the block keeps its halo
+                src = list(c)
+                src[dim] = s
+                row = buf[index[tuple(src)]].view(M, -1)[m]
+                slabs = schema.unpack(row.view(shape))
+                for f, sl, blk, hw, slab in zip(fm, sls, blks, hws, slabs):
+                    f[sl].narrow(dim, 0 if side == 0 else blk[dim] - hw, hw).copy_(slab)
     return list(fields)
 
 
 def halo_write_multi(fields, buf_r, buf_l, schema, *, blocks, periodic, disp):
     """K7: write every field's halos along ``schema.dim`` on every block of
-    the stacked ``fields``, in place, in one launch: the left halo ``[0,
-    hw)`` of block ``t`` from row ``t - disp`` of ``buf_r`` (the right send
-    slabs), the right halo ``[n-hw, n)`` from row ``t + disp`` of ``buf_l``,
-    unpacked by the schema (wrapping when ``periodic``; else an edge block
-    keeps its halo). Returns the list of fields."""
+    the stacked ``fields`` (and every member, for an E-member schema), in
+    place, in one launch: the left halo ``[0, hw)`` of block ``t`` from row
+    ``t - disp`` of ``buf_r`` (the right send slabs), the right halo ``[n-hw,
+    n)`` from row ``t + disp`` of ``buf_l``, each member from its own part of
+    the row, unpacked by the schema (wrapping when ``periodic``; else an edge
+    block keeps its halo). Returns the list of fields."""
     g = _group(lambda: _check_multi(fields, (buf_r, buf_l), schema, blocks, disp), schema,
                (*fields, buf_r, buf_l), "multi", tuple(map(tuple, blocks)), int(disp) >= 0)
     dim, counts, blks, hws, shape = g[:5]
@@ -562,7 +606,7 @@ def halo_write_multi(fields, buf_r, buf_l, schema, *, blocks, periodic, disp):
     with torch.cuda.device(f0.device):
         rc = library().igg_halo_write_multi(
             f0.element_size(), len(fields), ctypes.addressof(desc), buf_r.data_ptr(),
-            buf_l.data_ptr(), *counts, shape[1], dim,
+            buf_l.data_ptr(), *counts, shape[1] // int(schema.members), dim,
             int(bool(periodic)), int(disp), _stream(f0))
     check_rc(rc, "halo_write_multi")
     count_launch("halo_write_multi")

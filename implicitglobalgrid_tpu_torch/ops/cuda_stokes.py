@@ -117,9 +117,9 @@ def _ctensors(consts, like):
 PLAIN_DTYPES = FLOATS + ("bfloat16",)  # the plain versions' state dtypes
 
 
-def _check_state(state, block, name):
+def _check_state(state, block, name, members=False):
     """Validate a stacked Stokes state; returns (P block, block counts)."""
-    return check_state(state, block, stokes_shapes, name, PLAIN_DTYPES)
+    return check_state(state, block, stokes_shapes, name, PLAIN_DTYPES, members)
 
 
 def _kernel_dtype(P, name):
@@ -131,15 +131,17 @@ def _kernel_dtype(P, name):
 
 
 def _d(A, ax):
-    """Difference of neighbours along local axis ``ax`` of a block view."""
-    n = A.shape[2 * ax + 1]
-    return A.narrow(2 * ax + 1, 1, n - 1) - A.narrow(2 * ax + 1, 0, n - 1)
+    """Difference of neighbours along local axis ``ax`` of a block view
+    (axis ``2 ax - 5`` from the end: a leading member axis stays whole)."""
+    a = 2 * ax - 5
+    n = A.shape[a]
+    return A.narrow(a, 1, n - 1) - A.narrow(a, 0, n - 1)
 
 
 def _inner(A, axes):
     """Drop the first and last cell of every block along the local ``axes``."""
     for ax in axes:
-        A = A.narrow(2 * ax + 1, 1, A.shape[2 * ax + 1] - 2)
+        A = A.narrow(2 * ax - 5, 1, A.shape[2 * ax - 5] - 2)
     return A
 
 
@@ -161,11 +163,11 @@ def _terms(views, c, form):
     Ry = (_inner(_d(tyy - Pn, 1), (0, 2)) / c["dy"]
           + _d(_inner(txy, (2,)), 0) / c["dx"]
           + _d(_inner(tyz, (0,)), 2) / c["dz"])
-    lo = rhb.narrow(5, 0, rhb.shape[5] - 1)
+    lo = rhb.narrow(-1, 0, rhb.shape[-1] - 1)
     if form == "getter":
         rg = c["half"] * (_d(rhb, 2) + c["two"] * lo)
     else:
-        rg = c["half"] * (rhb.narrow(5, 1, rhb.shape[5] - 1) + lo)
+        rg = c["half"] * (rhb.narrow(-1, 1, rhb.shape[-1] - 1) + lo)
     Rz = (_inner(_d(tzz - Pn, 2), (0, 1)) / c["dz"]
           + _d(_inner(txz, (1,)), 0) / c["dx"]
           + _d(_inner(tyz, (0,)), 1) / c["dy"]
@@ -181,7 +183,7 @@ def _views(state, block):
 def stokes_terms_plain(state, *, block, consts, form="getter"):
     """(Pn, divV, Rx, Ry, Rz) of every block of stacked ``state``, as block
     views (D0, n0, D1, n1, D2, n2): the model's `_stokes_terms` per block."""
-    block, _ = _check_state(state, block, "stokes_terms")
+    block, _ = _check_state(state, block, "stokes_terms", members=True)
     v = _views(state, block)
     return _terms((v[0], v[1], v[2], v[3], v[7]), _ctensors(consts, state[0]), form)
 
@@ -193,7 +195,7 @@ def stokes_update_plain(state, *, block, consts, form="kernel"):
     module docstring). Constants are 0-d tensors of the state dtype."""
     if form not in FORMS:
         raise InvalidArgumentError(f"form must be one of {FORMS}; got {form!r}.")
-    block, _ = _check_state(state, block, "stokes_update")
+    block, _ = _check_state(state, block, "stokes_update", members=True)
     c = _ctensors(consts, state[0])
     v = _views(state, block)
     Pn, _, Rx, Ry, Rz = _terms((v[0], v[1], v[2], v[3], v[7]), c, form)
@@ -201,9 +203,9 @@ def stokes_update_plain(state, *, block, consts, form="kernel"):
     for V, dV, Vb, dVb, R in zip(state[1:4], state[4:7], v[1:4], v[4:7], (Rx, Ry, Rz)):
         dn = c["damp"] * _inner(dVb, (0, 1, 2)) + R
         U, dU = V.clone(), dV.clone()
-        ub = _inner(block_view(U, Vb.shape[1::2]), (0, 1, 2))
+        ub = _inner(block_view(U, Vb.shape[-5::2]), (0, 1, 2))
         ub.copy_(_inner(Vb, (0, 1, 2)) + c["dt_v"] * dn)
-        _inner(block_view(dU, Vb.shape[1::2]), (0, 1, 2)).copy_(dn)
+        _inner(block_view(dU, Vb.shape[-5::2]), (0, 1, 2)).copy_(dn)
         vs.append(U)
         dvs.append(dU)
     return (Pn.reshape(state[0].shape), *vs, *dvs)

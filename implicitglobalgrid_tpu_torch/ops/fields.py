@@ -71,19 +71,20 @@ def local_shape_of(shape, layout: str | None = None) -> tuple:
     (``shape[d] == box[d] * l`` with ``l`` within one overlap of
     ``nxyz[d]``, ``box`` this process's ranks per dim) or already local.
     ``layout`` ("local"/"stacked") overrides the inference for ambiguous
-    small blocks."""
+    small blocks. Ranks beyond `NDIMS` lead with member axes (an ensemble
+    state, `models.common.ensemble_state`), which every block holds whole,
+    as the JAX package's `field_partition_spec` reads them."""
     if layout not in (None, "local", "stacked"):
         raise InvalidArgumentError(
             f"layout must be None, 'local' or 'stacked'; got {layout!r}.")
     gg = global_grid()
     if layout == "local":
         return tuple(int(s) for s in shape)
-    local = []
-    for d in range(len(shape)):
-        s = int(shape[d])
-        dd = int(gg.box[d]) if d < NDIMS else 1
-        n = int(gg.nxyz[d]) if d < NDIMS else 1
-        tol = int(gg.overlaps[d]) + 1 if d < NDIMS else 1
+    lead = max(0, len(shape) - NDIMS)
+    local = [int(s) for s in shape[:lead]]
+    for d in range(len(shape) - lead):
+        s = int(shape[lead + d])
+        dd, n, tol = int(gg.box[d]), int(gg.nxyz[d]), int(gg.overlaps[d]) + 1
         if layout == "stacked":
             if s % dd != 0:
                 raise IncoherentArgumentError(
@@ -109,22 +110,24 @@ def local_shape_of(shape, layout: str | None = None) -> tuple:
 
 
 def stacked_shape(local_shape) -> tuple:
-    """The stacked shape of this process's box of ``local_shape`` blocks."""
+    """The stacked shape of this process's box of ``local_shape`` blocks
+    (leading member axes beyond `NDIMS` kept whole)."""
     gg = global_grid()
-    return tuple(
-        int(gg.box[d]) * int(local_shape[d]) if d < NDIMS else int(local_shape[d])
-        for d in range(len(local_shape))
-    )
+    lead = max(0, len(local_shape) - NDIMS)
+    return tuple(int(s) for s in local_shape[:lead]) + tuple(
+        int(gg.box[d]) * int(s) for d, s in enumerate(local_shape[lead:]))
 
 
 def is_global_shape(shape) -> bool:
     """Whether ``shape`` is the whole grid's stacked shape (``dims *
     local``) rather than this process's box (``box * local``): the
     reading whose block is nearer ``nxyz`` wins, a tie is the box. Always
-    False on the virtual mesh, where the two are one."""
+    False on the virtual mesh, where the two are one. Leading member axes
+    beyond `NDIMS` are not read."""
     gg = global_grid()
     if np.array_equal(gg.box, gg.dims):
         return False
+    shape = tuple(shape)[max(0, len(shape) - NDIMS):]
     dist = {}
     for name, per in (("box", gg.box), ("global", gg.dims)):
         total = 0
@@ -151,10 +154,13 @@ def block_slices(stacked, local):
 
 def block_view(A, local):
     """Stacked 3-D ``A`` of blocks ``local`` as a (D0, n0, D1, n1, D2, n2)
-    view: local axis d is axis 2d+1, so one operation serves every block."""
-    D = [int(s) // int(n) for s, n in zip(A.shape, local)]
+    view: local axis d is axis 2d+1 (``2d-5`` from the end), so one
+    operation serves every block. Axes of ``A`` before its last three (an
+    ensemble's members) lead the view unchanged."""
+    lead = A.dim() - 3
+    D = [int(s) // int(n) for s, n in zip(A.shape[lead:], local)]
     n = [int(v) for v in local]
-    return A.view(D[0], n[0], D[1], n[1], D[2], n[2])
+    return A.view(*A.shape[:lead], D[0], n[0], D[1], n[1], D[2], n[2])
 
 
 def has_halo(local_shape, halowidths, dim: int) -> bool:

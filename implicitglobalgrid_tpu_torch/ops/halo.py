@@ -63,10 +63,23 @@ A staged axis (``wire_stage``/``IGG_HALO_WIRE_STAGE``) sends every
 exchanging field down the coalesced route and moves the flat route's
 halos; `halo_comm_plan` prices the staged stages.
 
+An ensemble's fields (`models.common.ensemble_state`: a leading axis of E
+members, ``local_update_halo(..., members=E)``; the JAX package vmaps its
+exchange over them) take the coalesced route on every exchanging dim,
+self-neighbour dims too: each dtype's fields, one or many, in one K8 and
+one K7 launch a dim that carry every member (`WireSchema.members`), each
+member's slabs quantized against their own scales under a quantized wire,
+and one transport message a neighbour process and dim whatever E.
+`halo_comm_plan(ensemble=E)` prices it as the JAX package does.
+
 The halo writes are IN PLACE on the given tensor (on a contiguous copy of a
 field that is not contiguous), while the self-exchange pass returns a new
 one: always use the returned tensors, as with the JAX package (``T =
 update_halo(T)``).
+
+The exchange is labelled (``igg::update_halo``, `utils.profiling.label`)
+in a profiler's trace, which `utils.profiling.overlap_stats` reads as
+comm on the host; outside a capture the label costs a flag read.
 """
 
 from __future__ import annotations
@@ -76,9 +89,8 @@ import numpy as np
 from ..parallel.topology import (
     NDIMS, axis_perm_pairs, check_initialized, crosses, global_grid,
 )
-from ..utils.exceptions import (
-    IncoherentArgumentError, InvalidArgumentError, NotSupportedError,
-)
+from ..utils.exceptions import IncoherentArgumentError, InvalidArgumentError
+from ..utils.profiling import label
 from .fields import Field, check_fields, extract, wrap_field
 from .precision import resolve_wire_dtype, wire_format_for
 from .wire import (
@@ -91,8 +103,6 @@ __all__ = ["update_halo", "local_update_halo", "DEFAULT_DIMS_ORDER", "halo_route
 
 # Reference default `dims=(3,1,2)` (1-based: z, x, y).
 DEFAULT_DIMS_ORDER = (2, 0, 1)
-
-_LATER = "a later slice of the PyTorch port"
 
 
 def _normalize_dims_order(dims):
@@ -508,7 +518,8 @@ def _combined_exchange(gg, A, hws, modes, loc):
     return halo_write_combined(A, recvs, modes=modes, hws=hws, block=loc)
 
 
-def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel, wire=None):
+def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel, wire=None,
+                            members=None):
     """Exchange the halos of the fields ``idxs`` (one dtype) along ``dim``
     on every block: K8 packs both directions' send slabs of every field into
     the blocks' staging rows (`WireSchema.staging` of the group), the rows
@@ -520,7 +531,8 @@ def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel, wire=N
     K7 runs with ``disp`` 0 on the rows each block reads
     (`transport.shift_rows`). A group of more than `MAX_SLABS` fields goes
     in several launches of the same schema rule; the values are the
-    same."""
+    same. ``members``: the fields lead with an ensemble's member axis of
+    that many members, all of them in each launch (`WireSchema.members`)."""
     from .cuda_halo import (
         MAX_SLABS, halo_write_multi, halo_write_multi_plain, wire_pack, wire_pack_plain,
     )
@@ -540,7 +552,8 @@ def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel, wire=N
             starts_r.append(s - ol_d)
             starts_l.append(ol_d - h)
         schema = schema_for_fields(dim, blks, hw, fs[0].dtype,
-                                   wire_format_for(fs[0].dtype, wire, dim))
+                                   wire_format_for(fs[0].dtype, wire, dim),
+                                   members=members or 1)
         staging = schema.staging
         buf_r, buf_l = pack(fs, staging, starts_r=starts_r, starts_l=starts_l, blocks=blks)
         if not crosses(gg, dim):
@@ -551,7 +564,8 @@ def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel, wire=N
             continue
         from ..parallel.transport import shift_rows
 
-        counts = [int(s) // int(b) for s, b in zip(fs[0].shape, blks[0])]
+        lead = fs[0].dim() - len(blks[0])
+        counts = [int(s) // int(b) for s, b in zip(fs[0].shape[lead:], blks[0])]
         counts += [1] * (3 - len(counts))
 
         def rows(bufs):
@@ -568,16 +582,49 @@ def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel, wire=N
               blocks=blks, periodic=True, disp=0)
 
 
-def _exchange_arrays(gg, arrays, hws, dims_order, coalesce=None, wire=None, stage=None):
+def _exchange_members(gg, arrays, hws, dims_order, wire, members):
+    """Exchange the halos of an ensemble's fields (stacked tensors leading
+    with an axis of ``members`` members), in place: along every exchanging
+    dim, each dtype's fields go down the coalesced route, one K8 and one K7
+    launch a dim for every member of every field (a self-neighbour dim too,
+    with no wire). Returns the list of tensors (dense copies of fields that
+    were not contiguous)."""
+    arrays = [A.contiguous() for A in arrays]
+    for A in arrays:
+        if A.dim() < 2 or int(A.shape[0]) != members:
+            raise InvalidArgumentError(
+                f"an ensemble's field leads with its {members} members; got shape "
+                f"{tuple(A.shape)}.")
+    locs = [_box_locals(gg, A.shape[1:]) for A in arrays]
+    for dim in dims_order:
+        D, periodic, _ = _dim_meta(gg, dim)
+        if D == 1 and not periodic:
+            continue
+        by_dt = {}
+        for i, loc in enumerate(locs):
+            if _dim_exchanges(gg, loc, hws[i], dim):
+                by_dt.setdefault(dtype_name(arrays[i].dtype), []).append(i)
+        for idxs in by_dt.values():
+            _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, bool(gg.use_pallas[dim]),
+                                    wire if D > 1 else None, members)
+    return arrays
+
+
+def _exchange_arrays(gg, arrays, hws, dims_order, coalesce=None, wire=None, stage=None,
+                     members=None):
     """Exchange every field's halos (stacked tensors), each by its tier of
     `halo_routes`: self (K3) > coalesced groups (K8 + K7 per dim) >
     combined (K4s + K6) > per dim (K4s + K2), through the resolved ``wire``
     policy; a staged dim takes the coalesced route. Returns the list of
     updated tensors: K3 out of place, the others in place (on a dense copy
     where a field is not contiguous, as the kernels take only dense
-    blocks)."""
+    blocks). ``members``: the fields lead with an ensemble's member axis
+    (`_exchange_members`)."""
     from .cuda_halo import halo_self_exchange
 
+    if members is not None:
+        return _exchange_members(gg, arrays, [tuple(int(h) for h in hw) for hw in hws],
+                                 dims_order, wire, int(members))
     coalesce = resolve_halo_coalesce(coalesce)
     arrays = [A.contiguous() for A in arrays]
     locs = [_box_locals(gg, A.shape) for A in arrays]
@@ -666,25 +713,35 @@ def update_halo(*fields, dims=None, coalesce=None, wire_dtype=None,
     gg = global_grid()
     dims_order = _normalize_dims_order(dims)
     fs = _normalized_fields(fields)
-    out = _exchange_arrays(gg, [f.A for f in fs], [f.halowidths for f in fs],
-                           dims_order, coalesce, resolve_wire_dtype(wire_dtype),
-                           resolve_wire_stage(wire_stage))
+    with label("igg::update_halo"):
+        out = _exchange_arrays(gg, [f.A for f in fs], [f.halowidths for f in fs],
+                               dims_order, coalesce, resolve_wire_dtype(wire_dtype),
+                               resolve_wire_stage(wire_stage))
     return out[0] if len(out) == 1 else tuple(out)
 
 
 def local_update_halo(*fields, dims=None, coalesce=None, wire_dtype=None,
-                      wire_stage=None):
+                      wire_stage=None, members=None):
     """The step-side form of `update_halo` (the JAX package calls it inside
     `shard_map` on local blocks). Every rank's block of the box is part of
     the stacked tensor, so it takes the stacked tensors and is
-    `update_halo` without the argument normalization of containers."""
+    `update_halo` without the argument normalization of containers.
+
+    ``members``: the fields are an ensemble's (`models.common.
+    ensemble_state`), each leading with an axis of that many members; a
+    4-D field reads so without it. Every member of every field then
+    crosses in one K8 + K7 launch a dim (the coalesced route, whatever the
+    field count; the JAX package vmaps its exchange over the members)."""
     check_initialized()
     gg = global_grid()
     dims_order = _normalize_dims_order(dims)
     fs = [wrap_field(f) for f in fields]
-    out = _exchange_arrays(gg, [f.A for f in fs], [f.halowidths for f in fs],
-                           dims_order, coalesce, resolve_wire_dtype(wire_dtype),
-                           resolve_wire_stage(wire_stage))
+    if members is None and any(f.A.dim() > NDIMS for f in fs):
+        members = int(fs[0].A.shape[0])
+    with label("igg::update_halo"):
+        out = _exchange_arrays(gg, [f.A for f in fs], [f.halowidths for f in fs],
+                               dims_order, coalesce, resolve_wire_dtype(wire_dtype),
+                               resolve_wire_stage(wire_stage), members)
     return out[0] if len(out) == 1 else tuple(out)
 
 
@@ -699,8 +756,12 @@ def halo_comm_plan(*fields, dims=None, coalesce=None, wire_dtype=None,
     self-neighbour copies that never leave a device. A staged axis
     (``wire_stage``) carries the staged stages' exact counts and absolute
     bytes (`StagedWireSchema`) and a ``staged`` record. Fields take the
-    forms of `update_halo`, or anything with ``shape`` and ``dtype``. The
-    ensemble axis raises `NotSupportedError`.
+    forms of `update_halo`, or anything with ``shape`` and ``dtype``.
+    ``ensemble=E`` prices the exchange of an E-member ensemble: the fields
+    are given without the member axis (one member's geometry), the
+    permute counts stay those of one member and every payload and local
+    copy carries E members' slabs (`WireSchema.members`, E times the
+    quantized slabs' scales).
 
     Returns ``{fields, coalesce, wire_dtype, wire_stage, staged_axes,
     ensemble, axes: {axis: {ppermutes, wire_bytes, by_dtype[, staged]}},
@@ -709,8 +770,11 @@ def halo_comm_plan(*fields, dims=None, coalesce=None, wire_dtype=None,
     from .wire import _itemsize
 
     check_initialized()
+    E = 1
     if ensemble is not None:
-        raise NotSupportedError(f"ensemble batching is not ported yet ({_LATER}).")
+        E = int(ensemble)
+        if E < 1:
+            raise InvalidArgumentError(f"halo_comm_plan: ensemble must be >= 1; got {ensemble}.")
     gg = global_grid()
     dims_order = _normalize_dims_order(dims)
     coalesce = resolve_halo_coalesce(coalesce)
@@ -769,7 +833,7 @@ def halo_comm_plan(*fields, dims=None, coalesce=None, wire_dtype=None,
             dt = sigs[g[0]].dtype
             schema = schema_for_fields(dim, [sigs[i].shape for i in g],
                                        [hws[i][dim] for i in g], dt,
-                                       wire_format_for(dt, wire, dim))
+                                       wire_format_for(dt, wire, dim), members=E)
             if dim in staged:
                 sws = StagedWireSchema(schema=schema, layout=staged[dim])
                 rec = axis_rec(dim)
@@ -792,20 +856,20 @@ def halo_comm_plan(*fields, dims=None, coalesce=None, wire_dtype=None,
             if i in in_group or not _dim_exchanges(gg, f.shape, hws[i], dim):
                 continue
             if D == 1:  # periodic self-neighbour: local slab swap, no wire
-                b = 2 * slab_cells(i, dim) * _itemsize(f.dtype)
+                b = 2 * slab_cells(i, dim) * _itemsize(f.dtype) * E
                 local_bytes += b
                 local_by_axis[AXIS_NAMES[dim]] = local_by_axis.get(AXIS_NAMES[dim], 0) + b
                 continue
             fmt = wire_format_for(f.dtype, wire, dim)
             wd = f.dtype if fmt is None else fmt.dtype_name
-            add_wire(dim, slab_cells(i, dim) * _itemsize(wd), wd, npairs)
+            add_wire(dim, slab_cells(i, dim) * _itemsize(wd) * E, wd, npairs)
     return {
         "fields": len(sigs),
         "coalesce": bool(coalesce),
         "wire_dtype": None if wire is None else str(wire),
         "wire_stage": None if stage is None else str(stage),
         "staged_axes": tuple(sorted(AXIS_NAMES[d] for d in staged)),
-        "ensemble": 1,
+        "ensemble": E,
         "axes": axes,
         "ppermutes": sum(r["ppermutes"] for r in axes.values()),
         "wire_bytes": sum(r["wire_bytes"] for r in axes.values()),

@@ -33,6 +33,7 @@ import itertools
 from ..parallel.topology import check_initialized, global_grid
 from ..utils.exceptions import InvalidArgumentError
 from .halo import _box_locals, _normalize_dims_order, local_update_halo
+from ..utils.profiling import label
 from .precision import resolve_wire_dtype
 
 __all__ = ["hide_communication", "side_stream"]
@@ -63,7 +64,8 @@ def _exchanged_dims(gg, ndim, dims_order):
 
 
 def hide_communication(update_fn, T, *aux, radius: int = 1, dims=None, halowidths=None,
-                       coalesce=None, wire_dtype=None, n_exchange: int | None = None):
+                       coalesce=None, wire_dtype=None, n_exchange: int | None = None,
+                       members: int | None = None):
     """One overlapped (interior-first) step of stacked tensors:
     ``T = hide_communication(update_fn, T, Cp)`` or, multi-field,
     ``Vx, Vy, Vz = hide_communication(upd, (Vx, Vy, Vz), P)``.
@@ -85,7 +87,11 @@ def hide_communication(update_fn, T, *aux, radius: int = 1, dims=None, halowidth
     ``halowidths`` (single-field form only) forwards per-field halowidths.
     A block too thin to split (``n < 2*(ol + radius) + 1``, or ``radius >
     ol``) takes the plain order: update, then exchange. Returns the updated, exchanged
-    tensor(s), new ones; the inputs are not written."""
+    tensor(s), new ones; the inputs are not written.
+
+    ``members``: the tensors are an ensemble's, each leading with an axis
+    of that many members; ``update_fn`` then takes blocks with that axis
+    first, and the exchange carries every member (`local_update_halo`)."""
     check_initialized()
     wire = resolve_wire_dtype(wire_dtype)
     gg = global_grid()
@@ -104,13 +110,14 @@ def hide_communication(update_fn, T, *aux, radius: int = 1, dims=None, halowidth
             "exchange uses the grid halowidths).")
     dims_order = _normalize_dims_order(dims)
     arrays = outs + tuple(aux)
-    ndim = outs[0].dim()
-    locs = [_box_locals(gg, a.shape) for a in arrays]
+    lead = 0 if members is None else 1
+    ndim = outs[0].dim() - lead
+    locs = [_box_locals(gg, a.shape[lead:]) for a in arrays]
     base = tuple(min(loc[d] for loc in locs[:len(outs)]) for d in range(ndim))
     stags = []
     for k, loc in enumerate(locs):
         st = tuple(loc[d] - base[d] for d in range(ndim))
-        if arrays[k].dim() != ndim or any(s not in (0, 1) for s in st):
+        if arrays[k].dim() != ndim + lead or any(s not in (0, 1) for s in st):
             raise InvalidArgumentError(
                 f"hide_communication {'output' if k < len(outs) else 'aux'} arrays must "
                 "match the base extent or be face-staggered (+1) per dimension.")
@@ -123,7 +130,7 @@ def hide_communication(update_fn, T, *aux, radius: int = 1, dims=None, halowidth
         """Block ``c`` of ``a``, shaped as array ``k``, narrowed to
         ``bounds`` ({dim: (lo, hi)} in base cells; a staggered array takes
         its extra face)."""
-        idx = []
+        idx = [slice(None)] * lead
         for d in range(ndim):
             lo, hi = (bounds or {}).get(d, (0, base[d]))
             o = c[d] * locs[k][d]
@@ -141,8 +148,10 @@ def hide_communication(update_fn, T, *aux, radius: int = 1, dims=None, halowidth
     def exchange(fields):
         if halowidths is not None:
             fields = [{"A": f, "halowidths": halowidths} for f in fields]
-        got = local_update_halo(*fields, dims=dims_order, coalesce=coalesce,
-                                wire_dtype=wire if wire is not None else "off")
+        with label("igg::exchange_shells"):
+            got = local_update_halo(*fields, dims=dims_order, coalesce=coalesce,
+                                    wire_dtype=wire if wire is not None else "off",
+                                    members=members)
         return list(got) if isinstance(got, tuple) else [got]
 
     def finish(new):
@@ -173,8 +182,9 @@ def hide_communication(update_fn, T, *aux, radius: int = 1, dims=None, halowidth
             for f in range(nout):
                 w = ol_d + stags[f][d]
                 dst = block(shells[f], f, c)
-                dst.narrow(d, 0, w).copy_(left[f].narrow(d, 0, w))
-                dst.narrow(d, dst.shape[d] - w, w).copy_(right[f].narrow(d, r, w))
+                a = lead + d
+                dst.narrow(a, 0, w).copy_(left[f].narrow(a, 0, w))
+                dst.narrow(a, dst.shape[a] - w, w).copy_(right[f].narrow(a, r, w))
     side = side_stream(outs[0].device)
     if side is not None:
         cur = torch.cuda.current_stream(outs[0].device)
@@ -201,7 +211,7 @@ def hide_communication(update_fn, T, *aux, radius: int = 1, dims=None, halowidth
             dst, src = block(new[f], f, c), interior[c][f]
             for d, (lo, hi) in lohi.items():
                 st = stags[f][d]
-                dst = dst.narrow(d, lo + st, hi - lo - st)
-                src = src.narrow(d, r + st, hi - lo - st)
+                dst = dst.narrow(lead + d, lo + st, hi - lo - st)
+                src = src.narrow(lead + d, r + st, hi - lo - st)
             dst.copy_(src)
     return finish(new)

@@ -89,11 +89,12 @@ def slab_ptrs(recvs):
     return ptrs
 
 
-def check_state(state, block, shapes_of, name, dtypes=FLOATS):
+def check_state(state, block, shapes_of, name, dtypes=FLOATS, members=False):
     """Validate a stacked state whose fields have the LOCAL shapes
     ``shapes_of(block)`` (``{field: shape}``, P first, for P's block
     ``block``): contiguous stacked blocks of P's dtype (one of ``dtypes``,
-    by name) and device. Returns (P block, block counts)."""
+    by name) and device; with ``members``, each may lead with the same
+    member axis (an ensemble's). Returns (P block, block counts)."""
     import torch
 
     state = tuple(state)
@@ -103,16 +104,18 @@ def check_state(state, block, shapes_of, name, dtypes=FLOATS):
     if str(P.dtype).replace("torch.", "") not in dtypes:
         raise InvalidArgumentError(f"{name} takes {' or '.join(dtypes)} states; got {P.dtype}.")
     block = tuple(int(b) for b in block)
-    if len(block) != 3 or block[0] < 3 or min(block) < 1 or P.dim() != 3 \
-            or any(s % b for s, b in zip(P.shape, block)):
+    lead = P.dim() - 3
+    if len(block) != 3 or block[0] < 3 or min(block) < 1 or lead not in ((0, 1) if members
+                                                                          else (0,)) \
+            or any(s % b for s, b in zip(P.shape[lead:], block)):
         raise InvalidArgumentError(
             f"{name}: P block {block} (>= 3 planes) does not tile {tuple(P.shape)}.")
     shapes = shapes_of(block)
     if len(state) != len(shapes):
         raise InvalidArgumentError(f"{name} takes the {len(shapes)} tensors {tuple(shapes)}.")
-    counts = tuple(int(s) // b for s, b in zip(P.shape, block))
+    counts = tuple(int(s) // b for s, b in zip(P.shape[lead:], block))
     for a, (f, shp) in zip(state, shapes.items()):
-        want = tuple(c * s for c, s in zip(counts, shp))
+        want = tuple(P.shape[:lead]) + tuple(c * s for c, s in zip(counts, shp))
         if tuple(a.shape) != want or a.dtype != P.dtype or a.device != P.device \
                 or not a.is_contiguous():
             raise InvalidArgumentError(

@@ -41,7 +41,7 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 
-from ..utils.exceptions import InvalidArgumentError, NotSupportedError
+from ..utils.exceptions import InvalidArgumentError
 from .precision import (
     SCALE_BYTES, _DIM_NAMES, _per_axis, decode_scales, dequantize_rows, dtype_name,
     encode_scales, narrow, quant_slab_bytes, quantize_rows,
@@ -50,8 +50,6 @@ from .precision import (
 __all__ = ["WireSchema", "slab_schema", "schema_for_fields", "dtype_name", "CommCadence",
            "resolve_comm_every", "WireStagePolicy", "resolve_wire_stage",
            "StagedWireSchema", "SlabCodec", "block_rows", "from_block_rows"]
-
-_LATER = "a later slice of the PyTorch port"
 
 
 @dataclass(frozen=True)
@@ -155,7 +153,10 @@ class WireSchema:
     ``shapes`` are the send-slab shapes in pack order, ``dim`` the exchange
     axis, ``fmt`` the resolved `WireFormat` (None: the exact wire),
     ``layout`` ``"slab"`` or ``"flat"``, ``members`` the ensemble member
-    count (1: the ensemble axis is not ported)."""
+    count: a block's staging row and payload hold ``members`` member
+    payloads, member-major (each member's slabs in pack order, and under a
+    quantized format its own scales), as the JAX package's batched payload
+    orders them. `pack`/`unpack` serve one member."""
 
     dim: int
     shapes: tuple          # per-slab shapes, pack order
@@ -183,14 +184,20 @@ class WireSchema:
         return self.state_dtype if self.fmt is None else self.fmt.dtype_name
 
     @property
+    def member_payload(self) -> int:
+        """Elements (of the wire dtype) of one member's payload: its cells,
+        or its quantized bytes and scales."""
+        if self.is_quant:
+            return sum(quant_slab_bytes(c, self.fmt) for c in self.cells) \
+                + SCALE_BYTES * self.n_slabs
+        return sum(self.cells)
+
+    @property
     def payload_bytes(self) -> int:
         """Exact bytes of one direction's payload: the quantized slabs and
-        a `SCALE_BYTES` scale each, or every cell in the wire dtype."""
-        if self.is_quant:
-            per = sum(quant_slab_bytes(c, self.fmt) for c in self.cells) \
-                + SCALE_BYTES * self.n_slabs
-        else:
-            per = sum(self.cells) * _itemsize(self.wire_dtype)
+        a `SCALE_BYTES` scale each, or every cell in the wire dtype; times
+        ``members``."""
+        per = self.member_payload * (1 if self.is_quant else _itemsize(self.wire_dtype))
         return per * max(1, int(self.members))
 
     @property
@@ -207,8 +214,8 @@ class WireSchema:
 
     @property
     def buffer_shape(self) -> tuple:
-        """The shape of the staging buffer: the concat shape (slab layout)
-        or the payload's cell count (flat)."""
+        """The shape of one member's staging buffer: the concat shape (slab
+        layout) or the payload's cell count (flat)."""
         if self.layout == "flat":
             return (sum(self.cells),)
         cat = list(self.shapes[0])
@@ -276,10 +283,12 @@ class WireSchema:
         return out
 
     def encode_rows(self, rows):
-        """The payloads of staging rows ``rows`` (..., sum of ``cells``; one
-        block's raveled staging buffer a row, as K8 writes them; a cast
-        takes any shape): each row's wire payload, as (..., payload
-        elements) of the wire dtype. The exact wire returns ``rows``."""
+        """The payloads of staging rows ``rows`` (..., ``members`` x the sum
+        of ``cells``; one block's raveled staging buffer a row, as K8 writes
+        them; a cast takes any shape): each row's wire payload, as (...,
+        ``members`` x `member_payload`) of the wire dtype, each member's
+        slabs quantized against their own scales. The exact wire returns
+        ``rows``."""
         if self.fmt is None:
             return rows
         if not self.is_quant:
@@ -289,7 +298,7 @@ class WireSchema:
         if self.layout != "flat":
             raise InvalidArgumentError("a quantized payload takes the flat layout.")
         lead = rows.shape[:-1]
-        flat = rows.reshape(-1, rows.shape[-1])
+        flat = rows.reshape(-1, sum(self.cells))  # a (row, member) each
         parts, scales, off = [], [], 0
         for c in self.cells:
             q, s = quantize_rows(flat.narrow(1, off, c), self.fmt)
@@ -310,7 +319,7 @@ class WireSchema:
         import torch
 
         lead = wire.shape[:-1]
-        flat = wire.reshape(-1, wire.shape[-1])
+        flat = wire.reshape(-1, self.member_payload)
         qsizes = [quant_slab_bytes(c, self.fmt) for c in self.cells]
         data = sum(qsizes)
         scales = decode_scales(flat.narrow(1, data, SCALE_BYTES * self.n_slabs), self.n_slabs)
@@ -367,20 +376,21 @@ def slab_schema(dim: int, shapes, state_dtype, fmt=None, members: int = 1) -> Wi
     """The canonical schema for one (axis, dtype group) from its slab
     shapes. ``fmt`` is the resolved `WireFormat` of the axis
     (`precision.wire_format_for`), or None for the exact wire; a quantized
-    payload takes the flat layout."""
+    payload takes the flat layout. ``members``: the ensemble members a
+    payload carries (`WireSchema.members`)."""
     from .precision import WireFormat, _parse_format
 
     shapes = tuple(tuple(int(v) for v in s) for s in shapes)
     if not shapes:
         raise InvalidArgumentError("slab_schema needs at least one slab.")
-    if int(members) != 1:
-        raise NotSupportedError(f"ensemble batching is not ported yet ({_LATER}).")
+    if int(members) < 1:
+        raise InvalidArgumentError(f"slab_schema: members must be >= 1; got {members}.")
     if fmt is not None and not isinstance(fmt, WireFormat):
         fmt = _parse_format(fmt)
     quant = fmt is not None and fmt.is_quant
     layout = "flat" if quant or not _slab_layout_ok(dim, shapes) else "slab"
     return WireSchema(dim=int(dim), shapes=shapes, state_dtype=dtype_name(state_dtype),
-                      fmt=fmt, layout=layout)
+                      fmt=fmt, layout=layout, members=int(members))
 
 
 def schema_for_fields(dim: int, shapes, hws, state_dtype, fmt=None,

@@ -266,6 +266,12 @@ class Dist(InProcess):
         return buf[:n]
 
     def exchange(self, msgs) -> None:
+        from ..utils.profiling import label
+
+        with label("igg::transport"):
+            self._exchange(msgs)
+
+    def _exchange(self, msgs) -> None:
         import torch
         import torch.distributed as dist
 

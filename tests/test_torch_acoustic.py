@@ -377,12 +377,12 @@ def test_init_matches_jax_bitwise(dtype):
 
 
 def test_unported_options_raise(monkeypatch):
-    """``ensemble`` still raises `NotSupportedError`; ``overlap=True`` on the
-    plain route, `make_acoustic_run_deep` and the variable's deep cadence
-    (ported since) run and match the plain route bitwise."""
+    """``overlap=True`` on the plain route, `make_acoustic_run_deep`, the
+    variable's deep cadence and ``ensemble`` (all ported since) run and
+    match the plain route bitwise (an ensemble's member 0); a state without
+    the member axis under ``ensemble`` raises as in JAX."""
     tg.init_global_grid(12, 12, 12, dimx=2, dimy=2, dimz=2, nranks=8, overlaps=(4, 4, 4),
                         halowidths=(2, 2, 2), device_type="cpu", quiet=True)
-    NS = tg.exceptions.NotSupportedError
     state, p = init_acoustic3d(dtype=torch.float64, overlap=True)
     state = tg.update_halo(*state)   # halos consistent with what they mirror
     plain = dataclasses.replace(p, overlap=False)
@@ -394,8 +394,10 @@ def test_unported_options_raise(monkeypatch):
     same(run_acoustic(state, p, 2, impl="plain"))
     fused = run_acoustic(state, plain, 1, impl="cuda")  # the fused route ignores overlap
     assert all(torch.equal(a, b) for a, b in zip(run_acoustic(state, p, 1, impl="cuda"), fused))
-    with pytest.raises(NS):
+    with pytest.raises(tg.exceptions.InvalidArgumentError, match="member axis"):
         run_acoustic(state, plain, 1, ensemble=2)
+    same([a[0] for a in run_acoustic(tg.ensemble_state(state, 2, perturb=0.1), plain, 2,
+                                     ensemble=2)])
     same(tac.make_acoustic_run_deep(dataclasses.replace(plain, comm_every=2), 1)(*state))
     monkeypatch.setenv("IGG_COMM_EVERY", "2")
     q = init_acoustic3d(dtype=torch.float64)[1]   # no comm_every: the variable's cadence

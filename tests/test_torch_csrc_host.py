@@ -15,7 +15,7 @@ and mixed magnitudes in three dtypes, and whole `run_stokes`,
 `run_acoustic` and `run_diffusion` runs with their launch counts; the halo
 copies K8 and K7 (every dim, both wire layouts, per-field halowidths, 2-D
 fields, periodic and PROC_NULL edges, four dtypes, groups of 16 and 17
-fields) and K2, K3 and K6; the division helper of `cdiv.cuh` bitwise
+fields, an ensemble's members at E = 1, 3 and 16) and K2, K3 and K6; the division helper of `cdiv.cuh` bitwise
 against IEEE division.
 
 The card's compiler, its float units and its launch limits are not tested
@@ -956,6 +956,52 @@ def test_coalesced_update_halo_on_host_kernels(on_host, monkeypatch, nfields):
     assert (counts["wire_pack"], counts["halo_write_multi"]) == (ndims * per_dim,) * 2
     assert sum(counts.values()) == 2 * ndims * per_dim
     assert _equal(got, want)
+
+
+# an ensemble's group: the four staggered fields (the flat layout) on blocks
+# of (5, 9, 37) (a z tile's 32 rows and an x or y tile's 8 rows cut short),
+# 2x2x1 blocks; one vec case: slab layout, rows of whole 16-byte words
+K78_MEMBER_CASES = {"flat-f32": (_staggered((5, 9, 37), ("P", "Vx", "Vy", "Vz")), np.float32),
+                    "slab-vec-f64": ([(5, 9, 38)] * 4, np.float64)}
+
+
+@pytest.mark.parametrize("members", [1, 3, 16])
+@pytest.mark.parametrize("case", sorted(K78_MEMBER_CASES))
+def test_k8_k7_members_match_plain(on_host, monkeypatch, case, members):
+    """K8 and K7 with a member count and stride (an ensemble's fields lead
+    with E members, every member in the launch), along every dim, periodic
+    and PROC_NULL, bitwise against their plain versions at E = 1, 3 and
+    16; member m's part of each row is member m's own solo K8 row, and at E
+    = 1 the launch is the solo launch, bit for bit."""
+    blocks, dtype = K78_MEMBER_CASES[case]
+    counts, hws = (2, 2, 1), [1] * len(blocks)
+    monkeypatch.setattr(ch, "_GROUPS", {})
+    rng = np.random.default_rng(80 + members)
+    fs = [_k78_field(rng, (members,) + tuple(c * m for c, m in zip(counts, blk)), dtype)
+          for blk in blocks]
+    for dim in range(3):
+        sch = schema_for_fields(dim, blocks, hws, fs[0].dtype, members=members)
+        solo = schema_for_fields(dim, blocks, hws, fs[0].dtype)
+        kw = dict(starts_r=[blk[dim] - 2 for blk in blocks], starts_l=hws, blocks=blocks)
+        bufs = ch.wire_pack(fs, sch, **kw)
+        assert _equal(bufs, ch.wire_pack_plain(fs, sch, **kw)), (dim, "K8")
+        for m in range(members):
+            own = ch.wire_pack([f[m].contiguous() for f in fs], solo, **kw)
+            rows = [b.view(b.shape[0], members, -1)[:, m] for b in bufs]
+            assert _equal(rows, own), (dim, m)
+        for periodic in (True, False):
+            got, want = [f.clone() for f in fs], [f.clone() for f in fs]
+            wk = dict(blocks=blocks, periodic=periodic, disp=1)
+            ch.halo_write_multi(got, *bufs, sch, **wk)
+            ch.halo_write_multi_plain(want, *bufs, sch, **wk)
+            assert _equal(got, want), (dim, periodic, "K7")
+            if members == 1:
+                alone = [f[0].clone() for f in fs]
+                ch.halo_write_multi(alone, *bufs, solo, **wk)
+                assert _equal([g[0] for g in got], alone), (dim, periodic)
+    desc = [g[5] for g in ch._GROUPS.values() if g[5] is not None]
+    assert desc and all(d[k * ch._SLAB_DESC + 14] in (1, members) for d in desc
+                        for k in range(len(blocks)))
 
 
 # K2, K3 and K6 on a 2x2x2 stack of blocks that no thread block divides; the

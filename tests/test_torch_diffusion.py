@@ -110,13 +110,13 @@ def test_state_from_numpy_round_trip():
 
 
 def test_unported_options_raise():
-    """``ensemble`` still raises `NotSupportedError`; ``overlap``, a deep
-    ``comm_every`` and ``sr`` (ported since) run, from ``init_diffusion3d``
-    and from `state_from_numpy`, and match the plain route bitwise (``sr``
-    is a no-op on a float64 state)."""
+    """``overlap``, a deep ``comm_every``, ``sr`` and ``ensemble`` (all
+    ported since) run, from ``init_diffusion3d`` and from
+    `state_from_numpy`, and match the plain route bitwise (``sr`` is a no-op
+    on a float64 state; an ensemble's member 0 is the solo run); a state
+    without the member axis under ``ensemble`` raises as in JAX."""
     tg.init_global_grid(12, 8, 8, periodx=1, overlaps=(4, 2, 2), halowidths=(2, 1, 1),
                         device_type="cpu", quiet=True)
-    NS = tg.exceptions.NotSupportedError
     assert init_diffusion3d(sr=True, sr_seed=3)[2].sr_seed == 3
     T, Cp, p = init_diffusion3d()
     T, Cp = tg.update_halo(T, Cp)   # halos consistent with what they mirror
@@ -124,8 +124,10 @@ def test_unported_options_raise():
     for kw in (dict(overlap=True), dict(comm_every=2)):
         q = init_diffusion3d(**kw)[2]
         assert torch.equal(run_diffusion(T, Cp, q, 2, impl="plain"), ref), kw
-    with pytest.raises(NS):
+    with pytest.raises(tg.exceptions.InvalidArgumentError, match="member axis"):
         run_diffusion(T, Cp, p, 2, ensemble=2)
+    ET, EC = tg.ensemble_state((T, Cp), 2, perturb=0.1)
+    assert torch.equal(run_diffusion(ET, EC, p, 2, ensemble=2)[0], ref)
     t, c, q = state_from_numpy(to_np(T), to_np(Cp), dict(dataclasses.asdict(p),
                                                          comm_every="x:2"), "cpu")
     assert q.comm_every == "x:2" and torch.equal(run_diffusion(t, c, q, 2), ref)

@@ -28,6 +28,8 @@ virtual mesh's. The tests read those results:
   route under int8, and a stochastic-rounding bfloat16 run, each bitwise
   the virtual mesh's; the transport's wire bytes are the payloads' (half
   the exact wire's under bfloat16 on float32 state);
+- an ensemble's diffusion (E = 3), each member bitwise the virtual mesh's,
+  with E = 1's transport messages and 3 times its wire bytes;
 - `tic`/`toc` spanning the processes.
 """
 
@@ -69,6 +71,7 @@ CHECKS = [
     "deep/diffusion", "deep/acoustic", "deep/diffusion_1", "deep/diffusion_z2",
     "wire/coalesced_int8", "wire/coalesced_bfloat16", "wire/per_dim_bfloat16",
     "wire/per_dim_float16", "wire/diffusion_fused_int8", "wire/diffusion_sr",
+    "ensemble/diffusion_e3",
 ]
 
 _RESULTS: dict = {}
@@ -192,6 +195,19 @@ def test_wire_bytes_are_the_payloads(config, tmp_path_factory):
         assert {c[0] for c in checks} == {"coalesced", "per_dim", "fused"}, (pid, checks)
         for route, dim, fmt, got, want in checks:
             assert got > 0 and got == want, (pid, route, dim, fmt, got, want)
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_ensemble_messages_flat_in_members(config, tmp_path_factory):
+    """An ensemble's exchange sends one message a neighbour process and
+    dim whatever E: 3 steps at E = 3 send E = 1's messages, with 3 times
+    its wire bytes (every member in the row)."""
+    got = {k: dict(_each(config, tmp_path_factory, f"ensemble/{k}"))
+           for k in ("messages_1", "messages_3", "wire_bytes_1", "wire_bytes_3")}
+    for pid in got["messages_1"]:
+        assert got["messages_1"][pid] > 0, pid
+        assert got["messages_3"][pid] == got["messages_1"][pid], pid
+        assert got["wire_bytes_3"][pid] == 3 * got["wire_bytes_1"][pid], pid
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))

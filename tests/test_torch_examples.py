@@ -117,3 +117,34 @@ def test_acoustic_example_under_torchrun(tmp_path, capsys):
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = _p_lines(proc.stdout)
     assert lines and lines == _LINES["acoustic"], (lines, _LINES["acoustic"])
+
+
+def test_advanced_modes_example_matches_jax(capsys):
+    """The advanced-modes example's three parts beside the JAX example's
+    calls (32^3 x 40 steps): plain bfloat16's distance from float32 as
+    JAX's (the plain route is JAX's ``xla`` tier), stochastic rounding
+    nearer float32 than plain bfloat16 in both (its bits differ: the port
+    hashes the cell, JAX draws from its key), the deep run's line, and the
+    measured overlap with the exchange's labels as comm."""
+    from implicitglobalgrid_tpu_torch.examples.diffusion3D_advanced_modes import main
+
+    got = main(cpu=True)
+    out = capsys.readouterr().out
+    assert "comm_every=2: 40 steps" in out and "overlap[CPU]" in out
+    import jax.numpy as jnp
+
+    finals = {}
+    for tag, dtype, sr in (("f32", jnp.float32, False), ("bf16", jnp.bfloat16, False),
+                           ("bf16_sr", jnp.bfloat16, True)):
+        igg.init_global_grid(32, 32, 32, quiet=True)
+        T, Cp, p = jm.init_diffusion3d(dtype=dtype, sr=sr)
+        out = jm.run_diffusion(T, Cp, p, 40, nt_chunk=40, impl="xla" if not sr else None)
+        finals[tag] = np.asarray(igg.gather_interior(out)).astype(np.float64)
+        igg.finalize_global_grid()
+    scale = np.abs(finals["f32"]).max()
+    ref = {t: float(np.abs(finals[t] - finals["f32"]).max() / scale) for t in ("bf16", "bf16_sr")}
+    assert np.isclose(got["sr"]["bf16"], ref["bf16"], rtol=1e-3), (got["sr"], ref)
+    assert got["sr"]["bf16_sr"] < got["sr"]["bf16"] and ref["bf16_sr"] < ref["bf16"]
+    assert got["deep_s"] > 0
+    s = got["overlap"]["CPU"]
+    assert s["comm_us"] > 0 and s["compute_us"] > 0

@@ -21,6 +21,8 @@ def test_import_leaves_jax_out():
         "import implicitglobalgrid_tpu_torch.examples.diffusion3D_multixpu_novis\n"
         "import implicitglobalgrid_tpu_torch.examples.acoustic3D_multixpu\n"
         "import implicitglobalgrid_tpu_torch.examples.stokes3D_multixpu\n"
+        "import implicitglobalgrid_tpu_torch.examples.diffusion3D_advanced_modes\n"
+        "import implicitglobalgrid_tpu_torch.utils.profiling, implicitglobalgrid_tpu_torch.utils.trace_events\n"
         "tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=2, device_type='cpu', quiet=True)\n"
         "T, Cp, p = implicitglobalgrid_tpu_torch.models.init_diffusion3d()\n"
         "T = implicitglobalgrid_tpu_torch.models.run_diffusion(T, Cp, p, 2)\n"
@@ -33,6 +35,13 @@ def test_import_leaves_jax_out():
         "implicitglobalgrid_tpu_torch.models.stokes_residuals(state, q)\n"
         "tg.gather_interior(state[3])\n"
         "tg.gather_sub(state[0], ((0, 1), None, None))\n"
+        "E = implicitglobalgrid_tpu_torch.models.ensemble_state((T, Cp), 2, perturb=0.1)\n"
+        "implicitglobalgrid_tpu_torch.models.run_diffusion(*E, p, 2, ensemble=2)\n"
+        "import tempfile\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    with tg.trace(d):\n"
+        "        tg.update_halo(T)\n"
+        "    tg.overlap_stats(d), tg.op_breakdown(d)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'implicitglobalgrid_tpu' or m.startswith('implicitglobalgrid_tpu.'))\n"
         "print(bad)\n"
@@ -49,7 +58,9 @@ def test_sources_name_no_jax():
     files.append(ROOT / "chip_smoke.py")
     names = {f.relative_to(pkg).as_posix() for f in files if f.parent != ROOT}
     assert {"parallel/transport.py", "examples/diffusion3D_multixpu_novis.py",
-            "examples/acoustic3D_multixpu.py", "examples/stokes3D_multixpu.py"} <= names
+            "examples/acoustic3D_multixpu.py", "examples/stokes3D_multixpu.py",
+            "examples/diffusion3D_advanced_modes.py", "utils/profiling.py",
+            "utils/trace_events.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

@@ -220,21 +220,23 @@ def test_mesh_iteration_makes_one_slab_call_a_dim(monkeypatch):
 
 
 def test_unported_options_raise(monkeypatch):
-    """``ensemble`` still raises `NotSupportedError`; ``overlap=True`` on the
-    plain route, `deep_step`, `make_stokes_run_deep` and the variable's deep
-    cadence (ported since) run and match the plain route bitwise (P and V:
-    dV's halos are undefined state in the base scheme)."""
+    """``overlap=True`` on the plain route, `deep_step`,
+    `make_stokes_run_deep`, the variable's deep cadence and ``ensemble``
+    (all ported since) run and match the plain route bitwise (P and V: dV's
+    halos are undefined state in the base scheme; an ensemble's member 0);
+    a state without the member axis under ``ensemble`` raises as in JAX."""
     tg.init_global_grid(12, 12, 12, dimx=2, dimy=2, dimz=2, nranks=8, device_type="cpu",
                         quiet=True)
-    NS = tg.exceptions.NotSupportedError
     state, p = init_stokes3d(dtype=torch.float64, overlap=True)
     plain = dataclasses.replace(p, overlap=False)
     ref = run_stokes(state, plain, 2, impl="plain")
     assert all(torch.equal(a, b) for a, b in zip(run_stokes(state, p, 2, impl="plain"), ref))
     fused = run_stokes(state, plain, 1, impl="cuda")  # the fused route ignores overlap
     assert all(torch.equal(a, b) for a, b in zip(run_stokes(state, p, 1, impl="cuda"), fused))
-    with pytest.raises(NS):
+    with pytest.raises(tg.exceptions.InvalidArgumentError, match="member axis"):
         run_stokes(state, plain, 1, ensemble=2)
+    members = run_stokes(tg.ensemble_state(state, 2, perturb=0.1), plain, 2, ensemble=2)
+    assert all(torch.equal(a[0], b) for a, b in zip(members, ref))
     tg.finalize_global_grid()
     # the iteration's radius is 2: k = 2 needs halowidth 4
     tg.init_global_grid(12, 12, 12, dimx=2, dimy=2, dimz=2, nranks=8, overlaps=(8, 8, 8),

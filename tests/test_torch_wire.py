@@ -29,7 +29,6 @@ import implicitglobalgrid_tpu_torch.ops.cuda_halo as ch
 from implicitglobalgrid_tpu.ops import wire as jwire
 from implicitglobalgrid_tpu_torch.ops import wire as twire
 from implicitglobalgrid_tpu_torch.ops.halo import halo_routes
-from implicitglobalgrid_tpu_torch.utils.exceptions import NotSupportedError
 from torch_port_util import clean_torch_grid, init_both, to_np  # noqa: F401
 
 
@@ -325,9 +324,10 @@ def test_halo_comm_plan_refuses_what_is_not_ported():
     tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=2, nranks=8, device_type="cpu",
                         quiet=True)
     A = tg.zeros_g()
-    with pytest.raises(NotSupportedError):   # the ensemble axis is not ported
-        tg.halo_comm_plan(A, ensemble=2)
-    for kw in (dict(wire_dtype="bfloat16"), dict(wire_stage="z:staged")):   # ported
+    with pytest.raises(tg.exceptions.InvalidArgumentError):   # the ensemble axis: E >= 1
+        tg.halo_comm_plan(A, ensemble=0)
+    for kw in (dict(wire_dtype="bfloat16"), dict(wire_stage="z:staged"),
+               dict(ensemble=2)):   # ported
         assert tg.halo_comm_plan(A, **kw)["fields"] == 1
     plan = tg.halo_comm_plan(A, tg.zeros_g(), jax.ShapeDtypeStruct((12, 12, 12), np.float32))
     assert plan["fields"] == 3 and plan["axes"]["gx"]["ppermutes"] == 2

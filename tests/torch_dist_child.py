@@ -275,6 +275,22 @@ def case_wire():
     return out
 
 
+def case_ensemble():
+    """Diffusion at E = 3 (each member's box against the virtual mesh's)
+    and the transport's messages and wire bytes at E = 1 and E = 3."""
+    tr = tg.global_grid().transport
+    T, Cp, p = models.init_diffusion3d(dtype=torch.float64)
+    out = {}
+    for E in (1, 3):
+        ET, EC = models.ensemble_state((T, Cp), E, perturb=0.01)
+        tr.reset_stats()
+        got = models.run_diffusion(ET, EC, p, 3, nt_chunk=3, ensemble=E)
+        out[f"messages_{E}"] = ("proc", tr.stats["messages"])
+        out[f"wire_bytes_{E}"] = ("proc", tr.stats["wire_bytes"])
+    out["diffusion_e3"] = ("boxes", tuple(got[m] for m in range(3)))
+    return out
+
+
 def case_timing():
     tg.tic()
     if tg.global_grid().me == 1:
@@ -287,7 +303,7 @@ CASES = [("layout", G0, DCN, case_layout), ("encoded", G0, DCN, case_encoded),
          ("halo_g2", G2, DCN_G2, case_halo_g2), ("models", G1, DCN, case_models),
          ("models_2d", G3, "", case_models_2d), ("overlap", G4, DCN, case_overlap),
          ("deep", G5, DCN, case_deep), ("wire", G1, DCN, case_wire),
-         ("timing", G1, DCN, case_timing)]
+         ("ensemble", G1, DCN, case_ensemble), ("timing", G1, DCN, case_timing)]
 
 
 def run(grid_kw, dcn, fn, **init):
