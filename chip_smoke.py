@@ -120,6 +120,21 @@ Phases, in order; any failure exits non-zero without the final line:
    under 0.02; sr=True bfloat16 against float32 (within 0.05 and a fifth of
    plain bfloat16's error), one seed reproducible and another different, and
    the sr step's ms beside plain bfloat16's on the 128^3 mesh;
+13b. checkpoint and io: the main path (256^3 periodic, K1) for 400 steps in
+   chunks of 200 with a `SnapshotWriter` taking T and Cp every chunk (the
+   last snapshot's `read_global("T")` bitwise `gather_interior(T)`, the
+   first one's bitwise its chunk's T though the donating runner wrote the
+   submitted tensor next; submit ms, the chunk's wall with and without a
+   snapshot, the writer's bytes/s); config 4's mesh (3 K4s + K9) saved
+   sharded after 10 steps (~0.91 GB), restored, 10 more steps bitwise the
+   uninterrupted 20 (save and restore ms and GB/s, the sha256 share of
+   each); the 128^3 diffusion mesh (K4s + K4) saved on 2x2x2 and restored
+   by `elastic_restart` onto 4x2x1, `gather_interior` bitwise; the guard
+   (`make_guarded_runner`) and the reducers (`make_reduced_post_chunk`:
+   a probe, a z line, T's stats) on that mesh's kernel route against plain
+   PyTorch on the card (counts, probe, line, min and max bitwise, sums
+   within IO_SUM_RTOL), a `poke_nan` tripping ``nonfinite:T``, the hook's
+   ms; in a temporary directory, removed after;
 14. the transport: two processes of this script (``--transport-child``)
    share cuda:0 in a gloo process group (NCCL refuses two processes on one
    card), the grids split along z (``IGG_TPU_DCN_AXES=z``, a 2x2x1 box
@@ -136,11 +151,16 @@ Phases, in order; any failure exits non-zero without the final line:
    phases 6, 9, 11, 12, 12c and 13's runs of the same steps on the virtual mesh;
    per step the wall ms, the wire bytes (under a wire format beside the
    exact wire's), the exchange's and gloo's host staging ms, beside the
-   virtual mesh's step;
+   virtual mesh's step; after the diffusion mesh's plain steps each process
+   writes its box's shards and a `SnapshotWriter` snapshot (process 0
+   commits) and computes the guard-and-reducer vector after
+   `transport.all_sum`: the checkpoint restores on the virtual mesh bitwise
+   phase 12's state, the snapshot reads bitwise its `gather_interior`, the
+   vector equals the virtual mesh's;
 15. numbers: the card's name and power limit, each kernel's time, bound,
    plain and library times (one JSON line), cell-updates/s, host against
-   device time per step of the fused routes, and the main paths' K4s
-   launches by mode and dim.
+   device time per step of the fused routes, phase 13b's checkpoint and io
+   numbers, and the main paths' K4s launches by mode and dim.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 nothing of JAX. It needs one card and exits non-zero without CUDA or
@@ -3467,6 +3487,296 @@ def phase_wire(tg, models, cb):
     return launches, dict(update_halo=uh, fused=fused, accuracy=acc), refs
 
 
+IO_CHUNK, IO_STEPS = 200, 400  # phase 13b's main path: 400 K1 steps, a snapshot a chunk
+IO_GUARD_CHUNK = 10  # the guard's and reducers' chunk on the 128^3 mesh
+# the float32 sums of the guard and Stats on the card against plain PyTorch's
+# sums of the same cells in another order: relative, at 2x2x2 x 128^3
+IO_SUM_RTOL = 1e-5
+
+
+def io_reducers(tg, n=N_MESH):
+    """Phase 13b's and the transport phase's reducers on the 2x2x2 mesh of
+    ``n``^3 blocks, periodic x (implicit global 2(n-2) x (2n-2) x (2n-2)):
+    a probe on the x block boundary, a z line, and T's stats."""
+    return [tg.Probe("T", (n - 2, n - 1, 3 * (2 * n - 2) // 4)),
+            tg.AxisSlice("T", 2, (n + 2, (2 * n - 2) // 3, 0)), tg.Stats("T")]
+
+
+def io_plain_parts(tg, T, Cp, reducers):
+    """The guard's and the reducers' numbers by plain PyTorch on the card,
+    from the implicit global grid of the virtual mesh's ``T`` assembled by
+    index (`io.layout.owner_maps`, the `gather_interior` ownership): the
+    non-finite counts and sums of squares of ``T`` and ``Cp``, then each
+    probe's value, line, and the stats' sum, sum of squares, min and max."""
+    import numpy as np
+    import torch
+    from implicitglobalgrid_tpu_torch.io.layout import field_geometry, owner_maps
+
+    gg = tg.global_grid()
+    loc = [int(s) // int(b) for s, b in zip(T.shape, gg.box)]
+    idx = []
+    for g in field_geometry(gg.dims, gg.nxyz, gg.overlaps, gg.periods, loc):
+        c, i = owner_maps(g, np.arange(g.size))
+        idx.append(torch.as_tensor(c * g.n + i, device=T.device))
+    GI = T[idx[0][:, None, None], idx[1][None, :, None], idx[2][None, None, :]].float()
+    out = {"health": [v for A in (T, Cp) for v in
+                      (float((~torch.isfinite(A)).sum()), float((A.float() ** 2).sum()))]}
+    for red in reducers:
+        if isinstance(red, tg.Probe):
+            out[red.label] = float(GI[red.index])
+        elif isinstance(red, tg.AxisSlice):
+            sel = tuple(slice(None) if d == red.axis else i for d, i in enumerate(red.index))
+            out[red.label] = GI[sel].cpu().numpy()
+        else:
+            out[red.label] = dict(sum=float(GI.sum()), ssq=float((GI * GI).sum()),
+                                  min=float(GI.min()), max=float(GI.max()))
+    return out
+
+
+def io_vector_matches(vec, plain, plan, names):
+    """Where the guard-and-reducer vector ``vec`` differs from
+    `io_plain_parts` (``[]``: it matches): counts, probes, slices, min and
+    max bitwise, sums within IO_SUM_RTOL; with the sums' relative errors."""
+    import numpy as np
+
+    v = np.asarray(vec, dtype=np.float32)
+    bad, rel = [], {}
+    nh = 2 * len(names)
+
+    def near(name, got, want):
+        rel[name] = abs(got - want) / max(abs(want), 1e-30)
+        if rel[name] > IO_SUM_RTOL:
+            bad.append(name)
+
+    for i, want in enumerate(plain["health"]):
+        if i % 2 == 0:
+            if v[i] != np.float32(want):
+                bad.append(f"nonfinite:{names[i // 2]}")
+        else:
+            near(f"norm2:{names[i // 2]}", float(v[i]), want)
+    P = plan.nprocs
+    for red, off, ln, _ in plan._entries:
+        seg, want = v[nh + off:nh + off + ln], plain[red.label]
+        if red.label.startswith("probe"):
+            if seg[0] != np.float32(want):
+                bad.append(red.label)
+        elif red.label.startswith("slice"):
+            if not np.array_equal(seg, want):
+                bad.append(red.label)
+        else:
+            near(f"{red.label}:sum", float(seg[0]), want["sum"])
+            near(f"{red.label}:ssq", float(seg[1]), want["ssq"])
+            if seg[2:2 + P].min() != np.float32(want["min"]) \
+                    or seg[2 + P:].max() != np.float32(want["max"]):
+                bad.append(f"{red.label}:min/max")
+    return bad, rel
+
+
+def phase_io(tg, models, cb):
+    """Phase 13b: checkpoint and io. The main path's 400 K1 steps in chunks
+    of 200 with a `SnapshotWriter` taking T and Cp every chunk (the last
+    snapshot read back bitwise `gather_interior(T)`; submit ms, chunk wall
+    with and without snapshots, the writer's bytes/s); config 4's mesh
+    saved sharded after 10 fused steps, restored, 10 more steps bitwise the
+    uninterrupted 20 (save and restore ms and GB/s, the sha256 share); the
+    128^3 diffusion mesh saved on 2x2x2 and restored by `elastic_restart`
+    onto 4x2x1, bitwise; the guard and the reducers on the mesh's kernel
+    route against plain PyTorch on the card, a `poke_nan` tripping the
+    guard, the hook's ms. Files go to a temporary directory, removed at
+    the end. Returns (launches, record)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from implicitglobalgrid_tpu_torch.io.reducers import make_reduced_post_chunk
+    from implicitglobalgrid_tpu_torch.models.common import make_state_runner
+    from implicitglobalgrid_tpu_torch.runtime.health import health_stats_local, report_from_stats
+    from implicitglobalgrid_tpu_torch.utils.blockio import file_sha256
+
+    print(f"phase: checkpoint and io; card {card_name()}", flush=True)
+    tmp = tempfile.mkdtemp(prefix="igg_io_")
+    counts, rec = {}, {}
+
+    def add(c):
+        for k, n in c.items():
+            counts[k] = counts.get(k, 0) + n
+
+    try:
+        # the main path: K1 on 256^3, periodic, a snapshot every chunk
+        grid(tg, N_MAIN, N_MAIN, N_MAIN, periodx=1, periody=1, periodz=1)
+        T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+        run = models.make_run(p, IO_CHUNK)
+        s = run(T0, Cp)  # warm chunk
+        plain_wall = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = run(*s, donate=True)
+            torch.cuda.synchronize()
+            plain_wall.append((time.perf_counter() - t0) * 1e3)
+        cb.reset_launch_counts()
+        root = os.path.join(tmp, "snaps")
+        submit_ms, snap_wall = [], []
+        with tg.SnapshotWriter(root) as w:
+            s = (T0, Cp)
+            for k in range(IO_STEPS // IO_CHUNK):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s = run(*s, donate=k > 0)  # the runner reuses the submitted T next chunk
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                w.submit({"T": s[0], "Cp": s[1]}, (k + 1) * IO_CHUNK)
+                t2 = time.perf_counter()
+                submit_ms.append((t2 - t1) * 1e3)
+                snap_wall.append((t2 - t0) * 1e3)
+                if k == 0:
+                    G_first = tg.gather_interior(s[0])
+            flushed = w.flush(timeout=300.0)
+        st = w.stats
+        c = cb.launch_counts()
+        add(c)
+        check(flushed and st["written"] == IO_STEPS // IO_CHUNK and st["errors"] == 0,
+              f"io main path: {st['written']} snapshots committed, no error")
+        check(c["diffusion3d_step_halo"] == IO_STEPS, "io main path: K1 launched once a step")
+        snaps = tg.list_snapshots(root)
+        G = tg.gather_interior(s[0])
+        R = tg.open_snapshot(snaps[-1][1]).read_global("T")
+        check(snaps[-1][0] == IO_STEPS and R.dtype == G.dtype and np.array_equal(R, G),
+              "io main path: the last snapshot's read_global(T) bitwise gather_interior(T)")
+        check(np.array_equal(tg.open_snapshot(snaps[0][1]).read_global("T"), G_first),
+              "io main path: the first snapshot holds its chunk's T, though the next chunk "
+              "wrote the submitted tensor (the capture is a copy)")
+        rec["main_path_snapshots"] = dict(
+            chunk_steps=IO_CHUNK, submit_ms=submit_ms, chunk_wall_ms_with_snapshot=snap_wall,
+            chunk_wall_ms_without=plain_wall, snapshot_bytes=st["bytes"] // len(submit_ms),
+            writer_s=st["write_s"], writer_bytes_per_s=st["bytes"] / st["write_s"],
+            submit_share_of_chunk=[m / statistics.median(plain_wall) for m in submit_ms])
+        print(f"  io main path: {json.dumps(rec['main_path_snapshots'])}", flush=True)
+        del s, T0, Cp, G, R, G_first
+
+        # config 4's mesh: sharded save after 10 fused steps, restore, 10 more
+        grid(tg, N_CFG4, N_CFG4, N_CFG4, dimx=2, dimy=2, dimz=2, periodx=1, periody=1,
+             periodz=1)
+        s0, q = models.init_acoustic3d(dtype=torch.float32)
+        names = ("P", "Vx", "Vy", "Vz")
+        cb.reset_launch_counts()
+        s10 = models.run_acoustic(s0, q, 10, nt_chunk=10)
+        ck = os.path.join(tmp, "ckpt_config4")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tg.save_checkpoint_sharded(ck, dict(zip(names, s10)), step=10)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, step = tg.restore_checkpoint_sharded(ck)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        files = [os.path.join(ck, f) for f in sorted(os.listdir(ck)) if f.endswith(".npz")]
+        t0 = time.perf_counter()
+        for f in files:
+            file_sha256(f)
+        hash_s = time.perf_counter() - t0  # one pass over the files (warm): each side's share
+        check(step == 10 and all(torch.equal(restored[n], a) for n, a in zip(names, s10)),
+              "io config 4: the restored state bitwise the saved one")
+        resumed = models.run_acoustic(tuple(restored[n] for n in names), q, 10, nt_chunk=10)
+        straight = models.run_acoustic(s0, q, 20, nt_chunk=20)
+        c = cb.launch_counts()
+        add(c)
+        check(all(torch.equal(a, b) for a, b in zip(resumed, straight)),
+              "io config 4: 10 steps after the restore bitwise the uninterrupted 20")
+        check(c["acoustic_step_exchange"] == 40, "io config 4: K9 once a step")
+        nbytes = sum(a.numel() * a.element_size() for a in s10)
+        rec["config4_checkpoint"] = dict(
+            bytes=nbytes, file_bytes=sum(os.path.getsize(f) for f in files),
+            save_ms=save_s * 1e3, restore_ms=restore_s * 1e3,
+            save_gb_per_s=nbytes / save_s / 1e9, restore_gb_per_s=nbytes / restore_s / 1e9,
+            sha256_ms=hash_s * 1e3, sha256_share_of_save=hash_s / save_s,
+            sha256_share_of_restore=hash_s / restore_s)
+        print(f"  io config 4: {json.dumps(rec['config4_checkpoint'])}", flush=True)
+        del s0, s10, restored, resumed, straight
+        shutil.rmtree(ck, ignore_errors=True)
+
+        # the 128^3 diffusion mesh: saved on 2x2x2, elastic restart onto 4x2x1
+        grid(tg, N_MESH, N_MESH, N_MESH, dimx=2, dimy=2, dimz=2, periodx=1)
+        T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+        cb.reset_launch_counts()
+        T = models.run_diffusion(T0, Cp, p, 10, nt_chunk=10)
+        add(cb.launch_counts())
+        GT, GC = tg.gather_interior(T), tg.gather_interior(Cp)
+        ck = os.path.join(tmp, "ckpt_mesh")
+        tg.save_checkpoint_sharded(ck, {"T": T, "Cp": Cp}, step=10)
+        new_dims = (4, 2, 1)
+        local = tg.elastic_local_size(tg.saved_topology(ck), new_dims)
+        t0 = time.perf_counter()
+        st, step = tg.elastic_restart(ck, new_dims)
+        torch.cuda.synchronize()
+        elastic_s = time.perf_counter() - t0
+        gg = tg.global_grid()
+        check(tuple(int(d) for d in gg.dims) == new_dims and gg.device.type == "cuda"
+              and step == 10, f"io elastic: the grid re-initialized as {new_dims} of {local}")
+        check(np.array_equal(tg.gather_interior(st["T"]), GT)
+              and np.array_equal(tg.gather_interior(st["Cp"]), GC),
+              "io elastic: gather_interior of the restored state bitwise the saved one")
+        rec["elastic_restart"] = dict(saved_dims=[2, 2, 2], new_dims=list(new_dims),
+                                      new_local=list(local), ms=elastic_s * 1e3)
+        print(f"  io elastic: {json.dumps(rec['elastic_restart'])}", flush=True)
+        del T, T0, Cp, st, GT, GC
+        shutil.rmtree(ck, ignore_errors=True)
+
+        # the guard and the reducers on the 128^3 mesh's kernel route
+        grid(tg, N_MESH, N_MESH, N_MESH, dimx=2, dimy=2, dimz=2, periodx=1)
+        T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+
+        def step(s, spare):
+            return (models.diffusion_step_local(s[0], s[1], p, "cuda", out=spare), s[1]), s[0]
+
+        names, reds = ("T", "Cp"), io_reducers(tg)
+        plan = tg.io.build_reducer_plan(reds, names, {"T": T0, "Cp": Cp})
+        hook = make_reduced_post_chunk(names, plan)
+        guarded = tg.make_guarded_runner(step, nt_chunk=IO_GUARD_CHUNK)
+        reduced = make_state_runner(step, nt_chunk=IO_GUARD_CHUNK, post_chunk=hook)
+        cb.reset_launch_counts()
+        T1, C1, gvec = guarded(T0, Cp)
+        T2, C2, vec = reduced(T1, C1)
+        torch.cuda.synchronize()
+        c = cb.launch_counts()
+        add(c)
+        check(c["diffusion3d_step_exchange"] == 2 * IO_GUARD_CHUNK,
+              "io guard: the chunks ran the kernel route (K4 a step)")
+        bad, rel_g = io_vector_matches(gvec.cpu().tolist(), io_plain_parts(tg, T1, C1, []),
+                                       tg.io.build_reducer_plan([], names, {"T": T1, "Cp": C1}),
+                                       names)
+        check(not bad, f"io guard: the guard's vector equals plain PyTorch's on the card "
+                       f"({bad}; sums' relative errors {rel_g})")
+        bad, rel = io_vector_matches(vec.cpu().tolist(), io_plain_parts(tg, T2, C2, reds),
+                                     plan, names)
+        check(not bad, f"io reducers: probe, slice, min and max bitwise, sums within "
+                       f"{IO_SUM_RTOL} of plain PyTorch's on the card ({bad}; {rel})")
+        sizes = [T0.numel(), Cp.numel()]
+        rep = report_from_stats(vec[:4], names, sizes, tg.GuardConfig(), chunk=1,
+                                step_begin=IO_GUARD_CHUNK, step_end=2 * IO_GUARD_CHUNK)
+        check(rep.ok, "io guard: a clean chunk passes")
+        *_, v3 = reduced(tg.poke_nan(T2, (5, 6, 7)), C2)
+        rep = report_from_stats(v3[:4], names, sizes, tg.GuardConfig(), chunk=2,
+                                step_begin=2 * IO_GUARD_CHUNK, step_end=3 * IO_GUARD_CHUNK)
+        check("nonfinite:T" in rep.reasons and rep.nonfinite["T"] > 0,
+              f"io guard: the chunk after a poke_nan trips nonfinite:T ({rep.nonfinite})")
+        add({k: n - c.get(k, 0) for k, n in cb.launch_counts().items()})
+        hook_ms = median_ms(lambda: hook((T2, C2)), batches=5, per_batch=5)
+        guard_ms = median_ms(lambda: health_stats_local((T2, C2)), batches=5, per_batch=5)
+        chunk_ms = median_ms(lambda: guarded(T0, Cp), batches=3, per_batch=2, warm=1)
+        rec["guard_reducers"] = dict(
+            hook_ms_per_chunk=hook_ms, guard_only_ms=guard_ms,
+            guarded_chunk_ms=chunk_ms, chunk_steps=IO_GUARD_CHUNK,
+            vector_length=int(vec.numel()), sums_rel_err=rel, guard_sums_rel_err=rel_g,
+            nonfinite_after_poke=rep.nonfinite["T"])
+        print(f"  io guard and reducers: {json.dumps(rec['guard_reducers'])}", flush=True)
+        tg.finalize_global_grid()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts, rec
+
+
 def _transport_dir():
     return os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "implicitglobalgrid_tpu_torch", "_build", "transport")
@@ -3587,6 +3897,19 @@ def transport_child(pid, port):
         T, r[name] = timed(lambda: models.run_diffusion(T0, Cp, q, 10, nt_chunk=10,
                                                         impl="plain"), 10)
         save(f"diffusion_{name}_T", tg.gather_interior(T))
+        if name == "plain":  # phase 13b's containers and hook, across the processes
+            from implicitglobalgrid_tpu_torch.io.reducers import make_reduced_post_chunk
+
+            io_state = {"T": T, "Cp": Cp}
+            t0 = time.perf_counter()
+            tg.save_checkpoint_sharded(os.path.join(out, "io_ckpt"), io_state, step=10)
+            r[name]["io_save_ms"] = (time.perf_counter() - t0) * 1e3
+            with tg.SnapshotWriter(os.path.join(out, "io_snaps")) as w:
+                w.submit(io_state, 10)
+            r[name]["io_snapshot"] = w.stats
+            plan = tg.io.build_reducer_plan(io_reducers(tg), ("T", "Cp"), io_state)
+            r[name]["io_vector"] = make_reduced_post_chunk(("T", "Cp"), plan)(
+                (T, Cp)).cpu().tolist()
         # this process's overlap_stats of 2 steps (the hidden share across processes)
         d = os.path.join(out, f"trace_{name}_{pid}")
         with tg.trace(d):
@@ -3685,6 +4008,7 @@ def phase_transport(refs, virtual_step_ms):
                                        if got.shape == ref.shape else -1.0)
         check(same, f"transport: {name} bitwise equal to the virtual mesh's run "
                     f"(max abs err {errs[name]!r})")
+    io = transport_io(recs, out, refs["diffusion_plain_T"])
     shutil.rmtree(out, ignore_errors=True)
     launches = {}
     for r in recs:
@@ -3797,7 +4121,54 @@ def phase_transport(refs, virtual_step_ms):
                                 "half the exact wire's bytes")
     per["residuals"] = r0["config5"]["residuals"]
     per["max_abs_err_vs_virtual"] = errs
+    per["checkpoint_io"] = io
     return launches, per
+
+
+def transport_io(recs, out, ref):
+    """The transport phase's checkpoint and io: the two processes' sharded
+    checkpoint of the README mesh's state after 10 plain-route steps (one
+    file a process, process 0's commit) restored on the virtual mesh
+    bitwise phase 12's state after the same steps (``ref``: its
+    `gather_interior`), their snapshot read bitwise the same, and the
+    guard-and-reducer vector after `transport.all_sum`, equal on both
+    processes, equal to the virtual mesh's on that state (counts, probe,
+    line, min and max bitwise; sums within IO_SUM_RTOL)."""
+    import numpy as np
+
+    import implicitglobalgrid_tpu_torch as tg
+    from implicitglobalgrid_tpu_torch.io.reducers import make_reduced_post_chunk
+
+    grid(tg, N_MESH, N_MESH, N_MESH, dimx=2, dimy=2, dimz=2, periodx=1)
+    st, step = tg.restore_checkpoint_sharded(os.path.join(out, "io_ckpt"))
+    with np.load(os.path.join(out, "io_ckpt", "meta.npz")) as z:
+        nfiles = int(z["__igg_meta__nprocs_files"])
+    check(step == 10 and nfiles == TRANSPORT_PROCS
+          and np.array_equal(tg.gather_interior(st["T"]), ref),
+          f"transport io: the processes' sharded checkpoint ({nfiles} files) restores on the "
+          "virtual mesh bitwise phase 12's state after the same steps")
+    snaps = tg.list_snapshots(os.path.join(out, "io_snaps"))
+    check(len(snaps) == 1 and np.array_equal(tg.open_snapshot(snaps[0][1]).read_global("T"),
+                                             ref),
+          "transport io: the processes' snapshot reads bitwise the virtual mesh's "
+          "gather_interior")
+    names = ("T", "Cp")
+    plan = tg.io.build_reducer_plan(io_reducers(tg), names, st)
+    mine = make_reduced_post_chunk(names, plan)((st["T"], st["Cp"])).cpu().numpy()
+    got = [np.asarray(r["diffusion_overlap"]["plain"]["io_vector"], np.float32) for r in recs]
+    check(all(np.array_equal(g, got[0], equal_nan=True) for g in got),
+          "transport io: the summed vector equal on every process")
+    sums = [1, 3] + [4 + off + j for red, off, _, _ in plan._entries
+                     if isinstance(red, tg.Stats) for j in (0, 1)]
+    exact = [i for i in range(len(mine)) if i not in sums]
+    rel = [float(abs(got[0][i] - mine[i]) / max(abs(mine[i]), 1e-30)) for i in sums]
+    check(len(got[0]) == len(mine) and np.array_equal(got[0][exact], mine[exact])
+          and max(rel) <= IO_SUM_RTOL,
+          f"transport io: the vector equals the virtual mesh's (sums' relative errors {rel})")
+    tg.finalize_global_grid()
+    return dict(files=nfiles, sums_rel_err=rel,
+                save_ms=[r["diffusion_overlap"]["plain"]["io_save_ms"] for r in recs],
+                snapshot=[r["diffusion_overlap"]["plain"]["io_snapshot"] for r in recs])
 
 
 # config 5's dx on one 128^3 block and on the 2x2x2 mesh, the 3 of divV/3,
@@ -4073,6 +4444,7 @@ def main() -> int:
         ens_counts, ens, ens_refs = phase_ensemble(tg, models, cb)
         example = phase_example(tg)
         wire_counts, wire, wire_refs = phase_wire(tg, models, cb)
+        io_counts, io = phase_io(tg, models, cb)
         refs = {k: v for ph in (cfg3, cfg4m, cfg5m) for k, v in ph.pop("transport_ref").items()}
         refs.update(ovl_refs)
         refs.update(ens_refs)
@@ -4088,7 +4460,7 @@ def main() -> int:
 
     paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts,
              cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts, ovl_counts, prof_counts,
-             ens_counts, wire_counts, transport_counts]
+             ens_counts, wire_counts, io_counts, transport_counts]
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNEL_NAMES}
     for name, n in launches.items():
         if n == 0:
@@ -4176,6 +4548,7 @@ def main() -> int:
                                     "profiling": prof, "ensemble": ens,
                                     "advanced_modes_example": example,
                                     "wire_formats_and_sr": wire,
+                                    "checkpoint_io": io,
                                     "transport_2_processes_z": transport},
                       "cdiv": cdiv, "k4s_launches": k4s_launches,
                       "seconds_total": time.perf_counter() - t_start}))

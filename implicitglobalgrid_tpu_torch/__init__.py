@@ -23,7 +23,11 @@ plus `local_update_halo`, `hide_communication`, `halo_comm_plan`, `stochastic_ro
 `coords_g`/`x_g_vec`, `gather_interior`, `gather_sub`, `barrier`/`sync`, the stencil
 helpers (`d_xa` … `inn`), the `Field` wrapper, profiling (`trace`, `annotate`,
 `overlap_stats`, `op_breakdown`) and the ensemble axis (`ensemble_state`,
-`ensemble_partition_spec`). Usage::
+`ensemble_partition_spec`), checkpoints (`save_checkpoint[_sharded]`,
+`restore_checkpoint[_sharded|_elastic]`, `elastic_restart`), async snapshots
+and their reader (`io`: `SnapshotWriter`, `open_snapshot`), and the health
+guard and in-situ reducers after each chunk (`make_guarded_runner`, `Probe`,
+`AxisSlice`, `Stats`). Usage::
 
     import implicitglobalgrid_tpu_torch as igg
     me, dims, nprocs, coords, mesh = igg.init_global_grid(nx, ny, nz)
@@ -57,6 +61,21 @@ from .models import (
     stokes_residuals, stokes_state_from_numpy, stokes_step_local, make_stokes_run,
 )
 from .models.common import ensemble_partition_spec, ensemble_state
+from .utils.checkpoint import (
+    save_checkpoint, restore_checkpoint, load_checkpoint,
+    save_checkpoint_sharded, restore_checkpoint_sharded,
+    restore_checkpoint_elastic, saved_topology, elastic_local_size,
+)
+from .runtime import (
+    GuardConfig, HealthReport, RecoveryPolicy, make_guarded_runner,
+    NaNPoke, CheckpointCorruption, ProcessLoss,
+    poke_nan, corrupt_checkpoint, elastic_restart,
+)
+from . import io
+from .io import (
+    SnapshotWriter, write_snapshot, open_snapshot, list_snapshots,
+    Probe, AxisSlice, Stats,
+)
 
 __version__ = "0.1.0"
 
@@ -77,4 +96,12 @@ __all__ = [
     "make_acoustic_run", "run_acoustic", "acoustic_state_from_numpy",
     "StokesParams", "init_stokes3d", "stokes_step_local", "make_stokes_run", "run_stokes",
     "stokes_residuals", "stokes_state_from_numpy",
+    "save_checkpoint", "restore_checkpoint", "load_checkpoint",
+    "save_checkpoint_sharded", "restore_checkpoint_sharded",
+    "restore_checkpoint_elastic", "saved_topology", "elastic_local_size",
+    "GuardConfig", "HealthReport", "RecoveryPolicy", "make_guarded_runner",
+    "NaNPoke", "CheckpointCorruption", "ProcessLoss",
+    "poke_nan", "corrupt_checkpoint", "elastic_restart",
+    "io", "SnapshotWriter", "write_snapshot", "open_snapshot", "list_snapshots",
+    "Probe", "AxisSlice", "Stats",
 ]

@@ -190,7 +190,8 @@ def check_ensemble(state, ensemble: int, ndim_min: int = 2) -> int:
     return E
 
 
-def make_state_runner(step_local, *, nt_chunk: int, ensemble: int | None = None):
+def make_state_runner(step_local, *, nt_chunk: int, ensemble: int | None = None,
+                      post_chunk=None, key=None):
     """A runner ``run(*state, donate=False) -> state`` advancing
     ``nt_chunk`` steps.
 
@@ -199,7 +200,16 @@ def make_state_runner(step_local, *, nt_chunk: int, ensemble: int | None = None)
     to allocate) and returns the new state and the buffer it no longer needs
     (which becomes the next step's ``spare``). The caller's input is used as
     a spare only with ``donate=True``. ``ensemble``: the member count of an
-    ensemble's state (``>= 1``; the step carries the member axis)."""
+    ensemble's state (``>= 1``; the step carries the member axis).
+
+    ``post_chunk(state) -> aux``: the hook after the chunk's last step (the
+    health guard, `runtime.health`; the in-situ reducers,
+    `io.reducers.make_reduced_post_chunk`): ``run`` returns ``(*state,
+    aux)``, ``aux`` a float32 tensor on the state's device, equal on every
+    process. An ensemble runner calls it as ``post_chunk(state,
+    members=ensemble)`` and it gives an ``(E, n)`` matrix, one row a
+    member. ``key`` is accepted for parity with the JAX package's callers
+    (its compiled-runner cache key); nothing is cached here."""
     check_initialized()
     if ensemble is not None and int(ensemble) < 1:
         raise InvalidArgumentError(f"make_state_runner: ensemble must be >= 1; got {ensemble}.")
@@ -211,7 +221,10 @@ def make_state_runner(step_local, *, nt_chunk: int, ensemble: int | None = None)
         for k in range(nt_chunk):
             state, old = step_local(state, spare)
             spare = old if (k > 0 or donate) else None
-        return state
+        if post_chunk is None:
+            return state
+        aux = post_chunk(state) if ensemble is None else post_chunk(state, members=int(ensemble))
+        return (*state, aux)
 
     return run
 

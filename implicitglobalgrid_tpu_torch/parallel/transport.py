@@ -222,6 +222,16 @@ class InProcess:
         """The elementwise maximum of ``values`` (floats) over the processes."""
         return [float(v) for v in values]
 
+    def all_sum(self, t):
+        """The elementwise sum of tensor ``t`` over the processes, on
+        ``t``'s device (JAX's ``lax.psum`` over every mesh axis; here the
+        one process's ``t`` itself)."""
+        return t
+
+    def broadcast_one_to_all(self, obj):
+        """Process 0's ``obj`` (any picklable object) on every process."""
+        return obj
+
     def barrier(self) -> None:
         """Return once every process has reached it."""
 
@@ -346,6 +356,25 @@ class Dist(InProcess):
         v = torch.tensor([float(x) for x in values], dtype=torch.float64, device=dev)
         dist.all_reduce(v, op=dist.ReduceOp.MAX)
         return [float(x) for x in v.cpu()]
+
+    def all_sum(self, t):
+        """`dist.all_reduce` (SUM) of a copy of ``t``: on the device under
+        NCCL; under gloo a CUDA tensor goes through pinned host memory (as
+        `exchange` stages it) and back. Returns a new tensor on ``t``'s
+        device."""
+        import torch.distributed as dist
+
+        if self.backend != "gloo" or t.device.type != "cuda":
+            out = t.contiguous().clone()
+            dist.all_reduce(out, op=dist.ReduceOp.SUM)
+            return out
+        host = self._host("sum", t.numel() * t.element_size()).view(t.dtype)
+        host.copy_(t.reshape(-1))
+        dist.all_reduce(host, op=dist.ReduceOp.SUM)
+        return host.to(t.device).view(t.shape)
+
+    def broadcast_one_to_all(self, obj):
+        return self.all_gather_object(obj)[0]
 
     def barrier(self) -> None:
         import torch.distributed as dist

@@ -30,6 +30,12 @@ virtual mesh's. The tests read those results:
   the exact wire's under bfloat16 on float32 state);
 - an ensemble's diffusion (E = 3), each member bitwise the virtual mesh's,
   with E = 1's transport messages and 3 times its wire bytes;
+- a sharded checkpoint and a snapshot of every process's box (float64,
+  float32 staggered, a 2-D field replicated over z, bfloat16), restored in
+  the process group bitwise and, by the test, on the virtual mesh bitwise
+  the virtual mesh's own; the guard-and-reducer vector after
+  `transport.all_sum` equal to the virtual mesh's (its float32 sums within
+  1e-6 of the largest);
 - `tic`/`toc` spanning the processes.
 """
 
@@ -71,10 +77,11 @@ CHECKS = [
     "deep/diffusion", "deep/acoustic", "deep/diffusion_1", "deep/diffusion_z2",
     "wire/coalesced_int8", "wire/coalesced_bfloat16", "wire/per_dim_bfloat16",
     "wire/per_dim_float16", "wire/diffusion_fused_int8", "wire/diffusion_sr",
-    "ensemble/diffusion_e3",
+    "ensemble/diffusion_e3", "io/restored", "io/vector",
 ]
 
 _RESULTS: dict = {}
+_OUTDIRS: dict = {}
 
 
 def _free_port():
@@ -89,7 +96,7 @@ def results(config, tmp_path_factory):
     """Every process's results of ``config`` (spawned once per module)."""
     if config not in _RESULTS:
         nproc, dcn = CONFIGS[config]
-        out = tmp_path_factory.mktemp(config)
+        out = _OUTDIRS[config] = tmp_path_factory.mktemp(config)
         env = {k: v for k, v in os.environ.items()
                if k not in ("IGG_TPU_DCN_AXES", "MASTER_ADDR", "WORLD_SIZE")}
         port = str(_free_port())
@@ -208,6 +215,41 @@ def test_ensemble_messages_flat_in_members(config, tmp_path_factory):
         assert got["messages_1"][pid] > 0, pid
         assert got["messages_3"][pid] == got["messages_1"][pid], pid
         assert got["wire_bytes_3"][pid] == 3 * got["wire_bytes_1"][pid], pid
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_io_containers_restore_on_the_virtual_mesh(config, tmp_path_factory):
+    """The processes' sharded checkpoint (one file a process) restores on the
+    8-rank virtual mesh bitwise the virtual mesh's own checkpoint of the same
+    state, and their snapshot reads bitwise the virtual mesh's snapshot."""
+    import numpy as np
+    import torch
+
+    import implicitglobalgrid_tpu_torch as tg
+
+    for pid, v in _each(config, tmp_path_factory, "io/restored"):
+        assert v == "ok", (pid, v)
+    out = _OUTDIRS[config]
+    tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=2, periodx=1, periody=1, quiet=True,
+                        nranks=8, device_type="cpu")
+    try:
+        got, step = tg.restore_checkpoint_sharded(str(out / "io" / "ckpt"))
+        ref, _ = tg.restore_checkpoint_sharded(str(out / "io_ref0" / "ckpt"))
+        assert step == 3 and got.keys() == ref.keys() == {"A", "V", "S", "B"}
+        for k in ref:
+            assert got[k].dtype == ref[k].dtype and torch.equal(got[k], ref[k]), k
+        with np.load(out / "io" / "ckpt" / "meta.npz") as z:
+            assert int(z["__igg_meta__nprocs_files"]) == CONFIGS[config][0]
+        [(s_got, p_got)] = tg.list_snapshots(out / "io" / "snaps")
+        [(s_ref, p_ref)] = tg.list_snapshots(out / "io_ref0" / "snaps")
+        assert s_got == s_ref == 3
+        a, b = tg.open_snapshot(p_got), tg.open_snapshot(p_ref)
+        for k in ref:
+            ga, gb = a.read_global(k), b.read_global(k)
+            assert ga.dtype == gb.dtype and ga.tobytes() == gb.tobytes(), k
+            assert ga.tobytes() == tg.gather_interior(ref[k]).tobytes(), k
+    finally:
+        tg.finalize_global_grid()
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))

@@ -23,6 +23,11 @@ def test_import_leaves_jax_out():
         "import implicitglobalgrid_tpu_torch.examples.stokes3D_multixpu\n"
         "import implicitglobalgrid_tpu_torch.examples.diffusion3D_advanced_modes\n"
         "import implicitglobalgrid_tpu_torch.utils.profiling, implicitglobalgrid_tpu_torch.utils.trace_events\n"
+        "import implicitglobalgrid_tpu_torch.utils.blockio, implicitglobalgrid_tpu_torch.utils.checkpoint\n"
+        "import implicitglobalgrid_tpu_torch.io.layout, implicitglobalgrid_tpu_torch.io.snapshot\n"
+        "import implicitglobalgrid_tpu_torch.io.reader, implicitglobalgrid_tpu_torch.io.reducers\n"
+        "import implicitglobalgrid_tpu_torch.runtime.health, implicitglobalgrid_tpu_torch.runtime.faults\n"
+        "import implicitglobalgrid_tpu_torch.runtime.recovery\n"
         "tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=2, device_type='cpu', quiet=True)\n"
         "T, Cp, p = implicitglobalgrid_tpu_torch.models.init_diffusion3d()\n"
         "T = implicitglobalgrid_tpu_torch.models.run_diffusion(T, Cp, p, 2)\n"
@@ -42,6 +47,19 @@ def test_import_leaves_jax_out():
         "    with tg.trace(d):\n"
         "        tg.update_halo(T)\n"
         "    tg.overlap_stats(d), tg.op_breakdown(d)\n"
+        "    tg.save_checkpoint_sharded(d + '/ck', {'T': T, 'Cp': Cp}, step=2)\n"
+        "    tg.save_checkpoint(d + '/ck.npz', {'T': T}, step=2)\n"
+        "    tg.restore_checkpoint(d + '/ck.npz')\n"
+        "    tg.restore_checkpoint_sharded(d + '/ck')\n"
+        "    T = tg.elastic_restart(d + '/ck', (1, 2, 4))[0]['T']\n"
+        "    with tg.SnapshotWriter(d + '/s') as w:\n"
+        "        w.submit({'T': T}, 2)\n"
+        "    tg.open_snapshot(tg.list_snapshots(d + '/s')[0][1]).read_global('T')\n"
+        "    from implicitglobalgrid_tpu_torch.io.reducers import make_reduced_post_chunk\n"
+        "    plan = tg.io.build_reducer_plan([tg.Probe('T', (1, 1, 1)), tg.Stats('T')], ['T'], {'T': T})\n"
+        "    run = implicitglobalgrid_tpu_torch.models.common.make_state_runner(\n"
+        "        lambda s, spare: (s, None), nt_chunk=1, post_chunk=make_reduced_post_chunk(['T'], plan))\n"
+        "    plan.decode(run(tg.poke_nan(T, (0, 0, 0)))[-1][2:])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'implicitglobalgrid_tpu' or m.startswith('implicitglobalgrid_tpu.'))\n"
         "print(bad)\n"
@@ -60,7 +78,9 @@ def test_sources_name_no_jax():
     assert {"parallel/transport.py", "examples/diffusion3D_multixpu_novis.py",
             "examples/acoustic3D_multixpu.py", "examples/stokes3D_multixpu.py",
             "examples/diffusion3D_advanced_modes.py", "utils/profiling.py",
-            "utils/trace_events.py"} <= names
+            "utils/trace_events.py", "utils/blockio.py", "utils/checkpoint.py",
+            "io/layout.py", "io/snapshot.py", "io/reader.py", "io/reducers.py",
+            "runtime/health.py", "runtime/faults.py", "runtime/recovery.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

@@ -291,6 +291,38 @@ def case_ensemble():
     return out
 
 
+def case_io():
+    """A sharded checkpoint and a `SnapshotWriter` snapshot of each process's
+    box (process 0 commits both; the virtual mesh writes its own under
+    ``io_ref<pid>``), the checkpoint restored in the process group, and the
+    guard-and-reducer vector after `transport.all_sum`."""
+    from implicitglobalgrid_tpu_torch.io.reducers import make_reduced_post_chunk
+    from implicitglobalgrid_tpu_torch.models.common import make_state_runner
+
+    gg = tg.global_grid()
+    where = OUT / ("io" if gg.transport.world > 1 else f"io_ref{PID}")
+    state = {"A": tg.update_halo(global_input((6, 6, 6), 20)),
+             "V": global_input((7, 6, 6), 21, torch.float32),
+             "S": global_input((6, 6), 22),
+             "B": global_input((6, 6, 6), 23, torch.bfloat16)}
+    tg.save_checkpoint_sharded(str(where / "ckpt"), state, step=3)
+    with tg.SnapshotWriter(where / "snaps") as w:
+        w.submit(state, 3)
+    restored, step = tg.restore_checkpoint_sharded(str(where / "ckpt"))
+    assert step == 3
+    names = ("A", "V", "S")
+    plan = tg.io.build_reducer_plan(
+        [tg.Probe("A", (3, 4, 5)), tg.AxisSlice("V", 0, (0, 2, 7)), tg.Stats("A"),
+         tg.Stats("S"), tg.Probe("S", (4, 7)), tg.AxisSlice("S", 1, (6, 0))], names, state)
+    run = make_state_runner(lambda s, spare: (s, None), nt_chunk=1,
+                            post_chunk=make_reduced_post_chunk(names, plan))
+    vec = run(*(state[k] for k in names))[-1]
+    sums = [1, 3, 5] + [2 * len(names) + o + j for red, o, _, _ in plan._entries
+                        if isinstance(red, tg.Stats) for j in (0, 1)]
+    return {"restored": ("boxes", tuple(restored[k] for k in state)),
+            "vector": ("vec", (vec.tolist(), sums))}
+
+
 def case_timing():
     tg.tic()
     if tg.global_grid().me == 1:
@@ -303,7 +335,8 @@ CASES = [("layout", G0, DCN, case_layout), ("encoded", G0, DCN, case_encoded),
          ("halo_g2", G2, DCN_G2, case_halo_g2), ("models", G1, DCN, case_models),
          ("models_2d", G3, "", case_models_2d), ("overlap", G4, DCN, case_overlap),
          ("deep", G5, DCN, case_deep), ("wire", G1, DCN, case_wire),
-         ("ensemble", G1, DCN, case_ensemble), ("timing", G1, DCN, case_timing)]
+         ("ensemble", G1, DCN, case_ensemble), ("io", G1, DCN, case_io),
+         ("timing", G1, DCN, case_timing)]
 
 
 def run(grid_kw, dcn, fn, **init):
@@ -351,6 +384,14 @@ def compare(kind, got, ref, layout, me):
             else "root's array differs"
     if kind == "same":
         return "ok" if got == ref else f"{got} != {ref}"
+    if kind == "vec":
+        # bitwise but for the float32 sums (``sums``), summed in another
+        # order across processes: within 1e-6 of the largest norm2
+        (g, sums), (r, _) = got, ref
+        tol = 1e-6 * max(abs(r[i]) for i in sums if i < 6)
+        bad = [i for i, (a, b) in enumerate(zip(g, r))
+               if not (a == b or (a != a and b != b) or (i in sums and abs(a - b) <= tol))]
+        return "ok" if len(g) == len(r) and not bad else f"entries {bad} differ"
     return "ok"
 
 
