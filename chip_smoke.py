@@ -135,6 +135,24 @@ Phases, in order; any failure exits non-zero without the final line:
    PyTorch on the card (counts, probe, line, min and max bitwise, sums
    within IO_SUM_RTOL), a `poke_nan` tripping ``nonfinite:T``, the hook's
    ms; in a temporary directory, removed after;
+13c. the supervised run (`run_resilient`): the main path (256^3 periodic,
+   K1) for 400 steps in chunks of 100, the bare donating runner giving the
+   reference T; the driver with its default knobs (the guard only) giving
+   T bitwise; then with a checkpoint and a snapshot every 200 steps, a
+   `Stats` reducer, a `NaNPoke` at step 250 and a flight recorder, T
+   bitwise again, exactly one report tripped (``nonfinite:T``), and
+   `run_report` of the stream showing one rollback, three saves, one
+   restore and two snapshots, K1 launched once a step the driver ran (the
+   replayed ones included); chunk ms of the bare runner, the step adapter
+   alone, the guard-only and the full run, the save, restore and rollback
+   ms, the `Stats` hook's and the guard's ms. The 128^3 mesh (2x2x2
+   periodic in x, K4s + K4), 40 steps in chunks of 10 with a checkpoint
+   every 20: a `ProcessLoss` at step 20 leaves the grid 4x2x1 on the card,
+   `gather_interior(T)` bitwise the uninterrupted 2x2x2 run; a bit-flipped
+   second save and a NaN roll back onto the other slot and end bitwise.
+   Then the fifth example (`examples.diffusion3D_multixpu`) at its card
+   size: 10 frames, the last bitwise the z-midplane of `gather_interior(T)`;
+   in a temporary directory, removed after;
 14. the transport: two processes of this script (``--transport-child``)
    share cuda:0 in a gloo process group (NCCL refuses two processes on one
    card), the grids split along z (``IGG_TPU_DCN_AXES=z``, a 2x2x1 box
@@ -156,11 +174,16 @@ Phases, in order; any failure exits non-zero without the final line:
    commits) and computes the guard-and-reducer vector after
    `transport.all_sum`: the checkpoint restores on the virtual mesh bitwise
    phase 12's state, the snapshot reads bitwise its `gather_interior`, the
-   vector equals the virtual mesh's;
+   vector equals the virtual mesh's; then both processes run
+   `run_resilient` on the diffusion mesh's plain route (10 steps, a shared
+   checkpoint directory, a `NaNPoke` in process 1's box), the gathered T
+   bitwise phase 12's 10 plain steps, each process's own flight stream
+   (its rank as ``proc``) holding the guard trip and the rollback;
 15. numbers: the card's name and power limit, each kernel's time, bound,
    plain and library times (one JSON line), cell-updates/s, host against
    device time per step of the fused routes, phase 13b's checkpoint and io
-   numbers, and the main paths' K4s launches by mode and dim.
+   numbers, phase 13c's ``supervised_run``, and the main paths' K4s
+   launches by mode and dim.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 nothing of JAX. It needs one card and exits non-zero without CUDA or
@@ -3777,6 +3800,239 @@ def phase_io(tg, models, cb):
     return counts, rec
 
 
+SUP_CHUNK, SUP_STEPS = 100, 400  # phase 13c's main path: 400 K1 steps in chunks of 100
+SUP_POKE = (250, (5, 6, 7))  # its NaN: the step and the cell (an interior one)
+SUP_MESH_STEPS, SUP_MESH_CHUNK = 40, 10  # the 128^3 mesh's supervised runs
+
+
+def _chunk_ms(events):
+    """The chunks' exec ms (dispatch through the stats fetch) of a flight
+    stream, in order."""
+    return [e["exec_s"] * 1e3 for e in events if e["kind"] == "chunk"]
+
+
+def phase_supervised(tg, models, cb):
+    """Phase 13c: the supervised run (`run_resilient`). The main path
+    (256^3 periodic, K1) for 400 steps in chunks of 100: the bare donating
+    runner gives the reference T; the driver with its default knobs (the
+    guard only) gives T bitwise; then with a checkpoint and a snapshot
+    every 200 steps, a `Stats` reducer, a NaN at step 250 and a flight
+    recorder it gives T bitwise again, one report tripped with
+    ``nonfinite:T``, and `run_report` of the stream shows one rollback, the
+    saves and restores, two snapshots; K1's launches equal the steps the
+    driver ran, the replayed ones included. The 128^3 mesh (2x2x2 periodic
+    in x, K4s + K4): 40 steps in chunks of 10 with a `ProcessLoss` at step
+    20 end on 4x2x1 bitwise the uninterrupted run; a bit-flipped second
+    save and a NaN fall back to the other slot and end bitwise. Then the
+    fifth example at its card size. Files go to a temporary directory,
+    removed at the end. Returns (launches, record)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from implicitglobalgrid_tpu_torch.io.reducers import build_reducer_plan, \
+        make_reduced_post_chunk
+    from implicitglobalgrid_tpu_torch.models.common import make_state_runner
+    from implicitglobalgrid_tpu_torch.runtime.health import health_stats_local
+
+    print(f"phase: the supervised run (run_resilient); card {card_name()}", flush=True)
+    tmp = tempfile.mkdtemp(prefix="igg_supervised_")
+    counts, rec = {}, {}
+
+    def add(c):
+        for k, n in c.items():
+            counts[k] = counts.get(k, 0) + n
+
+    def timed_chunks(run, s, n):
+        out = []
+        for k in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = run(*s, donate=k > 0)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return s, out
+
+    try:
+        # the main path: K1 on 256^3, periodic
+        grid(tg, N_MAIN, N_MAIN, N_MAIN, periodx=1, periody=1, periodz=1)
+        T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+        run = models.make_run(p, SUP_CHUNK)
+        run(T0, Cp)  # warm chunk
+        s, bare_ms = timed_chunks(run, (T0, Cp), SUP_STEPS // SUP_CHUNK)
+        T_ref = s[0].clone()
+        del s
+        step_T = models.make_step(p)  # the kernel route (K1 a step)
+
+        def step(st):
+            return {"T": step_T(st["T"], st["Cp"]), "Cp": st["Cp"]}
+
+        # the driver's step adapter alone (a dict step, no spare: each step
+        # allocates its output) against the donating runner
+        adapter = make_state_runner(
+            tg.ResilientRun(step, {"T": T0, "Cp": Cp}, 1)._step_tuple, nt_chunk=SUP_CHUNK)
+        adapter(T0, Cp)
+        _, adapter_ms = timed_chunks(adapter, (T0, Cp), 3)
+        # the default knobs: the guard after each chunk
+        fr = os.path.join(tmp, "guard.jsonl")
+        tg.start_flight_recorder(fr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, reps = tg.run_resilient(step, {"T": T0, "Cp": Cp}, SUP_STEPS, nt_chunk=SUP_CHUNK)
+        guard_wall = (time.perf_counter() - t0) * 1e3
+        tg.stop_flight_recorder()
+        guard_ms = _chunk_ms(tg.read_flight_events(fr))
+        check(torch.equal(out["T"], T_ref) and len(reps) == SUP_STEPS // SUP_CHUNK
+              and all(r.ok for r in reps),
+              f"supervised main path, default knobs: T bitwise the bare runner's after "
+              f"{SUP_STEPS} steps ({len(reps)} clean reports)")
+        del out
+        # checkpoints, snapshots, a reducer, a NaN, a flight recorder
+        fr = os.path.join(tmp, "full.jsonl")
+        tg.reset_metrics()
+        cb.reset_launch_counts()
+        tg.start_flight_recorder(fr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, reps = tg.run_resilient(
+            step, {"T": T0, "Cp": Cp}, SUP_STEPS, nt_chunk=SUP_CHUNK,
+            checkpoint_dir=os.path.join(tmp, "ck"), checkpoint_every=200,
+            snapshot_dir=os.path.join(tmp, "snaps"), snapshot_every=200,
+            snapshot_fields=("T",), reducers=[tg.Stats("T")],
+            faults=(tg.NaNPoke(SUP_POKE[0], "T", SUP_POKE[1]),))
+        full_wall = (time.perf_counter() - t0) * 1e3
+        tg.stop_flight_recorder()
+        c = cb.launch_counts()
+        add(c)
+        ran = sum(r.step_end - r.step_begin for r in reps)
+        tripped = [r for r in reps if not r.ok]
+        check(torch.equal(out["T"], T_ref), "supervised main path, faulted: T bitwise the "
+                                            "bare runner's after the rollback")
+        check(len(tripped) == 1 and tripped[0].reasons == ("nonfinite:T",)
+              and tripped[0].step_begin == SUP_POKE[0],
+              f"supervised main path: exactly one report tripped, nonfinite:T from step "
+              f"{SUP_POKE[0]} ({[(r.step_begin, r.reasons) for r in tripped]})")
+        check(c["diffusion3d_step_halo"] == ran,
+              f"supervised main path: K1 launched once a step the driver ran, the replayed "
+              f"ones included ({c['diffusion3d_step_halo']} launches, {ran} steps)")
+        evs = tg.read_flight_events(fr)
+        rep = tg.run_report(fr, include_metrics=False)
+        ck, io = rep["checkpoints"], rep["io"]
+        check(ck["rollbacks"] == 1 and ck["restores"] == 1 and ck["saves"] == 3
+              and io["snapshots_written"] == 2 and io["snapshots_submitted"] == 2
+              and rep["guards"] == {"trips": 1, "reasons": {"nonfinite:T": 1}},
+              f"supervised main path: run_report shows one rollback, {ck['saves']} saves "
+              f"and {ck['restores']} restore, {io['snapshots_written']} snapshots written")
+        t = {e["kind"]: e["t"] for e in evs if e["kind"] in ("guard_trip", "rollback")}
+        save_ms = [e["dur_s"] * 1e3 for e in evs if e["kind"] == "checkpoint_save"]
+        restore_ms = [e["dur_s"] * 1e3 for e in evs if e["kind"] == "checkpoint_restore"]
+        snaps = tg.list_snapshots(os.path.join(tmp, "snaps"))
+        check([st for st, _ in snaps] == [200, SUP_STEPS] and np.array_equal(
+            tg.open_snapshot(snaps[-1][1]).read_global("T"), tg.gather_interior(out["T"])),
+            "supervised main path: the last snapshot reads bitwise gather_interior(T)")
+        names = ("T", "Cp")
+        plan = build_reducer_plan([tg.Stats("T")], names, {"T": T0, "Cp": Cp})
+        hook = make_reduced_post_chunk(names, plan)
+        hook_ms = median_ms(lambda: hook((T0, Cp)), batches=5, per_batch=5)
+        guard_only_ms = median_ms(lambda: health_stats_local((T0, Cp)), batches=5,
+                                  per_batch=5)
+        nbytes = sum(a.numel() * a.element_size() for a in (T0, Cp))
+        rec["main_path"] = dict(
+            steps=SUP_STEPS, chunk_steps=SUP_CHUNK, bare_chunk_ms=bare_ms,
+            adapter_chunk_ms=adapter_ms, guard_chunk_exec_ms=guard_ms,
+            guard_run_wall_ms=guard_wall, bare_run_wall_ms=sum(bare_ms),
+            full_chunk_exec_ms=_chunk_ms(evs), full_run_wall_ms=full_wall,
+            steps_run=ran, k1_launches=c["diffusion3d_step_halo"],
+            save_ms=save_ms, restore_ms=restore_ms,
+            rollback_ms=(t["rollback"] - t["guard_trip"]) * 1e3,
+            checkpoint_bytes=nbytes, save_gb_per_s=[nbytes / m / 1e6 for m in save_ms],
+            stats_hook_ms=hook_ms, guard_only_ms=guard_only_ms,
+            snapshot_bytes=io["snapshot_bytes"], snapshot_write_s=io["snapshot_write_s_total"])
+        print(f"  supervised main path: {json.dumps(rec['main_path'])}", flush=True)
+        del out, T_ref, T0, Cp, adapter
+
+        # the 128^3 mesh: 2x2x2 periodic in x, the kernel route (K4s + K4)
+        grid(tg, N_MESH, N_MESH, N_MESH, dimx=2, dimy=2, dimz=2, periodx=1)
+        T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+        cb.reset_launch_counts()
+        G_ref = tg.gather_interior(models.run_diffusion(T0, Cp, p, SUP_MESH_STEPS,
+                                                        nt_chunk=SUP_MESH_CHUNK))
+        step_T = models.make_step(p)
+        kw = dict(nt_chunk=SUP_MESH_CHUNK, checkpoint_every=20)
+        fr = os.path.join(tmp, "elastic.jsonl")
+        tg.start_flight_recorder(fr)
+        t0 = time.perf_counter()
+        out, reps = tg.run_resilient(step, {"T": T0, "Cp": Cp}, SUP_MESH_STEPS,
+                                     checkpoint_dir=os.path.join(tmp, "ck_elastic"),
+                                     faults=(tg.ProcessLoss(20, (4, 2, 1)),), **kw)
+        elastic_wall = (time.perf_counter() - t0) * 1e3
+        tg.stop_flight_recorder()
+        gg = tg.global_grid()
+        check(tuple(int(d) for d in gg.dims) == (4, 2, 1) and gg.device.type == "cuda",
+              "supervised mesh: the ProcessLoss left the grid 4x2x1 on the card")
+        check(np.array_equal(tg.gather_interior(out["T"]), G_ref),
+              f"supervised mesh: after the elastic restart gather_interior(T) bitwise the "
+              f"uninterrupted 2x2x2 run's ({SUP_MESH_STEPS} steps)")
+        el = tg.run_report(fr, include_metrics=False)
+        add(cb.launch_counts())
+        del out
+        grid(tg, N_MESH, N_MESH, N_MESH, dimx=2, dimy=2, dimz=2, periodx=1)
+        T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+        step_T = models.make_step(p)
+        cb.reset_launch_counts()
+        fr = os.path.join(tmp, "fallback.jsonl")
+        tg.start_flight_recorder(fr)
+        out, reps = tg.run_resilient(step, {"T": T0, "Cp": Cp}, SUP_MESH_STEPS,
+                                     checkpoint_dir=os.path.join(tmp, "ck_fallback"),
+                                     faults=(tg.CheckpointCorruption(1, kind="bitflip"),
+                                             tg.NaNPoke(25, "T", (5, 6, 7))), **kw)
+        tg.stop_flight_recorder()
+        c = cb.launch_counts()
+        add(c)
+        fb = tg.run_report(fr, include_metrics=False)
+        rolls = [e for e in fb["sequence"] if e["kind"] == "rollback"]
+        check(len(rolls) == 1 and rolls[0]["fallback"] is True and rolls[0]["to_step"] == 0,
+              f"supervised mesh: the bit-flipped slot detected, the rollback fell back to "
+              f"the other slot ({rolls})")
+        check(np.array_equal(tg.gather_interior(out["T"]), G_ref),
+              "supervised mesh: after the fallback gather_interior(T) bitwise the "
+              "uninterrupted run's")
+        check(c["diffusion3d_step_exchange"] == sum(r.step_end - r.step_begin for r in reps),
+              "supervised mesh: K4 once a step the driver ran")
+        rec["mesh"] = dict(
+            elastic_wall_ms=elastic_wall, elastic=el["elastic_restarts"],
+            elastic_restore_ms=[e["dur_s"] * 1e3 for e in el["sequence"]
+                                if e["kind"] == "checkpoint_restore"],
+            elastic_save_ms=[e["dur_s"] * 1e3 for e in el["sequence"]
+                             if e["kind"] == "checkpoint_save"],
+            fallback_restores=fb["checkpoints"]["restores"],
+            fallback_steps_run=sum(r.step_end - r.step_begin for r in reps))
+        print(f"  supervised mesh: {json.dumps(rec['mesh'])}", flush=True)
+        del out, T0, Cp, G_ref
+        tg.finalize_global_grid()
+
+        # the fifth example at its card size
+        from implicitglobalgrid_tpu_torch.examples.diffusion3D_multixpu import diffusion3D
+
+        os.environ.pop("IGG_USE_PALLAS", None)
+        cb.reset_launch_counts()
+        t0 = time.perf_counter()
+        frames, G = diffusion3D()
+        ex_s = time.perf_counter() - t0
+        add(cb.launch_counts())
+        check(frames.shape[0] == 10 and np.array_equal(frames[-1], G[:, :, G.shape[2] // 2]),
+              f"vis example: {frames.shape[0]} frames, the last bitwise the z-midplane of "
+              f"gather_interior(T)")
+        rec["vis_example"] = dict(frames=list(frames.shape), seconds=ex_s,
+                                  launches=cb.launch_counts())
+        print(f"  vis example: {json.dumps(rec['vis_example'])}", flush=True)
+    finally:
+        tg.stop_flight_recorder()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts, rec
+
+
 def _transport_dir():
     return os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "implicitglobalgrid_tpu_torch", "_build", "transport")
@@ -3918,6 +4174,32 @@ def transport_child(pid, port):
         r[name]["op_breakdown"] = tg.op_breakdown(d, top=6)
         shutil.rmtree(d, ignore_errors=True)
     tg.finalize_global_grid()
+    # run_resilient on the same mesh's plain route: a shared checkpoint
+    # directory, a NaN in process 1's box (z-block 1), a flight stream a
+    # process; 10 steps, the rollback's replay included
+    r = rec["resilient"] = grid(N_MESH, periodx=1)
+    T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    fr = os.path.join(out, f"resilient_flight_{pid}.jsonl")
+    tg.start_flight_recorder(fr)
+    cb.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, reps = tg.run_resilient(
+        lambda s: {"T": models.diffusion_step_local(s["T"], s["Cp"], p, "plain"),
+                   "Cp": s["Cp"]},
+        {"T": T0, "Cp": Cp}, 10, nt_chunk=5, checkpoint_dir=os.path.join(out, "resilient_ck"),
+        faults=[tg.NaNPoke(step=6, name="T", index=(5, 6, N_MESH + 7))])
+    r["run"] = dict(wall_ms=(time.perf_counter() - t0) * 1e3, launches=cb.launch_counts())
+    tg.stop_flight_recorder()
+    rr = tg.run_report(fr, include_metrics=False)
+    r["flight"] = dict(procs=sorted({e["proc"] for e in tg.read_flight_events(fr)}),
+                       rollbacks=rr["checkpoints"]["rollbacks"], trips=rr["guards"]["trips"],
+                       saves=rr["checkpoints"]["saves"],
+                       save_ms=[e["dur_s"] * 1e3 for e in rr["sequence"]
+                                if e["kind"] == "checkpoint_save"],
+                       tripped=[[x.step_begin, x.step_end] for x in reps if not x.ok])
+    save("resilient_T", tg.gather_interior(res["T"]))
+    del res, T0, Cp
+    tg.finalize_global_grid()
     r = rec["diffusion_deep"] = grid(N_MESH, periodx=1, overlaps=(4, 4, 4),
                                      halowidths=(2, 2, 2))
     T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
@@ -3999,6 +4281,8 @@ def phase_transport(refs, virtual_step_ms):
     for pid in range(TRANSPORT_PROCS):
         with open(os.path.join(out, f"record_{pid}.json")) as f:
             recs.append(json.load(f))
+    # the supervised run ends as the same mesh's 10 plain-route steps
+    refs = dict(refs, resilient_T=refs["diffusion_plain_T"])
     errs = {}
     for name, ref in refs.items():
         got = np.load(os.path.join(out, name + ".npy"))
@@ -4119,6 +4403,15 @@ def phase_transport(refs, virtual_step_ms):
         if part.endswith("bfloat16") and cfg == "config4":
             check(ratio == 0.5, f"transport {cfg} {part}: bfloat16 on float32 state sends "
                                 "half the exact wire's bytes")
+    for pid, r in enumerate(recs):
+        f = r["resilient"]["flight"]
+        check(f["procs"] == [pid] and f["rollbacks"] == 1 and f["trips"] == 1
+              and f["tripped"] == [[6, 10]],
+              f"transport run_resilient, process {pid}: its own flight stream (proc {f['procs']})"
+              f" holds the guard trip at steps {f['tripped']} and {f['rollbacks']} rollback")
+    per["resilient"] = dict(wall_ms=[r["resilient"]["run"]["wall_ms"] for r in recs],
+                            flight=[r["resilient"]["flight"] for r in recs])
+    print(f"  transport run_resilient: {json.dumps(per['resilient'])}", flush=True)
     per["residuals"] = r0["config5"]["residuals"]
     per["max_abs_err_vs_virtual"] = errs
     per["checkpoint_io"] = io
@@ -4445,6 +4738,7 @@ def main() -> int:
         example = phase_example(tg)
         wire_counts, wire, wire_refs = phase_wire(tg, models, cb)
         io_counts, io = phase_io(tg, models, cb)
+        sup_counts, sup = phase_supervised(tg, models, cb)
         refs = {k: v for ph in (cfg3, cfg4m, cfg5m) for k, v in ph.pop("transport_ref").items()}
         refs.update(ovl_refs)
         refs.update(ens_refs)
@@ -4460,7 +4754,7 @@ def main() -> int:
 
     paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts,
              cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts, ovl_counts, prof_counts,
-             ens_counts, wire_counts, io_counts, transport_counts]
+             ens_counts, wire_counts, io_counts, sup_counts, transport_counts]
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNEL_NAMES}
     for name, n in launches.items():
         if n == 0:
@@ -4550,6 +4844,7 @@ def main() -> int:
                                     "wire_formats_and_sr": wire,
                                     "checkpoint_io": io,
                                     "transport_2_processes_z": transport},
+                      "supervised_run": sup,
                       "cdiv": cdiv, "k4s_launches": k4s_launches,
                       "seconds_total": time.perf_counter() - t_start}))
     print(card)

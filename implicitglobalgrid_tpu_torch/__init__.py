@@ -27,7 +27,9 @@ helpers (`d_xa` … `inn`), the `Field` wrapper, profiling (`trace`, `annotate`,
 `restore_checkpoint[_sharded|_elastic]`, `elastic_restart`), async snapshots
 and their reader (`io`: `SnapshotWriter`, `open_snapshot`), and the health
 guard and in-situ reducers after each chunk (`make_guarded_runner`, `Probe`,
-`AxisSlice`, `Stats`). Usage::
+`AxisSlice`, `Stats`), the supervised run (`run_resilient`, `ResilientRun`,
+`RunSpec`) and its telemetry (`telemetry`: the metrics registry, the flight
+recorder, `prometheus_snapshot`, `run_report`, `PerfWatch`). Usage::
 
     import implicitglobalgrid_tpu_torch as igg
     me, dims, nprocs, coords, mesh = igg.init_global_grid(nx, ny, nz)
@@ -67,9 +69,17 @@ from .utils.checkpoint import (
     restore_checkpoint_elastic, saved_topology, elastic_local_size,
 )
 from .runtime import (
+    run_resilient, ResilientRun, RunSpec,
     GuardConfig, HealthReport, RecoveryPolicy, make_guarded_runner,
     NaNPoke, CheckpointCorruption, ProcessLoss,
     poke_nan, corrupt_checkpoint, elastic_restart,
+)
+from . import telemetry
+from .telemetry import (
+    MetricsRegistry, metrics_registry, reset_metrics, prometheus_snapshot,
+    FlightRecorder, start_flight_recorder, stop_flight_recorder,
+    flight_recorder, record_event, record_span, read_flight_events,
+    run_report, PerfWatch,
 )
 from . import io
 from .io import (
@@ -99,9 +109,14 @@ __all__ = [
     "save_checkpoint", "restore_checkpoint", "load_checkpoint",
     "save_checkpoint_sharded", "restore_checkpoint_sharded",
     "restore_checkpoint_elastic", "saved_topology", "elastic_local_size",
+    "run_resilient", "ResilientRun", "RunSpec",
     "GuardConfig", "HealthReport", "RecoveryPolicy", "make_guarded_runner",
     "NaNPoke", "CheckpointCorruption", "ProcessLoss",
     "poke_nan", "corrupt_checkpoint", "elastic_restart",
     "io", "SnapshotWriter", "write_snapshot", "open_snapshot", "list_snapshots",
     "Probe", "AxisSlice", "Stats",
+    "MetricsRegistry", "metrics_registry", "reset_metrics", "prometheus_snapshot",
+    "FlightRecorder", "start_flight_recorder", "stop_flight_recorder",
+    "flight_recorder", "record_event", "record_span", "read_flight_events",
+    "run_report", "PerfWatch",
 ]

@@ -32,7 +32,10 @@ sidecar before rewriting.
 returns, never a view: a runner with ``donate=True`` hands the state it was
 given to the next step as its spare buffer (`models.common`), which
 overwrites it. `write_snapshot` is the synchronous core (what the writer
-thread runs).
+thread runs). The writer's queue depth, outcomes and bytes go to the
+metrics registry and, from the writer thread too, to the flight recorder
+current when the writer was made (`telemetry.hooks`), as the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -228,6 +231,13 @@ class SnapshotWriter:
         self._closed = False
         self._stats = {"submitted": 0, "written": 0, "staged": 0,
                        "dropped": 0, "errors": 0, "bytes": 0, "write_s": 0.0}
+        # the writer thread's events belong to THE RUN THAT OWNS THIS
+        # WRITER: capture its recorder now and pin the thread to it, since
+        # commits land asynchronously, when the process-wide current
+        # recorder may already be another run's or none at all
+        from ..telemetry.recorder import flight_recorder
+
+        self._recorder = flight_recorder()
         self._thread = threading.Thread(
             target=self._run, name="igg-snapshot-writer", daemon=True)
         self._thread.start()
@@ -238,7 +248,10 @@ class SnapshotWriter:
         """Snapshot ``state`` at ``step``: the device-to-host copy now, the
         disk on the writer thread. Returns False iff the job displaced the
         oldest queued snapshot (``drop_oldest`` under a full queue)."""
+        from ..telemetry.hooks import note_io_queue, observe_snapshot
+
         cap = _capture_shards(state, self.fields)
+        dropped = None
         with self._cv:
             if self._closed:
                 raise InvalidArgumentError(
@@ -251,14 +264,19 @@ class SnapshotWriter:
                 raise InvalidArgumentError(
                     "SnapshotWriter was closed while waiting for a queue "
                     "slot; the snapshot was not submitted.")
-            dropped = len(self._queue) >= self.queue_depth  # drop_oldest
-            if dropped:
-                self._queue.pop(0)
+            if len(self._queue) >= self.queue_depth:  # drop_oldest
+                dropped = self._queue.pop(0)
                 self._stats["dropped"] += 1
             self._queue.append((int(step), cap))
             self._stats["submitted"] += 1
+            depth = len(self._queue)
             self._cv.notify_all()
-        return not dropped
+        note_io_queue(depth)
+        if dropped is not None:
+            observe_snapshot("dropped", step=dropped[0],
+                             path=os.path.join(self.root, snapshot_dirname(dropped[0])),
+                             queue_depth=depth)
+        return dropped is None
 
     def flush(self, timeout: float | None = None) -> bool:
         """Wait until every submitted snapshot is on disk (or dropped).
@@ -303,6 +321,11 @@ class SnapshotWriter:
     # -- writer thread -----------------------------------------------------
 
     def _run(self) -> None:
+        from ..telemetry.hooks import note_io_queue, observe_snapshot
+        from ..telemetry.recorder import bind_thread_recorder, record_event
+
+        if self._recorder is not None:
+            bind_thread_recorder(self._recorder)
         while True:
             with self._cv:
                 while not self._queue and not self._closed:
@@ -311,24 +334,36 @@ class SnapshotWriter:
                     return
                 step, cap = self._queue.pop(0)
                 self._busy = True
+                depth = len(self._queue)
                 self._cv.notify_all()
+            note_io_queue(depth)
             t0 = time.perf_counter()
             try:
-                _, committed = _write_captured(
+                path, committed = _write_captured(
                     self.root, step, cap, commit_timeout=self.commit_timeout)
-            except Exception:  # never kill the run from the writer
+            except Exception as e:  # never kill the run from the writer
                 with self._cv:
                     self._stats["errors"] += 1
                     self._stats["write_s"] += time.perf_counter() - t0
                     self._busy = False
                     self._cv.notify_all()
+                observe_snapshot("error", step=step,
+                                 path=os.path.join(self.root, snapshot_dirname(step)),
+                                 error=f"{e.__class__.__name__}: {e}")
                 continue
+            dur = time.perf_counter() - t0
             # only a COMMITTED snapshot counts as written: another process
             # merely staged its shard file for process 0's commit
             with self._cv:
-                self._stats["write_s"] += time.perf_counter() - t0
+                self._stats["write_s"] += dur
                 self._stats["written" if committed else "staged"] += 1
                 if committed:
                     self._stats["bytes"] += cap["nbytes"]
                 self._busy = False
                 self._cv.notify_all()
+            if committed:
+                observe_snapshot("written", dur_s=dur, step=step, path=path,
+                                 nbytes=cap["nbytes"], queue_depth=depth)
+            else:
+                record_event("snapshot_stage", step=step, dur_s=dur,
+                             nbytes=cap["nbytes"])

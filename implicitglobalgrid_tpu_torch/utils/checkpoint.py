@@ -22,6 +22,9 @@ package is read by the other, bit for bit. Two formats:
 Every restore returns this process's box of each array on the grid's device,
 as `device_put_g` gives it. Save and restore are collective where a process
 group is up: every process must call them.
+Each save and restore records its latency in the metrics registry and the
+flight recorder (`telemetry.hooks.observe_checkpoint`), at the JAX package's
+places.
 
 **Member axes.** The JAX package records the leading replicated axes of an
 ensemble's array (`models.common.ensemble_state`) from its sharding, as
@@ -45,6 +48,7 @@ from __future__ import annotations
 
 import itertools
 import os
+import time
 
 import numpy as np
 
@@ -242,6 +246,15 @@ def _gather_host(v, root: int, lead: int):
     return out.view(ml_dtypes.bfloat16)
 
 
+def _observe(op: str, t0: float, **fields) -> None:
+    """The operation's latency since ``t0`` to the metrics registry and the
+    flight recorder (`telemetry.hooks.observe_checkpoint`, the JAX
+    package's calls at the same places)."""
+    from ..telemetry.hooks import observe_checkpoint
+
+    observe_checkpoint(op, time.monotonic() - t0, **fields)
+
+
 def save_checkpoint(path, state: dict, *, step: int | None = None,
                     root: int = 0) -> None:
     """Write ``state`` (a dict name -> stacked tensor, this process's box)
@@ -254,6 +267,7 @@ def save_checkpoint(path, state: dict, *, step: int | None = None,
     from .timing import barrier
 
     check_initialized()
+    t0 = time.monotonic()
     if not isinstance(state, dict) or not state:
         raise InvalidArgumentError(
             "save_checkpoint expects a non-empty dict of name -> array.")
@@ -281,6 +295,7 @@ def save_checkpoint(path, state: dict, *, step: int | None = None,
     # every process returns after the write, so a restore that follows
     # never reads a missing file
     barrier()
+    _observe("save", t0, path=path, step=step)
 
 
 def load_checkpoint(path):
@@ -330,6 +345,7 @@ def restore_checkpoint(path, *, strict: bool = True):
     the whole grid, `member_axes` reads an array's member axes from its
     shape."""
     check_initialized()
+    t0 = time.monotonic()
     gg = global_grid()
     state, meta = load_checkpoint(path)
     _validate_topology(meta, gg, strict)
@@ -339,6 +355,7 @@ def restore_checkpoint(path, *, strict: bool = True):
         if not np.array_equal(gg.box, gg.dims):
             v = _box_of(gg, v, member_axes(v.shape, whole=True, name=k))
         out[k] = tensor_of(carrier(v, name), name).to(gg.device, copy=True)
+    _observe("restore", t0, path=path, step=meta["step"])
     return out, meta["step"]
 
 
@@ -364,6 +381,7 @@ def save_checkpoint_sharded(dirpath, state: dict, *, step: int | None = None) ->
     from .timing import barrier
 
     check_initialized()
+    t0 = time.monotonic()
     _validate_block_keys(state, "save_checkpoint_sharded")
     gg = global_grid()
     payload, names, meta = {}, [], {}
@@ -401,6 +419,7 @@ def save_checkpoint_sharded(dirpath, state: dict, *, step: int | None = None) ->
         _commit_staged_dir(stage, dirpath, token)
     # no process returns (and maybe starts the next save) before the commit
     barrier()
+    _observe("save_sharded", t0, path=dirpath, step=step)
 
 
 def _sharded_meta_and_files(dirpath):
@@ -468,6 +487,7 @@ def restore_checkpoint_sharded(dirpath, *, strict: bool = True, _preloaded=None)
     ``_preloaded``: an already opened `_sharded_meta_and_files` (the
     elastic restore's same-dims delegation)."""
     check_initialized()
+    t0 = time.monotonic()
     gg = global_grid()
     meta, files, checksums, verified = (
         _preloaded if _preloaded is not None else _sharded_meta_and_files(dirpath))
@@ -483,6 +503,7 @@ def restore_checkpoint_sharded(dirpath, *, strict: bool = True, _preloaded=None)
         wanted |= {_shard_key(name, starts) for starts, _, _ in box_blocks(gg, shape[:lead], loc)}
     find_block = _block_scanner(files, wanted, checksums, verified)
     out = {name: _box_tensor(gg, name, *plans[name], find_block) for name in names}
+    _observe("restore_sharded", t0, path=dirpath, step=step)
     return out, step
 
 
@@ -587,6 +608,7 @@ def restore_checkpoint_elastic(dirpath):
     delegates to `restore_checkpoint_sharded`. Member axes pass through
     untouched. Returns ``(state, step)``."""
     check_initialized()
+    t0 = time.monotonic()
     gg = global_grid()
     meta, files, checksums, verified = _sharded_meta_and_files(dirpath)
     names = [str(n) for n in meta["names"]]
@@ -680,4 +702,7 @@ def restore_checkpoint_elastic(dirpath):
                 box = np.empty(box_shape, block.dtype)
             box[sl] = block
         out[name] = tensor_of(box, dtype).to(gg.device)
+    _observe("restore_elastic", t0, path=dirpath, step=step,
+             saved_dims=[int(d) for d in dims_o],
+             live_dims=[int(d) for d in np.asarray(gg.dims)])
     return out, step

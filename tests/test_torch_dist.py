@@ -36,6 +36,10 @@ virtual mesh's. The tests read those results:
   the virtual mesh's own; the guard-and-reducer vector after
   `transport.all_sum` equal to the virtual mesh's (its float32 sums within
   1e-6 of the largest);
+- `run_resilient` with a shared checkpoint directory and a `NaNPoke` in one
+  process's box: the guard's sum trips every process, all roll back, and
+  each box of the final state is bitwise the virtual mesh's run; each
+  process's flight stream carries its rank as ``proc`` and the rollback;
 - `tic`/`toc` spanning the processes.
 """
 
@@ -77,7 +81,7 @@ CHECKS = [
     "deep/diffusion", "deep/acoustic", "deep/diffusion_1", "deep/diffusion_z2",
     "wire/coalesced_int8", "wire/coalesced_bfloat16", "wire/per_dim_bfloat16",
     "wire/per_dim_float16", "wire/diffusion_fused_int8", "wire/diffusion_sr",
-    "ensemble/diffusion_e3", "io/restored", "io/vector",
+    "ensemble/diffusion_e3", "io/restored", "io/vector", "resilient/state",
 ]
 
 _RESULTS: dict = {}
@@ -250,6 +254,17 @@ def test_io_containers_restore_on_the_virtual_mesh(config, tmp_path_factory):
             assert ga.tobytes() == tg.gather_interior(ref[k]).tobytes(), k
     finally:
         tg.finalize_global_grid()
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_resilient_rollback_in_every_process_stream(config, tmp_path_factory):
+    """The poke lands in process 1's box alone, yet every process's guard
+    trips (the summed vector), rolls back once, and writes its own flight
+    stream with its rank as ``proc``."""
+    for pid, v in _each(config, tmp_path_factory, "resilient/flight"):
+        assert v["procs"] == [pid], (pid, v)
+        assert v["rollbacks"] == 1 and v["trips"] == 1, (pid, v)
+        assert v["tripped_at"] == [[4, 6]], (pid, v)
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))

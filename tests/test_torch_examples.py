@@ -148,3 +148,35 @@ def test_advanced_modes_example_matches_jax(capsys):
     assert got["deep_s"] > 0
     s = got["overlap"]["CPU"]
     assert s["comm_us"] > 0 and s["compute_us"] > 0
+
+
+def test_vis_example_frames_match_jax(tmp_path, capsys):
+    """The fifth example (`diffusion3D_multixpu`, `run_resilient` with a
+    snapshot every ``nvis`` steps and a `Stats` reducer, the z-midplane of
+    each snapshot read back) beside the JAX example's own calls at its
+    ``--cpu`` size: the same 10 frames within the bound between tiers, the
+    last frame bitwise the z-midplane of the run's final interior, and the
+    printed stats lines for every frame."""
+    from implicitglobalgrid_tpu_torch.examples.diffusion3D_multixpu import diffusion3D
+
+    frames, G = diffusion3D(cpu=True)
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("step ")]
+    assert len(lines) == 10 and lines[-1].startswith("step  100")
+    assert frames.shape == (10, 126, 126) and frames.dtype == np.float32
+    assert np.array_equal(frames[-1], G[:, :, G.shape[2] // 2])
+    igg.init_global_grid(64, 64, 64, quiet=True)
+    T, Cp, p = jm.init_diffusion3d(dtype=np.float32)
+
+    def step(s):
+        return {"T": jm.diffusion_step_local(s["T"], s["Cp"], p, "xla"), "Cp": s["Cp"]}
+
+    snaps = tmp_path / "snaps"
+    igg.run_resilient(step, {"T": T, "Cp": Cp}, 100, nt_chunk=10, key="diffusion3D_vis",
+                      snapshot_dir=str(snaps), snapshot_every=10, snapshot_fields=("T",),
+                      reducers=[igg.Stats("T", which=("max", "mean"))])
+    listed = igg.list_snapshots(str(snaps))
+    zmid = igg.open_snapshot(listed[0][1]).global_shape("T")[2] // 2
+    J = np.stack([igg.open_snapshot(path).read_global("T", box=(None, None, (zmid, zmid + 1)))
+                  [:, :, 0] for _, path in listed])
+    assert J.shape == frames.shape
+    assert np.allclose(frames, J, **TIER), float(np.abs(frames - J).max())

@@ -9,7 +9,12 @@ analysis. Then: each package opens the other's snapshots bitwise, the
 capture is a complete copy (the donating runner overwrites its input), and
 the reducer vector equals the JAX package's on the same state (counts,
 probes, slices, min and max bitwise; sums within ``SUM_RTOL``), solo and per
-ensemble member.
+ensemble member. Last, `tests/test_io.py`'s three driver cases: the
+snapshot and reducer events of `run_resilient` in its flight stream and
+`run_report` (without the JAX test's CLI half, which waits for the CLI),
+the port's counterpart of the compiled-chunk reuse (snapshots change
+nothing of the chunk's work) and the rejected ``snapshot_every`` without a
+directory; and the writer's own metrics and events.
 """
 
 import os
@@ -517,3 +522,141 @@ def test_ensemble_snapshot_keeps_members(tmp_path):
     for m in range(3):
         assert np.array_equal(G[m], tg.gather_interior(ET[m]))
     assert np.array_equal(snap.read_global("T", box=((1, 2), None, (3, 5))), G[1:2, :, 3:5])
+
+
+# ---------------------------------------------------------------------------
+# `tests/test_io.py`'s driver cases: `run_resilient` with snapshots and
+# reducers, its flight events and report
+# ---------------------------------------------------------------------------
+
+def _driver_setup(calls=None):
+    """The driver's form of the diffusion step (``dict -> dict``); each call
+    appended to ``calls`` when given."""
+    from implicitglobalgrid_tpu_torch.models import diffusion_step_local, init_diffusion3d
+
+    T, Cp, p = init_diffusion3d(dtype=torch.float32)
+
+    def step(s):
+        if calls is not None:
+            calls.append(1)
+        return {"T": diffusion_step_local(s["T"], s["Cp"], p, "plain"), "Cp": s["Cp"]}
+
+    return step, {"T": T, "Cp": Cp}
+
+
+def test_run_resilient_snapshot_events_and_report(tmp_path):
+    """The driver's snapshot and reducer events reach the flight stream and
+    `run_report`'s io section; the snapshots list and read back (the JAX
+    test's CLI half, ``tools report/snapshots/probe``, waits for the CLI)."""
+    _init(8, 8, 8, dimx=2, dimy=2, dimz=2, periodx=1, periody=1, periodz=1)
+    step, state = _driver_setup()
+    jsonl = tmp_path / "fr.jsonl"
+    tg.start_flight_recorder(str(jsonl))
+    try:
+        st, _ = tg.run_resilient(step, state, 12, nt_chunk=4, key="io_evt",
+                                 snapshot_dir=str(tmp_path / "snaps"), snapshot_every=4,
+                                 reducers=[tio.Probe("T", (1, 1, 1))])
+    finally:
+        tg.stop_flight_recorder()
+    kinds = [e["kind"] for e in tg.read_flight_events(jsonl)]
+    for k in ("snapshot", "snapshot_write", "reducers", "snapshot_writer_close"):
+        assert k in kinds, (k, kinds)
+    rep = tg.run_report(str(jsonl))
+    assert rep["io"]["snapshots_submitted"] == 3
+    assert rep["io"]["snapshots_written"] == 3
+    assert rep["io"]["snapshots_dropped"] == 0
+    assert rep["io"]["snapshot_bytes"] > 0
+    assert rep["io"]["reducer_points"] == 3
+    assert any(s["kind"] == "snapshot_write" for s in rep["sequence"])
+    snaps = tio.list_snapshots(tmp_path / "snaps")
+    assert [s for s, _ in snaps] == [4, 8, 12]
+    GI = tg.gather_interior(st["T"])
+    last = tio.open_snapshot(snaps[-1][1]).read_global("T", box=((2, 3), (3, 4), (4, 5)))
+    assert float(last[0, 0, 0]) == float(GI[2, 3, 4])
+    probe = [e for e in tg.read_flight_events(jsonl) if e["kind"] == "reducers"][-1]
+    assert probe["step"] == 12 and probe["values"]["probe:T@1,1,1"] == float(GI[1, 1, 1])
+
+
+def test_snapshots_leave_the_chunk_unchanged(tmp_path):
+    """The port's counterpart of the JAX test of its compiled chunk's cache
+    (`tests/test_io.py:431`: a run with snapshots reuses the compiled chunk
+    of one without): the port compiles and caches no chunk, so it checks
+    what that reuse guarantees, that snapshots change nothing of the
+    chunk's work: the same state bitwise and the same step calls as a run
+    without them."""
+    _init(8, 8, 8, dimx=2, dimy=2, dimz=2)
+    plain_calls, snap_calls = [], []
+    step, state = _driver_setup(plain_calls)
+    out_plain, _ = tg.run_resilient(step, dict(state), 8, nt_chunk=4, key="io_hit")
+    step, state = _driver_setup(snap_calls)
+    out_snap, _ = tg.run_resilient(step, dict(state), 8, nt_chunk=4, key="io_hit",
+                                   snapshot_dir=str(tmp_path / "s"), snapshot_every=4)
+    assert len(snap_calls) == len(plain_calls) == 8
+    assert all(torch.equal(out_snap[k], out_plain[k]) for k in out_plain)
+    assert len(tio.list_snapshots(tmp_path / "s")) == 2
+    assert tg.metrics_registry().get("igg_runner_cache_total") is None
+
+
+def test_snapshot_without_dir_rejected():
+    _init(4, 4, 4, dimx=2, dimy=2, dimz=2)
+    T = tg.ones_g()
+    with pytest.raises(InvalidArgumentError):
+        tg.run_resilient(lambda s: s, {"T": T}, 1, snapshot_every=5)
+
+
+def _run_submits(w, T, gate):
+    """Steps 1, 2 and 3 into a one-slot ``drop_oldest`` writer whose thread
+    is held on step 1: step 3 displaces step 2."""
+    assert w.submit({"T": T}, 1)
+    for _ in range(500):
+        if w._busy:
+            break
+        time.sleep(0.01)
+    assert w.submit({"T": T}, 2)
+    assert tg.metrics_registry().get("igg_io_queue_depth").value() == 1
+    assert not w.submit({"T": T}, 3)
+    gate.set()
+    assert w.flush(timeout=30.0)
+
+
+def test_snapshot_writer_telemetry(tmp_path, monkeypatch):
+    """The writer's metrics and events, at the JAX package's places: the
+    queue-depth gauge, a displaced snapshot's ``snapshot_drop``, each
+    commit's ``snapshot_write`` with its bytes, all into the recorder
+    current when the writer was made, though another one is current when
+    the writer thread commits."""
+    from implicitglobalgrid_tpu_torch.io import snapshot as snap_mod
+
+    _init(4, 4, 4, dimx=2, dimy=2, dimz=2)
+    T = tg.ones_g()
+    gate = threading.Event()
+    orig = snap_mod._write_captured
+
+    def slow(root, step, cap, **kw):
+        gate.wait(timeout=30.0)
+        return orig(root, step, cap, **kw)
+
+    monkeypatch.setattr(snap_mod, "_write_captured", slow)
+    tg.reset_metrics()
+    tg.start_flight_recorder(str(tmp_path / "w.jsonl"), run_id="w")
+    w = tio.SnapshotWriter(tmp_path / "s", queue_depth=1, policy="drop_oldest")
+    other = tg.FlightRecorder(str(tmp_path / "other.jsonl"), run_id="other")
+    try:
+        with tg.telemetry.use_flight_recorder(other):
+            _run_submits(w, T, gate)
+    finally:
+        gate.set()
+        w.close(timeout=30.0)
+        other.close()
+        tg.stop_flight_recorder()
+    mine = tg.read_flight_events(str(tmp_path / "w.jsonl"))
+    writes = [e for e in mine if e["kind"] == "snapshot_write"]
+    assert [e["step"] for e in writes] == [1, 3] and all(e["nbytes"] > 0 for e in writes)
+    theirs = tg.read_flight_events(str(tmp_path / "other.jsonl"))
+    assert "snapshot_write" not in [e["kind"] for e in theirs]
+    # the drop is recorded by the submitting thread, into the current recorder
+    assert [e["step"] for e in theirs if e["kind"] == "snapshot_drop"] == [2]
+    reg = tg.metrics_registry()
+    assert reg.get("igg_snapshots_total").value(result="written") == 2
+    assert reg.get("igg_snapshots_total").value(result="dropped") == 1
+    assert reg.get("igg_snapshot_bytes_total").value() == w.stats["bytes"]

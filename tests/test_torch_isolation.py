@@ -27,7 +27,12 @@ def test_import_leaves_jax_out():
         "import implicitglobalgrid_tpu_torch.io.layout, implicitglobalgrid_tpu_torch.io.snapshot\n"
         "import implicitglobalgrid_tpu_torch.io.reader, implicitglobalgrid_tpu_torch.io.reducers\n"
         "import implicitglobalgrid_tpu_torch.runtime.health, implicitglobalgrid_tpu_torch.runtime.faults\n"
-        "import implicitglobalgrid_tpu_torch.runtime.recovery\n"
+        "import implicitglobalgrid_tpu_torch.runtime.recovery, implicitglobalgrid_tpu_torch.runtime.driver\n"
+        "import implicitglobalgrid_tpu_torch.runtime.spec, implicitglobalgrid_tpu_torch.telemetry\n"
+        "import implicitglobalgrid_tpu_torch.telemetry.registry, implicitglobalgrid_tpu_torch.telemetry.recorder\n"
+        "import implicitglobalgrid_tpu_torch.telemetry.hooks, implicitglobalgrid_tpu_torch.telemetry.export\n"
+        "import implicitglobalgrid_tpu_torch.telemetry.report, implicitglobalgrid_tpu_torch.telemetry.perfmodel\n"
+        "import implicitglobalgrid_tpu_torch.examples.diffusion3D_multixpu\n"
         "tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=2, device_type='cpu', quiet=True)\n"
         "T, Cp, p = implicitglobalgrid_tpu_torch.models.init_diffusion3d()\n"
         "T = implicitglobalgrid_tpu_torch.models.run_diffusion(T, Cp, p, 2)\n"
@@ -60,6 +65,13 @@ def test_import_leaves_jax_out():
         "    run = implicitglobalgrid_tpu_torch.models.common.make_state_runner(\n"
         "        lambda s, spare: (s, None), nt_chunk=1, post_chunk=make_reduced_post_chunk(['T'], plan))\n"
         "    plan.decode(run(tg.poke_nan(T, (0, 0, 0)))[-1][2:])\n"
+        "    tg.start_flight_recorder(d + '/fr.jsonl')\n"
+        "    step = lambda s: {'T': tg.update_halo(s['T'] * 1.0)}\n"
+        "    tg.run_resilient(step, {'T': T}, 4, nt_chunk=2, checkpoint_dir=d + '/rck',\n"
+        "                     snapshot_dir=d + '/rs', reducers=[tg.Stats('T')],\n"
+        "                     faults=[tg.NaNPoke(step=1, name='T', index=(3, 3, 3))])\n"
+        "    tg.run_report(tg.stop_flight_recorder(), trace_dir=d)\n"
+        "    tg.prometheus_snapshot()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'implicitglobalgrid_tpu' or m.startswith('implicitglobalgrid_tpu.'))\n"
         "print(bad)\n"
@@ -80,7 +92,11 @@ def test_sources_name_no_jax():
             "examples/diffusion3D_advanced_modes.py", "utils/profiling.py",
             "utils/trace_events.py", "utils/blockio.py", "utils/checkpoint.py",
             "io/layout.py", "io/snapshot.py", "io/reader.py", "io/reducers.py",
-            "runtime/health.py", "runtime/faults.py", "runtime/recovery.py"} <= names
+            "runtime/health.py", "runtime/faults.py", "runtime/recovery.py",
+            "runtime/driver.py", "runtime/spec.py", "telemetry/__init__.py",
+            "telemetry/registry.py", "telemetry/recorder.py", "telemetry/hooks.py",
+            "telemetry/export.py", "telemetry/report.py", "telemetry/perfmodel.py",
+            "examples/diffusion3D_multixpu.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

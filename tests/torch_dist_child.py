@@ -323,6 +323,38 @@ def case_io():
             "vector": ("vec", (vec.tolist(), sums))}
 
 
+def case_resilient():
+    """`run_resilient` with a checkpoint directory every process shares (the
+    virtual mesh: its own under ``resil_ref<pid>``), a `NaNPoke` in process
+    1's box (x-block 1, y-block 0, z-block 1 in every layout) and a flight
+    recorder a process; the final state, and this process's stream: its
+    ``proc`` values, its rollbacks and guard trips."""
+    gg = tg.global_grid()
+    where = OUT / ("resil" if gg.transport.world > 1 else f"resil_ref{PID}")
+    T, Cp, p = models.init_diffusion3d(dtype=torch.float64)
+
+    def step(s):
+        return {"T": models.diffusion_step_local(s["T"], s["Cp"], p, "plain"), "Cp": s["Cp"]}
+
+    fr = where / f"flight_{PID}.jsonl"
+    where.mkdir(parents=True, exist_ok=True)
+    tg.start_flight_recorder(str(fr))
+    try:
+        out, reports = tg.run_resilient(step, {"T": T, "Cp": Cp}, 10, nt_chunk=3,
+                                        checkpoint_dir=str(where / "ckpt"),
+                                        faults=[tg.NaNPoke(step=4, name="T", index=(8, 3, 9))])
+    finally:
+        tg.stop_flight_recorder()
+    evs = tg.read_flight_events(str(fr))
+    rep = tg.run_report(str(fr), include_metrics=False)
+    return {"state": ("boxes", (out["T"], out["Cp"])),
+            "flight": ("proc", {"procs": sorted({e["proc"] for e in evs}),
+                                "rollbacks": rep["checkpoints"]["rollbacks"],
+                                "trips": rep["guards"]["trips"],
+                                "tripped_at": [(r.step_begin, r.step_end)
+                                               for r in reports if not r.ok]})}
+
+
 def case_timing():
     tg.tic()
     if tg.global_grid().me == 1:
@@ -336,6 +368,7 @@ CASES = [("layout", G0, DCN, case_layout), ("encoded", G0, DCN, case_encoded),
          ("models_2d", G3, "", case_models_2d), ("overlap", G4, DCN, case_overlap),
          ("deep", G5, DCN, case_deep), ("wire", G1, DCN, case_wire),
          ("ensemble", G1, DCN, case_ensemble), ("io", G1, DCN, case_io),
+         ("resilient", G1, DCN, case_resilient),
          ("timing", G1, DCN, case_timing)]
 
 
