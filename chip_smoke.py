@@ -153,6 +153,22 @@ Phases, in order; any failure exits non-zero without the final line:
    Then the fifth example (`examples.diffusion3D_multixpu`) at its card
    size: 10 frames, the last bitwise the z-midplane of `gather_interior(T)`;
    in a temporary directory, removed after;
+13d. the performance oracle and the mesh view: the calibration kernel
+   (`fma_chain`, `csrc/calibrate.cu`) against its plain version on the card
+   and timed beside its FLOP bound; `calibrate_machine` on the main path's
+   256^3 block and on the 2x2x2 x 128^3 mesh (the triad's card rate under
+   3.35 TB/s x 1.05, the FMA chain's under the float32 peak x 1.05, a link
+   fit for every axis); `predict_step` under the mesh's profile beside the
+   measured wall ms a step (`route_times`) of the fused and the plain
+   route on the README mesh, config 4's mesh and config 5's mesh;
+   `tune_config("diffusion3d")` on the 2x2x2 x 128^3 grid, measured, top 2
+   (speedup >= 1; the caller's grid back with its epoch and its halos
+   bitwise); `run_resilient(tuned=, metrics_port=0)` on the 256^3 main
+   path, 3 chunks of 100 (K1 once a step, /metrics and /healthz scraped
+   from ``on_report``, the ``tuned`` event in the stream); `update_halo`
+   on the 128^3 mesh with and without its accounting, the recorder off
+   and on, the accounting's own host us a call, the ``igg_halo_*``
+   counters against `halo_comm_plan` times the calls;
 14. the transport: two processes of this script (``--transport-child``)
    share cuda:0 in a gloo process group (NCCL refuses two processes on one
    card), the grids split along z (``IGG_TPU_DCN_AXES=z``, a 2x2x1 box
@@ -178,12 +194,17 @@ Phases, in order; any failure exits non-zero without the final line:
    `run_resilient` on the diffusion mesh's plain route (10 steps, a shared
    checkpoint directory, a `NaNPoke` in process 1's box), the gathered T
    bitwise phase 12's 10 plain steps, each process's own flight stream
-   (its rank as ``proc``) holding the guard trip and the rollback;
+   (its rank as ``proc``, ``flight_p<rank>.jsonl`` in one directory)
+   holding the guard trip and the rollback; the parent then aggregates
+   the directory (`aggregate_flight`, `straggler_report`, `run_report`'s
+   ``mesh`` section, `export_chrome_trace`): both processes, finite
+   offsets, each chunk's spans ending within 1 ms of each other;
 15. numbers: the card's name and power limit, each kernel's time, bound,
    plain and library times (one JSON line), cell-updates/s, host against
    device time per step of the fused routes, phase 13b's checkpoint and io
-   numbers, phase 13c's ``supervised_run``, and the main paths' K4s
-   launches by mode and dim.
+   numbers, phase 13c's ``supervised_run``, phase 13d's
+   ``oracle_and_mesh_view``, and the main paths' K4s launches by mode and
+   dim (the kernels line holds K1-K10, K4s and the calibration kernel).
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 nothing of JAX. It needs one card and exits non-zero without CUDA or
@@ -4033,6 +4054,310 @@ def phase_supervised(tg, models, cb):
     return counts, rec
 
 
+ORACLE_FMA_ITERS = 64  # FMA-chain iterations of the kernel-vs-plain check and timing
+ORACLE_CHUNKS, ORACLE_NT_CHUNK = 3, 100  # the tuned supervised run on the main path
+ORACLE_HALO_CALLS = 200  # update_halo calls of the accounting check
+ORACLE_DEVICE = "cuda"  # where the phase's own tensors go (a CPU rehearsal sets "cpu")
+
+
+def _predicted_vs_measured(tg, models, cw, cst, prof):
+    """`predict_step` under ``prof`` beside the measured wall ms a step
+    (`route_times`) of the fused and the plain route on the three meshes
+    the earlier phases run: the README mesh (diffusion, 2x2x2 x 128^3,
+    periodic in x), config 4's (acoustic, 2x2x2 x 192^3, periodic) and
+    config 5's (Stokes, 2x2x2 x 128^3)."""
+    import torch
+
+    meshes = (("readme_diffusion_128", "diffusion3d", N_MESH, dict(periodx=1)),
+              ("config4_acoustic_192", "acoustic3d", N_CFG4,
+               dict(periodx=1, periody=1, periodz=1)),
+              ("config5_stokes_128", "stokes3d", N_CFG5, {}))
+    out = {}
+    for name, model, n, per in meshes:
+        grid(tg, n, n, n, dimx=2, dimy=2, dimz=2, **per)
+        if model == "diffusion3d":
+            T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+            state = (T0, Cp)
+            fused, plain = models.make_step(p), models.make_step(p, impl="plain")
+            routes = {"cuda": lambda: fused(T0, Cp), "plain": lambda: plain(T0, Cp)}
+        elif model == "acoustic3d":
+            state, p = models.init_acoustic3d(dtype=torch.float32)
+            routes = {"cuda": _acoustic_step(tg, cw, state, p),
+                      "plain": lambda: models.acoustic_step_local(state, p, impl="plain")}
+        else:
+            state, p = models.init_stokes3d(dtype=torch.float32)
+            routes = {"cuda": _stokes_iteration(tg, cst, state, p),
+                      "plain": lambda: models.stokes_step_local(state, p, impl="plain")}
+        for impl, fn in routes.items():
+            pred = tg.predict_step(model, state, profile=prof, impl=impl)
+            wall = route_times(fn, reps=5, batches=3)["wall_ms_per_step"]
+            rec = dict(predicted_ms=pred["step_s"] * 1e3, bound=pred["bound"],
+                       bound_detail=pred["bound_detail"],
+                       predicted_compute_ms=pred["compute"]["s"] * 1e3,
+                       predicted_comm_ms=pred["comm_s"] * 1e3, measured_wall_ms=wall,
+                       measured_over_predicted=wall / (pred["step_s"] * 1e3))
+            out[f"{name}_{impl}"] = rec
+            print(f"  {name} {impl}: predicted {rec['predicted_ms']!r} ms ({pred['bound']}, "
+                  f"{pred['bound_detail']}), measured wall {wall!r} ms, ratio "
+                  f"{rec['measured_over_predicted']!r}", flush=True)
+        del state, routes
+    tg.finalize_global_grid()
+    return out
+
+
+def _halo_accounting(tg, cb):
+    """`update_halo` on the 128^3 mesh with the accounting (this package)
+    and without it (the exchange alone, as before the accounting), the
+    recorder off and on; the accounting's own host time a call; the
+    counters against `halo_comm_plan` times the calls."""
+    import tempfile
+
+    import torch
+    from implicitglobalgrid_tpu_torch.ops import halo
+
+    grid(tg, N_MESH, N_MESH, N_MESH, dimx=2, dimy=2, dimz=2, periodx=1)
+    g = torch.Generator(device=ORACLE_DEVICE).manual_seed(17)
+    A = torch.randn((2 * N_MESH,) * 3, generator=g, device=ORACLE_DEVICE)
+    plan = tg.halo_comm_plan(A)
+    tg.reset_metrics()
+    cb.reset_launch_counts()
+    for _ in range(ORACLE_HALO_CALLS):
+        A = tg.update_halo(A)
+    torch.cuda.synchronize()
+    counts = cb.launch_counts()
+    reg = tg.metrics_registry()
+    ex = reg.get("igg_halo_exchanges_total").value()
+    pp = sum(v for _, v in reg.get("igg_halo_ppermutes_total").samples())
+    wb = sum(v for _, v in reg.get("igg_halo_wire_bytes_total").samples())
+    check(ex == ORACLE_HALO_CALLS and pp == ORACLE_HALO_CALLS * plan["ppermutes"]
+          and wb == ORACLE_HALO_CALLS * plan["wire_bytes"],
+          f"accounting: {ex:.0f} exchanges, {pp:.0f} permutes and {wb:.0f} wire bytes are "
+          f"halo_comm_plan's times the {ORACLE_HALO_CALLS} calls")
+
+    def host_us(fn, n=ORACLE_HALO_CALLS):
+        fn()
+        torch.cuda.synchronize()
+        best = None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            t = (time.perf_counter() - t0) / n * 1e6
+            torch.cuda.synchronize()
+            best = t if best is None else min(best, t)
+        return best
+
+    gg = tg.global_grid()
+    fs = halo._normalized_fields((A,))
+    acct = lambda: halo._account(gg, fs, halo.DEFAULT_DIMS_ORDER, True, None, None)  # noqa: E731
+    rec = {}
+    with tempfile.TemporaryDirectory() as d:
+        for recorder in ("off", "on"):
+            if recorder == "on":
+                tg.start_flight_recorder(os.path.join(d, "fr.jsonl"))
+            with_acct = host_us(lambda: tg.update_halo(A))
+            saved = halo._account
+            halo._account = lambda *a: None
+            try:
+                without = host_us(lambda: tg.update_halo(A))
+            finally:
+                halo._account = saved
+            rec[f"recorder_{recorder}"] = dict(
+                update_halo_host_us=with_acct, without_accounting_host_us=without,
+                accounting_alone_host_us=host_us(acct, 2000))
+            if recorder == "on":
+                tg.stop_flight_recorder()
+    for k, r in rec.items():
+        print(f"  update_halo host us a call, {k}: {json.dumps(r)}", flush=True)
+    rec["plan"] = dict(ppermutes=plan["ppermutes"], wire_bytes=plan["wire_bytes"])
+    tg.finalize_global_grid()
+    return counts, rec
+
+
+def phase_oracle(tg, models, cb, cw, cst):
+    """Phase 13d: the performance oracle and the mesh view. The calibration
+    kernel (`fma_chain`) against its plain version on the card;
+    `calibrate_machine` on the main path's 256^3 block and on the 2x2x2 x
+    128^3 virtual mesh (the triad at least 4x the L2, the per-block rates
+    times the blocks under the card's peaks x 1.05); `predict_step` against
+    the measured step of the fused and plain routes on the three meshes;
+    `tune_config("diffusion3d")` on the 2x2x2 x 128^3 grid, measured, top 2
+    (speedup >= 1, the caller's grid back: its epoch, its halos bitwise);
+    `run_resilient(tuned=, metrics_port=0)` on the main path, 256^3, 3
+    chunks of 100, /metrics and /healthz scraped from ``on_report``, the
+    ``tuned`` event, K1 once a step; the halo accounting's host cost and
+    counters. Returns (launches, record, the fma_chain kernel row)."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import torch
+    from implicitglobalgrid_tpu_torch.ops import cuda_calibrate as cc
+
+    print(f"phase: the performance oracle and the mesh view; card {card_name()}", flush=True)
+    counts = {k: 0 for k in KERNEL_NAMES}
+
+    def add(c):
+        for k in counts:
+            counts[k] += c.get(k, 0)
+
+    rec = {}
+    # calibrate on the main path's one block, then on the virtual mesh
+    cb.reset_launch_counts()
+    grid(tg, N_MAIN, N_MAIN, N_MAIN, periodx=1, periody=1, periodz=1)
+    t0 = time.perf_counter()
+    prof1 = tg.calibrate_machine()
+    t1 = time.perf_counter()
+    grid(tg, N_MESH, N_MESH, N_MESH, dimx=2, dimy=2, dimz=2, periodx=1)
+    profm = tg.calibrate_machine()
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    add(cb.launch_counts())
+    check(cb.launch_counts()["fma_chain"] > 0, "calibration: the FLOP fit ran the fma_chain "
+                                               "kernel")
+    for label, prof, blocks, secs in (("256^3 block", prof1, 1, t1 - t0),
+                                      ("2x2x2 x 128^3 mesh", profm, 8, t2 - t1)):
+        card_bw, card_fl = prof.membw_GBps * blocks, prof.flops_G * blocks
+        print(f"  calibrated on the {label} in {secs:.3f} s: membw_GBps {prof.membw_GBps!r} "
+              f"(card {card_bw!r}), flops_G {prof.flops_G!r} (card {card_fl!r}), axes "
+              f"{json.dumps(prof.axes)}, meta {json.dumps(prof.meta)}", flush=True)
+        check(0 < card_bw <= HBM_BYTES_PER_S / 1e9 * 1.05,
+              f"calibration ({label}): the triad's {card_bw:.1f} GB/s a card is under the "
+              f"memory's 3.35 TB/s x 1.05 (not cache-resident)")
+        check(0 < card_fl <= F32_FLOPS_PER_S / 1e9 * 1.05,
+              f"calibration ({label}): the FMA chain's {card_fl:.1f} GFLOP/s a card is under "
+              f"the float32 peak x 1.05")
+    check(set(profm.axes) == {"gx", "gy", "gz"} and all(
+        r["GBps"] > 0 and r["latency_s"] >= 0 for r in profm.axes.values()),
+        "calibration (mesh): a link fit for every axis")
+    rec["profile_block"] = prof1.to_json()
+    rec["profile_mesh"] = profm.to_json()
+    tg.finalize_global_grid()
+
+    # the calibration kernel against its plain version, at the shape the
+    # 256^3 block's FLOP fit gives it
+    n = prof1.meta["fma_elems_per_device"]
+    g = torch.Generator(device=ORACLE_DEVICE).manual_seed(23)
+    x = torch.rand(n, generator=g, device=ORACLE_DEVICE) * 4 - 2
+    got = cc.fma_chain(x.clone(), ORACLE_FMA_ITERS)
+    ref = cc.fma_chain_plain(x.clone(), ORACLE_FMA_ITERS, 1.000001, 1e-9)
+    torch.cuda.synchronize()
+    err = max_err(got, ref)
+    check(bool(torch.allclose(got, ref, rtol=1e-6, atol=0.0)),
+          f"fma_chain: {n} elements x {ORACLE_FMA_ITERS * cc.FMA_PER_ITER} multiply-adds "
+          f"within 1e-6 relative of the plain version (max abs err {err:.3e}; "
+          f"{int((got != ref).sum())} elements differ: float64 double rounding)")
+    y = x.clone()
+    flops = 2.0 * cc.FMA_PER_ITER * ORACLE_FMA_ITERS * n
+    bound_o = flops / F32_FLOPS_PER_S * 1e3
+    bound_b = 8.0 * n / HBM_BYTES_PER_S * 1e3
+    fma_row = dict(
+        max_abs_err=err,
+        ms=median_ms(lambda: cc.fma_chain(y, ORACLE_FMA_ITERS)),
+        plain_ms=median_ms(lambda: cc.fma_chain_plain(y, ORACLE_FMA_ITERS, 1.000001, 1e-9),
+                           batches=1, per_batch=1, warm=1),
+        device_ms=device_ms(lambda: cc.fma_chain(y, ORACLE_FMA_ITERS),
+                            KERNEL_NAMES["fma_chain"]),
+        bound_ms=max(bound_o, bound_b), bound_by="operations" if bound_o >= bound_b
+        else "bytes", library_ms=None,
+        shape=f"{n} float32 x {ORACLE_FMA_ITERS * cc.FMA_PER_ITER} FMAs")
+    print(f"  fma_chain: {json.dumps(fma_row)}", flush=True)
+    del x, y, got, ref
+
+    # the model against the measured steps
+    rec["predicted_vs_measured"] = _predicted_vs_measured(tg, models, cw, cst, profm)
+
+    # the tuner on the 2x2x2 x 128^3 grid, the caller's grid kept
+    grid(tg, N_MESH, N_MESH, N_MESH, dimx=2, dimy=2, dimz=2, periodx=1)
+    base = dict(nx=N_MESH, ny=N_MESH, nz=N_MESH, dimx=2, dimy=2, dimz=2, periodx=1,
+                device_type=tg.global_grid().device_type)
+    epoch = tg.global_grid().epoch
+    A = torch.randn((2 * N_MESH,) * 3, generator=g, device=ORACLE_DEVICE)
+    U1 = tg.update_halo(A.clone())
+    cb.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg = tg.tune_config("diffusion3d", dict(base), profm, measure=True, top_k=2)
+    tune_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    add(cb.launch_counts())
+    rec["tuner"] = dict(knobs=cfg.knobs(), predicted_step_s=cfg.predicted_step_s,
+                        measured_step_s=cfg.measured_step_s,
+                        baseline_step_s=cfg.baseline_step_s, speedup=cfg.speedup,
+                        ranking=cfg.meta["ranking"], measured=cfg.meta["measured"],
+                        skipped=len(cfg.meta["skipped"]), seconds=tune_s,
+                        launches=cb.launch_counts())
+    print(f"  tuner: {json.dumps(rec['tuner'])}", flush=True)
+    check(cfg.speedup is not None and cfg.speedup >= 1.0,
+          f"tuner: the measured pick is no slower than the default (speedup {cfg.speedup!r})")
+    check(tg.grid_is_initialized() and tg.global_grid().epoch == epoch,
+          "tuner: the caller's grid is back, its epoch unchanged")
+    check(torch.equal(tg.update_halo(A.clone()), U1),
+          "tuner: update_halo on the caller's grid bitwise as before the tune")
+    del A, U1
+    tg.finalize_global_grid()
+
+    # the tuned supervised run on the main path, its endpoint scraped
+    grid(tg, N_MAIN, N_MAIN, N_MAIN, periodx=1, periody=1, periodz=1)
+    T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    scraped = []
+
+    def on_report(rep):
+        t0 = time.perf_counter()
+        port = tg.metrics_server().port
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+            body = r.read().decode()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+            health = json.loads(r.read().decode())
+        scraped.append(dict(status="igg_driver_heartbeat_timestamp_seconds" in body,
+                            bytes=len(body), healthz=health,
+                            scrape_ms=(time.perf_counter() - t0) * 1e3))
+
+    k1 = models.make_step(p)  # the K1 route on the one periodic block
+    step = lambda s: {"T": k1(s["T"], s["Cp"]), "Cp": s["Cp"]}  # noqa: E731
+    tmp = tempfile.mkdtemp(prefix="igg_oracle_")
+    try:
+        tg.start_flight_recorder(os.path.join(tmp, "fr.jsonl"))
+        step({"T": T0, "Cp": Cp})  # warm
+        torch.cuda.synchronize()
+        cb.reset_launch_counts()
+        t0 = time.perf_counter()
+        out, reps = tg.run_resilient(step, {"T": T0, "Cp": Cp}, ORACLE_CHUNKS * ORACLE_NT_CHUNK,
+                                     nt_chunk=ORACLE_NT_CHUNK, tuned=cfg, metrics_port=0,
+                                     on_report=on_report)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = cb.launch_counts()
+        add(c)
+        path = tg.stop_flight_recorder()
+        evs = tg.read_flight_events(path)
+        steps = sum(r.step_end - r.step_begin for r in reps)
+        check(c["diffusion3d_step_halo"] == steps == ORACLE_CHUNKS * ORACLE_NT_CHUNK,
+              f"tuned run: K1 launched once a step ({c['diffusion3d_step_halo']} for {steps})")
+        check(len(scraped) == ORACLE_CHUNKS and all(
+            x["status"] and x["healthz"]["ok"] for x in scraped),
+            f"tuned run: /metrics and /healthz scraped at each of the {len(scraped)} "
+            f"chunk boundaries (heartbeat age {scraped[-1]['healthz']['heartbeat_age_s']!r} s)")
+        tuned = [e for e in evs if e["kind"] == "tuned"]
+        check(len(tuned) == 1 and tuned[0]["comm_every"] == cfg.comm_every,
+              f"tuned run: the stream holds the tuned event ({tuned and tuned[0]['comm_every']})")
+        check(tg.metrics_server() is None, "tuned run: the endpoint stopped with the run")
+        check(bool(torch.isfinite(out["T"]).all()), "tuned run: T finite")
+        rec["tuned_run"] = dict(steps=steps, wall_ms_per_step=wall * 1e3 / steps,
+                                chunk_exec_ms=[e["exec_s"] * 1e3 for e in evs
+                                               if e["kind"] == "chunk"],
+                                scrapes=scraped, launches=c)
+        print(f"  tuned run: {json.dumps(rec['tuned_run'])}", flush=True)
+    finally:
+        tg.stop_flight_recorder()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del out, T0, Cp
+    tg.finalize_global_grid()
+
+    c, rec["halo_accounting"] = _halo_accounting(tg, cb)
+    add(c)
+    return counts, rec, fma_row
+
+
 def _transport_dir():
     return os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "implicitglobalgrid_tpu_torch", "_build", "transport")
@@ -4179,8 +4504,9 @@ def transport_child(pid, port):
     # process; 10 steps, the rollback's replay included
     r = rec["resilient"] = grid(N_MESH, periodx=1)
     T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
-    fr = os.path.join(out, f"resilient_flight_{pid}.jsonl")
-    tg.start_flight_recorder(fr)
+    fdir = os.path.join(out, "resilient_flight")  # flight_p<rank>.jsonl, one run id
+    os.makedirs(fdir, exist_ok=True)
+    tg.start_flight_recorder(fdir, run_id="transport_resilient")
     cb.reset_launch_counts()
     t0 = time.perf_counter()
     res, reps = tg.run_resilient(
@@ -4189,7 +4515,7 @@ def transport_child(pid, port):
         {"T": T0, "Cp": Cp}, 10, nt_chunk=5, checkpoint_dir=os.path.join(out, "resilient_ck"),
         faults=[tg.NaNPoke(step=6, name="T", index=(5, 6, N_MESH + 7))])
     r["run"] = dict(wall_ms=(time.perf_counter() - t0) * 1e3, launches=cb.launch_counts())
-    tg.stop_flight_recorder()
+    fr = tg.stop_flight_recorder()
     rr = tg.run_report(fr, include_metrics=False)
     r["flight"] = dict(procs=sorted({e["proc"] for e in tg.read_flight_events(fr)}),
                        rollbacks=rr["checkpoints"]["rollbacks"], trips=rr["guards"]["trips"],
@@ -4230,7 +4556,7 @@ def transport_child(pid, port):
     return 0
 
 
-def phase_transport(refs, virtual_step_ms):
+def phase_transport(tg, refs, virtual_step_ms):
     """Phase 14: the transport. Two processes of this script share cuda:0
     in a gloo group (NCCL refuses two processes on one card) and run config
     3, config 4's mesh, config 5's mesh and the README run's diffusion mesh
@@ -4293,6 +4619,7 @@ def phase_transport(refs, virtual_step_ms):
         check(same, f"transport: {name} bitwise equal to the virtual mesh's run "
                     f"(max abs err {errs[name]!r})")
     io = transport_io(recs, out, refs["diffusion_plain_T"])
+    mesh_view = transport_mesh_view(tg, os.path.join(out, "resilient_flight"))
     shutil.rmtree(out, ignore_errors=True)
     launches = {}
     for r in recs:
@@ -4412,10 +4739,46 @@ def phase_transport(refs, virtual_step_ms):
     per["resilient"] = dict(wall_ms=[r["resilient"]["run"]["wall_ms"] for r in recs],
                             flight=[r["resilient"]["flight"] for r in recs])
     print(f"  transport run_resilient: {json.dumps(per['resilient'])}", flush=True)
+    per["mesh_view"] = mesh_view
     per["residuals"] = r0["config5"]["residuals"]
     per["max_abs_err_vs_virtual"] = errs
     per["checkpoint_io"] = io
     return launches, per
+
+
+def transport_mesh_view(tg, d):
+    """The mesh view of the transport's supervised run: the two processes'
+    streams in ``d`` aggregated (`aggregate_flight`), `straggler_report`,
+    `run_report` of the directory (its ``mesh`` section) and
+    `export_chrome_trace`: both processes present, finite offsets, the
+    chunk spans of each chunk ending within 1 ms of each other."""
+    import math
+
+    agg = tg.aggregate_flight(d)
+    srep = tg.straggler_report(agg)
+    rep = tg.run_report(d, include_metrics=False)
+    doc = tg.export_chrome_trace(agg, os.path.join(d, "trace.json"))
+    with open(doc) as f:
+        doc = json.load(f)
+    ends = {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "chunk" and e["name"].startswith("chunk "):
+            ends.setdefault(e["name"], {})[e["pid"]] = e["ts"] + e["dur"]
+    gaps = [abs(v[0] - v[1]) for v in ends.values() if len(v) == 2]
+    check(agg["processes"] == list(range(TRANSPORT_PROCS)),
+          f"mesh view: aggregate_flight found both processes ({agg['processes']})")
+    check(all(math.isfinite(v) for v in agg["offsets"].values()),
+          f"mesh view: finite clock offsets {agg['offsets']}")
+    check(rep.get("mesh") is not None and rep["mesh"]["processes"] == agg["processes"],
+          "mesh view: run_report of the directory carries the mesh section")
+    check(bool(gaps) and max(gaps) < 1e3,
+          f"mesh view: the {len(gaps)} chunks' spans end within 1 ms across the processes "
+          f"(largest gap {max(gaps) if gaps else None!r} us)")
+    out = dict(offsets=agg["offsets"], align=agg["align"], span_end_gap_us=gaps,
+               straggler_summary=srep["summary"], imbalance=srep["imbalance"],
+               mesh_summary=rep["mesh"]["summary"])
+    print(f"  transport mesh view: {json.dumps(out)}", flush=True)
+    return out
 
 
 def transport_io(recs, out, ref):
@@ -4739,12 +5102,13 @@ def main() -> int:
         wire_counts, wire, wire_refs = phase_wire(tg, models, cb)
         io_counts, io = phase_io(tg, models, cb)
         sup_counts, sup = phase_supervised(tg, models, cb)
+        oracle_counts, oracle, fma_row = phase_oracle(tg, models, cb, cw, cst)
         refs = {k: v for ph in (cfg3, cfg4m, cfg5m) for k, v in ph.pop("transport_ref").items()}
         refs.update(ovl_refs)
         refs.update(ens_refs)
         refs.update(wire_refs)
         del wire_refs
-        transport_counts, transport = phase_transport(
+        transport_counts, transport = phase_transport(tg, 
             refs, {"config3": cfg3["step_ms"], "config4": cfg4m["step_ms"],
                    "config5": cfg5m["step_ms"]})
         del refs
@@ -4754,7 +5118,7 @@ def main() -> int:
 
     paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts,
              cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts, ovl_counts, prof_counts,
-             ens_counts, wire_counts, io_counts, sup_counts, transport_counts]
+             ens_counts, wire_counts, io_counts, sup_counts, oracle_counts, transport_counts]
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNEL_NAMES}
     for name, n in launches.items():
         if n == 0:
@@ -4782,7 +5146,11 @@ def main() -> int:
                                       "implicitglobalgrid_tpu/ops/pallas_wave.py:386 "
                                       "(_wave_kernel :227, _wave_mp_kernel :305)"),
            "stokes_step_exchange": ("implicitglobalgrid_tpu_torch/csrc/stokes.cu",
-                                    "implicitglobalgrid_tpu/ops/pallas_stokes.py:132,286")}
+                                    "implicitglobalgrid_tpu/ops/pallas_stokes.py:132,286"),
+           "fma_chain": ("implicitglobalgrid_tpu_torch/csrc/calibrate.cu",
+                         "none: a port helper for the FLOP-rate fit "
+                         "(implicitglobalgrid_tpu/telemetry/calibrate.py:104, an XLA loop)")}
+    rows["fma_chain"] = fma_row
     rows["stokes_step_exchange"]["ptxas_sass"] = k10_build
     for name in ("diffusion3d_step_halo", "diffusion3d_step_exchange"):
         rows[name]["ptxas_sass"] = {k: v for k, v in step_build.items()
@@ -4843,6 +5211,7 @@ def main() -> int:
                                     "advanced_modes_example": example,
                                     "wire_formats_and_sr": wire,
                                     "checkpoint_io": io,
+                                    "oracle_and_mesh_view": oracle,
                                     "transport_2_processes_z": transport},
                       "supervised_run": sup,
                       "cdiv": cdiv, "k4s_launches": k4s_launches,

@@ -29,7 +29,11 @@ and their reader (`io`: `SnapshotWriter`, `open_snapshot`), and the health
 guard and in-situ reducers after each chunk (`make_guarded_runner`, `Probe`,
 `AxisSlice`, `Stats`), the supervised run (`run_resilient`, `ResilientRun`,
 `RunSpec`) and its telemetry (`telemetry`: the metrics registry, the flight
-recorder, `prometheus_snapshot`, `run_report`, `PerfWatch`). Usage::
+recorder, `prometheus_snapshot`, `run_report`, `PerfWatch`), the
+performance oracle (`MachineProfile`, `predict_step`, `calibrate_machine`,
+`tune_config`, perfdb), the metrics server (`start_metrics_server`) and the
+mesh view (`aggregate_flight`, `straggler_report`, `export_chrome_trace`).
+Usage::
 
     import implicitglobalgrid_tpu_torch as igg
     me, dims, nprocs, coords, mesh = igg.init_global_grid(nx, ny, nz)
@@ -79,7 +83,13 @@ from .telemetry import (
     MetricsRegistry, metrics_registry, reset_metrics, prometheus_snapshot,
     FlightRecorder, start_flight_recorder, stop_flight_recorder,
     flight_recorder, record_event, record_span, read_flight_events,
-    run_report, PerfWatch,
+    run_report, PerfWatch, aggregate_flight, aggregate_events,
+    straggler_report, export_chrome_trace,
+    MetricsServer, start_metrics_server, stop_metrics_server, metrics_server,
+    MachineProfile, StepWorkload, default_machine_profile,
+    load_machine_profile, save_machine_profile, predict_step,
+    calibrate_machine, perfdb_add, perfdb_check,
+    TunedConfig, tune_config, save_tuned_config, load_tuned_config,
 )
 from . import io
 from .io import (
@@ -118,5 +128,11 @@ __all__ = [
     "MetricsRegistry", "metrics_registry", "reset_metrics", "prometheus_snapshot",
     "FlightRecorder", "start_flight_recorder", "stop_flight_recorder",
     "flight_recorder", "record_event", "record_span", "read_flight_events",
-    "run_report", "PerfWatch",
+    "run_report", "PerfWatch", "aggregate_flight", "aggregate_events",
+    "straggler_report", "export_chrome_trace",
+    "MetricsServer", "start_metrics_server", "stop_metrics_server", "metrics_server",
+    "MachineProfile", "StepWorkload", "default_machine_profile",
+    "load_machine_profile", "save_machine_profile", "predict_step",
+    "calibrate_machine", "perfdb_add", "perfdb_check",
+    "TunedConfig", "tune_config", "save_tuned_config", "load_tuned_config",
 ]

@@ -21,7 +21,7 @@ one K8 + K7 launch a dim (`ops.halo.local_update_halo(members=)`).
 from __future__ import annotations
 
 from ..ops.wire import resolve_comm_every
-from ..parallel.topology import check_initialized, global_grid
+from ..parallel.topology import check_initialized, global_grid, live_epochs
 from ..utils.exceptions import IncoherentArgumentError, InvalidArgumentError
 
 __all__ = ["make_state_runner", "resolve_once", "run_chunked", "resolve_comm_every",
@@ -29,7 +29,7 @@ __all__ = ["make_state_runner", "resolve_once", "run_chunked", "resolve_comm_eve
            "run_deep", "ensemble_partition_spec", "ensemble_state", "resolve_ensemble_impl",
            "check_ensemble"]
 
-# fresh masks by grid and request: the current epoch's only
+# fresh masks by grid and request: the live epochs' only (`live_epochs`)
 _masks: dict = {}
 
 
@@ -60,7 +60,8 @@ def fresh_mask(shape, retreat, base_lo, base_hi):
     m = _masks.get(key)
     if m is not None:
         return m
-    for k in [k for k in _masks if k[0] != gg.epoch]:
+    live = live_epochs()
+    for k in [k for k in _masks if k[0] not in live]:
         del _masks[k]
     mask = None
     for d in range(nd):

@@ -31,7 +31,7 @@ __all__ = ["build_kernels", "library", "count_launch", "launch_counts",
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("stencil.cu", "halo.cu", "wave.cu", "stokes.cu")
+SOURCES = ("stencil.cu", "halo.cu", "wave.cu", "stokes.cu", "calibrate.cu")
 HEADERS = ("cdiv.cuh", "wave.cuh", "stokes.cuh")
 # -fmad=false: no multiply-add contraction, so the stencil stays at ulp
 # distance from its plain PyTorch version; -Xptxas -v reports registers,
@@ -68,6 +68,7 @@ _SIGNATURES = {
     "igg_stokes_step_exchange": [_C_INT, _C_INT] + [_C_VOID] * 4,
     "igg_cdiv": [_C_INT, _C_VOID, _C_VOID, _C_LL, _C_DBL, _C_INT, _C_VOID],
     "igg_cdiv_sweep": [_C_DBL, _C_VOID, _C_VOID],
+    "igg_fma_chain": [_C_VOID, _C_LL, _C_INT, _C_DBL, _C_DBL, _C_VOID],
 }
 
 _lib = None
@@ -76,7 +77,8 @@ _launches: dict = {"diffusion3d_step_halo": 0, "halo_write": 0,
                    "halo_self_exchange": 0, "diffusion3d_step_exchange": 0,
                    "diffusion2d_step_exchange": 0, "halo_write_combined": 0,
                    "exchange_slabs": 0, "wire_pack": 0, "halo_write_multi": 0,
-                   "acoustic_step_exchange": 0, "stokes_step_exchange": 0}
+                   "acoustic_step_exchange": 0, "stokes_step_exchange": 0,
+                   "fma_chain": 0}
 _k4s_launches: dict = {}
 
 

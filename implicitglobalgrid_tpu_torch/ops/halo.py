@@ -80,6 +80,12 @@ update_halo(T)``).
 The exchange is labelled (``igg::update_halo``, `utils.profiling.label`)
 in a profiler's trace, which `utils.profiling.overlap_stats` reads as
 comm on the host; outside a capture the label costs a flag read.
+
+Every `update_halo` call is charged to the telemetry (the
+``igg_halo_*`` counters and a ``halo_exchange`` flight event) from its
+static wire plan, the `halo_comm_plan` record of its signature, computed
+once a signature; `local_update_halo`, the models' step-side form, charges
+nothing (the JAX package's accounting).
 """
 
 from __future__ import annotations
@@ -713,11 +719,42 @@ def update_halo(*fields, dims=None, coalesce=None, wire_dtype=None,
     gg = global_grid()
     dims_order = _normalize_dims_order(dims)
     fs = _normalized_fields(fields)
+    coalesce = resolve_halo_coalesce(coalesce)
+    wire, stage = resolve_wire_dtype(wire_dtype), resolve_wire_stage(wire_stage)
+    _account(gg, fs, dims_order, coalesce, wire, stage)
     with label("igg::update_halo"):
         out = _exchange_arrays(gg, [f.A for f in fs], [f.halowidths for f in fs],
-                               dims_order, coalesce, resolve_wire_dtype(wire_dtype),
-                               resolve_wire_stage(wire_stage))
+                               dims_order, coalesce, wire, stage)
     return out[0] if len(out) == 1 else tuple(out)
+
+
+# the wire plans `update_halo` charges, by grid epoch and call signature
+_plan_cache: dict = {}
+
+
+def _account(gg, fs, dims_order, coalesce, wire, stage) -> None:
+    """Charge one `update_halo` call's static wire plan to the metrics
+    registry and the flight recorder (`telemetry.hooks.
+    account_halo_exchange`), as the JAX package does on every call: the
+    plan is computed once a signature (`_plan_from_sigs`), then a call
+    costs a dict lookup and a few counter increments (one JSONL line while
+    a recorder is open). `local_update_halo` charges nothing."""
+    from ..parallel.topology import live_epochs
+    from ..telemetry.hooks import account_halo_exchange
+
+    sig = tuple((tuple(f.A.shape), f.A.dtype, tuple(f.halowidths)) for f in fs)
+    key = (gg.epoch, sig, dims_order, coalesce, str(wire), str(stage))
+    plan = _plan_cache.get(key)
+    if plan is None:
+        live = live_epochs()
+        for k in [k for k in _plan_cache if k[0] not in live]:
+            del _plan_cache[k]
+        plan = _plan_from_sigs(
+            gg, [_Sig(_box_locals(gg, shape), dt) for shape, dt, _ in sig],
+            [tuple(int(h) for h in hw) for _, _, hw in sig], dims_order, coalesce, wire,
+            stage)
+        _plan_cache[key] = plan
+    account_halo_exchange(plan)
 
 
 def local_update_halo(*fields, dims=None, coalesce=None, wire_dtype=None,
@@ -766,9 +803,6 @@ def halo_comm_plan(*fields, dims=None, coalesce=None, wire_dtype=None,
     Returns ``{fields, coalesce, wire_dtype, wire_stage, staged_axes,
     ensemble, axes: {axis: {ppermutes, wire_bytes, by_dtype[, staged]}},
     ppermutes, wire_bytes, local_copy_bytes, local_copy_by_axis}``."""
-    from ..parallel.topology import AXIS_NAMES
-    from .wire import _itemsize
-
     check_initialized()
     E = 1
     if ensemble is not None:
@@ -798,6 +832,14 @@ def halo_comm_plan(*fields, dims=None, coalesce=None, wire_dtype=None,
                 f"{tuple(int(d) for d in gg.box)}.")
         sigs.append(_Sig(_box_locals(gg, shape), f.A.dtype))
     hws = [tuple(int(h) for h in f.halowidths) for f in fs]
+    return _plan_from_sigs(gg, sigs, hws, dims_order, coalesce, wire, stage, E)
+
+
+def _plan_from_sigs(gg, sigs, hws, dims_order, coalesce, wire, stage, E=1) -> dict:
+    """`halo_comm_plan`'s record for fields of LOCAL signatures ``sigs``
+    (`_Sig`) and halowidths ``hws``, under resolved knobs."""
+    from ..parallel.topology import AXIS_NAMES
+    from .wire import _itemsize
 
     def slab_cells(i, dim):
         shp = sigs[i].shape

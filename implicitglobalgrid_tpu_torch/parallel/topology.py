@@ -32,6 +32,7 @@ __all__ = [
     "NDIMS", "NNEIGHBORS_PER_DIM", "PROC_NULL", "AXIS_NAMES",
     "GlobalGrid", "global_grid", "set_global_grid", "grid_is_initialized",
     "check_initialized", "get_global_grid", "grid_epoch",
+    "swap_global_grid", "retain_epoch", "release_epoch", "live_epochs",
     "dims_create", "cart_rank", "cart_coords", "cart_shift", "neighbors_table",
     "ol", "axis_perm_pairs", "crosses",
     "StagedDirection", "StagedWireLayout", "staged_wire_layout",
@@ -118,6 +119,53 @@ def get_global_grid() -> GlobalGrid:
 def grid_epoch() -> int:
     check_initialized()
     return _global_grid.epoch
+
+
+# ---------------------------------------------------------------------------
+# Grid multiplexing (context switches between live grids)
+# ---------------------------------------------------------------------------
+# An init assigns a FRESH epoch (`set_global_grid` bumps the counter), which
+# is what retires the epoch-keyed caches after a re-init. Code that keeps
+# SEVERAL live grids over one device (`telemetry.tune_config` swaps the
+# caller's grid aside while it builds its candidates') switches between them
+# with `swap_global_grid`; each keeps the epoch it was born with. The caches
+# learn which epochs are live via `retain_epoch`/`live_epochs` and evict
+# only the dead ones.
+
+_retained_epochs: set = set()
+
+
+def swap_global_grid(gg: GlobalGrid | None) -> GlobalGrid | None:
+    """Make ``gg`` the current grid WITHOUT assigning a new epoch, and
+    return the previously current grid (or None). The swapped-in grid keeps
+    its epoch, so the epoch-keyed caches keep serving it. Ordinary code
+    wants `init_global_grid` / `finalize_global_grid`; only hold several
+    grids over the SAME device and process group."""
+    global _global_grid
+    old = _global_grid
+    _global_grid = gg
+    return old
+
+
+def retain_epoch(epoch: int) -> None:
+    """Mark ``epoch`` as belonging to a live (swapped-out) grid: the
+    epoch-keyed caches do not evict its entries while retained."""
+    _retained_epochs.add(int(epoch))
+
+
+def release_epoch(epoch: int) -> None:
+    """Drop the retention of ``epoch`` (no-op if not retained); its cache
+    entries become evictable at the next miss."""
+    _retained_epochs.discard(int(epoch))
+
+
+def live_epochs() -> frozenset:
+    """Epochs whose cache entries must survive: the current grid's (if any)
+    plus every retained one."""
+    live = set(_retained_epochs)
+    if _global_grid is not None:
+        live.add(_global_grid.epoch)
+    return frozenset(live)
 
 
 # ---------------------------------------------------------------------------

@@ -52,9 +52,14 @@ What differs from the JAX package:
 - **No compiled runner.** ``key``, ``check_vma`` and ``unroll`` are
   accepted and have no effect on an eager runner; no runner-cache events
   are streamed and no chunk is cold.
-- **Modules still to port.** ``metrics_port`` and ``healthz_max_age_s``
-  (the metrics server), ``tuned`` and `ResilientRun.apply_tuned` (the
-  tuner), ``audit`` and ``audit_lints`` (the audit) and
+- **The live endpoint and the tuner** come as the JAX package has them:
+  ``metrics_port`` starts `telemetry.server` for the run (``/metrics``,
+  ``/healthz``; ``healthz_max_age_s`` its 503 age), ``tuned`` resolves a
+  `telemetry.TunedConfig` once, records the ``tuned`` event and scopes its
+  knobs' environment (``IGG_HALO_WIRE_DTYPE``, ``IGG_HALO_COALESCE``,
+  ``IGG_COMM_EVERY``, ``IGG_HALO_WIRE_STAGE``) around every `advance()`,
+  and a ``perf_regression`` marks it stale (``tuned_stale``).
+- **Modules still to port.** ``audit`` and ``audit_lints`` (the audit) and
   `ResilientRun.resize` (reshard) raise `NotSupportedError` naming their
   ROADMAP item, a knob at construction before any resource comes up.
 """
@@ -221,16 +226,7 @@ class ResilientRun:
         spec = spec if spec is not None else RunSpec()
         check_initialized()
         # knobs whose module is still to be ported: refused before any
-        # resource (writer thread, checkpoint directories) comes up
-        if spec.metrics_port is not None:
-            raise _not_ported("RunSpec.metrics_port (the live /metrics and "
-                              "/healthz endpoint)", "telemetry.server", 2)
-        if spec.healthz_max_age_s is not None:
-            raise _not_ported("RunSpec.healthz_max_age_s (the /healthz age "
-                              "limit)", "telemetry.server", 2)
-        if spec.tuned is not None:
-            raise _not_ported("RunSpec.tuned (an auto-tuned config)",
-                              "telemetry.tune", 2)
+        # resource (endpoint, writer thread, checkpoint directories) comes up
         if spec.audit or spec.audit_lints is not None:
             raise _not_ported("RunSpec.audit / audit_lints (the chunk "
                               "program's static audit and its lints)",
@@ -294,7 +290,15 @@ class ResilientRun:
                     raise InvalidArgumentError(
                         f"NaNPoke index {tuple(f.index)} is outside field "
                         f"{f.name!r} of stacked shape {tuple(shape)}.")
-        self.tuned = None
+        # the tuned config (RunSpec.tuned): resolved once (a bad path or
+        # record fails construction, not a later chunk); its knobs'
+        # environment is scoped around every advance()
+        from ..telemetry.tune import resolve_tuned
+
+        self.tuned = resolve_tuned(spec.tuned)
+        self._tuned_env = None if self.tuned is None else self.tuned.env()
+        # an applied config a perf drift invalidates: marked stale
+        # (`tuned_stale` event) until cleared or re-applied
         self.tuned_stale = False
         self.tuned_stale_reason = None
         # wall-clock deadline surface (RunSpec.deadline_s): crossing the
@@ -343,6 +347,19 @@ class ResilientRun:
             self.watch = PerfWatch(window=int(spec.perf_window),
                                    zmax=float(spec.perf_zmax),
                                    model_step_s=model_step_s)
+        # the live endpoint comes up FIRST: a port conflict fails the call
+        # before any other resource (writer thread, checkpoint dirs)
+        self.server = None
+        if spec.metrics_port is not None:
+            from ..telemetry.server import start_metrics_server
+
+            self.server = start_metrics_server(
+                int(spec.metrics_port),
+                healthz_max_age_s=spec.healthz_max_age_s)
+        elif spec.healthz_max_age_s is not None:
+            raise InvalidArgumentError(
+                "healthz_max_age_s needs metrics_port (it configures the "
+                "/healthz endpoint the driver starts).")
         self.writer = None
         try:
             if spec.snapshot_dir is not None:
@@ -386,10 +403,21 @@ class ResilientRun:
             if model_step_s is not None:
                 record_event("perf_model", step_s=model_step_s,
                              bound=model_bound, source=model_source)
+            if self.tuned is not None:
+                record_event("tuned", model=self.tuned.model,
+                             **self.tuned.knobs(),
+                             predicted_step_s=self.tuned.predicted_step_s,
+                             measured_step_s=self.tuned.measured_step_s,
+                             speedup=self.tuned.speedup)
         except BaseException:
-            # a failed setup must not leak the writer thread
+            # a failed setup must not leak the endpoint or the writer
+            # thread
             if self.writer is not None:
                 self.writer.close()
+            if self.server is not None:
+                from ..telemetry.server import stop_metrics_server
+
+                stop_metrics_server()
             raise
 
         self.reports = []
@@ -471,19 +499,49 @@ class ResilientRun:
         4); raises `NotSupportedError` until it is ported."""
         raise _not_ported("ResilientRun.resize", "reshard", 4)
 
+    def _mark_tuned_stale(self, reason: str) -> None:
+        """Flag the applied `TunedConfig` as invalidated (a perf drift says
+        its knobs stopped winning). No-op without a tuned config; records
+        the ``tuned_stale`` flight event once."""
+        if self.tuned is None or self.tuned_stale:
+            return
+        self.tuned_stale = True
+        self.tuned_stale_reason = reason
+        self._record_event("tuned_stale", reason=reason,
+                           model=self.tuned.model)
+
     def clear_tuned(self) -> None:
-        """Drop the applied tuned config and its stale flag (the JAX
-        package's scheduler reaction; the port applies none, so this only
-        resets the flags)."""
+        """Drop the applied `TunedConfig`: later chunks run under the
+        DEFAULT wire/coalesce/cadence environment again. Structural knobs
+        the setup built into the step (overlap, a deep super-step,
+        ensemble stacking) stay."""
         self.tuned = None
+        self._tuned_env = None
         self.tuned_stale = False
         self.tuned_stale_reason = None
 
     def apply_tuned(self, cfg) -> None:
-        """Apply a tuned config to the live run: needs the tuner
-        (``telemetry.tune``, ROADMAP Queue A item 2); raises
-        `NotSupportedError` until it is ported."""
-        raise _not_ported("ResilientRun.apply_tuned", "telemetry.tune", 2)
+        """Apply a (re)tuned `TunedConfig` to the LIVE run: later chunks run
+        under the config's knob environment (`TunedConfig.env`).
+        Structural knobs (overlap, a deep cadence built into the step,
+        ensemble stacking) are NOT re-applied: the step function is already
+        built. Clears any stale flag and records a ``tuned`` flight
+        event."""
+        from ..telemetry.tune import TunedConfig
+        from ..utils.exceptions import InvalidArgumentError
+
+        if not isinstance(cfg, TunedConfig):
+            raise InvalidArgumentError(
+                f"apply_tuned takes a telemetry.TunedConfig; got "
+                f"{type(cfg).__name__}.")
+        self.tuned = cfg
+        self._tuned_env = cfg.env()
+        self.tuned_stale = False
+        self.tuned_stale_reason = None
+        self._record_event("tuned", model=cfg.model, **cfg.knobs(),
+                           predicted_step_s=cfg.predicted_step_s,
+                           measured_step_s=cfg.measured_step_s,
+                           speedup=cfg.speedup)
 
     def reprice(self, step_s: float, *, bound=None, source=None) -> None:
         """Replace the attached perf-model unit price (seconds per step):
@@ -514,7 +572,17 @@ class ResilientRun:
         """Execute ONE chunk-boundary iteration; return True while steps
         remain (False once the run is complete). The first call performs
         the initial step-0 checkpoint save; the call that commits step
-        ``nt`` records the ``run_end`` event."""
+        ``nt`` records the ``run_end`` event. With a tuned config attached
+        (`RunSpec.tuned`, `apply_tuned`) the iteration runs under the
+        config's knob environment."""
+        if self._tuned_env is not None:
+            from ..telemetry.tune import _scoped_env
+
+            with _scoped_env(self._tuned_env):
+                return self._advance()
+        return self._advance()
+
+    def _advance(self) -> bool:
         if self._finished:
             return False
         if not self._started:
@@ -710,6 +778,7 @@ class ResilientRun:
                 exec_s=t_done - t_exec0)
             if verdict is not None:
                 record_event("perf_regression", **verdict)
+                self._mark_tuned_stale("perf_drift")
         if plan is not None:
             from ..telemetry.hooks import observe_reducers
 
@@ -834,11 +903,15 @@ class ResilientRun:
                            step=at_step)
 
     def close(self) -> None:
-        """Release the run's resources (the snapshot writer's drain) —
-        idempotent, safe on every exit path."""
+        """Release the run's resources (the metrics endpoint, the snapshot
+        writer's drain) — idempotent, safe on every exit path."""
         if self._closed:
             return
         self._closed = True
+        if self.server is not None:
+            from ..telemetry.server import stop_metrics_server
+
+            stop_metrics_server()
         if self.writer is not None:
             # drain on EVERY exit path (normal end, retry-budget
             # ResilienceError, a user exception out of on_report): every
@@ -911,9 +984,20 @@ def run_resilient(step_local, state: dict, nt: int, *,
     budget: its slack is stamped at every boundary and crossing it records
     one ``deadline_missed`` event; the run completes.
 
-    ``metrics_port``, ``healthz_max_age_s``, ``tuned``, ``audit`` and
-    ``audit_lints`` need modules the port does not have yet and raise
-    `NotSupportedError` (the module docstring)."""
+    ``metrics_port`` (opt-in) starts the live metrics endpoint
+    (`telemetry.start_metrics_server`) for the run: ``/metrics`` serves the
+    Prometheus snapshot, ``/healthz`` the age of the driver heartbeat;
+    ``0`` binds an ephemeral port (read it from
+    ``igg.metrics_server().port``); a server already live in the process
+    is attached to (refcounted). ``healthz_max_age_s`` makes ``/healthz``
+    return 503 when the heartbeat is older. Binds 127.0.0.1.
+
+    ``tuned`` takes a `telemetry.TunedConfig`, its JSON dict or a path
+    (`telemetry.tune_config`'s output): its knobs' environment is scoped
+    around every chunk and a ``tuned`` event records it.
+
+    ``audit`` and ``audit_lints`` need the audit, which the port does not
+    have yet, and raise `NotSupportedError` (the module docstring)."""
     from ..utils.exceptions import InvalidArgumentError
     from ..utils.timing import sync
 

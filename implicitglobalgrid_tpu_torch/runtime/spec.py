@@ -12,9 +12,9 @@ scheduler can embed per job unchanged:
     state, reports = igg.run_resilient(step, state, nt, spec=spec)
 
 Field semantics are documented on `run_resilient` (the single reference);
-the knobs whose module the port does not have yet (``metrics_port``,
-``healthz_max_age_s``, ``tuned``, ``audit``, ``audit_lints``) make
-`ResilientRun` raise `NotSupportedError` at construction.
+the knobs whose module the port does not have yet (``audit``,
+``audit_lints``) make `ResilientRun` raise `NotSupportedError` at
+construction.
 """
 
 from __future__ import annotations
@@ -48,9 +48,8 @@ class RunSpec:
       ``igg_job_deadline_missed_total`` counter at the next step
       boundary — observability, never a kill: the run completes. The
       scheduler fills it from ``JobSpec.deadline_s`` minus queue wait)
-    - auto-tuner: ``tuned`` (the JAX package's `telemetry.TunedConfig`,
-      its JSON dict, or a path to one; the tuner is not ported yet, so a
-      run given one raises `NotSupportedError`).
+    - auto-tuner: ``tuned`` (a `telemetry.TunedConfig`, its JSON dict, or
+      a path to one; either package's file).
     """
 
     nt_chunk: int = 100

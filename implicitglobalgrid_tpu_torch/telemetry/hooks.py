@@ -13,11 +13,12 @@ never desynchronize producers.
 The port calls the hooks of what it runs: the resilient driver
 (`record_health_event`, `note_heartbeat`, `note_deadline_*`,
 `observe_member_health`, `observe_reducers`, `observe_perf` through
-`PerfWatch`), `utils.checkpoint` (`observe_checkpoint`) and
-`io.snapshot.SnapshotWriter` (`note_io_queue`, `observe_snapshot`). The
-others keep the JAX package's contract for the modules still to come:
-`note_runner_cache` (the port caches no compiled runner) and
-`account_halo_exchange` (not charged by the port's `update_halo`).
+`PerfWatch`), `ops.halo.update_halo` (`account_halo_exchange`, every call),
+`utils.checkpoint` (`observe_checkpoint`), `io.snapshot.SnapshotWriter`
+(`note_io_queue`, `observe_snapshot`) and `telemetry.server`
+(`note_metrics_server_port`, `note_http_request`). The others keep the JAX
+package's contract for the modules still to come; `note_runner_cache` stays
+unwired (the port caches no compiled runner).
 """
 
 from __future__ import annotations

@@ -9,13 +9,16 @@ optionally merges the live metrics registry plus a profiler capture's
 what did it cost, and where did the time go" for a run that may have died
 hours ago.
 
-The port reads one process's stream (a file, or its parsed events). A
-directory of per-process streams and a stream of several processes need the
-JAX package's `telemetry.aggregate`, a scheduler journal its `service`:
-both raise `NotSupportedError` until those modules are ported. Sections
-for what the port does not emit (``runner_cache``, ``halo``, ``audit``)
-read what its stream holds: a port run caches no compiled runner, so its
-``runner_cache`` counts stay 0 and no chunk is cold.
+A DIRECTORY of per-process streams (``flight_p<rank>.jsonl``) is
+aggregated and clock-aligned first (`telemetry.aggregate.aggregate_flight`),
+and so is a stream of several processes given as one file or as events
+(`aggregate_events`): the per-run sections then reconstruct the anchor
+process's view and a ``"mesh"`` section is added (`mesh_section`). A
+scheduler journal (``scheduler.jsonl``) needs the service module and raises
+`NotSupportedError` until it is ported. Sections for what the port does not
+emit (``runner_cache``, ``audit``) read what its stream holds: a port run
+caches no compiled runner, so its ``runner_cache`` counts stay 0 and no
+chunk is cold.
 """
 
 from __future__ import annotations
@@ -182,15 +185,24 @@ def run_report(source, *, run_id: str | None = None,
                include_metrics: bool = True) -> dict:
     """Build the unified report for one run.
 
-    ``source`` is a flight-recorder JSONL path or an iterable of
-    already-parsed event dicts, of ONE process (either package's stream);
-    a directory or a multi-process stream raises `NotSupportedError` (the
-    module docstring). ``run_id`` selects a run when the file holds several
-    (default: the LAST run that appears). ``trace_dir`` merges a profiler
+    ``source`` is a flight-recorder JSONL path (either package's stream),
+    a DIRECTORY of per-process streams (aggregated and clock-aligned by
+    `telemetry.aggregate.aggregate_flight` first), or an iterable of
+    already-parsed event dicts. ``run_id`` selects a run when the file
+    holds several (default: the LAST run that appears; for a directory, the
+    single run present: several raise). ``trace_dir`` merges a profiler
     capture's `overlap_stats` and `op_breakdown` (`utils.profiling`);
     ``include_metrics`` attaches a snapshot of the process metrics registry
     (meaningful in-process; read post-hoc, the registry is empty and the
-    JSONL carries the truth)."""
+    JSONL carries the truth).
+
+    When the stream spans SEVERAL processes, the per-run sections
+    reconstruct the ANCHOR process's view (the lowest rank: every process
+    runs the same driver loop) and a ``"mesh"`` section is added: clock
+    offsets, per-chunk barrier-arrival straggler attribution, persistent
+    stragglers and the wait/compute imbalance (`aggregate.mesh_section`).
+    A scheduler journal directory raises `NotSupportedError`."""
+    agg = None
     if isinstance(source, (str, os.PathLike)) \
             and os.path.isdir(os.fspath(source)):
         if os.path.exists(os.path.join(os.fspath(source), "scheduler.jsonl")):
@@ -198,11 +210,11 @@ def run_report(source, *, run_id: str | None = None,
                 f"run_report: {os.fspath(source)} holds a multi-run scheduler "
                 "journal; its service report needs the service module, not "
                 "ported yet (ROADMAP Queue A item 5).")
-        raise NotSupportedError(
-            f"run_report: {os.fspath(source)} is a directory of per-process "
-            "streams; merging them needs telemetry.aggregate, not ported yet "
-            "(ROADMAP Queue A item 2). Pass one process's flight_p<i>.jsonl.")
-    if isinstance(source, (str, os.PathLike)):
+        from .aggregate import aggregate_flight
+
+        agg = aggregate_flight(source, run_id=run_id)
+        events = agg["events"]
+    elif isinstance(source, (str, os.PathLike)):
         events = read_flight_events(source)
     else:
         events = list(source)
@@ -221,12 +233,21 @@ def run_report(source, *, run_id: str | None = None,
     evs = [e for e in events if e.get("run") == rid]
     evs.sort(key=lambda e: (e.get("proc", 0), e.get("seq", 0)))
 
+    # multi-process stream: cross-process analysis first, then reconstruct
+    # the anchor process's view (see docstring)
+    mesh = None
     procs = sorted({int(e.get("proc", 0)) for e in evs})
     if len(procs) > 1:
-        raise NotSupportedError(
-            f"run_report: run {rid!r} holds the events of processes {procs}; "
-            "a multi-process report needs telemetry.aggregate, not ported yet "
-            "(ROADMAP Queue A item 2). Report each process's stream alone.")
+        from .aggregate import aggregate_events, mesh_section
+
+        if agg is None:
+            # pre-loaded events or one shared file: clock-align them first
+            # (per-process monotonic stamps are not comparable)
+            agg = aggregate_events(evs, run_id=rid)
+        mesh = mesh_section(agg)
+        evs = [e for e in agg["events"]
+               if int(e.get("proc", 0)) == procs[0]]
+        evs.sort(key=lambda e: e.get("seq", 0))
 
     # Cold-chunk attribution: a chunk following a runner-cache miss pays
     # its program's compile inside its first dispatch (the JAX package's
@@ -370,6 +391,8 @@ def run_report(source, *, run_id: str | None = None,
         },
         "sequence": sequence,
     }
+    if mesh is not None:
+        report["mesh"] = mesh
     if include_metrics:
         report["metrics"] = metrics_registry().collect()
     if trace_dir is not None:

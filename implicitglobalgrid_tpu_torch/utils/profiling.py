@@ -51,7 +51,8 @@ KERNEL_NAMES = {"diffusion3d_step_halo": ("diffusion3d_step_halo_kernel",),
                 "wire_pack": ("wire_pack_kernel",),
                 "halo_write_multi": ("halo_write_multi_kernel",),
                 "acoustic_step_exchange": ("acoustic_step_kernel",),
-                "stokes_step_exchange": ("stokes_step_kernel", "stokes_step_kernel_column")}
+                "stokes_step_exchange": ("stokes_step_kernel", "stokes_step_kernel_column"),
+                "fma_chain": ("fma_chain_kernel",)}
 # the launch counters of the exchange's kernels: `update_halo`'s tiers and K4s
 EXCHANGE_KERNELS = ("halo_write", "halo_self_exchange", "halo_write_combined",
                     "exchange_slabs", "wire_pack", "halo_write_multi")

@@ -1113,3 +1113,24 @@ def test_k2_k6_check_once_a_signature(on_host, monkeypatch):
                                    hws=(1, 1, 1), block=HALO_BLOCK)
     assert checks[3:] == ["_check_combined"]  # the aliased calls' one new signature
     assert cb.launch_counts()["halo_write"] == 3
+
+
+@pytest.mark.parametrize("iters", [0, 1, 3])
+def test_fma_chain_matches_plain(on_host, monkeypatch, iters):
+    """The calibration kernel (`csrc/calibrate.cu`): every element's chain
+    of single-rounding multiply-adds equals the plain version's (which
+    rounds through float64: equal but where a float64 sum lands on a
+    float32 midpoint, which these inputs do not meet), a ragged last block
+    included; one launch counted a call."""
+    from implicitglobalgrid_tpu_torch.ops import cuda_calibrate as cc
+
+    monkeypatch.setattr(cc, "_on_card", lambda t: True)
+    monkeypatch.setattr(cc, "_stream", lambda t: None)
+    g = torch.Generator().manual_seed(iters)
+    x = torch.rand(3 * 256 + 17, generator=g) * 4 - 2
+    got = cc.fma_chain(x.clone(), iters, 1.000001, 1e-9)
+    ref = cc.fma_chain_plain(x.clone(), iters, 1.000001, 1e-9)
+    assert torch.equal(got, ref)
+    assert cb.launch_counts()["fma_chain"] == 1
+    big = cc.fma_chain(x.clone(), iters, 0.75, 0.25)
+    assert torch.equal(big, cc.fma_chain_plain(x.clone(), iters, 0.75, 0.25))

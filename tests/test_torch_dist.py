@@ -39,7 +39,9 @@ virtual mesh's. The tests read those results:
 - `run_resilient` with a shared checkpoint directory and a `NaNPoke` in one
   process's box: the guard's sum trips every process, all roll back, and
   each box of the final state is bitwise the virtual mesh's run; each
-  process's flight stream carries its rank as ``proc`` and the rollback;
+  process's flight stream carries its rank as ``proc`` and the rollback,
+  and the directory of every process's stream aggregates (`aggregate_flight`,
+  `straggler_report`, `run_report`'s ``mesh`` section);
 - `tic`/`toc` spanning the processes.
 """
 
@@ -265,6 +267,20 @@ def test_resilient_rollback_in_every_process_stream(config, tmp_path_factory):
         assert v["procs"] == [pid], (pid, v)
         assert v["rollbacks"] == 1 and v["trips"] == 1, (pid, v)
         assert v["tripped_at"] == [[4, 6]], (pid, v)
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_resilient_flight_directory_aggregates_every_process(config, tmp_path_factory):
+    """The processes' streams of one run in one directory: `aggregate_flight`
+    finds every process (offsets finite, aligned at the chunk barriers),
+    `straggler_report` pairs their chunks and `run_report` of the directory
+    carries the ``mesh`` section over all of them."""
+    nproc = CONFIGS[config][0]
+    for pid, v in _each(config, tmp_path_factory, "resilient/mesh"):
+        assert v["processes"] == list(range(nproc)), (pid, v)
+        assert v["mesh_processes"] == list(range(nproc)), (pid, v)
+        assert v["offsets_finite"] and v["methods"] == ["anchor", "chunk-barrier"], (pid, v)
+        assert v["report_chunks"] == v["stragglers_chunks"] >= 4, (pid, v)
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))

@@ -82,6 +82,45 @@ def test_import_leaves_jax_out():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_oracle_server_and_mesh_view_leave_jax_out():
+    """The performance oracle, the metrics server and the mesh view,
+    imported and driven in a fresh interpreter: no JAX module loads."""
+    code = (
+        "import sys, tempfile, urllib.request\n"
+        "import implicitglobalgrid_tpu_torch as tg\n"
+        "import implicitglobalgrid_tpu_torch.telemetry.calibrate, implicitglobalgrid_tpu_torch.telemetry.tune\n"
+        "import implicitglobalgrid_tpu_torch.telemetry.perfdb, implicitglobalgrid_tpu_torch.telemetry.server\n"
+        "import implicitglobalgrid_tpu_torch.telemetry.aggregate, implicitglobalgrid_tpu_torch.telemetry.trace_export\n"
+        "import implicitglobalgrid_tpu_torch.ops.cuda_calibrate\n"
+        "tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=2, periodx=1, device_type='cpu', quiet=True)\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    prof = tg.calibrate_machine(d + '/p.json', elems_per_device=512, link_bytes=(256, 1024), c1=1)\n"
+        "    T, Cp, p = tg.models.init_diffusion3d()\n"
+        "    tg.predict_step('diffusion3d', (T, Cp), profile=tg.load_machine_profile(d + '/p.json'))\n"
+        "    cfg = tg.tune_config('diffusion3d', dict(nx=6, ny=6, nz=6, dimx=2, dimy=2, dimz=2, device_type='cpu'),\n"
+        "                         d + '/p.json', measure=True, top_k=1, comm_every_options=('1',),\n"
+        "                         measure_steps=1, reps=1)\n"
+        "    tg.perfdb_add(d + '/db.jsonl', [{'metric': 'x_per_s', 'value': 1.0}])\n"
+        "    tg.perfdb_check(d + '/db.jsonl', [{'metric': 'x_per_s', 'value': 1.0}])\n"
+        "    import os; os.makedirs(d + '/fl')\n"
+        "    tg.start_flight_recorder(d + '/fl', run_id='iso')\n"
+        "    def scrape(rep):\n"
+        "        urllib.request.urlopen(f'http://127.0.0.1:{tg.metrics_server().port}/metrics').read()\n"
+        "    tg.run_resilient(lambda s: {'T': tg.update_halo(s['T'] * 1.0)}, {'T': T}, 2, nt_chunk=1,\n"
+        "                     tuned=cfg, metrics_port=0, on_report=scrape)\n"
+        "    tg.stop_flight_recorder()\n"
+        "    tg.run_report(d + '/fl'), tg.export_chrome_trace(d + '/fl', d + '/t.json')\n"
+        "    tg.aggregate_flight(d + '/fl')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'implicitglobalgrid_tpu' or m.startswith('implicitglobalgrid_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_sources_name_no_jax():
     pkg = ROOT / "implicitglobalgrid_tpu_torch"
     files = [f for f in pkg.rglob("*.py") if "_build" not in f.relative_to(pkg).parts]
@@ -96,7 +135,10 @@ def test_sources_name_no_jax():
             "runtime/driver.py", "runtime/spec.py", "telemetry/__init__.py",
             "telemetry/registry.py", "telemetry/recorder.py", "telemetry/hooks.py",
             "telemetry/export.py", "telemetry/report.py", "telemetry/perfmodel.py",
-            "examples/diffusion3D_multixpu.py"} <= names
+            "examples/diffusion3D_multixpu.py", "telemetry/calibrate.py",
+            "telemetry/tune.py", "telemetry/perfdb.py", "telemetry/server.py",
+            "telemetry/aggregate.py", "telemetry/trace_export.py",
+            "ops/cuda_calibrate.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

@@ -18,8 +18,12 @@ on the CPU.
 - The checkpoint slots read across packages: each package's
   `_CheckpointSlots(root).restore()` restores the other's, and the
   ``LATEST`` pointers' JSON is the same.
-- The knobs whose module is not ported raise `NotSupportedError` naming
-  their ROADMAP item, and leave no writer thread or directory behind.
+- The knobs whose module is not ported (the audit's) raise
+  `NotSupportedError` naming their ROADMAP item, and a bad endpoint port,
+  an age limit without an endpoint or a malformed tuned config raise as the
+  JAX package's do, each leaving no writer thread, endpoint or directory
+  behind (the endpoint and the tuner themselves:
+  `tests/test_torch_mesh_observability.py`, `tests/test_torch_tune.py`).
 """
 
 import json
@@ -492,29 +496,37 @@ def test_corrupt_checkpoint_validation(tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("knob,item", [
-    (dict(metrics_port=0), "item 2"), (dict(healthz_max_age_s=5.0), "item 2"),
-    (dict(tuned={"model": "diffusion3d"}), "item 2"), (dict(audit=True), "item 3"),
+    (dict(metrics_port=-1), "port"), (dict(healthz_max_age_s=5.0), "needs metrics_port"),
+    (dict(tuned={"comm_every": "1"}), "malformed"), (dict(audit=True), "item 3"),
     (dict(audit_lints=()), "item 3"),
 ])
 def test_unported_knobs_raise_before_any_resource(tmp_path, knob, item):
+    """The audit's knobs (not ported) raise `NotSupportedError` naming their
+    ROADMAP item; a bad endpoint port, an age limit without an endpoint and
+    a malformed tuned config raise as the JAX package's do. All before any
+    resource comes up."""
     _init()
     step, state = _diffusion_step()
     threads = {t.name for t in threading.enumerate()}
-    with pytest.raises(NotSupportedError, match=item):
+    error = NotSupportedError if "item" in item else (InvalidArgumentError, OverflowError)
+    with pytest.raises(error, match=item):
         tg.run_resilient(step, state, 10, nt_chunk=5, checkpoint_dir=str(tmp_path / "ck"),
                          snapshot_dir=str(tmp_path / "s"), **knob)
     assert not (tmp_path / "ck").exists() and not (tmp_path / "s").exists()
     assert {t.name for t in threading.enumerate()} <= threads  # no writer thread
+    assert tg.metrics_server() is None
 
 
 def test_resize_and_apply_tuned_raise(tmp_path):
+    """`resize` needs reshard (not ported); `apply_tuned` takes only a
+    `TunedConfig`, as the JAX package's."""
     _init()
     step, state = _diffusion_step()
     run = tg.ResilientRun(step, state, 10, tg.RunSpec(nt_chunk=5))
     try:
         with pytest.raises(NotSupportedError, match="item 4"):
             run.resize((1, 2, 2))
-        with pytest.raises(NotSupportedError, match="item 2"):
+        with pytest.raises(InvalidArgumentError, match="TunedConfig"):
             run.apply_tuned(object())
         run.clear_tuned()
         assert run.tuned is None and not run.tuned_stale

@@ -9,8 +9,7 @@ and `run_report`), on the port, and the two packages' streams read across:
   kinds, not times. Left out of the comparison, as the port does not emit
   them: the JAX package's ``runner_cache`` events (its compiled-runner
   cache; the port's ``runner_cache`` section reads 0 and no chunk is cold)
-  and ``halo_exchange`` events (its static comm accounting in
-  `update_halo`), and the audit (not ported);
+  and the audit (not ported);
 - the ``igg_health_events_total`` family of `prometheus_snapshot` reads the
   same after the same run on either package.
 """
@@ -37,7 +36,7 @@ from torch_port_util import clean_torch_grid, init_both  # noqa: F401
 pytestmark = pytest.mark.telemetry
 
 # event kinds only the JAX package emits (module docstring)
-JAX_ONLY_KINDS = {"runner_cache", "halo_exchange", "audit", "audit_failed"}
+JAX_ONLY_KINDS = {"runner_cache", "audit", "audit_failed"}
 
 
 @pytest.fixture(autouse=True)
@@ -340,8 +339,9 @@ def test_recorder_thread_safety(tmp_path):
 
 def test_recorder_into_directory_and_multi_run_filter(tmp_path):
     """A directory path follows the per-process convention
-    (``flight_p<rank>.jsonl``); a directory given to `run_report` needs the
-    aggregate module and raises."""
+    (``flight_p<rank>.jsonl``); `run_report` of the directory aggregates its
+    streams (two runs in it need ``run_id``); a scheduler journal there
+    needs the service module and raises."""
     tg.start_flight_recorder(str(tmp_path), run_id="runA")
     tg.record_event("a")
     path = tg.stop_flight_recorder()
@@ -355,11 +355,102 @@ def test_recorder_into_directory_and_multi_run_filter(tmp_path):
     assert tg.run_report(path, run_id="runA", include_metrics=False)["run_id"] == "runA"
     with pytest.raises(InvalidArgumentError, match="not present"):
         tg.run_report(path, run_id="nope")
-    with pytest.raises(NotSupportedError, match="item 2"):
+    with pytest.raises(InvalidArgumentError, match="run ids"):
         tg.run_report(str(tmp_path))
+    rep = tg.run_report(str(tmp_path), run_id="runA", include_metrics=False)
+    assert rep["run_id"] == "runA" and "mesh" not in rep
     (tmp_path / "scheduler.jsonl").write_text("")
     with pytest.raises(NotSupportedError, match="item 5"):
         tg.run_report(str(tmp_path))
+
+
+def test_update_halo_charges_plan_to_registry():
+    """JAX's case, on both packages: every `update_halo` call charges its
+    signature's wire plan (`halo_comm_plan`), and the counters of both
+    packages agree after the same calls."""
+    igg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=2, periodx=1, periody=1, periodz=1,
+                         quiet=True)
+    tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=2, periodx=1, periody=1, periodz=1,
+                        quiet=True, device_type="cpu")
+    for pkg, T in ((igg, igg.ones_g(dtype=np.float32)),
+                   (tg, tg.ones_g(dtype=torch.float32))):
+        plan = pkg.halo_comm_plan(T)
+        reg = pkg.metrics_registry()
+        base = reg.counter("igg_halo_exchanges_total").value()
+        T = pkg.update_halo(T)
+        T = pkg.update_halo(T)
+        assert reg.counter("igg_halo_exchanges_total").value() == base + 2
+        assert sum(v for _, v in reg.get("igg_halo_wire_bytes_total").samples()) \
+            == 2 * plan["wire_bytes"]
+        assert sum(v for _, v in reg.get("igg_halo_ppermutes_total").samples()) \
+            == 2 * plan["ppermutes"]
+    halo = re.compile(r"^igg_halo_\w+(\{.*\})? ")
+    snap = {pkg: sorted(ln for ln in pkg.prometheus_snapshot().splitlines() if halo.match(ln))
+            for pkg in (igg, tg)}
+    assert snap[tg] == snap[igg] and snap[tg]
+
+
+@pytest.mark.parametrize("case", ["coalesced_int8", "self_neighbour", "per_dim_hw2"])
+def test_update_halo_counters_equal_jax(case):
+    """The same `update_halo` calls on both packages leave the same
+    ``igg_halo_*`` counters: a coalesced group under an int8 wire, a
+    single block's self-neighbour exchange (local copies, no wire), and
+    per-field halowidths."""
+    if case == "self_neighbour":
+        grid = dict(dimx=1, dimy=1, dimz=1, periodx=1, periody=1, periodz=1)
+        n, nranks = 6, 1
+    else:
+        grid = dict(dimx=2, dimy=2, dimz=2, periodx=1, periodz=1)
+        n, nranks = 8, 8
+    init_both(n, n, n, overlaps=(4, 4, 4) if case == "per_dim_hw2" else (2, 2, 2),
+              nranks=nranks, **grid)
+    shape = tuple(n * d for d in (grid["dimx"], grid["dimy"], grid["dimz"]))
+    for pkg, mk in ((igg, lambda: igg.ones_g(dtype=np.float32)),
+                    (tg, lambda: torch.ones(shape, dtype=torch.float32))):
+        if case == "coalesced_int8":
+            pkg.update_halo(mk(), mk(), mk(), wire_dtype="int8")
+        elif case == "per_dim_hw2":
+            pkg.update_halo((mk(), (2, 2, 2)), mk())
+        else:
+            pkg.update_halo(mk())
+        pkg.update_halo(mk())
+    halo = re.compile(r"^igg_halo_\w+(\{.*\})? ")
+    snap = {pkg: sorted(ln for ln in pkg.prometheus_snapshot().splitlines() if halo.match(ln))
+            for pkg in (igg, tg)}
+    assert snap[tg] == snap[igg] and len(snap[tg]) >= 2
+
+
+def test_update_halo_accounting_streams_and_local_exchange_charges_nothing(tmp_path):
+    """A recorder open: one ``halo_exchange`` event a call, as JAX's; the
+    models' `local_update_halo` charges nothing; the plan is computed once
+    a signature."""
+    from implicitglobalgrid_tpu_torch.ops import halo
+
+    _init()
+    T = tg.ones_g(dtype=torch.float32)
+    tg.start_flight_recorder(str(tmp_path / "fr.jsonl"))
+    T = tg.local_update_halo(T)
+    fam = tg.metrics_registry().get("igg_halo_exchanges_total")
+    assert fam is None or fam.value() == 0  # reset_metrics keeps registrations
+    halo._plan_cache.clear()
+    for _ in range(3):
+        T = tg.update_halo(T)
+    assert len(halo._plan_cache) == 1
+    path = tg.stop_flight_recorder()
+    evs = [e for e in tg.read_flight_events(path) if e["kind"] == "halo_exchange"]
+    plan = tg.halo_comm_plan(T)
+    assert len(evs) == 3 and all(
+        e["wire_bytes"] == plan["wire_bytes"] and e["ppermutes"] == plan["ppermutes"]
+        and e["fields"] == 1 and e["local_copy_bytes"] == plan["local_copy_bytes"]
+        for e in evs)
+    assert tg.run_report(path, include_metrics=False)["halo"] == {
+        "exchanges": 3, "ppermutes": 3 * plan["ppermutes"],
+        "wire_bytes": 3 * plan["wire_bytes"]}
+    # a finalized grid's plans are evicted at the next miss
+    tg.finalize_global_grid()
+    _init()
+    tg.update_halo(tg.ones_g(dtype=torch.float32))
+    assert len(halo._plan_cache) == 1
 
 
 def test_recorder_proc_is_the_grid_rank_and_thread_binding(tmp_path):
@@ -472,9 +563,21 @@ def test_run_report_sequence_carries_snapshot_writer_close(tmp_path):
 
 
 def test_run_report_refuses_a_multi_process_stream(tmp_path):
+    """A stream of several processes is clock-aligned and reported with a
+    ``mesh`` section (`telemetry.aggregate`); one whose chunks carry no
+    ``exec_s`` has no barrier arrivals and is refused, as the JAX package
+    refuses it."""
     evs = [{"kind": "chunk", "run": "r", "proc": p, "seq": 0, "t": 0.0} for p in (0, 1)]
-    with pytest.raises(NotSupportedError, match="item 2"):
-        tg.run_report(evs, include_metrics=False)
+    for pkg in (tg, igg):
+        with pytest.raises(pkg.exceptions.InvalidArgumentError if pkg is tg
+                           else igg.utils.exceptions.InvalidArgumentError,
+                           match="at least two processes"):
+            pkg.run_report(evs, include_metrics=False)
+    evs = [{"kind": "chunk", "run": "r", "proc": p, "seq": 0, "t": 1.0 + p, "chunk": 0,
+            "n": 2, "exec_s": 0.5 - 0.1 * p, "build_s": 0.0} for p in (0, 1)]
+    rep = tg.run_report(evs, include_metrics=False)
+    assert rep["mesh"]["processes"] == [0, 1] and rep["chunks"]["count"] == 1
+    assert rep == igg.run_report(evs, include_metrics=False)
 
 
 # ---------------------------------------------------------------------------

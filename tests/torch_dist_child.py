@@ -327,8 +327,11 @@ def case_resilient():
     """`run_resilient` with a checkpoint directory every process shares (the
     virtual mesh: its own under ``resil_ref<pid>``), a `NaNPoke` in process
     1's box (x-block 1, y-block 0, z-block 1 in every layout) and a flight
-    recorder a process; the final state, and this process's stream: its
-    ``proc`` values, its rollbacks and guard trips."""
+    recorder a process, started with the run's directory (one
+    ``flight_p<rank>.jsonl`` each, one run id); the final state, and this
+    process's stream: its ``proc`` values, its rollbacks and guard trips;
+    across processes, `aggregate_flight` and `run_report` of the directory
+    (every process present, finite offsets, the ``mesh`` section)."""
     gg = tg.global_grid()
     where = OUT / ("resil" if gg.transport.world > 1 else f"resil_ref{PID}")
     T, Cp, p = models.init_diffusion3d(dtype=torch.float64)
@@ -336,18 +339,30 @@ def case_resilient():
     def step(s):
         return {"T": models.diffusion_step_local(s["T"], s["Cp"], p, "plain"), "Cp": s["Cp"]}
 
-    fr = where / f"flight_{PID}.jsonl"
     where.mkdir(parents=True, exist_ok=True)
-    tg.start_flight_recorder(str(fr))
+    tg.start_flight_recorder(str(where), run_id="resil")  # flight_p<rank>.jsonl
     try:
         out, reports = tg.run_resilient(step, {"T": T, "Cp": Cp}, 10, nt_chunk=3,
                                         checkpoint_dir=str(where / "ckpt"),
                                         faults=[tg.NaNPoke(step=4, name="T", index=(8, 3, 9))])
     finally:
-        tg.stop_flight_recorder()
+        fr = tg.stop_flight_recorder()
     evs = tg.read_flight_events(str(fr))
     rep = tg.run_report(str(fr), include_metrics=False)
+    mesh = None
+    if gg.transport.world > 1:
+        # every stream closed: the directory of both processes' streams
+        tg.barrier()
+        agg = tg.aggregate_flight(str(where))
+        mrep = tg.run_report(str(where), include_metrics=False)
+        mesh = {"processes": agg["processes"],
+                "offsets_finite": all(v == v and abs(v) < 1e9 for v in agg["offsets"].values()),
+                "methods": sorted(set(agg["align"]["method"].values())),
+                "mesh_processes": mrep["mesh"]["processes"],
+                "stragglers_chunks": tg.straggler_report(agg)["summary"]["chunks"],
+                "report_chunks": mrep["chunks"]["count"]}
     return {"state": ("boxes", (out["T"], out["Cp"])),
+            "mesh": ("proc", mesh),
             "flight": ("proc", {"procs": sorted({e["proc"] for e in evs}),
                                 "rollbacks": rep["checkpoints"]["rollbacks"],
                                 "trips": rep["guards"]["trips"],
