@@ -169,6 +169,19 @@ Phases, in order; any failure exits non-zero without the final line:
    on the 128^3 mesh with and without its accounting, the recorder off
    and on, the accounting's own host us a call, the ``igg_halo_*``
    counters against `halo_comm_plan` times the calls;
+13e. the communication audit and the on-device reshard: `audit_model` of
+   diffusion3d on the 2x2x2 x 256^3 mesh (periodic in x), acoustic3d on
+   config 4's mesh and stokes3d on config 5's, under impl="cuda" and
+   "plain" (every report ok, the perf-model crosscheck clean, each axis's
+   recorded permutes, pairs, wire bytes and dtypes printed);
+   `run_resilient(audit=True)` on the 256^3 mesh, 300 steps in chunks of
+   100 (one clean audit, K4 once a step, T bitwise an unaudited run's, the
+   audited chunk's ms beside the others); the mesh resized 2x2x2 -> 4x2x1
+   at step 100 on the device path (its reshard audit clean), the
+   checkpoint path and not at all, the gathered interiors bitwise equal,
+   each path's ms, the plan's rounds and bytes and `predict_reshard`'s
+   seconds; config 4's (P, Vx, Vy, Vz) resharded in one move bitwise
+   `apply_plan_host`;
 14. the transport: two processes of this script (``--transport-child``)
    share cuda:0 in a gloo process group (NCCL refuses two processes on one
    card), the grids split along z (``IGG_TPU_DCN_AXES=z``, a 2x2x1 box
@@ -198,12 +211,16 @@ Phases, in order; any failure exits non-zero without the final line:
    holding the guard trip and the rollback; the parent then aggregates
    the directory (`aggregate_flight`, `straggler_report`, `run_report`'s
    ``mesh`` section, `export_chrome_trace`): both processes, finite
-   offsets, each chunk's spans ending within 1 ms of each other;
+   offsets, each chunk's spans ending within 1 ms of each other; then
+   `run_resilient(audit=True)` on the same mesh's kernel route resized to
+   4x1x2 at step 10 with ``via="auto"``: a clean chunk audit on each
+   process before and after, `reshard_state` refused across processes, the
+   checkpoint path taken, the gathered interior bitwise the unresized run's;
 15. numbers: the card's name and power limit, each kernel's time, bound,
    plain and library times (one JSON line), cell-updates/s, host against
    device time per step of the fused routes, phase 13b's checkpoint and io
    numbers, phase 13c's ``supervised_run``, phase 13d's
-   ``oracle_and_mesh_view``, and the main paths' K4s launches by mode and
+   ``oracle_and_mesh_view``, phase 13e's ``audit_and_reshard``, and the main paths' K4s launches by mode and
    dim (the kernels line holds K1-K10, K4s and the calibration kernel).
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
@@ -3135,6 +3152,7 @@ TRANSPORT_TIMEOUT = 600  # seconds, for the two processes together
 WIRE_FORMATS = ("bfloat16", "float16", "int8", "int4", "z:int8,x:float32")
 FUSED_WIRES = ("int8", "bfloat16")  # the fused routes' and the transport's formats
 WIRE_STEPS = {"config3": 20, "config4": 10, "config5": 20}
+TRANSPORT_RESIZE = (4, 1, 2)  # the transport's resize of the 128^3 mesh (z still split)
 TRANSPORT_WIRE_STEPS = 5  # config 3's fused steps across the processes, each format
 DRIFT_N, DRIFT_STEPS = 48, 400  # bench_f64_accuracy.py's configuration
 INT8_WIRE_MAX_REL = 0.02  # the JAX package's documented drift bound of the int8 wire
@@ -4358,6 +4376,239 @@ def phase_oracle(tg, models, cb, cw, cst):
     return counts, rec, fma_row
 
 
+AUDIT_CHUNK, AUDIT_STEPS = 100, 300  # phase 13e's supervised run on the 256^3 mesh
+RESIZE_AT, RESIZE_STEPS = 100, 200  # its resize: 2x2x2 -> 4x2x1 at step 100
+RESIZE_DIMS = (4, 2, 1)
+
+
+def _axes_line(rep):
+    """Per mesh axis of an audit report: permutes, pairs, wire bytes and
+    dtypes (`measure_axes` of the recording)."""
+    return {a: dict(permutes=r["permutes"], pairs=r["pairs"], wire_bytes=r["wire_bytes"],
+                    dtypes=list(r["dtypes"]))
+            for a, r in rep.collectives.get("by_axis", {}).items()}
+
+
+def _resized_run(tg, models, via, ckpt=None, audit=False):
+    """The 256^3 mesh's diffusion (2x2x2, periodic in x, the kernel route)
+    for RESIZE_STEPS steps in chunks of 100 under the driver, resized to
+    RESIZE_DIMS at RESIZE_AT through ``via`` (None: never resized). Returns
+    (gathered interior of T, the resize record, the flight events)."""
+    import tempfile
+
+    import torch
+
+    grid(tg, N_MAIN, N_MAIN, N_MAIN, dimx=2, dimy=2, dimz=2, periodx=1)
+    T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    step_T = models.make_step(p)
+
+    def step(st):
+        return {"T": step_T(st["T"], st["Cp"]), "Cp": st["Cp"]}
+
+    with tempfile.TemporaryDirectory(prefix="igg_resize_") as d:
+        fr = os.path.join(d, "fr.jsonl")
+        tg.start_flight_recorder(fr)
+        run = tg.ResilientRun(step, {"T": T0, "Cp": Cp}, RESIZE_STEPS, tg.RunSpec(
+            nt_chunk=AUDIT_CHUNK, checkpoint_dir=ckpt, checkpoint_every=RESIZE_STEPS,
+            audit=audit))
+        del T0, Cp
+        rec = None
+        try:
+            while run.advance():
+                if via is not None and rec is None and run.step == RESIZE_AT:
+                    torch.cuda.synchronize()
+                    rec = run.resize(RESIZE_DIMS, via=via)
+        finally:
+            run.close()
+            tg.stop_flight_recorder()
+        evs = tg.read_flight_events(fr)
+    G = tg.gather_interior(run.state["T"])
+    del run
+    tg.finalize_global_grid()
+    return G, rec, evs
+
+
+def phase_audit_reshard(tg, models, cb):
+    """Phase 13e: the communication audit and the on-device reshard.
+    `audit_model` of diffusion3d on the 2x2x2 mesh of 256^3 blocks
+    (periodic in x), acoustic3d on config 4's mesh (2x2x2 x 192^3) and
+    stokes3d on config 5's (2x2x2 x 128^3), each under impl="cuda" and
+    "plain": every report ok, `perfmodel_crosscheck` clean, each axis's
+    recorded permutes, pairs, wire bytes and dtypes printed.
+    `run_resilient(audit=True)` on the 256^3 mesh, 300 steps in chunks of
+    100: one clean ``audit`` event, K4 once a step, the audited first
+    chunk's ms beside the later chunks' and an unaudited run's. The mesh
+    resized 2x2x2 -> 4x2x1 at step 100 with ``via="device"`` (audited:
+    an ``audit`` event with ``program="reshard"``, ok), ``via="checkpoint"``
+    and not at all: the gathered interiors bitwise equal; each path's
+    resize ms, the plan's rounds, wire and peak payload bytes and
+    `predict_reshard`'s seconds. Config 4's staggered state (P, Vx, Vy,
+    Vz) resharded in one move, bitwise `apply_plan_host` of its host copy.
+    Returns (launches, record)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from implicitglobalgrid_tpu_torch.reshard import (
+        apply_plan_host, build_reshard_plan, compile_reshard_program, fields_of_state,
+        live_topology,
+    )
+
+    print(f"phase: the communication audit and the on-device reshard; card {card_name()}",
+          flush=True)
+    counts = {k: 0 for k in KERNEL_NAMES}
+
+    def add(c):
+        for k in counts:
+            counts[k] += c.get(k, 0)
+
+    rec = {"audit_model": {}}
+    # audit_model: one step of each family on its full-width mesh, both routes
+    for model, n, kw in (("diffusion3d", N_MAIN, dict(periodx=1)),
+                         ("acoustic3d", N_CFG4, dict(periodx=1, periody=1, periodz=1)),
+                         ("stokes3d", N_CFG5, {})):
+        grid(tg, n, n, n, dimx=2, dimy=2, dimz=2, **kw)
+        for impl in ("cuda", "plain"):
+            cb.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = tg.audit_model(model, impl=impl)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            add(cb.launch_counts())
+            cc = rep.crosscheck or {}
+            check(rep.ok and cc.get("ok") and rep.dialect == "record",
+                  f"audit_model({model!r}, impl={impl!r}) on 2x2x2 x {n}^3: ok and the "
+                  f"perf-model crosscheck clean ({[f.message for f in rep.findings]})")
+            r = rec["audit_model"][f"{model}_{impl}"] = dict(
+                grid=f"2x2x2 x {n}^3", ms=ms, axes=_axes_line(rep),
+                permutes=rep.collectives["permutes"], wire_bytes=rep.collectives["wire_bytes"],
+                crosscheck_axes=cc.get("axes"), rounds_impl=rep.meta.get("rounds_impl"),
+                launches={k: v for k, v in cb.launch_counts().items() if v})
+            print(f"  audit_model {model} {impl}: {json.dumps(r)}", flush=True)
+        tg.finalize_global_grid()
+    check(rec["audit_model"]["acoustic3d_cuda"]["launches"].get("acoustic_step_exchange") == 1
+          and rec["audit_model"]["stokes3d_cuda"]["launches"].get("stokes_step_exchange") == 1
+          and rec["audit_model"]["diffusion3d_cuda"]["launches"].get(
+              "diffusion3d_step_exchange") == 1,
+          "audit_model impl='cuda': one K4, K9 and K10 step recorded")
+
+    # run_resilient(audit=True) on the 256^3 mesh, against the same run unaudited
+    grid(tg, N_MAIN, N_MAIN, N_MAIN, dimx=2, dimy=2, dimz=2, periodx=1)
+    T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    step_T = models.make_step(p)
+
+    def step(st):
+        return {"T": step_T(st["T"], st["Cp"]), "Cp": st["Cp"]}
+
+    step({"T": T0, "Cp": Cp})  # warm: the route's first call
+    chunk_ms = {}
+    with tempfile.TemporaryDirectory(prefix="igg_audit_") as d:
+        for label, audit in (("unaudited", False), ("audited", True), ("unaudited_2", False)):
+            fr = os.path.join(d, f"{label}.jsonl")
+            tg.start_flight_recorder(fr)
+            cb.reset_launch_counts()
+            out, reps = tg.run_resilient(step, {"T": T0, "Cp": Cp}, AUDIT_STEPS,
+                                         nt_chunk=AUDIT_CHUNK, audit=audit)
+            torch.cuda.synchronize()
+            tg.stop_flight_recorder()
+            c = cb.launch_counts()
+            add(c)
+            evs = tg.read_flight_events(fr)
+            chunk_ms[label] = _chunk_ms(evs)
+            if audit:
+                audits = [e for e in evs if e["kind"] == "audit"]
+                check(len(audits) == 1 and audits[0]["ok"] and audits[0]["program"] == "chunk",
+                      f"run_resilient(audit=True): exactly one clean audit event "
+                      f"({[(a['program'], a['ok'], a['rules']) for a in audits]})")
+                check(c["diffusion3d_step_exchange"] == AUDIT_STEPS,
+                      f"run_resilient(audit=True): K4 once a step "
+                      f"({c['diffusion3d_step_exchange']} launches, {AUDIT_STEPS} steps)")
+                rec["supervised_audit"] = dict(
+                    audit_s=audits[0].get("audit_s"), collectives=audits[0]["collectives"],
+                    k4_launches=c["diffusion3d_step_exchange"])
+                T_aud = out["T"]
+            else:
+                T_ref = out["T"]
+            del out
+    check(torch.equal(T_aud, T_ref), "run_resilient(audit=True): T bitwise the unaudited run's")
+    rec["supervised_audit"]["chunk_ms"] = chunk_ms
+    print(f"  supervised run, audit: {json.dumps(rec['supervised_audit'])}", flush=True)
+    del T_aud, T_ref, T0, Cp
+    tg.finalize_global_grid()
+
+    # the resize: device, checkpoint, never
+    cb.reset_launch_counts()
+    G_ref, _, _ = _resized_run(tg, models, None)
+    G_dev, r_dev, ev_dev = _resized_run(tg, models, "device", audit=True)
+    with tempfile.TemporaryDirectory(prefix="igg_resize_ck_") as d:
+        G_ckp, r_ckp, ev_ckp = _resized_run(tg, models, "checkpoint", ckpt=d)
+    add(cb.launch_counts())
+    check(np.array_equal(G_dev, G_ref) and np.array_equal(G_ckp, G_ref),
+          f"resize 2x2x2 -> {RESIZE_DIMS}: the device path, the checkpoint path and the "
+          "unresized run end with bitwise equal gathered interiors")
+    del G_dev, G_ckp, G_ref
+    aud = [e for e in ev_dev if e["kind"] == "audit" and e.get("program") == "reshard"]
+    check(r_dev["via"] == "device" and r_dev["rounds"] > 0 and len(aud) == 1 and aud[0]["ok"],
+          f"resize via='device': the device path ({r_dev['via']}), {r_dev.get('rounds')} "
+          f"rounds, one clean reshard audit ({[(a['ok'], a['rules']) for a in aud]})")
+    check(r_ckp["via"] == "checkpoint", "resize via='checkpoint': the checkpoint path")
+    # the plan again, on the source grid, for its price
+    grid(tg, N_MAIN, N_MAIN, N_MAIN, dimx=2, dimy=2, dimz=2, periodx=1)
+    T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    plan = build_reshard_plan(live_topology(), RESIZE_DIMS,
+                              fields_of_state({"T": T0, "Cp": Cp}))
+    pred = tg.predict_reshard(plan)
+    # the move's copies alone (no grid swap, no plan): their wall ms, their
+    # launches and the bytes bound (each cell read once and written once)
+    program = compile_reshard_program(plan)
+    copies = sum(len(sig.names) * (sum(len(r[2]) for r in rounds) + len(local))
+                 for sig, _, rounds, local in program.sigs)
+    copy_ms = median_ms(lambda: program({"T": T0, "Cp": Cp}), batches=5, per_batch=2, warm=1)
+    del T0, Cp
+    tg.finalize_global_grid()
+    rec["resize"] = dict(
+        dims=[[2, 2, 2], list(RESIZE_DIMS)], grid=f"2x2x2 x {N_MAIN}^3 float32 (T, Cp)",
+        device_ms=r_dev["seconds"] * 1e3, checkpoint_ms=r_ckp["seconds"] * 1e3,
+        rounds=r_dev["rounds"], wire_bytes=r_dev["wire_bytes"],
+        local_bytes=r_dev["local_bytes"], peak_payload_bytes=r_dev["peak_payload_bytes"],
+        payload_bytes=plan.payload_bytes, state_bytes=plan.dst_bytes,
+        copies_ms=copy_ms, copies=copies,
+        copies_bound_ms=2 * plan.dst_bytes / HBM_BYTES_PER_S * 1e3,
+        predicted_s=pred["seconds"], predicted=dict(pred),
+        device_over_predicted=r_dev["seconds"] / pred["seconds"],
+        checkpoint_over_device=r_ckp["seconds"] / r_dev["seconds"])
+    print(f"  resize: {json.dumps(rec['resize'])}", flush=True)
+
+    # config 4's staggered state in one move, against the host oracle
+    grid(tg, N_CFG4, N_CFG4, N_CFG4, dimx=2, dimy=2, dimz=2, periodx=1, periody=1, periodz=1)
+    s0, p = models.init_acoustic3d(dtype=torch.float32)
+    s1 = models.run_acoustic(s0, p, 10, nt_chunk=10)
+    state = dict(zip(("P", "Vx", "Vy", "Vz"), s1))
+    del s0, s1
+    host = {k: v.cpu().numpy() for k, v in state.items()}
+    plan4 = build_reshard_plan(live_topology(), RESIZE_DIMS, fields_of_state(state))
+    expect = apply_plan_host(plan4, host)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, info = tg.reshard_state(state, RESIZE_DIMS, audit=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    same = all(new[k].device.type == "cuda" and np.array_equal(new[k].cpu().numpy(), expect[k])
+               for k in state)
+    check(same and info["audit_report"].ok,
+          f"config 4's (P, Vx, Vy, Vz) resharded to {RESIZE_DIMS} in one move: bitwise "
+          "apply_plan_host on the card, the move's audit ok")
+    rec["reshard_config4"] = dict(
+        ms_with_audit=ms, rounds=info["rounds"], wire_bytes=info["wire_bytes"],
+        local_bytes=info["local_bytes"], peak_payload_bytes=info["peak_payload_bytes"],
+        sigs=len(plan4.sigs), predicted_s=tg.predict_reshard(plan4)["seconds"])
+    print(f"  reshard config 4: {json.dumps(rec['reshard_config4'])}", flush=True)
+    del new, state, host, expect
+    tg.finalize_global_grid()
+    return counts, rec
+
+
 def _transport_dir():
     return os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "implicitglobalgrid_tpu_torch", "_build", "transport")
@@ -4525,6 +4776,52 @@ def transport_child(pid, port):
                        tripped=[[x.step_begin, x.step_end] for x in reps if not x.ok])
     save("resilient_T", tg.gather_interior(res["T"]))
     del res, T0, Cp
+    tg.finalize_global_grid()
+    # the audit and the resize across the processes: the same mesh's kernel
+    # route under run_resilient(audit=True), resized to TRANSPORT_RESIZE at
+    # step 10 with via="auto" (reshard_state refuses to move blocks across
+    # processes, so the checkpoint path), against the unresized run
+    from implicitglobalgrid_tpu_torch.utils.exceptions import InvalidArgumentError
+
+    r = rec["audit"] = grid(N_MESH, periodx=1)
+    T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+    step_T = models.make_step(p)
+
+    def step(st):
+        return {"T": step_T(st["T"], st["Cp"]), "Cp": st["Cp"]}
+
+    ref, _ = tg.run_resilient(step, {"T": T0, "Cp": Cp}, 20, nt_chunk=10)
+    G_ref = tg.gather_interior(ref["T"])
+    del ref
+    fdir = os.path.join(out, "audit_flight")
+    os.makedirs(fdir, exist_ok=True)
+    tg.start_flight_recorder(fdir, run_id="transport_audit")
+    cb.reset_launch_counts()
+    run = tg.ResilientRun(step, {"T": T0, "Cp": Cp}, 20, tg.RunSpec(
+        nt_chunk=10, audit=True, checkpoint_dir=os.path.join(out, "audit_ck")))
+    del T0, Cp
+    raised = via = None
+    try:
+        while run.advance():
+            if run.step == 10 and via is None:
+                try:
+                    tg.reshard_state(run.state, TRANSPORT_RESIZE)
+                    raised = "nothing"
+                except InvalidArgumentError:
+                    raised = "InvalidArgumentError"
+                rr = run.resize(TRANSPORT_RESIZE)
+                via, r["resize_ms"] = rr["via"], rr["seconds"] * 1e3
+    finally:
+        run.close()
+        fr = tg.stop_flight_recorder()
+    r["run"] = dict(launches=cb.launch_counts())
+    r["audits"] = [[e["program"], e["ok"]] for e in tg.read_flight_events(fr)
+                   if e["kind"] == "audit"]
+    r["reshard_raised"], r["via"] = raised, via
+    r["dims"] = [int(d) for d in tg.global_grid().dims]
+    G = tg.gather_interior(run.state["T"])
+    r["bitwise_unresized"] = None if G is None else bool(np.array_equal(G, G_ref))
+    del run, G, G_ref
     tg.finalize_global_grid()
     r = rec["diffusion_deep"] = grid(N_MESH, periodx=1, overlaps=(4, 4, 4),
                                      halowidths=(2, 2, 2))
@@ -4739,6 +5036,21 @@ def phase_transport(tg, refs, virtual_step_ms):
     per["resilient"] = dict(wall_ms=[r["resilient"]["run"]["wall_ms"] for r in recs],
                             flight=[r["resilient"]["flight"] for r in recs])
     print(f"  transport run_resilient: {json.dumps(per['resilient'])}", flush=True)
+    for pid, r in enumerate(recs):
+        a = r["audit"]
+        check(a["audits"] == [["chunk", True], ["chunk", True]],
+              f"transport run_resilient(audit=True), process {pid}: a clean chunk audit "
+              f"before and after the resize ({a['audits']})")
+        check(a["reshard_raised"] == "InvalidArgumentError" and a["via"] == "checkpoint"
+              and a["dims"] == list(TRANSPORT_RESIZE),
+              f"transport resize, process {pid}: reshard_state refused across processes "
+              f"({a['reshard_raised']}), resize(via='auto') took the {a['via']} path onto "
+              f"{a['dims']}")
+    check(r0["audit"]["bitwise_unresized"] is True,
+          "transport resize: the resized run's gathered interior bitwise the unresized run's")
+    per["audit_resize"] = [dict(audits=r["audit"]["audits"], via=r["audit"]["via"],
+                                resize_ms=r["audit"]["resize_ms"]) for r in recs]
+    print(f"  transport audit and resize: {json.dumps(per['audit_resize'])}", flush=True)
     per["mesh_view"] = mesh_view
     per["residuals"] = r0["config5"]["residuals"]
     per["max_abs_err_vs_virtual"] = errs
@@ -5103,6 +5415,7 @@ def main() -> int:
         io_counts, io = phase_io(tg, models, cb)
         sup_counts, sup = phase_supervised(tg, models, cb)
         oracle_counts, oracle, fma_row = phase_oracle(tg, models, cb, cw, cst)
+        audit_counts, audit = phase_audit_reshard(tg, models, cb)
         refs = {k: v for ph in (cfg3, cfg4m, cfg5m) for k, v in ph.pop("transport_ref").items()}
         refs.update(ovl_refs)
         refs.update(ens_refs)
@@ -5118,7 +5431,8 @@ def main() -> int:
 
     paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts,
              cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts, ovl_counts, prof_counts,
-             ens_counts, wire_counts, io_counts, sup_counts, oracle_counts, transport_counts]
+             ens_counts, wire_counts, io_counts, sup_counts, oracle_counts, audit_counts,
+             transport_counts]
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNEL_NAMES}
     for name, n in launches.items():
         if n == 0:
@@ -5212,6 +5526,7 @@ def main() -> int:
                                     "wire_formats_and_sr": wire,
                                     "checkpoint_io": io,
                                     "oracle_and_mesh_view": oracle,
+                                    "audit_and_reshard": audit,
                                     "transport_2_processes_z": transport},
                       "supervised_run": sup,
                       "cdiv": cdiv, "k4s_launches": k4s_launches,

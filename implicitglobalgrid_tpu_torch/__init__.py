@@ -31,8 +31,11 @@ guard and in-situ reducers after each chunk (`make_guarded_runner`, `Probe`,
 `RunSpec`) and its telemetry (`telemetry`: the metrics registry, the flight
 recorder, `prometheus_snapshot`, `run_report`, `PerfWatch`), the
 performance oracle (`MachineProfile`, `predict_step`, `calibrate_machine`,
-`tune_config`, perfdb), the metrics server (`start_metrics_server`) and the
-mesh view (`aggregate_flight`, `straggler_report`, `export_chrome_trace`).
+`tune_config`, perfdb, `predict_reshard`), the metrics server
+(`start_metrics_server`), the mesh view (`aggregate_flight`,
+`straggler_report`, `export_chrome_trace`), the communication audit
+(`analysis`: the recorder, contracts, lints, `audit_model`) and on-device
+elastic resharding (`reshard`: `build_reshard_plan`, `reshard_state`).
 Usage::
 
     import implicitglobalgrid_tpu_torch as igg
@@ -87,10 +90,18 @@ from .telemetry import (
     straggler_report, export_chrome_trace,
     MetricsServer, start_metrics_server, stop_metrics_server, metrics_server,
     MachineProfile, StepWorkload, default_machine_profile,
-    load_machine_profile, save_machine_profile, predict_step,
+    load_machine_profile, save_machine_profile, predict_step, predict_reshard,
     calibrate_machine, perfdb_add, perfdb_check,
     TunedConfig, tune_config, save_tuned_config, load_tuned_config,
 )
+from . import analysis
+from .analysis import (
+    AuditFinding, AuditReport, CollectiveContract, ProgramIR,
+    audit_model, audit_program, check_contract, exchange_contract,
+    model_contract, parse_program,
+)
+from . import reshard
+from .reshard import ReshardPlan, build_reshard_plan, reshard_contract, reshard_state
 from . import io
 from .io import (
     SnapshotWriter, write_snapshot, open_snapshot, list_snapshots,
@@ -135,4 +146,9 @@ __all__ = [
     "load_machine_profile", "save_machine_profile", "predict_step",
     "calibrate_machine", "perfdb_add", "perfdb_check",
     "TunedConfig", "tune_config", "save_tuned_config", "load_tuned_config",
+    "predict_reshard",
+    "analysis", "AuditFinding", "AuditReport", "CollectiveContract", "ProgramIR",
+    "audit_model", "audit_program", "check_contract", "exchange_contract",
+    "model_contract", "parse_program",
+    "reshard", "ReshardPlan", "build_reshard_plan", "reshard_contract", "reshard_state",
 ]

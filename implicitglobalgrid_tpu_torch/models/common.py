@@ -20,6 +20,7 @@ one K8 + K7 launch a dim (`ops.halo.local_update_halo(members=)`).
 
 from __future__ import annotations
 
+from ..analysis import record as _record
 from ..ops.wire import resolve_comm_every
 from ..parallel.topology import check_initialized, global_grid, live_epochs
 from ..utils.exceptions import IncoherentArgumentError, InvalidArgumentError
@@ -203,6 +204,9 @@ def make_state_runner(step_local, *, nt_chunk: int, ensemble: int | None = None,
     a spare only with ``donate=True``. ``ensemble``: the member count of an
     ensemble's state (``>= 1``; the step carries the member axis).
 
+    Under a recording (`analysis.record`) each step's collectives carry
+    the step's index, and the hook's carry none.
+
     ``post_chunk(state) -> aux``: the hook after the chunk's last step (the
     health guard, `runtime.health`; the in-situ reducers,
     `io.reducers.make_reduced_post_chunk`): ``run`` returns ``(*state,
@@ -220,8 +224,12 @@ def make_state_runner(step_local, *, nt_chunk: int, ensemble: int | None = None,
         state = tuple(state)
         spare = None
         for k in range(nt_chunk):
+            if _record.ACTIVE is not None:  # a recording: ops by step
+                _record.ACTIVE.begin_step(k)
             state, old = step_local(state, spare)
             spare = old if (k > 0 or donate) else None
+        if _record.ACTIVE is not None:
+            _record.ACTIVE.end_steps()
         if post_chunk is None:
             return state
         aux = post_chunk(state) if ensemble is None else post_chunk(state, members=int(ensemble))

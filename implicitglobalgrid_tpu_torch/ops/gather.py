@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..analysis import record as _record
 from ..parallel.topology import check_initialized, global_grid
 from ..utils.exceptions import IncoherentArgumentError, InvalidArgumentError
 from .fields import local_shape_of
@@ -89,6 +90,11 @@ def _boxes_to_host(A, root, loc, sel=None):
         return tuple(src), tuple(dst)
 
     parts = {p: part_of(p) for p in range(tr.world)}
+    if _record.ACTIVE is not None:  # the whole selection, to the host
+        whole = tuple((hi - lo) * int(n) for (lo, hi), n in zip(sel, loc))
+        _record.ACTIVE.all_gather(A, whole, site="gather")
+        _record.ACTIVE.host_transfer(_record.Shape(_record.hlo_dtype(A.dtype), whole),
+                                     site="gather")
     got = tr.gather(A.contiguous(), root, [p for p, pt in parts.items() if pt is not None])
     if gg.me != root:
         return None

@@ -86,12 +86,23 @@ Every `update_halo` call is charged to the telemetry (the
 static wire plan, the `halo_comm_plan` record of its signature, computed
 once a signature; `local_update_halo`, the models' step-side form, charges
 nothing (the JAX package's accounting).
+Under a recording (`analysis.record.recording`, off by default: one test
+of a module attribute a site) the routes record their LOGICAL exchange
+for the communication audit: the per-dim route (`_exchange_dim`), the slab
+pipeline of the combined and the fused routes (`exchange_recv_slabs_multi`)
+and the coalesced route (`_exchange_dim_coalesced`, ensembles included)
+each record one collective-permute a (group, dim, direction) with the
+whole mesh's pairs and the wire payload, as the JAX package's program
+carries them; a field copied dense first (`_dense`) is recorded as the
+permutes' operand. The self-neighbour tier and self-neighbour dims record
+nothing.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..analysis import record as _record
 from ..parallel.topology import (
     NDIMS, axis_perm_pairs, check_initialized, crosses, global_grid,
 )
@@ -307,6 +318,10 @@ def _exchange_dim(gg, A, dim, hw, ol_d, use_kernel, wire=None):
     loc = _box_locals(gg, A.shape)
     n = loc[dim]
     _check_slab_fit(n, dim, ol_d, hw)
+    if _record.ACTIVE is not None:
+        _record.ACTIVE.exchange(gg, dim, schema_for_fields(
+            dim, [loc], [hw], A.dtype, wire_format_for(A.dtype, wire, dim)),
+            site="per_dim", sources=(A,))
     slabs, write = (exchange_slabs, halo_write) if use_kernel \
         else (exchange_slabs_plain, halo_write_plain)
 
@@ -318,7 +333,7 @@ def _exchange_dim(gg, A, dim, hw, ol_d, use_kernel, wire=None):
     return write(A, recv_l, recv_r, dim=dim, hw=hw, block=n)
 
 
-def exchange_recv_slabs_multi(gg, shapes, hws, modes, dim_fn, *, wire=None):
+def exchange_recv_slabs_multi(gg, shapes, hws, modes, dim_fn, *, wire=None, sources=None):
     """Corner-patched RECEIVED slabs for every (field, dim): the slab
     pipeline of the fused kernel tiers (the JAX package's function of the
     same name, on the virtual mesh).
@@ -343,7 +358,9 @@ def exchange_recv_slabs_multi(gg, shapes, hws, modes, dim_fn, *, wire=None):
     patched in first), and a PROC_NULL edge keeps its halo exact.
 
     ``shapes``/``modes`` are dicts keyed by field name; ``hws`` is the
-    shared per-dim halowidth tuple. Returns ``{field: {dim: (recv_l,
+    shared per-dim halowidth tuple; ``sources`` (optional, by field name)
+    the stacked tensors the slabs are cut from, which a recording
+    (`analysis.record`) names as the permutes' operands. Returns ``{field: {dim: (recv_l,
     recv_r)}}`` in K2's slab layout (the stacked shape with dim at D*hw)."""
     earlier = {f: [] for f in shapes}  # [(dim, hw, (recv_l, recv_r))]
     recvs = {f: {} for f in shapes}
@@ -361,13 +378,17 @@ def exchange_recv_slabs_multi(gg, shapes, hws, modes, dim_fn, *, wire=None):
         if not per_field:
             continue
         got = _recv_dim(gg, dim, hw, per_field, dim_fn, wire, shapes)
+        if _record.ACTIVE is not None:
+            _record.ACTIVE.exchange_slabs(gg, dim, {f: shapes[f] for f in per_field}, hw,
+                                          {f: got[f][0].dtype for f in per_field}, wire,
+                                          site="slabs", sources=sources)
         for f in per_field:
             recvs[f][dim] = tuple(got[f])
             earlier[f].append((dim, hw, recvs[f][dim]))
     return recvs
 
 
-def exchange_recv_slabs(gg, shape, hws, modes, slab_fn, *, wire=None):
+def exchange_recv_slabs(gg, shape, hws, modes, slab_fn, *, wire=None, source=None):
     """Single-field form of `exchange_recv_slabs_multi`: ``slab_fn(dim, hw,
     moves, periodic, earlier)`` returns one dim's ``(recv_l, recv_r)``;
     returns ``{dim: (recv_l, recv_r)}``."""
@@ -375,8 +396,8 @@ def exchange_recv_slabs(gg, shape, hws, modes, slab_fn, *, wire=None):
         moves, ear = per_field["A"]
         return {"A": slab_fn(dim, hw, moves, periodic, ear)}
 
-    return exchange_recv_slabs_multi(gg, {"A": shape}, hws, {"A": modes}, dim_fn,
-                                     wire=wire)["A"]
+    return exchange_recv_slabs_multi(gg, {"A": shape}, hws, {"A": modes}, dim_fn, wire=wire,
+                                     sources=None if source is None else {"A": source})["A"]
 
 
 def _combined_plan(gg, shape, hws, dims_order):
@@ -520,7 +541,7 @@ def _combined_exchange(gg, A, hws, modes, loc):
         return exchange_slabs(A, dim, hw, moves, block=loc, periodic=periodic,
                               earlier=earlier)
 
-    recvs = exchange_recv_slabs(gg, loc, hws, modes, slab_fn)
+    recvs = exchange_recv_slabs(gg, loc, hws, modes, slab_fn, source=A)
     return halo_write_combined(A, recvs, modes=modes, hws=hws, block=loc)
 
 
@@ -546,6 +567,12 @@ def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel, wire=N
     _, periodic, disp = _dim_meta(gg, dim)
     pack, write = (wire_pack, halo_write_multi) if use_kernel \
         else (wire_pack_plain, halo_write_multi_plain)
+    if _record.ACTIVE is not None:  # the group's logical exchange, one schema
+        dt = arrays[idxs[0]].dtype
+        _record.ACTIVE.exchange(gg, dim, schema_for_fields(
+            dim, [locs[i] for i in idxs], [int(hws[i][dim]) for i in idxs], dt,
+            wire_format_for(dt, wire, dim), members=members or 1),
+            site="coalesced", sources=[arrays[i] for i in idxs])
     for k0 in range(0, len(idxs), MAX_SLABS):
         sub = idxs[k0:k0 + MAX_SLABS]
         fs = [arrays[i] for i in sub]
@@ -588,6 +615,17 @@ def _exchange_dim_coalesced(gg, arrays, idxs, locs, hws, dim, use_kernel, wire=N
               blocks=blks, periodic=True, disp=0)
 
 
+def _dense(arrays) -> list:
+    """Each field as a dense tensor (a copy where it is not contiguous: the
+    kernels take only dense blocks); a recording notes each copy."""
+    out = [A.contiguous() for A in arrays]
+    if _record.ACTIVE is not None:
+        for A, B in zip(arrays, out):
+            if B is not A:
+                _record.ACTIVE.copy(B, site="dense")
+    return out
+
+
 def _exchange_members(gg, arrays, hws, dims_order, wire, members):
     """Exchange the halos of an ensemble's fields (stacked tensors leading
     with an axis of ``members`` members), in place: along every exchanging
@@ -595,7 +633,7 @@ def _exchange_members(gg, arrays, hws, dims_order, wire, members):
     launch a dim for every member of every field (a self-neighbour dim too,
     with no wire). Returns the list of tensors (dense copies of fields that
     were not contiguous)."""
-    arrays = [A.contiguous() for A in arrays]
+    arrays = _dense(arrays)
     for A in arrays:
         if A.dim() < 2 or int(A.shape[0]) != members:
             raise InvalidArgumentError(
@@ -632,7 +670,7 @@ def _exchange_arrays(gg, arrays, hws, dims_order, coalesce=None, wire=None, stag
         return _exchange_members(gg, arrays, [tuple(int(h) for h in hw) for hw in hws],
                                  dims_order, wire, int(members))
     coalesce = resolve_halo_coalesce(coalesce)
-    arrays = [A.contiguous() for A in arrays]
+    arrays = _dense(arrays)
     locs = [_box_locals(gg, A.shape) for A in arrays]
     hws = [tuple(int(h) for h in hw) for hw in hws]
     tiers, groups_by_dim, _ = _plan_routes(gg, [_Sig(l, A.dtype) for l, A in zip(locs, arrays)],

@@ -31,6 +31,11 @@ slab, or every block's int8 payload with its scale) and decodes them on
 arrival; `shift_rows` sends K8's rows coded by the group's `WireSchema`
 (`encode_rows`) and decodes them. ``stats["wire_bytes"]`` counts the bytes
 sent.
+
+Under a recording (`analysis.record`) `all_sum` records one ``all-reduce``
+and `all_max` a host transfer (its values were fetched to the host); the
+halo routes record their logical exchanges themselves (`ops.halo`), not
+the messages below.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from __future__ import annotations
 import time
 from typing import NamedTuple
 
+from ..analysis import record as _record
 from ..utils.exceptions import NotSupportedError
 
 __all__ = ["InProcess", "Dist", "EdgeMessage", "edge_plan", "fill_edges", "shift_rows",
@@ -220,12 +226,16 @@ class InProcess:
 
     def all_max(self, values):
         """The elementwise maximum of ``values`` (floats) over the processes."""
+        if _record.ACTIVE is not None:
+            _record.ACTIVE.host_transfer(_record.Shape("f64", (len(values),)), site="all_max")
         return [float(v) for v in values]
 
     def all_sum(self, t):
         """The elementwise sum of tensor ``t`` over the processes, on
         ``t``'s device (JAX's ``lax.psum`` over every mesh axis; here the
         one process's ``t`` itself)."""
+        if _record.ACTIVE is not None:
+            _record.ACTIVE.all_reduce(t, site="all_sum")
         return t
 
     def broadcast_one_to_all(self, obj):
@@ -352,6 +362,8 @@ class Dist(InProcess):
         import torch
         import torch.distributed as dist
 
+        if _record.ACTIVE is not None:
+            _record.ACTIVE.host_transfer(_record.Shape("f64", (len(values),)), site="all_max")
         dev = "cpu" if self.backend == "gloo" else self.device
         v = torch.tensor([float(x) for x in values], dtype=torch.float64, device=dev)
         dist.all_reduce(v, op=dist.ReduceOp.MAX)
@@ -364,6 +376,8 @@ class Dist(InProcess):
         device."""
         import torch.distributed as dist
 
+        if _record.ACTIVE is not None:
+            _record.ACTIVE.all_reduce(t, site="all_sum")
         if self.backend != "gloo" or t.device.type != "cuda":
             out = t.contiguous().clone()
             dist.all_reduce(out, op=dist.ReduceOp.SUM)

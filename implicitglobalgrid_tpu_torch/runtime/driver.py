@@ -59,9 +59,16 @@ What differs from the JAX package:
   knobs' environment (``IGG_HALO_WIRE_DTYPE``, ``IGG_HALO_COALESCE``,
   ``IGG_COMM_EVERY``, ``IGG_HALO_WIRE_STAGE``) around every `advance()`,
   and a ``perf_regression`` marks it stale (``tuned_stale``).
-- **Modules still to port.** ``audit`` and ``audit_lints`` (the audit) and
-  `ResilientRun.resize` (reshard) raise `NotSupportedError` naming their
-  ROADMAP item, a knob at construction before any resource comes up.
+- **The audit records the chunk.** ``audit=True`` audits the first REAL
+  chunk of each distinct length the run dispatches, recorded while it runs
+  (`analysis.record`: no replay, no extra step), where the JAX package
+  lowers the chunk program before its first dispatch; the verdict is the
+  same contract and lints (`analysis.audit_chunk_program`).
+- **The resize's device path** (`ResilientRun.resize`, `reshard.
+  reshard_state`) copies the blocks on the card, one process only; across
+  processes ``via="auto"`` takes the checkpoint path. Its feasibility check
+  is the card's free memory, not a device count (`reshard.plan.
+  check_device_memory`).
 """
 
 from __future__ import annotations
@@ -73,14 +80,6 @@ import time
 from .spec import RunSpec
 
 __all__ = ["run_resilient", "ResilientRun", "RunSpec"]
-
-
-def _not_ported(what: str, module: str, item: int):
-    from ..utils.exceptions import NotSupportedError
-
-    return NotSupportedError(
-        f"{what} needs {module}, which the port does not have yet (ROADMAP "
-        f"Queue A item {item}).")
 
 
 class _CheckpointSlots:
@@ -225,12 +224,6 @@ class ResilientRun:
 
         spec = spec if spec is not None else RunSpec()
         check_initialized()
-        # knobs whose module is still to be ported: refused before any
-        # resource (endpoint, writer thread, checkpoint directories) comes up
-        if spec.audit or spec.audit_lints is not None:
-            raise _not_ported("RunSpec.audit / audit_lints (the chunk "
-                              "program's static audit and its lints)",
-                              "the audit (analysis)", 3)
         if not isinstance(state, dict) or not state:
             raise InvalidArgumentError(
                 "run_resilient expects a non-empty dict of name -> stacked "
@@ -316,6 +309,22 @@ class ResilientRun:
         # remaining steps, refreshed at every boundary (`_check_deadline`)
         self.deadline_slack_s = None
         self._deadline_t0 = time.monotonic()
+        if spec.audit_lints is not None and not spec.audit:
+            raise InvalidArgumentError(
+                "audit_lints selects rules for the chunk audit — it needs "
+                "audit=True.")
+        if spec.audit_lints is not None:
+            # fail fast on a typo'd rule name: inside the chunk loop it
+            # would only surface as a buried `audit_failed` event (the
+            # audit degrades by design), silently disabling the requested
+            # audit
+            from ..analysis import LINT_RULES
+
+            unknown = sorted(set(spec.audit_lints) - set(LINT_RULES))
+            if unknown:
+                raise InvalidArgumentError(
+                    f"audit_lints: unknown lint rule(s) {unknown}; "
+                    f"available: {sorted(LINT_RULES)}.")
         self._note_heartbeat = note_heartbeat
         self._record_event = record_event
         self.reducers = tuple(spec.reducers)
@@ -425,6 +434,13 @@ class ResilientRun:
         self.chunk_idx = 0
         self.retries = 0
         self.saves = 0
+        # each distinct chunk length n is a distinct program in the JAX
+        # package (and a distinct recording here): audit the first chunk of
+        # every length the run dispatches, once — a cadence-clipped first
+        # chunk must not leave the steady-state chunk unaudited. Failures
+        # get ONE retry at a later boundary
+        self._audited_ns: set = set()
+        self._audit_fail_counts: dict = {}
         self._started = False
         self._finished = False
         self._closed = False
@@ -493,15 +509,160 @@ class ResilientRun:
             "Elastic restart failed on every checkpoint slot:\n  "
             + "\n  ".join(errors))
 
+    def _audit_chunk(self, rec, n: int, state: dict, plan) -> None:
+        """Audit the recorded chunk of length ``n``
+        (`analysis.audit_chunk_program`) and stream the verdict
+        (`observe_audit`: an ``audit`` event, the findings counters). The
+        audit observes: a checker failure is an ``audit_failed`` event with
+        one retry at a later chunk of the same length, never a dead run."""
+        from ..analysis import audit_chunk_program
+        from ..telemetry.hooks import observe_audit
+
+        t0 = time.monotonic()
+        try:
+            rep = audit_chunk_program(
+                rec, tuple(state[k] for k in self.names), names=self.names,
+                reducer_floats=plan.length if plan is not None else 0,
+                lints=self.spec.audit_lints, ensemble=self.ensemble)
+            observe_audit(rep, audit_s=time.monotonic() - t0)
+            self._audited_ns.add(n)
+        except Exception as e:
+            self._audit_fail_counts[n] = self._audit_fail_counts.get(n, 0) + 1
+            self._record_event("audit_failed", error=str(e),
+                               audit_s=time.monotonic() - t0,
+                               attempt=self._audit_fail_counts[n])
+
+    # -- elastic resize (the autoscaling primitive) ---------------------------
+
     def resize(self, new_dims, *, via: str = "auto") -> dict:
-        """Re-block the run onto a ``new_dims`` decomposition between
-        `advance()` calls: needs the reshard module (ROADMAP Queue A item
-        4); raises `NotSupportedError` until it is ported."""
-        raise _not_ported("ResilientRun.resize", "reshard", 4)
+        """Re-block the run onto a ``new_dims`` decomposition of the SAME
+        implicit global grid, between `advance()` calls. Two paths, one
+        result:
+
+        - ``"device"`` — the fast path (`reshard.reshard_state`): the live
+          state re-blocks on the card by the plan's rounds of block-view
+          copies, no disk round trip. One process only; with
+          ``RunSpec.audit`` the move's recording is audited against its
+          plan-derived contract (an ``audit`` event with
+          ``program="reshard"``).
+        - ``"checkpoint"`` — the verified fallback and bit-identity oracle:
+          save the live state to the slots, then
+          `restore_checkpoint_elastic` onto the new decomposition (the
+          `ProcessLoss` recovery machinery, minus the lost steps).
+
+        ``"auto"`` (default) tries the device path and falls back, recording
+        ``via="checkpoint"`` and the device error in the record and the
+        event; ``"device"`` raises where the device path fails. Both paths
+        end BITWISE equal (the plan reuses the elastic restore's owner-map
+        arithmetic), so the trajectory after a resize equals the unresized
+        run's. Afterwards the slots re-anchor on the new decomposition,
+        the chunks get fresh audit budgets, the ``igg_reshard_*`` metrics
+        and a ``resize`` flight event record the move, and an applied
+        `TunedConfig` is marked stale (``tuned_stale`` event). Dims that
+        cannot decompose the grid, or whose state does not fit the card's
+        free memory beside the live one (the port's counterpart of the JAX
+        package's device-pool check), are argument errors raised before
+        any path touches the grid. Returns the resize record (``via``,
+        ``seconds``, plan stats)."""
+        from ..parallel.topology import global_grid
+        from ..reshard.plan import (
+            build_reshard_plan, check_device_memory, fields_of_state, live_topology,
+            restore_topology,
+        )
+        from ..telemetry.hooks import observe_audit, observe_reshard, \
+            record_health_event
+        from ..utils.checkpoint import elastic_local_size
+        from ..utils.exceptions import InvalidArgumentError, ResilienceError
+
+        if via not in ("auto", "device", "checkpoint"):
+            raise InvalidArgumentError(
+                f"resize: via must be auto|device|checkpoint; got {via!r}.")
+        if self._finished:
+            raise InvalidArgumentError(
+                "resize: the run already completed all its steps.")
+        new_dims = tuple(int(d) for d in new_dims)
+        if len(new_dims) != 3:
+            raise InvalidArgumentError(
+                f"resize: new_dims must be 3 ints; got {new_dims}.")
+        gg = global_grid()
+        if tuple(int(d) for d in gg.dims) == new_dims:
+            self._record_event("resize", via="noop",
+                               new_dims=list(new_dims), step=self.step)
+            return {"via": "noop", "new_dims": list(new_dims)}
+        # argument-level feasibility FIRST: the elastic fallback tears the
+        # live grid down before its init would fail, so reaching it with
+        # an infeasible request would leave the run DEAD, not rejected
+        src_topo = live_topology(gg)
+        elastic_local_size(src_topo, new_dims)
+        if int(gg.transport.world) == 1:
+            # both paths hold the new state beside the live one
+            check_device_memory(build_reshard_plan(
+                src_topo, new_dims, fields_of_state(self.state)), gg.device)
+        device_type = gg.device_type
+        t0 = time.monotonic()
+        info: dict = {}
+        used = device_error = None
+        if via in ("auto", "device"):
+            try:
+                from ..reshard import reshard_state
+
+                self.state, info = reshard_state(
+                    self.state, new_dims, audit=self.spec.audit,
+                    lints=self.spec.audit_lints)
+                used = "device"
+            except Exception as e:
+                if via == "device":
+                    raise
+                device_error = f"{type(e).__name__}: {e}"
+        if used is None:
+            if self.slots is None:
+                raise ResilienceError(
+                    f"resize to {new_dims}: no checkpoint_dir is "
+                    "configured for the elastic (checkpoint) path"
+                    + (f", and the on-device path failed "
+                       f"({device_error})" if device_error else "")
+                    + ".")
+            # anchor the LIVE state first: the checkpoint path re-blocks
+            # the last save, which must be this exact boundary's state
+            self._save(self.state, self.step)
+            try:
+                self.state, self.step = self._elastic_recover(new_dims)
+            except BaseException:
+                # the elastic restart finalizes and re-inits BEFORE
+                # restoring: put the SOURCE grid back so that a caller
+                # treating this as a rejected request keeps the run alive
+                restore_topology(src_topo, quiet=True, device_type=device_type)
+                raise
+            used = "checkpoint"
+        dur = time.monotonic() - t0
+        report = info.pop("audit_report", None)
+        if report is not None:
+            observe_audit(report, program="reshard")
+        if info.get("audit_error"):
+            self._record_event("audit_failed", program="reshard",
+                               error=info.pop("audit_error"))
+        # the rebuilt decomposition's chunks get fresh audits, and the
+        # slots re-anchor so any later rollback stays on the live grid
+        self._audited_ns.clear()
+        self._audit_fail_counts.clear()
+        if self.slots is not None:
+            self._save(self.state, self.step)
+        record_health_event("resizes")
+        observe_reshard(
+            dur, via=used, new_dims=list(new_dims), step=self.step,
+            rounds=info.get("rounds"), wire_bytes=info.get("wire_bytes"),
+            local_bytes=info.get("local_bytes"),
+            peak_payload_bytes=info.get("peak_payload_bytes"),
+            **({"device_error": device_error} if device_error else {}))
+        self._mark_tuned_stale("resize")
+        return {"via": used, "seconds": dur, "new_dims": list(new_dims),
+                **({"device_error": device_error} if device_error else {}),
+                **info}
 
     def _mark_tuned_stale(self, reason: str) -> None:
-        """Flag the applied `TunedConfig` as invalidated (a perf drift says
-        its knobs stopped winning). No-op without a tuned config; records
+        """Flag the applied `TunedConfig` as invalidated (a resize changed
+        the geometry it was searched for; a perf drift says its knobs
+        stopped winning). No-op without a tuned config; records
         the ``tuned_stale`` flight event once."""
         if self.tuned is None or self.tuned_stale:
             return
@@ -678,6 +839,11 @@ class ResilientRun:
             record_health_event("elastic_restarts")
             record_event("elastic_restart", new_dims=list(loss.new_dims),
                          to_step=self.step)
+            # the restart rebuilds the decomposition: audit its chunks too
+            # (run_report's audit section treats the last audit as
+            # authoritative), with fresh retry budgets
+            self._audited_ns.clear()
+            self._audit_fail_counts.clear()
             # re-anchor the slots on the NEW decomposition right away, so
             # a guard trip before the next cadence save rolls back onto
             # the live grid instead of re-crossing the dims change
@@ -733,13 +899,24 @@ class ResilientRun:
             runner = make_guarded_runner(self._step_tuple, nt_chunk=n,
                                          ensemble=E)
         t_built = time.monotonic()
+        audit_now = spec.audit and n not in self._audited_ns \
+            and self._audit_fail_counts.get(n, 0) < 2
         t_exec0 = time.monotonic()
-        out = runner(*(state[k] for k in names))
+        if audit_now:
+            # the first real chunk of this length runs under the recorder
+            from ..analysis.record import recording
+
+            with recording() as rec:
+                out = runner(*(state[k] for k in names))
+        else:
+            out = runner(*(state[k] for k in names))
         # the small summed vector to the host = the chunk drain; with
         # reducers it carries [health | reducer segments] from ONE sum
         # (ensemble: an (E, 2N+R) matrix, one row a member)
         vec = out[-1].detach().cpu().numpy()
         t_done = time.monotonic()
+        if audit_now:
+            self._audit_chunk(rec, n, state, plan)
         nh = 2 * len(names)
         if E:
             from ..telemetry.hooks import observe_member_health
@@ -996,8 +1173,18 @@ def run_resilient(step_local, state: dict, nt: int, *,
     (`telemetry.tune_config`'s output): its knobs' environment is scoped
     around every chunk and a ``tuned`` event records it.
 
-    ``audit`` and ``audit_lints`` need the audit, which the port does not
-    have yet, and raise `NotSupportedError` (the module docstring)."""
+    ``audit=True`` audits the first chunk of each distinct length the run
+    dispatches, recorded while it runs (`analysis.record`), once: a
+    cadence-clipped or fault-split chunk is a distinct length, and an
+    elastic restart or a resize re-audits the rebuilt decomposition's
+    chunks. The recording is checked against the guard contract (exactly
+    one f32[2N + R] sum, no gathers, the steps' collectives alike) and the
+    implicit-grid lints (``audit_lints`` selects rules from
+    `analysis.LINT_RULES`; default all). Findings stream to the flight
+    recorder (``audit`` event: `run_report`'s ``"audit"`` section) and the
+    ``igg_audit_findings_total{rule,severity}`` family; an error finding
+    does not abort the run (the audit observes). The recorder adds its
+    bookkeeping to the audited chunk only."""
     from ..utils.exceptions import InvalidArgumentError
     from ..utils.timing import sync
 

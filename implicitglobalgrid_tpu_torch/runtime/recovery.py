@@ -50,8 +50,10 @@ def elastic_restart(ckpt_dir, new_dims, *, quiet: bool = True):
     (`elastic_local_size`), and redistributes the saved blocks. Returns
     ``(state, step)``. Raises `IncoherentArgumentError` when ``new_dims``
     cannot decompose the saved global grid evenly. The new grid takes the
-    live grid's device type (the card where no grid is live); a process
-    group stays up."""
+    live grid's device type (the card where no grid is live) and, where a
+    grid was live, keeps the device it bound this process to (no second
+    `select_device`, which refuses two processes sharing one card); a
+    process group stays up."""
     from ..parallel.grid import finalize_global_grid, init_global_grid
     from ..parallel.topology import global_grid, grid_is_initialized
     from ..utils.checkpoint import (
@@ -61,9 +63,9 @@ def elastic_restart(ckpt_dir, new_dims, *, quiet: bool = True):
     topo = saved_topology(ckpt_dir)
     new_dims = tuple(int(d) for d in new_dims)
     nxyz = elastic_local_size(topo, new_dims)
-    device_type = "gpu"
+    device_type, select = "gpu", True
     if grid_is_initialized():
-        device_type = global_grid().device_type
+        device_type, select = global_grid().device_type, False
         finalize_global_grid()
     per = [int(p) for p in topo["periods"]]
     init_global_grid(
@@ -72,5 +74,5 @@ def elastic_restart(ckpt_dir, new_dims, *, quiet: bool = True):
         periodx=per[0], periody=per[1], periodz=per[2],
         overlaps=tuple(int(o) for o in topo["overlaps"]),
         halowidths=tuple(int(h) for h in topo["halowidths"]),
-        quiet=quiet, device_type=device_type, init_dist=False)
+        quiet=quiet, device_type=device_type, init_dist=False, select_device=select)
     return restore_checkpoint_elastic(ckpt_dir)

@@ -11,10 +11,7 @@ scheduler can embed per job unchanged:
                    snapshot_dir="/snaps/run42")
     state, reports = igg.run_resilient(step, state, nt, spec=spec)
 
-Field semantics are documented on `run_resilient` (the single reference);
-the knobs whose module the port does not have yet (``audit``,
-``audit_lints``) make `ResilientRun` raise `NotSupportedError` at
-construction.
+Field semantics are documented on `run_resilient` (the single reference).
 """
 
 from __future__ import annotations
@@ -38,7 +35,9 @@ class RunSpec:
       ``reducers``, ``on_reduce``
     - live metrics endpoint: ``metrics_port``, ``healthz_max_age_s``
     - perf oracle: ``perf_model``, ``perf_window``, ``perf_zmax``
-    - static analysis: ``audit``, ``audit_lints``
+    - communication audit: ``audit``, ``audit_lints`` (the recorded first
+      chunk of each distinct length against the guard contract and the
+      lints, `analysis.audit_chunk_program`)
     - ensemble axis: ``ensemble`` (E scenario members batched through one
       chunk program; every state array leads with the member axis — build
       with `models.common.ensemble_state` — and the guard trips per

@@ -22,7 +22,8 @@ calibration alone runs work on the device):
   process.
 - `server` — `start_metrics_server` & co.: ``/metrics`` and ``/healthz``.
 - `perfmodel` — `MachineProfile`, `predict_step` (the analytical cost
-  model) and `PerfWatch`, the driver's live drift detector.
+  model), `predict_reshard` (a reshard plan's price) and `PerfWatch`, the
+  driver's live drift detector.
 - `calibrate` — `calibrate_machine`: a triad, an FMA chain (a hand-written
   kernel on the card) and per-axis link fits -> a `MachineProfile`.
 - `perfdb` — the perf-history database and gate.
@@ -43,7 +44,8 @@ from .perfdb import metric_direction, perfdb_add, perfdb_check, perfdb_load
 from .perfmodel import (
     STEP_WORKLOADS, MachineProfile, PerfWatch, StepWorkload,
     default_machine_profile, hierarchical_machine_profile,
-    load_machine_profile, predict_step, robust_z, save_machine_profile,
+    load_machine_profile, predict_reshard, predict_step, robust_z,
+    save_machine_profile, ReshardPrediction,
 )
 from .recorder import (
     FlightRecorder, bind_thread_recorder, flight_recorder, read_flight_events,
@@ -80,6 +82,7 @@ __all__ = [
     "MachineProfile", "StepWorkload", "STEP_WORKLOADS", "PerfWatch",
     "robust_z", "default_machine_profile", "hierarchical_machine_profile",
     "load_machine_profile", "save_machine_profile", "predict_step",
+    "predict_reshard", "ReshardPrediction",
     "calibrate_machine",
     "metric_direction", "perfdb_add", "perfdb_check", "perfdb_load",
     "TunedConfig", "tune_config", "save_tuned_config",

@@ -1,8 +1,7 @@
 """The performance oracle: an analytical per-step cost model and the live
 drift detector.
 
-Counterpart of `implicitglobalgrid_tpu/telemetry/perfmodel.py` (without
-`predict_reshard`, which prices a reshard plan and comes with reshard): a
+Counterpart of `implicitglobalgrid_tpu/telemetry/perfmodel.py`: a
 roofline over the implicit global grid that combines
 
 - the static halo wire plan (`ops.halo.halo_comm_plan`: bytes on the wire,
@@ -16,7 +15,9 @@ roofline over the implicit global grid that combines
   coefficients measured once on an H100 and labels them ``"default"``)
 
 into a prediction of a step's compute time, per-axis exchange time and
-exposed exchange, and the roofline verdict (`predict_step`). The records,
+exposed exchange, and the roofline verdict (`predict_step`); and the static
+price of an on-device reshard plan (`predict_reshard`, `ReshardPrediction`
+with its break-even arithmetic). The records,
 the profile's JSON and the workloads are the JAX package's, so either
 package prices the same configuration the same way and reads the other's
 profiles.
@@ -46,7 +47,7 @@ from ..utils.exceptions import InvalidArgumentError
 __all__ = ["MachineProfile", "StepWorkload", "STEP_WORKLOADS",
            "default_machine_profile", "hierarchical_machine_profile",
            "load_machine_profile", "save_machine_profile", "predict_step",
-           "PerfWatch", "robust_z"]
+           "ReshardPrediction", "predict_reshard", "PerfWatch", "robust_z"]
 
 _PROFILE_VERSION = 1
 
@@ -532,6 +533,95 @@ def predict_step(model, fields, *, profile: MachineProfile | None = None,
         rec["ensemble_amortization"] = (
             (step_s / E) / solo["step_s"] if solo["step_s"] > 0 else 1.0)
     return rec
+
+
+class ReshardPrediction(dict):
+    """`predict_reshard`'s record — a plain dict (JSON-serializes
+    unchanged, every existing ``rec["seconds"]`` consumer keeps working)
+    that ALSO carries the one break-even arithmetic the autoscaler,
+    ``tools reshard plan``, and `service_report` share. Keeping the
+    amortization here, next to the transfer price it amortizes, means
+    the three consumers cannot drift on it."""
+
+    def amortized_break_even_steps(self, nt_remaining,
+                                   old_step_s, new_step_s) -> dict:
+        """Amortize this reshard's one-time cost over the steady-state
+        per-step gain of the new geometry. ``nt_remaining`` is the steps
+        (nt units) left in the job's horizon; ``old_step_s`` /
+        ``new_step_s`` are the per-unit prices on the current and
+        candidate decompositions (same source — both modeled or both
+        measured — or the ratio lies).
+
+        Returns a JSON-able record: ``gain_s_per_step`` (old - new;
+        negative = the move is a slowdown), ``break_even_steps``
+        (reshard seconds / gain — ``None`` when there is no gain to
+        amortize against), ``within_horizon`` (the break-even lands
+        inside ``nt_remaining`` — the autoscaler's grow gate), and
+        ``net_gain_s`` (what the move is worth over the whole remaining
+        horizon, transfer cost included; for a shrink this is the
+        priced slowdown the job must be able to afford)."""
+        reshard_s = float(self["seconds"])
+        old_step_s = float(old_step_s)
+        new_step_s = float(new_step_s)
+        nt_remaining = max(0, int(nt_remaining))
+        gain = old_step_s - new_step_s
+        break_even = reshard_s / gain if gain > 0 else None
+        return {
+            "reshard_s": reshard_s,
+            "old_step_s": old_step_s,
+            "new_step_s": new_step_s,
+            "gain_s_per_step": gain,
+            "break_even_steps": break_even,
+            "nt_remaining": nt_remaining,
+            "within_horizon": bool(break_even is not None
+                                   and break_even <= nt_remaining),
+            "net_gain_s": gain * nt_remaining - reshard_s,
+        }
+
+
+def predict_reshard(plan, *,
+                    profile: MachineProfile | None = None
+                    ) -> ReshardPrediction:
+    """Static price of one on-device reshard program
+    (`reshard.build_reshard_plan` output) — the `halo_comm_plan`-style
+    accounting of the elastic resize: per scheduled round, one
+    collective launch (the latency term) plus the round's padded
+    per-device payload over the link bandwidth; same-device pieces are
+    HBM read+write traffic at the memory-bandwidth coefficient. Link
+    coefficients come from `MachineProfile.axis("rs")` — the flat
+    transfer mesh crosses arbitrary mesh links, so the mean of the
+    calibrated axes is the honest single number.
+
+    Returns a `ReshardPrediction` — a dict ``{"rounds", "wire_bytes",
+    "local_bytes", "peak_payload_bytes", "latency_s", "wire_s",
+    "local_s", "seconds", "profile_source"}`` whose
+    `amortized_break_even_steps` method is the ONE place the break-even
+    arithmetic lives (autoscaler, ``tools reshard plan``, and
+    `service_report` all call it). The DISK path this replaces pays the sharded
+    save + elastic restore instead. On the port's virtual mesh every
+    round's copies stay in one card's memory, and ``"rs"`` prices the
+    profile's mean exchange link (`MachineProfile.axis`)."""
+    if profile is None:
+        from ..parallel.topology import grid_is_initialized
+
+        profile = (default_machine_profile() if grid_is_initialized()
+                   else default_machine_profile("cpu"))
+    coeff = profile.axis("rs")
+    per_round = [b for sig in plan.sigs for b in sig.round_payload_bytes]
+    latency_s = len(per_round) * float(coeff.get("latency_s", 0.0))
+    wire_s = sum(b / (float(coeff["GBps"]) * 1e9) for b in per_round)
+    local_s = 2.0 * plan.local_bytes / (profile.membw_GBps * 1e9)
+    return ReshardPrediction({
+        "rounds": plan.rounds,
+        "wire_bytes": plan.wire_bytes,
+        "local_bytes": plan.local_bytes,
+        "peak_payload_bytes": plan.peak_payload_bytes,
+        "latency_s": latency_s,
+        "wire_s": wire_s,
+        "local_s": local_s,
+        "seconds": latency_s + wire_s + local_s,
+        "profile_source": profile.source,
+    })
 
 
 def _unwrap_field(f):

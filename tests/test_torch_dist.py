@@ -42,6 +42,12 @@ virtual mesh's. The tests read those results:
   process's flight stream carries its rank as ``proc`` and the rollback,
   and the directory of every process's stream aggregates (`aggregate_flight`,
   `straggler_report`, `run_report`'s ``mesh`` section);
+- the communication audit and the resize: the recording of a two-field
+  `update_halo` measures as the virtual mesh's on every process; a run
+  with ``audit=True`` ends with clean chunk audits on each process,
+  `reshard_state` refuses to move blocks across processes, and
+  ``resize(via="auto")`` takes the checkpoint path, its state bitwise the
+  virtual mesh's device-path resize;
 - `tic`/`toc` spanning the processes.
 """
 
@@ -84,6 +90,7 @@ CHECKS = [
     "wire/coalesced_int8", "wire/coalesced_bfloat16", "wire/per_dim_bfloat16",
     "wire/per_dim_float16", "wire/diffusion_fused_int8", "wire/diffusion_sr",
     "ensemble/diffusion_e3", "io/restored", "io/vector", "resilient/state",
+    "audit/measure", "audit/resized",
 ]
 
 _RESULTS: dict = {}
@@ -281,6 +288,19 @@ def test_resilient_flight_directory_aggregates_every_process(config, tmp_path_fa
         assert v["mesh_processes"] == list(range(nproc)), (pid, v)
         assert v["offsets_finite"] and v["methods"] == ["anchor", "chunk-barrier"], (pid, v)
         assert v["report_chunks"] == v["stragglers_chunks"] >= 4, (pid, v)
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_audit_and_resize_across_processes(config, tmp_path_factory):
+    """Each process's ``audit=True`` run ends with clean chunk audits (one
+    before the resize, one after it: fresh budgets), `reshard_state`
+    refuses to move blocks across processes, and ``resize(via="auto")``
+    takes the checkpoint path onto 1x2x4 (its state bitwise the virtual
+    mesh's: ``audit/resized``)."""
+    for pid, r in _each(config, tmp_path_factory, "audit/run"):
+        assert r["audits"] == [["chunk", True], ["chunk", True]], (pid, r)
+        assert r["reshard_raised"] == "InvalidArgumentError", (pid, r)
+        assert r["via"] == "checkpoint" and r["dims"] == [1, 2, 4], (pid, r)
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))

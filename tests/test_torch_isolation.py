@@ -121,6 +121,40 @@ def test_oracle_server_and_mesh_view_leave_jax_out():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_audit_and_reshard_leave_jax_out():
+    """The communication audit (the parser, the recorder, the contracts,
+    the lints, `audit_model`, the driver's ``audit=True``) and the
+    on-device reshard (`reshard_state`, `ResilientRun.resize`,
+    `predict_reshard`), imported and driven in a fresh interpreter: no JAX
+    module loads."""
+    code = (
+        "import sys, os, tempfile\n"
+        "import implicitglobalgrid_tpu_torch as tg\n"
+        "import implicitglobalgrid_tpu_torch.analysis.hlo, implicitglobalgrid_tpu_torch.analysis.record\n"
+        "import implicitglobalgrid_tpu_torch.analysis.contracts, implicitglobalgrid_tpu_torch.analysis.lints\n"
+        "import implicitglobalgrid_tpu_torch.analysis.audit, implicitglobalgrid_tpu_torch.reshard.plan\n"
+        "import implicitglobalgrid_tpu_torch.reshard.program\n"
+        "tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=1, device_type='cpu', quiet=True)\n"
+        "assert tg.audit_model('diffusion3d').ok and tg.audit_model('acoustic3d', impl='cuda').ok\n"
+        "tg.parse_program(os.path.join('tests', 'data', 'hlo', 'guarded_chunk.hlo.txt'))\n"
+        "T, Cp, p = tg.models.init_diffusion3d()\n"
+        "step = lambda s: {'T': tg.models.diffusion_step_local(s['T'], s['Cp'], p), 'Cp': s['Cp']}\n"
+        "run = tg.ResilientRun(step, {'T': T, 'Cp': Cp}, 4, tg.RunSpec(nt_chunk=2, audit=True))\n"
+        "run.advance(); run.resize((1, 2, 2)); run.advance(); run.close()\n"
+        "plan = tg.build_reshard_plan(tg.reshard.live_topology(), (2, 2, 1), tg.reshard.fields_of_state(run.state))\n"
+        "tg.predict_reshard(plan)\n"
+        "state, info = tg.reshard_state(run.state, (2, 2, 1), audit=True)\n"
+        "assert info['audit_report'].ok\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'implicitglobalgrid_tpu' or m.startswith('implicitglobalgrid_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_sources_name_no_jax():
     pkg = ROOT / "implicitglobalgrid_tpu_torch"
     files = [f for f in pkg.rglob("*.py") if "_build" not in f.relative_to(pkg).parts]
@@ -138,7 +172,10 @@ def test_sources_name_no_jax():
             "examples/diffusion3D_multixpu.py", "telemetry/calibrate.py",
             "telemetry/tune.py", "telemetry/perfdb.py", "telemetry/server.py",
             "telemetry/aggregate.py", "telemetry/trace_export.py",
-            "ops/cuda_calibrate.py"} <= names
+            "ops/cuda_calibrate.py", "analysis/__init__.py", "analysis/hlo.py",
+            "analysis/record.py", "analysis/contracts.py", "analysis/lints.py",
+            "analysis/audit.py", "reshard/__init__.py", "reshard/plan.py",
+            "reshard/program.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

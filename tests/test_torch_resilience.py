@@ -5,8 +5,9 @@ on the CPU.
   ``slow``, ``faults`` and ``ensemble`` marks: the acceptance bar is a final
   state bitwise the port's own uninterrupted run, not "the run survived".
   Where the JAX test asserts on the audit (``audit=True``), the port's
-  counterpart asserts that the knob raises `NotSupportedError` (the audit
-  is not ported) and runs the rest without it. With ``ensemble=E`` the
+  counterpart asserts the same: one clean ``audit`` event for each distinct
+  chunk program (here: each distinct chunk length, recorded while it runs),
+  and the lint names validated at construction. With ``ensemble=E`` the
   port's step advances the whole batch (``members=E``), as its
   `make_state_runner(ensemble=)` steps do.
 - Parity against the JAX package's `run_resilient` on the same seeded
@@ -18,12 +19,12 @@ on the CPU.
 - The checkpoint slots read across packages: each package's
   `_CheckpointSlots(root).restore()` restores the other's, and the
   ``LATEST`` pointers' JSON is the same.
-- The knobs whose module is not ported (the audit's) raise
-  `NotSupportedError` naming their ROADMAP item, and a bad endpoint port,
-  an age limit without an endpoint or a malformed tuned config raise as the
-  JAX package's do, each leaving no writer thread, endpoint or directory
-  behind (the endpoint and the tuner themselves:
-  `tests/test_torch_mesh_observability.py`, `tests/test_torch_tune.py`).
+- A malformed audit knob (lints without the audit, an unknown lint rule),
+  a bad endpoint port, an age limit without an endpoint or a malformed
+  tuned config raise as the JAX package's do, each leaving no writer
+  thread, endpoint or directory behind (the endpoint and the tuner
+  themselves: `tests/test_torch_mesh_observability.py`,
+  `tests/test_torch_tune.py`; the resize: `tests/test_torch_reshard.py`).
 """
 
 import json
@@ -39,7 +40,7 @@ import torch
 import implicitglobalgrid_tpu as igg
 import implicitglobalgrid_tpu_torch as tg
 from implicitglobalgrid_tpu_torch.utils.exceptions import (
-    InvalidArgumentError, NotSupportedError, ResilienceError,
+    InvalidArgumentError, ResilienceError,
 )
 
 from torch_port_util import clean_torch_grid, init_both, to_np  # noqa: F401
@@ -214,9 +215,10 @@ def test_rms_guard_trips():
 
 
 def test_state_validation():
-    """The JAX package's validation; its audit lints (a typo'd rule, a rule
-    without ``audit=True``) are refused here before any check, since the
-    audit is not ported (ROADMAP item 3)."""
+    """The JAX package's validation, its audit lints included: a rule
+    list without ``audit=True`` and a typo'd rule fail fast at call time
+    (inside the chunk loop they would only surface as a buried
+    ``audit_failed`` event)."""
     _init()
     step, state = _diffusion_step()
     with pytest.raises(InvalidArgumentError, match="non-empty dict"):
@@ -228,9 +230,9 @@ def test_state_validation():
     with pytest.raises(InvalidArgumentError, match="stacked shape"):
         tg.run_resilient(step, state, 10, faults=[tg.NaNPoke(step=1, name="T",
                                                              index=(12, 0, 0))])
-    with pytest.raises(NotSupportedError, match="item 3"):
+    with pytest.raises(InvalidArgumentError, match="needs audit=True"):
         tg.run_resilient(step, state, 10, audit_lints=("host-transfer",))
-    with pytest.raises(NotSupportedError, match="item 3"):
+    with pytest.raises(InvalidArgumentError, match="unknown lint rule"):
         tg.run_resilient(step, state, 10, audit=True, audit_lints=("host-transfr",))
 
 
@@ -265,22 +267,20 @@ def test_process_loss_elastic_restart_identical(tmp_path):
     """Simulated process loss at step 13: state abandoned, grid re-inited
     with dims=(1,2,2), the last good checkpoint redistributed, the lost
     steps recomputed — the final interior equals the reference on the
-    ORIGINAL decomposition. The JAX test's ``audit=True`` raises here (the
-    audit is not ported); the stream holds no audit event."""
+    ORIGINAL decomposition. With ``audit=True`` every distinct chunk program
+    dispatched is audited once: the steady n=5 chunk, the fault-split n=3
+    chunk and, after the restart, the rebuilt decomposition's n=5 chunk
+    again (three clean ``audit`` events)."""
     P_ref = _reference_run(tmp_path)
 
     _init()
     step, state = _diffusion_step()
-    with pytest.raises(NotSupportedError, match="item 3"):
-        tg.run_resilient(step, state, 20, nt_chunk=5, audit=True,
-                         checkpoint_dir=str(tmp_path / "ck"))
-    assert not (tmp_path / "ck").exists()  # refused before any directory
     _reset_counters()
     tg.start_flight_recorder(str(tmp_path / "fr.jsonl"))
     try:
         out, reports = tg.run_resilient(
             step, state, 20, nt_chunk=5, key="resil_loss", checkpoint_dir=str(tmp_path / "ck"),
-            faults=[tg.ProcessLoss(step=13, new_dims=(1, 2, 2))])
+            audit=True, faults=[tg.ProcessLoss(step=13, new_dims=(1, 2, 2))])
     finally:
         tg.stop_flight_recorder()
     gg = tg.global_grid()
@@ -288,7 +288,8 @@ def test_process_loss_elastic_restart_identical(tmp_path):
     assert _counters()["elastic_restarts"] == 1
     assert np.array_equal(tg.gather_interior(out["T"]), P_ref)
     evs = tg.read_flight_events(str(tmp_path / "fr.jsonl"))
-    assert not [e for e in evs if e.get("kind") == "audit"]
+    audits = [e for e in evs if e.get("kind") == "audit"]
+    assert len(audits) == 3 and all(a["ok"] for a in audits)
     [er] = [e for e in evs if e.get("kind") == "elastic_restart"]
     assert er["new_dims"] == [1, 2, 2] and er["to_step"] == 10
 
@@ -492,23 +493,24 @@ def test_corrupt_checkpoint_validation(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Knobs whose module is not ported
+# Malformed knobs
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("knob,item", [
     (dict(metrics_port=-1), "port"), (dict(healthz_max_age_s=5.0), "needs metrics_port"),
-    (dict(tuned={"comm_every": "1"}), "malformed"), (dict(audit=True), "item 3"),
-    (dict(audit_lints=()), "item 3"),
+    (dict(tuned={"comm_every": "1"}), "malformed"),
+    (dict(audit=True, audit_lints=("no-such-rule",)), "unknown lint rule"),
+    (dict(audit_lints=()), "needs audit=True"),
 ])
 def test_unported_knobs_raise_before_any_resource(tmp_path, knob, item):
-    """The audit's knobs (not ported) raise `NotSupportedError` naming their
-    ROADMAP item; a bad endpoint port, an age limit without an endpoint and
-    a malformed tuned config raise as the JAX package's do. All before any
-    resource comes up."""
+    """Lint names without the audit or unknown to `LINT_RULES`, a bad
+    endpoint port, an age limit without an endpoint and a malformed tuned
+    config raise as the JAX package's do, all before any resource comes
+    up."""
     _init()
     step, state = _diffusion_step()
     threads = {t.name for t in threading.enumerate()}
-    error = NotSupportedError if "item" in item else (InvalidArgumentError, OverflowError)
+    error = (InvalidArgumentError, OverflowError)
     with pytest.raises(error, match=item):
         tg.run_resilient(step, state, 10, nt_chunk=5, checkpoint_dir=str(tmp_path / "ck"),
                          snapshot_dir=str(tmp_path / "s"), **knob)
@@ -518,14 +520,17 @@ def test_unported_knobs_raise_before_any_resource(tmp_path, knob, item):
 
 
 def test_resize_and_apply_tuned_raise(tmp_path):
-    """`resize` needs reshard (not ported); `apply_tuned` takes only a
+    """`resize` between `advance()` calls re-blocks the run on the device
+    path, with no checkpoint directory needed (the move itself:
+    `tests/test_torch_reshard.py`); `apply_tuned` takes only a
     `TunedConfig`, as the JAX package's."""
     _init()
     step, state = _diffusion_step()
     run = tg.ResilientRun(step, state, 10, tg.RunSpec(nt_chunk=5))
     try:
-        with pytest.raises(NotSupportedError, match="item 4"):
-            run.resize((1, 2, 2))
+        rec = run.resize((1, 2, 2))
+        assert rec["via"] == "device" and rec["rounds"] > 0
+        assert tuple(int(d) for d in tg.global_grid().dims) == (1, 2, 2)
         with pytest.raises(InvalidArgumentError, match="TunedConfig"):
             run.apply_tuned(object())
         run.clear_tuned()

@@ -370,6 +370,55 @@ def case_resilient():
                                                for r in reports if not r.ok]})}
 
 
+def case_audit():
+    """The communication audit and the resize across processes: the
+    recording of a two-field `update_halo` (the whole mesh's logical
+    exchange, the same on every process and on the virtual mesh); a
+    supervised run with ``audit=True`` resized to 1x2x4 at step 3 with
+    ``via="auto"``: the final state (bitwise the virtual mesh's, which
+    resized on the device path), and this process's audit events, the
+    path the resize took and what `reshard_state` raised (across
+    processes: `InvalidArgumentError`, so the checkpoint path)."""
+    from implicitglobalgrid_tpu_torch.analysis import axis_routes, measure_axes, record_program
+    from implicitglobalgrid_tpu_torch.utils.exceptions import InvalidArgumentError
+
+    gg = tg.global_grid()
+    multi = gg.transport.world > 1
+    where = OUT / ("audit" if multi else f"audit_ref{PID}")
+    A, B = global_input((6, 6, 6), 41, torch.float32), global_input((6, 6, 6), 42, torch.float32)
+    ir = record_program(lambda a, b: tg.update_halo(a, b), A, B).program()
+    measure = {str(k): v for k, v in measure_axes(ir, axis_routes()).items()}
+    T, Cp, p = models.init_diffusion3d(dtype=torch.float64)
+
+    def step(s):
+        return {"T": models.diffusion_step_local(s["T"], s["Cp"], p, "plain"), "Cp": s["Cp"]}
+
+    where.mkdir(parents=True, exist_ok=True)
+    tg.start_flight_recorder(str(where), run_id="audit")
+    raised, via = None, None
+    run = tg.ResilientRun(step, {"T": T, "Cp": Cp}, 9, tg.RunSpec(
+        nt_chunk=3, audit=True, checkpoint_dir=str(where / "ckpt")))
+    try:
+        while run.advance():
+            if run.step == 3 and via is None:
+                if multi:
+                    try:
+                        tg.reshard_state(run.state, (1, 2, 4))
+                        raised = "nothing"
+                    except InvalidArgumentError:
+                        raised = "InvalidArgumentError"
+                via = run.resize((1, 2, 4))["via"]
+    finally:
+        run.close()
+        fr = tg.stop_flight_recorder()
+    audits = [(e["program"], e["ok"]) for e in tg.read_flight_events(str(fr))
+              if e.get("kind") == "audit"]
+    return {"measure": ("same", measure),
+            "resized": ("boxes", (run.state["T"],)),
+            "run": ("proc", {"audits": audits, "via": via, "reshard_raised": raised,
+                             "dims": [int(d) for d in tg.global_grid().dims]})}
+
+
 def case_timing():
     tg.tic()
     if tg.global_grid().me == 1:
@@ -383,7 +432,7 @@ CASES = [("layout", G0, DCN, case_layout), ("encoded", G0, DCN, case_encoded),
          ("models_2d", G3, "", case_models_2d), ("overlap", G4, DCN, case_overlap),
          ("deep", G5, DCN, case_deep), ("wire", G1, DCN, case_wire),
          ("ensemble", G1, DCN, case_ensemble), ("io", G1, DCN, case_io),
-         ("resilient", G1, DCN, case_resilient),
+         ("resilient", G1, DCN, case_resilient), ("audit", G1, DCN, case_audit),
          ("timing", G1, DCN, case_timing)]
 
 
@@ -396,8 +445,9 @@ def run(grid_kw, dcn, fn, **init):
     n = (kw.pop("nx"), kw.pop("ny"), kw.pop("nz"))
     tg.init_global_grid(*n, device_type="cpu", quiet=True, nranks=8, **kw, **init)
     try:
-        gg = tg.global_grid()
-        return fn(), (gg.coords.copy(), gg.box.copy(), gg.dims.copy())
+        got = fn()
+        gg = tg.global_grid()  # the layout the case ended on (a resize changes it)
+        return got, (gg.coords.copy(), gg.box.copy(), gg.dims.copy())
     finally:
         tg.finalize_global_grid()
 
