@@ -182,6 +182,30 @@ Phases, in order; any failure exits non-zero without the final line:
    each path's ms, the plan's rounds and bytes and `predict_reshard`'s
    seconds; config 4's (P, Vx, Vy, Vz) resharded in one move bitwise
    `apply_plan_host`;
+13f. the service and the live plane: a `MeshScheduler` (``policy="fair"``,
+   a flight directory, `default_rule_pack()` alerts, a `ControlFileSink`
+   filing into an operator's directory the scheduler does not consume)
+   runs three tenants through `builtin_setup`, float32 on the plain route,
+   each submitted with its own `TraceContext`: diffusion on the 2x2x2 x
+   256^3 mesh (periodic x), config 4 on its 2x2x2 x 192^3 mesh and config
+   5 on its 2x2x2 x 128^3 mesh, 100 steps each in chunks of 25, config 5
+   with a `NaNPoke` at step 50 that trips its guard and rolls back. Each
+   tenant's final state bitwise the same `JobSpec` run alone through
+   `run_resilient`; the guard trip and rollback only in config 5; the
+   alert fired on it and its control file filed; each tenant's exchange
+   launches (K6/K2 and K4s for diffusion, K8 + K7 for the coalesced
+   groups) its solo run's, and its setup's plus the steps it ran times a
+   step's; a `LiveAggregate` polled after every slice, its last snapshot
+   agreeing with `service_report`/`run_report` of the directory (jobs,
+   slices, steps, guard trips); `export_otlp` giving one span tree a job
+   under its submitted context. Then an autoscale drill on the diffusion
+   tenant: a shrink by one axis through the device path of
+   `ResilientRun.resize`, the gathered interior bitwise the solo run's,
+   `explain_autoscale` naming the move. The ``service`` line: interleaved
+   wall against the solo walls' sum, grant-to-chunk and context-switch
+   ms, admission pricing ms, the autoscaler's decision ms and the resize
+   ms, `LiveAggregate` poll ms, `export_otlp` ms and spans, the card's
+   name and power limit;
 14. the transport: two processes of this script (``--transport-child``)
    share cuda:0 in a gloo process group (NCCL refuses two processes on one
    card), the grids split along z (``IGG_TPU_DCN_AXES=z``, a 2x2x1 box
@@ -220,8 +244,9 @@ Phases, in order; any failure exits non-zero without the final line:
    plain and library times (one JSON line), cell-updates/s, host against
    device time per step of the fused routes, phase 13b's checkpoint and io
    numbers, phase 13c's ``supervised_run``, phase 13d's
-   ``oracle_and_mesh_view``, phase 13e's ``audit_and_reshard``, and the main paths' K4s launches by mode and
-   dim (the kernels line holds K1-K10, K4s and the calibration kernel).
+   ``oracle_and_mesh_view``, phase 13e's ``audit_and_reshard``, phase 13f's
+   ``service`` line, and the main paths' K4s launches by mode and dim (the
+   kernels line holds K1-K10, K4s and the calibration kernel).
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 nothing of JAX. It needs one card and exits non-zero without CUDA or
@@ -4609,6 +4634,316 @@ def phase_audit_reshard(tg, models, cb):
     return counts, rec
 
 
+SERVICE_STEPS = 100  # each tenant's steps (config 5: iterations)
+SERVICE_CHUNK = 25
+SERVICE_POKE_STEP = 50  # config 5's NaN: the step, in P at the centre of block 0
+SERVICE_DEADLINE_S = 3600.0  # every tenant is priced at admission and admits
+SERVICE_DEVICE_TYPE = "gpu"  # the tenants' grids (a CPU rehearsal sets "cpu")
+SERVICE_SWITCHES = 300  # context switches timed after the run
+
+
+def _service_specs(tg, ck_dir):
+    """The phase's three `JobSpec`s: the builtin setups at the meshes the
+    earlier phases run, float32, on the plain route."""
+    svc = tg.service
+    specs = []
+    for name, model, n, kw in (("diffusion", "diffusion3d", N_MAIN, dict(periodx=1)),
+                               ("config4", "acoustic3d", N_CFG4,
+                                dict(periodx=1, periody=1, periodz=1)),
+                               ("config5", "stokes3d", N_CFG5, {})):
+        run = dict(nt_chunk=SERVICE_CHUNK)
+        if name == "config5":
+            run.update(checkpoint_dir=ck_dir, checkpoint_every=SERVICE_STEPS,
+                       faults=(tg.NaNPoke(step=SERVICE_POKE_STEP, name="P",
+                                          index=(N_CFG5 // 2,) * 3),))
+        specs.append(svc.JobSpec(
+            name=name, setup=svc.builtin_setup(model, "float32"), nt=SERVICE_STEPS,
+            grid=dict(nx=n, ny=n, nz=n, dimx=2, dimy=2, dimz=2,
+                      device_type=SERVICE_DEVICE_TYPE, **kw),
+            run=tg.RunSpec(**run), model=model, deadline_s=SERVICE_DEADLINE_S))
+    return specs
+
+
+def _executed_steps(tg, path):
+    """Steps a job's flight stream says it ran (the replayed ones too)."""
+    return sum(int(e["n"]) for e in tg.read_flight_events(path) if e["kind"] == "chunk")
+
+
+def _sub(a, b):
+    return {k: a.get(k, 0) - b.get(k, 0) for k in a}
+
+
+def _solo_service_run(tg, cb, spec, d):
+    """``spec`` alone: one step's launches (on a state of its own), then its
+    setup and `run_resilient` of the setup's state under the spec's RunSpec
+    with a flight recorder, timed. Returns (final state, wall s, launches of
+    setup + run, setup launches, a step's launches, steps run, the gathered
+    interior of T or None)."""
+    import torch
+
+    grid(tg, **spec.grid)
+    step, state = spec.setup()
+    c0 = cb.launch_counts()
+    step(state)
+    torch.cuda.synchronize()
+    per_step = _sub(cb.launch_counts(), c0)
+    del step, state
+    cb.reset_launch_counts()
+    fr = os.path.join(d, f"solo_{spec.name}.jsonl")
+    tg.start_flight_recorder(fr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        step, state = spec.setup()
+        setup_launches = cb.launch_counts()
+        out, _ = tg.run_resilient(step, state, spec.nt, spec=spec.run)
+        torch.cuda.synchronize()
+    finally:
+        tg.stop_flight_recorder()
+    wall = time.perf_counter() - t0
+    launches = cb.launch_counts()
+    G = tg.gather_interior(out["T"]) if "T" in out else None
+    tg.finalize_global_grid()
+    return out, wall, launches, setup_launches, per_step, _executed_steps(tg, fr), G
+
+
+def _grant_to_chunk(tg, d, names):
+    """Per slice that ran a chunk (not its job's admission slice): ms from
+    the grant to the chunk's start, and the slice's ms beside its chunk's
+    (the journal and the job streams share one monotonic clock)."""
+    journal = tg.read_flight_events(os.path.join(d, "scheduler.jsonl"))
+    chunks = {n: [e for e in tg.read_flight_events(os.path.join(d, f"job_{n}.jsonl"))
+                  if e["kind"] == "chunk"] for n in names}
+    seen, grant, over = set(), [], []
+    for e in journal:
+        if e["kind"] != "slice":
+            continue
+        t1 = float(e["t"])
+        t0 = t1 - float(e["dur_s"])
+        first = e["job"] not in seen
+        seen.add(e["job"])
+        mine = [c for c in chunks[e["job"]]
+                if t0 <= float(c["t"]) - float(c["exec_s"]) - float(c["build_s"]) <= t1]
+        if first or not mine:
+            continue
+        start = float(mine[0]["t"]) - float(mine[0]["exec_s"]) - float(mine[0]["build_s"])
+        grant.append((start - t0) * 1e3)
+        over.append((t1 - t0 - sum(float(c["exec_s"]) + float(c["build_s"]) for c in mine))
+                    * 1e3)
+    return grant, over
+
+
+def _ms_stats(xs):
+    return None if not xs else dict(median=statistics.median(xs), min=min(xs), max=max(xs),
+                                    n=len(xs))
+
+
+def phase_service(tg, models, cb):
+    """Phase 13f: the service and the live plane (see the module
+    docstring). Returns (launches, record); the record is the ``service``
+    line."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from implicitglobalgrid_tpu_torch.parallel import topology as top
+    from implicitglobalgrid_tpu_torch.telemetry.recorder import use_flight_recorder
+
+    svc = tg.service
+    card = card_name()
+    print(f"phase: the service and the live plane; card {card}", flush=True)
+    counts = {k: 0 for k in KERNEL_NAMES}
+
+    def add(c):
+        for k in counts:
+            counts[k] += c.get(k, 0)
+
+    rec = {"card": card, "tenants": {}}
+    with tempfile.TemporaryDirectory(prefix="igg_service_") as root:
+        names = ("diffusion", "config4", "config5")
+        # each tenant alone: the bitwise reference, the launches, the wall
+        solo = {}
+        for spec in _service_specs(tg, os.path.join(root, "ck_solo")):
+            out, wall, launches, setup_l, per_step, steps, G = _solo_service_run(
+                tg, cb, spec, root)
+            solo[spec.name] = dict(state=out, wall_s=wall, launches=launches,
+                                   setup=setup_l, per_step=per_step, steps=steps, G=G)
+            print(f"  solo {spec.name}: {wall:.3f} s, {steps} steps", flush=True)
+
+        # the three tenants interleaved
+        d = os.path.join(root, "flight")
+        ops = os.path.join(root, "operator")
+        ctxs = {n: tg.TraceContext.new() for n in names}
+        sink = tg.ControlFileSink(svc.DirectoryBackend(ops), rules=("guard_trip_storm",))
+        by_job = {n: {k: 0 for k in KERNEL_NAMES} for n in names}
+        poll_ms, price_ms = [], []
+        cb.reset_launch_counts()
+        with svc.MeshScheduler(policy="fair", flight_dir=d, alerts=tg.default_rule_pack(),
+                               alert_sinks=[sink], nranks=8) as sched:
+            price = sched._price_admission
+
+            def timed_price(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return price(*a, **k)
+                finally:
+                    price_ms.append((time.perf_counter() - t) * 1e3)
+
+            sched._price_admission = timed_price
+            for spec in _service_specs(tg, os.path.join(root, "ck_sched")):
+                sched.submit(spec, trace=ctxs[spec.name])
+            live = tg.LiveAggregate(d)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            polled = 0.0
+            while True:
+                slices = {n: j.slices for n, j in sched.jobs.items()}
+                c0 = cb.launch_counts()
+                if not sched.step():
+                    break
+                c1 = cb.launch_counts()
+                who = [n for n, j in sched.jobs.items() if j.slices != slices[n]]
+                if len(who) != 1:
+                    raise SmokeFailure(f"a slice advanced {who}, not one tenant")
+                for k, v in _sub(c1, c0).items():
+                    by_job[who[0]][k] += v
+                tp = time.perf_counter()
+                live.poll()
+                poll_ms.append((time.perf_counter() - tp) * 1e3)
+                polled += poll_ms[-1] / 1e3
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0 - polled
+            add(cb.launch_counts())
+            check(sched.status()["states"] == {"done": 3},
+                  f"the three tenants done ({sched.status()['states']})")
+            for n in names:
+                got, ref = sched.job(n).result, solo[n]["state"]
+                check(got.keys() == ref.keys() and all(
+                    got[k].device.type == ref[k].device.type and torch.equal(got[k], ref[k])
+                    for k in ref),
+                    f"tenant {n}: final state bitwise its solo run_resilient")
+            trips = {n: sum(1 for r in sched.job(n).reports if not r.ok) for n in names}
+            check(trips == {"diffusion": 0, "config4": 0, "config5": 1},
+                  f"the NaN poke tripped config 5's guard only ({trips})")
+            # the context switch alone: the grid swap and the recorder slot
+            jobs = [sched.job(n) for n in names]
+            sw = []
+            for i in range(SERVICE_SWITCHES):
+                j = jobs[i % 3]
+                t = time.perf_counter()
+                prev = top.swap_global_grid(j.gg)
+                with use_flight_recorder(j.recorder):
+                    pass
+                top.swap_global_grid(prev)
+                sw.append((time.perf_counter() - t) * 1e3)
+            rec["slices"] = sched.slices
+            del jobs
+        live.poll()
+        snap = live.snapshot()
+
+        # launches: each tenant its solo run's; setup + steps run x a step's
+        for n in names:
+            s = solo[n]
+            steps = _executed_steps(tg, os.path.join(d, f"job_{n}.jsonl"))
+            want = {k: s["setup"].get(k, 0) + steps * s["per_step"].get(k, 0)
+                    for k in KERNEL_NAMES}
+            ex = {k: v for k, v in by_job[n].items() if k in EXCHANGE_KERNELS and v}
+            check(bool(ex) and by_job[n] == s["launches"] == want,
+                  f"tenant {n}: exchange launches {ex} non-zero, its solo run's "
+                  f"({ {k: v for k, v in s['launches'].items() if v} }), and setup + "
+                  f"{steps} steps x {({k: v for k, v in s['per_step'].items() if v})} a step")
+            rec["tenants"][n] = dict(
+                steps_run=steps, launches={k: v for k, v in by_job[n].items() if v},
+                per_step={k: v for k, v in s["per_step"].items() if v},
+                solo_wall_s=s["wall_s"], guard_trips=trips[n])
+
+        # the alert and its control file
+        journal = tg.read_flight_events(os.path.join(d, "scheduler.jsonl"))
+        alerts = [(e["rule"], e.get("job"), e["state"]) for e in journal if e["kind"] == "alert"]
+        check(("guard_trip_storm", "config5", "firing") in alerts,
+              f"the alert engine fired on config 5's trip ({alerts})")
+        filed = svc.DirectoryBackend(ops).poll_control()
+        check({"request": "cancel", "job": "config5"} in [
+            {k: r[k] for k in ("request", "job")} for r in filed],
+            f"the control file records it ({filed})")
+        rep = tg.run_report(d)
+        for n in names:
+            j, r = snap["jobs"][n], rep["jobs"][n]
+            check(j["state"] == r["state"] == "done" and j["slices"] == r["slices"]
+                  and j["step"] == r["step"] == SERVICE_STEPS
+                  and j["guard_trips"] == r["report"]["guards"]["trips"] == trips[n],
+                  f"tenant {n}: the live snapshot agrees with service_report (state, slices, "
+                  f"steps, guard trips: {[j[k] for k in ('state', 'slices', 'step', 'guard_trips')]})")
+        check(snap["scheduler"]["slices"] == rep["slices"] == rec["slices"],
+              "the live snapshot's slices are the report's")
+        t = time.perf_counter()
+        doc = tg.export_otlp(d)
+        otlp_ms = (time.perf_counter() - t) * 1e3
+        spans = [sp for rs in doc["resourceSpans"] for ss in rs["scopeSpans"]
+                 for sp in ss["spans"]]
+        for n, ctx in ctxs.items():
+            mine = [sp for sp in spans if sp["traceId"] == ctx.trace_id]
+            ids = {sp["spanId"] for sp in mine}
+            kinds = {sp["name"] for sp in mine}
+            check(all(sp.get("parentSpanId") in ids | {ctx.span_id} for sp in mine)
+                  and {"job_submitted", "slice", "chunk", "job_done"} <= kinds,
+                  f"export_otlp: tenant {n}'s spans form one tree under its submitted context "
+                  f"({len(mine)} spans)")
+        check({sp["traceId"] for sp in spans} == {c.trace_id for c in ctxs.values()},
+              "export_otlp: one trace a tenant")
+        grant, over = _grant_to_chunk(tg, d, names)
+
+        # the autoscale drill: the diffusion tenant shrinks by one axis
+        d2 = os.path.join(root, "drill")
+        spec = _service_specs(tg, None)[0]
+        pol = svc.AutoscalePolicy(shrink_queue_pending=0, hysteresis_slices=1,
+                                  cooldown_slices=0,
+                                  bounds={"diffusion": svc.ScaleBounds(4, 8)})
+        cb.reset_launch_counts()
+        with svc.MeshScheduler(policy="fair", flight_dir=d2, autoscale=pol, nranks=8) as s2:
+            s2.submit(spec)
+            s2.run()
+            add(cb.launch_counts())
+            job = s2.job("diffusion")
+            check(job.state == "done", f"the drill's tenant done ({job.error})")
+            dims = tuple(int(x) for x in job.gg.dims)
+            prev = top.swap_global_grid(job.gg)
+            try:
+                G = tg.gather_interior(job.result["T"])
+            finally:
+                top.swap_global_grid(prev)
+            dec = list(s2.autoscaler.decision_s_recent)
+        check(sorted(dims) == [1, 2, 2] and np.array_equal(G, solo["diffusion"]["G"]),
+              f"autoscale drill: the diffusion tenant shrank 2x2x2 -> {dims}, gathered "
+              "interior bitwise the unresized run's")
+        del G
+        expl = svc.explain_autoscale(d2)
+        moves = [m for m in expl["moves"] if m["applied"]]
+        resized = [e for e in tg.read_flight_events(os.path.join(d2, "scheduler.jsonl"))
+                   if e["kind"] == "job_resized"]
+        check(len(moves) == 1 and moves[0]["action"] == "shrink"
+              and moves[0]["new_dims"] == list(dims) and resized
+              and resized[0]["via"] == "device",
+              f"explain_autoscale names the move ({[(m['action'], m['new_dims'], m['chain']) for m in moves]}), "
+              f"on the device path ({[e['via'] for e in resized]})")
+        rec.update(
+            interleaved_wall_s=wall, solo_wall_sum_s=sum(solo[n]["wall_s"] for n in names),
+            switches=rep["switches"], grant_to_chunk_ms=_ms_stats(grant),
+            slice_minus_chunk_ms=_ms_stats(over), context_switch_ms=_ms_stats(sw),
+            admission_price_ms=price_ms, live_poll_ms=_ms_stats(poll_ms),
+            otlp_ms=otlp_ms, otlp_spans=len(spans), alerts=alerts,
+            control_filed=[{k: r[k] for k in ("request", "job")} for r in filed],
+            autoscale=dict(decision_ms=_ms_stats([x * 1e3 for x in dec]),
+                           move=dict(action=moves[0]["action"], dims=moves[0]["dims"],
+                                     new_dims=moves[0]["new_dims"], chain=moves[0]["chain"]),
+                           resize_ms=float(resized[0]["dur_s"]) * 1e3,
+                           rounds=resized[0].get("rounds"), decisions=expl["decisions"]))
+        rec["interleaved_over_solo_sum"] = rec["interleaved_wall_s"] / rec["solo_wall_sum_s"]
+        del solo, sched, s2
+    print(f"  service: {json.dumps(rec)}", flush=True)
+    return counts, rec
+
+
 def _transport_dir():
     return os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "implicitglobalgrid_tpu_torch", "_build", "transport")
@@ -5416,6 +5751,7 @@ def main() -> int:
         sup_counts, sup = phase_supervised(tg, models, cb)
         oracle_counts, oracle, fma_row = phase_oracle(tg, models, cb, cw, cst)
         audit_counts, audit = phase_audit_reshard(tg, models, cb)
+        service_counts, service = phase_service(tg, models, cb)
         refs = {k: v for ph in (cfg3, cfg4m, cfg5m) for k, v in ph.pop("transport_ref").items()}
         refs.update(ovl_refs)
         refs.update(ens_refs)
@@ -5432,7 +5768,7 @@ def main() -> int:
     paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts,
              cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts, ovl_counts, prof_counts,
              ens_counts, wire_counts, io_counts, sup_counts, oracle_counts, audit_counts,
-             transport_counts]
+             service_counts, transport_counts]
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNEL_NAMES}
     for name, n in launches.items():
         if n == 0:
@@ -5531,6 +5867,7 @@ def main() -> int:
                       "supervised_run": sup,
                       "cdiv": cdiv, "k4s_launches": k4s_launches,
                       "seconds_total": time.perf_counter() - t_start}))
+    print(json.dumps({"service": service}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -34,8 +34,11 @@ performance oracle (`MachineProfile`, `predict_step`, `calibrate_machine`,
 `tune_config`, perfdb, `predict_reshard`), the metrics server
 (`start_metrics_server`), the mesh view (`aggregate_flight`,
 `straggler_report`, `export_chrome_trace`), the communication audit
-(`analysis`: the recorder, contracts, lints, `audit_model`) and on-device
-elastic resharding (`reshard`: `build_reshard_plan`, `reshard_state`).
+(`analysis`: the recorder, contracts, lints, `audit_model`), on-device
+elastic resharding (`reshard`: `build_reshard_plan`, `reshard_state`), the
+live plane (`FlightTail`, `LiveAggregate`, `AlertEngine` and its sinks,
+`TraceContext`, `export_otlp`) and the persistent-mesh service (`service`:
+`MeshScheduler`, `JobSpec`, `service_report`, the autoscaler).
 Usage::
 
     import implicitglobalgrid_tpu_torch as igg
@@ -107,6 +110,15 @@ from .io import (
     SnapshotWriter, write_snapshot, open_snapshot, list_snapshots,
     Probe, AxisSlice, Stats,
 )
+from .telemetry import (
+    FlightTail, LiveAggregate, AlertRule, AlertEngine, default_rule_pack,
+    log_sink, ControlFileSink, WebhookSink,
+    TraceContext, export_otlp, OtlpSpanExporter,
+)
+from . import service
+from .service import (
+    MeshScheduler, JobSpec, JobState, service_report, export_service_trace,
+)
 
 __version__ = "0.1.0"
 
@@ -151,4 +163,9 @@ __all__ = [
     "audit_model", "audit_program", "check_contract", "exchange_contract",
     "model_contract", "parse_program",
     "reshard", "ReshardPlan", "build_reshard_plan", "reshard_contract", "reshard_state",
+    "service", "MeshScheduler", "JobSpec", "JobState", "service_report",
+    "export_service_trace",
+    "FlightTail", "LiveAggregate", "AlertRule", "AlertEngine",
+    "default_rule_pack", "log_sink", "ControlFileSink", "WebhookSink",
+    "TraceContext", "export_otlp", "OtlpSpanExporter",
 ]

@@ -29,9 +29,16 @@ calibration alone runs work on the device):
 - `perfdb` — the perf-history database and gate.
 - `tune` — `tune_config`: the auto-tuner (priced, then measured) and its
   `TunedConfig`, applied by `runtime.RunSpec(tuned=)`.
-
-Not ported yet (ROADMAP Queue A item 2): the live plane (`live`: flight
-tailing and alerts), OTLP export (`otlp`) and trace contexts (`tracectx`).
+- `live` — the live plane: `FlightTail` (byte-offset incremental tailing of
+  flight JSONLs, torn-line and gap tolerant), `LiveAggregate` (rolling
+  derived signals: step-time quantiles and robust z, deadline slack,
+  barrier spreads and stragglers, byte rates, queue pressure) and the
+  declarative `AlertRule`/`AlertEngine` with `default_rule_pack` and its
+  sinks (`log_sink`, `ControlFileSink`, `WebhookSink`).
+- `tracectx` / `otlp` — end-to-end tracing. `TraceContext` is the W3C
+  ``traceparent`` context the scheduler stamps into its journal and each
+  job's flight stream; `export_otlp` renders the streams as OTLP/HTTP JSON;
+  `OtlpSpanExporter` is the batched live sink.
 """
 
 from .aggregate import (
@@ -40,6 +47,11 @@ from .aggregate import (
 from .calibrate import calibrate_machine
 from .export import prometheus_snapshot
 from .hooks import account_halo_exchange, note_heartbeat, observe_checkpoint
+from .live import (
+    AlertEngine, AlertRule, ControlFileSink, FlightTail, LiveAggregate,
+    WebhookSink, default_rule_pack, log_sink,
+)
+from .otlp import OtlpSpanExporter, export_otlp
 from .perfdb import metric_direction, perfdb_add, perfdb_check, perfdb_load
 from .perfmodel import (
     STEP_WORKLOADS, MachineProfile, PerfWatch, StepWorkload,
@@ -62,6 +74,7 @@ from .server import (
     stop_metrics_server,
 )
 from .trace_export import export_chrome_trace
+from .tracectx import TraceContext
 from .tune import (
     TunedConfig, load_tuned_config, resolve_tuned, save_tuned_config,
     tune_config, tuned_config_path,
@@ -87,4 +100,7 @@ __all__ = [
     "metric_direction", "perfdb_add", "perfdb_check", "perfdb_load",
     "TunedConfig", "tune_config", "save_tuned_config",
     "load_tuned_config", "resolve_tuned", "tuned_config_path",
+    "FlightTail", "LiveAggregate", "AlertRule", "AlertEngine",
+    "default_rule_pack", "log_sink", "ControlFileSink", "WebhookSink",
+    "TraceContext", "export_otlp", "OtlpSpanExporter",
 ]

@@ -97,11 +97,12 @@ class FlightRecorder:
         self._pid = os.getpid()
         self._proc = _process_index()
         self._seq = 0
-        # optional distributed-trace context (an object with ``trace_id``
-        # and ``span_id``, the JAX package's `telemetry.tracectx`): when
-        # set, every record is stamped with the trace id and the owning
-        # span. None (the default) changes NOTHING: records are
-        # byte-identical to an untraced recorder's.
+        # optional distributed-trace context (`telemetry.tracectx.
+        # TraceContext`, or any object with ``trace_id`` and ``span_id``):
+        # when set, every record is stamped with the trace id and the
+        # owning span, ids synthesized at export (`telemetry.otlp`). None
+        # (the default) changes NOTHING: records are byte-identical to an
+        # untraced recorder's.
         self.trace = None
         self._f = open(path, "a", encoding="utf-8")
         self.event("recorder_open", wall=time.time(),
@@ -240,8 +241,7 @@ def read_flight_events(path, *, run_id: str | None = None,
     `InvalidArgumentError` (the file was edited or interleaved by a foreign
     writer). ``run_id`` filters to one run's records.
 
-    ``offset`` switches to RESUMABLE mode for tailers (the JAX package's
-    `telemetry.live`):
+    ``offset`` switches to RESUMABLE mode for tailers (`telemetry.live`):
     reading starts at that byte offset and the return value becomes
     ``(events, new_offset)``, where ``new_offset`` is the position after
     the last COMPLETE well-formed line consumed. A torn final line — no

@@ -14,8 +14,8 @@ aggregated and clock-aligned first (`telemetry.aggregate.aggregate_flight`),
 and so is a stream of several processes given as one file or as events
 (`aggregate_events`): the per-run sections then reconstruct the anchor
 process's view and a ``"mesh"`` section is added (`mesh_section`). A
-scheduler journal (``scheduler.jsonl``) needs the service module and raises
-`NotSupportedError` until it is ported. Sections for what the port does not
+directory holding a scheduler journal (``scheduler.jsonl``) returns the
+SERVICE record instead (`service.service_report`). Sections for what the port does not
 emit (``runner_cache``, ``audit``) read what its stream holds: a port run
 caches no compiled runner, so its ``runner_cache`` counts stay 0 and no
 chunk is cold.
@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import os
 
-from ..utils.exceptions import InvalidArgumentError, NotSupportedError
+from ..utils.exceptions import InvalidArgumentError
 from .recorder import read_flight_events
 from .registry import metrics_registry
 
@@ -201,15 +201,20 @@ def run_report(source, *, run_id: str | None = None,
     runs the same driver loop) and a ``"mesh"`` section is added: clock
     offsets, per-chunk barrier-arrival straggler attribution, persistent
     stragglers and the wait/compute imbalance (`aggregate.mesh_section`).
-    A scheduler journal directory raises `NotSupportedError`."""
+    A directory holding a MULTI-RUN SCHEDULER journal
+    (``scheduler.jsonl``) returns the SERVICE record instead: the
+    interleaved schedule plus each tenant's own run report
+    (`service.service_report`; ``run_id`` does not apply there)."""
     agg = None
     if isinstance(source, (str, os.PathLike)) \
             and os.path.isdir(os.fspath(source)):
-        if os.path.exists(os.path.join(os.fspath(source), "scheduler.jsonl")):
-            raise NotSupportedError(
-                f"run_report: {os.fspath(source)} holds a multi-run scheduler "
-                "journal; its service report needs the service module, not "
-                "ported yet (ROADMAP Queue A item 5).")
+        from ..service.report import is_service_dir, service_report
+
+        if is_service_dir(source):
+            # a MeshScheduler flight directory (scheduler.jsonl + one
+            # stream per job): jobs are tenants, not mesh processes, so the
+            # per-process aggregate below would refuse their mixed run ids
+            return service_report(source)
         from .aggregate import aggregate_flight
 
         agg = aggregate_flight(source, run_id=run_id)

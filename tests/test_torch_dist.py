@@ -61,6 +61,8 @@ import time
 
 import pytest
 
+from torch_port_util import child_env
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CHILD = ROOT / "tests" / "torch_dist_child.py"
 CONFIGS = {"plain_2": (2, ""), "z_2": (2, "z"), "yz_4": (4, "y,z")}
@@ -110,8 +112,8 @@ def results(config, tmp_path_factory):
     if config not in _RESULTS:
         nproc, dcn = CONFIGS[config]
         out = _OUTDIRS[config] = tmp_path_factory.mktemp(config)
-        env = {k: v for k, v in os.environ.items()
-               if k not in ("IGG_TPU_DCN_AXES", "MASTER_ADDR", "WORLD_SIZE")}
+        env = child_env({k: v for k, v in os.environ.items()
+                         if k not in ("IGG_TPU_DCN_AXES", "MASTER_ADDR", "WORLD_SIZE")})
         port = str(_free_port())
         procs = [subprocess.Popen([sys.executable, str(CHILD), str(p), str(nproc), port, dcn,
                                    str(out)], stdout=subprocess.PIPE,

@@ -155,6 +155,45 @@ def test_audit_and_reshard_leave_jax_out():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_service_and_live_plane_leave_jax_out():
+    """The live plane (`FlightTail`, `LiveAggregate`, the alert engine and
+    its sinks, OTLP export, `TraceContext`) and the service (a
+    `MeshScheduler` with alerts, the autoscaler and a queue directory,
+    `service_report`, `export_service_trace`), imported and driven in a
+    fresh interpreter: no JAX module loads."""
+    code = (
+        "import sys, tempfile\n"
+        "import implicitglobalgrid_tpu_torch as tg\n"
+        "import implicitglobalgrid_tpu_torch.service, implicitglobalgrid_tpu_torch.telemetry.live\n"
+        "import implicitglobalgrid_tpu_torch.telemetry.otlp, implicitglobalgrid_tpu_torch.telemetry.tracectx\n"
+        "svc = tg.service\n"
+        "d = tempfile.mkdtemp()\n"
+        "be = svc.DirectoryBackend(d)\n"
+        "be.submit({'name': 'q', 'model': 'acoustic3d', 'nt': 2, 'run': {'nt_chunk': 1},\n"
+        "           'grid': {'nx': 6, 'ny': 6, 'nz': 6, 'dimx': 2, 'dimy': 1, 'dimz': 1,\n"
+        "                    'device_type': 'cpu'}})\n"
+        "grid = dict(nx=6, ny=6, nz=6, dimx=2, dimy=2, dimz=1, device_type='cpu')\n"
+        "with svc.MeshScheduler(policy='fair', flight_dir=d, alerts=True, nranks=8,\n"
+        "                       alert_sinks=[tg.ControlFileSink(be)],\n"
+        "                       autoscale=svc.AutoscalePolicy(grow_slack_s=1e9)) as s:\n"
+        "    s.submit(svc.JobSpec(name='a', setup=svc.builtin_setup('diffusion3d'), nt=4,\n"
+        "                         grid=grid, run=tg.RunSpec(nt_chunk=2), model='diffusion3d',\n"
+        "                         deadline_s=600.0), trace=tg.TraceContext.new())\n"
+        "    s.run()\n"
+        "    assert s.status()['states'] == {'done': 2}, s.status()\n"
+        "agg = tg.LiveAggregate(d); agg.poll(); agg.snapshot()\n"
+        "tg.export_otlp(d); tg.service_report(d); tg.export_service_trace(d)\n"
+        "svc.explain_autoscale(d)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'implicitglobalgrid_tpu' or m.startswith('implicitglobalgrid_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_sources_name_no_jax():
     pkg = ROOT / "implicitglobalgrid_tpu_torch"
     files = [f for f in pkg.rglob("*.py") if "_build" not in f.relative_to(pkg).parts]
@@ -175,7 +214,10 @@ def test_sources_name_no_jax():
             "ops/cuda_calibrate.py", "analysis/__init__.py", "analysis/hlo.py",
             "analysis/record.py", "analysis/contracts.py", "analysis/lints.py",
             "analysis/audit.py", "reshard/__init__.py", "reshard/plan.py",
-            "reshard/program.py"} <= names
+            "reshard/program.py", "telemetry/live.py", "telemetry/otlp.py",
+            "telemetry/tracectx.py", "service/__init__.py", "service/job.py",
+            "service/policies.py", "service/backend.py", "service/report.py",
+            "service/scheduler.py", "service/autoscale.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

@@ -27,9 +27,7 @@ import implicitglobalgrid_tpu as igg
 import implicitglobalgrid_tpu_torch as tg
 from implicitglobalgrid_tpu_torch import telemetry
 from implicitglobalgrid_tpu_torch.telemetry.registry import MetricsRegistry
-from implicitglobalgrid_tpu_torch.utils.exceptions import (
-    InvalidArgumentError, NotSupportedError,
-)
+from implicitglobalgrid_tpu_torch.utils.exceptions import InvalidArgumentError
 
 from torch_port_util import clean_torch_grid, init_both  # noqa: F401
 
@@ -341,7 +339,7 @@ def test_recorder_into_directory_and_multi_run_filter(tmp_path):
     """A directory path follows the per-process convention
     (``flight_p<rank>.jsonl``); `run_report` of the directory aggregates its
     streams (two runs in it need ``run_id``); a scheduler journal there
-    needs the service module and raises."""
+    makes it the service record, as the JAX package's."""
     tg.start_flight_recorder(str(tmp_path), run_id="runA")
     tg.record_event("a")
     path = tg.stop_flight_recorder()
@@ -360,8 +358,9 @@ def test_recorder_into_directory_and_multi_run_filter(tmp_path):
     rep = tg.run_report(str(tmp_path), run_id="runA", include_metrics=False)
     assert rep["run_id"] == "runA" and "mesh" not in rep
     (tmp_path / "scheduler.jsonl").write_text("")
-    with pytest.raises(NotSupportedError, match="item 5"):
-        tg.run_report(str(tmp_path))
+    rep = tg.run_report(str(tmp_path))
+    assert rep == igg.run_report(str(tmp_path))
+    assert rep["jobs"] == {} and rep["slices"] == 0 and "run_id" not in rep
 
 
 def test_update_halo_charges_plan_to_registry():

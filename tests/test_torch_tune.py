@@ -10,8 +10,8 @@ the CPU, held against the JAX package's (`tests/test_tune.py`):
   hands the caller's grid back (the same epoch, the same halos);
 - `RunSpec(tuned=)` and `ResilientRun.apply_tuned` on the supervised run.
 
-Left for later: the scheduler halves of JAX's application cases (the
-service module) and the CLI case (the tools).
+The scheduler halves of JAX's application cases are in
+`tests/test_torch_service.py`. Left for later: the CLI case (the tools).
 """
 
 import dataclasses

@@ -5,8 +5,39 @@ grid of the port leaks between tests; the JAX grid is cleaned by
 `conftest.py`.
 """
 
+import os
+import pathlib
+
 import numpy as np
 import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _worker_threads():
+    """The torch threads of a pytest-xdist worker (the tier-1 run: several
+    workers on one host's cores): an equal share of the cores; None outside
+    xdist. torch's OpenMP threads spin while they wait for each other, so
+    workers that each start one a core thrash: the three example files side
+    by side on three workers ran over ten minutes at the default, 96 s at two
+    threads a worker."""
+    n = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT") or 0)
+    return max(1, (os.cpu_count() or 1) // n) if n > 1 else None
+
+
+WORKER_THREADS = _worker_threads()
+if WORKER_THREADS is not None:
+    import torch
+
+    torch.set_num_threads(WORKER_THREADS)
+
+
+def child_env(env: dict) -> dict:
+    """``env`` for a subprocess a test starts: under xdist its OpenMP threads
+    are the worker's share too."""
+    if WORKER_THREADS is None:
+        return env
+    return dict(env, OMP_NUM_THREADS=str(WORKER_THREADS))
 
 
 @pytest.fixture(autouse=True)
@@ -65,3 +96,12 @@ def stacked_from_global_index(n, ol, dims, periods, fn):
                       gidx(bx, 0)[:, None, None], gidx(by, 1)[None, :, None],
                       gidx(bz, 2)[None, None, :])
     return S
+
+
+def example_env() -> dict:
+    """The environment of an example run as a subprocess from the repository
+    root's package: no JAX flags, no process-group variables."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS", "MASTER_ADDR", "WORLD_SIZE")}
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    return child_env(env)
