@@ -206,6 +206,26 @@ Phases, in order; any failure exits non-zero without the final line:
    ms, admission pricing ms, the autoscaler's decision ms and the resize
    ms, `LiveAggregate` poll ms, `export_otlp` ms and spans, the card's
    name and power limit;
+13g. serve and the CLI: a `JobApiServer` and a `MeshScheduler(nranks=8)`
+   over one flight directory; three job records POSTed (h1: diffusion
+   float32 on the 2x2x2 x 256³ main path, snapshotting T; h2: config 4's
+   acoustic mesh, resized over HTTP to 2x2x1; h3: the diffusion mesh,
+   cancelled over HTTP mid-run) and ``/v1/jobs`` polled until each is
+   terminal; the kernel launches of the HTTP-submitted jobs by job (K6 and
+   K4s for the diffusion jobs, K8, K7, K6 and K4s for h2); a point, a z
+   plane and the whole field of h1's last snapshot read through
+   `SnapshotQueryServer`, each byte-identical to `read_global`, cold and
+   then from its `BlockCache`; ``/v1/observe`` and ``/v1/events`` (resumed
+   from a ``since=`` cursor, no gap, no duplicate); then ``python -m
+   implicitglobalgrid_tpu_torch.tools`` in subprocesses on the card: ``jobs
+   submit`` of h1's record (its last snapshot bitwise h1's), ``calibrate``,
+   ``audit`` of the three families, ``reshard run``, ``snapshots``,
+   ``probe``, ``report``, ``watch --once``, then ``tune`` model-only and
+   measured on the calibrated profile, each exit code checked. The
+   ``serve`` line: submit-to-admission ms, each query's ms and MB/s cold
+   and cached, the cache's hit rate, a ``/v1/observe`` poll's ms, the
+   launches by job, each command's exit code and seconds, the card's name
+   and power limit;
 14. the transport: two processes of this script (``--transport-child``)
    share cuda:0 in a gloo process group (NCCL refuses two processes on one
    card), the grids split along z (``IGG_TPU_DCN_AXES=z``, a 2x2x1 box
@@ -245,7 +265,8 @@ Phases, in order; any failure exits non-zero without the final line:
    device time per step of the fused routes, phase 13b's checkpoint and io
    numbers, phase 13c's ``supervised_run``, phase 13d's
    ``oracle_and_mesh_view``, phase 13e's ``audit_and_reshard``, phase 13f's
-   ``service`` line, and the main paths' K4s launches by mode and dim (the
+   ``service`` line, phase 13g's ``serve`` line, and the main paths' K4s
+   launches by mode and dim (the
    kernels line holds K1-K10, K4s and the calibration kernel).
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
@@ -4944,6 +4965,331 @@ def phase_service(tg, models, cb):
     return counts, rec
 
 
+SERVE_STEPS = 20  # h1's steps (and its CLI twin's), in chunks of SERVE_CHUNK
+SERVE_CHUNK = 5
+SERVE_SNAPSHOT_EVERY = 10
+SERVE_H2_STEPS = 20
+SERVE_H3_STEPS = 2000  # cancelled over HTTP long before its end
+SERVE_DEVICE_TYPE = "gpu"  # the jobs' and commands' device (a CPU rehearsal sets "cpu")
+SERVE_CACHE_BYTES = 2 << 30  # the query server's LRU: the whole T field fits
+SERVE_CLI_NX = 128  # the local block of the CLI's self-initialized grids
+SERVE_CLI_TIMEOUT = 300  # seconds, for each command
+SERVE_TERMINAL = ("done", "failed", "cancelled", "rejected")
+
+
+def _http(method, url, payload=None):
+    """(status, body bytes, headers) of one request; HTTP errors are
+    answers, not exceptions."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    if method == "POST" and data is None:
+        data = b""
+    req = urllib.request.Request(url, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def _serve_record(name, model, n, nt, run, **grid_kw):
+    """One queue-JSON job record (the schema of ``POST /v1/jobs`` and ``tools
+    jobs submit``) on a 2x2x2 mesh of ``n``³ blocks, float32."""
+    grid = dict(nx=n, ny=n, nz=n, dimx=2, dimy=2, dimz=2, **grid_kw)
+    if SERVE_DEVICE_TYPE == "cpu":
+        grid["device_type"] = "cpu"
+    return {"name": name, "model": model, "nt": nt, "dtype": "float32", "grid": grid,
+            "run": dict(nt_chunk=SERVE_CHUNK, **run)}
+
+
+def _cli_commands(root, cmds):
+    """Run each ``(name, argv)`` of ``cmds`` as ``python -m
+    implicitglobalgrid_tpu_torch.tools`` in a subprocess, all at once;
+    returns {name: (exit code, stdout, stderr, seconds to its exit)}. Every
+    process is ended before this returns."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    tools = [sys.executable, "-W", "ignore", "-m", "implicitglobalgrid_tpu_torch.tools"]
+    procs, ended = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for i, (name, argv) in enumerate(cmds):
+            out, err = (open(os.path.join(root, f"cli_{i}.{k}"), "w+") for k in ("out", "err"))
+            procs[name] = (subprocess.Popen(tools + argv, cwd=here, stdout=out, stderr=err,
+                                            text=True), out, err)
+        while len(ended) < len(procs) and time.perf_counter() - t0 < SERVE_CLI_TIMEOUT:
+            for name, (p, _, _) in procs.items():
+                if name not in ended and p.poll() is not None:
+                    ended[name] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for p, _, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    res = {}
+    for name, (p, out, err) in procs.items():
+        out.seek(0)
+        err.seek(0)
+        res[name] = (p.returncode, out.read(), err.read(), ended.get(name, float("inf")))
+        out.close()
+        err.close()
+    return res
+
+
+def _cli_checked(res, name, want=0):
+    rc, stdout, stderr, sec = res[name]
+    check(rc == want, f"tools {name}: exit code {rc} (want {want}) in {sec:.1f} s"
+          + ("" if rc == want else f"; stderr tail: {stderr[-1500:]}"))
+    return stdout
+
+
+def _events(url):
+    lines = [json.loads(x) for x in _http("GET", url)[1].splitlines()]
+    return [e for e in lines if e["kind"] != "heartbeat"], lines[-1]
+
+
+def phase_serve(tg, models, cb):
+    """Phase 13g: serve and the CLI (see the module docstring). Returns
+    (launches, record); the record is the ``serve`` line."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from implicitglobalgrid_tpu_torch.parallel import topology as top
+
+    svc = tg.service
+    card = card_name()
+    print(f"phase: serve and the CLI; card {card}", flush=True)
+    names = ("h1", "h2", "h3")
+    cpu = ["--cpu"] if SERVE_DEVICE_TYPE == "cpu" else []
+    rec = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="igg_serve_") as root:
+        d = os.path.join(root, "svc")
+        snaps = {k: os.path.join(root, f"snaps_{k}") for k in ("http", "cli")}
+
+        def h1(snapdir):
+            return _serve_record("h1", "diffusion3d", N_MAIN, SERVE_STEPS, dict(
+                snapshot_dir=snapdir, snapshot_every=SERVE_SNAPSHOT_EVERY,
+                snapshot_fields=["T"]), periodx=1)
+
+        records = [h1(snaps["http"]),
+                   _serve_record("h2", "acoustic3d", N_CFG4, SERVE_H2_STEPS, {},
+                                 periodx=1, periody=1, periodz=1),
+                   _serve_record("h3", "diffusion3d", N_MAIN, SERVE_H3_STEPS, {}, periodx=1)]
+        by_job = {n: {k: 0 for k in KERNEL_NAMES} for n in names}
+        with tg.JobApiServer(d) as api:
+            u = f"http://{api.host}:{api.port}"
+            # -- part 1: jobs over HTTP under a live scheduler ----------------
+            with svc.MeshScheduler(policy="round_robin", flight_dir=d, nranks=8) as sched:
+                cb.reset_launch_counts()
+                code, body, _ = _http("POST", u + "/v1/jobs", {"jobs": records})
+                t_posted = time.monotonic()
+                check(code == 202 and json.loads(body)["submitted"] == list(names),
+                      f"POST /v1/jobs: 202, three records enqueued ({code})")
+                requested, polls, states = [], 0, {}
+                for _ in range(100000):
+                    slices = {n: j.slices for n, j in sched.jobs.items()}
+                    c0 = cb.launch_counts()
+                    progressed = sched.step()
+                    grown = _sub(cb.launch_counts(), c0)
+                    who = [n for n, j in sched.jobs.items() if j.slices != slices.get(n, 0)]
+                    if any(grown.values()):
+                        if len(who) != 1:
+                            raise SmokeFailure(f"launches in a step of {who}, not one job")
+                        for k, v in grown.items():
+                            by_job[who[0]][k] += v
+                    jobs = json.loads(_http("GET", u + "/v1/jobs")[1])["jobs"]
+                    states = {n: j["state"] for n, j in jobs.items()}
+                    polls += 1
+                    if "resize" not in requested and states.get("h2") == "running":
+                        code, body, _ = _http("POST", u + "/v1/jobs/h2/resize",
+                                              {"new_dims": [2, 2, 1]})
+                        check(code == 202, f"POST /v1/jobs/h2/resize: {code}")
+                        requested.append("resize")
+                    if "cancel" not in requested and states.get("h3") == "running" \
+                            and (jobs["h3"].get("step") or 0) > 0:
+                        code, body, _ = _http("POST", u + "/v1/jobs/h3/cancel")
+                        check(code == 202 and "discarded" not in json.loads(body),
+                              f"POST /v1/jobs/h3/cancel of the running job: {code}")
+                        requested.append("cancel")
+                    if len(states) == 3 and all(v in SERVE_TERMINAL for v in states.values()):
+                        break
+                    if not progressed:
+                        raise SmokeFailure(f"the scheduler idles with jobs {states}")
+                check(states == {"h1": "done", "h2": "done", "h3": "cancelled"},
+                      f"/v1/jobs after {polls} polls: h1 and h2 done, h3 cancelled ({states})")
+                h2, h3 = sched.job("h2"), sched.job("h3")
+                check(tuple(int(x) for x in h2.gg.dims) == (2, 2, 1)
+                      and 0 < h3.run.step < SERVE_H3_STEPS,
+                      f"h2 resized over HTTP to {tuple(int(x) for x in h2.gg.dims)}, h3 "
+                      f"cancelled at step {h3.run.step} of {SERVE_H3_STEPS}")
+                job = sched.job("h1")
+                prev = top.swap_global_grid(job.gg)
+                try:
+                    G1 = tg.gather_interior(job.result["T"])
+                finally:
+                    top.swap_global_grid(prev)
+                torch.cuda.synchronize()
+            journal = tg.read_flight_events(os.path.join(d, "scheduler.jsonl"))
+            admitted = {e["job"]: (float(e["t"]) - t_posted) * 1e3 for e in journal
+                        if e["kind"] == "job_admitted"}
+            resized = [e for e in journal if e["kind"] == "job_resized"]
+            check(set(admitted) == set(names) and len(resized) == 1
+                  and resized[0]["job"] == "h2" and resized[0]["via"] == "device",
+                  f"the journal: three admissions, h2's resize on the device path "
+                  f"({[(e['job'], e['via']) for e in resized]})")
+            want = {"h1": ("exchange_slabs", "halo_write_combined"),
+                    "h3": ("exchange_slabs", "halo_write_combined"),
+                    "h2": ("exchange_slabs", "halo_write_combined", "wire_pack",
+                           "halo_write_multi")}
+            for n in names:
+                got = {k: v for k, v in by_job[n].items() if v}
+                check(all(by_job[n][k] > 0 for k in want[n]),
+                      f"job {n} over HTTP launched {want[n]} ({got})")
+            counts = {k: sum(by_job[n][k] for n in names) for k in KERNEL_NAMES}
+            rec.update(submit_to_admission_ms=admitted, polls=polls,
+                       launches={n: {k: v for k, v in by_job[n].items() if v} for n in names},
+                       h3_cancelled_at_step=h3.run.step, h2_resize_ms=float(resized[0]["dur_s"]) * 1e3)
+            del job, h2, h3, sched
+
+            # -- part 2: sub-box reads through the query server ---------------
+            path = dict(tg.list_snapshots(snaps["http"])).get(SERVE_STEPS)
+            check(path is not None, f"h1 committed its step-{SERVE_STEPS} snapshot")
+            ref = tg.open_snapshot(path)
+            gs = ref.global_shape("T")
+            whole = ref.read_global("T")
+            check(np.array_equal(whole, G1), "h1's last snapshot bitwise its final state")
+            del G1
+            pt = tuple(s // 3 for s in gs)
+            boxes = {"point": tuple((i, i + 1) for i in pt),
+                     "z_plane": ((0, gs[0]), (0, gs[1]), (gs[2] // 2, gs[2] // 2 + 1)),
+                     "whole": None}
+            queries = {}
+            with tg.SnapshotQueryServer(snaps["http"], cache_bytes=SERVE_CACHE_BYTES) as q:
+                uq = f"http://{q.host}:{q.port}"
+                listing = json.loads(_http("GET", uq + "/v1/snapshots")[1])
+                check([s["step"] for s in listing["snapshots"]]
+                      == list(range(SERVE_SNAPSHOT_EVERY, SERVE_STEPS + 1, SERVE_SNAPSHOT_EVERY))
+                      and listing["snapshots"][-1]["global_shapes"]["T"] == list(gs),
+                      f"GET /v1/snapshots lists h1's snapshots ({len(listing['snapshots'])})")
+                for name, box in boxes.items():
+                    expect = whole if box is None else ref.read_global("T", box)
+                    buf = io.BytesIO()
+                    np.save(buf, expect)
+                    want_bytes = buf.getvalue()
+                    query = "" if box is None else "?box=" + ",".join(f"{a}:{b}" for a, b in box)
+                    q.cache.clear()
+                    got = {}
+                    for how in ("cold", "cached"):
+                        t0 = time.perf_counter()
+                        code, body, hdrs = _http("GET", uq + f"/v1/snapshots/{SERVE_STEPS}/T"
+                                                 + query)
+                        dt = time.perf_counter() - t0
+                        check(code == 200 and body == want_bytes,
+                              f"query {name} ({how}): {len(body)} bytes byte-identical to "
+                              "read_global")
+                        got[how] = (dt, int(hdrs["X-IGG-Cache-Hits"]))
+                    blocks = got["cached"][1]
+                    check(got["cold"][1] == 0 and blocks > 0,
+                          f"query {name}: cold read 0 cache hits, second read {blocks} "
+                          "block(s) from the LRU")
+                    mb = len(want_bytes) / 1e6
+                    queries[name] = dict(bytes=len(want_bytes), blocks=blocks,
+                                         cold_ms=got["cold"][0] * 1e3,
+                                         cached_ms=got["cached"][0] * 1e3,
+                                         cold_MBps=mb / got["cold"][0],
+                                         cached_MBps=mb / got["cached"][0])
+                code, body, _ = _http("GET", uq + f"/v1/snapshots/{SERVE_STEPS}/T?point="
+                                      + ",".join(map(str, pt)))
+                check(code == 200 and json.loads(body)["value"] == float(whole[pt]),
+                      "query ?point= equals read_global's cell")
+                st = q.cache.stats()
+            rec.update(queries=queries, cache=st,
+                       cache_hit_rate=st["hits"] / max(1, st["hits"] + st["misses"]))
+            del whole
+
+            # -- part 3: the observe endpoints --------------------------------
+            poll_ms = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                code, body, _ = _http("GET", u + "/v1/observe")
+                poll_ms.append((time.perf_counter() - t0) * 1e3)
+            snap = json.loads(body)
+            check(code == 200 and {n: snap["jobs"][n]["state"] for n in names}
+                  == {"h1": "done", "h2": "done", "h3": "cancelled"},
+                  "GET /v1/observe: the three jobs' states")
+            full, last = _events(u + "/v1/events?since=-1&timeout_s=0.5")
+            seqs = [e["live_seq"] for e in full]
+            check(seqs == list(range(len(seqs))) and last.get("done")
+                  and last["cursor"] == seqs[-1] == snap["cursor"],
+                  f"GET /v1/events: {len(seqs)} events, live_seq 0..{seqs[-1]}")
+            half, hb = _events(u + f"/v1/events?since=-1&max_events={len(seqs) // 2}&timeout_s=5")
+            rest, _ = _events(u + f"/v1/events?since={hb['cursor']}&timeout_s=0.5")
+            resumed = [e["live_seq"] for e in half + rest]
+            check(resumed == seqs, f"the stream resumed from since={hb['cursor']}: "
+                  f"{len(half)} + {len(rest)} events, no gap, no duplicate")
+            rec.update(observe_poll_ms=_ms_stats(poll_ms), events=len(seqs))
+
+        # -- part 4: the CLI on the card ------------------------------------------
+        queue = os.path.join(root, "queue.json")
+        with open(queue, "w") as f:
+            json.dump({"policy": "fifo", "jobs": [h1(snaps["cli"])]}, f)
+        prof = os.path.join(root, "profile.json")
+        step_cell = [str(i) for i in pt]
+        res = _cli_commands(root, [
+            ("jobs submit", ["jobs", "submit", queue, "--flight-dir",
+                             os.path.join(root, "cli_svc")] + cpu),
+            ("calibrate", ["calibrate", "--out", prof] + cpu),
+            ("audit", ["audit", "diffusion3d", "acoustic3d", "stokes3d", "--json"] + cpu),
+            ("reshard run", ["reshard", "run", "--src-dims", "2,2,2", "--dst-dims", "4,2,1",
+                             "--nx", str(SERVE_CLI_NX), "--json"] + cpu),
+            ("snapshots", ["snapshots", snaps["http"]]),
+            ("probe", ["probe", snaps["http"], "T"] + step_cell),
+            ("report", ["report", d, "--no-metrics"]),
+            ("watch", ["watch", d, "--once"])])
+        res.update(_cli_commands(root, [
+            ("tune model-only", ["tune", "diffusion3d", "--profile", prof, "--nx", str(N_MAIN),
+                                 "--no-measure", "--out", os.path.join(root, "t0.json")] + cpu),
+            ("tune measured", ["tune", "diffusion3d", "--profile", prof, "--nx",
+                               str(SERVE_CLI_NX), "--out", os.path.join(root, "t1.json")] + cpu)]))
+        _cli_checked(res, "jobs submit")
+        twin = tg.open_snapshot(dict(tg.list_snapshots(snaps["cli"]))[SERVE_STEPS])
+        check(np.array_equal(twin.read_global("T"), ref.read_global("T")),
+              "h1 over HTTP bitwise its `tools jobs submit` twin (the last snapshots)")
+        cal = json.loads(_cli_checked(res, "calibrate"))
+        check(os.path.exists(prof) and cal["flops_G"] > 0 and cal["membw_GBps"] > 0,
+              f"calibrate: a profile ({cal['flops_G']} GFLOP/s, {cal['membw_GBps']} GB/s)")
+        aud = json.loads(_cli_checked(res, "audit"))
+        check(aud["ok"] and [p["name"] for p in aud["programs"]]
+              == ["diffusion3d", "acoustic3d", "stokes3d"], "audit: three programs ok")
+        rs = json.loads(_cli_checked(res, "reshard run"))
+        check(rs["ok"] and rs["verified"], "reshard run: audited and bitwise the host oracle")
+        listed = _cli_checked(res, "snapshots").splitlines()
+        check(len(listed) == SERVE_STEPS // SERVE_SNAPSHOT_EVERY, f"snapshots: {len(listed)} lines")
+        probed = _cli_checked(res, "probe").splitlines()
+        check(probed[-1] == f"{SERVE_STEPS} {float(ref.read_global('T', boxes['point'])[0, 0, 0])!r}",
+              f"probe: the cell's series ({probed})")
+        rep = json.loads(_cli_checked(res, "report"))
+        check({n: rep["jobs"][n]["state"] for n in names}
+              == {"h1": "done", "h2": "done", "h3": "cancelled"}, "report: the service record")
+        frame = _cli_checked(res, "watch")
+        check("JOB" in frame and all(n in frame for n in names), "watch --once: the jobs' frame")
+        t_model = json.loads(_cli_checked(res, "tune model-only"))
+        t_meas = json.loads(_cli_checked(res, "tune measured"))
+        check(t_model["model"] == t_meas["model"] == "diffusion3d"
+              and t_meas.get("measured_step_s") is not None,
+              f"tune: model-only and measured configs (speedup {t_meas.get('speedup')})")
+        rec["cli"] = {k: dict(rc=v[0], seconds=v[3]) for k, v in res.items()}
+        rec["tune_measured"] = {k: t_meas.get(k) for k in ("comm_every", "wire_dtype",
+                                                            "measured_step_s",
+                                                            "baseline_step_s", "speedup")}
+    print(f"  serve: {json.dumps(rec)}", flush=True)
+    return counts, rec
+
+
 def _transport_dir():
     return os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "implicitglobalgrid_tpu_torch", "_build", "transport")
@@ -5412,6 +5758,7 @@ def transport_mesh_view(tg, d):
         if e.get("ph") == "X" and e.get("cat") == "chunk" and e["name"].startswith("chunk "):
             ends.setdefault(e["name"], {})[e["pid"]] = e["ts"] + e["dur"]
     gaps = [abs(v[0] - v[1]) for v in ends.values() if len(v) == 2]
+    print(f"  transport mesh view: span end gaps {gaps} us", flush=True)
     check(agg["processes"] == list(range(TRANSPORT_PROCS)),
           f"mesh view: aggregate_flight found both processes ({agg['processes']})")
     check(all(math.isfinite(v) for v in agg["offsets"].values()),
@@ -5752,6 +6099,7 @@ def main() -> int:
         oracle_counts, oracle, fma_row = phase_oracle(tg, models, cb, cw, cst)
         audit_counts, audit = phase_audit_reshard(tg, models, cb)
         service_counts, service = phase_service(tg, models, cb)
+        serve_counts, serve = phase_serve(tg, models, cb)
         refs = {k: v for ph in (cfg3, cfg4m, cfg5m) for k, v in ph.pop("transport_ref").items()}
         refs.update(ovl_refs)
         refs.update(ens_refs)
@@ -5768,7 +6116,7 @@ def main() -> int:
     paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts,
              cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts, ovl_counts, prof_counts,
              ens_counts, wire_counts, io_counts, sup_counts, oracle_counts, audit_counts,
-             service_counts, transport_counts]
+             service_counts, serve_counts, transport_counts]
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNEL_NAMES}
     for name, n in launches.items():
         if n == 0:
@@ -5868,6 +6216,7 @@ def main() -> int:
                       "cdiv": cdiv, "k4s_launches": k4s_launches,
                       "seconds_total": time.perf_counter() - t_start}))
     print(json.dumps({"service": service}))
+    print(json.dumps({"serve": serve}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -37,8 +37,11 @@ performance oracle (`MachineProfile`, `predict_step`, `calibrate_machine`,
 (`analysis`: the recorder, contracts, lints, `audit_model`), on-device
 elastic resharding (`reshard`: `build_reshard_plan`, `reshard_state`), the
 live plane (`FlightTail`, `LiveAggregate`, `AlertEngine` and its sinks,
-`TraceContext`, `export_otlp`) and the persistent-mesh service (`service`:
-`MeshScheduler`, `JobSpec`, `service_report`, the autoscaler).
+`TraceContext`, `export_otlp`), the persistent-mesh service (`service`:
+`MeshScheduler`, `JobSpec`, `service_report`, the autoscaler) and the
+serving tier (`serve`: `JobApiServer`, `SnapshotQueryServer` with its
+`BlockCache`, `ObservePlane`/`ObserveServer`). The operator CLI is
+``python -m implicitglobalgrid_tpu_torch.tools``.
 Usage::
 
     import implicitglobalgrid_tpu_torch as igg
@@ -119,6 +122,11 @@ from . import service
 from .service import (
     MeshScheduler, JobSpec, JobState, service_report, export_service_trace,
 )
+from . import serve
+from .serve import (
+    BlockCache, CachedSnapshot, JobApiServer, ObservePlane, ObserveServer,
+    SnapshotQueryServer,
+)
 
 __version__ = "0.1.0"
 
@@ -168,4 +176,6 @@ __all__ = [
     "FlightTail", "LiveAggregate", "AlertRule", "AlertEngine",
     "default_rule_pack", "log_sink", "ControlFileSink", "WebhookSink",
     "TraceContext", "export_otlp", "OtlpSpanExporter",
+    "serve", "JobApiServer", "SnapshotQueryServer", "BlockCache",
+    "CachedSnapshot", "ObservePlane", "ObserveServer",
 ]

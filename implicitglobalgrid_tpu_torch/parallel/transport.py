@@ -32,6 +32,10 @@ arrival; `shift_rows` sends K8's rows coded by the group's `WireSchema`
 (`encode_rows`) and decodes them. ``stats["wire_bytes"]`` counts the bytes
 sent.
 
+`release` returns on every process together (the resilient driver's
+chunk stamp, on which `aggregate_flight` aligns the processes' clocks):
+`Dist` exchanges a byte with every peer over loopback sockets.
+
 Under a recording (`analysis.record`) `all_sum` records one ``all-reduce``
 and `all_max` a host transfer (its values were fetched to the host); the
 halo routes record their logical exchanges themselves (`ops.halo`), not
@@ -45,6 +49,9 @@ from typing import NamedTuple
 
 from ..analysis import record as _record
 from ..utils.exceptions import NotSupportedError
+
+# how long `Dist.release` polls for its peers' bytes
+_RELEASE_TIMEOUT_S = 60.0
 
 __all__ = ["InProcess", "Dist", "EdgeMessage", "edge_plan", "fill_edges", "shift_rows",
            "wire_view", "transport_for"]
@@ -238,12 +245,22 @@ class InProcess:
             _record.ACTIVE.all_reduce(t, site="all_sum")
         return t
 
+    def host_values(self, t):
+        """``t``'s values on the host, as numpy (the driver's chunk drain).
+        A sum this transport's `all_sum` just returned is read from the
+        sum's host copy where it has one."""
+        return t.detach().cpu().numpy()
+
     def broadcast_one_to_all(self, obj):
         """Process 0's ``obj`` (any picklable object) on every process."""
         return obj
 
     def barrier(self) -> None:
         """Return once every process has reached it."""
+
+    def release(self) -> None:
+        """Return on every process together, as closely as the host allows
+        (the resilient driver's chunk stamp; `Dist.release`)."""
 
     def all_gather_object(self, obj):
         return [obj]
@@ -274,6 +291,8 @@ class Dist(InProcess):
         self.cpu_group = None if self.backend == "gloo" else dist.new_group(backend="gloo")
         self.stage = self.backend == "gloo" and device.type == "cuda"
         self._pinned: dict = {}
+        self._last_sum = None  # (the device tensor all_sum returned, its host copy)
+        self._links = None  # the release's sockets, one a peer (made by the first release)
 
     def _host(self, key, n):
         """A pinned uint8 host buffer of ``n`` bytes, kept per ``key``: every
@@ -372,8 +391,9 @@ class Dist(InProcess):
     def all_sum(self, t):
         """`dist.all_reduce` (SUM) of a copy of ``t``: on the device under
         NCCL; under gloo a CUDA tensor goes through pinned host memory (as
-        `exchange` stages it) and back. Returns a new tensor on ``t``'s
-        device."""
+        `exchange` stages it) and back, asynchronously. Returns a new tensor
+        on ``t``'s device."""
+        import torch
         import torch.distributed as dist
 
         if _record.ACTIVE is not None:
@@ -385,7 +405,73 @@ class Dist(InProcess):
         host = self._host("sum", t.numel() * t.element_size()).view(t.dtype)
         host.copy_(t.reshape(-1))
         dist.all_reduce(host, op=dist.ReduceOp.SUM)
-        return host.to(t.device).view(t.shape)
+        # The sum goes back to the device from a pinned copy of its own
+        # (PyTorch's host allocator keeps it until the copy is done), without
+        # waiting: `host_values` reads the copy, so the chunk drain that
+        # follows (and the driver's chunk stamp) waits on no device work.
+        # Two processes sharing one card time-slice it, and a wait there can
+        # last a slice of the other process's work.
+        kept = torch.empty_like(host, pin_memory=True)
+        kept.copy_(host)
+        out = kept.to(t.device, non_blocking=True).view(t.shape)
+        self._last_sum = (out, kept)
+        return out
+
+    def release(self):
+        """Each process of this host sends every peer one byte and polls its
+        sockets until it holds one byte from each: every process leaves
+        when the last one has come, within one loopback delivery. A gloo
+        collective gives no such exit: each process leaves it when its own
+        threads notice the last message, on a loaded host a millisecond or
+        more apart. Across hosts there is no release."""
+        links = self._links
+        if links is None:
+            links = self._links = self._connect_links()
+        for s in links:
+            s.send(b"\x01")
+        pending = list(links)
+        deadline = time.monotonic() + _RELEASE_TIMEOUT_S
+        while pending:
+            for s in tuple(pending):
+                try:
+                    got = s.recv(1)
+                except BlockingIOError:
+                    continue
+                if not got:
+                    raise ConnectionError(
+                        f"process {self.rank}: a peer closed its link before the release.")
+                pending.remove(s)
+            if pending and time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"process {self.rank}: {len(pending)} peer(s) did not come to the release "
+                    f"within {_RELEASE_TIMEOUT_S} s.")
+
+    def _connect_links(self):
+        """A TCP connection to every other process over the loopback, when
+        all of them share this host's name; else none. Each process connects
+        to the lower ranks' listening sockets and accepts the higher ranks'."""
+        import socket
+
+        name = socket.gethostname()
+        with socket.socket() as srv:
+            srv.bind(("127.0.0.1", 0))
+            srv.listen(self.world)
+            seen = self.all_gather_object((name, srv.getsockname()[1]))
+            if any(h != name for h, _ in seen):
+                return []
+            links = [socket.create_connection(("127.0.0.1", seen[p][1]))
+                     for p in range(self.rank)]
+            links += [srv.accept()[0] for _ in range(self.rank + 1, self.world)]
+        for s in links:
+            s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            s.setblocking(False)
+        return links
+
+    def host_values(self, t):
+        last, self._last_sum = self._last_sum, None
+        if last is not None and last[0] is t:
+            return last[1].view(t.shape).numpy()
+        return super().host_values(t)
 
     def broadcast_one_to_all(self, obj):
         return self.all_gather_object(obj)[0]
@@ -403,9 +489,12 @@ class Dist(InProcess):
         return out
 
     def shutdown(self) -> None:
-        """Destroy the process group."""
+        """Close the release's sockets and destroy the process group."""
         import torch.distributed as dist
 
+        for s in self._links or ():
+            s.close()
+        self._links = None
         if dist.is_initialized():
             dist.destroy_process_group()
 

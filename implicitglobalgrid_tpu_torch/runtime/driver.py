@@ -804,6 +804,7 @@ class ResilientRun:
         record_event = self._record_event
 
         from ..models.common import make_state_runner
+        from ..parallel.topology import global_grid
         from ..telemetry.hooks import record_health_event
         from ..utils.exceptions import ResilienceError
         from .faults import NaNPoke, ProcessLoss, poke_nan
@@ -913,7 +914,7 @@ class ResilientRun:
         # the small summed vector to the host = the chunk drain; with
         # reducers it carries [health | reducer segments] from ONE sum
         # (ensemble: an (E, 2N+R) matrix, one row a member)
-        vec = out[-1].detach().cpu().numpy()
+        vec = global_grid().transport.host_values(out[-1])
         t_done = time.monotonic()
         if audit_now:
             self._audit_chunk(rec, n, state, plan)
@@ -940,6 +941,9 @@ class ResilientRun:
             tripped, reasons, ok = None, list(rep.reasons), rep.ok
         self.chunk_idx += 1
         record_health_event("chunks")
+        # every process stamps the chunk when the last one has its report:
+        # `aggregate_flight` aligns the processes' clocks on these stamps
+        global_grid().transport.release()
         # exec_s covers dispatch through the stats fetch (= the chunk
         # drain)
         record_event("chunk", chunk=rep.chunk, step_begin=step,

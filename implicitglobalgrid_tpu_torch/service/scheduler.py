@@ -46,8 +46,10 @@ The rank pool: the JAX package sizes the autoscaler's pool from its device
 count. On the port's virtual mesh the count of devices bounds nothing (one
 card holds every rank; `reshard.plan`'s note), so ``nranks`` gives the pool,
 as `init_global_grid(nranks=)` gives the rank count where dims are left at
-0. With no pool, the mesh utilization is not reported and growth is bounded
-by `ScaleBounds.max_devices` and the card's free memory
+0. A job whose grid has more ranks than the pool fails at admission, as the
+JAX package's grid of more shards than devices does. With no pool, the mesh
+utilization is not reported and growth is bounded by
+`ScaleBounds.max_devices` and the card's free memory
 (`reshard.check_device_memory`).
 
 Preemption is only ever at chunk boundaries (one `advance()` per granted
@@ -122,9 +124,9 @@ class MeshScheduler:
     `run_resilient(metrics_port=...)` running under (or next to) the
     scheduler ATTACHES to this server instead of failing to bind.
 
-    ``nranks`` is the rank pool the autoscaler may grow a job into and
-    the mesh utilization is read against (the JAX package's device count;
-    module docstring). None: no pool.
+    ``nranks`` is the rank pool the autoscaler may grow a job into, the
+    mesh utilization is read against and a job's grid must fit (the JAX
+    package's device count; module docstring). None: no pool.
 
     The scheduler is a context manager; `close()` releases every job's
     resources and restores whatever grid was current at construction."""
@@ -687,6 +689,11 @@ class MeshScheduler:
             init_global_grid(**{"quiet": True, **job.spec.grid})
             job.gg = top.global_grid()
             top.retain_epoch(job.gg.epoch)
+            if self.nranks is not None and job.gg.nprocs > self.nranks:
+                # the JAX package's device pool refuses such a grid at init
+                raise InvalidArgumentError(
+                    f"Grid of {job.gg.nprocs} ranks exceeds the rank pool "
+                    f"of {self.nranks} (MeshScheduler(nranks=)).")
             with use_flight_recorder(job.recorder), knob_scope:
                 step_local, state = job.spec.setup()
                 unit_price_s = self._price_admission(job, run_spec,

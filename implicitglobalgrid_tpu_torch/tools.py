@@ -8,6 +8,9 @@ and the vectorized builders ``x_g_vec``/``coords_g`` for initial conditions.
 Coordinates are computed on the host in float64 numpy. A stacked index is
 one of this process's box, whose first rank sits at ``coords``, so the
 coordinates of every process's box are global.
+
+``python -m implicitglobalgrid_tpu_torch.tools`` is the operator CLI: its
+parser and commands live in `cli.py` (`_cli` here runs them).
 """
 
 from __future__ import annotations
@@ -166,3 +169,17 @@ def coords_g(dx, dy, dz, A):
         sh[dim] = v.shape[0]
         outs.append(v.reshape(sh))
     return tuple(outs)
+
+
+def _cli(argv=None) -> int:
+    """``python -m implicitglobalgrid_tpu_torch.tools``: the operator CLI
+    (subcommands, device rules and the flags that raise: `cli.py`)."""
+    from .cli import main
+
+    return main(argv)
+
+
+if __name__ == "__main__":  # python -m implicitglobalgrid_tpu_torch.tools ...
+    import sys
+
+    sys.exit(_cli(sys.argv[1:]))

@@ -306,6 +306,20 @@ def test_audit_and_resize_across_processes(config, tmp_path_factory):
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))
+def test_release_returns_on_every_process_together(config, tmp_path_factory):
+    """The last process comes to `transport.release` 0.2 s late: the
+    release returns on no process before it came (the processes share one
+    host's monotonic clock), and each process holds a release link to
+    every other."""
+    nproc = CONFIGS[config][0]
+    got = dict(_each(config, tmp_path_factory, "release/timing"))
+    came = got[nproc - 1]["came"]
+    for pid, v in got.items():
+        assert v["returned"] >= came, (pid, v["returned"] - came)
+        assert v["links"] == nproc - 1, (pid, v)
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
 def test_tic_toc_span_the_processes(config, tmp_path_factory):
     """Process 1 sleeps 0.3 s between `tic` and `toc`: every process's span
     covers it."""

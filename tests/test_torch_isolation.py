@@ -194,6 +194,48 @@ def test_service_and_live_plane_leave_jax_out():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_serve_and_cli_leave_jax_out():
+    """The serving tier (`JobApiServer`, `SnapshotQueryServer`,
+    `ObserveServer`) imported and driven, and the operator CLI run as
+    ``python -m implicitglobalgrid_tpu_torch.tools snapshots`` and ``jobs
+    list`` (through `runpy`, as ``-m`` does), in a fresh interpreter: no JAX
+    module loads."""
+    code = (
+        "import sys, json, runpy, tempfile, urllib.request\n"
+        "import implicitglobalgrid_tpu_torch as tg\n"
+        "import implicitglobalgrid_tpu_torch.serve, implicitglobalgrid_tpu_torch.cli\n"
+        "d = tempfile.mkdtemp()\n"
+        "tg.init_global_grid(6, 6, 6, dimx=2, dimy=2, dimz=1, device_type='cpu', quiet=True)\n"
+        "tg.write_snapshot(d + '/s', step=1, state={'T': tg.ones_g()})\n"
+        "tg.finalize_global_grid()\n"
+        "with tg.JobApiServer(d + '/q') as api, tg.SnapshotQueryServer(d + '/s') as q:\n"
+        "    rec = {'name': 'a', 'model': 'diffusion3d', 'nt': 2, 'run': {'nt_chunk': 1},\n"
+        "           'grid': {'nx': 6, 'ny': 6, 'nz': 6, 'dimx': 2, 'dimy': 1, 'dimz': 1,\n"
+        "                    'device_type': 'cpu'}}\n"
+        "    req = urllib.request.Request(f'http://127.0.0.1:{api.port}/v1/jobs', method='POST',\n"
+        "                                 data=json.dumps(rec).encode())\n"
+        "    assert urllib.request.urlopen(req).status == 202\n"
+        "    with tg.MeshScheduler(flight_dir=d + '/q') as s:\n"
+        "        s.run()\n"
+        "    urllib.request.urlopen(f'http://127.0.0.1:{q.port}/v1/snapshots/1/T?box=0:2,,').read()\n"
+        "    urllib.request.urlopen(f'http://127.0.0.1:{api.port}/v1/observe').read()\n"
+        "for argv in (['snapshots', d + '/s'], ['jobs', 'list', d + '/q']):\n"
+        "    sys.argv = ['tools'] + argv\n"
+        "    try:\n"
+        "        runpy.run_module('implicitglobalgrid_tpu_torch.tools', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (argv, e.code)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'implicitglobalgrid_tpu' or m.startswith('implicitglobalgrid_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-W", "ignore", "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "step          1" in r.stdout and "a                    done" in r.stdout, r.stdout
+
+
 def test_sources_name_no_jax():
     pkg = ROOT / "implicitglobalgrid_tpu_torch"
     files = [f for f in pkg.rglob("*.py") if "_build" not in f.relative_to(pkg).parts]
@@ -217,7 +259,9 @@ def test_sources_name_no_jax():
             "reshard/program.py", "telemetry/live.py", "telemetry/otlp.py",
             "telemetry/tracectx.py", "service/__init__.py", "service/job.py",
             "service/policies.py", "service/backend.py", "service/report.py",
-            "service/scheduler.py", "service/autoscale.py"} <= names
+            "service/scheduler.py", "service/autoscale.py", "cli.py", "tools.py",
+            "serve/__init__.py", "serve/cache.py", "serve/query.py", "serve/observe.py",
+            "serve/api.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

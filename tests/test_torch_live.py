@@ -491,6 +491,33 @@ def test_alert_engines_give_identical_transitions():
     assert (et.transitions, et.evaluations) == (ej.transitions, ej.evaluations)
 
 
+def test_default_pack_clocked_rules_fire_identically():
+    """The default pack's four rules on wall-clock readings (a checkpoint
+    seconds z-score, a perf-regression streak, a deadline-slack burn and a
+    persistent straggler) each fire, and resolve where their signal
+    recovers, with identical transitions in both packages' engines."""
+    seq = []
+    for t in range(1, 15):
+        seq.append({
+            "t": 2000.0 + t, "scheduler": {}, "queue": {},
+            "procs": {"0": {"slowest_share": 0.2},
+                      "1": {"slowest_share": 0.9 if 4 <= t <= 7 else 0.1}},
+            "jobs": {"a": {"state": "running", "checkpoint_s": 2.5 if t == 9 else 0.2,
+                           "perf_regressions": 0 if t < 6 else 4,
+                           "deadline_slack_s": 1e4 if t < 11 else -1.0}}})
+
+    def run(live):
+        eng = live.AlertEngine(live.default_rule_pack())
+        return [[(tr["rule"], tr["state"], tr["job"]) for tr in
+                 eng.evaluate(json.loads(json.dumps(s)))] for s in seq]
+
+    got_t, got_j = run(torch_live), run(jax_live)
+    assert got_t == got_j
+    fired = {rule for trs in got_t for rule, state, _ in trs if state == "firing"}
+    assert fired == {"checkpoint_latency_blowout", "perf_regression_streak",
+                     "deadline_slack_burn", "persistent_straggler"}
+
+
 def test_control_file_sink_files_cancel_once(tmp_path, lib):
     pkg, live = lib
     err = _errors(pkg).InvalidArgumentError

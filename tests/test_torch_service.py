@@ -124,8 +124,7 @@ def test_public_api_exports():
                 "ResilientRun", "service_report", "export_service_trace"):
         assert hasattr(tg, sym) and sym in tg.__all__, sym
     missing = sorted(set(igg.__all__) - set(tg.__all__))
-    assert missing == ["BlockCache", "CachedSnapshot", "JobApiServer", "ObservePlane",
-                       "ObserveServer", "SnapshotQueryServer", "serve", "sharding_of"]
+    assert missing == ["sharding_of"]
     assert sorted(tg.service.__all__) == sorted(igg.service.__all__)
 
 
@@ -330,10 +329,25 @@ _MODELS = (("diff", "diffusion3d", "float64", 12, dict(GRID_A, periodx=1)),
            ("stokes", "stokes3d", "float32", 6, GRID_A))
 
 
+# The default rule pack's rules on wall-clock readings (checkpoint seconds,
+# step-time regressions, deadline slack, barrier-arrival spreads): under load
+# one package's timings can fire one of them where the other's do not, and the
+# journals then differ by an alert record. Their firing is held in
+# `tests/test_torch_live.py`; `guard_trip_storm`, which the NaN poke fires in
+# both packages, stays in the comparison.
+_CLOCKED_RULES = ("checkpoint_latency_blowout", "perf_regression_streak",
+                  "deadline_slack_burn", "persistent_straggler")
+
+
+def _unclocked_rule_pack(pkg):
+    return [r for r in pkg.default_rule_pack() if r.name not in _CLOCKED_RULES]
+
+
 def _builtin_run(pkg, d, policy, dev):
     svc = pkg.service
     ck = os.path.join(d, "ck")
-    with svc.MeshScheduler(policy=policy, flight_dir=d, alerts=True) as s:
+    with svc.MeshScheduler(policy=policy, flight_dir=d,
+                           alerts=_unclocked_rule_pack(pkg)) as s:
         for i, (name, model, dtype, nt, grid) in enumerate(_MODELS):
             faults = (pkg.NaNPoke(step=4, name="T", index=(3, 3, 3)),) if i == 0 else ()
             s.submit(svc.JobSpec(name=name, setup=svc.builtin_setup(model, dtype),

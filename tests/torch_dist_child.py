@@ -419,6 +419,24 @@ def case_audit():
                              "dims": [int(d) for d in tg.global_grid().dims]})}
 
 
+def case_release():
+    """`transport.release` returns on every process together: the last
+    process comes to it 0.2 s late, and no process's release returns
+    before that (one host, one monotonic clock). This process's return
+    time, the late process's arrival and the number of release links."""
+    tr = tg.global_grid().transport
+    if tr.world == 1:
+        return {}
+    tr.release()  # the links, made by the first release
+    came = None
+    if tr.rank == tr.world - 1:
+        time.sleep(0.2)
+        came = time.monotonic()
+    tr.release()
+    return {"timing": ("proc", {"returned": time.monotonic(), "came": came,
+                                "links": len(tr._links)})}
+
+
 def case_timing():
     tg.tic()
     if tg.global_grid().me == 1:
@@ -433,7 +451,7 @@ CASES = [("layout", G0, DCN, case_layout), ("encoded", G0, DCN, case_encoded),
          ("deep", G5, DCN, case_deep), ("wire", G1, DCN, case_wire),
          ("ensemble", G1, DCN, case_ensemble), ("io", G1, DCN, case_io),
          ("resilient", G1, DCN, case_resilient), ("audit", G1, DCN, case_audit),
-         ("timing", G1, DCN, case_timing)]
+         ("release", G1, DCN, case_release), ("timing", G1, DCN, case_timing)]
 
 
 def run(grid_kw, dcn, fn, **init):
@@ -495,7 +513,7 @@ def compare(kind, got, ref, layout, me):
 
 def main():
     refs = {name: run(grid_kw, "", fn)[0] for name, grid_kw, _, fn in CASES
-            if name not in ("layout", "timing")}
+            if name not in ("layout", "release", "timing")}
     refs["layout"] = None
     torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{PORT}",
                                          world_size=NPROC, rank=PID)
