@@ -226,6 +226,16 @@ Phases, in order; any failure exits non-zero without the final line:
    and cached, the cache's hit rate, a ``/v1/observe`` poll's ms, the
    launches by job, each command's exit code and seconds, the card's name
    and power limit;
+13h. the device pool and the staged-wire audit: the main path through
+   ``init_global_grid(256, 256, 256, dimx=2, dimy=2, dimz=2, periodx=1,
+   devices=[cuda:0] * 8)``, float32 `run_diffusion` for 100 fused steps
+   (100 K4 and 300 K4s), then `update_halo(T)` (3 K4s + 1 K6), bitwise the
+   same run on an ``nranks=8`` grid, each grid's set-up ms;
+   `sharding_of(3)` the fields' box and device; a list spanning cuda:0 and
+   cuda:1 refused; on the staged fixture mesh (4x1x2 x 256^3,
+   ``IGG_TPU_DCN_GRANULES=z:2``) `audit_model("diffusion3d",
+   wire_stage="z:staged")` ok on the fused and plain routes (its ms), and
+   the staged `update_halo` (K8 + K7 on z) bitwise the flat one;
 14. the transport: two processes of this script (``--transport-child``)
    share cuda:0 in a gloo process group (NCCL refuses two processes on one
    card), the grids split along z (``IGG_TPU_DCN_AXES=z``, a 2x2x1 box
@@ -260,12 +270,16 @@ Phases, in order; any failure exits non-zero without the final line:
    4x1x2 at step 10 with ``via="auto"``: a clean chunk audit on each
    process before and after, `reshard_state` refused across processes, the
    checkpoint path taken, the gathered interior bitwise the unresized run's;
+   then the staged audit (``wire_stage="z:staged"``, fused and plain
+   routes) on each process: ok, with one z message a neighbour process and
+   direction for the step's z exchange (`Dist.stats`);
 15. numbers: the card's name and power limit, each kernel's time, bound,
    plain and library times (one JSON line), cell-updates/s, host against
    device time per step of the fused routes, phase 13b's checkpoint and io
    numbers, phase 13c's ``supervised_run``, phase 13d's
    ``oracle_and_mesh_view``, phase 13e's ``audit_and_reshard``, phase 13f's
-   ``service`` line, phase 13g's ``serve`` line, and the main paths' K4s
+   ``service`` line, phase 13g's ``serve`` line, phase 13h's
+   ``devices_and_staged_audit``, and the main paths' K4s
    launches by mode and dim (the
    kernels line holds K1-K10, K4s and the calibration kernel).
 
@@ -5290,6 +5304,146 @@ def phase_serve(tg, models, cb):
     return counts, rec
 
 
+DEVICES_STEPS = 100  # phase 13h's fused diffusion steps on the 2x2x2 x 256^3 mesh
+STAGED_DIMS = dict(dimx=4, dimy=1, dimz=2)  # the JAX suite's staged fixture mesh
+
+
+def phase_devices_staged(tg, models, cb):
+    """Phase 13h: ``init_global_grid(devices=)``, `sharding_of` and the
+    staged-wire audit. The main path through the device pool: the 2x2x2
+    mesh of 256^3 blocks (periodic x) from ``devices=[cuda:0] * 8``,
+    float32 `run_diffusion` for DEVICES_STEPS fused steps (3 K4s + 1 K4 a
+    step), then `update_halo(T)` (3 K4s + 1 K6), bitwise the same run on an
+    ``nranks=8`` grid, with each grid's set-up ms; `sharding_of(3)` the
+    box and device the fields were allocated with; a list spanning cuda:0
+    and cuda:1 refused (`NotSupportedError`, whether or not a second card
+    exists). On the staged fixture mesh (4x1x2 x 256^3, granules "z:2"):
+    `audit_model("diffusion3d", wire_stage="z:staged")` ok under both
+    routes, with its ms, and the staged `update_halo` bitwise the flat
+    one. Returns (launches of the ``devices=`` run, record)."""
+    import torch
+    from implicitglobalgrid_tpu_torch.utils.exceptions import NotSupportedError
+
+    print(f"phase: devices=, sharding_of and the staged-wire audit; card {card_name()}",
+          flush=True)
+    t_phase = time.perf_counter()
+    kw = dict(dimx=2, dimy=2, dimz=2, periodx=1)
+    rec, runs, counts = {}, {}, {}
+    for label, pool in (("nranks", dict(nranks=8)),
+                        ("devices", dict(devices=[torch.device("cuda", 0)] * 8))):
+        if tg.grid_is_initialized():
+            tg.finalize_global_grid()
+        os.environ.pop("IGG_USE_PALLAS", None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tg.init_global_grid(N_MAIN, N_MAIN, N_MAIN, quiet=True, **kw, **pool)
+        setup_ms = (time.perf_counter() - t0) * 1e3
+        T0, Cp, p = models.init_diffusion3d(dtype=torch.float32)
+        gg = tg.global_grid()
+        r = rec[label] = dict(setup_ms=setup_ms, device=str(gg.device),
+                              dims=[int(d) for d in gg.dims])
+        if label == "devices":
+            s = tg.sharding_of(3)
+            r["sharding_of_3"] = dict(spec=list(s.spec), dims=list(s.dims), box=list(s.box),
+                                      coords=list(s.coords), device=str(s.device))
+            check(s.device == T0.device == Cp.device == torch.device("cuda", 0)
+                  and s.box == s.dims == (2, 2, 2) and s.coords == (0, 0, 0)
+                  and s.spec == ("gx", "gy", "gz")
+                  and s.stacked_shape((N_MAIN,) * 3) == tuple(T0.shape) == tuple(Cp.shape),
+                  f"devices=: sharding_of(3) describes the fields' box and device ({s})")
+        models.run_diffusion(T0, Cp, p, 2, nt_chunk=2)  # warm chunk
+        torch.cuda.synchronize()
+        cb.reset_launch_counts()
+        t0 = time.perf_counter()
+        T = models.run_diffusion(T0, Cp, p, DEVICES_STEPS, nt_chunk=DEVICES_STEPS)
+        torch.cuda.synchronize()
+        r["step_ms"] = (time.perf_counter() - t0) * 1e3 / DEVICES_STEPS
+        steps = cb.launch_counts()
+        T = tg.update_halo(T)
+        torch.cuda.synchronize()
+        counts[label] = cb.launch_counts()
+        halo = {k: counts[label][k] - steps[k] for k in steps}
+        r["launches_steps"] = {k: v for k, v in steps.items() if v}
+        r["launches_update_halo"] = {k: v for k, v in halo.items() if v}
+        check(steps["diffusion3d_step_exchange"] == DEVICES_STEPS
+              and steps["exchange_slabs"] == 3 * DEVICES_STEPS
+              and halo["halo_write_combined"] == 1 and halo["exchange_slabs"] == 3
+              and counts[label]["diffusion3d_step_halo"] == 0,
+              f"{label}: {DEVICES_STEPS} K4 and {3 * DEVICES_STEPS} K4s over the steps, "
+              f"update_halo through 3 K4s + 1 K6 ({r['launches_steps']}, "
+              f"{r['launches_update_halo']})")
+        runs[label] = T
+        del T0, Cp
+    check(torch.equal(runs["devices"], runs["nranks"]) and bool(
+        torch.isfinite(runs["devices"]).all()),
+          "devices=: the run bitwise the nranks=8 run, finite")
+    del runs
+    tg.finalize_global_grid()
+    spanning = [torch.device("cuda", 0)] * 4 + [torch.device("cuda", 1)] * 4
+    try:
+        tg.init_global_grid(N_MAIN, N_MAIN, N_MAIN, quiet=True, devices=spanning, **kw)
+        raised = "nothing"
+    except NotSupportedError as e:
+        raised = f"NotSupportedError: {e}"
+    rec["spanning_list"] = raised
+    check(raised.startswith("NotSupportedError: devices= spans cuda:0, cuda:1")
+          and not tg.grid_is_initialized(),
+          f"devices=: a list spanning two cards raises NotSupportedError ({raised})")
+
+    # the staged audit on the virtual mesh (granules declared along z)
+    saved = os.environ.get("IGG_TPU_DCN_GRANULES")
+    os.environ["IGG_TPU_DCN_GRANULES"] = "z:2"
+    try:
+        grid(tg, N_MAIN, N_MAIN, N_MAIN, periodx=1, periody=1, periodz=1, **STAGED_DIMS)
+        check(tuple(tg.global_grid().dcn_granules) == (1, 1, 2),
+              "staged mesh: the granules declared along z")
+        rec["staged_audit"] = {}
+        for impl in ("cuda", "plain"):
+            tg.audit_model("diffusion3d", impl=impl)  # warm: the routes' first calls
+            torch.cuda.synchronize()
+            cb.reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = tg.audit_model("diffusion3d", impl=impl, wire_stage="z:staged")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            cc = rep.crosscheck or {}
+            a = rec["staged_audit"][impl] = dict(
+                ms=ms, ok=rep.ok, wire_stage=rep.meta.get("wire_stage"),
+                crosscheck_wire_stage=cc.get("wire_stage"), axes=_axes_line(rep),
+                launches={k: v for k, v in cb.launch_counts().items() if v})
+            print(f"  staged audit {impl}: {json.dumps(a)}", flush=True)
+            check(rep.ok and cc.get("ok") and a["wire_stage"] == "z:staged"
+                  and a["crosscheck_wire_stage"] == "z:staged",
+                  f"audit_model(diffusion3d, impl={impl!r}, wire_stage='z:staged') on 4x1x2 x "
+                  f"{N_MAIN}^3: ok ({[f.message for f in rep.findings]})")
+        check(rec["staged_audit"]["cuda"]["launches"].get("diffusion3d_step_exchange") == 1
+              and rec["staged_audit"]["plain"]["launches"].get("wire_pack", 0) >= 1,
+              "staged audit: the fused step recorded through K4, the plain step's staged z "
+              "through K8 + K7")
+        g = torch.Generator(device="cuda").manual_seed(13)
+        A = torch.randn(tuple(int(d) * N_MAIN for d in tg.global_grid().dims), generator=g,
+                        device="cuda")
+        flat = tg.update_halo(A.clone())
+        cb.reset_launch_counts()
+        staged = tg.update_halo(A.clone(), wire_stage="z:staged")
+        torch.cuda.synchronize()
+        rec["staged_update_halo_launches"] = {k: v for k, v in cb.launch_counts().items() if v}
+        check(torch.equal(staged, flat),
+              "staged mesh: update_halo(wire_stage='z:staged') bitwise the flat update_halo")
+        check(cb.launch_counts()["wire_pack"] == 1 and cb.launch_counts()["halo_write_multi"] == 1,
+              "staged mesh: the staged update_halo through K8 + K7 on z")
+        del A, flat, staged
+        tg.finalize_global_grid()
+    finally:
+        if saved is None:
+            os.environ.pop("IGG_TPU_DCN_GRANULES", None)
+        else:
+            os.environ["IGG_TPU_DCN_GRANULES"] = saved
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"  devices and staged audit: {json.dumps(rec)}", flush=True)
+    return counts["devices"], rec
+
+
 def _transport_dir():
     return os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "implicitglobalgrid_tpu_torch", "_build", "transport")
@@ -5503,6 +5657,21 @@ def transport_child(pid, port):
     G = tg.gather_interior(run.state["T"])
     r["bitwise_unresized"] = None if G is None else bool(np.array_equal(G, G_ref))
     del run, G, G_ref
+    tg.finalize_global_grid()
+    # the staged-wire audit across the processes (z split: z is the staged
+    # dim, a process the granule), both routes: one z message a neighbour
+    # process and direction for each z exchange of the recorded step
+    r = rec["staged_audit"] = grid(N_MESH, periodx=1)
+    for impl in ("cuda", "plain"):
+        tg.audit_model("diffusion3d", impl=impl)  # warm: the routes' first calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = tg.audit_model("diffusion3d", impl=impl, wire_stage="z:staged")
+        torch.cuda.synchronize()
+        r[impl] = dict(ms=(time.perf_counter() - t0) * 1e3, ok=rep.ok,
+                       rules=sorted(rep.by_rule()), wire_stage=rep.meta.get("wire_stage"),
+                       crosscheck_wire_stage=(rep.crosscheck or {}).get("wire_stage"),
+                       staged_messages=rep.meta.get("staged_messages"))
     tg.finalize_global_grid()
     r = rec["diffusion_deep"] = grid(N_MESH, periodx=1, overlaps=(4, 4, 4),
                                      halowidths=(2, 2, 2))
@@ -5732,6 +5901,17 @@ def phase_transport(tg, refs, virtual_step_ms):
     per["audit_resize"] = [dict(audits=r["audit"]["audits"], via=r["audit"]["via"],
                                 resize_ms=r["audit"]["resize_ms"]) for r in recs]
     print(f"  transport audit and resize: {json.dumps(per['audit_resize'])}", flush=True)
+    for pid, r in enumerate(recs):
+        for impl in ("cuda", "plain"):
+            a = r["staged_audit"][impl]
+            z = (a["staged_messages"] or {}).get("z") or {}
+            check(a["ok"] and a["rules"] == [] and a["wire_stage"] == "z:staged"
+                  and a["crosscheck_wire_stage"] == "z:staged"
+                  and z.get("exchanges") == 1 and z.get("messages") == z.get("expected") == 1,
+                  f"transport staged audit {impl}, process {pid}: ok, one z message a "
+                  f"neighbour process and direction for the step's z exchange ({a})")
+    per["staged_audit"] = [r["staged_audit"] for r in recs]
+    print(f"  transport staged audit: {json.dumps(per['staged_audit'])}", flush=True)
     per["mesh_view"] = mesh_view
     per["residuals"] = r0["config5"]["residuals"]
     per["max_abs_err_vs_virtual"] = errs
@@ -6100,6 +6280,7 @@ def main() -> int:
         audit_counts, audit = phase_audit_reshard(tg, models, cb)
         service_counts, service = phase_service(tg, models, cb)
         serve_counts, serve = phase_serve(tg, models, cb)
+        devices_counts, devices = phase_devices_staged(tg, models, cb)
         refs = {k: v for ph in (cfg3, cfg4m, cfg5m) for k, v in ph.pop("transport_ref").items()}
         refs.update(ovl_refs)
         refs.update(ens_refs)
@@ -6116,7 +6297,7 @@ def main() -> int:
     paths = [periodic["launches"], novis["launches"], mesh_counts, cfg3_counts, cfg2_counts,
              cfg4_counts, cfg4m_counts, cfg5_counts, cfg5m_counts, ovl_counts, prof_counts,
              ens_counts, wire_counts, io_counts, sup_counts, oracle_counts, audit_counts,
-             service_counts, serve_counts, transport_counts]
+             service_counts, serve_counts, devices_counts, transport_counts]
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNEL_NAMES}
     for name, n in launches.items():
         if n == 0:
@@ -6211,6 +6392,7 @@ def main() -> int:
                                     "checkpoint_io": io,
                                     "oracle_and_mesh_view": oracle,
                                     "audit_and_reshard": audit,
+                                    "devices_and_staged_audit": devices,
                                     "transport_2_processes_z": transport},
                       "supervised_run": sup,
                       "cdiv": cdiv, "k4s_launches": k4s_launches,

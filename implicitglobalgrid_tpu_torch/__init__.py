@@ -13,13 +13,23 @@ go through `parallel.transport`. One process owns every rank (the virtual
 mesh, ``box == dims``). Entry points run on the current CUDA device unless
 the caller passes ``device_type="cpu"``.
 
+One device a process: ``init_global_grid(devices=[...])`` takes the JAX
+package's device pool as the rank pool (entry ``r`` holds rank ``r``; its
+length fills the free dims, and the entries' type picks the device, so
+``["cpu"] * 8`` is a CPU grid), but the entries of one process's ranks must
+all name that process's device, since every kernel route reads a box as one
+stacked tensor; a list that spans two cards raises `NotSupportedError`.
+`sharding_of(ndim)` gives that layout (`FieldSharding`: partition spec,
+dims, box, first coordinates, device) where the JAX package gives a
+``NamedSharding``: a tensor carries no sharding.
+
 Public API — the reference's 13 exported symbols::
 
     init_global_grid, finalize_global_grid, update_halo, gather,
     select_device, nx_g, ny_g, nz_g, x_g, y_g, z_g, tic, toc
 
 plus `local_update_halo`, `hide_communication`, `halo_comm_plan`, `stochastic_round_bf16`,
-`zeros_g`/`ones_g`/`full_g`/`device_put_g`,
+`zeros_g`/`ones_g`/`full_g`/`device_put_g`/`sharding_of`,
 `coords_g`/`x_g_vec`, `gather_interior`, `gather_sub`, `barrier`/`sync`, the stencil
 helpers (`d_xa` … `inn`), the `Field` wrapper, profiling (`trace`, `annotate`,
 `overlap_stats`, `op_breakdown`) and the ensemble axis (`ensemble_state`,
@@ -61,7 +71,7 @@ from .ops.halo import update_halo, local_update_halo, halo_comm_plan, DEFAULT_DI
 from .ops.overlap import hide_communication
 from .ops.precision import stochastic_round_bf16
 from .ops.gather import gather, gather_interior, gather_sub
-from .ops.alloc import zeros_g, ones_g, full_g, device_put_g
+from .ops.alloc import zeros_g, ones_g, full_g, device_put_g, sharding_of, FieldSharding
 from .ops.fields import Field, wrap_field, extract, local_shape_of, stacked_shape
 from .ops.stencil import d_xa, d_ya, d_za, d_xi, d_yi, d_zi, inn
 from .tools import (
@@ -136,7 +146,7 @@ __all__ = [
     "local_update_halo", "hide_communication", "halo_comm_plan", "gather_interior", "gather_sub", "barrier",
     "sync", "stochastic_round_bf16", "trace", "annotate", "overlap_stats", "op_breakdown",
     "ensemble_state", "ensemble_partition_spec",
-    "zeros_g", "ones_g", "full_g", "device_put_g",
+    "zeros_g", "ones_g", "full_g", "device_put_g", "sharding_of", "FieldSharding",
     "Field", "wrap_field", "extract", "local_shape_of", "stacked_shape",
     "x_g_vec", "y_g_vec", "z_g_vec", "coords_g",
     "d_xa", "d_ya", "d_za", "d_xi", "d_yi", "d_zi", "inn",

@@ -23,9 +23,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field as dc_field
 
-from ..utils.exceptions import InvalidArgumentError, NotSupportedError
+from ..utils.exceptions import InvalidArgumentError
 from .contracts import (
-    CollectiveContract, SEV_ERROR, SEV_WARNING, axis_routes,
+    AuditFinding, CollectiveContract, SEV_ERROR, SEV_WARNING, axis_routes,
     check_contract, guard_contract, measure_axes, model_contract,
     perfmodel_crosscheck, sort_findings,
 )
@@ -266,9 +266,22 @@ def audit_model(model: str, *, impl: str = "plain", dtype=None,
     the E-member batched step: the same permute counts as one member, E x
     the bytes.
 
-    ``wire_stage`` raises `NotSupportedError`: the port's transport does
-    not stage (a staged axis moves the flat exchange, ROADMAP Queue A item
-    8), so a recording cannot show staged routes."""
+    ``wire_stage`` (the `ops.wire.resolve_wire_stage` spellings, e.g.
+    ``"z:staged"``) audits the staged wire as the port runs it: the step is
+    recorded under a scoped ``IGG_HALO_WIRE_STAGE`` (restored after), so a
+    staged dim's fields take the coalesced route (K8 + K7; a fused route's
+    slab pipeline is unchanged), whose recording is the flat exchange's
+    logical permutes, and the contract is the flat one (staging off). The
+    port stages by process (`ops.halo`): the transport sends one message a
+    neighbour process, side and dim, carrying every edge block of the box,
+    so it runs no gather or scatter stage and the recording claims none.
+    The crosscheck prices the staged wire (`predict_step(wire_stage=)`)
+    and holds the recording to the flat plan. Across processes, with
+    ``IGG_TPU_DCN_AXES`` set, a ``staged-messages`` finding fails the
+    report unless the transport sent exactly one message a neighbour
+    process and direction for each exchange of each staged dim that
+    crosses processes (`Dist.stats`' ``messages_by_dim``). ``meta`` and
+    the crosscheck carry the canonical ``wire_stage``."""
     import os
 
     from ..models.common import resolve_comm_every
@@ -276,11 +289,6 @@ def audit_model(model: str, *, impl: str = "plain", dtype=None,
     from ..parallel.topology import check_initialized
 
     check_initialized()
-    if resolve_wire_stage(wire_stage if wire_stage is not None else "off") is not None:
-        raise NotSupportedError(
-            "audit_model(wire_stage=...): the port's transport does not stage a "
-            "wire (ROADMAP Queue A item 8), so its recording holds the flat "
-            "exchange and cannot show the staged routes.")
     if dtype is None:
         import torch
 
@@ -292,8 +300,19 @@ def audit_model(model: str, *, impl: str = "plain", dtype=None,
     if ensemble is not None:
         ensemble = int(ensemble)
         meta["ensemble"] = ensemble
+    stage = None
     saved_wire = os.environ.get("IGG_HALO_WIRE_DTYPE")
+    saved_stage = os.environ.get("IGG_HALO_WIRE_STAGE")
     try:
+        if wire_stage is not None:
+            stage = resolve_wire_stage(wire_stage)
+            # the canonical spelling round-trips through the variable the
+            # exchange resolves at call time, as the wire format does
+            os.environ["IGG_HALO_WIRE_STAGE"] = "off" if stage is None else str(stage)
+            meta["wire_stage"] = os.environ["IGG_HALO_WIRE_STAGE"]
+            meta["staging"] = ("by process: the transport sends one message a neighbour "
+                               "process, side and dim, carrying every edge block of the "
+                               "box (no gather or scatter stage)")
         if wire_dtype is not None:
             from ..ops.precision import resolve_wire_dtype
 
@@ -303,12 +322,16 @@ def audit_model(model: str, *, impl: str = "plain", dtype=None,
             os.environ["IGG_HALO_WIRE_DTYPE"] = "off" if policy is None else str(policy)
         runner, args, fields = _model_program(model, impl, dtype, ensemble=ensemble,
                                               comm_every=comm_every)
+        sent = _messages_by_dim()
         rec = record_program(runner, *args)
+        sent = [b - a for a, b in zip(sent, _messages_by_dim())]
     finally:
-        if saved_wire is None:
-            os.environ.pop("IGG_HALO_WIRE_DTYPE", None)
-        else:
-            os.environ["IGG_HALO_WIRE_DTYPE"] = saved_wire
+        for var, saved in (("IGG_HALO_WIRE_DTYPE", saved_wire),
+                           ("IGG_HALO_WIRE_STAGE", saved_stage)):
+            if saved is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = saved
     from ..telemetry.perfmodel import STEP_WORKLOADS
 
     rounds_impl = impl if cad.deep else _rounds_impl(model, impl, fields)
@@ -318,26 +341,75 @@ def audit_model(model: str, *, impl: str = "plain", dtype=None,
             "the step took the plain route and the contract follows it)")
     contract = None
     if model in STEP_WORKLOADS:
+        # the flat contract (staging off): what the recording holds
         contract = model_contract(model, fields, wire_dtype=wire_dtype,
                                   impl=rounds_impl, ensemble=ensemble,
-                                  comm_every=comm_every)
+                                  comm_every=comm_every, wire_stage="off")
     cfg = default_lint_config(state_dtypes={dtype_name(f.dtype) for f in fields},
                               wire_dtype=wire_dtype)
     rep = audit_program(rec, contract=contract, lints=lints,
                         lint_config=cfg, meta=meta)
+    ir = rec.program()
+    extra = list(_staged_message_findings(ir, stage, sent, rep.meta))
     cc = None
     if crosscheck and model in STEP_WORKLOADS:
-        cc = perfmodel_crosscheck(model, fields, rec.program(),
+        cc = perfmodel_crosscheck(model, fields, ir,
                                   wire_dtype=wire_dtype, impl=rounds_impl,
-                                  ensemble=ensemble, comm_every=comm_every)
-    if cc is None:
+                                  ensemble=ensemble, comm_every=comm_every,
+                                  wire_stage="off" if stage is None else stage)
+        extra += list(cc["findings"])
+    if not extra and cc is None:
         return rep
     return AuditReport(
-        findings=tuple(sort_findings(list(rep.findings)
-                                     + list(cc["findings"]))),
+        findings=tuple(sort_findings(list(rep.findings) + extra)),
         inventory=rep.inventory, collectives=rep.collectives,
         dialect=rep.dialect, contract=rep.contract, crosscheck=cc,
         meta=rep.meta)
+
+
+def _messages_by_dim() -> list:
+    """The transport's messages sent so far, by grid dim."""
+    from ..parallel.topology import global_grid
+
+    return list(global_grid().transport.stats["messages_by_dim"])
+
+
+def _staged_message_findings(ir: ProgramIR, stage, sent, meta):
+    """The by-process staging check of a staged audit across processes
+    (``IGG_TPU_DCN_AXES`` set): along each staged dim that crosses
+    processes, the messages this process sent during the recorded step
+    (``sent``, by dim) must be one a neighbour process and direction
+    (`transport.edge_plan`) for each of the dim's exchanges (its recorded
+    permutes, one a direction). Records ``meta["staged_messages"]``; yields
+    a ``staged-messages`` error where the count differs."""
+    import numpy as np
+
+    from ..ops.halo import _staged_layouts
+    from ..parallel.topology import AXIS_NAMES, crosses, global_grid
+    from ..parallel.transport import edge_plan
+
+    gg = global_grid()
+    if stage is None or gg.transport.world == 1 or not gg.dcn_axes:
+        return
+    by_axis = measure_axes(ir, axis_routes(gg))
+    rows = meta["staged_messages"] = {}
+    for d in sorted(_staged_layouts(gg, stage)):
+        if not crosses(gg, d):
+            continue
+        peers = [m for m in edge_plan(gg, d)
+                 if m.send_to is not None and m.send_to != gg.transport.rank]
+        exchanges = by_axis.get(AXIS_NAMES[d], {}).get("permutes", 0) // 2
+        row = rows["xyz"[d]] = {
+            "exchanges": exchanges, "messages": sent[d],
+            "expected": exchanges * len(peers),
+            "blocks_per_message": [len(m.pairs) * int(np.prod(np.delete(gg.box, d)))
+                                   for m in peers]}
+        if row["messages"] != row["expected"]:
+            yield AuditFinding(
+                "staged-messages", SEV_ERROR,
+                f"along staged dim {'xyz'[d]} the transport sent {row['messages']} "
+                f"message(s) for {exchanges} exchange(s), where one a neighbour process "
+                f"and direction makes {row['expected']}.", details=row)
 
 
 # ---------------------------------------------------------------------------

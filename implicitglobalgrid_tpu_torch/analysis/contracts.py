@@ -647,13 +647,13 @@ def perfmodel_crosscheck(model, fields, ir: ProgramIR, *, profile=None,
     the oracle's per-exchange pairs scale by each axis's
     ``cycle / k_d`` events per cycle — proving the per-axis amortization
     (latency term ÷ k_axis) against exactly what the program moved.
-    With ``wire_stage`` the oracle prices the hierarchical staged
-    program: a staged axis's gather/scatter hops ride the GATHER axis's
-    routes in the program, so the per-axis comparison runs
-    against the route-attributed plan merge and the oracle-vs-plan
-    self-consistency check moves to the TOTAL pair count (the oracle
-    books every staged op under the staged axis; the attribution books
-    it where the parser will see it — same total, different split)."""
+    With ``wire_stage`` the oracle prices the hierarchical staged wire,
+    and its self-consistency check moves to the TOTAL pair count against
+    the staged plan merge (the oracle books every staged op under the
+    staged axis, the merge where its route attributes it). The program is
+    held to the FLAT plan all the same: the port stages by process
+    (`ops.halo`), so its recording holds a staged dim's logical permutes,
+    never gather or scatter stages."""
     from ..ops.wire import resolve_comm_every
     from ..parallel.topology import check_initialized, global_grid
     from ..telemetry.perfmodel import predict_step
@@ -665,12 +665,10 @@ def perfmodel_crosscheck(model, fields, ir: ProgramIR, *, profile=None,
                         coalesce=coalesce, wire_dtype=wire_dtype, impl=impl,
                         ensemble=ensemble, comm_every=cad,
                         wire_stage=wire_stage)
-    plan = _merged_plan(fields,
-                        _exchange_rounds(model, len(fields), impl,
-                                         deep=cad.deep),
-                        dims=dims, coalesce=coalesce, wire_dtype=wire_dtype,
-                        ensemble=ensemble, comm_every=cad,
-                        wire_stage=wire_stage)
+    rounds = _exchange_rounds(model, len(fields), impl, deep=cad.deep)
+    plan = _merged_plan(fields, rounds, dims=dims, coalesce=coalesce,
+                        wire_dtype=wire_dtype, ensemble=ensemble, comm_every=cad,
+                        wire_stage="off")
     parsed = measure_axes(ir, axis_routes(gg))
     from ..parallel.topology import AXIS_NAMES
 
@@ -694,8 +692,11 @@ def perfmodel_crosscheck(model, fields, ir: ProgramIR, *, profile=None,
     # attribution vs link class), so the check runs on the TOTALS.
     oracle_total = sum(_events(a) * c["ppermute_pairs"]
                        for a, c in pred["comm"].items())
-    plan_total = sum(r["permutes"] for r in plan.values()) / 2.0
     if staged_axes:
+        staged_plan = _merged_plan(fields, rounds, dims=dims, coalesce=coalesce,
+                                   wire_dtype=wire_dtype, ensemble=ensemble,
+                                   comm_every=cad, wire_stage=wire_stage)
+        plan_total = sum(r["permutes"] for r in staged_plan.values()) / 2.0
         if plan_total != oracle_total:
             findings.append(AuditFinding(
                 "model-inconsistent", SEV_ERROR,
@@ -712,7 +713,7 @@ def perfmodel_crosscheck(model, fields, ir: ProgramIR, *, profile=None,
             "ppermute_pairs", 0.0)
         modeled_bytes = plan.get(axis, {}).get("wire_bytes", 0)
         plan_pairs = plan.get(axis, {}).get("permutes", 0) / 2.0
-        if not staged_axes and plan_pairs != modeled_pairs:
+        if axis not in staged_axes and plan_pairs != modeled_pairs:
             findings.append(AuditFinding(
                 "model-inconsistent", SEV_ERROR,
                 f"axis {axis!r}: predict_step prices {modeled_pairs} "
@@ -722,9 +723,8 @@ def perfmodel_crosscheck(model, fields, ir: ProgramIR, *, profile=None,
                 "trusting the crosscheck).",
                 details={"axis": axis, "predict_step_pairs": modeled_pairs,
                          "plan_pairs": plan_pairs}))
-        if staged_axes:
-            # compare the parser against the route-attributed merge —
-            # where the program actually carries each stage
+        if axis in staged_axes:
+            # the program carries the staged dim's flat logical permutes
             modeled_pairs = plan_pairs
         got = parsed.get(axis, {"permutes": 0, "wire_bytes": 0})
         got_pairs = got["permutes"] / 2.0

@@ -52,8 +52,9 @@ packages. Flags that mean nothing to the port raise `InvalidArgumentError`
 with the reason: ``audit --lowered`` (no compiled program: the port records
 what its routes move), ``audit --impl pallas_interpret`` (a CUDA kernel has
 no interpret mode; ``--impl xla`` is the plain route, ``--impl pallas`` the
-kernel routes) and ``audit --wire-stage`` (the transport does not stage a
-wire).
+kernel routes). ``audit --wire-stage`` audits the staged wire as the port
+runs it (`analysis.audit.audit_model`: staged by process, held to the flat
+contract).
 """
 
 from __future__ import annotations
@@ -432,8 +433,10 @@ def _build_parser():
                           "like z:int8,x:f32 (audits the narrowing "
                           "reached each axis's wire)")
     aud.add_argument("--wire-stage", default=None,
-                     help="topology-staged wire policy: raises (the "
-                          "port's transport does not stage a wire)")
+                     help="topology-staged wire policy (e.g. z:staged): "
+                          "audits the step the port runs with it, staged "
+                          "by process (one transport message a neighbour "
+                          "process, side and dim)")
     aud.add_argument("--lowered", action="store_true",
                      help="audit a pre-backend program: raises (the port "
                           "records what its routes move; there is no "
@@ -1255,11 +1258,6 @@ def _cli_audit(args) -> int:
                 "tools audit --lowered: the port compiles no program (it "
                 "records what its routes move), so there is no pre-backend "
                 "form to audit.")
-        if args.wire_stage is not None:
-            raise InvalidArgumentError(
-                f"tools audit --wire-stage {args.wire_stage!r}: the port's "
-                "transport does not stage a wire, so its recording holds "
-                "the flat exchange and cannot show the staged routes.")
         impl = _IMPLS.get(str(args.impl))
         if impl is None:
             raise InvalidArgumentError(
@@ -1305,6 +1303,7 @@ def _cli_audit(args) -> int:
             for model in args.models:
                 reports.append((model, audit_model(
                     model, impl=impl, wire_dtype=args.wire_dtype,
+                    wire_stage=args.wire_stage,
                     crosscheck=not args.no_crosscheck,
                     ensemble=args.ensemble,
                     comm_every=args.comm_every)))

@@ -14,13 +14,13 @@ from typing import Any, NamedTuple
 
 import numpy as np
 
-from ..parallel.topology import NDIMS, check_initialized, global_grid, ol
+from ..parallel.topology import AXIS_NAMES, NDIMS, check_initialized, global_grid, ol
 from ..utils.exceptions import IncoherentArgumentError, InvalidArgumentError
 
 __all__ = [
     "Field", "wrap_field", "extract", "check_fields",
     "local_shape_of", "stacked_shape", "has_halo", "block_slices", "block_view",
-    "is_global_shape",
+    "is_global_shape", "field_partition_spec",
 ]
 
 
@@ -116,6 +116,19 @@ def stacked_shape(local_shape) -> tuple:
     lead = max(0, len(local_shape) - NDIMS)
     return tuple(int(s) for s in local_shape[:lead]) + tuple(
         int(gg.box[d]) * int(s) for d, s in enumerate(local_shape[lead:]))
+
+
+def field_partition_spec(ndim: int) -> tuple:
+    """The mesh axis that splits each axis of a stacked ``ndim``-D field, as
+    the JAX package's ``PartitionSpec`` names them: ``("gx", "gy",
+    "gz")[:ndim]``, and beyond `NDIMS` leading member axes that no mesh
+    axis splits (``None``; every block holds all members)."""
+    ndim = int(ndim)
+    if ndim < 1:
+        raise InvalidArgumentError(f"A field has at least one axis; got ndim={ndim}.")
+    if ndim > NDIMS:
+        return (None,) * (ndim - NDIMS) + AXIS_NAMES
+    return AXIS_NAMES[:ndim]
 
 
 def is_global_shape(shape) -> bool:

@@ -61,7 +61,15 @@ its current halo exact, and a self-neighbour dim ships no wire. Across
 processes the payload crosses in the wire format (`parallel.transport`).
 A staged axis (``wire_stage``/``IGG_HALO_WIRE_STAGE``) sends every
 exchanging field down the coalesced route and moves the flat route's
-halos; `halo_comm_plan` prices the staged stages.
+halos; `halo_comm_plan` prices the staged stages. A process is the port's
+granule: the JAX package's staged exchange gathers a dim's slabs to a
+granule leader, sends one transfer a granule pair and direction and
+scatters it, while here a process's blocks are one tensor and the
+transport already sends one message a neighbour process, side and dim,
+with every edge block of the box in it (`transport.EdgeMessage`). The
+gather and scatter are the box's own copies, so staging runs no extra
+stage, and `analysis.audit_model(wire_stage=)` holds the transport to that
+message count.
 
 An ensemble's fields (`models.common.ensemble_state`: a leading axis of E
 members, ``local_update_halo(..., members=E)``; the JAX package vmaps its

@@ -2,11 +2,12 @@
 
 Counterpart of `implicitglobalgrid_tpu/parallel/grid.py`, with every argument
 check of its `init_global_grid` (same messages). The JAX package takes its
-ranks from the devices of a JAX mesh; here the rank count comes from
-``dimx*dimy*dimz`` or, where dims are left at 0, from ``nranks`` through
-`dims_create`, and each process of a `torch.distributed` group owns a box of
-them (`parallel.mesh.process_boxes`). One process owns every rank (the
-virtual mesh).
+ranks from a device pool; here the rank count comes from ``dimx*dimy*dimz``
+or, where dims are left at 0, from the pool through `dims_create`: an
+explicit device list (``devices=``, the JAX package's pool, one entry a
+rank) or a rank count (``nranks``). Each process of a `torch.distributed`
+group owns a box of the ranks (`parallel.mesh.process_boxes`) on one device.
+One process owns every rank (the virtual mesh).
 """
 
 from __future__ import annotations
@@ -17,12 +18,13 @@ import numpy as np
 
 from ..utils.config import read_env_config
 from ..utils.exceptions import (
-    AlreadyInitializedError, IncoherentArgumentError, InvalidArgumentError,
+    AlreadyInitializedError, IncoherentArgumentError, InvalidArgumentError, NotLoadedError,
+    NotSupportedError,
 )
 from . import topology as top
 from .mesh import (
-    _dcn_factorization, build_mesh, controller_coords_of, process_boxes, process_grid,
-    resolve_device,
+    _dcn_factorization, box_device, build_mesh, controller_coords_of, process_boxes,
+    process_grid, resolve_device, resolve_pool,
 )
 from .topology import GlobalGrid, NDIMS, dims_create, set_global_grid
 
@@ -42,8 +44,9 @@ def init_global_grid(
     disp: int = 1,
     reorder: int = 1,
     nranks: int | None = None,
+    devices=None,
     init_dist: bool | None = None,
-    device_type: str = "gpu",
+    device_type: str | None = None,
     select_device: bool = True,
     quiet: bool = False,
 ):
@@ -59,18 +62,32 @@ def init_global_grid(
 
     Port-specific:
 
-    - ``nranks``: the number of ranks when some dims are left at 0 (the JAX
-      package uses its device count there); a multiple of the process
-      count. Default: the process count.
+    - ``devices``: the rank pool as a device list, as the JAX package takes
+      it: ``torch.device``s or strings torch takes, entry ``r`` holding rank
+      ``r``. Its length fills the dims left at 0 (the largest usable part
+      of it, with a warning, where it is no multiple of the fixed dims); a
+      grid larger than the list raises. The entries decide the device:
+      ``["cpu"] * 8`` is a CPU grid, ``[torch.device("cuda", 0)] * 8`` a
+      grid on that card. A process holds its box as one tensor on one
+      device, so the entries of its ranks must all name it (else
+      `NotSupportedError`) and, with ``select_device``, name the card it
+      binds. Across processes the list is the whole grid's pool, a
+      multiple of the process count long.
+    - ``nranks``: the number of ranks when some dims are left at 0, without
+      a device list (the JAX package uses its device count there); a
+      multiple of the process count. Default: the process count, or
+      ``len(devices)``.
     - ``init_dist``: start the `torch.distributed` process group (from
       ``torchrun``'s environment: ``MASTER_ADDR``, ``MASTER_PORT``,
       ``RANK``, ``WORLD_SIZE``), with NCCL on a CUDA grid and gloo on the
       CPU. ``None`` starts it where ``MASTER_ADDR`` and ``WORLD_SIZE`` are
       set and no group is up; ``False`` uses a group the caller started, if
       any. `finalize_global_grid(finalize_dist=True)` ends the group.
-    - ``device_type``: "gpu" (the default; "auto" means the same) puts every
-      field on the current CUDA device and raises `NotLoadedError` when
-      CUDA is absent; "cpu" (or "none") runs on the CPU.
+    - ``device_type``: "gpu" (the default without ``devices``; "auto" means
+      the same) puts every field on the current CUDA device and raises
+      `NotLoadedError` when CUDA is absent; "cpu" (or "none") runs on the
+      CPU. With ``devices`` the entries decide, and a ``device_type`` that
+      contradicts them raises.
 
     Returns ``(me, dims, nprocs, coords, mesh)``.
     """
@@ -91,7 +108,7 @@ def init_global_grid(
     if halowidths.shape != (NDIMS,):
         raise InvalidArgumentError("halowidths must have 3 entries.")
 
-    if device_type not in (DEVICE_TYPE_NONE, DEVICE_TYPE_AUTO) + SUPPORTED_DEVICE_TYPES:
+    if device_type not in (None, DEVICE_TYPE_NONE, DEVICE_TYPE_AUTO) + SUPPORTED_DEVICE_TYPES:
         raise InvalidArgumentError(
             f"Argument `device_type`: invalid value obtained ({device_type}). Valid values "
             f"are: {', '.join(SUPPORTED_DEVICE_TYPES + (DEVICE_TYPE_NONE, DEVICE_TYPE_AUTO))}"
@@ -127,7 +144,20 @@ def init_global_grid(
         )
     dims[(nxyz == 1) & (dims == 0)] = 1
 
-    device, resolved_type = resolve_device(device_type)
+    pool = None
+    if devices is None:
+        device, resolved_type = resolve_device(device_type or "gpu")
+    else:
+        pool, resolved_type = resolve_pool(devices, device_type)
+        if nranks is not None and int(nranks) != len(pool):
+            raise IncoherentArgumentError(
+                f"nranks={nranks} contradicts the {len(pool)} entries of devices=; "
+                "pass one of the two.")
+        nranks = len(pool)
+        import torch
+
+        # the type alone until this process's box picks its entry (`_pool_device`)
+        device = torch.device("cpu" if resolved_type == "cpu" else "cuda")
     _init_dist(init_dist, resolved_type)
     from .transport import transport_for
 
@@ -137,6 +167,10 @@ def init_global_grid(
         nranks = world
     if int(nranks) < 1:
         raise InvalidArgumentError(f"nranks must be >= 1; got {nranks}.")
+    if pool is not None and len(pool) % world:
+        raise IncoherentArgumentError(
+            f"devices= holds {len(pool)} entries, not a multiple of the {world} processes: "
+            "across processes it is the whole grid's pool.")
 
     if np.all(dims > 0):
         nprocs = int(np.prod(dims))
@@ -145,18 +179,27 @@ def init_global_grid(
         fixed = int(np.prod(dims[dims > 0])) if np.any(dims > 0) else 1
         if fixed > nprocs:
             raise InvalidArgumentError(
+                f"The fixed dims require {fixed} shard(s) but only {nprocs} device(s) are "
+                "available; reduce dimx/dimy/dimz or pass a larger device pool via devices=."
+                if pool is not None else
                 f"The fixed dims require {fixed} rank(s) but nranks is "
-                f"{nprocs}; reduce dimx/dimy/dimz or raise nranks."
-            )
+                f"{nprocs}; reduce dimx/dimy/dimz or raise nranks.")
         if nprocs % fixed != 0:
             import warnings
 
             new = (nprocs // fixed) * fixed
             warnings.warn(
+                f"Device pool of {nprocs} is not a multiple of the fixed dims product "
+                f"({fixed}); using {new} device(s) — {nprocs - new} idle. Adjust "
+                "dimx/dimy/dimz or pass devices= to use the full pool."
+                if pool is not None else
                 f"nranks={nprocs} is not a multiple of the fixed dims "
                 f"product ({fixed}); using {new} rank(s).")
             nprocs = new
     dims = dims_create(nprocs, dims)
+    if pool is not None and int(np.prod(dims)) > len(pool):
+        raise InvalidArgumentError(
+            f"Grid of {int(np.prod(dims))} shards exceeds the {len(pool)} available device(s).")
     if nprocs % world:
         raise IncoherentArgumentError(
             f"The grid's {nprocs} rank(s) are not a multiple of the {world} processes.")
@@ -165,6 +208,9 @@ def init_global_grid(
     me = transport.rank
     box, firsts = process_boxes(dims, world, cfg.dcn_axes if world > 1 else ())
     coords = controller_coords_of(firsts, me)
+    if pool is not None:
+        device = transport.device = _pool_device(
+            pool, mesh, box, firsts[me], resolved_type, select_device, transport)
     if world > 1 and cfg.dcn_axes:
         dcn_granules, _ = _dcn_factorization(dims, cfg.dcn_axes, world)
     else:
@@ -197,13 +243,47 @@ def init_global_grid(
             f"device support: {resolved_type})"
         )
 
-    if select_device and resolved_type == "gpu":
+    if select_device and resolved_type == "gpu" and pool is None:
         gg.device = transport.device = _select_device()
 
     from ..utils.timing import init_timing_functions
 
     init_timing_functions()
     return me, dims.copy(), nprocs, coords.copy(), mesh
+
+
+def _pool_device(pool, mesh, box, first, resolved_type, select_device, transport):
+    """This process's device from the pool entries of its box
+    (`mesh.box_device`), checked on every process together so that all
+    raise or none: a CUDA entry must exist on this host and, with
+    ``select_device``, be the card `_select_device` binds."""
+    import torch
+
+    problem, device = None, None
+    try:
+        device = box_device(pool, mesh, box, first)
+        if resolved_type == "gpu":
+            if not torch.cuda.is_available():
+                raise NotLoadedError(
+                    "devices= names CUDA devices, but CUDA is not available. Pass CPU "
+                    "devices to run on the CPU.")
+            if device.index >= torch.cuda.device_count():
+                raise InvalidArgumentError(
+                    f"devices= names {device}, but this host has "
+                    f"{torch.cuda.device_count()} CUDA device(s).")
+    except (NotSupportedError, NotLoadedError, InvalidArgumentError) as e:
+        problem = e
+    if problem is None and resolved_type == "gpu" and select_device:
+        bound = _select_device(transport)
+        if bound != device:
+            problem = IncoherentArgumentError(
+                f"devices= gives this process {device}, but select_device binds {bound} "
+                "(its node-local rank); list the bound card or pass select_device=False.")
+    problems = transport.all_gather_object(problem) if transport.world > 1 else [problem]
+    for p, got in enumerate(problems):
+        if got is not None:
+            raise got if transport.world == 1 else type(got)(f"process {p}: {got}")
+    return device
 
 
 def _init_dist(init_dist, resolved_type) -> None:
@@ -241,9 +321,10 @@ def finalize_global_grid(*, finalize_dist: bool = False) -> None:
     set_global_grid(None)
 
 
-def node_local_rank():
+def node_local_rank(transport=None):
     """(node-local rank, processes on this host, CUDA devices on this host):
     the analog of the reference's shared-memory communicator split.
+    ``transport``: the process group's (default: the grid's).
 
     COLLECTIVE where a process group is up: every process must call it.
     Processes are grouped by host name (an all-gather); the rank is this
@@ -255,22 +336,22 @@ def node_local_rank():
     import torch
 
     n_local = torch.cuda.device_count()
-    gg = top.global_grid()
-    if gg.transport.world == 1:
+    tr = transport if transport is not None else top.global_grid().transport
+    if tr.world == 1:
         return 0, 1, n_local
     h = hashlib.sha1(socket.gethostname().encode()).hexdigest()
-    rows = gg.transport.all_gather_object((h, n_local))
+    rows = tr.all_gather_object((h, n_local))
     same = [i for i, r in enumerate(rows) if r[0] == h]
-    return same.index(gg.me), len(same), int(rows[same[0]][1])
+    return same.index(tr.rank), len(same), int(rows[same[0]][1])
 
 
-def _select_device():
+def _select_device(transport=None):
     """Bind this process to the CUDA device of its node-local rank
     (`torch.cuda.set_device`) and return that device. COLLECTIVE where a
     process group is up (`node_local_rank`)."""
     import torch
 
-    me_l, n_procs_node, dev_on_node = node_local_rank()
+    me_l, n_procs_node, dev_on_node = node_local_rank(transport)
     if n_procs_node > dev_on_node or me_l >= dev_on_node:
         raise IncoherentArgumentError(
             f"This host runs {n_procs_node} process(es) but only {dev_on_node} CUDA "

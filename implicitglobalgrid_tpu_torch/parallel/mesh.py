@@ -14,6 +14,11 @@ virtual mesh), so a 2x2x2 grid runs on one GPU or on the CPU.
 - ``IGG_TPU_DCN_AXES``: the processes split the named axes by
   `_dcn_factorization` (the JAX package's multi-slice layout); process ``g``
   owns the box at ``unravel(g, dcn_shape) * ici_shape``.
+
+An explicit device list (``init_global_grid(devices=)``, `resolve_pool`) is
+the rank pool, as the JAX package's device list is: entry ``r`` holds rank
+``r``. A process holds its box as one stacked tensor on one device, so the
+entries of its box must all name that device (`box_device`).
 """
 
 from __future__ import annotations
@@ -25,8 +30,14 @@ from ..utils.exceptions import (
 )
 from .topology import NDIMS, cart_coords
 
-__all__ = ["build_mesh", "resolve_device", "controller_coords_of", "process_boxes",
-           "process_grid"]
+__all__ = ["build_mesh", "resolve_device", "resolve_pool", "box_device",
+           "controller_coords_of", "process_boxes", "process_grid"]
+
+# why a process's ranks share one device: every kernel route reads a box as
+# one stacked tensor (`ops.fields.block_view`)
+_ONE_DEVICE = ("a process holds its box of blocks as one stacked tensor on one device "
+               "(ops.fields.block_view), and every kernel route reads it so; give each "
+               "process's ranks that process's device.")
 
 
 def resolve_device(device_type: str):
@@ -42,6 +53,56 @@ def resolve_device(device_type: str):
             f"device_type {device_type!r}: CUDA is not available. Pass "
             "device_type='cpu' to run on the CPU.")
     return torch.device("cuda", torch.cuda.current_device()), "gpu"
+
+
+def resolve_pool(devices, device_type=None):
+    """``(pool, resolved_type)`` of an explicit device list: each entry a
+    ``torch.device`` or a string torch takes ("cpu", "cuda:0"). The entries'
+    type decides the grid's ("gpu" for CUDA, "cpu"); a CUDA entry without an
+    index names the current CUDA device where CUDA is available. Raises
+    `InvalidArgumentError` for an empty list or an entry torch refuses,
+    `NotSupportedError` for a list that mixes CUDA and CPU or names another
+    device type, and `IncoherentArgumentError` where an explicit
+    ``device_type`` ("gpu", "cpu", "none") contradicts the entries."""
+    import torch
+
+    try:
+        pool = [d if isinstance(d, torch.device) else torch.device(d) for d in devices]
+    except (RuntimeError, TypeError, ValueError) as e:
+        raise InvalidArgumentError(f"devices=: an entry is no torch device ({e}).") from e
+    if not pool:
+        raise InvalidArgumentError("devices= is empty; pass at least one device.")
+    types = sorted({d.type for d in pool})
+    if any(t not in ("cuda", "cpu") for t in types):
+        raise NotSupportedError(
+            f"devices= names {', '.join(types)} devices; the port runs on CUDA or the CPU.")
+    if len(types) > 1:
+        raise NotSupportedError(f"devices= mixes CUDA and CPU entries: {_ONE_DEVICE}")
+    resolved = "gpu" if types[0] == "cuda" else "cpu"
+    wanted = {"gpu": "gpu", "cpu": "cpu", "none": "cpu"}.get(device_type)
+    if wanted is not None and wanted != resolved:
+        raise IncoherentArgumentError(
+            f"device_type={device_type!r} contradicts devices=, whose entries are "
+            f"{types[0]} devices; leave device_type out or make them agree.")
+    if resolved == "cpu":
+        return [torch.device("cpu")] * len(pool), resolved
+    if torch.cuda.is_available():
+        cur = torch.cuda.current_device()
+        pool = [torch.device("cuda", cur if d.index is None else d.index) for d in pool]
+    return pool, resolved
+
+
+def box_device(pool, mesh, box, first):
+    """The one device of the pool entries of a process's box (``box`` ranks
+    from ``first``; entry ``r`` holds rank ``mesh[c] == r``). Raises
+    `NotSupportedError` where they name more than one device."""
+    sl = tuple(slice(int(c), int(c) + int(b)) for c, b in zip(first, box))
+    own = sorted({str(pool[int(r)]) for r in np.asarray(mesh)[sl].ravel()})
+    if len(own) > 1:
+        raise NotSupportedError(
+            f"devices= spans {', '.join(own)} over the ranks of one process's box: "
+            f"{_ONE_DEVICE}")
+    return pool[int(np.asarray(mesh)[sl].ravel()[0])]
 
 
 def build_mesh(dims) -> np.ndarray:

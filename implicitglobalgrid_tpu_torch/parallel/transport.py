@@ -14,9 +14,10 @@ process. One interface, two implementations:
   names on the process grid. The wire format follows the group's backend:
   NCCL sends the device buffers; gloo, which sends only host tensors,
   copies CUDA buffers through pinned host memory. Nothing falls back from
-  one to the other. ``stats`` counts the messages and bytes sent and times
-  each exchange (``exchange_s``, host clock; under gloo from the moment the
-  device has drained) and its host staging (``staging_s``).
+  one to the other. ``stats`` counts the messages and bytes sent (the
+  messages also by dim, ``messages_by_dim``) and times each exchange
+  (``exchange_s``, host clock; under gloo from the moment the device has
+  drained) and its host staging (``staging_s``).
 
 `fill_edges` is the halo routes' entry point: every block's send slabs were
 computed on this process's box by the kernels; it moves the ones that cross
@@ -151,7 +152,7 @@ def fill_edges(gg, dim: int, items) -> None:
                         recv.append(w)
                         decodes.append((codec, w, d))
         msgs.append((m.send_to, send, m.recv_from, recv))
-    tr.exchange(msgs)
+    tr.exchange(msgs, dim)
     for codec, w, d in decodes:
         codec.decode_into(w, d)
 
@@ -211,11 +212,13 @@ class InProcess:
         return self  # a grid copy shares its process group
 
     def reset_stats(self):
-        self.stats = {"messages": 0, "wire_bytes": 0, "exchange_s": 0.0, "staging_s": 0.0}
+        self.stats = {"messages": 0, "wire_bytes": 0, "exchange_s": 0.0, "staging_s": 0.0,
+                      "messages_by_dim": [0, 0, 0]}
 
-    def exchange(self, msgs) -> None:
+    def exchange(self, msgs, dim: int) -> None:
         """Post ``msgs`` (``(send_to, [send views], recv_from, [recv
-        views])``, peers by process rank or None) together and wait."""
+        views])``, peers by process rank or None) of grid dim ``dim``
+        together and wait."""
         for send_to, send, recv_from, recv in msgs:
             if send_to not in (None, self.rank) or recv_from not in (None, self.rank):
                 raise NotSupportedError(
@@ -304,13 +307,13 @@ class Dist(InProcess):
             buf = self._pinned[key] = torch.empty(n, dtype=torch.uint8, pin_memory=True)
         return buf[:n]
 
-    def exchange(self, msgs) -> None:
+    def exchange(self, msgs, dim: int) -> None:
         from ..utils.profiling import label
 
         with label("igg::transport"):
-            self._exchange(msgs)
+            self._exchange(msgs, dim)
 
-    def _exchange(self, msgs) -> None:
+    def _exchange(self, msgs, dim) -> None:
         import torch
         import torch.distributed as dist
 
@@ -328,6 +331,7 @@ class Dist(InProcess):
                     self.stats["staging_s"] += time.perf_counter() - t0
                 ops.append(dist.P2POp(dist.isend, wire, send_to, tag=j))
                 self.stats["messages"] += 1
+                self.stats["messages_by_dim"][dim] += 1
                 self.stats["wire_bytes"] += wire.numel()
             if recv_from is not None:
                 n = sum(r.numel() * r.element_size() for r in recv)

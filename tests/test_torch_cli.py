@@ -427,13 +427,33 @@ def test_audit_cli_self_initialized_three_families(capsys):
     assert rc == 0 and json.loads(capsys.readouterr().out)["programs"][0]["ok"]
 
 
+@pytest.mark.parametrize("stage", ["z:staged", "staged"])
+def test_audit_cli_wire_stage_audits_what_the_port_runs(stage, capsys, monkeypatch):
+    """`tools audit diffusion3d --cpu --wire-stage` (granules declared along
+    z on the self-initialized 2x2x2 grid): rc 0 in both packages, the stage
+    in each report's meta and crosscheck spelled alike; the port's
+    recording holds the flat exchange (two permutes a dim), JAX's staged
+    program more (its gather and scatter stages)."""
+    monkeypatch.setenv("IGG_TPU_DCN_GRANULES", "z:2")
+    got = {}
+    for name, cli in (("jax", jax_cli), ("torch", torch_cli)):
+        rc = cli(["audit", "diffusion3d", "--cpu", "--wire-stage", stage, "--json"])
+        out = json.loads(capsys.readouterr().out)
+        assert rc == 0 and out["ok"], (name, out)
+        got[name] = out["programs"][0]
+    j, t = got["jax"], got["torch"]
+    assert t["meta"]["wire_stage"] == j["meta"]["wire_stage"]
+    assert t["crosscheck"]["wire_stage"] == j["crosscheck"]["wire_stage"]
+    assert t["collectives"]["permutes"] == 6 < j["collectives"]["permutes"]
+    assert not tg.grid_is_initialized()
+
+
 @pytest.mark.parametrize("flags, match", [
     ([], "name at least one model"),
     (["diffusion3d", "--hlo", "x.txt"], "mutually exclusive"),
     (["diffusion3d", "--cpu", "--lowered"], "no pre-backend"),
     (["diffusion3d", "--cpu", "--impl", "pallas_interpret"], "interpret mode"),
     (["diffusion3d", "--cpu", "--impl", "mosaic"], "no other route"),
-    (["diffusion3d", "--cpu", "--wire-stage", "z:staged"], "does not stage"),
 ])
 def test_audit_cli_argument_validation(flags, match):
     with pytest.raises(InvalidArgumentError, match=match):

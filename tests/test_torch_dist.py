@@ -48,6 +48,13 @@ virtual mesh's. The tests read those results:
   `reshard_state` refuses to move blocks across processes, and
   ``resize(via="auto")`` takes the checkpoint path, its state bitwise the
   virtual mesh's device-path resize;
+- the device pool: ``devices=["cpu"] * 8`` lays the grid out as
+  ``nranks=8`` on every process, and a list that no process can hold
+  raises on all of them with the first process's reason;
+- the staged wire: `update_halo` with ``wire_stage="z:staged"`` bitwise the
+  virtual mesh's flat halos, and the staged audit of diffusion's plain and
+  fused steps ok on every process; with ``IGG_TPU_DCN_AXES`` set, the
+  transport sent one z message a neighbour process and direction a step;
 - `tic`/`toc` spanning the processes.
 """
 
@@ -92,7 +99,7 @@ CHECKS = [
     "wire/coalesced_int8", "wire/coalesced_bfloat16", "wire/per_dim_bfloat16",
     "wire/per_dim_float16", "wire/diffusion_fused_int8", "wire/diffusion_sr",
     "ensemble/diffusion_e3", "io/restored", "io/vector", "resilient/state",
-    "audit/measure", "audit/resized",
+    "audit/measure", "audit/resized", "stage/halo",
 ]
 
 _RESULTS: dict = {}
@@ -303,6 +310,44 @@ def test_audit_and_resize_across_processes(config, tmp_path_factory):
         assert r["audits"] == [["chunk", True], ["chunk", True]], (pid, r)
         assert r["reshard_raised"] == "InvalidArgumentError", (pid, r)
         assert r["via"] == "checkpoint" and r["dims"] == [1, 2, 4], (pid, r)
+
+
+@pytest.mark.parametrize("impl", ["plain", "cuda"])
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_staged_audit_one_message_per_neighbour_process(config, impl, tmp_path_factory):
+    """`audit_model(wire_stage="z:staged")` is ok on every process, with the
+    canonical stage in its meta and crosscheck. With ``IGG_TPU_DCN_AXES``
+    set (z split), it counts the transport's z messages of the recorded
+    step: one a neighbour process and direction (z is not periodic, so one
+    neighbour), each carrying every z-edge block of the box; without it
+    nothing is staged across processes and nothing is counted."""
+    for pid, v in _each(config, tmp_path_factory, f"stage/audit_{impl}"):
+        assert v["ok"] and v["rules"] == [], (pid, v)
+        assert v["wire_stage"] == v["crosscheck_wire_stage"] == "z:staged", (pid, v)
+        if not DCN[config][0]:
+            assert v["staged_messages"] is None, (pid, v)
+            continue
+        z = v["staged_messages"]["z"]
+        box = {"z_2": [2, 2, 1], "yz_4": [2, 1, 1]}[config]
+        assert z["exchanges"] == 1 and z["messages"] == z["expected"] == 1, (pid, z)
+        assert z["blocks_per_message"] == [box[0] * box[1]], (pid, z)
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_device_pool_across_processes(config, tmp_path_factory):
+    """``devices=["cpu"] * 8`` is the whole grid's pool: each process's box,
+    coordinates and device as with ``nranks=8``. A list giving ranks 0-3
+    cuda:0 and ranks 4-7 cuda:1 raises on every process with process 0's
+    reason: in plain order its box is ranks 0-3 (one card, and this host
+    has no CUDA), split along z or y,z its box holds ranks of both halves
+    (the list spans two cards). Nine entries over 2 or 4 processes raise."""
+    for pid, v in _each(config, tmp_path_factory, "pool/errors"):
+        want = ("NotLoadedError: process 0: devices= names CUDA" if config == "plain_2"
+                else "NotSupportedError: process 0: devices= spans cuda:0, cuda:1")
+        assert v["cards"].startswith(want), (pid, v)
+        assert v["odd"].startswith("IncoherentArgumentError: devices= holds 9 entries"), (pid, v)
+    for pid, v in _each(config, tmp_path_factory, "pool/layout"):
+        assert v is True, pid
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))

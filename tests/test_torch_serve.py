@@ -154,7 +154,7 @@ def test_public_api_exports():
                 "CachedSnapshot", "ObservePlane", "ObserveServer"):
         assert hasattr(tg, sym) and sym in tg.__all__, sym
     assert sorted(tg.serve.__all__) == sorted(igg.serve.__all__)
-    assert sorted(set(igg.__all__) - set(tg.__all__)) == ["sharding_of"]
+    assert sorted(set(igg.__all__) - set(tg.__all__)) == []
 
 
 @pytest.mark.parametrize("second", ["torch", "jax"])

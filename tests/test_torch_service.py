@@ -124,7 +124,7 @@ def test_public_api_exports():
                 "ResilientRun", "service_report", "export_service_trace"):
         assert hasattr(tg, sym) and sym in tg.__all__, sym
     missing = sorted(set(igg.__all__) - set(tg.__all__))
-    assert missing == ["sharding_of"]
+    assert missing == []
     assert sorted(tg.service.__all__) == sorted(igg.service.__all__)
 
 

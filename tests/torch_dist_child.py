@@ -419,6 +419,50 @@ def case_audit():
                              "dims": [int(d) for d in tg.global_grid().dims]})}
 
 
+def case_stage():
+    """The staged wire across processes: `update_halo` with
+    ``wire_stage="z:staged"`` (its box bitwise the virtual mesh's flat
+    halos), and the staged audit of diffusion's plain and fused steps: its
+    verdict, the canonical stage in its meta and crosscheck, and the
+    transport's messages along each staged dim that crosses processes."""
+    A = global_input((6, 6, 6), 43, torch.float32)
+    out = {"halo": ("box", tg.update_halo(A, wire_stage="z:staged"))}
+    for impl in ("plain", "cuda"):
+        rep = tg.audit_model("diffusion3d", impl=impl, wire_stage="z:staged")
+        out[f"audit_{impl}"] = ("proc", {
+            "ok": rep.ok, "rules": sorted(rep.by_rule()), "wire_stage": rep.meta["wire_stage"],
+            "crosscheck_wire_stage": rep.crosscheck["wire_stage"],
+            "staged_messages": rep.meta.get("staged_messages")})
+    return out
+
+
+def case_pool():
+    """``devices=`` across the processes: the whole grid's pool, so
+    ``["cpu"] * 8`` lays the grid out as ``nranks=8`` does; a list naming
+    cuda:0 for ranks 0-3 and cuda:1 for ranks 4-7 raises on every process
+    together, with the first process's reason (its box's entries span both
+    cards, or name CUDA on a host without it); a pool no multiple of the
+    processes raises."""
+    def layout():
+        gg = tg.global_grid()
+        return [int(gg.me), gg.dims.tolist(), gg.coords.tolist(), gg.box.tolist(),
+                gg.procs.tolist(), str(gg.device)]
+
+    want = layout()
+    kw = {k: v for k, v in G0.items() if k not in ("nx", "ny", "nz")}
+    tg.finalize_global_grid()
+    errors = {}
+    for name, devs in (("cards", ["cuda:0"] * 4 + ["cuda:1"] * 4), ("odd", ["cpu"] * 9)):
+        try:
+            tg.init_global_grid(5, 5, 5, devices=devs, init_dist=False, quiet=True, **kw)
+            errors[name] = "nothing"
+            tg.finalize_global_grid()
+        except Exception as e:  # noqa: BLE001 - the kind and reason are the result
+            errors[name] = f"{type(e).__name__}: {e}"
+    tg.init_global_grid(5, 5, 5, devices=["cpu"] * 8, init_dist=False, quiet=True, **kw)
+    return {"layout": ("proc", layout() == want), "errors": ("proc", errors)}
+
+
 def case_release():
     """`transport.release` returns on every process together: the last
     process comes to it 0.2 s late, and no process's release returns
@@ -451,6 +495,7 @@ CASES = [("layout", G0, DCN, case_layout), ("encoded", G0, DCN, case_encoded),
          ("deep", G5, DCN, case_deep), ("wire", G1, DCN, case_wire),
          ("ensemble", G1, DCN, case_ensemble), ("io", G1, DCN, case_io),
          ("resilient", G1, DCN, case_resilient), ("audit", G1, DCN, case_audit),
+         ("stage", G1, DCN, case_stage), ("pool", G0, DCN, case_pool),
          ("release", G1, DCN, case_release), ("timing", G1, DCN, case_timing)]
 
 
