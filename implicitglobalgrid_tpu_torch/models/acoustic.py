@@ -52,7 +52,7 @@ from ..tools import coords_g, nx_g, ny_g, nz_g
 from ..utils.exceptions import InvalidArgumentError
 from .common import (
     check_ensemble, fresh_mask, interior_first_step, reject_comm_every,
-    resolve_ensemble_impl, run_deep, validate_deep_halo,
+    resolve_ensemble_impl, run_deep, traced_run, validate_deep_halo,
 )
 from .diffusion import IMPLS, _local_shape, _resolve_impl
 
@@ -298,6 +298,7 @@ def make_acoustic_run_deep(p: AcousticParams, nt_chunk_super: int,
                              nt_chunk=nt_chunk_super, ensemble=ensemble)
 
 
+@traced_run
 def run_acoustic(state, p: AcousticParams, nt: int, *, nt_chunk: int = 100,
                  impl: str | None = None, ensemble: int | None = None):
     """Advance ``nt`` steps and return the new state (the input is not

@@ -20,15 +20,18 @@ one K8 + K7 launch a dim (`ops.halo.local_update_halo(members=)`).
 
 from __future__ import annotations
 
+import functools
+
 from ..analysis import record as _record
 from ..ops.wire import resolve_comm_every
 from ..parallel.topology import check_initialized, global_grid, live_epochs
 from ..utils.exceptions import IncoherentArgumentError, InvalidArgumentError
+from ..utils.profiling import label, profiler_active
 
-__all__ = ["make_state_runner", "resolve_once", "run_chunked", "resolve_comm_every",
-           "fresh_mask", "validate_deep_halo", "interior_first_step", "reject_comm_every",
-           "run_deep", "ensemble_partition_spec", "ensemble_state", "resolve_ensemble_impl",
-           "check_ensemble"]
+__all__ = ["make_state_runner", "resolve_once", "run_chunked", "traced_run",
+           "resolve_comm_every", "fresh_mask", "validate_deep_halo", "interior_first_step",
+           "reject_comm_every", "run_deep", "ensemble_partition_spec", "ensemble_state",
+           "resolve_ensemble_impl", "check_ensemble"]
 
 # fresh masks by grid and request: the live epochs' only (`live_epochs`)
 _masks: dict = {}
@@ -214,26 +217,40 @@ def make_state_runner(step_local, *, nt_chunk: int, ensemble: int | None = None,
     process. An ensemble runner calls it as ``post_chunk(state,
     members=ensemble)`` and it gives an ``(E, n)`` matrix, one row a
     member. ``key`` is accepted for parity with the JAX package's callers
-    (its compiled-runner cache key); nothing is cached here."""
+    (its compiled-runner cache key); nothing is cached here.
+
+    While a profiler capture runs, a call is an ``igg::chunk`` span and each
+    step an ``igg::step`` span (`utils.profiling`); ``run`` picks the traced
+    loop once a call, and without a capture no step takes a span."""
     check_initialized()
     if ensemble is not None and int(ensemble) < 1:
         raise InvalidArgumentError(f"make_state_runner: ensemble must be >= 1; got {ensemble}.")
     nt_chunk = int(nt_chunk)
 
-    def run(*state, donate: bool = False):
-        state = tuple(state)
+    def traced_step(state, spare):
+        with label("igg::step"):
+            return step_local(state, spare)
+
+    def steps(state, donate, step):
         spare = None
         for k in range(nt_chunk):
             if _record.ACTIVE is not None:  # a recording: ops by step
                 _record.ACTIVE.begin_step(k)
-            state, old = step_local(state, spare)
+            state, old = step(state, spare)
             spare = old if (k > 0 or donate) else None
         if _record.ACTIVE is not None:
             _record.ACTIVE.end_steps()
-        if post_chunk is None:
-            return state
-        aux = post_chunk(state) if ensemble is None else post_chunk(state, members=int(ensemble))
-        return (*state, aux)
+        return state
+
+    def run(*state, donate: bool = False):
+        with label("igg::chunk"):
+            state = steps(tuple(state), donate,
+                          traced_step if profiler_active() else step_local)
+            if post_chunk is None:
+                return state
+            aux = post_chunk(state) if ensemble is None \
+                else post_chunk(state, members=int(ensemble))
+            return (*state, aux)
 
     return run
 
@@ -259,7 +276,8 @@ def resolve_once(resolve):
 def run_chunked(runner_factory, state, nt: int, nt_chunk: int):
     """Advance ``nt`` steps with ``runner_factory(chunk_size)``, in chunks
     of ``nt_chunk`` (the JAX package's compile boundary; kept for API
-    parity). Returns after the device has drained."""
+    parity). Returns after the device has drained. While a profiler capture
+    runs, the drain is an ``igg::drain`` span (`utils.profiling`)."""
     from ..utils.timing import sync
 
     full, rem = divmod(int(nt), int(nt_chunk))
@@ -271,7 +289,20 @@ def run_chunked(runner_factory, state, nt: int, nt_chunk: int):
             donate = True
     if rem:
         state = runner_factory(rem)(*state, donate=donate)
-    return sync(state)
+    with label("igg::drain"):
+        return sync(state)
+
+
+def traced_run(run_fn):
+    """A model's ``run_*`` whose call, from entry to the return after the
+    drain, is an ``igg::run`` span while a profiler capture runs
+    (`utils.profiling`; one check a call)."""
+    @functools.wraps(run_fn)
+    def run(*args, **kwargs):
+        with label("igg::run"):
+            return run_fn(*args, **kwargs)
+
+    return run
 
 
 def reject_comm_every(comm_every, params: str, runner: str, deep_runners: str) -> None:

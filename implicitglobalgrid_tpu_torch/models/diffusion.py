@@ -59,7 +59,7 @@ from ..tools import coords_g, nx_g, ny_g, nz_g
 from ..utils.exceptions import InvalidArgumentError, NotSupportedError
 from .common import (
     check_ensemble, fresh_mask, reject_comm_every, resolve_ensemble_impl, run_deep,
-    validate_deep_halo,
+    traced_run, validate_deep_halo,
 )
 
 __all__ = ["DiffusionParams", "init_diffusion3d", "init_diffusion2d",
@@ -428,6 +428,7 @@ def make_run_deep(p: DiffusionParams, nt_chunk_super: int, ndim: int = 3,
                              nt_chunk=nt_chunk_super, ensemble=ensemble)
 
 
+@traced_run
 def run_diffusion(T, Cp, p: DiffusionParams, nt: int, *, nt_chunk: int = 100,
                   impl: str | None = None, ensemble: int | None = None):
     """Advance ``nt`` steps and return the new ``T`` (the input is not

@@ -58,7 +58,7 @@ from ..tools import coords_g, nx_g, ny_g, nz_g
 from ..utils.exceptions import InvalidArgumentError
 from .common import (
     check_ensemble, fresh_mask, interior_first_step, reject_comm_every,
-    resolve_ensemble_impl, run_deep, validate_deep_halo,
+    resolve_ensemble_impl, run_deep, traced_run, validate_deep_halo,
 )
 from .diffusion import IMPLS, _local_shape, _resolve_impl
 
@@ -274,6 +274,7 @@ def make_stokes_run_deep(p: StokesParams, nt_chunk_super: int, ensemble: int | N
                              nt_chunk=nt_chunk_super, ensemble=ensemble)
 
 
+@traced_run
 def run_stokes(state, p: StokesParams, nt: int, *, nt_chunk: int = 100,
                impl: str | None = None, ensemble: int | None = None):
     """Run ``nt`` PT iterations and return the new state (the input is not

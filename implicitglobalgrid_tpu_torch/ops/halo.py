@@ -85,9 +85,10 @@ field that is not contiguous), while the self-exchange pass returns a new
 one: always use the returned tensors, as with the JAX package (``T =
 update_halo(T)``).
 
-The exchange is labelled (``igg::update_halo``, `utils.profiling.label`)
-in a profiler's trace, which `utils.profiling.overlap_stats` reads as
-comm on the host; outside a capture the label costs a flag read.
+The exchange is labelled (``igg::update_halo``, and ``igg::exchange_slabs``
+around the slab pipeline; `utils.profiling.label`) in a profiler's trace,
+which `utils.profiling.overlap_stats` reads as comm on the host; outside a
+capture the label costs a flag read.
 
 Every `update_halo` call is charged to the telemetry (the
 ``igg_halo_*`` counters and a ``halo_exchange`` flight event) from its
@@ -369,31 +370,34 @@ def exchange_recv_slabs_multi(gg, shapes, hws, modes, dim_fn, *, wire=None, sour
     shared per-dim halowidth tuple; ``sources`` (optional, by field name)
     the stacked tensors the slabs are cut from, which a recording
     (`analysis.record`) names as the permutes' operands. Returns ``{field: {dim: (recv_l,
-    recv_r)}}`` in K2's slab layout (the stacked shape with dim at D*hw)."""
-    earlier = {f: [] for f in shapes}  # [(dim, hw, (recv_l, recv_r))]
-    recvs = {f: {} for f in shapes}
-    for dim in DEFAULT_DIMS_ORDER:
-        _, _, disp = _dim_meta(gg, dim)
-        per_field = {}
-        for f in shapes:
-            if not modes[f][dim]:
+    recv_r)}}`` in K2's slab layout (the stacked shape with dim at D*hw).
+    While a profiler capture runs, the call is an ``igg::exchange_slabs``
+    span (`utils.profiling.EXCHANGE_LABELS`)."""
+    with label("igg::exchange_slabs"):
+        earlier = {f: [] for f in shapes}  # [(dim, hw, (recv_l, recv_r))]
+        recvs = {f: {} for f in shapes}
+        for dim in DEFAULT_DIMS_ORDER:
+            _, _, disp = _dim_meta(gg, dim)
+            per_field = {}
+            for f in shapes:
+                if not modes[f][dim]:
+                    continue
+                hw = int(hws[dim])
+                s = int(shapes[f][dim])
+                ol_d = _ol(gg, shapes[f], dim)
+                _check_slab_fit(s, dim, ol_d, hw)
+                per_field[f] = (_moves(s, ol_d, hw, disp), tuple(earlier[f]))
+            if not per_field:
                 continue
-            hw = int(hws[dim])
-            s = int(shapes[f][dim])
-            ol_d = _ol(gg, shapes[f], dim)
-            _check_slab_fit(s, dim, ol_d, hw)
-            per_field[f] = (_moves(s, ol_d, hw, disp), tuple(earlier[f]))
-        if not per_field:
-            continue
-        got = _recv_dim(gg, dim, hw, per_field, dim_fn, wire, shapes)
-        if _record.ACTIVE is not None:
-            _record.ACTIVE.exchange_slabs(gg, dim, {f: shapes[f] for f in per_field}, hw,
-                                          {f: got[f][0].dtype for f in per_field}, wire,
-                                          site="slabs", sources=sources)
-        for f in per_field:
-            recvs[f][dim] = tuple(got[f])
-            earlier[f].append((dim, hw, recvs[f][dim]))
-    return recvs
+            got = _recv_dim(gg, dim, hw, per_field, dim_fn, wire, shapes)
+            if _record.ACTIVE is not None:
+                _record.ACTIVE.exchange_slabs(gg, dim, {f: shapes[f] for f in per_field}, hw,
+                                              {f: got[f][0].dtype for f in per_field}, wire,
+                                              site="slabs", sources=sources)
+            for f in per_field:
+                recvs[f][dim] = tuple(got[f])
+                earlier[f].append((dim, hw, recvs[f][dim]))
+        return recvs
 
 
 def exchange_recv_slabs(gg, shape, hws, modes, slab_fn, *, wire=None, source=None):

@@ -1,8 +1,9 @@
 """Framework-side instrumentation hooks: the one place the hot paths call.
 
-Counterpart of `implicitglobalgrid_tpu/telemetry/hooks.py`, whole: the same
-metric family names and label sets, so `prometheus_snapshot` of the same run
-reads the same in both packages. Each hook bumps the process metrics
+Counterpart of `implicitglobalgrid_tpu/telemetry/hooks.py` (all of it but
+the runner cache's hook, below): the same metric family names and label
+sets, so `prometheus_snapshot` of the same run reads the same in both
+packages. Each hook bumps the process metrics
 registry (always on — a few dict ops under a lock) and appends a
 flight-recorder event when a recorder is active (a no-op None-check
 otherwise). Keeping the metric names and label sets here, instead of
@@ -10,15 +11,18 @@ scattered over the driver, the checkpoint layer and the snapshot writer,
 means the exported surface is greppable in one module and a rename can
 never desynchronize producers.
 
-The port calls the hooks of what it runs: the resilient driver
-(`record_health_event`, `note_heartbeat`, `note_deadline_*`,
-`observe_member_health`, `observe_reducers`, `observe_perf` through
-`PerfWatch`), `ops.halo.update_halo` (`account_halo_exchange`, every call),
+Every module of the JAX package is ported, and the port calls every hook
+here: the resilient driver (`record_health_event`, `note_heartbeat`,
+`note_deadline_*`, `observe_member_health`, `observe_reducers`,
+`observe_audit`, `observe_reshard`; `observe_perf` through `PerfWatch`),
+`ops.halo.update_halo` (`account_halo_exchange`, every call),
 `utils.checkpoint` (`observe_checkpoint`), `io.snapshot.SnapshotWriter`
-(`note_io_queue`, `observe_snapshot`) and `telemetry.server`
-(`note_metrics_server_port`, `note_http_request`). The others keep the JAX
-package's contract for the modules still to come; `note_runner_cache` stays
-unwired (the port caches no compiled runner).
+(`note_io_queue`, `observe_snapshot`), `telemetry.server`
+(`note_metrics_server_port`, `note_http_request`), the live plane
+(`note_alert`, `note_flight_file_bytes`) and the mesh service (the
+scheduler's and the autoscaler's hooks). The JAX package's
+`note_runner_cache` has no counterpart: it counts that package's
+compiled-runner cache, and the port builds no compiled runner.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import time
 from .recorder import record_event
 from .registry import metrics_registry
 
-__all__ = ["note_runner_cache", "account_halo_exchange",
+__all__ = ["account_halo_exchange",
            "record_health_event",
            "observe_checkpoint", "observe_snapshot", "note_io_queue",
            "observe_reducers", "note_heartbeat", "observe_perf",
@@ -42,7 +46,6 @@ __all__ = ["note_runner_cache", "account_halo_exchange",
            "note_flight_file_bytes"]
 
 # Metric family names (the exported contract; see docs/observability.md).
-RUNNER_CACHE = "igg_runner_cache_total"
 HEALTH_EVENTS = "igg_health_events_total"
 HALO_EXCHANGES = "igg_halo_exchanges_total"
 HALO_PPERMUTES = "igg_halo_ppermutes_total"
@@ -108,28 +111,6 @@ JOB_TARGET_DEVICES = "igg_job_target_devices"
 HTTP_REQUESTS = "igg_http_requests_total"
 HTTP_REQUEST_SECONDS = "igg_http_request_seconds"
 FLIGHT_FILE_BYTES = "igg_flight_file_bytes"
-
-
-def runner_cache_misses() -> float:
-    """Current ``miss`` count of the runner-cache family (0 before any
-    runner was built) — the driver diffs it around a runner build to tag
-    COLD chunks for the perf drift detector."""
-    fam = metrics_registry().get(RUNNER_CACHE)
-    return fam.value(result="miss") if fam is not None else 0.0
-
-
-def note_runner_cache(result: str, build_s: float | None = None) -> None:
-    """Record a `make_state_runner` cache outcome: ``hit`` (compiled chunk
-    reused), ``miss`` (new program built — the following dispatch pays its
-    compile), or ``uncached`` (no key given)."""
-    metrics_registry().counter(
-        RUNNER_CACHE,
-        "Chunk-runner cache outcomes (miss = the next dispatch compiles).",
-        ("result",)).inc(1, result=result)
-    if build_s is None:
-        record_event("runner_cache", result=result)
-    else:
-        record_event("runner_cache", result=result, build_s=build_s)
 
 
 def record_health_event(kind: str, n: int = 1) -> None:

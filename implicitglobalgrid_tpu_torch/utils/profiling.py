@@ -21,9 +21,26 @@ host-to-device copies (the transport's staging); COMPUTE is every other
 kernel, copy and memset. Comm that runs while compute runs on another
 stream is HIDDEN (the interior-first overlap, `ops.overlap`). A capture
 without a device plane (the CPU) falls back to the host: comm is the spans
-of the exchange's labels (`label`, put by `ops.halo`, `ops.overlap` and
-`parallel.transport` around their exchange) and of gloo/c10d, compute the
+of the exchange's labels (`EXCHANGE_LABELS`) and of gloo/c10d, compute the
 other top-level operators (``aten::*``).
+
+The port's spans (`label`, a `torch.profiler.record_function` entered only
+while a capture runs), on the profiler's clock beside the device activity:
+
+- ``igg::run``: one call of a model's ``run_*`` (`models.common.traced_run`:
+  `run_diffusion`, `run_acoustic`, `run_stokes`, their deep branches
+  too), from entry to the return after the drain;
+- ``igg::chunk``: one call of a `make_state_runner` runner, its
+  ``nt_chunk`` steps and the ``post_chunk`` hook;
+- ``igg::step``: one step's host work in that loop, the route's dispatch
+  and every launch of the step;
+- ``igg::drain``: `models.common.run_chunked` waiting for the device's
+  queue to empty;
+- the exchange's labels (`EXCHANGE_LABELS`): ``igg::update_halo``
+  (`ops.halo.update_halo`, `local_update_halo`), ``igg::exchange_slabs``
+  (`ops.halo.exchange_recv_slabs_multi`, the slab pipeline of the fused
+  routes), ``igg::exchange_shells`` (`ops.overlap`'s side-stream exchange)
+  and ``igg::transport`` (`parallel.transport`, across processes).
 """
 
 from __future__ import annotations
@@ -36,8 +53,8 @@ import time
 
 from ..utils.exceptions import NotSupportedError
 
-__all__ = ["trace", "annotate", "label", "overlap_stats", "op_breakdown", "KERNEL_NAMES",
-           "EXCHANGE_KERNELS", "EXCHANGE_KINDS", "EXCHANGE_LABELS"]
+__all__ = ["trace", "annotate", "label", "profiler_active", "overlap_stats", "op_breakdown",
+           "KERNEL_NAMES", "EXCHANGE_KERNELS", "EXCHANGE_KINDS", "EXCHANGE_LABELS"]
 
 # every kernel of the port, by its launch counter (`ops.cuda_build.launch_counts`),
 # with the names of the `__global__` functions it launches
@@ -63,29 +80,37 @@ _COMM_COPY_RE = re.compile(r"Memcpy (DtoH|HtoD|PtoP|DtoP|PtoD|Peer)", re.IGNOREC
 _NCCL_RE = re.compile(r"^nccl", re.IGNORECASE)
 # the labels the exchange puts around itself (`label`), and the host spans
 # of the process group's collectives
-EXCHANGE_LABELS = ("igg::update_halo", "igg::exchange_shells", "igg::transport")
+EXCHANGE_LABELS = ("igg::update_halo", "igg::exchange_slabs", "igg::exchange_shells",
+                   "igg::transport")
 _HOST_COMM_RE = re.compile("^(" + "|".join(map(re.escape, EXCHANGE_LABELS))
                            + "|gloo|c10d::|ProcessGroupGloo|nccl:)")
 
 
-def _profiler_active() -> bool:
-    import torch.autograd.profiler as ap
+# `torch.autograd.profiler`, bound at the first check so that importing the
+# package does not import torch
+_autograd_profiler = None
+_NO_SPAN = contextlib.nullcontext()
 
-    return bool(ap._is_profiler_enabled)
+
+def profiler_active() -> bool:
+    """Whether a `torch.profiler` capture runs: one flag read."""
+    global _autograd_profiler
+    if _autograd_profiler is None:
+        import torch.autograd.profiler as ap
+
+        _autograd_profiler = ap
+    return _autograd_profiler._is_profiler_enabled
 
 
-@contextlib.contextmanager
 def label(name: str):
     """A named host span in the profiler's timeline around the enclosed
-    block, entered only while a capture runs (outside one it costs a flag
-    read): the exchange's labels (`EXCHANGE_LABELS`)."""
-    if not _profiler_active():
-        yield
-        return
+    block (``with label(name):``), entered only while a capture runs:
+    outside one it costs a flag read."""
+    if not profiler_active():
+        return _NO_SPAN
     import torch
 
-    with torch.profiler.record_function(name):
-        yield
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager

@@ -6,9 +6,9 @@ on both, the kinds of kernel names, and comm classified by kind.
 The synthetic captures are those of `tests/test_profiling.py`, encoded
 once as an XSpace (that file's `_field`/`_plane` helpers) for the JAX
 package's `overlap_stats`/`op_breakdown` and once as a torch.profiler
-Chrome trace for the port's: the records are equal. One live capture of a
-small port run on the CPU (2x2x2 x 8^3, 4 plain steps) shows the
-exchange's labels as comm.
+Chrome trace for the port's: the records are equal. Live captures of
+small port runs on the CPU (2x2x2 x 8^3) show the exchange's labels as
+comm, and the runner's spans nested as the runner runs them.
 """
 
 import json
@@ -20,7 +20,9 @@ import torch
 
 import implicitglobalgrid_tpu_torch as tg
 from implicitglobalgrid_tpu.utils import profiling as jprof
-from implicitglobalgrid_tpu_torch.models import init_diffusion3d, run_diffusion
+from implicitglobalgrid_tpu_torch.models import (
+    ensemble_state, init_diffusion3d, run_diffusion,
+)
 from implicitglobalgrid_tpu_torch.utils import profiling as prof
 from implicitglobalgrid_tpu_torch.utils.exceptions import NotSupportedError
 from implicitglobalgrid_tpu_torch.utils.trace_events import find_trace_files, parse_trace
@@ -267,6 +269,62 @@ def test_live_capture_of_a_port_run(tmp_path, monkeypatch):
 
     monkeypatch.setattr(torch.profiler, "record_function", boom)
     run_diffusion(T, Cp, p, 1, impl="plain")
+
+
+# a route's run_diffusion arguments and its exchange's label: the fused
+# route (the kernels' plain versions on the CPU) and the ensemble's plain route
+RUNNER_ROUTES = {"fused": ({"impl": "cuda"}, "igg::exchange_slabs"),
+                 "ensemble": ({"ensemble": 2}, "igg::update_halo")}
+RUNNER_SPANS = ("igg::run", "igg::chunk", "igg::step", "igg::drain")
+
+
+@pytest.mark.parametrize("route", sorted(RUNNER_ROUTES))
+def test_runner_spans_of_a_live_capture(tmp_path, monkeypatch, route):
+    """4 steps in chunks of 2 on 2x2x2 x 8^3, as the benchmark's cells run
+    them: one run, two chunks, four steps each inside a chunk inside the
+    run, one drain, and the route's exchange once a step, as comm; outside
+    a capture neither the runner nor the exchange enters a profiler range."""
+    kw, exchange = RUNNER_ROUTES[route]
+    tg.init_global_grid(8, 8, 8, dimx=2, dimy=2, dimz=2, device_type="cpu", quiet=True)
+    T, Cp, p = init_diffusion3d(dtype=torch.float32)
+    if "ensemble" in kw:
+        T, Cp = ensemble_state((T, Cp), kw["ensemble"], perturb=0.1)
+    run_diffusion(T, Cp, p, 2, nt_chunk=2, **kw)  # warm
+    with tg.trace(str(tmp_path)):
+        run_diffusion(T, Cp, p, 4, nt_chunk=2, **kw)
+    (path,) = find_trace_files(str(tmp_path))
+    events = [e for pl in parse_trace(path) for ln in pl.lines for e in ln.events]
+    spans = {n: [(e.start_ps, e.end_ps) for e in events if e.name == n]
+             for n in RUNNER_SPANS + (exchange,)}
+    assert {n: len(v) for n, v in spans.items()} == {
+        "igg::run": 1, "igg::chunk": 2, "igg::step": 4, "igg::drain": 1, exchange: 4}
+
+    def inside(span, outer):
+        return any(a <= span[0] and span[1] <= b for a, b in spans[outer])
+
+    assert all(inside(s, "igg::chunk") for s in spans["igg::step"])
+    assert all(inside(s, "igg::run") for s in spans["igg::chunk"] + spans["igg::drain"])
+    assert all(inside(s, "igg::step") for s in spans[exchange])
+    assert tg.overlap_stats(str(tmp_path))["CPU"]["comm_us"] > 0
+    assert {k: c for k, _, c in tg.op_breakdown(str(tmp_path), top=50)}[exchange] == 4
+
+    def boom(*a, **k):
+        raise AssertionError("a span entered a profiler range outside a capture")
+
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    run_diffusion(T, Cp, p, 4, nt_chunk=2, **kw)
+
+
+def test_exchange_slabs_label_is_host_comm(tmp_path):
+    """The host fallback counts the fused routes' slab pipeline as comm,
+    and the runner's spans around it as neither."""
+    _write_trace(tmp_path, [
+        _cpu("igg::step", 0, 10_000_000, cat="user_annotation"),
+        _cpu("igg::exchange_slabs", 1_000_000, 3_000_000, cat="user_annotation"),
+        _cpu("aten::add", 5_000_000, 2_000_000)])
+    s = prof.overlap_stats(str(tmp_path))["CPU"]
+    assert (s["comm_us"], s["compute_us"], s["busy_us"]) == (3.0, 2.0, 5.0)
+    assert "igg::exchange_slabs" in prof.EXCHANGE_LABELS
 
 
 def test_perfetto_link_refused(tmp_path):
